@@ -1,0 +1,341 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``sparkdl_tpu_torch``) on one NVIDIA GPU.
+
+Run from the repository root:
+
+    python3 chip_smoke.py [--seed 0] [--texts 512]
+
+Phases; any failure ends the run with a non-zero exit and no result line:
+
+1. device: a CUDA device must be present; prints its name and
+   ``nvidia-smi``'s name and power limit.
+2. build: compiles every kernel of the path from ``sparkdl_tpu_torch/csrc``
+   with nvcc for sm_90a (printing ptxas' resource use).
+3. kernels: each kernel against its plain PyTorch version on the card, at
+   the shapes the path gives it (bert-base B=32 H=12 L in {128, 512} Dh=64
+   in f32 and bf16, a ragged L=200, bert-long B=4 H=4 L=2048 Dh=32), with
+   a padding mask and one row whose keys are all masked (that row must
+   come out as exactly 0). Tolerances: f32 atol 1e-4 (summation order),
+   bf16 atol 3e-2 (one bf16 rounding). Times by CUDA events; the least
+   time the card could take (HBM bytes or peak FLOP/s, H100 SXM data
+   sheet); the plain version's time; and F.scaled_dot_product_attention
+   as a yardstick only (the port never calls it).
+4. main path: ``TextEmbedder`` over ``get_model("bert-base")`` (768 wide,
+   12 layers, random weights from ``--seed``), maxLength 512, batchSize
+   32, sequence bucketing on, over a 4-partition DataFrame of synthetic
+   texts of 8 to 500 words. Checks a finite 768-d vector per row, that
+   the flash kernel ran exactly 12 times per dispatched batch, and that
+   the embeddings match the dense-attention build at f32 atol 1e-3 and
+   bf16 atol 3e-2. Prints rows/s and real tokens/s.
+5. breakdown: host tokenization alone, and device time by kernel from
+   torch.profiler over one more pass in f32 and in bf16.
+
+The line before the last is the ``kernels`` JSON record; the last line is
+``{"ok": true, "device": {...}}``. TF32 is off throughout.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from sparkdl_tpu_torch.dataframe import DataFrame
+from sparkdl_tpu_torch.models import get_model
+from sparkdl_tpu_torch.models.registry import _bert_text_builder
+from sparkdl_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_reference,
+)
+from sparkdl_tpu_torch.runtime import cuda_build
+from sparkdl_tpu_torch.transformers.text import HashingTokenizer, TextEmbedder
+from sparkdl_tpu_torch.utils.metrics import metrics
+
+#: H100 SXM data sheet, dense, at the full 700 W power limit
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOP_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+ATOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+MASK_MIN = float(np.finfo(np.float32).min)
+BERT_BASE_LAYERS = 12
+
+
+class PhaseError(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise PhaseError(msg)
+
+
+def time_ms(fn, iters: int) -> float:
+    """Mean ms per call over ``iters`` calls, by CUDA events, after a
+    warm-up."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_device() -> str:
+    check(torch.cuda.is_available(), "no CUDA device: chip_smoke needs a GPU")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(f"device: {name} (count {torch.cuda.device_count()})")
+    print(f"nvidia-smi name, power.limit: {smi}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return name
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    lib = cuda_build.build_library("flash_attention")
+    print(f"build: flash_attention -> {os.path.relpath(lib)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(cuda_build.build_log("flash_attention").strip())
+
+
+def _attention_inputs(B, H, L, Dh, dtype, seed, fully_masked_row):
+    rng = np.random.default_rng(seed)
+    q, k, v = (
+        torch.from_numpy(rng.normal(size=(B, H, L, Dh)).astype(np.float32))
+        .to("cuda", dtype)
+        for _ in range(3)
+    )
+    lengths = rng.integers(L // 4, L + 1, size=B)
+    lengths[-1] = L
+    if fully_masked_row:
+        lengths[0] = 0
+    mask = torch.zeros(B, L)
+    for b, n in enumerate(lengths):
+        mask[b, n:] = MASK_MIN
+    return q, k, v, mask.cuda()
+
+
+def phase_kernels(seed: int) -> dict:
+    """flash_attention against its plain version; returns the record of
+    the main path's largest shape (bert-base, L=512, f32)."""
+    cases = [
+        ("bert-base", 32, 12, 128, 64, torch.float32),
+        ("bert-base", 32, 12, 512, 64, torch.float32),
+        ("bert-base", 32, 12, 128, 64, torch.bfloat16),
+        ("bert-base", 32, 12, 512, 64, torch.bfloat16),
+        ("ragged", 32, 12, 200, 64, torch.float32),
+        ("ragged", 32, 12, 200, 64, torch.bfloat16),
+        ("bert-long", 4, 4, 2048, 32, torch.float32),
+        ("bert-long", 4, 4, 2048, 32, torch.bfloat16),
+    ]
+    record = None
+    for label, B, H, L, Dh, dtype in cases:
+        q, k, v, mask = _attention_inputs(B, H, L, Dh, dtype, seed, True)
+        out = flash_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        ref = flash_attention_reference(q, k, v, mask)
+        err = (out.float() - ref.float()).abs().max().item()
+        tag = f"{label} B={B} H={H} L={L} Dh={Dh} {str(dtype)[6:]}"
+        check(bool(torch.isfinite(out).all()), f"{tag}: non-finite output")
+        check(err <= ATOL[dtype], f"{tag}: max |kernel - plain| {err} > {ATOL[dtype]}")
+        check(not out[0].any().item(), f"{tag}: fully masked row is not 0")
+
+        ms = time_ms(lambda: flash_attention(q, k, v, mask), 20)
+        plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, mask), 5)
+        # the yardstick has no fully masked row (SDPA gives NaN or the
+        # mean of V there); same shapes and mask otherwise
+        lq, lk, lv, lmask = _attention_inputs(B, H, L, Dh, dtype, seed, False)
+        lmask4 = lmask[:, None, None, :].to(dtype)
+        library_ms = time_ms(
+            lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask4), 20
+        )
+        nbytes = 4 * q.numel() * q.element_size() + mask.numel() * 4
+        flops = 4 * B * H * L * L * Dh
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOP_PER_S[dtype] * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        print(
+            f"kernel flash_attention {tag}: ms={ms:.4f} bound_us={bound_ms * 1e3:.1f} "
+            f"({bound_by}) share_of_bound={bound_ms / ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={library_ms:.4f} max_abs_err={err:.3e} atol={ATOL[dtype]}"
+        )
+        if (label, L, dtype) == ("bert-base", 512, torch.float32):
+            record = {
+                "name": "flash_attention",
+                "route": "cuda",
+                "source": "sparkdl_tpu_torch/csrc/flash_attention.cu",
+                "replaces": "sparkdl_tpu/ops/flash_attention.py:160",
+                "launches": None,
+                "max_abs_err": err,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": library_ms,
+            }
+        del q, k, v, mask, out, ref, lq, lk, lv, lmask, lmask4
+    torch.cuda.empty_cache()
+    return record
+
+
+def _texts(seed: int, n: int):
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(8, 501, size=n)
+    words = rng.integers(0, 200_000, size=int(counts.sum()))
+    texts, start = [], 0
+    for c in counts:
+        texts.append(" ".join(f"w{w}" for w in words[start : start + c]))
+        start += c
+    return texts
+
+
+def _embed(mf, df):
+    """One TextEmbedder pass; returns (embeddings, seconds, batches,
+    real tokens)."""
+    metrics.reset()
+    emb = TextEmbedder(
+        inputCol="text", outputCol="emb", modelFunction=mf,
+        maxLength=512, batchSize=32,
+    )
+    t0 = time.perf_counter()
+    rows = emb.transform(df).collect()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return (
+        [r.emb for r in rows],
+        dt,
+        int(metrics.counter("transform.batches")),
+        int(metrics.counter("text.tokens")),
+    )
+
+
+def phase_main_path(seed: int, n_texts: int, device_name: str) -> int:
+    """Returns the flash kernel's launches in the f32 main-path run."""
+    os.environ["SPARKDL_TEXT_BUCKETING"] = "1"
+    texts = _texts(seed, n_texts)
+    df = DataFrame.fromColumns({"text": texts}, numPartitions=4)
+    warm = DataFrame.fromColumns({"text": texts[:64]}, numPartitions=1)
+    spec = get_model("bert-base")
+    launches_f32 = None
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype)[6:]
+        flash_mf = spec.model_function(dtype=dtype, seed=seed)
+        _embed(flash_mf, warm)  # cuBLAS/allocator warm-up, not counted
+        flash_attention.launches = 0
+        flash, dt, batches, tokens = _embed(flash_mf, df)
+        launches = flash_attention.launches
+        check(batches > 0, f"{tag}: no batch dispatched")
+        check(
+            launches == BERT_BASE_LAYERS * batches,
+            f"{tag}: flash kernel launched {launches} times for {batches} "
+            f"batches (expected {BERT_BASE_LAYERS} per batch)",
+        )
+        for i, e in enumerate(flash):
+            check(e is not None and e.shape == (768,), f"{tag}: row {i} has no 768-d vector")
+            check(bool(np.isfinite(e).all()), f"{tag}: row {i} is not finite")
+        del flash_mf
+        dense_mf = _bert_text_builder("base", attention="dense")(
+            spec, mode="embed", dtype=dtype, seed=seed, params=None,
+            device=torch.device("cuda"),
+        )
+        dense, dense_dt, _, _ = _embed(dense_mf, df)
+        del dense_mf
+        torch.cuda.empty_cache()
+        err = max(float(np.abs(a - b).max()) for a, b in zip(flash, dense))
+        atol = 1e-3 if dtype == torch.float32 else 3e-2
+        check(err <= atol, f"{tag}: flash vs dense embeddings differ by {err} > {atol}")
+        print(
+            f"main path bert-base {tag} on {device_name}: {len(texts)} rows, "
+            f"{batches} batches, {launches} flash launches, {tokens} real tokens; "
+            f"flash {dt:.3f} s = {len(texts) / dt:.1f} rows/s, {tokens / dt:.0f} tokens/s; "
+            f"dense {dense_dt:.3f} s = {len(texts) / dense_dt:.1f} rows/s; "
+            f"max |flash - dense| {err:.3e} (atol {atol})"
+        )
+        if dtype == torch.float32:
+            launches_f32 = launches
+    return launches_f32
+
+
+def phase_breakdown(seed: int, n_texts: int) -> None:
+    """Where the main path's time goes: host tokenization alone (host
+    clock), and device time by kernel from torch.profiler over one more
+    pass per dtype (the profiler's overhead is in that pass's wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    texts = _texts(seed, n_texts)
+    spec = get_model("bert-base")
+    tok = HashingTokenizer(vocab_size=spec.vocab_size)
+    t0 = time.perf_counter()
+    for t in texts:
+        tok(t)
+    print(f"breakdown: host tokenization alone {time.perf_counter() - t0:.3f} s")
+    df = DataFrame.fromColumns({"text": texts}, numPartitions=4)
+    warm = DataFrame.fromColumns({"text": texts[:64]}, numPartitions=1)
+    for dtype in (torch.float32, torch.bfloat16):
+        mf = spec.model_function(dtype=dtype, seed=seed)
+        _embed(mf, warm)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall, _, _ = _embed(mf, df)
+        del mf
+        # device-side events only: a host op's device total repeats the
+        # time of the kernels it launched
+        by_kernel = {
+            ev.key: ev.self_device_time_total / 1e6
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+        }
+        busy = sum(by_kernel.values())
+        flash = sum(s for k, s in by_kernel.items() if "flash_forward_kernel" in k)
+        print(
+            f"breakdown bert-base {str(dtype)[6:]} (profiled pass): wall {wall:.3f} s, "
+            f"device busy {busy:.3f} s (share {busy / wall:.3f}), "
+            f"flash kernel {flash:.3f} s"
+        )
+        for name, sec in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]:
+            print(f"  device {sec:.4f} s  {name[:90]}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--texts", type=int, default=512)
+    args = ap.parse_args(argv)
+    t_start = time.perf_counter()
+    device_name = phase_device()
+    phase_build()
+    record = phase_kernels(args.seed)
+    record["launches"] = phase_main_path(args.seed, args.texts, device_name)
+    phase_breakdown(args.seed, args.texts)
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": device_name,
+            "count": torch.cuda.device_count(),
+        },
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

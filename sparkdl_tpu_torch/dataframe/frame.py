@@ -1,0 +1,131 @@
+"""A minimal partitioned DataFrame.
+
+The part of the JAX package's DataFrame that the text slice drives: a
+frame is a list of partitions (each a ``{column: list}`` dict) plus a
+lazy plan of partition-wise ops. Actions run the plan over the
+partitions one after another.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+Partition = Dict[str, list]
+
+
+def _part_num_rows(part: Partition) -> int:
+    if not part:
+        return 0
+    return len(next(iter(part.values())))
+
+
+def partition_row_spans(total_rows: int, num_partitions: int):
+    """(start, end) row span of each partition in the balanced split
+    (sizes differ by at most 1)."""
+    num_partitions = (
+        max(1, min(num_partitions, total_rows)) if total_rows else 1
+    )
+    base, rem = divmod(total_rows, num_partitions)
+    spans = []
+    start = 0
+    for k in range(num_partitions):
+        size = base + (1 if k < rem else 0)
+        spans.append((start, start + size))
+        start += size
+    return spans
+
+
+class Row(dict):
+    """A result row; attribute access mirrors pyspark Row ergonomics."""
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            return self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+
+
+class DataFrame:
+    def __init__(
+        self,
+        partitions: Sequence[Partition],
+        columns: Sequence[str],
+        ops: Optional[List[Callable[[Partition], Partition]]] = None,
+    ):
+        self._source: List[Partition] = list(partitions)
+        self._columns: List[str] = list(columns)
+        self._ops: List[Callable[[Partition], Partition]] = list(ops or [])
+
+    @staticmethod
+    def fromColumns(
+        columns: Dict[str, Sequence[Any]], numPartitions: int = 1
+    ) -> "DataFrame":
+        names = list(columns)
+        if not names:
+            return DataFrame([], [])
+        n = len(columns[names[0]])
+        for c in names:
+            if len(columns[c]) != n:
+                raise ValueError("All columns must have the same length")
+        parts: List[Partition] = [
+            {c: list(columns[c][start:end]) for c in names}
+            for start, end in partition_row_spans(n, numPartitions)
+        ]
+        return DataFrame(parts, names)
+
+    def withColumnPartition(
+        self, name: str, fn: Callable[[Partition], Dict[str, list]]
+    ) -> "DataFrame":
+        """Partition-wise column producer: ``fn`` sees the whole partition
+        column-dict and returns ``{name: values}``, one value per row —
+        the batched path every model transformer uses."""
+
+        def op(part: Partition) -> Partition:
+            out = dict(part)
+            produced = fn(part)
+            n = _part_num_rows(part)
+            for k, v in produced.items():
+                if len(v) != n:
+                    raise ValueError(
+                        f"withColumnPartition fn returned {len(v)} values for "
+                        f"column {k!r}, expected {n}"
+                    )
+                out[k] = list(v)
+            return out
+
+        cols = self._columns + ([name] if name not in self._columns else [])
+        return DataFrame(self._source, cols, self._ops + [op])
+
+    def _execute(self) -> List[Partition]:
+        parts = []
+        for part in self._source:
+            for op in self._ops:
+                part = op(part)
+            parts.append({c: part[c] for c in self._columns})
+        return parts
+
+    def collect(self) -> List[Row]:
+        rows: List[Row] = []
+        for part in self._execute():
+            for i in range(_part_num_rows(part)):
+                rows.append(Row({c: part[c][i] for c in part}))
+        return rows
+
+    def collectColumns(self) -> Dict[str, list]:
+        """Collect as a single column-dict (partitions concatenated)."""
+        out: Dict[str, list] = {c: [] for c in self._columns}
+        for part in self._execute():
+            for c in self._columns:
+                out[c].extend(part[c])
+        return out
+
+    def count(self) -> int:
+        if not self._ops:
+            return sum(_part_num_rows(p) for p in self._source)
+        return sum(_part_num_rows(p) for p in self._execute())
+
+    def __repr__(self) -> str:
+        return (
+            f"DataFrame(columns={self._columns}, "
+            f"partitions={len(self._source)}, pending_ops={len(self._ops)})"
+        )

@@ -1,0 +1,92 @@
+"""The port stands alone: no module of ``sparkdl_tpu_torch`` and not
+``chip_smoke.py`` imports jax, flax or the JAX package, and an entry point
+left at its default device refuses to run without CUDA."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import sparkdl_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG_DIR = os.path.join(REPO, "sparkdl_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "sparkdl_tpu")
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(PKG_DIR):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_port_file_imports_jax_flax_or_the_jax_package():
+    files = _port_files()
+    assert len(files) > 10 and os.path.exists(files[0])
+    offenders = {
+        (os.path.relpath(path, REPO), root)
+        for path in files
+        for root in _imported_roots(path)
+        if root in FORBIDDEN
+    }
+    assert not offenders
+    # the check tells the JAX package from the port's own prefix
+    assert "sparkdl_tpu_torch" not in FORBIDDEN
+
+
+def test_importing_every_port_module_loads_no_jax():
+    modules = [
+        m.name
+        for m in pkgutil.walk_packages(
+            sparkdl_tpu_torch.__path__, "sparkdl_tpu_torch."
+        )
+    ]
+    assert "sparkdl_tpu_torch.ops.flash_attention" in modules
+    code = (
+        "import importlib, sys\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", code],
+        cwd=REPO,
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_default_device_entry_point_raises_without_cuda(monkeypatch):
+    from sparkdl_tpu_torch.models import get_model
+    from sparkdl_tpu_torch.runtime.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model("bert-tiny").model_function()
+    assert resolve_device("cpu") == torch.device("cpu")
