@@ -4,9 +4,10 @@ Port of the JAX package's Pallas TPU kernel (``ops/flash_attention.py``).
 :func:`flash_attention` computes ``softmax(q·kᵀ/√Dh + mask)·v`` with an
 online softmax, forward only:
 
-- on CUDA tensors it launches the hand-written kernel in
-  ``csrc/flash_attention.cu`` (built with ``nvcc`` at first use) and
-  counts the launch in ``flash_attention.launches``;
+- on CUDA tensors it launches the hand-written Hopper kernel in
+  ``csrc/flash_attention.cu`` (bf16: wgmma fed by TMA; f32: 3xTF32 on
+  mma.sync; built with ``nvcc`` at first use) and counts the launch in
+  ``flash_attention.launches``;
 - on CPU tensors it runs :func:`flash_attention_reference`, the same
   online-softmax arithmetic written in PyTorch one key tile at a time.
 
@@ -31,9 +32,14 @@ import torch
 
 NEG_INF = -1e30  # finite -inf stand-in: keeps exp()/max() NaN-free
 
-#: Key tile of the plain version; the kernel stages K/V tiles of the
-#: same size in shared memory.
+#: Key tile of the plain version. The kernels walk K/V tiles of 64 keys
+#: too (``kBlockK`` in ``csrc/flash_attention.cu``), but sum in their own
+#: order, so nothing depends on the two agreeing.
 BLOCK_K = 64
+
+#: H100 SXM data sheet, dense rates, at the full 700 W power limit
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOP_PER_S = {"bf16": 989e12, "tf32": 494.7e12}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
@@ -188,6 +194,29 @@ def flash_attention(
 #: Kernel launches since the count was last set to 0 (CPU calls and
 #: failed launches are not counted).
 flash_attention.launches = 0
+
+
+def kernel_bound_ms(B: int, H: int, L: int, Dh: int, dtype, masked: bool):
+    """The least time an H100 SXM could take for one kernel call, for the
+    route the kernel takes: ``(ms, "bytes" | "operations")``.
+
+    Bytes: q, k, v read and o written once, plus the f32 key mask. Work:
+    the two products, 4·B·H·L²·Dh; bf16 runs them once at the bf16
+    tensor-core rate, f32 runs them as 3xTF32, three TF32 products each.
+    """
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = 4 * B * H * L * Dh * elem + (4 * B * L if masked else 0)
+    flops = 4 * B * H * L * L * Dh
+    if dtype == torch.float32:
+        t_ops = 3 * flops / PEAK_FLOP_PER_S["tf32"]
+    elif dtype == torch.bfloat16:
+        t_ops = flops / PEAK_FLOP_PER_S["bf16"]
+    else:
+        raise TypeError(f"the kernel takes float32 or bfloat16, not {dtype}")
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
 
 
 def make_flash_attention_fn():

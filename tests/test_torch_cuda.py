@@ -5,9 +5,10 @@ fixture) where no CUDA device is present. Run on the card with
 (``--noconftest``: the tests' conftest imports jax, which a GPU machine
 with only PyTorch lacks).
 
-Tolerances: f32 atol 1e-4 (the kernel sums in another order), bf16 atol
-3e-2 (one bf16 rounding of the output). TF32 is off for the f32 matmuls
-of the plain version."""
+Tolerances: f32 atol 1e-4 (the kernel sums in another order; its 3xTF32
+products keep f32 accuracy), bf16 atol 3e-2 (the kernel rounds P to bf16
+before P·V and rounds the output once; the plain version keeps P in f32).
+TF32 is off for the f32 matmuls of the plain version."""
 
 import numpy as np
 import pytest
@@ -68,3 +69,24 @@ def test_kernel_without_mask(cuda_device):
     out = flash_attention(q, k, v)
     ref = flash_attention_reference(q, k, v)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["no_mask", "mask_b11l"])
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("dtype, atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("L", [1, 63, 64, 65, 127, 128, 129, 513, 2048])
+def test_kernel_at_tile_edges(cuda_device, L, dtype, atol, dh, masked):
+    """Lengths around the kernels' 64-row query and 64-key tiles, and B*H
+    = 15, which fills no power-of-two grid; rows past L must stay
+    unwritten, keys past L must weigh nothing."""
+    B, H = 3, 5
+    q, k, v, mask = _inputs(cuda_device, B, H, L, dh, dtype, seed=L)
+    mask = mask[:, None, None, :] if masked else None
+    out = flash_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    ref = flash_attention_reference(q, k, v, mask)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    if masked:
+        assert not out[0].any()  # all keys masked -> 0

@@ -11,9 +11,11 @@ import torch
 
 from sparkdl_tpu.ops.flash_attention import flash_attention as jax_flash
 from sparkdl_tpu_torch.ops.flash_attention import (
+    BLOCK_K,
     NEG_INF,
     flash_attention,
     flash_attention_reference,
+    kernel_bound_ms,
     make_flash_attention_fn,
 )
 
@@ -79,6 +81,69 @@ def test_bfloat16_io_matches_pallas_kernel(dh):
     ours, ref = _both(q, k, v, mask, jnp.bfloat16, torch.bfloat16)
     assert ours.dtype == torch.bfloat16
     np.testing.assert_allclose(ours.float().numpy(), ref, atol=3e-2, rtol=0)
+
+
+def _bf16_kernel_emulation(q, k, v, mask):
+    """What the bf16 CUDA kernel computes, in plain PyTorch: the online
+    softmax of the plain version, but with P rounded to bf16 before P·V
+    (the wgmma takes P as a bf16 register operand); l sums the unrounded
+    P, as the kernel does."""
+    B, H, L, Dh = q.shape
+    scale = 1.0 / np.sqrt(Dh)
+    qf = q.float()
+    m = torch.full((B, H, L, 1), NEG_INF)
+    l = torch.zeros((B, H, L, 1))
+    acc = torch.zeros((B, H, L, Dh))
+    for k0 in range(0, L, BLOCK_K):
+        kt = k[:, :, k0 : k0 + BLOCK_K].float()
+        vt = v[:, :, k0 : k0 + BLOCK_K].float()
+        s = torch.matmul(qf, kt.transpose(-1, -2)) * scale
+        s = s + mask[:, None, None, k0 : k0 + BLOCK_K]
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p.to(torch.bfloat16).float(), vt)
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("dh", [32, 64])
+def test_bf16_p_rounding_stays_within_tolerance_of_pallas_kernel(dh):
+    """The bf16 kernel's one departure from the plain version, P in bf16
+    for P·V, stays inside the bf16 tolerance (3e-2) against the Pallas
+    kernel at the bf16 test shapes, and keeps the fully masked row at 0."""
+    B, H, L = 2, 2, 40
+    q, k, v = _qkv(2, B, H, L, dh)
+    mask = _key_mask(B, L, [40, 21])
+    _, ref = _both(q, k, v, mask, jnp.bfloat16, torch.bfloat16)
+    qt, kt, vt = (torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v))
+    emu = _bf16_kernel_emulation(qt, kt, vt, torch.from_numpy(mask))
+    np.testing.assert_allclose(emu.float().numpy(), ref, atol=3e-2, rtol=0)
+    masked = torch.from_numpy(_key_mask(B, L, [0, 33]))
+    assert not _bf16_kernel_emulation(qt, kt, vt, masked)[0].any()
+
+
+@pytest.mark.parametrize(
+    "shape, dtype, ms, by",
+    [
+        # bert-base L=512: 100.7 MB over 3.35 TB/s beats 25.8 GFLOP at 989 TFLOP/s
+        ((32, 12, 512, 64), torch.bfloat16, 0.0300683, "bytes"),
+        # f32 runs as 3xTF32: 3 x 25.8 GFLOP at 494.7 TFLOP/s
+        ((32, 12, 512, 64), torch.float32, 0.1562753, "operations"),
+        # bert-long: 8.6 GFLOP at 989 TFLOP/s beats 8.4 MB
+        ((4, 4, 2048, 32), torch.bfloat16, 0.0086855, "operations"),
+    ],
+)
+def test_kernel_bound_follows_the_kernels_route(shape, dtype, ms, by):
+    got_ms, got_by = kernel_bound_ms(*shape, dtype, masked=True)
+    assert got_by == by
+    assert got_ms == pytest.approx(ms, rel=1e-5)
+
+
+def test_kernel_bound_rejects_other_dtypes():
+    with pytest.raises(TypeError):
+        kernel_bound_ms(1, 1, 64, 64, torch.float16, masked=False)
 
 
 def test_online_softmax_semantics():
