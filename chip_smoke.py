@@ -17,10 +17,13 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    a padding mask and one row whose keys are all masked (that row must
    come out as exactly 0). Tolerances: f32 atol 1e-4 (summation order;
    the f32 kernel runs 3xTF32), bf16 atol 3e-2 (P and the output rounded
-   to bf16). Times by CUDA events over back-to-back calls, and the
-   kernel's own device time from torch.profiler (at short lengths the
-   calls are bound by the wrapper's host time); the least time the card
-   could take for the kernel's route (HBM bytes, or the products at the
+   to bf16); the bf16 kernel is also held, at rtol 1e-2 and atol 4e-3,
+   against the plain version with P rounded to bf16 as the kernel does,
+   and the mean |output| is printed beside. Times by CUDA events over
+   back-to-back calls, and the kernel's own device time from
+   torch.profiler (at short lengths the calls are bound by the wrapper's
+   host time); the least time the card could take for the kernel's route
+   (``sparkdl_tpu_torch.bench_bounds``: HBM bytes, or the products at the
    bf16 tensor-core peak, or three TF32 products at the TF32 peak for
    f32; H100 SXM data sheet), with every share of it checked <= 1.05; the
    plain version's time; and F.scaled_dot_product_attention as a
@@ -54,19 +57,23 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sparkdl_tpu_torch.bench_bounds import flash_attention_bound_ms
 from sparkdl_tpu_torch.dataframe import DataFrame
 from sparkdl_tpu_torch.models import get_model
 from sparkdl_tpu_torch.models.registry import _bert_text_builder
 from sparkdl_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_reference,
-    kernel_bound_ms,
 )
 from sparkdl_tpu_torch.runtime import cuda_build
 from sparkdl_tpu_torch.transformers.text import HashingTokenizer, TextEmbedder
 from sparkdl_tpu_torch.utils.metrics import metrics
 
 ATOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+#: the bf16 kernel against the plain version with P rounded to bf16 as
+#: the kernel rounds it: what is left is the output's own bf16 rounding
+#: (rtol) and P elements that round the other way (atol)
+BF16_EMULATION_TOL = {"rtol": 1e-2, "atol": 4e-3}
 MASK_MIN = float(np.finfo(np.float32).min)
 BERT_BASE_LAYERS = 12
 #: a measured time below its bound is impossible; 5 % covers event timing
@@ -103,11 +110,26 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_kernels(prof) -> dict:
+    """``{kernel name: (device seconds, launches recorded)}`` in a finished
+    torch.profiler run. Device-side events only: a host op's device total
+    repeats the time of the kernels it launched."""
+    from torch.autograd import DeviceType
+
+    return {
+        ev.key: (ev.self_device_time_total / 1e6, ev.count)
+        for ev in prof.key_averages()
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+    }
+
+
 def device_ms(fn, iters: int, names=None):
     """Mean device time per call in ms of the kernels whose names contain
     one of ``names`` (all kernels if None), from torch.profiler over
-    ``iters`` calls; None when the profiler recorded no device time."""
-    from torch.autograd import DeviceType
+    ``iters`` calls. None when the reading is incomplete: no device time,
+    or a kernel recorded a number of times that is not a whole number per
+    call (the profiler sometimes drops events, and the time it then
+    reports is a fraction of the true one)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -116,13 +138,13 @@ def device_ms(fn, iters: int, names=None):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(
-        ev.self_device_time_total
-        for ev in prof.key_averages()
-        if ev.device_type == DeviceType.CUDA
-        and (names is None or any(n in ev.key for n in names))
-    )
-    return total / iters / 1e3 if total > 0 else None
+    picked = [
+        (sec, count) for key, (sec, count) in device_kernels(prof).items()
+        if names is None or any(n in key for n in names)
+    ]
+    if not picked or any(count % iters for _, count in picked):
+        return None
+    return sum(sec for sec, _ in picked) / iters * 1e3
 
 
 def _fmt(ms):
@@ -193,6 +215,18 @@ def phase_kernels(seed: int) -> dict:
         check(bool(torch.isfinite(out).all()), f"{tag}: non-finite output")
         check(err <= ATOL[dtype], f"{tag}: max |kernel - plain| {err} > {ATOL[dtype]}")
         check(not out[0].any().item(), f"{tag}: fully masked row is not 0")
+        emu_note = ""
+        if dtype == torch.bfloat16:
+            emu = flash_attention_reference(q, k, v, mask, p_dtype=torch.bfloat16).float()
+            emu_err = (out.float() - emu).abs().max().item()
+            ok = torch.isclose(out.float(), emu, **BF16_EMULATION_TOL).all().item()
+            check(ok, f"{tag}: kernel vs P-rounding emulation {emu_err} outside {BF16_EMULATION_TOL}")
+            emu_note = (
+                f" max_abs_err_vs_p_rounding={emu_err:.3e} "
+                f"(rtol {BF16_EMULATION_TOL['rtol']}, atol {BF16_EMULATION_TOL['atol']})"
+            )
+            del emu
+        mean_abs_out = out.float().abs().mean().item()
 
         ms = time_ms(lambda: flash_attention(q, k, v, mask), 20)
         plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, mask), 5)
@@ -204,14 +238,14 @@ def phase_kernels(seed: int) -> dict:
         library_ms = time_ms(library, 20)
         kernel_dev_ms = device_ms(lambda: flash_attention(q, k, v, mask), 20, FLASH_KERNEL_NAMES)
         library_dev_ms = device_ms(library, 20)
-        bound_ms, bound_by = kernel_bound_ms(B, H, L, Dh, dtype, masked=True)
+        bound_ms, bound_by = flash_attention_bound_ms(B, H, L, Dh, dtype, masked=True)
         route = "3xTF32 at 494.7 TFLOP/s" if dtype == torch.float32 else "bf16 at 989 TFLOP/s"
         print(
             f"kernel flash_attention {tag}: ms={ms:.4f} bound_us={bound_ms * 1e3:.1f} "
             f"({bound_by}; {route}) share_of_bound={bound_ms / ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
             f"device_ms={_fmt(kernel_dev_ms)} library_device_ms={_fmt(library_dev_ms)} "
-            f"max_abs_err={err:.3e} atol={ATOL[dtype]}"
+            f"max_abs_err={err:.3e} atol={ATOL[dtype]}{emu_note} mean_abs_out={mean_abs_out:.4f}"
         )
         for t_ms in (ms, kernel_dev_ms):
             if t_ms is not None:
@@ -320,7 +354,6 @@ def phase_breakdown(seed: int, n_texts: int) -> None:
     """Where the main path's time goes: host tokenization alone (host
     clock), and device time by kernel from torch.profiler over one more
     pass per dtype (the profiler's overhead is in that pass's wall time)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     texts = _texts(seed, n_texts)
@@ -335,22 +368,20 @@ def phase_breakdown(seed: int, n_texts: int) -> None:
     for dtype in (torch.float32, torch.bfloat16):
         mf = spec.model_function(dtype=dtype, seed=seed)
         _embed(mf, warm)
+        flash_attention.launches = 0
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             _, wall, _, _ = _embed(mf, df)
         del mf
-        # device-side events only: a host op's device total repeats the
-        # time of the kernels it launched
-        by_kernel = {
-            ev.key: ev.self_device_time_total / 1e6
-            for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
-        }
+        kernels = device_kernels(prof)
+        by_kernel = {key: sec for key, (sec, _) in kernels.items()}
         busy = sum(by_kernel.values())
-        flash = sum(s for k, s in by_kernel.items() if any(n in k for n in FLASH_KERNEL_NAMES))
+        flash = [kernels[k] for k in kernels if any(n in k for n in FLASH_KERNEL_NAMES)]
+        # fewer launches recorded than made: the profiler dropped events
         print(
             f"breakdown bert-base {str(dtype)[6:]} (profiled pass): wall {wall:.3f} s, "
             f"device busy {busy:.3f} s (share {busy / wall:.3f}), "
-            f"flash kernel {flash:.3f} s"
+            f"flash kernel {sum(s for s, _ in flash):.3f} s "
+            f"({sum(n for _, n in flash)} of {flash_attention.launches} launches recorded)"
         )
         for name, sec in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]:
             print(f"  device {sec:.4f} s  {name[:90]}")

@@ -33,13 +33,10 @@ import torch
 NEG_INF = -1e30  # finite -inf stand-in: keeps exp()/max() NaN-free
 
 #: Key tile of the plain version. The kernels walk K/V tiles of 64 keys
-#: too (``kBlockK`` in ``csrc/flash_attention.cu``), but sum in their own
-#: order, so nothing depends on the two agreeing.
+#: too (``kBlockK`` in ``csrc/flash_attention.cu``), so the running max,
+#: and with it P before the bf16 kernel rounds it, is taken over the same
+#: keys on both sides; the sums run in another order.
 BLOCK_K = 64
-
-#: H100 SXM data sheet, dense rates, at the full 700 W power limit
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOP_PER_S = {"bf16": 989e12, "tf32": 494.7e12}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
@@ -112,10 +109,15 @@ def flash_attention_reference(
     k: torch.Tensor,
     v: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
+    p_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the same online softmax, one
     key tile of ``BLOCK_K`` at a time, in f32. Returns [B, H, L, Dh] in
-    q's dtype."""
+    q's dtype.
+
+    ``p_dtype=torch.bfloat16`` rounds P to bf16 before P·V (l still sums
+    the unrounded P), which is what the bf16 kernel does; None keeps P in
+    f32, as the TPU kernel and the CPU path do."""
     B, H, L, Dh = q.shape
     scale = 1.0 / math.sqrt(Dh)
     key_mask = _key_mask(mask, B, L)
@@ -133,6 +135,8 @@ def flash_attention_reference(
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
+        if p_dtype is not None:
+            p = p.to(p_dtype).float()
         acc = acc * alpha + torch.matmul(p, vt)
         m = m_new
     return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
@@ -194,29 +198,6 @@ def flash_attention(
 #: Kernel launches since the count was last set to 0 (CPU calls and
 #: failed launches are not counted).
 flash_attention.launches = 0
-
-
-def kernel_bound_ms(B: int, H: int, L: int, Dh: int, dtype, masked: bool):
-    """The least time an H100 SXM could take for one kernel call, for the
-    route the kernel takes: ``(ms, "bytes" | "operations")``.
-
-    Bytes: q, k, v read and o written once, plus the f32 key mask. Work:
-    the two products, 4·B·H·L²·Dh; bf16 runs them once at the bf16
-    tensor-core rate, f32 runs them as 3xTF32, three TF32 products each.
-    """
-    elem = torch.tensor([], dtype=dtype).element_size()
-    nbytes = 4 * B * H * L * Dh * elem + (4 * B * L if masked else 0)
-    flops = 4 * B * H * L * L * Dh
-    if dtype == torch.float32:
-        t_ops = 3 * flops / PEAK_FLOP_PER_S["tf32"]
-    elif dtype == torch.bfloat16:
-        t_ops = flops / PEAK_FLOP_PER_S["bf16"]
-    else:
-        raise TypeError(f"the kernel takes float32 or bfloat16, not {dtype}")
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    if t_bytes >= t_ops:
-        return t_bytes * 1e3, "bytes"
-    return t_ops * 1e3, "operations"
 
 
 def make_flash_attention_fn():

@@ -10,12 +10,11 @@ import pytest
 import torch
 
 from sparkdl_tpu.ops.flash_attention import flash_attention as jax_flash
+from sparkdl_tpu_torch.bench_bounds import flash_attention_bound_ms
 from sparkdl_tpu_torch.ops.flash_attention import (
-    BLOCK_K,
     NEG_INF,
     flash_attention,
     flash_attention_reference,
-    kernel_bound_ms,
     make_flash_attention_fn,
 )
 
@@ -83,31 +82,6 @@ def test_bfloat16_io_matches_pallas_kernel(dh):
     np.testing.assert_allclose(ours.float().numpy(), ref, atol=3e-2, rtol=0)
 
 
-def _bf16_kernel_emulation(q, k, v, mask):
-    """What the bf16 CUDA kernel computes, in plain PyTorch: the online
-    softmax of the plain version, but with P rounded to bf16 before P·V
-    (the wgmma takes P as a bf16 register operand); l sums the unrounded
-    P, as the kernel does."""
-    B, H, L, Dh = q.shape
-    scale = 1.0 / np.sqrt(Dh)
-    qf = q.float()
-    m = torch.full((B, H, L, 1), NEG_INF)
-    l = torch.zeros((B, H, L, 1))
-    acc = torch.zeros((B, H, L, Dh))
-    for k0 in range(0, L, BLOCK_K):
-        kt = k[:, :, k0 : k0 + BLOCK_K].float()
-        vt = v[:, :, k0 : k0 + BLOCK_K].float()
-        s = torch.matmul(qf, kt.transpose(-1, -2)) * scale
-        s = s + mask[:, None, None, k0 : k0 + BLOCK_K]
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new)
-        l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + torch.matmul(p.to(torch.bfloat16).float(), vt)
-        m = m_new
-    return (acc / torch.clamp(l, min=1e-30)).to(torch.bfloat16)
-
-
 @pytest.mark.parametrize("dh", [32, 64])
 def test_bf16_p_rounding_stays_within_tolerance_of_pallas_kernel(dh):
     """The bf16 kernel's one departure from the plain version, P in bf16
@@ -118,10 +92,31 @@ def test_bf16_p_rounding_stays_within_tolerance_of_pallas_kernel(dh):
     mask = _key_mask(B, L, [40, 21])
     _, ref = _both(q, k, v, mask, jnp.bfloat16, torch.bfloat16)
     qt, kt, vt = (torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v))
-    emu = _bf16_kernel_emulation(qt, kt, vt, torch.from_numpy(mask))
+    emu = flash_attention_reference(
+        qt, kt, vt, torch.from_numpy(mask), p_dtype=torch.bfloat16
+    )
+    assert emu.dtype == torch.bfloat16
     np.testing.assert_allclose(emu.float().numpy(), ref, atol=3e-2, rtol=0)
     masked = torch.from_numpy(_key_mask(B, L, [0, 33]))
-    assert not _bf16_kernel_emulation(qt, kt, vt, masked)[0].any()
+    emu_masked = flash_attention_reference(qt, kt, vt, masked, p_dtype=torch.bfloat16)
+    assert not emu_masked[0].any()
+
+
+@pytest.mark.parametrize("L", [40, 130])
+def test_reference_rounds_p_only_when_asked(L):
+    """p_dtype=None is the plain version unchanged; p_dtype=bf16 moves
+    each output by at most P's rounding, 2^-9 relative per element, so by
+    at most 2^-9 · max|v| after the division by l."""
+    q, k, v = (torch.from_numpy(t) for t in _qkv(6, 2, 2, L, 32))
+    mask = torch.from_numpy(_key_mask(2, L, [L, L // 3]))
+    plain = flash_attention_reference(q, k, v, mask)
+    torch.testing.assert_close(
+        flash_attention_reference(q, k, v, mask, p_dtype=None), plain, atol=0, rtol=0
+    )
+    rounded = flash_attention_reference(q, k, v, mask, p_dtype=torch.bfloat16)
+    assert rounded.dtype == torch.float32
+    diff = (rounded - plain).abs().max().item()
+    assert 0 < diff <= 2.0**-9 * v.abs().max().item() + 1e-6
 
 
 @pytest.mark.parametrize(
@@ -136,14 +131,14 @@ def test_bf16_p_rounding_stays_within_tolerance_of_pallas_kernel(dh):
     ],
 )
 def test_kernel_bound_follows_the_kernels_route(shape, dtype, ms, by):
-    got_ms, got_by = kernel_bound_ms(*shape, dtype, masked=True)
+    got_ms, got_by = flash_attention_bound_ms(*shape, dtype, masked=True)
     assert got_by == by
     assert got_ms == pytest.approx(ms, rel=1e-5)
 
 
 def test_kernel_bound_rejects_other_dtypes():
     with pytest.raises(TypeError):
-        kernel_bound_ms(1, 1, 64, 64, torch.float16, masked=False)
+        flash_attention_bound_ms(1, 1, 64, 64, torch.float16, masked=False)
 
 
 def test_online_softmax_semantics():
