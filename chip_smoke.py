@@ -7,8 +7,9 @@ Run from the repository root:
 
 Phases; any failure ends the run with a non-zero exit and no result line:
 
-1. device: a CUDA device must be present; prints its name and
-   ``nvidia-smi``'s name and power limit.
+1. device: a CUDA device must be present; prints its name,
+   ``nvidia-smi``'s name and power limit, and the TF32 switches, which
+   stay at PyTorch's defaults.
 2. build: compiles every kernel of the path from ``sparkdl_tpu_torch/csrc``
    with nvcc for sm_90a (printing ptxas' resource use).
 3. kernels: each kernel against its plain PyTorch version on the card, at
@@ -37,11 +38,29 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    bf16 atol 3e-2. Prints rows/s and real tokens/s.
 5. breakdown: host tokenization alone, and device time by kernel from
    torch.profiler over one more pass in f32 and in bf16.
+6. image path: ``DeepImageFeaturizer(modelName="ResNet50")`` (224x224,
+   stages [3, 4, 6, 3], 2048-d features, caffe preprocessing; random
+   weights from ``--seed``, written as a flax ``.npz`` and passed as
+   ``weightsFile``) over 2048 synthetic 224x224 BGR structs in two colour
+   classes, 4 partitions, batchSize 32, in bf16 and f32, each after a
+   warm-up pass. Checks a finite 2048-d vector per row; the card's f32
+   features of 40 rows (10 from each partition, first to last row) against
+   the port on the CPU with the same weights, and the same rows on the
+   card again as a full and a zero-padded tail batch (relative max error
+   1e-5, which TF32 would not meet: the f32 model turns TF32 off itself);
+   bf16 against f32 on the card, row by row against each row's own scale
+   (1.5e-2); a ``LogisticRegression`` fit on the card against the same fit
+   on the CPU (``w``, ``b`` at atol 1e-4), and prints its accuracy on a
+   held-out split. Prints images/s per dtype. The path runs no
+   hand-written kernel: the convolutions are cuDNN's.
+7. image breakdown: ResNet50's MACs per image (convs and head), then one
+   more featurizer pass per dtype under torch.profiler: wall time, device
+   busy and its share, the conv and head FLOP rate over device busy as a
+   share of the dtype's peak, and the top 5 device kernels.
 
 The line before the last is the ``kernels`` JSON record (the f32 and the
 bf16 kernel at bert-base L=512, launches from each dtype's main-path run);
-the last line is ``{"ok": true, "device": {...}}``. TF32 is off
-throughout.
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -51,21 +70,32 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sparkdl_tpu_torch.bench_bounds import flash_attention_bound_ms
+from sparkdl_tpu_torch.bench_bounds import (
+    PEAK_FLOP_PER_S,
+    flash_attention_bound_ms,
+    model_macs,
+)
 from sparkdl_tpu_torch.dataframe import DataFrame
+from sparkdl_tpu_torch.dataframe.frame import partition_row_spans
+from sparkdl_tpu_torch.estimators import LogisticRegression
+from sparkdl_tpu_torch.image import imageIO
 from sparkdl_tpu_torch.models import get_model
-from sparkdl_tpu_torch.models.registry import _bert_text_builder
+from sparkdl_tpu_torch.models.convert import resnet_params_to_flax
+from sparkdl_tpu_torch.models.registry import _bert_text_builder, save_flax_npz
+from sparkdl_tpu_torch.models.resnet import ResNet50, init_resnet_params
 from sparkdl_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_reference,
 )
 from sparkdl_tpu_torch.runtime import cuda_build
+from sparkdl_tpu_torch.transformers.named_image import DeepImageFeaturizer
 from sparkdl_tpu_torch.transformers.text import HashingTokenizer, TextEmbedder
 from sparkdl_tpu_torch.utils.metrics import metrics
 
@@ -83,6 +113,28 @@ FLASH_KERNEL_NAMES = ("flash_bf16_wgmma_kernel", "flash_f32_tf32x3_kernel")
 #: the kernels line: the f32 kernel keeps the name it has had since the
 #: first slice, the bf16 kernel gets its own record
 RECORD_NAMES = {torch.float32: "flash_attention", torch.bfloat16: "flash_attention_bf16"}
+RESNET50_FEATURES = 2048
+#: the image path's workload: synthetic 224x224 images, partitions, batch
+N_IMAGES = 2048
+IMAGE_PARTITIONS = 4
+IMAGE_BATCH = 32
+#: rows of each partition held against the CPU: the first and last rows
+#: and rows spread over the batches between
+SAMPLE_PER_PARTITION = 10
+#: relative max error (max |a - b| / max |b|) of the card's f32 features
+#: against the CPU's: only the summation order differs. TF32 rounds each
+#: conv's inputs to a 10-bit mantissa (unit roundoff 4.9e-4), far above
+#: this bound, so it also shows that the f32 model ran without TF32.
+IMAGE_F32_REL = 1e-5
+#: the card's bf16 features against its f32, row by row, each row's gap
+#: over that row's own max |f32 feature| (bf16 convs and BatchNorm
+#: outputs; about twice the 6.9e-3 measured on an H100)
+IMAGE_BF16_ROW_REL = 1.5e-2
+#: the head fitted on the card against the same fit on the CPU
+LR_ATOL = 1e-4
+#: BGR colours of the two synthetic classes, and the noise around them
+CLASS_BGR = ((40, 60, 200), (200, 80, 40))
+NOISE = 40
 
 
 class PhaseError(RuntimeError):
@@ -161,8 +213,10 @@ def phase_device() -> str:
     print(f"device: {name} (count {torch.cuda.device_count()})")
     print(f"nvidia-smi name, power.limit: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    print(
+        f"TF32 switches at PyTorch's defaults, left as they are: cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32} cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
+    )
     return name
 
 
@@ -387,6 +441,178 @@ def phase_breakdown(seed: int, n_texts: int) -> None:
             print(f"  device {sec:.4f} s  {name[:90]}")
 
 
+def _relative_error(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def _row_relative_error(a: np.ndarray, b: np.ndarray) -> float:
+    """The largest over rows of each row's max |a - b| over its max |b|."""
+    return float((np.abs(a - b).max(axis=1) / np.abs(b).max(axis=1)).max())
+
+
+def _sample_rows(n_rows: int) -> list:
+    """Row indices held against the CPU: SAMPLE_PER_PARTITION rows of each
+    partition, from its first row to its last, spread over its batches."""
+    rows = []
+    for start, end in partition_row_spans(n_rows, IMAGE_PARTITIONS):
+        rows += np.linspace(start, end - 1, SAMPLE_PER_PARTITION).round().astype(int).tolist()
+    return rows
+
+
+def _colour_structs(seed: int, n: int):
+    """``n`` 224x224 BGR image structs, alternating between two colour
+    classes with uniform noise of +-NOISE per pixel; and their labels."""
+    rng = np.random.default_rng(seed)
+    structs, labels = [], []
+    for i in range(n):
+        label = i % 2
+        noise = rng.integers(-NOISE, NOISE + 1, size=(224, 224, 3), dtype=np.int16)
+        arr = np.clip(np.asarray(CLASS_BGR[label], np.int16) + noise, 0, 255)
+        structs.append(imageIO.imageArrayToStruct(arr.astype(np.uint8), origin=f"synthetic/{i}"))
+        labels.append(label)
+    return structs, labels
+
+
+def _write_seeded_weights(seed: int, path: str) -> None:
+    """ResNet50 weights drawn from ``seed`` (flax's distributions), saved
+    as the flax ``.npz`` that ``weightsFile`` takes."""
+    module = ResNet50()
+    init_resnet_params(module, torch.Generator().manual_seed(seed))
+    save_flax_npz(resnet_params_to_flax(module), path)
+
+
+def _featurizer(dtype_name: str, weights: str, device=None) -> DeepImageFeaturizer:
+    return DeepImageFeaturizer(
+        inputCol="image", outputCol="features", modelName="ResNet50",
+        weightsFile=weights, computeDtype=dtype_name, batchSize=IMAGE_BATCH, device=device,
+    )
+
+
+def _featurize(feat: DeepImageFeaturizer, df):
+    """One pass; returns (feature rows, seconds). The featurizer keeps its
+    model between passes, so after a warm-up pass this times the transform
+    alone, not the model's build."""
+    t0 = time.perf_counter()
+    rows = feat.transform(df).collect()
+    torch.cuda.synchronize()
+    return [r.features for r in rows], time.perf_counter() - t0
+
+
+def phase_image_path(seed: int, structs, labels, device_name: str, weights: str) -> None:
+    """DeepImageFeaturizer(ResNet50) -> LogisticRegression on the card."""
+    n_images = len(structs)
+    df = DataFrame.fromColumns({"image": structs}, numPartitions=IMAGE_PARTITIONS)
+    warm = DataFrame.fromColumns({"image": structs[:64]}, numPartitions=1)
+    expected_batches = sum(
+        -(-(end - start) // IMAGE_BATCH) for start, end in partition_row_spans(n_images, IMAGE_PARTITIONS)
+    )
+    tf32_default = torch.backends.cudnn.allow_tf32
+    features, f32_feat = {}, None
+    for dtype_name in ("bfloat16", "float32"):
+        feat = _featurizer(dtype_name, weights)
+        _featurize(feat, warm)  # model build, cuDNN and allocator warm-up: not counted
+        metrics.reset()
+        rows, dt = _featurize(feat, df)
+        batches = int(metrics.counter("transform.batches"))
+        check(batches == expected_batches, f"{dtype_name}: {batches} batches dispatched, not {expected_batches}")
+        for i, f in enumerate(rows):
+            check(f is not None and f.shape == (RESNET50_FEATURES,), f"{dtype_name}: row {i} has no 2048-d vector")
+            check(bool(np.isfinite(f).all()), f"{dtype_name}: row {i} is not finite")
+        features[dtype_name] = np.stack(rows)
+        timers = metrics.snapshot()["timers"]
+        print(
+            f"image path ResNet50 224x224 {dtype_name} on {device_name}: {n_images} images, "
+            f"{batches} batches, {dt:.3f} s = {n_images / dt:.1f} images/s; host batch stage "
+            f"{timers['transform.host_batch']['total_s']:.3f} s (producer thread), waits for "
+            f"the device {timers['transform.device_wait']['total_s']:.3f} s"
+        )
+        if dtype_name == "float32":
+            f32_feat = feat
+    check(
+        torch.backends.cudnn.allow_tf32 == tf32_default,
+        "the f32 featurizer did not put cudnn.allow_tf32 back",
+    )
+    # the card's f32 against the port on the CPU, same weights and images:
+    # rows from every partition and from batches across each, and the same
+    # rows again on the card as a batch of 32 and a zero-padded tail batch
+    sample = _sample_rows(n_images)
+    few = DataFrame.fromColumns({"image": [structs[i] for i in sample]}, numPartitions=1)
+    cpu_rows, cpu_dt = _featurize(_featurizer("float32", weights, device="cpu"), few)
+    cpu = np.stack(cpu_rows)
+    card_tail = np.stack(_featurize(f32_feat, few)[0])
+    err = _relative_error(features["float32"][sample], cpu)
+    tail_err = _relative_error(card_tail, cpu)
+    bf16_err = _row_relative_error(features["bfloat16"], features["float32"])
+    print(
+        f"image path checks: card f32 vs CPU f32 ({len(sample)} rows of {IMAGE_PARTITIONS} partitions, "
+        f"CPU {cpu_dt:.2f} s) relative error {err:.3e}, the same rows as one batch and a tail "
+        f"batch on the card {tail_err:.3e} (limit {IMAGE_F32_REL}, cudnn.allow_tf32={tf32_default} "
+        f"outside the model); card bf16 vs card f32, worst row relative to its own scale "
+        f"{bf16_err:.3e} (limit {IMAGE_BF16_ROW_REL}), over all rows relative to the max "
+        f"{_relative_error(features['bfloat16'], features['float32']):.3e}; "
+        f"max |f32 feature| {np.abs(features['float32']).max():.3f}, least row max "
+        f"{np.abs(features['float32']).max(axis=1).min():.3f}"
+    )
+    check(err <= IMAGE_F32_REL, f"card f32 vs CPU features: relative error {err:.3e} > {IMAGE_F32_REL}")
+    check(tail_err <= IMAGE_F32_REL, f"card tail batch vs CPU: relative error {tail_err:.3e} > {IMAGE_F32_REL}")
+    check(bf16_err <= IMAGE_BF16_ROW_REL, f"bf16 vs f32 features: row relative error {bf16_err:.3e} > {IMAGE_BF16_ROW_REL}")
+    # the head: LogisticRegression on the default (bf16) features
+    feats = DataFrame.fromColumns(
+        {"features": list(features["bfloat16"]), "label": labels}, numPartitions=4
+    )
+    train, test = feats.randomSplit([0.75, 0.25], seed=seed)
+    fits = []
+    for device in (None, "cpu"):
+        t0 = time.perf_counter()
+        fits.append((LogisticRegression(device=device).fit(train), time.perf_counter() - t0))
+    (card, card_s), (cpu_fit, cpu_s) = fits
+    w_err = float((card.w.cpu() - cpu_fit.w).abs().max())
+    b_err = float((card.b.cpu() - cpu_fit.b).abs().max())
+    check(
+        w_err <= LR_ATOL and b_err <= LR_ATOL,
+        f"LogisticRegression card vs CPU fit: max |w| gap {w_err:.3e}, |b| gap {b_err:.3e} > {LR_ATOL}",
+    )
+    scored = card.transform(test).collect()
+    acc = float(np.mean([r.prediction == r.label for r in scored]))
+    check(acc >= 0.5, f"test accuracy {acc} below chance")
+    print(
+        f"image path LogisticRegression (bf16 features, default params): card fit "
+        f"{card_s:.2f} s, CPU fit {cpu_s:.2f} s, max |w| gap {w_err:.3e}, "
+        f"|b| gap {b_err:.3e} (atol {LR_ATOL}); test accuracy: {acc:.3f} on {len(scored)} rows"
+    )
+
+
+def phase_image_breakdown(structs, weights: str) -> None:
+    """Where the image path's time goes: one more featurizer pass per
+    dtype under torch.profiler (its overhead is in that pass's wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    macs = model_macs(ResNet50(), (3, 224, 224), features_only=True)
+    print(
+        f"ResNet50 224x224 features: {macs} MAC per image in its convs and head "
+        f"(bench_bounds.model_macs), {2 * macs * len(structs) / 1e12:.4f} TFLOP per pass"
+    )
+    df = DataFrame.fromColumns({"image": structs}, numPartitions=IMAGE_PARTITIONS)
+    warm = DataFrame.fromColumns({"image": structs[:64]}, numPartitions=1)
+    for dtype_name, peak in (("bfloat16", "bf16"), ("float32", "f32")):
+        feat = _featurizer(dtype_name, weights)
+        _featurize(feat, warm)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall = _featurize(feat, df)
+        by_kernel = {key: sec for key, (sec, _) in device_kernels(prof).items()}
+        busy = sum(by_kernel.values())
+        check(busy > 0, f"{dtype_name}: the profiler saw no device time")
+        rate = 2 * macs * len(structs) / busy
+        print(
+            f"breakdown ResNet50 {dtype_name} (profiled pass, {len(structs)} images): wall {wall:.3f} s, "
+            f"device busy {busy:.3f} s (share {busy / wall:.3f}), {len(by_kernel)} kernel names; "
+            f"conv and head work over device busy {rate / 1e12:.2f} TFLOP/s = "
+            f"{rate / PEAK_FLOP_PER_S[peak]:.3f} of the {peak} peak ({PEAK_FLOP_PER_S[peak] / 1e12:.0f} TFLOP/s)"
+        )
+        for name, sec in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]:
+            print(f"  device {sec:.4f} s  {name[:90]}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -399,6 +625,14 @@ def main(argv=None) -> int:
     for dtype, launches in phase_main_path(args.seed, args.texts, device_name).items():
         records[dtype]["launches"] = launches
     phase_breakdown(args.seed, args.texts)
+    t0 = time.perf_counter()
+    structs, labels = _colour_structs(args.seed, N_IMAGES)
+    print(f"image path: {N_IMAGES} synthetic 224x224 structs in {time.perf_counter() - t0:.2f} s (host)")
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = os.path.join(tmp, "resnet50.npz")
+        _write_seeded_weights(args.seed, weights)
+        phase_image_path(args.seed, structs, labels, device_name, weights)
+        phase_image_breakdown(structs, weights)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[torch.float32], records[torch.bfloat16]]}))
     print(json.dumps({

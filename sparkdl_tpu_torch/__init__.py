@@ -5,11 +5,18 @@ A second package beside ``sparkdl_tpu`` (the JAX reference). It imports
 slice needs are kept here as copies. Module names follow the JAX package's
 so each module's counterpart is easy to find.
 
-What it covers today: the BERT text-embedding path — a text DataFrame
-through :class:`~sparkdl_tpu_torch.transformers.text.TextEmbedder`, the
-hashing tokenizer and sequence-length buckets, into
-:class:`~sparkdl_tpu_torch.models.bert.BertEncoder`, whose attention runs
-the hand-written CUDA kernel in ``csrc/flash_attention.cu``.
+What it covers today:
+
+- the image main path: an image DataFrame (``image.imageIO``) through
+  :class:`~sparkdl_tpu_torch.transformers.named_image.DeepImageFeaturizer`
+  (ResNet50 on cuDNN) into
+  :class:`~sparkdl_tpu_torch.estimators.LogisticRegression`, composed by
+  :class:`~sparkdl_tpu_torch.pipeline.Pipeline`;
+- the BERT text-embedding path: a text DataFrame through
+  :class:`~sparkdl_tpu_torch.transformers.text.TextEmbedder`, the hashing
+  tokenizer and sequence-length buckets, into
+  :class:`~sparkdl_tpu_torch.models.bert.BertEncoder`, whose attention
+  runs the hand-written CUDA kernel in ``csrc/flash_attention.cu``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with the default device and no CUDA card they raise.

@@ -1,14 +1,49 @@
-"""The least time an H100 could take for a kernel's work: the yardstick
-``chip_smoke.py`` holds each measured kernel time against. Nothing on
-the port's path imports this module."""
+"""The least time an H100 could take for a kernel's work, and the work of
+a model's products: the yardsticks ``chip_smoke.py`` holds measured times
+against. Nothing on the port's path imports this module."""
 
 from __future__ import annotations
 
-import torch
+import copy
 
-#: H100 SXM data sheet, dense rates, at the full 700 W power limit
+import torch
+from torch import nn
+
+#: H100 SXM data sheet, dense rates, at the full 700 W power limit; "f32"
+#: is float32 on the CUDA cores, outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOP_PER_S = {"bf16": 989e12, "tf32": 494.7e12}
+PEAK_FLOP_PER_S = {"bf16": 989e12, "tf32": 494.7e12, "f32": 67e12}
+
+
+def model_macs(module: nn.Module, input_shape, **forward_kwargs) -> int:
+    """Multiply-accumulates of one forward of ``module`` over one input of
+    ``input_shape`` (without the batch axis), summed over its ``Conv2d``
+    and ``Linear`` layers; normalization, activations and pooling are not
+    counted. The forward runs on a meta-device copy, so no arithmetic is
+    done."""
+    meta = copy.deepcopy(module).to("meta")
+    total = 0
+
+    def count(layer, _inputs, out):
+        nonlocal total
+        if isinstance(layer, nn.Conv2d):
+            kh, kw = layer.kernel_size
+            total += out[0].numel() * (layer.in_channels // layer.groups) * kh * kw
+        else:
+            total += out[0].numel() * layer.in_features
+
+    hooks = [
+        m.register_forward_hook(count)
+        for m in meta.modules()
+        if isinstance(m, (nn.Conv2d, nn.Linear))
+    ]
+    try:
+        with torch.no_grad():
+            meta(torch.empty(1, *input_shape, device="meta"), **forward_kwargs)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total
 
 
 def flash_attention_bound_ms(B: int, H: int, L: int, Dh: int, dtype, masked: bool):

@@ -1,14 +1,16 @@
 """A minimal partitioned DataFrame.
 
-The part of the JAX package's DataFrame that the text slice drives: a
-frame is a list of partitions (each a ``{column: list}`` dict) plus a
-lazy plan of partition-wise ops. Actions run the plan over the
+The part of the JAX package's DataFrame that the text and image slices
+drive: a frame is a list of partitions (each a ``{column: list}`` dict)
+plus a lazy plan of partition-wise ops. Actions run the plan over the
 partitions one after another.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import numpy as np
 
 Partition = Dict[str, list]
 
@@ -73,6 +75,73 @@ class DataFrame:
         ]
         return DataFrame(parts, names)
 
+    @property
+    def columns(self) -> List[str]:
+        return list(self._columns)
+
+    def _with_op(
+        self, op: Callable[[Partition], Partition], columns: List[str]
+    ) -> "DataFrame":
+        return DataFrame(self._source, columns, self._ops + [op])
+
+    def select(self, *cols: str) -> "DataFrame":
+        """Project onto column names (a single list argument expands)."""
+        if len(cols) == 1 and isinstance(cols[0], (list, tuple)):
+            cols = tuple(cols[0])
+        wanted = list(cols)
+        missing = [c for c in wanted if c not in self._columns]
+        if missing:
+            raise KeyError(f"No such columns: {missing}")
+
+        def op(part: Partition) -> Partition:
+            return {c: part[c] for c in wanted}
+
+        return self._with_op(op, wanted)
+
+    def withColumn(self, name: str, fn: Callable[[Row], Any]) -> "DataFrame":
+        """Row-wise UDF column: ``fn`` gets each row as a :class:`Row`."""
+
+        def op(part: Partition) -> Partition:
+            n = _part_num_rows(part)
+            out = dict(part)
+            out[name] = [fn(Row({c: part[c][i] for c in part})) for i in range(n)]
+            return out
+
+        cols = self._columns + ([name] if name not in self._columns else [])
+        return self._with_op(op, cols)
+
+    def mapPartitions(
+        self, fn: Callable[[Partition], Partition], columns: List[str]
+    ) -> "DataFrame":
+        """Partition-wise op whose result holds ``columns``."""
+        return self._with_op(fn, list(columns))
+
+    def randomSplit(
+        self, weights: Sequence[float], seed: int = 0
+    ) -> List["DataFrame"]:
+        """Split rows randomly by normalized ``weights``. Deterministic for a
+        seed: each row draws a uniform sample from one seeded stream in
+        (partition, row) order, the same draws as the JAX package's."""
+        if any(w < 0 for w in weights) or sum(weights) <= 0:
+            raise ValueError(f"Invalid split weights: {weights}")
+        total = float(sum(weights))
+        bounds = np.cumsum([w / total for w in weights])
+        rng = np.random.default_rng(seed)
+        out_parts: List[List[Partition]] = [[] for _ in weights]
+        for part in self._execute():
+            draws = rng.random(_part_num_rows(part))
+            # first bound >= draw, clipped: a draw one ulp past bounds[-1]
+            # must not drop the row
+            buckets = np.minimum(
+                np.searchsorted(bounds, draws, side="left"), len(weights) - 1
+            )
+            for b in range(len(weights)):
+                idx = np.flatnonzero(buckets == b)
+                out_parts[b].append(
+                    {c: [part[c][i] for i in idx] for c in self._columns}
+                )
+        return [DataFrame(ps, self._columns) for ps in out_parts]
+
     def withColumnPartition(
         self, name: str, fn: Callable[[Partition], Dict[str, list]]
     ) -> "DataFrame":
@@ -94,7 +163,7 @@ class DataFrame:
             return out
 
         cols = self._columns + ([name] if name not in self._columns else [])
-        return DataFrame(self._source, cols, self._ops + [op])
+        return self._with_op(op, cols)
 
     def _execute(self) -> List[Partition]:
         parts = []

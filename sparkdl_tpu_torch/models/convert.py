@@ -1,4 +1,5 @@
-"""Carry BERT weights from the JAX package's flax param tree into PyTorch.
+"""Carry BERT and ResNet weights from the JAX package's flax trees into
+PyTorch.
 
 ``bert_params_from_flax`` maps the ``{"params": ...}`` tree of the flax
 ``BertEncoder`` (numpy arrays, or anything ``np.asarray`` takes) onto the
@@ -15,6 +16,23 @@ flax                              port
 ================================  ===================================
 
 Module names are otherwise the same on both sides.
+
+``resnet_params_from_flax`` maps the ``{"params", "batch_stats"}``
+variables of the flax ``ResNet`` onto
+:class:`~sparkdl_tpu_torch.models.resnet.ResNet`:
+
+================================  ===================================
+flax                              port
+================================  ===================================
+``Conv.kernel [kh, kw, in, out]`` ``Conv2d.weight [out, in, kh, kw]``
+``Dense.kernel [in, out]``        ``Linear.weight [out, in]`` (transposed)
+``BatchNorm.scale`` / ``bias``    ``BatchNorm.weight`` / ``bias``
+``mean`` / ``var`` (batch_stats)  ``running_mean`` / ``running_var``
+================================  ===================================
+
+``resnet_params_to_flax`` is its inverse: a port ResNet's weights as flax
+variables, which ``registry.save_flax_npz`` writes in the layout the JAX
+package's ``save_flax_weights`` uses.
 """
 
 from __future__ import annotations
@@ -24,11 +42,15 @@ from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from sparkdl_tpu_torch.models.bert import BertConfig, BertEncoder
+from sparkdl_tpu_torch.models.resnet import BatchNorm, ResNet
 
 _LEAF = {"kernel": "weight", "embedding": "weight", "scale": "weight", "bias": "bias"}
 _LAYER = re.compile(r"layer_(\d+)$")
+_STATS = {"mean": "running_mean", "var": "running_var"}
+_SCANNED = re.compile(r"stage\d+_rest$")
 
 
 def _leaves(tree: Any, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -72,3 +94,69 @@ def bert_params_from_flax(tree: Any, config: BertConfig) -> Dict[str, torch.Tens
             f"{sorted(missing)}, unexpected {sorted(extra)}"
         )
     return state
+
+
+def resnet_params_from_flax(variables: Any, module: ResNet) -> Dict[str, torch.Tensor]:
+    """Map flax ResNet variables (``{"params": ..., "batch_stats": ...}``,
+    numpy arrays or anything ``np.asarray`` takes) onto ``module``'s
+    ``state_dict`` (f32 CPU tensors). Raises if a flax leaf has no place
+    in the port or a port entry gets no flax leaf."""
+    unknown = set(variables) - {"params", "batch_stats"}
+    if unknown:
+        raise ValueError(
+            f"unexpected flax collections {sorted(unknown)}; a ResNet has "
+            "'params' and 'batch_stats'"
+        )
+    state: Dict[str, torch.Tensor] = {}
+    for collection, leaf_names in (("params", _LEAF), ("batch_stats", _STATS)):
+        for path, leaf in _leaves(variables.get(collection, {})):
+            *mods, name = path
+            if any(_SCANNED.match(m) for m in mods):
+                raise ValueError(
+                    f"flax leaf {'/'.join(path)} is in the scan_blocks layout "
+                    "(identity blocks stacked under stage<i>_rest), which the "
+                    "port does not take; save the weights of a ResNet built "
+                    "with scan_blocks=False"
+                )
+            if name not in leaf_names:
+                raise ValueError(f"unexpected flax leaf {collection}/{'/'.join(path)}")
+            arr = np.asarray(leaf, dtype=np.float32)
+            if name == "kernel":
+                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            state[".".join(mods + [leaf_names[name]])] = torch.tensor(
+                np.ascontiguousarray(arr)
+            )
+    want = set(module.state_dict())
+    missing, extra = want - set(state), set(state) - want
+    if missing or extra:
+        raise ValueError(
+            f"flax variables do not match the ResNet geometry: missing "
+            f"{sorted(missing)}, unexpected {sorted(extra)}"
+        )
+    return state
+
+
+def resnet_params_to_flax(module: ResNet) -> Dict[str, Dict[str, Any]]:
+    """``module``'s weights as flax ResNet variables (``{"params": ...,
+    "batch_stats": ...}`` of f32 numpy arrays), the inverse of
+    :func:`resnet_params_from_flax`."""
+    variables: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    for name, mod in module.named_modules():
+        if isinstance(mod, nn.Conv2d):
+            leaves = {"params": {"kernel": mod.weight.permute(2, 3, 1, 0)}}
+        elif isinstance(mod, nn.Linear):
+            leaves = {"params": {"kernel": mod.weight.T, "bias": mod.bias}}
+        elif isinstance(mod, BatchNorm):
+            leaves = {
+                "params": {"scale": mod.weight, "bias": mod.bias},
+                "batch_stats": {"mean": mod.running_mean, "var": mod.running_var},
+            }
+        else:
+            continue
+        for collection, named in leaves.items():
+            node = variables[collection]
+            for part in name.split("."):
+                node = node.setdefault(part, {})
+            for leaf, t in named.items():
+                node[leaf] = np.ascontiguousarray(t.detach().float().cpu().numpy())
+    return variables

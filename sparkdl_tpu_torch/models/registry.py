@@ -1,18 +1,25 @@
-"""Named model registry (the text half): ``bert-base``, ``bert-tiny``,
-``bert-long-2048``.
+"""Named model registry: text models ``bert-base``, ``bert-tiny``,
+``bert-long-2048`` and the image model ``ResNet50``, in one namespace as in
+the JAX package.
 
-Each entry builds a :class:`~sparkdl_tpu_torch.graph.function.ModelFunction`
+A text entry builds a :class:`~sparkdl_tpu_torch.graph.function.ModelFunction`
 over int32 token-id batches ``[B, L]`` producing ``[B, feature_dim]``
 masked mean-pooled embeddings. The attention mask is derived on the
 device as ``ids != 0`` when the caller passes bare ids, so zero-padding a
 row to any length never changes its embedding.
+
+An image entry builds one over preprocessed NCHW float batches at the
+entry's geometry, producing pooled features, logits or probabilities.
+Its weights come from a ``torch.Generator`` seeded with ``seed``, or from
+a flax ``.npz`` that the JAX package's ``save_flax_weights`` wrote.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -23,7 +30,11 @@ from sparkdl_tpu_torch.models.bert import (
     dense_attention,
     init_bert_params,
 )
-from sparkdl_tpu_torch.models.convert import bert_params_from_flax
+from sparkdl_tpu_torch.models.convert import (
+    bert_params_from_flax,
+    resnet_params_from_flax,
+)
+from sparkdl_tpu_torch.models.resnet import ResNet50, init_resnet_params
 from sparkdl_tpu_torch.ops.flash_attention import make_flash_attention_fn
 from sparkdl_tpu_torch.runtime.device import resolve_device
 
@@ -111,6 +122,120 @@ def _bert_text_builder(size: str, attention: str = "flash"):
     return build
 
 
+@dataclass(frozen=True)
+class NamedImageModel:
+    """A registered image model: its input geometry, its preprocessing
+    convention ('tf' | 'caffe' | 'torch') and its feature width."""
+
+    name: str
+    height: int
+    width: int
+    preprocessing: str
+    feature_dim: int
+    builder: Callable[..., ModelFunction]
+    num_classes: int = 1000
+
+    @property
+    def input_shape(self) -> Tuple[int, int, int]:
+        return (self.height, self.width, 3)
+
+    def model_function(
+        self,
+        mode: str = "features",
+        dtype: torch.dtype = torch.float32,
+        weights_file: Optional[str] = None,
+        seed: int = 0,
+        device=None,
+    ) -> ModelFunction:
+        """mode: 'features' (the pooled bottleneck vector), 'logits', or
+        'probabilities' (softmax over the head). ``weights_file``: a flax
+        ``.npz`` (``{"params", "batch_stats"}`` keys joined by '/'); without
+        one the weights come from a CPU ``torch.Generator`` seeded with
+        ``seed``, the same on every device. ``device``: ``cuda`` by default
+        (raises when there is none); pass ``"cpu"`` for the CPU."""
+        if mode not in ("features", "logits", "probabilities"):
+            raise ValueError(
+                f"Unknown image-model mode {mode!r}; supported: features, "
+                "logits, probabilities"
+            )
+        return self.builder(
+            self, mode=mode, dtype=dtype, weights_file=weights_file,
+            seed=seed, device=resolve_device(device),
+        )
+
+
+def load_flax_npz(weights_file: str) -> Dict[str, Any]:
+    """A flat ``.npz`` of flax variables (keys joined by '/') -> nested
+    dict of numpy arrays. Other weight formats (keras ``.h5``/``.keras``,
+    pickled trees, the 'imagenet' artifact) are not ported yet."""
+    if not weights_file.endswith(".npz"):
+        raise NotImplementedError(
+            f"weights file {weights_file!r}: the port loads flax .npz files "
+            "only; keras .h5/.keras, pickled trees and 'imagenet' weights "
+            "wait for a later slice of the port"
+        )
+    tree: Dict[str, Any] = {}
+    with np.load(weights_file, allow_pickle=False) as blob:
+        for flat_key in blob.files:
+            node = tree
+            *parents, leaf = flat_key.split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = blob[flat_key]
+    return tree
+
+
+def save_flax_npz(tree: Any, path: str) -> None:
+    """Write a nested dict of arrays as a flat ``.npz`` (keys joined by
+    '/'), the layout :func:`load_flax_npz` and the JAX package's
+    ``save_flax_weights`` share."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def visit(node, prefix):
+        if hasattr(node, "items"):
+            for key, sub in node.items():
+                visit(sub, f"{prefix}/{key}" if prefix else str(key))
+        else:
+            flat[prefix] = np.asarray(node)
+
+    visit(tree, "")
+    np.savez(path, **flat)
+
+
+def _resnet_builder(module_factory: Callable[..., nn.Module]):
+    """Builder over a ResNet factory (``ResNet50``, ...)."""
+
+    def build(spec: NamedImageModel, mode: str, dtype, weights_file, seed,
+              device) -> ModelFunction:
+        module = module_factory(dtype=dtype, num_classes=spec.num_classes)
+        if weights_file:
+            module.load_state_dict(
+                resnet_params_from_flax(load_flax_npz(weights_file), module)
+            )
+        else:
+            init_resnet_params(module, torch.Generator().manual_seed(seed))
+        module = module.cast_compute().to(
+            device, memory_format=torch.channels_last
+        ).eval()
+
+        if mode == "features":
+            fn = lambda mod, x: mod(x, features_only=True)  # noqa: E731
+        elif mode == "logits":
+            fn = lambda mod, x: mod(x)  # noqa: E731
+        else:
+            fn = lambda mod, x: torch.softmax(mod(x), dim=-1)  # noqa: E731
+        return ModelFunction(
+            fn,
+            module,
+            device,
+            name=f"{spec.name}[{mode}]",
+            input_shape=spec.input_shape,
+            input_dtype=dtype,
+        )
+
+    return build
+
+
 def param_bytes(tree: Any) -> int:
     """Total bytes of a model's parameters: a ModelFunction, an
     ``nn.Module``, or a (nested) mapping of tensors/arrays."""
@@ -123,11 +248,19 @@ def param_bytes(tree: Any) -> int:
     return int(getattr(tree, "nbytes", 0))
 
 
-_REGISTRY: Dict[str, NamedTextModel] = {}
+_REGISTRY: Dict[str, Union[NamedTextModel, NamedImageModel]] = {}
 
 
-def _register(spec: NamedTextModel) -> None:
+def _register(spec: Union[NamedTextModel, NamedImageModel]) -> None:
     _REGISTRY[spec.name.lower()] = spec
+
+
+# ResNet50 at the upstream registry's geometry: 224x224, caffe, 2048-d
+_register(
+    NamedImageModel(
+        "ResNet50", 224, 224, "caffe", 2048, _resnet_builder(ResNet50)
+    )
+)
 
 
 _register(
@@ -150,7 +283,7 @@ _register(
 )
 
 
-def get_model(name: str) -> NamedTextModel:
+def get_model(name: str) -> Union[NamedTextModel, NamedImageModel]:
     key = name.lower()
     if key not in _REGISTRY:
         raise ValueError(
@@ -159,11 +292,23 @@ def get_model(name: str) -> NamedTextModel:
     return _REGISTRY[key]
 
 
+def get_image_model(name: str) -> NamedImageModel:
+    """``get_model`` restricted to image models: a text name fails here
+    with a pointer to the text surface."""
+    spec = get_model(name)
+    if not isinstance(spec, NamedImageModel):
+        raise ValueError(
+            f"{spec.name!r} is a text model; this API needs an image model "
+            f"— embed text with TextEmbedder. Image models: "
+            f"{supported_models(kind='image')}"
+        )
+    return spec
+
+
 def supported_models(kind: Optional[str] = None) -> list:
-    """Registered model names, sorted; ``kind='text'`` filters (every
-    entry of this slice is a text model)."""
+    """Registered model names, sorted; ``kind`` ('text' or 'image')
+    filters."""
     if kind not in (None, "text", "image"):
         raise ValueError(f"kind must be 'text' or 'image', got {kind!r}")
-    if kind == "image":
-        return []
-    return sorted(m.name for m in _REGISTRY.values())
+    cls = {"text": NamedTextModel, "image": NamedImageModel}.get(kind, object)
+    return sorted(m.name for m in _REGISTRY.values() if isinstance(m, cls))

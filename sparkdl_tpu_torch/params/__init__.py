@@ -1,4 +1,4 @@
-"""spark.ml-style Param system (the subset the text slice uses)."""
+"""spark.ml-style Param system (the subset the ported slices use)."""
 
 from sparkdl_tpu_torch.params.base import (
     Param,
@@ -8,9 +8,12 @@ from sparkdl_tpu_torch.params.base import (
 )
 from sparkdl_tpu_torch.params.shared import (
     HasBatchSize,
+    HasChannelOrder,
     HasInputCol,
+    HasLabelCol,
     HasModelFunction,
     HasOutputCol,
+    HasOutputMode,
 )
 
 __all__ = [
@@ -19,7 +22,10 @@ __all__ = [
     "TypeConverters",
     "keyword_only",
     "HasBatchSize",
+    "HasChannelOrder",
     "HasInputCol",
+    "HasLabelCol",
     "HasModelFunction",
     "HasOutputCol",
+    "HasOutputMode",
 ]

@@ -3,8 +3,8 @@
 Semantics follow pyspark.ml.param, as in the JAX package: a ``Param`` is
 a typed, documented slot declared as a class attribute on a ``Params``
 stage; values live in per-instance maps (explicitly set vs. defaults);
-``copy(extra)`` gives ParamMap overrides. Only what the text slice uses
-is kept here.
+``copy(extra)`` gives ParamMap overrides. Only what the ported slices
+use is kept here.
 """
 
 from __future__ import annotations
@@ -71,10 +71,36 @@ class TypeConverters:
         raise TypeError(f"Could not convert {value!r} to int")
 
     @staticmethod
+    def toFloat(value: Any) -> float:
+        if isinstance(value, bool):
+            raise TypeError(f"Could not convert {value!r} to float")
+        if isinstance(value, numbers.Real):
+            return float(value)
+        raise TypeError(f"Could not convert {value!r} to float")
+
+    @staticmethod
     def toString(value: Any) -> str:
         if isinstance(value, str):
             return value
         raise TypeError(f"Could not convert {value!r} to string")
+
+    @staticmethod
+    def toChoice(*allowed: str) -> Callable[[Any], str]:
+        """Converter factory: a string restricted to ``allowed``."""
+
+        def convert(value: Any) -> str:
+            v = TypeConverters.toString(value)
+            if v not in allowed:
+                raise TypeError(f"Expected one of {allowed}, got {v!r}")
+            return v
+
+        return convert
+
+    @staticmethod
+    def toList(value: Any) -> list:
+        if isinstance(value, (list, tuple)):
+            return list(value)
+        raise TypeError(f"Could not convert {value!r} to list")
 
 
 def keyword_only(func: Callable) -> Callable:

@@ -1,4 +1,5 @@
-"""Shared Param mixins: column names, batch size, model function."""
+"""Shared Param mixins: column names, batch size, channel order, output
+mode, model function."""
 
 from __future__ import annotations
 
@@ -27,6 +28,55 @@ class HasOutputCol(Params):
 
     def getOutputCol(self) -> str:
         return self.getOrDefault(self.outputCol)
+
+
+class HasLabelCol(Params):
+    labelCol = Param(
+        None, "labelCol", "name of the label column", TypeConverters.toString
+    )
+
+    def setLabelCol(self, value: str):
+        return self._set(labelCol=value)
+
+    def getLabelCol(self) -> str:
+        return self.getOrDefault(self.labelCol)
+
+
+class HasOutputMode(Params):
+    """'vector' flattens model output to a float vector per row; 'image'
+    re-wraps an image model's output as an image struct."""
+
+    outputMode = Param(
+        None,
+        "outputMode",
+        "one of 'vector' or 'image'",
+        TypeConverters.toChoice("vector", "image"),
+    )
+
+    def setOutputMode(self, value: str):
+        return self._set(outputMode=value)
+
+    def getOutputMode(self) -> str:
+        return self.getOrDefault(self.outputMode)
+
+
+class HasChannelOrder(Params):
+    """Channel order of the *stored* image data ('BGR' per the OpenCV
+    convention, 'RGB', or 'L' for grayscale); the converter piece flips
+    BGR to the RGB the models expect."""
+
+    channelOrder = Param(
+        None,
+        "channelOrder",
+        "channel order of image data: 'BGR', 'RGB', or 'L'",
+        TypeConverters.toChoice("BGR", "RGB", "L"),
+    )
+
+    def setChannelOrder(self, value: str):
+        return self._set(channelOrder=value)
+
+    def getChannelOrder(self) -> str:
+        return self.getOrDefault(self.channelOrder)
 
 
 class HasBatchSize(Params):

@@ -1,11 +1,18 @@
-"""Pipeline stage abstraction: ``Transformer`` (spark.ml semantics)."""
+"""Pipeline stages: ``Transformer``, ``Estimator``, ``Model``, ``Pipeline``.
+
+spark.ml semantics, as in the JAX package's ``pipeline.py``: an
+Estimator's ``fit`` returns a Model (itself a Transformer); a Pipeline
+fits its stages left to right, transforming the running DataFrame
+through each fitted stage; ParamMap overrides flow through
+``fit(df, params=...)``.
+"""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 from sparkdl_tpu_torch.dataframe import DataFrame
-from sparkdl_tpu_torch.params import Params
+from sparkdl_tpu_torch.params import Param, Params, TypeConverters, keyword_only
 
 
 class Transformer(Params):
@@ -18,3 +25,66 @@ class Transformer(Params):
 
     def _transform(self, dataset: DataFrame) -> DataFrame:
         raise NotImplementedError
+
+
+class Model(Transformer):
+    """A fitted Transformer produced by an Estimator."""
+
+
+class Estimator(Params):
+    def fit(self, dataset: DataFrame, params: Optional[dict] = None) -> Model:
+        if params:
+            return self.copy(params)._fit(dataset)
+        return self._fit(dataset)
+
+    def _fit(self, dataset: DataFrame) -> Model:
+        raise NotImplementedError
+
+
+class PipelineModel(Model):
+    def __init__(self, stages: List[Transformer]):
+        super().__init__()
+        self.stages = stages
+
+    def _transform(self, dataset: DataFrame) -> DataFrame:
+        for stage in self.stages:
+            dataset = stage.transform(dataset)
+        return dataset
+
+
+class Pipeline(Estimator):
+    stages = Param(None, "stages", "pipeline stages", TypeConverters.toList)
+
+    @keyword_only
+    def __init__(self, stages: Optional[List[Params]] = None):
+        super().__init__()
+        self._set(stages=stages or [])
+
+    def setStages(self, value: List[Params]) -> "Pipeline":
+        return self._set(stages=value)
+
+    def getStages(self) -> List[Params]:
+        return self.getOrDefault(self.stages)
+
+    def copy(self, extra: Optional[dict] = None) -> "Pipeline":
+        """Propagate ParamMap overrides into the stages (pyspark parity)."""
+        that = super().copy(extra)
+        that._set(stages=[s.copy(extra) for s in self.getStages()])
+        return that
+
+    def _fit(self, dataset: DataFrame) -> PipelineModel:
+        fitted: List[Transformer] = []
+        for stage in self.getStages():
+            if isinstance(stage, Estimator):
+                model = stage.fit(dataset)
+                fitted.append(model)
+                dataset = model.transform(dataset)
+            elif isinstance(stage, Transformer):
+                fitted.append(stage)
+                dataset = stage.transform(dataset)
+            else:
+                raise TypeError(
+                    f"Pipeline stage {stage!r} is neither Estimator nor "
+                    "Transformer"
+                )
+        return PipelineModel(fitted)

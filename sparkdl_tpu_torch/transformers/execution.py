@@ -14,7 +14,8 @@ The single-device counterpart of the JAX package's ``run_batched``:
   Rows whose mask is False come back as ``None``.
 
 ``run_batched_shared`` is an alias for now: the cross-partition shared
-feeder of the JAX package is not ported yet.
+feeder of the JAX package is not ported yet. ``arrays_to_batch`` is the
+host stage of tensor columns.
 """
 
 from __future__ import annotations
@@ -174,3 +175,27 @@ def run_batched(
 #: The cross-partition shared feeder is not ported yet; every partition
 #: runs its own pipeline.
 run_batched_shared = run_batched
+
+
+def arrays_to_batch(
+    chunk: Sequence, dtype=np.float32
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Host stage for tensor columns: 1-D (or k-D) array cells -> batch.
+    All valid cells must share a shape; Nones become zero rows."""
+    shapes = {np.asarray(c).shape for c in chunk if c is not None}
+    if len(shapes) > 1:
+        raise ValueError(
+            f"Tensor column has inconsistent shapes within a batch: {shapes}"
+        )
+    if not shapes:
+        return np.zeros((len(chunk), 1), dtype=dtype), np.zeros(
+            len(chunk), dtype=bool
+        )
+    batch = np.zeros((len(chunk), *shapes.pop()), dtype=dtype)
+    mask = np.zeros((len(chunk),), dtype=bool)
+    for i, c in enumerate(chunk):
+        if c is None:
+            continue
+        batch[i] = np.asarray(c, dtype=dtype)
+        mask[i] = True
+    return batch, mask

@@ -1,6 +1,6 @@
 """Process-global runtime metrics: counters, gauges and timers.
 
-The subset of the JAX package's registry that the text slice records
+The subset of the JAX package's registry that the ported slices record
 into, under the same names (``text.tokens``, ``text.pad_tokens``,
 ``text.pad_ratio``, ``text.bucket_rows.<edge>``, ``text.truncated_rows``,
 ``transform.*``). Thread-safe: the batch producer thread records too.

@@ -196,7 +196,10 @@ def test_configs_match_jax_presets(size):
 def test_registry_matches_jax_text_entries(tiny_params):
     names = supported_models(kind="text")
     assert names == jax_registry.supported_models(kind="text")
-    assert supported_models(kind="image") == []
+    # the image slice registers ResNet50, one of the JAX package's images
+    assert supported_models(kind="image") == ["ResNet50"]
+    assert "ResNet50" in jax_registry.supported_models(kind="image")
+    assert supported_models() == sorted(names + ["ResNet50"])
     for name in names:
         ours, ref = get_model(name), jax_registry.get_model(name)
         assert (ours.max_length, ours.feature_dim, ours.vocab_size) == (

@@ -81,12 +81,33 @@ def test_importing_every_port_module_loads_no_jax():
 
 
 def test_default_device_entry_point_raises_without_cuda(monkeypatch):
+    import numpy as np
+
+    from sparkdl_tpu_torch.dataframe import DataFrame
+    from sparkdl_tpu_torch.estimators import (
+        LogisticRegression,
+        LogisticRegressionModel,
+    )
     from sparkdl_tpu_torch.models import get_model
     from sparkdl_tpu_torch.runtime.device import resolve_device
+    from sparkdl_tpu_torch.transformers.named_image import DeepImageFeaturizer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         get_model("bert-tiny").model_function()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model("ResNet50").model_function()
+    images = DataFrame.fromColumns({"image": [None]})
+    featurizer = DeepImageFeaturizer(
+        inputCol="image", outputCol="features", modelName="ResNet50"
+    )
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        featurizer.transform(images)
+    rows = DataFrame.fromColumns({"features": [np.ones(2)], "label": [0]})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LogisticRegression().fit(rows)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LogisticRegressionModel(np.ones((2, 1)), np.ones(1), "f", "p", None)
     assert resolve_device("cpu") == torch.device("cpu")
