@@ -38,25 +38,40 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    bf16 atol 3e-2. Prints rows/s and real tokens/s.
 5. breakdown: host tokenization alone, and device time by kernel from
    torch.profiler over one more pass in f32 and in bf16.
-6. image path: ``DeepImageFeaturizer(modelName="ResNet50")`` (224x224,
-   stages [3, 4, 6, 3], 2048-d features, caffe preprocessing; random
-   weights from ``--seed``, written as a flax ``.npz`` and passed as
-   ``weightsFile``) over 2048 synthetic 224x224 BGR structs in two colour
-   classes, 4 partitions, batchSize 32, in bf16 and f32, each after a
-   warm-up pass. Checks a finite 2048-d vector per row; the card's f32
-   features of 40 rows (10 from each partition, first to last row) against
-   the port on the CPU with the same weights, and the same rows on the
-   card again as a full and a zero-padded tail batch (relative max error
-   1e-5, which TF32 would not meet: the f32 model turns TF32 off itself);
-   bf16 against f32 on the card, row by row against each row's own scale
-   (1.5e-2); a ``LogisticRegression`` fit on the card against the same fit
-   on the CPU (``w``, ``b`` at atol 1e-4), and prints its accuracy on a
-   held-out split. Prints images/s per dtype. The path runs no
-   hand-written kernel: the convolutions are cuDNN's.
-7. image breakdown: ResNet50's MACs per image (convs and head), then one
+6. image path, ResNet50 (BASELINE config[1]'s model):
+   ``DeepImageFeaturizer(modelName="ResNet50")`` (224x224, stages
+   [3, 4, 6, 3], 2048-d features, caffe preprocessing; random weights from
+   ``--seed``, written as a flax ``.npz`` and passed as ``weightsFile``)
+   over 1024 synthetic 224x224 BGR structs in two colour classes, 4
+   partitions, batchSize 32, in bf16 and f32, each after a warm-up pass.
+   Checks a finite 2048-d vector per row; the card's f32 features of 40
+   rows (10 from each partition, first to last row) against the port on
+   the CPU with the same weights, and the same rows on the card again as a
+   full and a zero-padded tail batch (relative max error 1e-5, which TF32
+   would not meet: the f32 model turns TF32 off itself); bf16 against f32
+   on the card, row by row against each row's own scale (``BF16_ROW_REL``);
+   a ``LogisticRegression`` fit on the card against the same fit on the
+   CPU (``w``, ``b`` at atol 1e-4), and prints its accuracy on a held-out
+   split. Prints images/s per dtype. The path runs no hand-written kernel:
+   the convolutions are cuDNN's.
+7. image breakdown, ResNet50: MACs per image (convs and head), then one
    more featurizer pass per dtype under torch.profiler: wall time, device
    busy and its share, the conv and head FLOP rate over device busy as a
    share of the dtype's peak, and the top 5 device kernels.
+8. BASELINE config[0]: phase 6's checks and head over
+   ``DeepImageFeaturizer(modelName="InceptionV3")`` (299x299, 'tf'
+   preprocessing, 2048-d) and 1024 synthetic 299x299 structs.
+9. image breakdown, InceptionV3, as phase 7.
+10. the rest of the family: for Xception (299x299), VGG16, VGG19 and
+    MobileNetV2 (224x224), a features pass over 256 synthetic images at
+    the model's size in bf16 and f32: images/s, one profiled pass (device
+    busy, its share, the FLOP rate over it), the card's f32 against the
+    CPU's over 8 rows (relative 1e-5) and bf16 against f32 row by row.
+    Then ``DeepImagePredictor(decodePredictions=True, topK=5)`` over
+    MobileNetV2 in f32 with a labels file this script writes, over 40 rows
+    with one null: its probabilities against the CPU's (relative 1e-5),
+    and each decoded row the top 5 of the card's own probabilities, under
+    the file's labels.
 
 The line before the last is the ``kernels`` JSON record (the f32 and the
 bf16 kernel at bert-base L=512, launches from each dtype's main-path run);
@@ -86,16 +101,18 @@ from sparkdl_tpu_torch.dataframe import DataFrame
 from sparkdl_tpu_torch.dataframe.frame import partition_row_spans
 from sparkdl_tpu_torch.estimators import LogisticRegression
 from sparkdl_tpu_torch.image import imageIO
-from sparkdl_tpu_torch.models import get_model
-from sparkdl_tpu_torch.models.convert import resnet_params_to_flax
+from sparkdl_tpu_torch.models import get_image_model, get_model
+from sparkdl_tpu_torch.models.convert import cnn_params_to_flax
 from sparkdl_tpu_torch.models.registry import _bert_text_builder, save_flax_npz
-from sparkdl_tpu_torch.models.resnet import ResNet50, init_resnet_params
 from sparkdl_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_reference,
 )
 from sparkdl_tpu_torch.runtime import cuda_build
-from sparkdl_tpu_torch.transformers.named_image import DeepImageFeaturizer
+from sparkdl_tpu_torch.transformers.named_image import (
+    DeepImageFeaturizer,
+    DeepImagePredictor,
+)
 from sparkdl_tpu_torch.transformers.text import HashingTokenizer, TextEmbedder
 from sparkdl_tpu_torch.utils.metrics import metrics
 
@@ -113,9 +130,9 @@ FLASH_KERNEL_NAMES = ("flash_bf16_wgmma_kernel", "flash_f32_tf32x3_kernel")
 #: the kernels line: the f32 kernel keeps the name it has had since the
 #: first slice, the bf16 kernel gets its own record
 RECORD_NAMES = {torch.float32: "flash_attention", torch.bfloat16: "flash_attention_bf16"}
-RESNET50_FEATURES = 2048
-#: the image path's workload: synthetic 224x224 images, partitions, batch
-N_IMAGES = 2048
+#: the image paths' workload: synthetic images at the model's size for
+#: ResNet50 (phase 6) and InceptionV3 (phase 8), partitions, batch
+N_IMAGES = {"ResNet50": 1024, "InceptionV3": 1024}
 IMAGE_PARTITIONS = 4
 IMAGE_BATCH = 32
 #: rows of each partition held against the CPU: the first and last rows
@@ -128,10 +145,31 @@ SAMPLE_PER_PARTITION = 10
 IMAGE_F32_REL = 1e-5
 #: the card's bf16 features against its f32, row by row, each row's gap
 #: over that row's own max |f32 feature| (bf16 convs and BatchNorm
-#: outputs; about twice the 6.9e-3 measured on an H100)
-IMAGE_BF16_ROW_REL = 1.5e-2
+#: outputs): about twice the gap measured on an H100 80GB HBM3 (ResNet50
+#: 6.930e-03, InceptionV3 1.612e-02, Xception 1.216e-02, VGG16 6.515e-03,
+#: VGG19 7.728e-03, MobileNetV2 2.353e-02)
+BF16_ROW_REL = {
+    "ResNet50": 1.5e-2,
+    "InceptionV3": 3.5e-2,
+    "Xception": 2.5e-2,
+    "VGG16": 1.5e-2,
+    "VGG19": 1.5e-2,
+    "MobileNetV2": 5e-2,
+}
+#: phase 10: the other families, images per pass, rows held against the
+#: CPU; the predictor's family and rows
+FAMILIES = ("Xception", "VGG16", "VGG19", "MobileNetV2")
+FAMILY_IMAGES = 256
+FAMILY_CPU_ROWS = 8
+PREDICTOR_MODEL = "MobileNetV2"
+PREDICTOR_IMAGES = 40
 #: the head fitted on the card against the same fit on the CPU
 LR_ATOL = 1e-4
+#: the head's L2 penalty: the default for ResNet50; none for InceptionV3,
+#: whose features from random weights are about 1e-3 (no residual path
+#: keeps their scale), so that the default penalty holds every weight
+#: near 0 and the fit predicts one class
+LR_REG = {"ResNet50": 1e-4, "InceptionV3": 0.0}
 #: BGR colours of the two synthetic classes, and the noise around them
 CLASS_BGR = ((40, 60, 200), (200, 80, 40))
 NOISE = 40
@@ -459,47 +497,76 @@ def _sample_rows(n_rows: int) -> list:
     return rows
 
 
-def _colour_structs(seed: int, n: int):
-    """``n`` 224x224 BGR image structs, alternating between two colour
-    classes with uniform noise of +-NOISE per pixel; and their labels."""
+def _colour_structs(seed: int, n: int, size: int):
+    """``n`` ``size``x``size`` BGR image structs, alternating between two
+    colour classes with uniform noise of +-NOISE per pixel; and their
+    labels. Built at the model's size, so the host does not resize."""
     rng = np.random.default_rng(seed)
     structs, labels = [], []
     for i in range(n):
         label = i % 2
-        noise = rng.integers(-NOISE, NOISE + 1, size=(224, 224, 3), dtype=np.int16)
+        noise = rng.integers(-NOISE, NOISE + 1, size=(size, size, 3), dtype=np.int16)
         arr = np.clip(np.asarray(CLASS_BGR[label], np.int16) + noise, 0, 255)
         structs.append(imageIO.imageArrayToStruct(arr.astype(np.uint8), origin=f"synthetic/{i}"))
         labels.append(label)
     return structs, labels
 
 
-def _write_seeded_weights(seed: int, path: str) -> None:
-    """ResNet50 weights drawn from ``seed`` (flax's distributions), saved
-    as the flax ``.npz`` that ``weightsFile`` takes."""
-    module = ResNet50()
-    init_resnet_params(module, torch.Generator().manual_seed(seed))
-    save_flax_npz(resnet_params_to_flax(module), path)
+def _write_seeded_weights(model: str, seed: int, path: str) -> None:
+    """``model``'s weights drawn from ``seed`` (flax's distributions, on a
+    CPU generator), saved as the flax ``.npz`` that ``weightsFile`` takes."""
+    module = get_image_model(model).model_function(mode="logits", seed=seed, device="cpu").module
+    save_flax_npz(cnn_params_to_flax(module), path)
 
 
-def _featurizer(dtype_name: str, weights: str, device=None) -> DeepImageFeaturizer:
+def _featurizer(model: str, dtype_name: str, weights: str, device=None) -> DeepImageFeaturizer:
     return DeepImageFeaturizer(
-        inputCol="image", outputCol="features", modelName="ResNet50",
+        inputCol="image", outputCol="features", modelName=model,
         weightsFile=weights, computeDtype=dtype_name, batchSize=IMAGE_BATCH, device=device,
     )
 
 
-def _featurize(feat: DeepImageFeaturizer, df):
-    """One pass; returns (feature rows, seconds). The featurizer keeps its
-    model between passes, so after a warm-up pass this times the transform
+def _featurize(feat, df, col: str = "features"):
+    """One pass; returns (output rows, seconds). The stage keeps its model
+    between passes, so after a warm-up pass this times the transform
     alone, not the model's build."""
     t0 = time.perf_counter()
     rows = feat.transform(df).collect()
     torch.cuda.synchronize()
-    return [r.features for r in rows], time.perf_counter() - t0
+    return [r[col] for r in rows], time.perf_counter() - t0
 
 
-def phase_image_path(seed: int, structs, labels, device_name: str, weights: str) -> None:
-    """DeepImageFeaturizer(ResNet50) -> LogisticRegression on the card."""
+def _profiled_pass(feat, df):
+    """One more pass under torch.profiler (its overhead is in the wall
+    time): (wall seconds, device busy seconds, {kernel: device seconds})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = _featurize(feat, df)
+    by_kernel = {key: sec for key, (sec, _) in device_kernels(prof).items()}
+    busy = sum(by_kernel.values())
+    check(busy > 0, "the profiler saw no device time")
+    return wall, busy, by_kernel
+
+
+def _macs(feat) -> int:
+    """MACs per image of the featurizer's model, convs and dense layers."""
+    mf = feat._inner().getModelFunction()
+    return model_macs(mf.module, (3,) + tuple(mf.input_shape[:2]), features_only=True)
+
+
+def _rate(macs: int, n_images: int, busy: float, peak: str) -> str:
+    rate = 2 * macs * n_images / busy
+    return (
+        f"{rate / 1e12:.2f} TFLOP/s over device busy = {rate / PEAK_FLOP_PER_S[peak]:.3f} "
+        f"of the {peak} peak ({PEAK_FLOP_PER_S[peak] / 1e12:.0f} TFLOP/s)"
+    )
+
+
+def phase_transfer_learning(model: str, seed: int, structs, labels, device_name: str,
+                            weights: str) -> None:
+    """DeepImageFeaturizer(model) -> LogisticRegression on the card."""
+    spec = get_image_model(model)
     n_images = len(structs)
     df = DataFrame.fromColumns({"image": structs}, numPartitions=IMAGE_PARTITIONS)
     warm = DataFrame.fromColumns({"image": structs[:64]}, numPartitions=1)
@@ -509,19 +576,20 @@ def phase_image_path(seed: int, structs, labels, device_name: str, weights: str)
     tf32_default = torch.backends.cudnn.allow_tf32
     features, f32_feat = {}, None
     for dtype_name in ("bfloat16", "float32"):
-        feat = _featurizer(dtype_name, weights)
+        feat = _featurizer(model, dtype_name, weights)
         _featurize(feat, warm)  # model build, cuDNN and allocator warm-up: not counted
         metrics.reset()
         rows, dt = _featurize(feat, df)
         batches = int(metrics.counter("transform.batches"))
-        check(batches == expected_batches, f"{dtype_name}: {batches} batches dispatched, not {expected_batches}")
+        check(batches == expected_batches, f"{model} {dtype_name}: {batches} batches dispatched, not {expected_batches}")
         for i, f in enumerate(rows):
-            check(f is not None and f.shape == (RESNET50_FEATURES,), f"{dtype_name}: row {i} has no 2048-d vector")
-            check(bool(np.isfinite(f).all()), f"{dtype_name}: row {i} is not finite")
+            check(f is not None and f.shape == (spec.feature_dim,),
+                  f"{model} {dtype_name}: row {i} has no {spec.feature_dim}-d vector")
+            check(bool(np.isfinite(f).all()), f"{model} {dtype_name}: row {i} is not finite")
         features[dtype_name] = np.stack(rows)
         timers = metrics.snapshot()["timers"]
         print(
-            f"image path ResNet50 224x224 {dtype_name} on {device_name}: {n_images} images, "
+            f"image path {model} {spec.height}x{spec.width} {dtype_name} on {device_name}: {n_images} images, "
             f"{batches} batches, {dt:.3f} s = {n_images / dt:.1f} images/s; host batch stage "
             f"{timers['transform.host_batch']['total_s']:.3f} s (producer thread), waits for "
             f"the device {timers['transform.device_wait']['total_s']:.3f} s"
@@ -530,32 +598,33 @@ def phase_image_path(seed: int, structs, labels, device_name: str, weights: str)
             f32_feat = feat
     check(
         torch.backends.cudnn.allow_tf32 == tf32_default,
-        "the f32 featurizer did not put cudnn.allow_tf32 back",
+        f"the f32 {model} featurizer did not put cudnn.allow_tf32 back",
     )
     # the card's f32 against the port on the CPU, same weights and images:
     # rows from every partition and from batches across each, and the same
     # rows again on the card as a batch of 32 and a zero-padded tail batch
     sample = _sample_rows(n_images)
     few = DataFrame.fromColumns({"image": [structs[i] for i in sample]}, numPartitions=1)
-    cpu_rows, cpu_dt = _featurize(_featurizer("float32", weights, device="cpu"), few)
+    cpu_rows, cpu_dt = _featurize(_featurizer(model, "float32", weights, device="cpu"), few)
     cpu = np.stack(cpu_rows)
     card_tail = np.stack(_featurize(f32_feat, few)[0])
     err = _relative_error(features["float32"][sample], cpu)
     tail_err = _relative_error(card_tail, cpu)
     bf16_err = _row_relative_error(features["bfloat16"], features["float32"])
     print(
-        f"image path checks: card f32 vs CPU f32 ({len(sample)} rows of {IMAGE_PARTITIONS} partitions, "
+        f"image path {model} checks: card f32 vs CPU f32 ({len(sample)} rows of {IMAGE_PARTITIONS} partitions, "
         f"CPU {cpu_dt:.2f} s) relative error {err:.3e}, the same rows as one batch and a tail "
         f"batch on the card {tail_err:.3e} (limit {IMAGE_F32_REL}, cudnn.allow_tf32={tf32_default} "
         f"outside the model); card bf16 vs card f32, worst row relative to its own scale "
-        f"{bf16_err:.3e} (limit {IMAGE_BF16_ROW_REL}), over all rows relative to the max "
+        f"{bf16_err:.3e} (limit {BF16_ROW_REL[model]}), over all rows relative to the max "
         f"{_relative_error(features['bfloat16'], features['float32']):.3e}; "
         f"max |f32 feature| {np.abs(features['float32']).max():.3f}, least row max "
         f"{np.abs(features['float32']).max(axis=1).min():.3f}"
     )
-    check(err <= IMAGE_F32_REL, f"card f32 vs CPU features: relative error {err:.3e} > {IMAGE_F32_REL}")
-    check(tail_err <= IMAGE_F32_REL, f"card tail batch vs CPU: relative error {tail_err:.3e} > {IMAGE_F32_REL}")
-    check(bf16_err <= IMAGE_BF16_ROW_REL, f"bf16 vs f32 features: row relative error {bf16_err:.3e} > {IMAGE_BF16_ROW_REL}")
+    check(err <= IMAGE_F32_REL, f"{model} card f32 vs CPU features: relative error {err:.3e} > {IMAGE_F32_REL}")
+    check(tail_err <= IMAGE_F32_REL, f"{model} card tail batch vs CPU: relative error {tail_err:.3e} > {IMAGE_F32_REL}")
+    check(bf16_err <= BF16_ROW_REL[model],
+          f"{model} bf16 vs f32 features: row relative error {bf16_err:.3e} > {BF16_ROW_REL[model]}")
     # the head: LogisticRegression on the default (bf16) features
     feats = DataFrame.fromColumns(
         {"features": list(features["bfloat16"]), "label": labels}, numPartitions=4
@@ -564,53 +633,145 @@ def phase_image_path(seed: int, structs, labels, device_name: str, weights: str)
     fits = []
     for device in (None, "cpu"):
         t0 = time.perf_counter()
-        fits.append((LogisticRegression(device=device).fit(train), time.perf_counter() - t0))
+        head = LogisticRegression(regParam=LR_REG[model], device=device)
+        fits.append((head.fit(train), time.perf_counter() - t0))
     (card, card_s), (cpu_fit, cpu_s) = fits
     w_err = float((card.w.cpu() - cpu_fit.w).abs().max())
     b_err = float((card.b.cpu() - cpu_fit.b).abs().max())
     check(
         w_err <= LR_ATOL and b_err <= LR_ATOL,
-        f"LogisticRegression card vs CPU fit: max |w| gap {w_err:.3e}, |b| gap {b_err:.3e} > {LR_ATOL}",
+        f"{model} LogisticRegression card vs CPU fit: max |w| gap {w_err:.3e}, |b| gap {b_err:.3e} > {LR_ATOL}",
     )
     scored = card.transform(test).collect()
     acc = float(np.mean([r.prediction == r.label for r in scored]))
-    check(acc >= 0.5, f"test accuracy {acc} below chance")
+    check(acc >= 0.5, f"{model} test accuracy {acc} below chance")
     print(
-        f"image path LogisticRegression (bf16 features, default params): card fit "
+        f"image path {model} LogisticRegression (bf16 features, regParam {LR_REG[model]}): card fit "
         f"{card_s:.2f} s, CPU fit {cpu_s:.2f} s, max |w| gap {w_err:.3e}, "
         f"|b| gap {b_err:.3e} (atol {LR_ATOL}); test accuracy: {acc:.3f} on {len(scored)} rows"
     )
 
 
-def phase_image_breakdown(structs, weights: str) -> None:
+def phase_image_breakdown(model: str, structs, weights: str) -> None:
     """Where the image path's time goes: one more featurizer pass per
-    dtype under torch.profiler (its overhead is in that pass's wall time)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    macs = model_macs(ResNet50(), (3, 224, 224), features_only=True)
-    print(
-        f"ResNet50 224x224 features: {macs} MAC per image in its convs and head "
-        f"(bench_bounds.model_macs), {2 * macs * len(structs) / 1e12:.4f} TFLOP per pass"
-    )
+    dtype under torch.profiler."""
+    spec = get_image_model(model)
     df = DataFrame.fromColumns({"image": structs}, numPartitions=IMAGE_PARTITIONS)
     warm = DataFrame.fromColumns({"image": structs[:64]}, numPartitions=1)
     for dtype_name, peak in (("bfloat16", "bf16"), ("float32", "f32")):
-        feat = _featurizer(dtype_name, weights)
+        feat = _featurizer(model, dtype_name, weights)
         _featurize(feat, warm)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _, wall = _featurize(feat, df)
-        by_kernel = {key: sec for key, (sec, _) in device_kernels(prof).items()}
-        busy = sum(by_kernel.values())
-        check(busy > 0, f"{dtype_name}: the profiler saw no device time")
-        rate = 2 * macs * len(structs) / busy
+        if dtype_name == "bfloat16":
+            macs = _macs(feat)
+            print(
+                f"{model} {spec.height}x{spec.width} features: {macs} MAC per image in its convs and "
+                f"head (bench_bounds.model_macs), {2 * macs * len(structs) / 1e12:.4f} TFLOP per pass"
+            )
+        wall, busy, by_kernel = _profiled_pass(feat, df)
         print(
-            f"breakdown ResNet50 {dtype_name} (profiled pass, {len(structs)} images): wall {wall:.3f} s, "
+            f"breakdown {model} {dtype_name} (profiled pass, {len(structs)} images): wall {wall:.3f} s, "
             f"device busy {busy:.3f} s (share {busy / wall:.3f}), {len(by_kernel)} kernel names; "
-            f"conv and head work over device busy {rate / 1e12:.2f} TFLOP/s = "
-            f"{rate / PEAK_FLOP_PER_S[peak]:.3f} of the {peak} peak ({PEAK_FLOP_PER_S[peak] / 1e12:.0f} TFLOP/s)"
+            f"conv and head work {_rate(macs, len(structs), busy, peak)}"
         )
         for name, sec in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]:
             print(f"  device {sec:.4f} s  {name[:90]}")
+
+
+def phase_family(model: str, seed: int, device_name: str, tmp: str) -> None:
+    """A features pass of ``model`` at its full geometry in both dtypes:
+    images/s, device busy and the FLOP rate over it, and the card's f32
+    against the CPU's and bf16 against f32."""
+    spec = get_image_model(model)
+    weights = os.path.join(tmp, f"{model}.npz")
+    _write_seeded_weights(model, seed, weights)
+    structs, _ = _colour_structs(seed, FAMILY_IMAGES, spec.height)
+    df = DataFrame.fromColumns({"image": structs}, numPartitions=IMAGE_PARTITIONS)
+    warm = DataFrame.fromColumns({"image": structs[:IMAGE_BATCH]}, numPartitions=1)
+    features, macs = {}, None
+    for dtype_name, peak in (("bfloat16", "bf16"), ("float32", "f32")):
+        feat = _featurizer(model, dtype_name, weights)
+        _featurize(feat, warm)
+        macs = macs or _macs(feat)
+        rows, dt = _featurize(feat, df)
+        for i, f in enumerate(rows):
+            check(f is not None and f.shape == (spec.feature_dim,) and bool(np.isfinite(f).all()),
+                  f"{model} {dtype_name}: row {i} is not a finite {spec.feature_dim}-d vector")
+        features[dtype_name] = np.stack(rows)
+        wall, busy, by_kernel = _profiled_pass(feat, df)
+        top = max(by_kernel.items(), key=lambda kv: kv[1])
+        print(
+            f"family {model} {spec.height}x{spec.width} {dtype_name} on {device_name}: {FAMILY_IMAGES} images "
+            f"in {dt:.3f} s = {FAMILY_IMAGES / dt:.1f} images/s; {macs} MAC per image; profiled pass wall "
+            f"{wall:.3f} s, device busy {busy:.3f} s (share {busy / wall:.3f}), {_rate(macs, FAMILY_IMAGES, busy, peak)}; "
+            f"top kernel {top[1]:.4f} s {top[0][:60]}"
+        )
+        del feat
+        torch.cuda.empty_cache()
+    sample = np.linspace(0, FAMILY_IMAGES - 1, FAMILY_CPU_ROWS).round().astype(int).tolist()
+    few = DataFrame.fromColumns({"image": [structs[i] for i in sample]}, numPartitions=1)
+    cpu = np.stack(_featurize(_featurizer(model, "float32", weights, device="cpu"), few)[0])
+    err = _relative_error(features["float32"][sample], cpu)
+    bf16_err = _row_relative_error(features["bfloat16"], features["float32"])
+    print(
+        f"family {model} checks: card f32 vs CPU f32 over {len(sample)} rows relative error {err:.3e} "
+        f"(limit {IMAGE_F32_REL}); card bf16 vs card f32 worst row {bf16_err:.3e} (limit {BF16_ROW_REL[model]})"
+    )
+    check(err <= IMAGE_F32_REL, f"{model} card f32 vs CPU features: relative error {err:.3e} > {IMAGE_F32_REL}")
+    check(bf16_err <= BF16_ROW_REL[model],
+          f"{model} bf16 vs f32 features: row relative error {bf16_err:.3e} > {BF16_ROW_REL[model]}")
+    os.remove(weights)
+
+
+def phase_predictor(model: str, seed: int, tmp: str) -> None:
+    """DeepImagePredictor(decodePredictions=True, topK=5) with a labels
+    file this script writes: the card's f32 probabilities against the
+    CPU's, and each decoded row the top 5 of the card's own probabilities
+    under the file's labels."""
+    spec = get_image_model(model)
+    weights = os.path.join(tmp, f"{model}-predictor.npz")
+    _write_seeded_weights(model, seed, weights)
+    labels_file = os.path.join(tmp, "labels.json")
+    labels = [f"synthetic class {i}" for i in range(spec.num_classes)]
+    with open(labels_file, "w") as f:
+        json.dump(labels, f)
+    structs, _ = _colour_structs(seed + 1, PREDICTOR_IMAGES, spec.height)
+    structs[3] = None  # a null row stays null
+    df = DataFrame.fromColumns({"image": structs}, numPartitions=2)
+
+    def predictor(device=None, **kwargs):
+        return DeepImagePredictor(
+            inputCol="image", outputCol="pred", modelName=model, weightsFile=weights,
+            computeDtype="float32", batchSize=IMAGE_BATCH, labelsFile=labels_file,
+            device=device, **kwargs,
+        )
+
+    card = predictor()
+    probs, _ = _featurize(card, df, "pred")
+    decoded, dt = _featurize(card.copy({card.decodePredictions: True}), df, "pred")
+    cpu_probs, _ = _featurize(predictor(device="cpu"), df, "pred")
+    check([p is None for p in probs] == [s is None for s in structs], f"{model} predictor: null rows moved")
+    check([d is None for d in decoded] == [s is None for s in structs], f"{model} decoded: null rows moved")
+    got = np.stack([p for p in probs if p is not None])
+    want = np.stack([p for p in cpu_probs if p is not None])
+    err = _relative_error(got, want)
+    check(err <= IMAGE_F32_REL, f"{model} predictor card vs CPU probabilities: relative error {err:.3e} > {IMAGE_F32_REL}")
+    for i, (p, row) in enumerate(zip(probs, decoded)):
+        if p is None:
+            continue
+        check(len(row) == 5, f"{model} decoded row {i} holds {len(row)} classes, not 5")
+        top = np.sort(p)[::-1][:5]
+        scores = np.array([d["score"] for d in row])
+        # a near-tie may order two classes either way: compare scores
+        check(bool(np.allclose(scores, top, rtol=0, atol=1e-7)), f"{model} decoded row {i} is not its top 5")
+        for d in row:
+            check(abs(p[d["classIdx"]] - d["score"]) <= 1e-7 and d["label"] == labels[d["classIdx"]],
+                  f"{model} decoded row {i}: {d} does not match its probabilities and labels")
+    print(
+        f"predictor {model} f32 decodePredictions topK=5: {len(structs)} rows (1 null) in {dt:.3f} s; "
+        f"card vs CPU probabilities relative error {err:.3e} (limit {IMAGE_F32_REL}); "
+        f"row 0: {[(d['classIdx'], d['label'], round(d['score'], 6)) for d in decoded[0]]}"
+    )
+    os.remove(weights)
 
 
 def main(argv=None) -> int:
@@ -619,20 +780,36 @@ def main(argv=None) -> int:
     ap.add_argument("--texts", type=int, default=512)
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
+
+    def done(phases: str) -> None:
+        print(f"[{time.perf_counter() - t_start:.1f} s] {phases} done")
+
     device_name = phase_device()
     phase_build()
     records = phase_kernels(args.seed)
+    done("phases 1-3")
     for dtype, launches in phase_main_path(args.seed, args.texts, device_name).items():
         records[dtype]["launches"] = launches
     phase_breakdown(args.seed, args.texts)
-    t0 = time.perf_counter()
-    structs, labels = _colour_structs(args.seed, N_IMAGES)
-    print(f"image path: {N_IMAGES} synthetic 224x224 structs in {time.perf_counter() - t0:.2f} s (host)")
+    done("phases 4-5")
     with tempfile.TemporaryDirectory() as tmp:
-        weights = os.path.join(tmp, "resnet50.npz")
-        _write_seeded_weights(args.seed, weights)
-        phase_image_path(args.seed, structs, labels, device_name, weights)
-        phase_image_breakdown(structs, weights)
+        for model in ("ResNet50", "InceptionV3"):  # phases 6-7, then 8-9
+            size = get_image_model(model).height
+            t0 = time.perf_counter()
+            structs, labels = _colour_structs(args.seed, N_IMAGES[model], size)
+            print(f"image path {model}: {len(structs)} synthetic {size}x{size} structs in "
+                  f"{time.perf_counter() - t0:.2f} s (host)")
+            weights = os.path.join(tmp, f"{model}.npz")
+            _write_seeded_weights(model, args.seed, weights)
+            phase_transfer_learning(model, args.seed, structs, labels, device_name, weights)
+            phase_image_breakdown(model, structs, weights)
+            del structs
+            os.remove(weights)
+            done(f"{model}'s phases")
+        for model in FAMILIES:  # phase 10
+            phase_family(model, args.seed, device_name, tmp)
+            done(f"phase 10 {model}")
+        phase_predictor(PREDICTOR_MODEL, args.seed, tmp)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[torch.float32], records[torch.bfloat16]]}))
     print(json.dumps({

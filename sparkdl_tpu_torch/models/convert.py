@@ -1,5 +1,5 @@
-"""Carry BERT and ResNet weights from the JAX package's flax trees into
-PyTorch.
+"""Carry BERT and image-model weights from the JAX package's flax trees
+into PyTorch.
 
 ``bert_params_from_flax`` maps the ``{"params": ...}`` tree of the flax
 ``BertEncoder`` (numpy arrays, or anything ``np.asarray`` takes) onto the
@@ -17,22 +17,29 @@ flax                              port
 
 Module names are otherwise the same on both sides.
 
-``resnet_params_from_flax`` maps the ``{"params", "batch_stats"}``
-variables of the flax ``ResNet`` onto
-:class:`~sparkdl_tpu_torch.models.resnet.ResNet`:
+``cnn_params_from_flax`` maps the ``{"params", "batch_stats"}`` variables
+of a flax image model (ResNet, InceptionV3, Xception, VGG, MobileNetV2)
+onto the port module of the same family and geometry:
 
-================================  ===================================
-flax                              port
-================================  ===================================
-``Conv.kernel [kh, kw, in, out]`` ``Conv2d.weight [out, in, kh, kw]``
-``Dense.kernel [in, out]``        ``Linear.weight [out, in]`` (transposed)
-``BatchNorm.scale`` / ``bias``    ``BatchNorm.weight`` / ``bias``
-``mean`` / ``var`` (batch_stats)  ``running_mean`` / ``running_var``
-================================  ===================================
+==================================  ===================================
+flax                                port
+==================================  ===================================
+``Conv.kernel [kh, kw, in/g, out]`` ``Conv2d.weight [out, in/g, kh, kw]``
+                                    (a depthwise ``[kh, kw, 1, C]``
+                                    becomes ``[C, 1, kh, kw]``)
+``Conv.bias`` (VGG)                 ``Conv2d.bias``
+``Dense.kernel [in, out]``          ``Linear.weight [out, in]`` (transposed)
+``BatchNorm.scale`` / ``bias``      ``BatchNorm.weight`` / ``bias``
+                                    (InceptionV3 has no scale, and its
+                                    port BatchNorm no weight)
+``mean`` / ``var`` (batch_stats)    ``running_mean`` / ``running_var``
+==================================  ===================================
 
-``resnet_params_to_flax`` is its inverse: a port ResNet's weights as flax
-variables, which ``registry.save_flax_npz`` writes in the layout the JAX
-package's ``save_flax_weights`` uses.
+VGG's ``fc1`` rows stay in the flax order: the port flattens block 5 in
+NHWC order, as the flax module does. ``cnn_params_to_flax`` is the
+inverse: a port module's weights as flax variables, which
+``registry.save_flax_npz`` writes in the layout the JAX package's
+``save_flax_weights`` uses.
 """
 
 from __future__ import annotations
@@ -45,7 +52,7 @@ import torch
 from torch import nn
 
 from sparkdl_tpu_torch.models.bert import BertConfig, BertEncoder
-from sparkdl_tpu_torch.models.resnet import BatchNorm, ResNet
+from sparkdl_tpu_torch.models.layers import BatchNorm
 
 _LEAF = {"kernel": "weight", "embedding": "weight", "scale": "weight", "bias": "bias"}
 _LAYER = re.compile(r"layer_(\d+)$")
@@ -96,15 +103,16 @@ def bert_params_from_flax(tree: Any, config: BertConfig) -> Dict[str, torch.Tens
     return state
 
 
-def resnet_params_from_flax(variables: Any, module: ResNet) -> Dict[str, torch.Tensor]:
-    """Map flax ResNet variables (``{"params": ..., "batch_stats": ...}``,
-    numpy arrays or anything ``np.asarray`` takes) onto ``module``'s
-    ``state_dict`` (f32 CPU tensors). Raises if a flax leaf has no place
-    in the port or a port entry gets no flax leaf."""
+def cnn_params_from_flax(variables: Any, module: nn.Module) -> Dict[str, torch.Tensor]:
+    """Map a flax image model's variables (``{"params": ...,
+    "batch_stats": ...}``, numpy arrays or anything ``np.asarray`` takes)
+    onto ``module``'s ``state_dict`` (f32 CPU tensors). Raises if a flax
+    leaf has no place in the port or a port entry gets no flax leaf."""
+    family = type(module).__name__
     unknown = set(variables) - {"params", "batch_stats"}
     if unknown:
         raise ValueError(
-            f"unexpected flax collections {sorted(unknown)}; a ResNet has "
+            f"unexpected flax collections {sorted(unknown)}; a {family} has "
             "'params' and 'batch_stats'"
         )
     state: Dict[str, torch.Tensor] = {}
@@ -130,20 +138,20 @@ def resnet_params_from_flax(variables: Any, module: ResNet) -> Dict[str, torch.T
     missing, extra = want - set(state), set(state) - want
     if missing or extra:
         raise ValueError(
-            f"flax variables do not match the ResNet geometry: missing "
+            f"flax variables do not match the {family} geometry: missing "
             f"{sorted(missing)}, unexpected {sorted(extra)}"
         )
     return state
 
 
-def resnet_params_to_flax(module: ResNet) -> Dict[str, Dict[str, Any]]:
-    """``module``'s weights as flax ResNet variables (``{"params": ...,
+def cnn_params_to_flax(module: nn.Module) -> Dict[str, Dict[str, Any]]:
+    """``module``'s weights as flax variables (``{"params": ...,
     "batch_stats": ...}`` of f32 numpy arrays), the inverse of
-    :func:`resnet_params_from_flax`."""
+    :func:`cnn_params_from_flax`."""
     variables: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
     for name, mod in module.named_modules():
         if isinstance(mod, nn.Conv2d):
-            leaves = {"params": {"kernel": mod.weight.permute(2, 3, 1, 0)}}
+            leaves = {"params": {"kernel": mod.weight.permute(2, 3, 1, 0), "bias": mod.bias}}
         elif isinstance(mod, nn.Linear):
             leaves = {"params": {"kernel": mod.weight.T, "bias": mod.bias}}
         elif isinstance(mod, BatchNorm):
@@ -158,5 +166,6 @@ def resnet_params_to_flax(module: ResNet) -> Dict[str, Dict[str, Any]]:
             for part in name.split("."):
                 node = node.setdefault(part, {})
             for leaf, t in named.items():
-                node[leaf] = np.ascontiguousarray(t.detach().float().cpu().numpy())
+                if t is not None:
+                    node[leaf] = np.ascontiguousarray(t.detach().float().cpu().numpy())
     return variables

@@ -1,6 +1,7 @@
 """Named model registry: text models ``bert-base``, ``bert-tiny``,
-``bert-long-2048`` and the image model ``ResNet50``, in one namespace as in
-the JAX package.
+``bert-long-2048`` and the image models ``InceptionV3``, ``MobileNetV2``,
+``ResNet50``, ``VGG16``, ``VGG19`` and ``Xception``, in one namespace as in
+the JAX package, at its geometries.
 
 A text entry builds a :class:`~sparkdl_tpu_torch.graph.function.ModelFunction`
 over int32 token-id batches ``[B, L]`` producing ``[B, feature_dim]``
@@ -12,6 +13,8 @@ An image entry builds one over preprocessed NCHW float batches at the
 entry's geometry, producing pooled features, logits or probabilities.
 Its weights come from a ``torch.Generator`` seeded with ``seed``, or from
 a flax ``.npz`` that the JAX package's ``save_flax_weights`` wrote.
+ResNet101 and ResNet152 are modules of both packages but, as in the JAX
+registry, not registered models.
 """
 
 from __future__ import annotations
@@ -32,9 +35,14 @@ from sparkdl_tpu_torch.models.bert import (
 )
 from sparkdl_tpu_torch.models.convert import (
     bert_params_from_flax,
-    resnet_params_from_flax,
+    cnn_params_from_flax,
 )
-from sparkdl_tpu_torch.models.resnet import ResNet50, init_resnet_params
+from sparkdl_tpu_torch.models.inception import InceptionV3
+from sparkdl_tpu_torch.models.layers import init_cnn_params
+from sparkdl_tpu_torch.models.mobilenet import MobileNetV2
+from sparkdl_tpu_torch.models.resnet import ResNet50
+from sparkdl_tpu_torch.models.vgg import VGG16, VGG19
+from sparkdl_tpu_torch.models.xception import Xception
 from sparkdl_tpu_torch.ops.flash_attention import make_flash_attention_fn
 from sparkdl_tpu_torch.runtime.device import resolve_device
 
@@ -202,18 +210,26 @@ def save_flax_npz(tree: Any, path: str) -> None:
     np.savez(path, **flat)
 
 
-def _resnet_builder(module_factory: Callable[..., nn.Module]):
-    """Builder over a ResNet factory (``ResNet50``, ...)."""
+def _cnn_builder(module_factory: Callable[..., nn.Module]):
+    """Builder over an image-model factory (``ResNet50``, ``InceptionV3``,
+    ...) that takes ``dtype``, ``num_classes`` and ``input_size``."""
 
     def build(spec: NamedImageModel, mode: str, dtype, weights_file, seed,
               device) -> ModelFunction:
-        module = module_factory(dtype=dtype, num_classes=spec.num_classes)
+        # built without storage: every tensor is loaded or drawn below
+        with torch.device("meta"):
+            module = module_factory(
+                dtype=dtype, num_classes=spec.num_classes,
+                input_size=(spec.height, spec.width),
+            )
         if weights_file:
             module.load_state_dict(
-                resnet_params_from_flax(load_flax_npz(weights_file), module)
+                cnn_params_from_flax(load_flax_npz(weights_file), module),
+                assign=True,
             )
         else:
-            init_resnet_params(module, torch.Generator().manual_seed(seed))
+            module = module.to_empty(device="cpu")
+            init_cnn_params(module, torch.Generator().manual_seed(seed))
         module = module.cast_compute().to(
             device, memory_format=torch.channels_last
         ).eval()
@@ -236,6 +252,13 @@ def _resnet_builder(module_factory: Callable[..., nn.Module]):
     return build
 
 
+def _fixed_size(factory: Callable[..., nn.Module]) -> Callable[..., nn.Module]:
+    """A factory whose module takes any input size: drops ``input_size``."""
+    return lambda dtype, num_classes, input_size: factory(
+        dtype=dtype, num_classes=num_classes
+    )
+
+
 def param_bytes(tree: Any) -> int:
     """Total bytes of a model's parameters: a ModelFunction, an
     ``nn.Module``, or a (nested) mapping of tensors/arrays."""
@@ -255,12 +278,14 @@ def _register(spec: Union[NamedTextModel, NamedImageModel]) -> None:
     _REGISTRY[spec.name.lower()] = spec
 
 
-# ResNet50 at the upstream registry's geometry: 224x224, caffe, 2048-d
-_register(
-    NamedImageModel(
-        "ResNet50", 224, 224, "caffe", 2048, _resnet_builder(ResNet50)
-    )
-)
+# the JAX registry's image entries, at its geometries: name, H, W,
+# preprocessing, feature width
+_register(NamedImageModel("ResNet50", 224, 224, "caffe", 2048, _cnn_builder(_fixed_size(ResNet50))))
+_register(NamedImageModel("InceptionV3", 299, 299, "tf", 2048, _cnn_builder(_fixed_size(InceptionV3))))
+_register(NamedImageModel("Xception", 299, 299, "tf", 2048, _cnn_builder(_fixed_size(Xception))))
+_register(NamedImageModel("VGG16", 224, 224, "caffe", 512, _cnn_builder(VGG16)))
+_register(NamedImageModel("VGG19", 224, 224, "caffe", 512, _cnn_builder(VGG19)))
+_register(NamedImageModel("MobileNetV2", 224, 224, "tf", 1280, _cnn_builder(_fixed_size(MobileNetV2))))
 
 
 _register(

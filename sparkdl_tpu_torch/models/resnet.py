@@ -15,14 +15,7 @@ module's, layer for layer:
 
 Layout is NCHW; on the card the module and its input are kept in
 ``channels_last`` memory format, which cuDNN's convolutions take as they
-are. Precision follows flax: with ``dtype=bfloat16`` the convs and the
-head run in bf16 (their weights are stored in bf16 by
-:meth:`ResNet.cast_compute`); BatchNorm keeps float32 statistics and
-parameters, computes in float32 and rounds to bf16; global average
-pooling sums in float32 and rounds to bf16; the output is float32. With
-``dtype=float32`` the forward turns TF32 off for its own convs and head
-(:func:`~sparkdl_tpu_torch.runtime.device.exact_float32`): cuDNN would
-otherwise round their inputs to TF32 by PyTorch's default.
+are. Precision is the image models' policy (``models/layers.py``).
 
 Module names match the flax module's (``conv_init``, ``bn_init``,
 ``stage{i}_block{j}``, ``conv1``..``conv3``, ``conv_proj``, ``bn1``..,
@@ -33,33 +26,13 @@ ported; the converter rejects it.
 
 from __future__ import annotations
 
-import math
 from typing import List, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sparkdl_tpu_torch.runtime.device import exact_float32
-
-
-class BatchNorm(nn.Module):
-    """Inference-mode BatchNorm over NCHW channels with float32 scale, bias
-    and running statistics, whatever the input's dtype."""
-
-    def __init__(self, channels: int, eps: float = 1e-5):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("running_mean", torch.zeros(channels))
-        self.register_buffer("running_var", torch.ones(channels))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(
-            x, self.running_mean, self.running_var, self.weight, self.bias,
-            training=False, momentum=0.0, eps=self.eps,
-        )
+from sparkdl_tpu_torch.models.layers import BatchNorm, ImageCNN, global_mean
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1, pad: int = 0) -> nn.Conv2d:
@@ -89,19 +62,13 @@ class BottleneckBlock(nn.Module):
         return F.relu(y + residual)
 
 
-class ResNet(nn.Module):
-    """Bottleneck ResNet; ``stage_sizes`` gives the blocks per stage.
-
-    ``forward(x)`` returns float32 logits; ``forward(x, features_only=True)``
-    the float32 pooled features (2048-d for ResNet50), the
-    DeepImageFeaturizer output. ``x`` is an NCHW float batch of
-    preprocessed RGB images; it is cast to ``dtype`` first.
-    """
+class ResNet(ImageCNN):
+    """Bottleneck ResNet; ``stage_sizes`` gives the blocks per stage. The
+    pooled features are 2048-d for ResNet50."""
 
     def __init__(self, stage_sizes: Sequence[int], num_classes: int = 1000,
                  dtype: torch.dtype = torch.float32):
-        super().__init__()
-        self.dtype = dtype
+        super().__init__(dtype)
         self.conv_init = _conv(3, 64, 7, stride=2, pad=3)
         self.bn_init = BatchNorm(64)
         self.block_names: List[str] = []
@@ -120,31 +87,13 @@ class ResNet(nn.Module):
                 channels = filters * 4
         self.head = nn.Linear(channels, num_classes)
 
-    def cast_compute(self) -> "ResNet":
-        """Store the conv and head weights (and the head bias) in the
-        compute dtype; BatchNorm stays float32."""
-        for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                m.to(self.dtype)
-        return self
-
-    def forward(self, x: torch.Tensor, features_only: bool = False) -> torch.Tensor:
-        if self.dtype == torch.float32:
-            with exact_float32():
-                return self._forward(x, features_only)
-        return self._forward(x, features_only)
-
     def _forward(self, x: torch.Tensor, features_only: bool) -> torch.Tensor:
-        x = x.to(self.dtype)
         x = F.relu(self.bn_init(self.conv_init(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for name in self.block_names:
             x = getattr(self, name)(x)
-        # global average pool: float32 sum, rounded to the compute dtype
-        x = torch.mean(x, dim=(2, 3), dtype=torch.float32).to(self.dtype)
-        if features_only:
-            return x.float()
-        return self.head(x).float()
+        x = global_mean(x)
+        return x if features_only else self.head(x)
 
 
 def ResNet50(dtype: torch.dtype = torch.float32, num_classes: int = 1000) -> ResNet:
@@ -157,29 +106,3 @@ def ResNet101(dtype: torch.dtype = torch.float32, num_classes: int = 1000) -> Re
 
 def ResNet152(dtype: torch.dtype = torch.float32, num_classes: int = 1000) -> ResNet:
     return ResNet([3, 8, 36, 3], num_classes=num_classes, dtype=dtype)
-
-
-def _lecun_normal_(weight: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
-    """flax's ``lecun_normal``: a normal truncated at two standard
-    deviations, scaled so the variance is 1/fan_in."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=gen)
-
-
-@torch.no_grad()
-def init_resnet_params(module: ResNet, gen: torch.Generator) -> None:
-    """Seeded init with flax's distributions: lecun-normal conv and dense
-    weights, zero head bias, BatchNorm scale 1, bias 0, mean 0, var 1.
-    Draws in module order from ``gen`` (a CPU generator gives the same
-    weights wherever the module then goes)."""
-    for m in module.modules():
-        if isinstance(m, nn.Conv2d):
-            _lecun_normal_(m.weight, m.weight[0].numel(), gen)
-        elif isinstance(m, nn.Linear):
-            _lecun_normal_(m.weight, m.in_features, gen)
-            m.bias.zero_()
-        elif isinstance(m, BatchNorm):
-            m.weight.fill_(1.0)
-            m.bias.zero_()
-            m.running_mean.zero_()
-            m.running_var.fill_(1.0)

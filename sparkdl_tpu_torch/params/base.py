@@ -97,6 +97,12 @@ class TypeConverters:
         return convert
 
     @staticmethod
+    def toBoolean(value: Any) -> bool:
+        if isinstance(value, bool):
+            return value
+        raise TypeError(f"Could not convert {value!r} to bool")
+
+    @staticmethod
     def toList(value: Any) -> list:
         if isinstance(value, (list, tuple)):
             return list(value)

@@ -1,19 +1,23 @@
-"""DeepImageFeaturizer: bottleneck features from a named image model.
+"""DeepImageFeaturizer and DeepImagePredictor over the named image models
+(InceptionV3, MobileNetV2, ResNet50, VGG16, VGG19, Xception).
 
 Port of the JAX package's ``transformers/named_image.py``: a registry
 lookup (geometry, preprocessing, feature width) wrapped around an inner
 :class:`~sparkdl_tpu_torch.transformers.image_model.ImageModelTransformer`
-that runs converter ∘ model ∘ flattener. ``DeepImagePredictor`` and its
-label decoding are not ported yet.
+that runs converter ∘ model ∘ flattener. The featurizer emits the pooled
+features, the predictor the class probabilities or their decoded top k.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import json
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from sparkdl_tpu_torch.dataframe import DataFrame
+from sparkdl_tpu_torch.models.keras_weights import imagenet_labels
 from sparkdl_tpu_torch.models.registry import get_image_model, supported_models
 from sparkdl_tpu_torch.params import (
     HasBatchSize,
@@ -138,3 +142,91 @@ class DeepImageFeaturizer(_NamedImageTransformer):
         kwargs = dict(self._input_kwargs)
         self._device = kwargs.pop("device", None)
         self._set(**kwargs)
+
+
+class DeepImagePredictor(_NamedImageTransformer):
+    """Class predictions from a named model.
+
+    The output column holds each row's probability vector; with
+    ``decodePredictions=True`` it holds the top ``topK`` classes instead,
+    as ``[{'classIdx', 'label', 'score'}, ...]`` by falling score. Labels
+    come from ``labelsFile`` (a JSON list, or a ``{idx: label}`` map), else
+    from keras' ``imagenet_class_index.json`` in ``$KERAS_HOME/models/``
+    (``~/.keras/models/``), else ``class_<idx>``. The JAX package looks in
+    its manifest's artifact store first; that store is not ported, and
+    nothing is fetched from the network. Null rows stay null.
+    """
+
+    _mode = "probabilities"
+
+    decodePredictions = Param(
+        None,
+        "decodePredictions",
+        "emit top-k decoded predictions instead of the raw probability vector",
+        TypeConverters.toBoolean,
+    )
+    topK = Param(None, "topK", "number of predictions to keep", TypeConverters.toInt)
+    labelsFile = Param(
+        None,
+        "labelsFile",
+        "JSON file with class labels (list or idx->label map)",
+        TypeConverters.toString,
+    )
+
+    @keyword_only
+    def __init__(
+        self,
+        inputCol: Optional[str] = None,
+        outputCol: Optional[str] = None,
+        modelName: Optional[str] = None,
+        weightsFile: Optional[str] = None,
+        computeDtype: Optional[str] = None,
+        batchSize: Optional[int] = None,
+        decodePredictions: bool = False,
+        topK: Optional[int] = None,
+        labelsFile: Optional[str] = None,
+        device=None,
+    ):
+        super().__init__()
+        self._setDefault(
+            batchSize=32, computeDtype="bfloat16", decodePredictions=False, topK=5
+        )
+        kwargs = dict(self._input_kwargs)
+        self._device = kwargs.pop("device", None)
+        self._set(**kwargs)
+
+    def _labels(self) -> Optional[Dict[int, str]]:
+        if self.isDefined("labelsFile"):
+            with open(self.getOrDefault("labelsFile")) as f:
+                blob = json.load(f)
+            if isinstance(blob, list):
+                return dict(enumerate(blob))
+            return {int(k): v for k, v in blob.items()}
+        try:
+            return imagenet_labels()
+        except (OSError, ValueError):
+            return None
+
+    def _transform(self, dataset: DataFrame) -> DataFrame:
+        out = super()._transform(dataset)
+        if not self.getOrDefault("decodePredictions"):
+            return out
+        k = self.getOrDefault("topK")
+        labels = self._labels() or {}
+        out_col = self.getOutputCol()
+
+        def decode(row):
+            probs = row[out_col]
+            if probs is None:
+                return None
+            probs = np.asarray(probs)
+            return [
+                {
+                    "classIdx": int(i),
+                    "label": labels.get(int(i), f"class_{int(i)}"),
+                    "score": float(probs[i]),
+                }
+                for i in np.argsort(probs)[::-1][:k]
+            ]
+
+        return out.withColumn(out_col, decode)

@@ -1,6 +1,6 @@
 """The port's image path against the JAX package's: image structs, the
 host batch stage, the converter, ResNet with the JAX weights carried
-across by ``resnet_params_from_flax``, and DeepImageFeaturizer end to end.
+across by ``cnn_params_from_flax``, and DeepImageFeaturizer end to end.
 
 The same numpy-seeded inputs go to both packages. Tolerances: uint8
 batches exact; the converter at f32 atol 1e-5; ResNet f32 at a relative
@@ -36,17 +36,10 @@ from sparkdl_tpu_torch.graph import pieces
 from sparkdl_tpu_torch.graph.function import ModelFunction, piece
 from sparkdl_tpu_torch.image import imageIO
 from sparkdl_tpu_torch.models import get_image_model, get_model, supported_models
-from sparkdl_tpu_torch.models.convert import (
-    resnet_params_from_flax,
-    resnet_params_to_flax,
-)
+from sparkdl_tpu_torch.models.convert import cnn_params_from_flax, cnn_params_to_flax
+from sparkdl_tpu_torch.models.layers import BatchNorm, init_cnn_params
 from sparkdl_tpu_torch.models.registry import load_flax_npz, save_flax_npz
-from sparkdl_tpu_torch.models.resnet import (
-    BatchNorm,
-    ResNet,
-    ResNet50,
-    init_resnet_params,
-)
+from sparkdl_tpu_torch.models.resnet import ResNet, ResNet50
 from sparkdl_tpu_torch.transformers.image_model import ImageModelTransformer
 from sparkdl_tpu_torch.transformers.named_image import DeepImageFeaturizer
 
@@ -55,6 +48,8 @@ F32_REL = 1e-4
 #: largest gap measured on these inputs (1.3 % and 1.0 %)
 BF16_REL = (2.5e-2, 2e-2)
 SMALL_STAGES = (1, 1, 1, 1)
+#: the JAX registry's own image entries (tests may register more there)
+IMAGE_MODELS = ["InceptionV3", "MobileNetV2", "ResNet50", "VGG16", "VGG19", "Xception"]
 
 
 def _rel(a, b) -> float:
@@ -298,7 +293,7 @@ def resnet50_variables():
 
 def _port_resnet(stages, variables, dtype):
     module = ResNet(stages, dtype=dtype)
-    module.load_state_dict(resnet_params_from_flax(variables, module))
+    module.load_state_dict(cnn_params_from_flax(variables, module))
     return module.cast_compute().eval()
 
 
@@ -423,7 +418,7 @@ def test_f32_resnet_turns_tf32_off_in_its_own_forward():
 
 
 def test_resnet50_state_dict_matches_jax_variables(resnet50_variables):
-    state = resnet_params_from_flax(resnet50_variables, ResNet50())
+    state = cnn_params_from_flax(resnet50_variables, ResNet50())
     n_leaves = len(jax.tree_util.tree_leaves(resnet50_variables))
     assert len(state) == n_leaves == len(ResNet50().state_dict())
     k = resnet50_variables["params"]["stage2_block1"]["conv2"]["kernel"]
@@ -440,8 +435,8 @@ def test_port_weights_round_trip_through_a_flax_npz(small_variables, tmp_path):
     """The port writes what the JAX package reads: a ResNet's weights as
     flax variables, saved in ``save_flax_weights``' layout."""
     port = ResNet(SMALL_STAGES)
-    port.load_state_dict(resnet_params_from_flax(small_variables, port))
-    back = resnet_params_to_flax(port)
+    port.load_state_dict(cnn_params_from_flax(small_variables, port))
+    back = cnn_params_to_flax(port)
     flat = jax.tree_util.tree_leaves_with_path
     assert [p for p, _ in flat(back)] == [p for p, _ in flat(small_variables)]
     for (_, a), (_, b) in zip(flat(back), flat(small_variables)):
@@ -452,7 +447,7 @@ def test_port_weights_round_trip_through_a_flax_npz(small_variables, tmp_path):
     for (_, a), (_, b) in zip(flat(loaded), flat(small_variables)):
         np.testing.assert_array_equal(np.asarray(a), b)
     again = ResNet(SMALL_STAGES)
-    again.load_state_dict(resnet_params_from_flax(load_flax_npz(path), again))
+    again.load_state_dict(cnn_params_from_flax(load_flax_npz(path), again))
     torch.testing.assert_close(again.state_dict(), port.state_dict(), rtol=0, atol=0)
 
 
@@ -492,13 +487,13 @@ def test_converter_refuses_a_mismatched_tree(small_variables, mutate, error):
     variables = copy.deepcopy(small_variables)
     mutate(variables)
     with pytest.raises(ValueError, match=error):
-        resnet_params_from_flax(variables, ResNet(SMALL_STAGES))
+        cnn_params_from_flax(variables, ResNet(SMALL_STAGES))
 
 
 def test_seeded_init_follows_flax_distributions():
     gen = torch.Generator().manual_seed(0)
     net = ResNet(SMALL_STAGES, num_classes=10)
-    init_resnet_params(net, gen)
+    init_cnn_params(net, gen)
     w = net.stage4_block1.conv2.weight.detach()  # fan_in 512 * 9
     std = (1.0 / (512 * 9)) ** 0.5
     assert abs(float(w.std()) / std - 1.0) < 0.02
@@ -508,9 +503,9 @@ def test_seeded_init_follows_flax_distributions():
     assert bn.weight.eq(1).all() and not bn.bias.any()
     assert not bn.running_mean.any() and bn.running_var.eq(1).all()
     again = ResNet(SMALL_STAGES, num_classes=10)
-    init_resnet_params(again, torch.Generator().manual_seed(0))
+    init_cnn_params(again, torch.Generator().manual_seed(0))
     torch.testing.assert_close(again.state_dict(), net.state_dict(), rtol=0, atol=0)
-    init_resnet_params(again, torch.Generator().manual_seed(1))
+    init_cnn_params(again, torch.Generator().manual_seed(1))
     assert not torch.equal(again.conv_init.weight, net.conv_init.weight)
 
 
@@ -518,7 +513,8 @@ def test_seeded_init_follows_flax_distributions():
 
 
 def test_registry_image_entry_matches_jax(tmp_path):
-    assert supported_models(kind="image") == ["ResNet50"]
+    assert supported_models(kind="image") == IMAGE_MODELS
+    assert set(IMAGE_MODELS) <= set(jax_registry.supported_models(kind="image"))
     ours, ref = get_image_model("resnet50"), jax_registry.get_model("ResNet50")
     for field in ("name", "height", "width", "preprocessing", "feature_dim", "num_classes"):
         assert getattr(ours, field) == getattr(ref, field)
@@ -593,7 +589,8 @@ def test_featurizer_params_and_cache():
                                device="cpu")
     assert feat.getOrDefault("computeDtype") == "bfloat16"
     assert feat.getBatchSize() == 32
-    assert DeepImageFeaturizer.supportedModels() == ["ResNet50"]
+    assert DeepImageFeaturizer.supportedModels() == IMAGE_MODELS
+    assert set(IMAGE_MODELS) <= set(JaxFeaturizer.supportedModels())
     with pytest.raises(TypeError):
         DeepImageFeaturizer(computeDtype="float16")
     with pytest.raises(TypeError, match="keyword"):

@@ -90,21 +90,31 @@ def test_default_device_entry_point_raises_without_cuda(monkeypatch):
     )
     from sparkdl_tpu_torch.models import get_model
     from sparkdl_tpu_torch.runtime.device import resolve_device
-    from sparkdl_tpu_torch.transformers.named_image import DeepImageFeaturizer
+    from sparkdl_tpu_torch.transformers.named_image import (
+        DeepImageFeaturizer,
+        DeepImagePredictor,
+    )
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         get_model("bert-tiny").model_function()
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        get_model("ResNet50").model_function()
+    for name in ("ResNet50", "InceptionV3"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            get_model(name).model_function()
     images = DataFrame.fromColumns({"image": [None]})
     featurizer = DeepImageFeaturizer(
         inputCol="image", outputCol="features", modelName="ResNet50"
     )
     with pytest.raises(RuntimeError, match="device='cpu'"):
         featurizer.transform(images)
+    predictor = DeepImagePredictor(
+        inputCol="image", outputCol="pred", modelName="MobileNetV2",
+        decodePredictions=True,
+    )
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        predictor.transform(images)
     rows = DataFrame.fromColumns({"features": [np.ones(2)], "label": [0]})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LogisticRegression().fit(rows)
