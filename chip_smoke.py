@@ -72,6 +72,37 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     with one null: its probabilities against the CPU's (relative 1e-5),
     and each decoded row the top 5 of the card's own probabilities, under
     the file's labels.
+11. serving: ``Router()`` (the registry loader on cuda, random weights
+    from ``--seed``) behind ``ServingServer(router, port=0)``, with the
+    ``serve`` CLI's feeder settings (``SPARKDL_FEEDER_IDLE_S=0``,
+    ``SPARKDL_MAX_FEEDERS=32``) and
+    ``SPARKDL_SERVE_PRECISION_BATCH=bf16``: the interactive class serves
+    bert-base at f32, the batch class at bf16, so both flash kernels
+    launch from this path. After one warm-up request per model and rung:
+    64 bert-base ``embed`` requests over HTTP (1-4 rows of token ids,
+    widths 8-512 from the seed, half interactive, half batch) from 8
+    client threads, and 32 ResNet50 requests (1-2 NHWC 224x224 rows, f32)
+    of which 4 go over HTTP and the rest through ``ServingClient``; each
+    burst twice, cold (streams met for the first time) and warm, the warm
+    text burst under torch.profiler. Checks every reply row against the
+    registry's ModelFunction called directly on the card (bert-base f32
+    atol 1e-4, the bf16 rung atol 3e-2, ResNet50 relative 1e-5), and
+    every bert-base row against the dense-attention build, the flash
+    kernel's plain version, at phase 4's limits (f32 1e-3, bf16 3e-2); the
+    flash launches, counted by the wrapper and recorded by the profiler,
+    equal 12 x bert-base dispatches in each dtype; an unknown model and a
+    513-token request get 400; ``POST /admin/drain`` turns admission into
+    503 while the queued requests complete. Then a second router under
+    ``SPARKDL_SERVE_HBM_BUDGET_MB=500`` (bert-base or ResNet50 fits, not
+    both), f32: alternating models evict, ``memory_allocated`` moves by
+    the parameters swapped, and a reloaded model answers correctly.
+    Prints requests/s and rows/s per model, p50/p95 latency per class,
+    rows per dispatch, the feeder's staging and readback counts, the
+    feeders opened and closed by the cap, the router's and feeder's host
+    segments, the device busy share of the profiled burst, what the
+    closed router left allocated, and a launch probe (the same forwards
+    from one thread, as the device's launch thread issues them, and from
+    4 at once).
 
 The line before the last is the ``kernels`` JSON record (the f32 and the
 bf16 kernel at bert-base L=512, launches from each dtype's main-path run);
@@ -81,12 +112,17 @@ the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -108,7 +144,7 @@ from sparkdl_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_reference,
 )
-from sparkdl_tpu_torch.runtime import cuda_build
+from sparkdl_tpu_torch.runtime import cuda_build, knobs
 from sparkdl_tpu_torch.transformers.named_image import (
     DeepImageFeaturizer,
     DeepImagePredictor,
@@ -117,6 +153,10 @@ from sparkdl_tpu_torch.transformers.text import HashingTokenizer, TextEmbedder
 from sparkdl_tpu_torch.utils.metrics import metrics
 
 ATOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+#: bert-base embeddings through the flash kernel against the dense-attention
+#: build (the kernel's plain version inside the whole encoder): 12 layers
+#: of differently ordered sums in f32, bf16 activations in bf16
+DENSE_ATOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
 #: the bf16 kernel against the plain version with P rounded to bf16 as
 #: the kernel rounds it: what is left is the output's own bf16 rounding
 #: (rtol) and P elements that round the other way (atol)
@@ -173,6 +213,38 @@ LR_REG = {"ResNet50": 1e-4, "InceptionV3": 0.0}
 #: BGR colours of the two synthetic classes, and the noise around them
 CLASS_BGR = ((40, 60, 200), (200, 80, 40))
 NOISE = 40
+#: phase 11, serving: the models, where the router runs (None: its
+#: default, cuda), the requests and the client threads that send them,
+#: the SLA classes (SPARKDL_SERVE_PRECISION_BATCH=bf16 puts ``batch`` on
+#: the bf16 rung) and the eviction phase's budget, which holds bert-base
+#: (415.4 MiB of f32 parameters) or ResNet50 (97.7 MiB), not both
+SERVE_TEXT_MODEL = "bert-base"
+SERVE_IMAGE_MODEL = "ResNet50"
+SERVE_DEVICE = None
+SERVE_TEXT_REQUESTS = 64
+SERVE_IMAGE_REQUESTS = 32
+SERVE_IMAGE_HTTP = 4
+SERVE_CLIENT_THREADS = 8
+SERVE_CLASSES = ("interactive", "batch")
+SERVE_BUDGET_MB = 500
+#: what memory_allocated may gain at a model swap beyond the parameters:
+#: a cuBLAS workspace of a thread that had not run a GEMM yet
+SERVE_ALLOC_SLACK_MB = 64
+#: the launch probe: forwards, and the threads that share them
+SERVE_PROBE_BATCHES = 32
+SERVE_PROBE_THREADS = 4
+#: each burst runs twice: first on streams it meets for the first time
+SERVE_PASSES = ("cold", "warm")
+#: the router's and the feeder's host segments, as the metrics name them
+SERVE_SEGMENTS = (
+    ("queue wait", "serve.queue_wait"),
+    ("group wait", "serve.group_wait"),
+    ("group dispatch", "span.serve.dispatch"),
+    ("H2D issue", "span.h2d"),
+    ("stage claim", "span.stage_wait"),
+    ("device fn call", "span.dispatch"),
+    ("readback wait", "span.drain_wait"),
+)
 
 
 class PhaseError(RuntimeError):
@@ -429,7 +501,7 @@ def phase_main_path(seed: int, n_texts: int, device_name: str) -> dict:
         del dense_mf
         torch.cuda.empty_cache()
         err = max(float(np.abs(a - b).max()) for a, b in zip(flash, dense))
-        atol = 1e-3 if dtype == torch.float32 else 3e-2
+        atol = DENSE_ATOL[dtype]
         check(err <= atol, f"{tag}: flash vs dense embeddings differ by {err} > {atol}")
         print(
             f"main path bert-base {tag} on {device_name}: {len(texts)} rows, "
@@ -774,6 +846,413 @@ def phase_predictor(model: str, seed: int, tmp: str) -> None:
     os.remove(weights)
 
 
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
+def _percentiles_ms(seconds) -> str:
+    if not len(seconds):
+        return "no requests"
+    ms = np.asarray(seconds) * 1e3
+    return f"p50 {np.percentile(ms, 50):.2f} ms, p95 {np.percentile(ms, 95):.2f} ms (n={len(ms)})"
+
+
+def _post(base: str, body: dict, timeout: float = 300.0):
+    """One ``POST /v1/predict``: (status, headers, reply, seconds)."""
+    req = urllib.request.Request(
+        base + "/v1/predict", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"},
+    )
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            status, headers, raw = resp.status, resp.headers, resp.read()
+    except urllib.error.HTTPError as e:
+        status, headers, raw = e.code, e.headers, e.read()
+    return status, headers, json.loads(raw), time.perf_counter() - t0
+
+
+def _text_requests(seed: int, spec, n: int):
+    """``n`` embed requests of 1-4 rows; each request's width and each
+    row's own length (id 0 after it) drawn from ``seed`` in
+    [8, max_length]; classes alternate interactive, batch."""
+    rng = np.random.default_rng(seed + 11)
+    out = []
+    for i in range(n):
+        rows, width = int(rng.integers(1, 5)), int(rng.integers(8, spec.max_length + 1))
+        ids = rng.integers(4, spec.vocab_size, size=(rows, width)).astype(np.int32)
+        for r in range(rows):
+            ids[r, int(rng.integers(8, width + 1)):] = 0
+        out.append((ids, SERVE_CLASSES[i % 2]))
+    return out
+
+
+def _image_requests(seed: int, spec, n: int):
+    """``n`` requests of 1-2 preprocessed NHWC float32 rows (caffe-scale
+    values), all on the interactive class (the f32 rung)."""
+    rng = np.random.default_rng(seed + 12)
+    return [
+        rng.normal(0.0, 60.0, size=(int(rng.integers(1, 3)), spec.height, spec.width, 3)).astype(np.float32)
+        for _ in range(n)
+    ]
+
+
+def _direct(mf, x: np.ndarray, nhwc: bool) -> np.ndarray:
+    """Rows through the registry's ModelFunction called directly."""
+    t = torch.from_numpy(x).to(mf.device)
+    if nhwc:
+        t = t.permute(0, 3, 1, 2)
+    out = mf(t)
+    return out.float().cpu().numpy()
+
+
+def _feeder_counts(counters: dict) -> str:
+    def n(name):
+        return int(counters.get(name, 0))
+
+    return (
+        f"staged copies landed before dispatch {n('transfer.stage_hits')}, not yet "
+        f"{n('transfer.stage_misses')}; readback landed before the drain {n('feeder.readback_async_hits')}, "
+        f"not yet {n('feeder.readback_async_misses')}; feeders opened {n('feeder.opened')}, closed by "
+        f"the SPARKDL_MAX_FEEDERS={knobs.get_int('SPARKDL_MAX_FEEDERS')} cap {n('feeder.evicted')}"
+    )
+
+
+def _segments(timers: dict) -> str:
+    """Mean host milliseconds of the router's and the feeder's segments."""
+    parts = []
+    for label, key in SERVE_SEGMENTS:
+        t = timers.get(key)
+        if t and t["count"]:
+            parts.append(f"{label} {t['total_s'] / t['count'] * 1e3:.2f} ms x{t['count']}")
+    return ", ".join(parts)
+
+
+def _flash_kernel_counts(prof) -> dict:
+    """Launches of each flash kernel that torch.profiler recorded, by dtype."""
+    kernels = device_kernels(prof)
+    return {
+        dtype: sum(n for key, (_, n) in kernels.items() if name in key)
+        for dtype, name in zip((torch.bfloat16, torch.float32), FLASH_KERNEL_NAMES)
+    }
+
+
+def phase_serving(seed: int, device_name: str) -> None:
+    """Phase 11: the online serving path on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparkdl_tpu_torch.graph.precision import edge_casts
+    from sparkdl_tpu_torch.runtime.feeder import shutdown_feeders
+    from sparkdl_tpu_torch.serving import Router, ServingClient, ServingServer
+    from sparkdl_tpu_torch.serving.__main__ import serving_env_defaults
+
+    card = f"{device_name} ({_smi()})"
+    text_spec, image_spec = get_model(SERVE_TEXT_MODEL), get_model(SERVE_IMAGE_MODEL)
+    os.environ["SPARKDL_SERVE_PRECISION_BATCH"] = "bf16"
+    for name in ("SPARKDL_FEEDER_IDLE_S", "SPARKDL_MAX_FEEDERS", "SPARKDL_SERVE_HBM_BUDGET_MB"):
+        os.environ.pop(name, None)
+    serving_env_defaults()  # the serve CLI's feeder keepalive and registry cap
+    allocated_before = torch.cuda.memory_allocated()
+    router = Router(seed=seed, device=SERVE_DEVICE)
+    server = ServingServer(router, port=0)
+    client = ServingClient(router)
+    base = f"http://127.0.0.1:{server.port}"
+    texts = _text_requests(seed, text_spec, SERVE_TEXT_REQUESTS)
+    images = _image_requests(seed, image_spec, SERVE_IMAGE_REQUESTS)
+
+    def text_body(ids, cls):
+        return {"model": SERVE_TEXT_MODEL, "inputs": ids.tolist(), "dtype": "int32",
+                "mode": "embed", "priority": cls}
+
+    # warm-up: each model and rung loads once, outside the timed bursts
+    t0 = time.perf_counter()
+    for ids, cls in texts[:2]:
+        status, _, reply, _ = _post(base, text_body(ids, cls))
+        check(status == 200, f"serving warm-up {cls}: HTTP {status} {reply}")
+    client.predict(SERVE_IMAGE_MODEL, images[0], priority="interactive", timeout=300)
+    print(f"serving: router on {router.device}, models loaded and warm in {time.perf_counter() - t0:.2f} s "
+          f"(resident: {[(m['name'], m['precision'], m['param_mb']) for m in router.stats()['models']]})")
+
+    # The text burst over HTTP from SERVE_CLIENT_THREADS threads, twice:
+    # the cold pass meets each (rung, batch size, sequence bucket) stream
+    # for the first time (its feeder threads, pinned buffers, cuBLAS
+    # handles and GEMM shapes), the warm pass runs under torch.profiler.
+    text_rows = sum(len(ids) for ids, _ in texts)
+    text_passes = {}
+    for name in SERVE_PASSES:
+        metrics.reset()
+        flash_attention.launches = 0
+        flash_attention.launches_by_dtype = dict.fromkeys(flash_attention.launches_by_dtype, 0)
+        with profile(activities=[ProfilerActivity.CUDA]) if name == "warm" else nullcontext() as prof:
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(SERVE_CLIENT_THREADS) as pool:
+                replies = list(pool.map(lambda r: _post(base, text_body(*r)), texts))
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+        launched = dict(flash_attention.launches_by_dtype)
+        snap = metrics.snapshot()
+        counters = snap["counters"]
+        dispatches = {
+            dtype: int(counters.get(f"serve.dispatches.{SERVE_TEXT_MODEL}.{rung}", 0))
+            for dtype, rung in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))
+        }
+        for (ids, cls), (status, _, reply, _) in zip(texts, replies):
+            check(status == 200, f"serving text {cls}: HTTP {status} {reply}")
+            check(reply["precision"] == ("bf16" if cls == "batch" else "f32"),
+                  f"serving text {cls}: served at {reply['precision']}")
+        recorded = _flash_kernel_counts(prof) if prof is not None else launched
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = str(dtype)[6:]
+            check(launched[dtype] > 0, f"serving: the {tag} flash kernel was never launched")
+            check(
+                launched[dtype] == recorded[dtype] == BERT_BASE_LAYERS * dispatches[dtype],
+                f"serving {tag}: flash launches counted {launched[dtype]}, recorded by the profiler "
+                f"{recorded[dtype]}, expected {BERT_BASE_LAYERS} x {dispatches[dtype]} dispatches",
+            )
+        busy_note = ""
+        if prof is not None:
+            busy = sum(sec for sec, _ in device_kernels(prof).values())
+            check(busy > 0, "serving: the profiler saw no device time in the text burst")
+            busy_note = (f"; device busy {busy:.3f} s of {wall:.3f} s (share {busy / wall:.3f}), "
+                         f"the profiler recorded the same flash launches")
+        print(
+            f"serving text burst {SERVE_TEXT_MODEL}, {name} pass, on {card}: {len(texts)} HTTP requests "
+            f"({text_rows} rows, widths 8-{text_spec.max_length}) from {SERVE_CLIENT_THREADS} threads in "
+            f"{wall:.3f} s = {len(texts) / wall:.1f} requests/s, {text_rows / wall:.1f} rows/s; "
+            f"{int(counters['serve.dispatches'])} dispatches (f32 {dispatches[torch.float32]}, bf16 "
+            f"{dispatches[torch.bfloat16]}), {counters['serve.dispatched_rows'] / counters['serve.dispatches']:.2f} "
+            f"real rows per dispatch; flash launches f32 {launched[torch.float32]}, bf16 "
+            f"{launched[torch.bfloat16]} (= {BERT_BASE_LAYERS} x dispatches){busy_note}; "
+            f"{_feeder_counts(counters)}"
+        )
+        for cls in SERVE_CLASSES:
+            client_s = [rep[3] for (_, c), rep in zip(texts, replies) if c == cls]
+            timer = snap["timers"][f"serve.latency.{cls}"]
+            print(f"serving text latency {cls} ({'bf16' if cls == 'batch' else 'f32'} rung), {name} pass, on "
+                  f"{card}: HTTP round trip {_percentiles_ms(client_s)}; router submit-to-result p50 "
+                  f"{timer['p50_s'] * 1e3:.2f} ms, p95 {timer['p95_s'] * 1e3:.2f} ms")
+        print(f"serving text segments, {name} pass: {_segments(snap['timers'])}")
+        text_passes[name] = replies
+
+    # the image burst: a few requests over HTTP, the rest through the
+    # client; cold, then warm
+    def image_call(i):
+        x = images[i]
+        if i < SERVE_IMAGE_HTTP:
+            status, _, reply, dt = _post(base, {"model": SERVE_IMAGE_MODEL, "inputs": x.tolist(),
+                                                "priority": "interactive"})
+            check(status == 200, f"serving image over HTTP: {status} {reply}")
+            return np.asarray(reply["outputs"], np.float32), dt
+        t = time.perf_counter()
+        out = client.predict(SERVE_IMAGE_MODEL, x, priority="interactive", timeout=300)
+        return out, time.perf_counter() - t
+
+    image_rows = sum(len(x) for x in images)
+    image_passes = {}
+    for name in SERVE_PASSES:
+        metrics.reset()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(SERVE_CLIENT_THREADS) as pool:
+            replies = list(pool.map(image_call, range(len(images))))
+        wall = time.perf_counter() - t0
+        snap = metrics.snapshot()
+        counters = snap["counters"]
+        http_s = [dt for i, (_, dt) in enumerate(replies) if i < SERVE_IMAGE_HTTP]
+        client_s = [dt for i, (_, dt) in enumerate(replies) if i >= SERVE_IMAGE_HTTP]
+        print(
+            f"serving image burst {SERVE_IMAGE_MODEL} {image_spec.height}x{image_spec.width} f32, {name} pass, "
+            f"on {card}: {len(images)} interactive requests ({image_rows} rows; {SERVE_IMAGE_HTTP} over HTTP, "
+            f"the rest through ServingClient) in {wall:.3f} s = {len(images) / wall:.1f} requests/s, "
+            f"{image_rows / wall:.1f} rows/s; latency over HTTP {_percentiles_ms(http_s)}, through the client "
+            f"{_percentiles_ms(client_s)}; {counters['serve.dispatched_rows'] / counters['serve.dispatches']:.2f} "
+            f"real rows per dispatch; {_feeder_counts(counters)}"
+        )
+        print(f"serving image segments, {name} pass: {_segments(snap['timers'])}")
+        image_passes[name] = replies
+
+    # refusals: an unknown model and an over-long payload are 400
+    status, _, reply, _ = _post(base, {"model": "no-such-model", "inputs": images[0].tolist()})
+    check(status == 400, f"serving: unknown model gave HTTP {status}, not 400")
+    long_ids = np.full((1, text_spec.max_length + 1), 7, np.int32)
+    status, _, reply, _ = _post(base, text_body(long_ids, "interactive"))
+    check(status == 400, f"serving: {long_ids.shape[1]} tokens gave HTTP {status}, not 400")
+
+    # every reply row against the registry's ModelFunction called directly
+    # (the same flash kernel), and against the dense-attention build, the
+    # kernel's plain version, at phase 4's limits
+    rungs = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+    def at_rung(mf, rung):  # the bf16 rung's edge casts, as the router's loader adds them
+        return edge_casts(mf, rung) if rung == "bf16" else mf
+
+    direct = {rung: at_rung(_direct_fn(text_spec, "embed", dtype, seed), rung) for rung, dtype in rungs.items()}
+    plain = {
+        rung: at_rung(_bert_text_builder(text_spec.size, attention="dense")(
+            text_spec, mode="embed", dtype=dtype, seed=seed, params=None, device=torch.device("cuda")), rung)
+        for rung, dtype in rungs.items()
+    }
+    worst = {"f32": 0.0, "bf16": 0.0}
+    worst_plain = {"f32": 0.0, "bf16": 0.0}
+    expected_text = {}
+    for i, (ids, cls) in enumerate(texts):
+        rung = "bf16" if cls == "batch" else "f32"
+        want = _direct(direct[rung], ids, nhwc=False)
+        dense = _direct(plain[rung], ids, nhwc=False)
+        for replies in text_passes.values():
+            got = np.asarray(replies[i][2]["outputs"], np.float32)
+            check(got.shape == want.shape and np.isfinite(got).all(),
+                  f"serving text request {i}: {got.shape} replies for {want.shape}")
+            worst[rung] = max(worst[rung], float(np.abs(got - want).max()))
+            worst_plain[rung] = max(worst_plain[rung], float(np.abs(got - dense).max()))
+        if rung == "f32":
+            expected_text[i] = want
+    del direct, plain
+    image_direct = _direct_fn(image_spec, "features", torch.float32, seed)
+    expected_image = [_direct(image_direct, x, nhwc=True) for x in images]
+    del image_direct
+    image_err = max(
+        _relative_error(out, want)
+        for replies in image_passes.values()
+        for (out, _), want in zip(replies, expected_image)
+    )
+    print(
+        f"serving checks: {SERVE_TEXT_MODEL} replies vs the direct model max |diff| f32 {worst['f32']:.3e} "
+        f"(atol {ATOL[torch.float32]}), bf16 rung {worst['bf16']:.3e} (atol {ATOL[torch.bfloat16]}); vs the "
+        f"dense-attention build f32 {worst_plain['f32']:.3e} (atol {DENSE_ATOL[torch.float32]}), bf16 rung "
+        f"{worst_plain['bf16']:.3e} (atol {DENSE_ATOL[torch.bfloat16]}); {SERVE_IMAGE_MODEL} relative error "
+        f"{image_err:.3e} (limit {IMAGE_F32_REL}); unknown model and {long_ids.shape[1]} tokens: 400"
+    )
+    for rung, dtype in rungs.items():
+        check(worst[rung] <= ATOL[dtype], f"serving {rung} text replies off the direct model by {worst[rung]}")
+        check(worst_plain[rung] <= DENSE_ATOL[dtype],
+              f"serving {rung} text replies off the dense-attention build by {worst_plain[rung]}")
+    check(image_err <= IMAGE_F32_REL, f"serving image replies: relative error {image_err:.3e}")
+
+    # drain: admission turns to 503 while the queued requests complete
+    queued = [client.submit(SERVE_IMAGE_MODEL, x, priority="batch" if i % 2 else "interactive")
+              for i, x in enumerate(images[:8])]
+    req = urllib.request.Request(base + "/admin/drain", data=b"{}", method="POST")
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        check(json.loads(resp.read())["status"] == "draining", "serving: /admin/drain did not drain")
+    status, headers, reply, _ = _post(base, text_body(*texts[0]))
+    check(status == 503 and headers.get("Retry-After"), f"serving while draining: HTTP {status}, not 503")
+    drained = [r.result(timeout=300) for r in queued]
+    check(router.wait_drained(timeout=120), "serving: the drain did not finish")
+    print(f"serving drain: /admin/drain, then HTTP 503 with Retry-After {headers.get('Retry-After')} s; "
+          f"{len(drained)} queued requests completed; resident models after the drain: {router.stats()['models']}")
+    server.stop(close_router=True)
+    del router, client, server
+    gc.collect()
+    # what the closed router left on the card: no model is resident, and
+    # the launch thread (and this one, through the direct models) hold a
+    # cuBLAS workspace for each (handle, stream) they ran a GEMM on
+    left = torch.cuda.memory_allocated()
+    clear_workspaces = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear_workspaces is not None:
+        clear_workspaces()
+    print(
+        f"serving router closed: memory_allocated {allocated_before / 2**20:.1f} MiB before the router, "
+        f"{left / 2**20:.1f} MiB after it closed with no model resident, "
+        + (f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB after clearing the cuBLAS workspaces"
+           if clear_workspaces is not None else "cuBLAS workspaces not cleared (no such call)")
+    )
+    _launch_probe(_direct_fn(text_spec, "embed", torch.float32, seed), text_spec, seed, card)
+
+    # eviction under a budget that holds one model, f32 rung only
+    os.environ.pop("SPARKDL_SERVE_PRECISION_BATCH")
+    os.environ["SPARKDL_SERVE_HBM_BUDGET_MB"] = str(SERVE_BUDGET_MB)
+    router = Router(seed=seed, device=SERVE_DEVICE)
+    client = ServingClient(router)
+    text_i = next(iter(expected_text))
+    evict0 = metrics.counter("serve.evictions")
+    steps = []
+    for model in (SERVE_TEXT_MODEL, SERVE_IMAGE_MODEL, SERVE_TEXT_MODEL, SERVE_IMAGE_MODEL):
+        before, ev = torch.cuda.memory_allocated(), metrics.counter("serve.evictions")
+        if model == SERVE_TEXT_MODEL:
+            out = client.predict(model, texts[text_i][0], priority="interactive", mode="embed", timeout=300)
+            err = float(np.abs(out - expected_text[text_i]).max())
+            check(err <= ATOL[torch.float32], f"eviction: {model} after a reload off by {err}")
+        else:
+            out = client.predict(model, images[1], priority="interactive", timeout=300)
+            err = _relative_error(out, expected_image[1])
+            check(err <= IMAGE_F32_REL, f"eviction: {model} after a reload off by {err:.3e}")
+        gc.collect()
+        after = torch.cuda.memory_allocated()
+        steps.append((model, int(metrics.counter("serve.evictions") - ev), before, after, err))
+        check(router.residency.resident_bytes() <= router.residency.budget_bytes(),
+              "eviction: resident parameters over the budget")
+    print(f"serving eviction (SPARKDL_SERVE_HBM_BUDGET_MB={SERVE_BUDGET_MB}) on {card}: " + "; ".join(
+        f"{m}: {n} evicted, memory_allocated {b / 2**20:.1f} -> {a / 2**20:.1f} MiB, err {e:.2e}"
+        for m, n, b, a, e in steps))
+    check(all(n >= 1 for _, n, _, _, _ in steps[1:]), f"eviction: a load evicted nothing: {steps}")
+    # each load after the first replaced the other model: memory_allocated
+    # moves by the difference of their parameter bytes (less, plus 10 % and
+    # SERVE_ALLOC_SLACK_MB of workspaces), so the victim's parameters left
+    param_mb = {s.name: s.param_bytes_estimate() / 2**20 for s in (text_spec, image_spec)}
+    for (prev, *_), (model, _, before, after, _) in zip(steps, steps[1:]):
+        moved, expected = (after - before) / 2**20, param_mb[model] - param_mb[prev]
+        check(moved <= expected + 0.1 * abs(expected) + SERVE_ALLOC_SLACK_MB,
+              f"eviction: memory_allocated moved {moved:+.1f} MiB when {model} ({param_mb[model]:.1f} MiB) "
+              f"replaced {prev} ({param_mb[prev]:.1f} MiB)")
+    check(any(after < before for _, _, before, after, _ in steps[1:]),
+          "eviction: memory_allocated never fell after an eviction")
+    check(metrics.counter("serve.evictions") - evict0 >= 3, "eviction: fewer than 3 evictions")
+    router.close()
+    shutdown_feeders()
+    for name in ("SPARKDL_SERVE_HBM_BUDGET_MB", "SPARKDL_FEEDER_IDLE_S", "SPARKDL_MAX_FEEDERS"):
+        os.environ.pop(name, None)
+
+
+def _launch_probe(mf, spec, seed: int, card: str) -> None:
+    """Host wall of SERVE_PROBE_BATCHES forwards of ``mf`` (4 rows of
+    width 256) on the serving compute stream: launched from one thread in
+    turn, as the device's launch thread issues the feeders' forwards, then
+    split over SERVE_PROBE_THREADS threads at once, as feeder threads
+    calling the model themselves would; each run ends in a synchronize.
+    Isolates what concurrent launching costs the host."""
+    import threading
+
+    from sparkdl_tpu_torch.runtime.device import compute_stream
+
+    stream = compute_stream(torch.device(mf.device))
+    rng = np.random.default_rng(seed + 13)
+    width = min(256, spec.max_length)
+    ids = torch.from_numpy(rng.integers(4, spec.vocab_size, size=(4, width)).astype(np.int32)).to(mf.device)
+
+    def work(n):
+        with torch.cuda.stream(stream):
+            for _ in range(n):
+                mf(ids)
+
+    work(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    work(SERVE_PROBE_BATCHES)
+    torch.cuda.synchronize()
+    one = time.perf_counter() - t0
+    threads = [threading.Thread(target=work, args=(SERVE_PROBE_BATCHES // SERVE_PROBE_THREADS,))
+               for _ in range(SERVE_PROBE_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    many = time.perf_counter() - t0
+    print(f"serving launch probe on {card}: {SERVE_PROBE_BATCHES} {spec.name} f32 forwards (4 x {width} tokens) "
+          f"from 1 thread {one:.3f} s ({one / SERVE_PROBE_BATCHES * 1e3:.2f} ms each), from "
+          f"{SERVE_PROBE_THREADS} threads at once {many:.3f} s ({many / SERVE_PROBE_BATCHES * 1e3:.2f} ms each)")
+
+
+def _direct_fn(spec, mode: str, dtype, seed: int):
+    """The registry's ModelFunction of ``spec`` at ``dtype``, seeded as
+    the serving loader seeds it."""
+    return spec.model_function(mode=mode, dtype=dtype, seed=seed, device=SERVE_DEVICE)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -810,6 +1289,9 @@ def main(argv=None) -> int:
             phase_family(model, args.seed, device_name, tmp)
             done(f"phase 10 {model}")
         phase_predictor(PREDICTOR_MODEL, args.seed, tmp)
+    done("phase 10")
+    phase_serving(args.seed, device_name)
+    done("phase 11")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[torch.float32], records[torch.bfloat16]]}))
     print(json.dumps({

@@ -37,6 +37,8 @@ class ModelFunction:
             (``(height, width, channels)`` for image models), else None.
         input_dtype: dtype the model takes its input in (image models: the
             compute dtype, so the converter casts once), else None.
+        precision: the serving precision rung the function was built at
+            (``graph/precision.py``), or None for a plain build.
     """
 
     fn: Callable[[nn.Module, Any], torch.Tensor]
@@ -46,6 +48,7 @@ class ModelFunction:
     vocab_size: Optional[int] = None
     input_shape: Optional[tuple] = None
     input_dtype: Optional[torch.dtype] = None
+    precision: Optional[str] = None
 
     def __call__(self, x):
         with torch.inference_mode():

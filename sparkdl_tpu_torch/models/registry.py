@@ -15,6 +15,11 @@ Its weights come from a ``torch.Generator`` seeded with ``seed``, or from
 a flax ``.npz`` that the JAX package's ``save_flax_weights`` wrote.
 ResNet101 and ResNet152 are modules of both packages but, as in the JAX
 registry, not registered models.
+
+What serving residency and ``GET /v1/models`` read off a spec:
+``param_bytes_estimate()`` (the float32 parameter bytes of a module built
+on the ``meta`` device: shapes only, no storage) and ``input_dtype`` (the
+wire dtype).
 """
 
 from __future__ import annotations
@@ -46,6 +51,17 @@ from sparkdl_tpu_torch.models.xception import Xception
 from sparkdl_tpu_torch.ops.flash_attention import make_flash_attention_fn
 from sparkdl_tpu_torch.runtime.device import resolve_device
 
+#: name -> parameter-byte estimate (building a module, even on meta,
+#: takes a few hundred ms; GET /v1/models asks for every entry)
+_ESTIMATE_CACHE: Dict[str, int] = {}
+
+
+def _meta_param_bytes(name: str, factory: Callable[[], nn.Module]) -> int:
+    if name not in _ESTIMATE_CACHE:
+        with torch.device("meta"):
+            _ESTIMATE_CACHE[name] = param_bytes(factory())
+    return _ESTIMATE_CACHE[name]
+
 
 @dataclass(frozen=True)
 class NamedTextModel:
@@ -56,6 +72,17 @@ class NamedTextModel:
     feature_dim: int
     builder: Callable[..., ModelFunction]
     vocab_size: int = 30522
+    #: the BERT_CONFIGS preset the builder builds
+    size: str = "base"
+
+    @property
+    def input_dtype(self) -> str:
+        return "int32"
+
+    def param_bytes_estimate(self) -> int:
+        """float32 parameter bytes, from a module built on ``meta``."""
+        config = BERT_CONFIGS[self.size]
+        return _meta_param_bytes(self.name, lambda: BertEncoder(config, dense_attention))
 
     def model_function(
         self,
@@ -142,10 +169,26 @@ class NamedImageModel:
     feature_dim: int
     builder: Callable[..., ModelFunction]
     num_classes: int = 1000
+    #: (dtype=, num_classes=, input_size=) -> the module the builder builds
+    module_factory: Optional[Callable[..., nn.Module]] = None
 
     @property
     def input_shape(self) -> Tuple[int, int, int]:
         return (self.height, self.width, 3)
+
+    @property
+    def input_dtype(self) -> str:
+        """The wire dtype of a row: preprocessed NHWC float32."""
+        return "float32"
+
+    def param_bytes_estimate(self) -> Optional[int]:
+        """float32 parameter bytes, from a module built on ``meta``."""
+        if self.module_factory is None:
+            return None
+        return _meta_param_bytes(self.name, lambda: self.module_factory(
+            dtype=torch.float32, num_classes=self.num_classes,
+            input_size=(self.height, self.width),
+        ))
 
     def model_function(
         self,
@@ -261,11 +304,15 @@ def _fixed_size(factory: Callable[..., nn.Module]) -> Callable[..., nn.Module]:
 
 def param_bytes(tree: Any) -> int:
     """Total bytes of a model's parameters: a ModelFunction, an
-    ``nn.Module``, or a (nested) mapping of tensors/arrays."""
+    ``nn.Module`` (its parameters and buffers, the BatchNorm statistics:
+    what the JAX package's variable tree holds), or a (nested) mapping of
+    tensors/arrays."""
     if isinstance(tree, ModelFunction):
         tree = tree.module
     if isinstance(tree, nn.Module):
-        return sum(p.nbytes for p in tree.parameters())
+        return sum(p.nbytes for p in tree.parameters()) + sum(
+            b.nbytes for b in tree.buffers()
+        )
     if hasattr(tree, "items"):
         return sum(param_bytes(v) for v in tree.values())
     return int(getattr(tree, "nbytes", 0))
@@ -278,34 +325,31 @@ def _register(spec: Union[NamedTextModel, NamedImageModel]) -> None:
     _REGISTRY[spec.name.lower()] = spec
 
 
+def _image(name, height, width, preprocessing, feature_dim, factory):
+    _register(NamedImageModel(
+        name, height, width, preprocessing, feature_dim, _cnn_builder(factory),
+        module_factory=factory,
+    ))
+
+
 # the JAX registry's image entries, at its geometries: name, H, W,
 # preprocessing, feature width
-_register(NamedImageModel("ResNet50", 224, 224, "caffe", 2048, _cnn_builder(_fixed_size(ResNet50))))
-_register(NamedImageModel("InceptionV3", 299, 299, "tf", 2048, _cnn_builder(_fixed_size(InceptionV3))))
-_register(NamedImageModel("Xception", 299, 299, "tf", 2048, _cnn_builder(_fixed_size(Xception))))
-_register(NamedImageModel("VGG16", 224, 224, "caffe", 512, _cnn_builder(VGG16)))
-_register(NamedImageModel("VGG19", 224, 224, "caffe", 512, _cnn_builder(VGG19)))
-_register(NamedImageModel("MobileNetV2", 224, 224, "tf", 1280, _cnn_builder(_fixed_size(MobileNetV2))))
+_image("ResNet50", 224, 224, "caffe", 2048, _fixed_size(ResNet50))
+_image("InceptionV3", 299, 299, "tf", 2048, _fixed_size(InceptionV3))
+_image("Xception", 299, 299, "tf", 2048, _fixed_size(Xception))
+_image("VGG16", 224, 224, "caffe", 512, VGG16)
+_image("VGG19", 224, 224, "caffe", 512, VGG19)
+_image("MobileNetV2", 224, 224, "tf", 1280, _fixed_size(MobileNetV2))
 
-
-_register(
-    NamedTextModel(
-        "bert-base", 512, 768, _bert_text_builder("base"),
-        vocab_size=30522,
-    )
-)
-_register(
-    NamedTextModel(
-        "bert-tiny", 128, 128, _bert_text_builder("tiny"),
-        vocab_size=1000,
-    )
-)
-_register(
-    NamedTextModel(
-        "bert-long-2048", 2048, 128, _bert_text_builder("long"),
-        vocab_size=8192,
-    )
-)
+for _name, _size, _max_length, _dim, _vocab in (
+    ("bert-base", "base", 512, 768, 30522),
+    ("bert-tiny", "tiny", 128, 128, 1000),
+    ("bert-long-2048", "long", 2048, 128, 8192),
+):
+    _register(NamedTextModel(
+        _name, _max_length, _dim, _bert_text_builder(_size),
+        vocab_size=_vocab, size=_size,
+    ))
 
 
 def get_model(name: str) -> Union[NamedTextModel, NamedImageModel]:
@@ -330,10 +374,35 @@ def get_image_model(name: str) -> NamedImageModel:
     return spec
 
 
-def supported_models(kind: Optional[str] = None) -> list:
+def supported_models(kind: Optional[str] = None, with_memory: bool = False) -> list:
     """Registered model names, sorted; ``kind`` ('text' or 'image')
-    filters."""
+    filters. ``with_memory=True`` returns one dict per model instead, with
+    its kind, geometry, wire dtype, modes and float32 parameter-byte
+    estimate: what ``GET /v1/models`` advertises."""
     if kind not in (None, "text", "image"):
         raise ValueError(f"kind must be 'text' or 'image', got {kind!r}")
     cls = {"text": NamedTextModel, "image": NamedImageModel}.get(kind, object)
-    return sorted(m.name for m in _REGISTRY.values() if isinstance(m, cls))
+    specs = sorted(
+        (m for m in _REGISTRY.values() if isinstance(m, cls)), key=lambda m: m.name
+    )
+    if not with_memory:
+        return [m.name for m in specs]
+    out = []
+    for spec in specs:
+        est = spec.param_bytes_estimate()
+        row = {
+            "name": spec.name,
+            "feature_dim": spec.feature_dim,
+            "input_dtype": spec.input_dtype,
+            "param_bytes": est,
+            "param_mb": None if est is None else round(est / 2**20, 2),
+        }
+        if isinstance(spec, NamedTextModel):
+            row.update(kind="text", max_length=spec.max_length, modes=["embed"])
+        else:
+            row.update(
+                kind="image", input_shape=list(spec.input_shape),
+                modes=["features", "logits", "probabilities"],
+            )
+        out.append(row)
+    return out

@@ -43,6 +43,8 @@ _HEAD_DIMS = (32, 64)
 
 _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+#: guards the launch counts: serving launches from several feeder threads
+_count_lock = threading.Lock()
 
 
 def _library() -> ctypes.CDLL:
@@ -191,13 +193,17 @@ def flash_attention(
             f"flash attention kernel launch failed: cudaError {err} "
             f"(B={B}, H={H}, L={L}, Dh={Dh}, dtype={q.dtype})"
         )
-    flash_attention.launches += 1
+    with _count_lock:
+        flash_attention.launches += 1
+        flash_attention.launches_by_dtype[q.dtype] += 1
     return out
 
 
 #: Kernel launches since the count was last set to 0 (CPU calls and
-#: failed launches are not counted).
+#: failed launches are not counted), in all and by dtype (the bf16 and the
+#: f32 kernel).
 flash_attention.launches = 0
+flash_attention.launches_by_dtype = dict.fromkeys(_DTYPES, 0)
 
 
 def make_flash_attention_fn():

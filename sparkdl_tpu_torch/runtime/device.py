@@ -1,13 +1,21 @@
-"""Device selection and float32 precision for the port's entry points."""
+"""Device selection, float32 precision, and the CUDA streams and the
+launch thread of the port's entry points."""
 
 from __future__ import annotations
 
+import queue
+import threading
+from concurrent.futures import Future
 from contextlib import contextmanager
-from typing import Iterator, Union
+from typing import Callable, Dict, Iterator, Optional, Tuple, Union
 
 import torch
 
 DeviceLike = Union[str, torch.device, None]
+
+_tf32_lock = threading.Lock()
+_tf32_holders = 0
+_tf32_saved: Optional[Tuple[bool, bool]] = None
 
 
 @contextmanager
@@ -16,17 +24,28 @@ def exact_float32() -> Iterator[None]:
 
     PyTorch lets cuDNN convolutions round float32 inputs to TF32 by default
     (``torch.backends.cudnn.allow_tf32``); a model that promises float32
-    results turns both TF32 switches off around its own forward and puts
-    back what the caller had. The switches are process-wide, so another
-    thread's float32 work inside this window also runs without TF32.
+    results turns both TF32 switches off around its own forward. The
+    switches are process-wide and two forwards may overlap on two threads
+    (a caller's thread and the serving launcher), so the window is
+    reference-counted under a lock: the first holder saves the caller's
+    switches and turns them off, the last one to leave puts them back.
+    Another thread's float32 work inside the window also runs without TF32.
     """
+    global _tf32_holders, _tf32_saved
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = (cudnn.allow_tf32, matmul.allow_tf32)
-    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    with _tf32_lock:
+        if _tf32_holders == 0:
+            _tf32_saved = (cudnn.allow_tf32, matmul.allow_tf32)
+            cudnn.allow_tf32 = matmul.allow_tf32 = False
+        _tf32_holders += 1
     try:
         yield
     finally:
-        cudnn.allow_tf32, matmul.allow_tf32 = saved
+        with _tf32_lock:
+            _tf32_holders -= 1
+            if _tf32_holders == 0:
+                cudnn.allow_tf32, matmul.allow_tf32 = _tf32_saved
+                _tf32_saved = None
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -43,3 +62,81 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             )
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+def _index(device: torch.device) -> int:
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+_streams_lock = threading.Lock()
+_compute_streams: Dict[int, "torch.cuda.Stream"] = {}
+_copy_streams: Dict[int, "torch.cuda.Stream"] = {}
+_launchers: Dict[int, "Launcher"] = {}
+
+
+def compute_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The one stream that serving and feeder compute runs on, per CUDA
+    device. Every model's batches are issued on it, so the flash kernel
+    (which launches on the current stream) and cuBLAS/cuDNN share one
+    order; the only cross-stream wait is on a staged input's copy."""
+    with _streams_lock:
+        idx = _index(device)
+        s = _compute_streams.get(idx)
+        if s is None:
+            s = _compute_streams[idx] = torch.cuda.Stream(idx)
+        return s
+
+
+def copy_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The host-to-device copy stream of ``device``, created once: one
+    PCIe link, one stream of copies riding under the compute stream."""
+    with _streams_lock:
+        idx = _index(device)
+        s = _copy_streams.get(idx)
+        if s is None:
+            s = _copy_streams[idx] = torch.cuda.Stream(idx)
+        return s
+
+
+class Launcher:
+    """One thread that runs the callables handed to it, in turn.
+
+    Eager PyTorch issues a forward's kernels from the calling thread's
+    host code. Several threads issuing forwards at once contend for the
+    interpreter lock and each gets a cuBLAS handle and workspace of its
+    own, so the shared feeder's owner threads (one per stream) hand their
+    forwards to the device's launcher instead of running them themselves.
+    :meth:`run` blocks until the callable has returned on the launcher
+    thread (its kernels are queued, not finished) and returns its result
+    or raises its exception. The thread is a daemon that waits on its
+    queue for the life of the process."""
+
+    def __init__(self, name: str):
+        self._q: "queue.SimpleQueue" = queue.SimpleQueue()
+        self.thread = threading.Thread(target=self._loop, name=name, daemon=True)
+        self.thread.start()
+
+    def run(self, fn: Callable, *args):
+        if threading.current_thread() is self.thread:
+            return fn(*args)
+        done = Future()
+        self._q.put((done, fn, args))
+        return done.result()
+
+    def _loop(self) -> None:
+        while True:
+            done, fn, args = self._q.get()
+            try:
+                done.set_result(fn(*args))
+            except BaseException as e:  # noqa: BLE001 - the caller re-raises
+                done.set_exception(e)
+
+
+def launcher(device: torch.device) -> Launcher:
+    """The launcher of CUDA ``device``, started on first use."""
+    with _streams_lock:
+        idx = _index(device)
+        la = _launchers.get(idx)
+        if la is None:
+            la = _launchers[idx] = Launcher(f"sparkdl-launch-cuda{idx}")
+        return la

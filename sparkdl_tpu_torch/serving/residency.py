@@ -1,0 +1,370 @@
+"""Multi-model device residency: load on demand, LRU-evict under budget.
+
+The port of the JAX package's ``serving/residency.py``. A serving process
+fields requests for many named models, but a card holds finite memory.
+The first request for a model loads it (builds the ModelFunction at the
+request's precision rung and wraps it in the device fn that the feeder
+dispatches through) and later requests reuse the resident copy. When
+loading one more model would push the resident parameter bytes past
+``SPARKDL_SERVE_HBM_BUDGET_MB``, the least-recently-used idle model is
+evicted first: its feeder streams are closed
+(``runtime.feeder.close_feeders_for``) and the entry drops its module and
+device fn, so its parameters leave the card once nothing else holds them.
+
+Two hard rules:
+
+- a model with open streams (requests in flight) is never evicted: a
+  pinned model stays, however far over budget the manager is. Pinning is
+  refcount-shaped: ``acquire`` pins, ``release`` unpins;
+- sizing is honest: the budget compares the parameter and buffer bytes
+  of the module actually loaded, so a bf16 rung charges its own bytes.
+
+The registry loader builds straight onto the card, so its victims are
+evicted before the build, sized by the registry's estimate; a custom
+loader's module is sized once it exists. The budget covers the modules
+only: activations, I/O buffers and each feeder thread's cuBLAS workspace
+come on top.
+
+Model resolution defaults to the named-model registry on the manager's
+device (``cuda`` unless the caller asks for the CPU), with random weights
+from ``seed``; any ``loader(name, mode)`` (or ``loader(name, mode,
+precision)``) returning a ModelFunction works the same, as in the JAX
+package.
+
+Not ported yet: KV-cache reservations and the generator branch (for
+generation), the memory ledger and its leak check, and mesh widths.
+"""
+
+from __future__ import annotations
+
+import inspect
+import math
+import threading
+import time
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from sparkdl_tpu_torch.runtime import knobs
+from sparkdl_tpu_torch.runtime.device import DeviceLike, resolve_device
+from sparkdl_tpu_torch.utils.metrics import metrics
+
+
+def hbm_budget_bytes() -> Optional[int]:
+    """``SPARKDL_SERVE_HBM_BUDGET_MB`` as bytes; None when unset or 0 (no
+    budget). Malformed or negative values raise: a fat-fingered budget
+    silently meaning "unbounded" is the OOM the knob exists to prevent."""
+    try:
+        mb = knobs.get_float("SPARKDL_SERVE_HBM_BUDGET_MB")
+    except ValueError as e:
+        raise ValueError(
+            f"{e}: expected a number of megabytes (0/unset disables the budget)"
+        ) from None
+    if mb is None:
+        return None
+    if not math.isfinite(mb) or mb < 0:
+        raise ValueError(
+            "SPARKDL_SERVE_HBM_BUDGET_MB="
+            f"{knobs.get_raw('SPARKDL_SERVE_HBM_BUDGET_MB')!r}: expected a "
+            "finite, non-negative number of megabytes (0/unset disables "
+            "the budget)"
+        )
+    return int(mb * 2**20) if mb > 0 else None
+
+
+def _default_loader(
+    name: str, mode: str, precision: str = "f32", device=None, seed: int = 0
+):
+    """Registry-backed loader. The ``bf16`` rung builds the module in
+    bfloat16 natively (the registry's own precision policy) and adds the
+    rung's edge casts (``graph/precision.edge_casts``)."""
+    from sparkdl_tpu_torch.graph.precision import edge_casts
+    from sparkdl_tpu_torch.models import get_model
+
+    spec = get_model(name)
+    if precision == "bf16":
+        mf = spec.model_function(
+            mode=mode, dtype=torch.bfloat16, seed=seed, device=device
+        )
+        return edge_casts(mf, "bf16")
+    return spec.model_function(mode=mode, seed=seed, device=device)
+
+
+class ResidentModel:
+    """One loaded model: its ModelFunction, its device fn, and what the
+    eviction policy reads."""
+
+    __slots__ = (
+        "key", "name", "mode", "model_function", "device_fn", "param_bytes",
+        "pins", "loads", "last_used", "requests", "precision",
+    )
+
+    def __init__(
+        self, key, name, mode, model_function, device_fn, nbytes,
+        precision="f32",
+    ):
+        self.key = key
+        self.name = name
+        self.mode = mode
+        self.model_function = model_function
+        self.device_fn = device_fn
+        self.param_bytes = int(nbytes)
+        self.pins = 0  # in-flight request groups holding this model
+        self.loads = 1
+        self.last_used = time.monotonic()
+        self.requests = 0
+        self.precision = precision
+
+    @property
+    def busy(self) -> bool:
+        return self.pins > 0
+
+
+class ResidencyManager:
+    """Thread-safe residency table keyed by ``(model name, mode,
+    precision)``.
+
+    ``acquire`` returns a PINNED :class:`ResidentModel`; callers
+    ``release`` it when their dispatch completes. Loading happens outside
+    the table lock (building ResNet50 must not stall lookups of resident
+    models), with a per-key load lock so concurrent first requests build
+    once. ``device``: where the default registry loader builds (``cuda``
+    by default; raises without one unless ``"cpu"`` is asked for)."""
+
+    def __init__(
+        self,
+        loader: Optional[Callable] = None,
+        budget_bytes: Optional[int] = None,
+        device: DeviceLike = None,
+        seed: int = 0,
+    ):
+        self.device = resolve_device(device)
+        self._seed = seed
+        self._loader = loader
+        # custom loaders take (name, mode); precision-aware ones a third
+        # parameter. Sniffed once so acquire never TypeErrors mid-request.
+        self._loader_takes_precision = False
+        if loader is not None:
+            try:
+                params = inspect.signature(loader).parameters.values()
+            except (TypeError, ValueError):
+                params = ()
+            positional = sum(
+                1 for p in params
+                if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)
+            )
+            self._loader_takes_precision = positional >= 3 or any(
+                p.kind == p.VAR_POSITIONAL for p in params
+            )
+        self._budget_override = budget_bytes
+        self._lock = threading.Lock()
+        self._models: Dict[tuple, ResidentModel] = {}
+        self._load_locks: Dict[tuple, threading.Lock] = {}
+        #: bytes reserved by loads in flight (key -> size): the budget
+        #: check counts them beside resident models, so two concurrent
+        #: first loads of DIFFERENT models cannot each pass the check and
+        #: jointly blow the budget
+        self._reserved: Dict[tuple, int] = {}
+
+    def _budget(self) -> Optional[int]:
+        if self._budget_override is not None:
+            return self._budget_override or None
+        return hbm_budget_bytes()
+
+    def budget_bytes(self) -> Optional[int]:
+        """The effective budget (constructor override or the knob); None
+        = unbounded."""
+        return self._budget()
+
+    def _build(self, name: str, mode: str, precision: str):
+        if self._loader is None:
+            return _default_loader(
+                name, mode, precision, device=self.device, seed=self._seed
+            )
+        if self._loader_takes_precision:
+            return self._loader(name, mode, precision)
+        return self._loader(name, mode)
+
+    # -- introspection ------------------------------------------------------
+
+    def resident_bytes(self) -> int:
+        with self._lock:
+            return sum(m.param_bytes for m in self._models.values())
+
+    def models(self) -> List[dict]:
+        """Status rows for ``/v1/models``."""
+        now = time.monotonic()
+        with self._lock:
+            return [
+                {
+                    "name": m.name,
+                    "mode": m.mode,
+                    "precision": m.precision,
+                    "param_mb": round(m.param_bytes / 2**20, 2),
+                    "param_bytes": m.param_bytes,
+                    "busy": m.busy,
+                    "loads": m.loads,
+                    "requests": m.requests,
+                    "idle_s": round(now - m.last_used, 3),
+                }
+                for m in self._models.values()
+            ]
+
+    def _publish_gauges_locked(self) -> None:
+        metrics.gauge("serve.resident_models", len(self._models))
+        metrics.gauge(
+            "serve.resident_mb",
+            sum(m.param_bytes for m in self._models.values()) / 2**20,
+        )
+
+    # -- the acquire/release protocol ---------------------------------------
+
+    def acquire(
+        self, name: str, mode: str = "features", precision: Optional[str] = None
+    ) -> ResidentModel:
+        """The resident entry for ``name`` (loading, and maybe evicting,
+        on a miss), pinned against eviction until :meth:`release`. Keys
+        are case-folded, as the registry resolves names, so two spellings
+        share one resident copy; the precision rung is part of the key."""
+        precision = precision or "f32"
+        key = (str(name).lower(), str(mode), str(precision))
+        with self._lock:
+            entry = self._models.get(key)
+            if entry is not None:
+                entry.pins += 1
+                entry.requests += 1
+                entry.last_used = time.monotonic()
+                return entry
+            load_lock = self._load_locks.setdefault(key, threading.Lock())
+        with load_lock:
+            # double-check: a racing first request may have loaded it
+            with self._lock:
+                entry = self._models.get(key)
+                if entry is not None:
+                    entry.pins += 1
+                    entry.requests += 1
+                    entry.last_used = time.monotonic()
+                    return entry
+            try:
+                entry = self._load(key, name, mode, precision)
+                with self._lock:
+                    # install and drop the reservation in ONE locked
+                    # section: a concurrent budget check never sees the
+                    # model both resident and reserved
+                    self._models[key] = entry
+                    self._reserved.pop(key, None)
+                    entry.pins += 1
+                    entry.requests += 1
+                    self._publish_gauges_locked()
+                return entry
+            finally:
+                with self._lock:  # no-op on success; frees a failed load
+                    self._reserved.pop(key, None)
+
+    def release(self, entry: ResidentModel) -> None:
+        with self._lock:
+            entry.pins = max(0, entry.pins - 1)
+            entry.last_used = time.monotonic()
+
+    def _load(self, key, name: str, mode: str, precision: str) -> ResidentModel:
+        from sparkdl_tpu_torch.graph.precision import apply_precision
+        from sparkdl_tpu_torch.models.registry import param_bytes
+        from sparkdl_tpu_torch.obs import span
+        from sparkdl_tpu_torch.transformers.execution import model_device_fn
+
+        with span("serve.model_load", model=name, mode=mode, precision=precision):
+            # The default loader builds straight onto the device, so the
+            # victims leave BEFORE the build, sized by the registry's
+            # estimate: the new parameters land in freed memory, not
+            # beside the models they replace.
+            estimate = self._estimate_bytes(name, precision)
+            if estimate is not None:
+                self._evict_for(key, estimate, loading=name)
+            mf = self._build(name, mode, precision)
+            # the rung's casts apply uniformly: a loader that already
+            # built at the rung (mf.precision) is left alone
+            mf = apply_precision(mf, precision)
+            if mf.device is not None and torch.device(mf.device).type != self.device.type:
+                raise ValueError(
+                    f"the loader built {name!r} on {mf.device}, but this "
+                    f"router serves on {self.device}"
+                )
+            nbytes = param_bytes(mf)
+            # the charge is the module actually loaded: evicts more if the
+            # estimate fell short, and replaces its reservation
+            self._evict_for(key, nbytes, loading=name)
+            device_fn = model_device_fn(mf)
+        metrics.inc("serve.model_loads")
+        return ResidentModel(key, name, mode, mf, device_fn, nbytes, precision=precision)
+
+    # -- eviction -----------------------------------------------------------
+
+    def _estimate_bytes(self, name: str, precision: str) -> Optional[int]:
+        """The default loader's parameter bytes before it builds: the
+        registry's float32 estimate, halved on the bf16 rung (a lower
+        bound: norms stay float32). None for a custom loader, whose module
+        is sized once it exists."""
+        if self._loader is not None or self._budget() is None:
+            return None
+        from sparkdl_tpu_torch.models import get_model
+
+        estimate = get_model(name).param_bytes_estimate()
+        if estimate is None:
+            return None
+        return estimate // 2 if precision == "bf16" else estimate
+
+    def _evict_for(self, key, incoming_bytes: int, loading: str) -> None:
+        """Make room for ``incoming_bytes`` under the budget by evicting
+        LRU idle models, then RESERVE the bytes under ``key`` (replacing an
+        earlier reservation of the same load; released when the load lands
+        or fails). Raises when the budget cannot be met: the model alone
+        exceeds it, or everything resident is busy."""
+        budget = self._budget()
+        if budget is None:
+            return
+        while True:
+            with self._lock:
+                used = sum(m.param_bytes for m in self._models.values()) + sum(
+                    b for k, b in self._reserved.items() if k != key
+                )
+                if used + incoming_bytes <= budget:
+                    self._reserved[key] = incoming_bytes
+                    return
+                idle = [m for m in self._models.values() if not m.busy]
+                if not idle:
+                    raise RuntimeError(
+                        f"cannot load model {loading!r} "
+                        f"({incoming_bytes / 2**20:.1f} MB): HBM budget "
+                        f"{budget / 2**20:.1f} MB has {used / 2**20:.1f} MB "
+                        "resident/reserved and nothing idle to evict (open "
+                        "streams or loads in flight)"
+                    )
+                victim = min(idle, key=lambda m: m.last_used)
+                del self._models[victim.key]
+                self._publish_gauges_locked()
+            self._close_entry(victim)
+            metrics.inc("serve.evictions")
+
+    @staticmethod
+    def _close_entry(victim: ResidentModel) -> int:
+        """Close the victim's feeder streams and drop its module and device
+        fn: the entry must not be what keeps the parameters alive."""
+        from sparkdl_tpu_torch.runtime.feeder import close_feeders_for
+
+        closed = close_feeders_for(victim.device_fn)
+        victim.model_function = None
+        victim.device_fn = None
+        return closed
+
+    def unload_all(self) -> None:
+        """Evict everything (shutdown, drain, tests); busy models too: the
+        router guarantees nothing is in flight when it calls this."""
+        with self._lock:
+            victims = list(self._models.values())
+            self._models.clear()
+            self._publish_gauges_locked()
+        for v in victims:
+            self._close_entry(v)
+
+
+__all__ = ["ResidencyManager", "ResidentModel", "hbm_budget_bytes"]

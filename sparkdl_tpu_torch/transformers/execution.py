@@ -13,9 +13,11 @@ The single-device counterpart of the JAX package's ``run_batched``:
   is full, and its valid rows are scattered back to their cell positions.
   Rows whose mask is False come back as ``None``.
 
-``run_batched_shared`` is an alias for now: the cross-partition shared
-feeder of the JAX package is not ported yet. ``arrays_to_batch`` is the
-host stage of tensor columns.
+``run_batched_shared`` is an alias for now: the partition path does not
+go through the shared feeder yet (``runtime/feeder.py`` serves the
+serving router). :func:`model_device_fn` builds the device fn that the
+feeder and router dispatch through. ``arrays_to_batch`` is the host stage
+of tensor columns.
 """
 
 from __future__ import annotations
@@ -30,14 +32,89 @@ import numpy as np
 import torch
 
 from sparkdl_tpu_torch.runtime import knobs
+from sparkdl_tpu_torch.runtime.device import compute_stream, copy_stream, launcher
+from sparkdl_tpu_torch.runtime.transfer import Staged, copy_to_device
 from sparkdl_tpu_torch.utils.metrics import metrics
 
 _SENTINEL = object()
 
 
-def default_prefetch() -> int:
-    """In-flight window of one device (``SPARKDL_PREFETCH_PER_DEVICE``)."""
-    return max(1, knobs.get_int("SPARKDL_PREFETCH_PER_DEVICE"))
+def default_prefetch(device_fn=None) -> int:
+    """In-flight window: ``SPARKDL_PREFETCH_PER_DEVICE`` per device the
+    device fn engages (one here: the port has no multi-device fn yet)."""
+    per_device = max(1, knobs.get_int("SPARKDL_PREFETCH_PER_DEVICE"))
+    return per_device * max(1, getattr(device_fn, "n_devices", 1))
+
+
+def model_device_fn(model_function):
+    """The device fn that the shared feeder and the serving router
+    dispatch a ModelFunction's batches through: the single-device
+    counterpart of the JAX package's ``model_device_fn``.
+
+    ``fn(batch)`` takes a host batch (a tensor, pinned for a CUDA device,
+    or a numpy array) or a :class:`~sparkdl_tpu_torch.runtime.transfer.Staged`
+    input from ``fn.stage_put``, and returns the output tensor on the
+    device. On CUDA every call runs on the device's compute stream
+    (``runtime/device.compute_stream``): a staged input makes the stream
+    ``wait_event`` on its copy and is ``record_stream``'d to it, a host
+    batch is copied with ``non_blocking=True`` on the stream itself. The
+    caller reads the result back with ``runtime/readback`` on
+    ``fn.stream``. Image models take their rows as NHWC (the wire and JAX
+    layout) and the fn permutes them to the NCHW the port's modules take:
+    on a ``channels_last`` module that is a free view.
+
+    Attributes the feeder and router read: ``device``, ``stream`` (None on
+    the CPU), ``stage_put`` (the transfer half, ``runtime/transfer.py``),
+    ``launcher`` (the device's :class:`~sparkdl_tpu_torch.runtime.device.Launcher`,
+    on whose thread the feeder issues every call; None on the CPU),
+    ``n_devices = batch_multiplier = 1`` and ``single_stream = False``.
+    """
+    mf = model_function
+    device = torch.device(mf.device if mf.device is not None else "cpu")
+    on_cuda = device.type == "cuda"
+    nhwc = mf.input_shape is not None and len(mf.input_shape) == 3
+    stream = None
+    if on_cuda:
+        stream = compute_stream(device)
+        # the module was built on another stream: order the compute
+        # stream after that work once, here, not on every call
+        built = torch.cuda.Event()
+        built.record(torch.cuda.current_stream(device))
+        stream.wait_event(built)
+        copies = copy_stream(device)
+
+    def run(x: torch.Tensor) -> torch.Tensor:
+        if nhwc and x.dim() == 4:
+            x = x.permute(0, 3, 1, 2)
+        return mf(x)
+
+    def fn(batch):
+        if isinstance(batch, np.ndarray):
+            batch = torch.from_numpy(batch)
+        if not on_cuda:
+            return run(batch.tensor if isinstance(batch, Staged) else batch)
+        with torch.cuda.stream(stream):
+            if isinstance(batch, Staged):
+                stream.wait_event(batch.event)
+                x = batch.tensor
+                x.record_stream(stream)
+            else:
+                x = batch.to(device, non_blocking=True)
+            return run(x)
+
+    def stage_put(host: torch.Tensor) -> Staged:
+        if not on_cuda:
+            return Staged(host, None)
+        return copy_to_device(host, device, copies)
+
+    fn.device = device
+    fn.stream = stream
+    fn.stage_put = stage_put
+    fn.launcher = launcher(device) if on_cuda else None
+    fn.n_devices = 1
+    fn.batch_multiplier = 1
+    fn.single_stream = False
+    return fn
 
 
 def _put_or_stop(out_q: "queue.Queue", item, stop: threading.Event) -> bool:
@@ -172,8 +249,8 @@ def run_batched(
     return out
 
 
-#: The cross-partition shared feeder is not ported yet; every partition
-#: runs its own pipeline.
+#: The partition path does not go through the shared feeder yet; every
+#: partition runs its own pipeline.
 run_batched_shared = run_batched
 
 

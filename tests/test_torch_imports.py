@@ -39,6 +39,9 @@ def _imported_roots(path):
 def test_no_port_file_imports_jax_flax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 10 and os.path.exists(files[0])
+    rel = {os.path.relpath(path, PKG_DIR) for path in files}
+    for sub in ("serving", "obs", "resilience", "runtime"):
+        assert any(r.startswith(sub + os.sep) for r in rel), sub
     offenders = {
         (os.path.relpath(path, REPO), root)
         for path in files
@@ -57,7 +60,21 @@ def test_importing_every_port_module_loads_no_jax():
             sparkdl_tpu_torch.__path__, "sparkdl_tpu_torch."
         )
     ]
-    assert "sparkdl_tpu_torch.ops.flash_attention" in modules
+    for name in (
+        "sparkdl_tpu_torch.ops.flash_attention",
+        "sparkdl_tpu_torch.runtime.feeder",
+        "sparkdl_tpu_torch.runtime.readback",
+        "sparkdl_tpu_torch.runtime.transfer",
+        "sparkdl_tpu_torch.graph.precision",
+        "sparkdl_tpu_torch.obs.trace",
+        "sparkdl_tpu_torch.resilience.policy",
+        "sparkdl_tpu_torch.serving.request",
+        "sparkdl_tpu_torch.serving.residency",
+        "sparkdl_tpu_torch.serving.router",
+        "sparkdl_tpu_torch.serving.server",
+        "sparkdl_tpu_torch.serving.__main__",
+    ):
+        assert name in modules, name
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
@@ -120,4 +137,10 @@ def test_default_device_entry_point_raises_without_cuda(monkeypatch):
         LogisticRegression().fit(rows)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LogisticRegressionModel(np.ones((2, 1)), np.ones(1), "f", "p", None)
+    from sparkdl_tpu_torch.serving import ResidencyManager, Router
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Router()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ResidencyManager()
     assert resolve_device("cpu") == torch.device("cpu")
