@@ -35,7 +35,10 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    texts of 8 to 500 words. Checks a finite 768-d vector per row, that
    the flash kernel ran exactly 12 times per dispatched batch, and that
    the embeddings match the dense-attention build at f32 atol 1e-3 and
-   bf16 atol 3e-2. Prints rows/s and real tokens/s.
+   bf16 atol 3e-2. Prints rows/s and real tokens/s. The 4 partitions run
+   at once and each bucket's rows share a feeder; one more pass with
+   ``SPARKDL_SHARED_FEEDER=0`` is timed beside it, its embeddings within
+   ``ATOL`` of the shared pass's.
 5. breakdown: host tokenization alone, and device time by kernel from
    torch.profiler over one more pass in f32 and in bf16.
 6. image path, ResNet50 (BASELINE config[1]'s model):
@@ -52,12 +55,19 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    on the card, row by row against each row's own scale (``BF16_ROW_REL``);
    a ``LogisticRegression`` fit on the card against the same fit on the
    CPU (``w``, ``b`` at atol 1e-4), and prints its accuracy on a held-out
-   split. Prints images/s per dtype. The path runs no hand-written kernel:
-   the convolutions are cuDNN's.
+   split. Prints images/s per dtype. The DataFrame runs its 4 partitions at
+   once (``runtime/executor.py``) and their rows share one feeder
+   (``run_batched_shared``; every forward issued by the device's launch
+   thread); each dtype's pass is timed against one more with
+   ``SPARKDL_SHARED_FEEDER=0`` (each partition its own pipeline), whose
+   rows must equal the shared pass's (f32 relative 1e-5, bf16 row by row
+   within ``BF16_ROW_REL``). The path runs no hand-written kernel: the
+   convolutions are cuDNN's.
 7. image breakdown, ResNet50: MACs per image (convs and head), then one
-   more featurizer pass per dtype under torch.profiler: wall time, device
-   busy and its share, the conv and head FLOP rate over device busy as a
-   share of the dtype's peak, and the top 5 device kernels.
+   more featurizer pass per dtype and per feeder arm under torch.profiler:
+   wall time, device busy and its share, the conv and head FLOP rate over
+   device busy as a share of the dtype's peak, and the top 5 device
+   kernels of the shared arm.
 8. BASELINE config[0]: phase 6's checks and head over
    ``DeepImageFeaturizer(modelName="InceptionV3")`` (299x299, 'tf'
    preprocessing, 2048-d) and 1024 synthetic 299x299 structs.
@@ -95,7 +105,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     503 while the queued requests complete. Then a second router under
     ``SPARKDL_SERVE_HBM_BUDGET_MB=500`` (bert-base or ResNet50 fits, not
     both), f32: alternating models evict, ``memory_allocated`` moves by
-    the parameters swapped, and a reloaded model answers correctly.
+    the parameters swapped, and a reloaded model answers correctly. The
+    bf16 rung's direct model is the rung's own build
+    (``graph/precision.bf16_rung``: every parameter and buffer in bf16).
     Prints requests/s and rows/s per model, p50/p95 latency per class,
     rows per dispatch, the feeder's staging and readback counts, the
     feeders opened and closed by the cap, the router's and feeder's host
@@ -103,6 +115,32 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     closed router left allocated, and a launch probe (the same forwards
     from one thread, as the device's launch thread issues them, and from
     4 at once).
+12. training, BASELINE config[4] (HorovodEstimator's ResNet50
+    fine-tune): ``DataParallelEstimator`` over ``ResNet50(num_classes=10)``
+    at 224x224 (random weights from ``--seed``) in an NCCL process group
+    of world size 1, over 256 synthetic 224x224 image structs in phase 6's
+    two colour classes, 4 partitions, uint8 image feed (``targetHeight`` /
+    ``targetWidth`` 224), global batch 32, Adam at stepSize 0.01, 2
+    epochs: f32 (BASELINE's configuration), then the module built in bf16,
+    then one more f32 epoch streamed (``streaming=True``, a 64-row shuffle
+    buffer). Prints epoch 2's ``mean_step_time_s`` (the BASELINE metric)
+    and images/s per arm, the streamed arm's ``train.data_wait``; one more
+    1-epoch fit per dtype under torch.profiler, from the trained weights
+    (the process is warm, so it runs as epoch 2 does): device busy, its
+    share of that epoch and, per step, of the unprofiled epoch 2 step (the
+    profiler slows the host), the top 5 device kernels, the training FLOP rate
+    (6 x the forward's MACs per image, logits mode) over busy as a share of
+    the dtype's peak, the NCCL kernels recorded, and the step's
+    all-reduce (every gradient and the loss, 90 MiB) timed alone by CUDA
+    events. Checks: every
+    loss finite; two SGD steps (lr 1e-4, 8 rows each) in f32 on the card
+    equal the same two steps of the port on the CPU from the same weights
+    and rows, each parameter tensor within 1e-4 of its own max |value|
+    (the backward convolutions must run without TF32); the BatchNorm
+    statistics moved; ``DataParallelModel.transform`` over 64 rows in 4
+    partitions (executor and shared feeder) equals the trained module
+    called directly (relative 1e-5); a ``modelDir`` run stopped after one
+    epoch resumes at step 8 and saves step 16.
 
 The line before the last is the ``kernels`` JSON record (the f32 and the
 bf16 kernel at bert-base L=512, launches from each dtype's main-path run);
@@ -135,14 +173,26 @@ from sparkdl_tpu_torch.bench_bounds import (
 )
 from sparkdl_tpu_torch.dataframe import DataFrame
 from sparkdl_tpu_torch.dataframe.frame import partition_row_spans
-from sparkdl_tpu_torch.estimators import LogisticRegression
+from sparkdl_tpu_torch.estimators import DataParallelEstimator, LogisticRegression
+from sparkdl_tpu_torch.graph.function import ModelFunction
+from sparkdl_tpu_torch.graph.pieces import image_structs_to_batch
+from sparkdl_tpu_torch.graph.precision import bf16_rung
 from sparkdl_tpu_torch.image import imageIO
 from sparkdl_tpu_torch.models import get_image_model, get_model
 from sparkdl_tpu_torch.models.convert import cnn_params_to_flax
+from sparkdl_tpu_torch.models.layers import init_cnn_params
 from sparkdl_tpu_torch.models.registry import _bert_text_builder, save_flax_npz
+from sparkdl_tpu_torch.models.resnet import ResNet50
 from sparkdl_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_reference,
+)
+from sparkdl_tpu_torch.parallel import (
+    Mesh,
+    create_train_state,
+    distributed,
+    make_data_parallel_step,
+    make_mesh,
 )
 from sparkdl_tpu_torch.runtime import cuda_build, knobs
 from sparkdl_tpu_torch.transformers.named_image import (
@@ -247,6 +297,38 @@ SERVE_SEGMENTS = (
 )
 
 
+#: phase 12, BASELINE config[4]: images, partitions, global batch, epochs
+#: and Adam's step size of the fine-tune; ResNet50's head width and side
+TRAIN_IMAGES = 256
+TRAIN_PARTITIONS = 4
+TRAIN_BATCH = 32
+TRAIN_EPOCHS = 2
+TRAIN_STEP_SIZE = 0.01
+TRAIN_CLASSES = 10
+TRAIN_SIDE = 224
+#: the streamed arm's shuffle buffer: a quarter of the rows, so the feed
+#: streams instead of holding the epoch
+TRAIN_SHUFFLE_ROWS = 64
+#: the card-vs-CPU check: two SGD steps of 8 rows each, at a rate the
+#: unnormalized 0-255 pixels survive (at 1e-2 the second step's loss is
+#: 1e29 on the CPU). Both float32 runs are held against the same two
+#: steps in float64 on the card, each parameter tensor relative to its own
+#: max |value|: the card within TRAIN_SGD_REL plus TRAIN_SGD_NOISE times
+#: the CPU's own float32 error. Float32 alone is far from 1e-4 here: the
+#: BatchNorm biases and means start at 0, so their scale is their move,
+#: and on the CPU float32 against float64 differs by up to 2.2e-3 of it
+#: (75 tensors over 1e-4 after one step, 109 after two); TF32 in a
+#: convolution (10-bit mantissa) would be about 1e3 times that error.
+TRAIN_SGD_ROWS = 8
+TRAIN_SGD_LR = 1e-4
+TRAIN_SGD_REL = 1e-4
+TRAIN_SGD_NOISE = 4.0
+#: the all-reduce of one step's gradients and loss, timed alone
+TRAIN_ALLREDUCE_ITERS = 20
+#: rows scored by the trained model through the executor and the feeder
+TRAIN_SCORE_ROWS = 64
+
+
 class PhaseError(RuntimeError):
     pass
 
@@ -275,14 +357,19 @@ def time_ms(fn, iters: int) -> float:
 def device_kernels(prof) -> dict:
     """``{kernel name: (device seconds, launches recorded)}`` in a finished
     torch.profiler run. Device-side events only: a host op's device total
-    repeats the time of the kernels it launched."""
+    repeats the time of the kernels it launched, and so does the device
+    span of a ``record_function`` range (``Optimizer.step#Adam.step``),
+    which is left out."""
     from torch.autograd import DeviceType
 
-    return {
-        ev.key: (ev.self_device_time_total / 1e6, ev.count)
-        for ev in prof.key_averages()
-        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
-    }
+    out: dict = {}
+    for ev in prof.events():
+        if (ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False)
+                or ev.self_device_time_total <= 0):
+            continue
+        sec, n = out.get(ev.key, (0.0, 0))
+        out[ev.key] = (sec + ev.self_device_time_total / 1e6, n + 1)
+    return out
 
 
 def device_ms(fn, iters: int, names=None):
@@ -448,8 +535,15 @@ def _texts(seed: int, n: int):
     return texts
 
 
+def _dispatches() -> int:
+    """Batches dispatched since the last ``metrics.reset()``: by the
+    partitions' own pipelines (``run_batched``) and by the shared feeders."""
+    return int(metrics.counter("transform.batches") + metrics.counter("feeder.coalesced_batches"))
+
+
 def _embed(mf, df):
-    """One TextEmbedder pass; returns (embeddings, seconds, batches,
+    """One TextEmbedder pass; returns (embeddings, seconds, batches
+    dispatched by the partitions' own pipelines or the shared feeders,
     real tokens)."""
     metrics.reset()
     emb = TextEmbedder(
@@ -463,7 +557,7 @@ def _embed(mf, df):
     return (
         [r.emb for r in rows],
         dt,
-        int(metrics.counter("transform.batches")),
+        _dispatches(),
         int(metrics.counter("text.tokens")),
     )
 
@@ -492,6 +586,11 @@ def phase_main_path(seed: int, n_texts: int, device_name: str) -> dict:
         for i, e in enumerate(flash):
             check(e is not None and e.shape == (768,), f"{tag}: row {i} has no 768-d vector")
             check(bool(np.isfinite(e).all()), f"{tag}: row {i} is not finite")
+        os.environ["SPARKDL_SHARED_FEEDER"] = "0"
+        own, own_dt, own_batches, _ = _embed(flash_mf, df)
+        os.environ.pop("SPARKDL_SHARED_FEEDER")
+        arm_err = max(float(np.abs(a - b).max()) for a, b in zip(flash, own))
+        check(arm_err <= ATOL[dtype], f"{tag}: the feeder arms' embeddings differ by {arm_err} > {ATOL[dtype]}")
         del flash_mf
         dense_mf = _bert_text_builder("base", attention="dense")(
             spec, mode="embed", dtype=dtype, seed=seed, params=None,
@@ -508,7 +607,9 @@ def phase_main_path(seed: int, n_texts: int, device_name: str) -> dict:
             f"{batches} batches, {launches} flash launches, {tokens} real tokens; "
             f"flash {dt:.3f} s = {len(texts) / dt:.1f} rows/s, {tokens / dt:.0f} tokens/s; "
             f"dense {dense_dt:.3f} s = {len(texts) / dense_dt:.1f} rows/s; "
-            f"max |flash - dense| {err:.3e} (atol {atol})"
+            f"max |flash - dense| {err:.3e} (atol {atol}); SPARKDL_SHARED_FEEDER=0 (one pipeline "
+            f"per partition): {own_batches} batches, {own_dt:.3f} s = {len(texts) / own_dt:.1f} rows/s, "
+            f"max |shared - own| {arm_err:.3e} (atol {ATOL[dtype]})"
         )
         launches_by_dtype[dtype] = launches
     return launches_by_dtype
@@ -650,22 +751,49 @@ def phase_transfer_learning(model: str, seed: int, structs, labels, device_name:
     for dtype_name in ("bfloat16", "float32"):
         feat = _featurizer(model, dtype_name, weights)
         _featurize(feat, warm)  # model build, cuDNN and allocator warm-up: not counted
-        metrics.reset()
-        rows, dt = _featurize(feat, df)
-        batches = int(metrics.counter("transform.batches"))
-        check(batches == expected_batches, f"{model} {dtype_name}: {batches} batches dispatched, not {expected_batches}")
-        for i, f in enumerate(rows):
-            check(f is not None and f.shape == (spec.feature_dim,),
-                  f"{model} {dtype_name}: row {i} has no {spec.feature_dim}-d vector")
-            check(bool(np.isfinite(f).all()), f"{model} {dtype_name}: row {i} is not finite")
-        features[dtype_name] = np.stack(rows)
-        timers = metrics.snapshot()["timers"]
-        print(
-            f"image path {model} {spec.height}x{spec.width} {dtype_name} on {device_name}: {n_images} images, "
-            f"{batches} batches, {dt:.3f} s = {n_images / dt:.1f} images/s; host batch stage "
-            f"{timers['transform.host_batch']['total_s']:.3f} s (producer thread), waits for "
-            f"the device {timers['transform.device_wait']['total_s']:.3f} s"
+        arms = {}
+        for arm in ("shared feeder", "SPARKDL_SHARED_FEEDER=0"):
+            os.environ["SPARKDL_SHARED_FEEDER"] = "1" if arm == "shared feeder" else "0"
+            metrics.reset()
+            rows, dt = _featurize(feat, df)
+            batches = _dispatches()
+            if arm == "shared feeder":
+                # one stream packs the 4 partitions' rows: only a flush
+                # after a quiet spell is padded
+                fed = int(metrics.counter("feeder.rows"))
+                pad = int(metrics.counter("feeder.pad_rows"))
+                check(fed == n_images and batches * IMAGE_BATCH == fed + pad
+                      and int(metrics.counter("transform.batches")) == 0,
+                      f"{model} {dtype_name}: the shared feeder dispatched {batches} batches of "
+                      f"{fed} rows and {pad} padding")
+                how = f"{batches} coalesced batches, {pad} padded rows"
+            else:
+                check(batches == expected_batches,
+                      f"{model} {dtype_name}: {batches} batches dispatched, not {expected_batches}")
+                how = f"{batches} batches"
+            for i, f in enumerate(rows):
+                check(f is not None and f.shape == (spec.feature_dim,),
+                      f"{model} {dtype_name}: row {i} has no {spec.feature_dim}-d vector")
+                check(bool(np.isfinite(f).all()), f"{model} {dtype_name}: row {i} is not finite")
+            arms[arm] = np.stack(rows)
+            timers = metrics.snapshot()["timers"]
+            print(
+                f"image path {model} {spec.height}x{spec.width} {dtype_name} on {device_name}, {arm}: "
+                f"{n_images} images, {how}, {dt:.3f} s = {n_images / dt:.1f} images/s; host batch stage "
+                f"{timers['transform.host_batch']['total_s']:.3f} s, waits for "
+                f"the device {timers['transform.device_wait']['total_s']:.3f} s"
+            )
+        os.environ.pop("SPARKDL_SHARED_FEEDER")
+        shared, own = arms.values()
+        arm_err = (
+            _relative_error(shared, own) if dtype_name == "float32" else _row_relative_error(shared, own)
         )
+        arm_limit = IMAGE_F32_REL if dtype_name == "float32" else BF16_ROW_REL[model]
+        print(f"image path {model} {dtype_name}: shared feeder vs per-partition rows, "
+              f"{'relative' if dtype_name == 'float32' else 'worst row relative'} error {arm_err:.3e} "
+              f"(limit {arm_limit})")
+        check(arm_err <= arm_limit, f"{model} {dtype_name}: the feeder arms' rows differ by {arm_err:.3e}")
+        features[dtype_name] = shared
         if dtype_name == "float32":
             f32_feat = feat
     check(
@@ -739,12 +867,16 @@ def phase_image_breakdown(model: str, structs, weights: str) -> None:
                 f"{model} {spec.height}x{spec.width} features: {macs} MAC per image in its convs and "
                 f"head (bench_bounds.model_macs), {2 * macs * len(structs) / 1e12:.4f} TFLOP per pass"
             )
-        wall, busy, by_kernel = _profiled_pass(feat, df)
-        print(
-            f"breakdown {model} {dtype_name} (profiled pass, {len(structs)} images): wall {wall:.3f} s, "
-            f"device busy {busy:.3f} s (share {busy / wall:.3f}), {len(by_kernel)} kernel names; "
-            f"conv and head work {_rate(macs, len(structs), busy, peak)}"
-        )
+        for arm, flag in (("SPARKDL_SHARED_FEEDER=0", "0"), ("shared feeder", "1")):
+            os.environ["SPARKDL_SHARED_FEEDER"] = flag
+            wall, busy, by_kernel = _profiled_pass(feat, df)
+            print(
+                f"breakdown {model} {dtype_name}, {arm} (profiled pass, {len(structs)} images): wall "
+                f"{wall:.3f} s = {len(structs) / wall:.1f} images/s, device busy {busy:.3f} s (share "
+                f"{busy / wall:.3f}), {len(by_kernel)} kernel names; conv and head work "
+                f"{_rate(macs, len(structs), busy, peak)}"
+            )
+        os.environ.pop("SPARKDL_SHARED_FEEDER")
         for name, sec in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]:
             print(f"  device {sec:.4f} s  {name[:90]}")
 
@@ -944,7 +1076,6 @@ def phase_serving(seed: int, device_name: str) -> None:
     """Phase 11: the online serving path on the card."""
     from torch.profiler import ProfilerActivity, profile
 
-    from sparkdl_tpu_torch.graph.precision import edge_casts
     from sparkdl_tpu_torch.runtime.feeder import shutdown_feeders
     from sparkdl_tpu_torch.serving import Router, ServingClient, ServingServer
     from sparkdl_tpu_torch.serving.__main__ import serving_env_defaults
@@ -954,6 +1085,10 @@ def phase_serving(seed: int, device_name: str) -> None:
     os.environ["SPARKDL_SERVE_PRECISION_BATCH"] = "bf16"
     for name in ("SPARKDL_FEEDER_IDLE_S", "SPARKDL_MAX_FEEDERS", "SPARKDL_SERVE_HBM_BUDGET_MB"):
         os.environ.pop(name, None)
+    # the offline phases' feeders (their owner threads idle out after 30 s,
+    # but the serving keepalive below would keep them polling): a server
+    # process starts without them
+    shutdown_feeders()
     serving_env_defaults()  # the serve CLI's feeder keepalive and registry cap
     allocated_before = torch.cuda.memory_allocated()
     router = Router(seed=seed, device=SERVE_DEVICE)
@@ -1085,8 +1220,8 @@ def phase_serving(seed: int, device_name: str) -> None:
     # kernel's plain version, at phase 4's limits
     rungs = {"f32": torch.float32, "bf16": torch.bfloat16}
 
-    def at_rung(mf, rung):  # the bf16 rung's edge casts, as the router's loader adds them
-        return edge_casts(mf, rung) if rung == "bf16" else mf
+    def at_rung(mf, rung):  # the bf16 rung's own build, as the router's loader makes it
+        return bf16_rung(mf) if rung == "bf16" else mf
 
     direct = {rung: at_rung(_direct_fn(text_spec, "embed", dtype, seed), rung) for rung, dtype in rungs.items()}
     plain = {
@@ -1247,6 +1382,218 @@ def _launch_probe(mf, spec, seed: int, card: str) -> None:
           f"{SERVE_PROBE_THREADS} threads at once {many:.3f} s ({many / SERVE_PROBE_BATCHES * 1e3:.2f} ms each)")
 
 
+def _train_model(dtype, seed: int, device) -> ModelFunction:
+    """BASELINE config[4]'s model: ResNet50 with a 10-way head at 224x224,
+    weights from ``seed`` (a CPU generator: the same on every device),
+    taking NHWC rows as the JAX package's flax module does."""
+    module = ResNet50(dtype=dtype, num_classes=TRAIN_CLASSES)
+    init_cnn_params(module, torch.Generator().manual_seed(seed))
+    return ModelFunction.from_module(module, input_shape=(TRAIN_SIDE, TRAIN_SIDE, 3), device=device)
+
+
+def _train_estimator(model: ModelFunction, **kw) -> DataParallelEstimator:
+    params = dict(
+        inputCol="image", labelCol="label", outputCol="logits", batchSize=TRAIN_BATCH,
+        epochs=TRAIN_EPOCHS, stepSize=TRAIN_STEP_SIZE, targetHeight=TRAIN_SIDE, targetWidth=TRAIN_SIDE,
+    )
+    params.update(kw)
+    return DataParallelEstimator(model=model, **params)
+
+
+def _cross_entropy(mf: ModelFunction):
+    """The estimator's default loss: masked mean cross-entropy over the
+    uint8 feed cast to float32."""
+    def loss(params, batch):
+        bx, by, bm = batch
+        logits = mf.apply(params, bx.float()).float()
+        per_ex = F.cross_entropy(logits, by.long(), reduction="none")
+        return (per_ex * bm).sum() / torch.clamp(bm.sum(), min=1.0)
+
+    return loss
+
+
+def _sgd_two_steps(mf: ModelFunction, mesh, x: np.ndarray, y: np.ndarray) -> dict:
+    """Two SGD steps of TRAIN_SGD_ROWS rows each; the trained params."""
+    import functools
+
+    device = torch.device(mf.device)
+    state = create_train_state(mf.named_params(), functools.partial(torch.optim.SGD, lr=TRAIN_SGD_LR))
+    step = make_data_parallel_step(_cross_entropy(mf), mesh)
+    for k in range(2):
+        rows = slice(k * TRAIN_SGD_ROWS, (k + 1) * TRAIN_SGD_ROWS)
+        batch = (torch.from_numpy(x[rows]).to(device), torch.from_numpy(y[rows]).to(device),
+                 torch.ones(TRAIN_SGD_ROWS, device=device))
+        state, m = step(state, batch)
+        check(bool(torch.isfinite(m["loss"])), f"SGD check step {k}: loss {float(m['loss'])}")
+    return {n: p.detach().cpu() for n, p in state.params.items()}
+
+
+def _sgd_reference_f64(seed: int, device, x: np.ndarray, y: np.ndarray) -> dict:
+    """The two SGD steps of :func:`_sgd_two_steps` in float64, without the
+    trainer: the same weights cast up, ``functional_call`` over float64
+    leaves (BatchNorm statistics included), plain ``p -= lr * g``."""
+    module = ResNet50(num_classes=TRAIN_CLASSES)
+    init_cnn_params(module, torch.Generator().manual_seed(seed))
+    module = module.to(device, torch.float64)
+    module.dtype = torch.float64
+    params = {
+        n: t.detach().clone().requires_grad_(True)
+        for n, t in list(module.named_parameters()) + list(module.named_buffers())
+    }
+    for k in range(2):
+        rows = slice(k * TRAIN_SGD_ROWS, (k + 1) * TRAIN_SGD_ROWS)
+        xb = torch.from_numpy(x[rows]).to(device).permute(0, 3, 1, 2).contiguous().double()
+        logits = torch.func.functional_call(module, params, (xb,)).double()
+        loss = F.cross_entropy(logits, torch.from_numpy(y[rows]).to(device).long())
+        grads = torch.autograd.grad(loss, list(params.values()))
+        with torch.no_grad():
+            for p, g in zip(params.values(), grads):
+                p -= TRAIN_SGD_LR * g
+    return {n: p.detach().cpu() for n, p in params.items()}
+
+
+def phase_training(seed: int, device_name: str, tmp: str) -> None:
+    """Phase 12: BASELINE config[4], data-parallel ResNet50 fine-tuning."""
+    import socket
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    distributed.initialize(f"tcp://localhost:{port}", world_size=1, rank=0, device=cuda)
+    try:
+        mesh = make_mesh()
+        check(mesh.group is not None and torch.distributed.get_backend() == "nccl" and mesh.size == 1,
+              f"phase 12: expected an NCCL group of world size 1, got {mesh}")
+        structs, labels = _colour_structs(seed, TRAIN_IMAGES, TRAIN_SIDE)
+        df = DataFrame.fromColumns({"image": structs, "label": labels}, numPartitions=TRAIN_PARTITIONS)
+        steps = TRAIN_IMAGES // TRAIN_BATCH
+        print(f"training: ResNet50(num_classes={TRAIN_CLASSES}) {TRAIN_SIDE}x{TRAIN_SIDE}, {TRAIN_IMAGES} image "
+              f"structs in {TRAIN_PARTITIONS} partitions, global batch {TRAIN_BATCH}, Adam {TRAIN_STEP_SIZE}, "
+              f"NCCL world size {mesh.size} on {device_name}")
+        macs = None
+        fitted = {}
+        for arm, dtype, peak in (("f32", torch.float32, "f32"), ("bf16", torch.bfloat16, "bf16")):
+            mf = _train_model(dtype, seed, cuda)
+            if macs is None:
+                macs = model_macs(mf.module, (3, TRAIN_SIDE, TRAIN_SIDE))
+                print(f"training: {macs} MAC per image in the forward (logits, bench_bounds.model_macs); "
+                      f"6 x that = {6 * macs * TRAIN_BATCH / 1e9:.1f} GFLOP per step")
+            initial_var = mf.module.bn_init.running_var.detach().float().clone()
+            torch.cuda.synchronize()
+            model = _train_estimator(mf).fit(df)
+            hist = model.history
+            check([h["steps"] for h in hist] == [steps] * TRAIN_EPOCHS, f"training {arm}: steps {hist}")
+            check(all(np.isfinite(h["loss"]) for h in hist), f"training {arm}: losses {[h['loss'] for h in hist]}")
+            step_s = hist[-1]["mean_step_time_s"]
+            print(f"training {arm}: losses {[round(h['loss'], 4) for h in hist]}; epoch {TRAIN_EPOCHS} "
+                  f"mean_step_time_s {step_s:.5f} = {TRAIN_BATCH / step_s:.1f} images/s (epoch 1 "
+                  f"{hist[0]['mean_step_time_s']:.5f} s per step, the first step's set-up included)")
+            moved = float((model.modelFunction.module.bn_init.running_var.float() - initial_var).abs().max())
+            check(moved > 0, f"training {arm}: the BatchNorm statistics did not move")
+            # one more epoch under the profiler, warm, from the trained weights
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                again = _train_estimator(model.modelFunction, epochs=1).fit(df)
+                torch.cuda.synchronize()
+            kernels = device_kernels(prof)
+            busy = sum(sec for sec, _ in kernels.values())
+            check(busy > 0, "the profiler saw no device time")
+            epoch_s = again.history[0]["epoch_time_s"]
+            nccl = [(sec, n) for key, (sec, n) in kernels.items() if "nccl" in key.lower()]
+            rate = 6 * macs * TRAIN_IMAGES / busy
+            print(f"training {arm} profiled epoch: {epoch_s:.3f} s wall ({again.history[0]['mean_step_time_s']:.5f} s "
+                  f"per step), device busy {busy:.3f} s (share {busy / epoch_s:.3f}; {busy / steps * 1e3:.2f} ms "
+                  f"per step = {busy / steps / step_s:.3f} of the unprofiled epoch {TRAIN_EPOCHS} step); training work "
+                  f"{rate / 1e12:.2f} TFLOP/s over busy = {rate / PEAK_FLOP_PER_S[peak]:.3f} of the {peak} peak "
+                  f"({PEAK_FLOP_PER_S[peak] / 1e12:.0f} TFLOP/s); NCCL all-reduce "
+                  f"{sum(sec for sec, _ in nccl) / steps * 1e3:.4f} ms per step ({sum(n for _, n in nccl)} kernels "
+                  f"in {steps} steps); BatchNorm running_var of the stem moved by up to {moved:.3e}")
+            for name, (sec, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:5]:
+                print(f"  device {sec:.4f} s  x{n}  {name[:90]}")
+            fitted[arm] = model
+            del mf, again
+            torch.cuda.empty_cache()
+        # the step's one all-reduce (every gradient and the loss), alone
+        numel = sum(t.numel() for t in fitted["f32"].modelFunction.named_params().values()) + 1
+        buf = torch.ones(numel, device=cuda)
+        allreduce_ms = time_ms(lambda: torch.distributed.all_reduce(buf, group=mesh.group), TRAIN_ALLREDUCE_ITERS)
+        print(f"training: the step's all_reduce of {numel} float32 ({numel * 4 / 2**20:.1f} MiB), NCCL world size "
+              f"{mesh.size}: {allreduce_ms:.4f} ms per call (CUDA events, {TRAIN_ALLREDUCE_ITERS} calls)")
+        del buf
+        # the streamed feed: one more f32 epoch, partitions decoded on a
+        # producer thread through a shuffle buffer
+        metrics.reset()
+        streamed = _train_estimator(fitted["f32"].modelFunction, epochs=1, streaming=True,
+                                    shuffleBufferRows=TRAIN_SHUFFLE_ROWS).fit(df)
+        wait = metrics.snapshot()["timers"]["train.data_wait"]
+        h = streamed.history[0]
+        check(h["steps"] == steps and np.isfinite(h["loss"]), f"training streamed: {h}")
+        print(f"training f32 streamed (shuffle buffer {TRAIN_SHUFFLE_ROWS} rows): loss {h['loss']:.4f}, "
+              f"mean_step_time_s {h['mean_step_time_s']:.5f} = {TRAIN_BATCH / h['mean_step_time_s']:.1f} images/s; "
+              f"train.data_wait {wait['total_s']:.3f} s over {wait['count']} steps "
+              f"(mean {wait['total_s'] / max(wait['count'], 1) * 1e3:.2f} ms)")
+        del streamed
+        # scoring: the trained f32 model through the executor and the
+        # shared feeder against the module called directly
+        model = fitted["f32"]
+        few = DataFrame.fromColumns({"image": structs[:TRAIN_SCORE_ROWS]}, numPartitions=TRAIN_PARTITIONS)
+        metrics.reset()
+        scored = np.stack([r.logits for r in model.transform(few).collect()])
+        coalesced = int(metrics.counter("feeder.coalesced_batches"))
+        batch, _ = image_structs_to_batch(structs[:TRAIN_SCORE_ROWS], TRAIN_SIDE, TRAIN_SIDE)
+        direct = model.modelFunction(torch.from_numpy(batch).to(cuda)).cpu().numpy()
+        score_err = _relative_error(scored, direct)
+        print(f"training: DataParallelModel.transform over {TRAIN_SCORE_ROWS} rows in {TRAIN_PARTITIONS} "
+              f"partitions ({coalesced} coalesced batches) vs the trained module called directly: relative "
+              f"error {score_err:.3e} (limit {IMAGE_F32_REL})")
+        check(coalesced > 0, "training: the trained model's scoring did not go through the shared feeder")
+        check(score_err <= IMAGE_F32_REL, f"training: scored rows off the direct module by {score_err:.3e}")
+        del fitted
+        torch.cuda.empty_cache()
+        # two SGD steps on the card against the same two on the CPU
+        x, _ = image_structs_to_batch(structs[: 2 * TRAIN_SGD_ROWS], TRAIN_SIDE, TRAIN_SIDE)
+        y = np.asarray(labels[: 2 * TRAIN_SGD_ROWS], np.int32)
+        t0 = time.perf_counter()
+        card = _sgd_two_steps(_train_model(torch.float32, seed, cuda), mesh, x, y)
+        t_card = time.perf_counter() - t0
+        cpu = _sgd_two_steps(_train_model(torch.float32, seed, "cpu"), Mesh({"dp": 1}), x, y)
+        t_cpu = time.perf_counter() - t0 - t_card
+        ref = _sgd_reference_f64(seed, cuda, x, y)
+
+        def rel(a, n):
+            return float((a[n].double() - ref[n]).abs().max() / ref[n].abs().max().clamp(min=1e-300))
+
+        errs = {n: (rel(card, n), rel(cpu, n)) for n in ref}
+        card_vs_cpu = max(
+            float((card[n] - cpu[n]).abs().max() / cpu[n].abs().max().clamp(min=1e-30)) for n in cpu
+        )
+        over = [n for n, (c, p) in errs.items() if c > TRAIN_SGD_REL + TRAIN_SGD_NOISE * p]
+        worst_card = max((c, n) for n, (c, _) in errs.items())
+        worst_cpu = max((p, n) for n, (_, p) in errs.items())
+        print(f"training: two f32 SGD steps (lr {TRAIN_SGD_LR}, {TRAIN_SGD_ROWS} rows each; card {t_card:.2f} s, "
+              f"CPU {t_cpu:.2f} s) against float64 on the card, each tensor relative to its own max: card worst "
+              f"{worst_card[0]:.3e} ({worst_card[1]}), CPU worst {worst_cpu[0]:.3e} ({worst_cpu[1]}); over 1e-4: "
+              f"card {sum(c > 1e-4 for c, _ in errs.values())}, CPU {sum(p > 1e-4 for _, p in errs.values())} of "
+              f"{len(errs)} tensors; card vs CPU worst {card_vs_cpu:.3e}; tensors where the card exceeds "
+              f"{TRAIN_SGD_REL} + {TRAIN_SGD_NOISE} x the CPU's error: {len(over)}")
+        check(not over, f"training: card SGD steps off float64 beyond the CPU's float32 error in {over[:5]}")
+        # checkpoint and resume: a run stopped after one epoch resumes there
+        model_dir = os.path.join(tmp, "train_ckpt")
+        first = _train_estimator(_train_model(torch.float32, seed, cuda), epochs=1, modelDir=model_dir)
+        first.fit(df)
+        saved = first._latest_step(model_dir)
+        second = _train_estimator(_train_model(torch.float32, seed, cuda), epochs=1, modelDir=model_dir)
+        resumed = second.fit(df)
+        check(saved == steps and second._latest_step(model_dir) == 2 * steps,
+              f"training resume: saved step {saved}, then {second._latest_step(model_dir)}")
+        print(f"training: modelDir run stopped after epoch 1 at step {saved}; the next fit resumed there and "
+              f"saved step {second._latest_step(model_dir)} (loss {resumed.history[0]['loss']:.4f})")
+    finally:
+        distributed.shutdown()
+
+
 def _direct_fn(spec, mode: str, dtype, seed: int):
     """The registry's ModelFunction of ``spec`` at ``dtype``, seeded as
     the serving loader seeds it."""
@@ -1292,6 +1639,9 @@ def main(argv=None) -> int:
     done("phase 10")
     phase_serving(args.seed, device_name)
     done("phase 11")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_training(args.seed, device_name, tmp)
+    done("phase 12")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[torch.float32], records[torch.bfloat16]]}))
     print(json.dumps({

@@ -16,8 +16,16 @@ What it covers today:
   :class:`~sparkdl_tpu_torch.transformers.text.TextEmbedder`, the hashing
   tokenizer and sequence-length buckets, into
   :class:`~sparkdl_tpu_torch.models.bert.BertEncoder`, whose attention
-  runs the hand-written CUDA kernel in ``csrc/flash_attention.cu``.
+  runs the hand-written CUDA kernel in ``csrc/flash_attention.cu``;
+- online serving (``serving/``) over the shared device feeder;
+- partitions run at once by ``runtime/executor.py``, their rows coalesced
+  by the shared feeder;
+- data-parallel training over a ``torch.distributed`` process group:
+  :class:`~sparkdl_tpu_torch.estimators.DataParallelEstimator`
+  (``parallel/``), the evaluators and stage persistence.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with the default device and no CUDA card they raise.
 """
+
+__version__ = "0.1.0"

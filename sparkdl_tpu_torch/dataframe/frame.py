@@ -1,14 +1,17 @@
 """A minimal partitioned DataFrame.
 
-The part of the JAX package's DataFrame that the text and image slices
-drive: a frame is a list of partitions (each a ``{column: list}`` dict)
-plus a lazy plan of partition-wise ops. Actions run the plan over the
-partitions one after another.
+The part of the JAX package's DataFrame that the text, image and
+training slices drive: a frame is a list of partitions (each a
+``{column: list}`` dict) plus a lazy plan of partition-wise ops. Actions
+run the plan over the partitions through the default executor
+(``runtime/executor.py``): several at once, results in partition order,
+with bounded retry. :meth:`DataFrame.iterPartitions` runs them one at a
+time instead, keeping one in memory (the streamed trainer's feed).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -35,6 +38,12 @@ def partition_row_spans(total_rows: int, num_partitions: int):
         spans.append((start, start + size))
         start += size
     return spans
+
+
+def _run_plan(ops, columns: List[str], part: Partition) -> Partition:
+    for op in ops:
+        part = op(part)
+    return {c: part[c] for c in columns}
 
 
 class Row(dict):
@@ -78,6 +87,15 @@ class DataFrame:
     @property
     def columns(self) -> List[str]:
         return list(self._columns)
+
+    @property
+    def numPartitions(self) -> int:
+        return len(self._source)
+
+    def partitionRowCounts(self) -> List[int]:
+        """Per-partition SOURCE row counts: pre-plan, no op executed (the
+        trainer's step count, identical on every rank)."""
+        return [_part_num_rows(p) for p in self._source]
 
     def _with_op(
         self, op: Callable[[Partition], Partition], columns: List[str]
@@ -166,12 +184,39 @@ class DataFrame:
         return self._with_op(op, cols)
 
     def _execute(self) -> List[Partition]:
-        parts = []
-        for part in self._source:
-            for op in self._ops:
-                part = op(part)
-            parts.append({c: part[c] for c in self._columns})
-        return parts
+        from sparkdl_tpu_torch.runtime.executor import default_executor
+
+        ops, cols = self._ops, self._columns
+        return default_executor().map_partitions(
+            lambda _i, part: _run_plan(ops, cols, part),
+            self._source,
+            count_rows=_part_num_rows,
+        )
+
+    def iterPartitions(
+        self, order: Optional[Sequence[int]] = None
+    ) -> Iterator[Partition]:
+        """Run the plan partition by partition, yielding each result and
+        keeping none, with the executor's attempt budget per partition.
+        ``order``: visit only these partition indices, in this order (the
+        streamed trainer's epoch shuffle)."""
+        from sparkdl_tpu_torch.runtime.executor import (
+            PartitionTaskError,
+            default_executor,
+        )
+
+        max_failures = default_executor().max_failures
+        indices = range(len(self._source)) if order is None else order
+        for i in indices:
+            for _attempt in range(max_failures):
+                try:
+                    result = _run_plan(self._ops, self._columns, self._source[i])
+                    break
+                except Exception as e:  # noqa: BLE001 — retried, then raised
+                    last_err = e
+            else:
+                raise PartitionTaskError(i, max_failures, last_err)
+            yield result
 
     def collect(self) -> List[Row]:
         rows: List[Row] = []

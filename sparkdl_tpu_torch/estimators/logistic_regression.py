@@ -68,6 +68,8 @@ class LogisticRegressionModel(Model):
         }
 
     def _load_extra(self, path: str, meta: dict) -> None:
+        if not hasattr(self, "_device"):  # load_stage without a device
+            self._device = resolve_device(None)
         with np.load(os.path.join(path, "model.npz")) as blob:
             self._set_weights(blob["w"], blob["b"])
         extra = meta["extra"]

@@ -9,11 +9,12 @@ The port of the JAX package's ``graph/precision.py`` for its ``f32`` and
   module's edge casts: floating inputs cast to bfloat16 on the way in
   (integer inputs such as token ids stay as they are), floating outputs
   back to float32, so the serving API's answer dtype never changes with
-  the rung. The registry builds a bf16 module natively (its own
-  precision policy: bf16 projections and convs, float32 LayerNorm and
-  BatchNorm), so the default serving loader builds at the rung and adds
-  only the edge casts (:func:`edge_casts`); a custom loader's module is
-  cast as a whole by :func:`apply_precision`.
+  the rung. Every floating parameter and buffer is stored in bfloat16,
+  as the JAX rung casts every floating leaf; LayerNorm and BatchNorm
+  upcast theirs and compute in float32. The default serving loader builds
+  the registry's bf16 module natively, casts the rest of it and adds the
+  edge casts (:func:`edge_casts`); a custom loader's module is cast as a
+  whole by :func:`apply_precision`.
 
 Selection is per SLA class, as in the JAX package:
 ``SPARKDL_SERVE_PRECISION`` sets every class,
@@ -101,6 +102,15 @@ def edge_casts(mf: ModelFunction, precision: str = "bf16") -> ModelFunction:
     )
 
 
+def bf16_rung(mf: ModelFunction) -> ModelFunction:
+    """The bf16 rung of a module built natively in bfloat16 (the registry's
+    bf16 build): every floating parameter and buffer that is still float32
+    (norms, embeddings) is cast to bfloat16 in place, then
+    :func:`edge_casts` wraps the fn."""
+    mf.module.to(torch.bfloat16)
+    return edge_casts(mf, "bf16")
+
+
 def apply_precision(mf: ModelFunction, precision: str) -> ModelFunction:
     """The ``precision`` rung of a ModelFunction. ``f32``, or a function
     already built at the rung (``mf.precision``), comes back unchanged;
@@ -126,6 +136,7 @@ __all__ = [
     "NOT_PORTED",
     "PRECISIONS",
     "apply_precision",
+    "bf16_rung",
     "edge_casts",
     "precision_active",
     "serve_precision",

@@ -8,7 +8,10 @@ numerics:
   them on every call — the same values);
 - the embedding sum and every LayerNorm (eps 1e-12) run in f32: the
   residual sum is cast to f32 before each LayerNorm and back to ``dtype``
-  after; the embedding output is cast to ``dtype``;
+  after; the embedding output is cast to ``dtype``. On the bf16 serving
+  rung, which stores every parameter in bf16 as the JAX rung does, the
+  embeddings are summed in bf16 and each LayerNorm upcasts its input and
+  its scale and bias, as flax's LayerNorm promotes them;
 - the additive key mask is ``(1 - mask) * finfo(float32).min`` and is
   added to f32 scores, whatever ``dtype`` is;
 - GELU is exact (erf);
@@ -89,6 +92,17 @@ def dense_attention(q, k, v, mask, dtype):
     return torch.matmul(probs, v)
 
 
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm in f32 whatever the dtype of its input and parameters
+    (f32, or bf16 on the serving rung): the output is f32."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(
+            x.float(), self.normalized_shape, self.weight.float(),
+            self.bias.float(), self.eps,
+        )
+
+
 class BertEmbeddings(nn.Module):
     def __init__(self, config: BertConfig, device=None):
         super().__init__()
@@ -103,7 +117,7 @@ class BertEmbeddings(nn.Module):
         self.token_type_embeddings = nn.Embedding(
             c.type_vocab_size, c.hidden_size, device=device
         )
-        self.layer_norm = nn.LayerNorm(
+        self.layer_norm = LayerNorm(
             c.hidden_size, eps=c.layer_norm_eps, device=device
         )
 
@@ -161,7 +175,7 @@ class BertLayer(nn.Module):
         c = config
         self.config = c
         self.attention = BertSelfAttention(c, attention_fn, device=device)
-        self.attention_norm = nn.LayerNorm(
+        self.attention_norm = LayerNorm(
             c.hidden_size, eps=c.layer_norm_eps, device=device
         )
         self.intermediate = nn.Linear(
@@ -170,7 +184,7 @@ class BertLayer(nn.Module):
         self.mlp_output = nn.Linear(
             c.intermediate_size, c.hidden_size, device=device
         )
-        self.output_norm = nn.LayerNorm(
+        self.output_norm = LayerNorm(
             c.hidden_size, eps=c.layer_norm_eps, device=device
         )
 

@@ -3,8 +3,8 @@ padding, the precision policy of their forward, and flax's seeded init.
 
 Precision follows the JAX package's flax modules: with ``dtype=bfloat16``
 the convs and dense layers store bf16 weights (:meth:`ImageCNN.cast_compute`)
-and compute in bf16; BatchNorm keeps float32 statistics and parameters,
-computes in float32 and rounds to bf16; global pools sum in float32; the
+and compute in bf16; BatchNorm keeps float32 statistics and parameters
+(bf16 on the serving rung), computes in float32 and rounds to bf16; global pools sum in float32; the
 output is float32. With ``dtype=float32`` the forward turns TF32 off for
 its own convs and dense layers
 (:func:`~sparkdl_tpu_torch.runtime.device.exact_float32`): cuDNN would
@@ -25,10 +25,19 @@ from sparkdl_tpu_torch.runtime.device import exact_float32
 
 
 class BatchNorm(nn.Module):
-    """Inference-mode BatchNorm over NCHW channels with float32 scale, bias
-    and running statistics, whatever the input's dtype. ``use_scale=False``
-    (InceptionV3's, as keras' ``scale=False``) has no ``weight``, as the
-    flax module has no ``scale`` leaf."""
+    """Inference-mode BatchNorm over NCHW channels, ``use_running_average``
+    as flax's, computed in float32 whatever the input's dtype. Scale, bias
+    and running statistics are float32, except on the bf16 serving rung,
+    which stores them in bfloat16 as the JAX rung does: the forward
+    upcasts them. ``use_scale=False`` (InceptionV3's, as keras'
+    ``scale=False``) has no ``weight``, as the flax module has no ``scale``
+    leaf.
+
+    Statistics that require grad (the trainer differentiates them, as
+    ``jax.value_and_grad`` does the flax ``batch_stats``; ``F.batch_norm``
+    refuses them) take flax's own formula,
+    ``(x - mean) * (scale * rsqrt(var + eps)) + bias``, with ``mul`` in the
+    statistics' dtype and the rest promoted, as flax promotes it."""
 
     def __init__(self, channels: int, eps: float = 1e-5, use_scale: bool = True):
         super().__init__()
@@ -39,10 +48,21 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.running_mean.requires_grad or self.running_var.requires_grad:
+            return self._flax_formula(x)
+        weight = None if self.weight is None else self.weight.float()
         return F.batch_norm(
-            x, self.running_mean, self.running_var, self.weight, self.bias,
-            training=False, momentum=0.0, eps=self.eps,
+            x, self.running_mean.float(), self.running_var.float(), weight,
+            self.bias.float(), training=False, momentum=0.0, eps=self.eps,
         )
+
+    def _flax_formula(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(self.running_var + self.eps)
+        if self.weight is not None:
+            mul = mul * self.weight
+        y = (x - self.running_mean.view(shape)) * mul.view(shape)
+        return (y + self.bias.view(shape)).to(x.dtype)
 
 
 def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:

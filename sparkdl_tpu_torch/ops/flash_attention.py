@@ -210,7 +210,8 @@ def make_flash_attention_fn():
     """An attention fn with the ``dense_attention(q, k, v, mask, dtype)``
     signature, for ``BertEncoder(attention_fn=...)``. It follows the
     tensors' device: the kernel for CUDA tensors, the plain version for
-    CPU tensors."""
+    CPU tensors. The kernel has no backward, as the JAX kernel has none:
+    ``attention.flash`` tells a trainer so."""
 
     def attention(q, k, v, mask, dtype):
         out = flash_attention(
@@ -218,4 +219,5 @@ def make_flash_attention_fn():
         )
         return out.to(dtype)
 
+    attention.flash = True
     return attention

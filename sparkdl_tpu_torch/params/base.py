@@ -13,7 +13,7 @@ import copy as _copy
 import functools
 import numbers
 import threading
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 
 class Param:
@@ -107,6 +107,12 @@ class TypeConverters:
         if isinstance(value, (list, tuple)):
             return list(value)
         raise TypeError(f"Could not convert {value!r} to list")
+
+    @staticmethod
+    def toDict(value: Any) -> dict:
+        if isinstance(value, dict):
+            return value
+        raise TypeError(f"Could not convert {value!r} to dict")
 
 
 def keyword_only(func: Callable) -> Callable:
@@ -232,3 +238,55 @@ class Params:
                 p = that._resolveParam(k)
             that._paramMap[p] = p.typeConverter(v)
         return that
+
+    # -- persistence (``persistence.py``) -----------------------------------
+
+    def _reset_uid(self, uid: str) -> "Params":
+        """Rebind this instance and its Params to a restored uid, so
+        ParamMaps keyed on the saved stage resolve after a round trip; the
+        class's uid counter moves past the restored suffix."""
+        self.uid = uid
+        cls_name, _, suffix = uid.rpartition("_")
+        try:
+            n = int(suffix, 16)
+        except ValueError:
+            cls_name, n = "", -1
+        if cls_name:
+            with _uid_lock:
+                _uid_counters[cls_name] = max(_uid_counters.get(cls_name, 0), n + 1)
+        remap = {}
+        for name in dir(type(self)):
+            attr = getattr(self, name, None)
+            if isinstance(attr, Param):
+                remap[attr] = attr._copy_new_parent(self)
+                setattr(self, name, remap[attr])
+        self._paramMap = {remap.get(p, p): v for p, v in self._paramMap.items()}
+        self._defaultParamMap = {remap.get(p, p): v for p, v in self._defaultParamMap.items()}
+        return self
+
+    def _non_json_params(self) -> List[str]:
+        """Param names whose values ``_save_extra`` persists itself."""
+        return []
+
+    def _save_extra(self, path: str) -> Optional[dict]:
+        """Persist what is not a Param (weights, nested stages) under
+        ``path``; an optional JSON-able dict is stored as metadata
+        'extra'."""
+        return None
+
+    def _load_extra(self, path: str, meta: dict) -> None:
+        """Inverse of ``_save_extra``."""
+
+    def save(self, path: str, overwrite: bool = False) -> None:
+        """Save this stage to a directory (MLlib ``stage.save``)."""
+        from sparkdl_tpu_torch import persistence
+
+        persistence.save_stage(self, path, overwrite=overwrite)
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "Params":
+        """Load a saved stage, checked against this class; tensors land on
+        ``device`` (``cuda`` by default)."""
+        from sparkdl_tpu_torch import persistence
+
+        return persistence.load_stage(path, expected_class=cls, device=device)

@@ -972,6 +972,23 @@ def run_shared(
     into the feeder keyed by the observed row shape — so workloads whose
     row shape varies between chunks (legal on the legacy path, which
     recompiles per shape) transparently use one feeder per shape."""
+    return submit_shared(device_fn, cells, to_batch, batch_size, prefetch, partition)()
+
+
+def submit_shared(
+    device_fn: Callable,
+    cells: Sequence,
+    to_batch: Callable,
+    batch_size: int,
+    prefetch: Optional[int] = None,
+    partition=None,
+) -> Callable[[], List[Optional[np.ndarray]]]:
+    """The first half of :func:`run_shared`: stream every row into the
+    feeders and end this producer's streams, then return a function that
+    waits for the rows and returns them. A caller with several groups of
+    rows (the text path's length buckets) submits them all before it
+    waits on any, so no feeder holds a partial batch for a producer that
+    is still busy elsewhere."""
     from sparkdl_tpu_torch.transformers.execution import default_prefetch
 
     dispatch_rows = batch_size * getattr(device_fn, "batch_multiplier", 1)
@@ -980,7 +997,7 @@ def run_shared(
     n = len(cells)
     out: List[Optional[np.ndarray]] = [None] * n
     if n == 0:
-        return out
+        return lambda: out
     handles: dict = {}
     try:
         for start in range(0, n, dispatch_rows):
@@ -1035,6 +1052,10 @@ def run_shared(
                 h.feeder.finish(h)
             except RuntimeError:
                 pass  # feeder closed underneath us; handles already failed
-    for h in handles.values():
-        h.wait()
-    return out
+
+    def wait() -> List[Optional[np.ndarray]]:
+        for h in handles.values():
+            h.wait()
+        return out
+
+    return wait

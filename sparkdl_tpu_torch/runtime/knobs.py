@@ -20,8 +20,18 @@ from typing import Dict, Optional, Tuple
 
 #: name -> (kind, default as the raw string an unset variable behaves as)
 _KNOBS: Dict[str, Tuple[str, Optional[str]]] = {
-    # transformers/execution.py
+    # transformers/execution.py: the in-flight window, and the router
+    # of concurrent partitions into the shared feeder (0/off: each
+    # partition runs its own pipeline, the A/B arm)
     "SPARKDL_PREFETCH_PER_DEVICE": ("int", "2"),
+    "SPARKDL_SHARED_FEEDER": ("flag", "1"),
+    # runtime/executor.py: the partition retry family
+    # (resilience/policy.policy_from_env)
+    "SPARKDL_EXEC_RETRY_ATTEMPTS": ("int", None),
+    "SPARKDL_EXEC_RETRY_BASE_MS": ("float", None),
+    "SPARKDL_EXEC_RETRY_MAX_MS": ("float", None),
+    "SPARKDL_EXEC_RETRY_DEADLINE_S": ("float", None),
+    "SPARKDL_EXEC_RETRY_SEED": ("int", None),
     # text/bucketing.py
     "SPARKDL_TEXT_BUCKETING": ("flag", "1"),
     "SPARKDL_TEXT_BUCKETS": ("str", "half"),

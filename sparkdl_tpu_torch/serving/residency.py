@@ -76,17 +76,20 @@ def _default_loader(
     name: str, mode: str, precision: str = "f32", device=None, seed: int = 0
 ):
     """Registry-backed loader. The ``bf16`` rung builds the module in
-    bfloat16 natively (the registry's own precision policy) and adds the
-    rung's edge casts (``graph/precision.edge_casts``)."""
-    from sparkdl_tpu_torch.graph.precision import edge_casts
+    bfloat16 natively (the registry's own precision policy: bf16 convs and
+    projections), then stores every floating parameter and buffer in
+    bfloat16, norms and embeddings included, as the JAX rung's
+    ``apply_precision`` casts every floating leaf; the norms compute in
+    float32 by upcasting in their forward (``graph/precision.bf16_rung``,
+    which adds the rung's edge casts)."""
+    from sparkdl_tpu_torch.graph.precision import bf16_rung
     from sparkdl_tpu_torch.models import get_model
 
     spec = get_model(name)
     if precision == "bf16":
-        mf = spec.model_function(
+        return bf16_rung(spec.model_function(
             mode=mode, dtype=torch.bfloat16, seed=seed, device=device
-        )
-        return edge_casts(mf, "bf16")
+        ))
     return spec.model_function(mode=mode, seed=seed, device=device)
 
 
@@ -301,9 +304,9 @@ class ResidencyManager:
 
     def _estimate_bytes(self, name: str, precision: str) -> Optional[int]:
         """The default loader's parameter bytes before it builds: the
-        registry's float32 estimate, halved on the bf16 rung (a lower
-        bound: norms stay float32). None for a custom loader, whose module
-        is sized once it exists."""
+        registry's float32 estimate, halved on the bf16 rung (exact: the
+        rung stores every parameter and buffer in bfloat16). None for a
+        custom loader, whose module is sized once it exists."""
         if self._loader is not None or self._budget() is None:
             return None
         from sparkdl_tpu_torch.models import get_model

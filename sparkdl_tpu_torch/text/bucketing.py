@@ -149,7 +149,7 @@ def run_bucketed(
     Tokenization runs once, up front (lengths decide routing); rows then
     run per bucket through ``run_batched_shared``, largest bucket first.
     """
-    from sparkdl_tpu_torch.transformers.execution import run_batched_shared
+    from sparkdl_tpu_torch.transformers.execution import start_batched_shared
     from sparkdl_tpu_torch.transformers.text import pad_or_truncate
 
     n = len(cells)
@@ -173,6 +173,7 @@ def run_bucketed(
         return out
     real_tokens = 0
     pad_tokens = 0
+    pending = []
     for b in sorted(routed, reverse=True):
         idxs, rows = routed[b]
         metrics.inc(f"text.bucket_rows.{b}", len(idxs))
@@ -187,10 +188,15 @@ def run_bucketed(
                 batch[j] = pad_or_truncate(ids, _b)
             return batch, np.ones((len(chunk),), bool)
 
-        results = run_batched_shared(
+        # every bucket is submitted before any is waited on: on the shared
+        # feeder a bucket's partial batch then goes out as soon as each
+        # partition has submitted its rows, not when the last partition
+        # has worked through the buckets before it
+        pending.append((idxs, start_batched_shared(
             rows, to_batch, device_fn, batch_size, prefetch=prefetch
-        )
-        for i, y in zip(idxs, results):
+        )))
+    for idxs, results in pending:
+        for i, y in zip(idxs, results()):
             out[i] = y
     metrics.inc("text.tokens", real_tokens)
     metrics.inc("text.pad_tokens", pad_tokens)

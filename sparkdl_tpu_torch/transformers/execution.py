@@ -5,19 +5,25 @@ The single-device counterpart of the JAX package's ``run_batched``:
 - a host producer thread assembles fixed-size batches (``to_batch``),
   zero-pads the tail batch to ``batch_size``, and for a CUDA device stages
   each batch in pinned memory;
-- the dispatch loop copies each batch to the device with
-  ``non_blocking=True``, runs ``device_fn`` on it, starts the result's
-  copy back into pinned memory and records a CUDA event, keeping at most
-  ``prefetch`` batches in flight;
+- the dispatch loop hands each batch to the device fn, which copies it to
+  the device with ``non_blocking=True`` and runs the model; the result's
+  copy back into pinned memory starts at once behind an event
+  (``runtime/readback``), and at most ``prefetch`` batches are in flight.
+  On CUDA every call is issued on the device's launch thread
+  (``runtime/device.Launcher``), as the shared feeder issues its own, so
+  the partition threads never issue forwards at once;
 - the oldest batch is drained (its event waited on) only when the window
   is full, and its valid rows are scattered back to their cell positions.
   Rows whose mask is False come back as ``None``.
 
-``run_batched_shared`` is an alias for now: the partition path does not
-go through the shared feeder yet (``runtime/feeder.py`` serves the
-serving router). :func:`model_device_fn` builds the device fn that the
-feeder and router dispatch through. ``arrays_to_batch`` is the host stage
-of tensor columns.
+:func:`run_batched_shared` is the router the transformers call: when the
+executor runs more than one partition at once it streams their rows into
+one shared feeder (``runtime/feeder.run_shared``), so full batches pack
+across partition boundaries; otherwise it is :func:`run_batched`.
+:func:`model_device_fn` builds the device fn that the feeder, the router
+and the transformers dispatch through. ``arrays_to_batch`` is the host
+stage of tensor columns; :func:`prefetch_iter` runs any generator a few
+items ahead on a thread (the streamed trainer's feed).
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from sparkdl_tpu_torch.runtime import knobs
+from sparkdl_tpu_torch.runtime import knobs, readback
 from sparkdl_tpu_torch.runtime.device import compute_stream, copy_stream, launcher
 from sparkdl_tpu_torch.runtime.transfer import Staged, copy_to_device
 from sparkdl_tpu_torch.utils.metrics import metrics
@@ -63,6 +69,9 @@ def model_device_fn(model_function):
     layout) and the fn permutes them to the NCHW the port's modules take:
     on a ``channels_last`` module that is a free view.
 
+    A function that takes NHWC rows itself (``mf.takes_nhwc``, the
+    trainable image functions) gets them as they are.
+
     Attributes the feeder and router read: ``device``, ``stream`` (None on
     the CPU), ``stage_put`` (the transfer half, ``runtime/transfer.py``),
     ``launcher`` (the device's :class:`~sparkdl_tpu_torch.runtime.device.Launcher`,
@@ -72,7 +81,9 @@ def model_device_fn(model_function):
     mf = model_function
     device = torch.device(mf.device if mf.device is not None else "cpu")
     on_cuda = device.type == "cuda"
-    nhwc = mf.input_shape is not None and len(mf.input_shape) == 3
+    nhwc = (
+        mf.input_shape is not None and len(mf.input_shape) == 3 and not mf.takes_nhwc
+    )
     stream = None
     if on_cuda:
         stream = compute_stream(device)
@@ -129,6 +140,37 @@ def _put_or_stop(out_q: "queue.Queue", item, stop: threading.Event) -> bool:
     return False
 
 
+def prefetch_iter(gen, depth: int = 2):
+    """Run ``gen`` on a producer thread, ``depth`` items ahead through a
+    bounded queue, so host work (decode, shuffle) overlaps the device.
+    Exceptions reach the consumer; abandoning the returned iterator
+    (break, raise, ``close``) stops the producer at its next put."""
+    q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
+    stop = threading.Event()
+
+    def produce():
+        try:
+            for item in gen:
+                if not _put_or_stop(q, item, stop):
+                    return
+            _put_or_stop(q, _SENTINEL, stop)
+        except BaseException as e:  # noqa: BLE001 — relayed to the consumer
+            _put_or_stop(q, e, stop)
+
+    t = threading.Thread(target=produce, name="sparkdl-torch-stream-producer", daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is _SENTINEL:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+
+
 def _batch_producer(
     cells: Sequence,
     to_batch: Callable[[Sequence], Tuple[np.ndarray, np.ndarray]],
@@ -178,7 +220,10 @@ def run_batched(
         cells: partition column values (may contain None).
         to_batch: host stage: list of cells -> (batch array, bool mask of
             rows that hold data).
-        device_fn: callable over one batch tensor on ``device_fn.device``.
+        device_fn: a :func:`model_device_fn` fn, which takes the host
+            batch and copies it on its own stream; or any callable over
+            one batch tensor on ``device_fn.device``, which gets the batch
+            copied there on the launch thread's stream.
         batch_size: device batch size; the tail batch is zero-padded to it.
         prefetch: batches in flight ahead of readback (default
             ``SPARKDL_PREFETCH_PER_DEVICE``).
@@ -186,12 +231,19 @@ def run_batched(
     Returns one output per cell: an np.ndarray row, or None where masked.
     """
     device = torch.device(device_fn.device)
-    prefetch = max(1, prefetch if prefetch is not None else default_prefetch())
+    prefetch = max(1, prefetch if prefetch is not None else default_prefetch(device_fn))
     n = len(cells)
     out: List[Optional[np.ndarray]] = [None] * n
     if n == 0:
         return out
     on_cuda = device.type == "cuda"
+    takes_host = hasattr(device_fn, "stage_put")
+    stream = getattr(device_fn, "stream", None)
+    la = (getattr(device_fn, "launcher", None) or launcher(device)) if on_cuda else None
+
+    def issue(host: torch.Tensor):
+        y = device_fn(host if takes_host else host.to(device, non_blocking=True))
+        return readback.start_copy(y, stream)
 
     q: "queue.Queue" = queue.Queue(maxsize=prefetch)
     stop = threading.Event()
@@ -205,24 +257,15 @@ def run_batched(
     inflight: deque = deque()
 
     def dispatch(start: int, host: torch.Tensor, mask: np.ndarray) -> None:
-        y = device_fn(host.to(device, non_blocking=True))
+        y = issue(host) if la is None else la.run(issue, host)
         metrics.inc("transform.batches")
-        done = None
-        if on_cuda:
-            y_host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
-            y_host.copy_(y, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(device))
-            y = y_host
-        inflight.append((start, mask, y, done))
+        inflight.append((start, mask, y))
 
     def drain() -> None:
-        start, mask, y, done = inflight.popleft()
+        start, mask, y = inflight.popleft()
         t0 = time.perf_counter()
-        if done is not None:
-            done.synchronize()  # this batch only; later ones keep running
+        rows = readback.to_host(y)  # this batch only; later ones keep running
         metrics.record_time("transform.device_wait", time.perf_counter() - t0)
-        rows = y.numpy()
         valid = np.flatnonzero(mask)
         metrics.inc("transform.rows", int(len(valid)))
         for i in valid:
@@ -249,9 +292,62 @@ def run_batched(
     return out
 
 
-#: The partition path does not go through the shared feeder yet; every
-#: partition runs its own pipeline.
-run_batched_shared = run_batched
+def shared_feeder_enabled() -> bool:
+    """SPARKDL_SHARED_FEEDER gates coalescing across concurrent partitions
+    (default on; 0/off gives every partition its own pipeline: the A/B
+    arm)."""
+    return knobs.get_flag("SPARKDL_SHARED_FEEDER")
+
+
+def run_batched_shared(
+    cells: Sequence,
+    to_batch: Callable[[Sequence], Tuple[np.ndarray, np.ndarray]],
+    device_fn: Callable,
+    batch_size: int,
+    prefetch: Optional[int] = None,
+) -> List[Optional[np.ndarray]]:
+    """:func:`run_batched` that coalesces across concurrent partitions
+    (:func:`start_batched_shared`, waited on at once)."""
+    return start_batched_shared(cells, to_batch, device_fn, batch_size, prefetch)()
+
+
+def start_batched_shared(
+    cells: Sequence,
+    to_batch: Callable[[Sequence], Tuple[np.ndarray, np.ndarray]],
+    device_fn: Callable,
+    batch_size: int,
+    prefetch: Optional[int] = None,
+) -> Callable[[], List[Optional[np.ndarray]]]:
+    """The router behind :func:`run_batched_shared`, returning a function
+    that gives the rows.
+
+    When the executor runs this call as one of more than one partition at
+    once (its :class:`~sparkdl_tpu_torch.runtime.executor.TaskContext`)
+    and the shared feeder is on, the rows stream into the feeder of
+    ``(device_fn, batch geometry)``: the partitions feed ONE dispatch loop
+    with full batches packed across partition boundaries, and only the
+    last flush is padded. A single partition, a ``single_stream`` fn and
+    ``SPARKDL_SHARED_FEEDER=0`` keep :func:`run_batched`, which runs
+    before this returns. On the feeder the rows are submitted before this
+    returns and the function waits for them (``feeder.submit_shared``).
+    The output contract is :func:`run_batched`'s."""
+    from sparkdl_tpu_torch.runtime.executor import current_task_context
+
+    ctx = current_task_context()
+    if (
+        not shared_feeder_enabled()
+        or ctx is None
+        or ctx.concurrency <= 1
+        or getattr(device_fn, "single_stream", False)
+    ):
+        out = run_batched(cells, to_batch, device_fn, batch_size, prefetch)
+        return lambda: out
+    from sparkdl_tpu_torch.runtime.feeder import submit_shared
+
+    return submit_shared(
+        device_fn, cells, to_batch, batch_size, prefetch=prefetch,
+        partition=ctx.partition_index,
+    )
 
 
 def arrays_to_batch(

@@ -2,9 +2,11 @@
 
 Port of the JAX package's ``transformers/image_model.py``. The image
 converter piece, the model and (for ``outputMode='vector'``) the
-flattener compose into one ``ModelFunction`` on the model's device; the
-batched engine (``execution.run_batched``) feeds it uint8 NCHW batches
-that the host stage decodes and resizes to the model's fixed geometry.
+flattener compose into one ``ModelFunction`` on the model's device,
+dispatched through its ``model_device_fn`` (on CUDA, on the device's launch
+thread); the batched engine (``execution.run_batched_shared``: the shared
+feeder when partitions run at once) feeds it uint8 NCHW batches that the
+host stage decodes and resizes to the model's fixed geometry.
 
 The JAX package's on-device resize arm (``SPARKDL_DEVICE_PREPROC``) is
 not ported: the host always resizes.
@@ -37,7 +39,7 @@ from sparkdl_tpu_torch.params import (
     keyword_only,
 )
 from sparkdl_tpu_torch.pipeline import Transformer
-from sparkdl_tpu_torch.transformers.execution import run_batched_shared
+from sparkdl_tpu_torch.transformers.execution import model_device_fn, run_batched_shared
 
 
 class ImageModelTransformer(
@@ -94,8 +96,9 @@ class ImageModelTransformer(
         )
         self._set(**self._input_kwargs)
 
-    def _build_device_fn(self) -> ModelFunction:
-        """converter ∘ model ∘ flattener, built once per configuration.
+    def _build_device_fn(self):
+        """converter ∘ model ∘ flattener as a device fn
+        (``execution.model_device_fn``), built once per configuration.
         Keyed by the modelFunction's identity too, so setModelFunction or
         a ParamMap override never reuses a stale model; the entry holds
         the ModelFunction itself so its id() cannot be recycled.
@@ -104,7 +107,9 @@ class ImageModelTransformer(
         JAX package's ``flat_device_fn`` without its flat 1-D buffer: that
         buffer carries a channel-major batch to the TPU, and channel-major
         is PyTorch's native NCHW, so the host packs NCHW (``chw=True``) and
-        ``run_batched`` copies the batch to the device as it is."""
+        the device fn copies the batch to the device as it is. The same fn
+        object serves every transform, so the shared feeder keeps one
+        stream for it."""
         mf: ModelFunction = self.getModelFunction()
         if mf is None:
             raise ValueError("modelFunction param must be set")
@@ -125,8 +130,9 @@ class ImageModelTransformer(
         pipeline_mf = converter.and_then(mf)
         if self.getOutputMode() == "vector":
             pipeline_mf = pipeline_mf.and_then(build_flattener())
-        cache[key] = (mf, pipeline_mf)
-        return pipeline_mf
+        fn = model_device_fn(pipeline_mf)
+        cache[key] = (mf, fn)
+        return fn
 
     def _geometry(self):
         mf: ModelFunction = self.getModelFunction()

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from sparkdl_tpu_torch.dataframe import DataFrame
+from sparkdl_tpu_torch.graph.function import piece
 from sparkdl_tpu_torch.params import (
     HasBatchSize,
     HasInputCol,
@@ -30,7 +31,7 @@ from sparkdl_tpu_torch.params import (
 )
 from sparkdl_tpu_torch.pipeline import Transformer
 from sparkdl_tpu_torch.text.bucketing import bucketing_enabled, run_bucketed
-from sparkdl_tpu_torch.transformers.execution import run_batched_shared
+from sparkdl_tpu_torch.transformers.execution import model_device_fn, run_batched_shared
 from sparkdl_tpu_torch.utils.metrics import metrics
 
 _WORD = re.compile(r"[\w']+")
@@ -104,15 +105,20 @@ class TextEmbedder(
         self._set(**self._input_kwargs)
 
     def _device_fn(self):
+        """``(ids, ids != 0)`` into the model, as a device fn
+        (``execution.model_device_fn``: on CUDA, issued on the device's
+        launch thread), built once per modelFunction so the shared feeder
+        keeps one stream for it."""
         if not self.isDefined("modelFunction"):
             raise ValueError("modelFunction param must be set")
         mf = self.getModelFunction()
-
-        def device_call(ids: torch.Tensor) -> torch.Tensor:
-            return mf((ids, (ids != 0).to(torch.int32)))
-
-        device_call.device = mf.device
-        return device_call
+        cached = self.__dict__.get("_device_fn_cache")
+        if cached is not None and cached[0] is mf:
+            return cached[1]
+        with_mask = piece(lambda ids: (ids, (ids != 0).to(torch.int32)), name="mask").and_then(mf)
+        fn = model_device_fn(with_mask)
+        self.__dict__["_device_fn_cache"] = (mf, fn)
+        return fn
 
     def _tokenizer(self):
         if self.isDefined("tokenizer"):

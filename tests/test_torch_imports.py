@@ -15,7 +15,7 @@ import sparkdl_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.join(REPO, "sparkdl_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "sparkdl_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sparkdl_tpu")
 
 
 def _port_files():
@@ -40,7 +40,7 @@ def test_no_port_file_imports_jax_flax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 10 and os.path.exists(files[0])
     rel = {os.path.relpath(path, PKG_DIR) for path in files}
-    for sub in ("serving", "obs", "resilience", "runtime"):
+    for sub in ("serving", "obs", "resilience", "runtime", "parallel", "estimators"):
         assert any(r.startswith(sub + os.sep) for r in rel), sub
     offenders = {
         (os.path.relpath(path, REPO), root)
@@ -73,6 +73,14 @@ def test_importing_every_port_module_loads_no_jax():
         "sparkdl_tpu_torch.serving.router",
         "sparkdl_tpu_torch.serving.server",
         "sparkdl_tpu_torch.serving.__main__",
+        "sparkdl_tpu_torch.runtime.executor",
+        "sparkdl_tpu_torch.parallel",
+        "sparkdl_tpu_torch.parallel.mesh",
+        "sparkdl_tpu_torch.parallel.distributed",
+        "sparkdl_tpu_torch.parallel.data_parallel",
+        "sparkdl_tpu_torch.estimators.data_parallel_estimator",
+        "sparkdl_tpu_torch.evaluation",
+        "sparkdl_tpu_torch.persistence",
     ):
         assert name in modules, name
     code = (
@@ -143,4 +151,14 @@ def test_default_device_entry_point_raises_without_cuda(monkeypatch):
         Router()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ResidencyManager()
+    # the trainer and what it builds on
+    from sparkdl_tpu_torch.estimators import DataParallelEstimator
+    from sparkdl_tpu_torch.graph.function import ModelFunction
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ModelFunction.from_module(torch.nn.Linear(2, 2))
+    mf = ModelFunction.from_module(torch.nn.Linear(2, 2), device="cpu")
+    labelled = DataFrame.fromColumns({"features": [np.ones(2, np.float32)], "label": [0]})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DataParallelEstimator(model=mf, inputCol="features").fit(labelled)
     assert resolve_device("cpu") == torch.device("cpu")

@@ -14,6 +14,7 @@ from sparkdl_tpu.transformers.text import TextEmbedder as JaxTextEmbedder
 from sparkdl_tpu.utils.metrics import metrics as jax_metrics
 from sparkdl_tpu_torch.dataframe import DataFrame
 from sparkdl_tpu_torch.models import get_model
+from sparkdl_tpu_torch.runtime.executor import PartitionTaskError
 from sparkdl_tpu_torch.text import bucketing
 from sparkdl_tpu_torch.transformers.execution import run_batched
 from sparkdl_tpu_torch.transformers.text import HashingTokenizer, TextEmbedder
@@ -118,7 +119,9 @@ def test_dataframe_checks_row_counts():
     df = DataFrame.fromColumns({"a": list(range(7))}, numPartitions=3)
     assert df.count() == 7
     bad = df.withColumnPartition("b", lambda part: {"b": [0]})
-    with pytest.raises(ValueError, match="expected"):
+    # the executor retries the partition, then raises as the JAX
+    # package's does, naming the cause
+    with pytest.raises(PartitionTaskError, match="ValueError: .*expected"):
         bad.collect()
     good = df.withColumnPartition("b", lambda part: {"b": [x * 2 for x in part["a"]]})
     assert good.collectColumns() == {
