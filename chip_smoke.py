@@ -55,7 +55,11 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    on the card, row by row against each row's own scale (``BF16_ROW_REL``);
    a ``LogisticRegression`` fit on the card against the same fit on the
    CPU (``w``, ``b`` at atol 1e-4), and prints its accuracy on a held-out
-   split. Prints images/s per dtype. The DataFrame runs its 4 partitions at
+   split; for ResNet50 then ``CrossValidator`` (``LogisticRegression`` on
+   the card, ``regParam`` in {0, 0.01}, 3 folds, parallelism 2) over the
+   f32 features, whose ``avgMetrics`` must equal the same CrossValidator
+   on the CPU (atol 1e-4) with the same best ParamMap; its seconds are
+   printed. Prints images/s per dtype. The DataFrame runs its 4 partitions at
    once (``runtime/executor.py``) and their rows share one feeder
    (``run_batched_shared``; every forward issued by the device's launch
    thread); each dtype's pass is timed against one more with
@@ -141,6 +145,27 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     partitions (executor and shared feeder) equals the trained module
     called directly (relative 1e-5); a ``modelDir`` run stopped after one
     epoch resumes at step 8 and saves step 16.
+13. SQL scoring, BASELINE config[2] ("registerKerasImageUDF MobileNetV2
+    Spark-SQL scoring"): ``registerKerasImageUDF("mnv2", "MobileNetV2",
+    batch_size=128)`` (the registry's seeded random weights, f32, on the
+    card) over a temp view of 2048 synthetic 224x224 BGR structs and one
+    null image in 4 partitions, with a ``label`` column of 'a'/'b' drawn
+    from ``--seed``. Each after a warm-up on a 128-row view: ``apply_udf``
+    directly; ``SELECT mnv2(image) AS probs FROM images`` through
+    ``SparkSession.sql``; the same with ``WHERE label = 'a'``; the plain
+    query under ``SPARKDL_SQL_VECTORIZE=0`` (the row-path planner) and
+    under ``SPARKDL_SHARED_FEEDER=0``. Checks: every non-null row a
+    finite 1000-vector summing to 1 within 1e-5 and the null image null;
+    40 rows (10 per partition) equal to the port on the CPU with the same
+    weights (relative 1e-5); every arm's rows equal to the plain query's
+    (relative 1e-5); under WHERE the model scored exactly the non-null
+    'a' rows (``sql.udf.batch_rows``) and the pushdown skipped exactly the
+    'b' rows (``sql.pushdown.skipped_rows``); the shared feeder's
+    ``sql.udf.batches`` at most the per-partition arm's; no flash kernel
+    launched. Prints images/s per arm, the SQL arm's overhead over
+    ``apply_udf`` (two passes each, in the order apply, sql, sql, apply),
+    the counters, and one profiled pass of the plain query (device busy,
+    its share, the top 5 kernels).
 
 The line before the last is the ``kernels`` JSON record (the f32 and the
 bf16 kernel at bert-base L=512, launches from each dtype's main-path run);
@@ -173,7 +198,9 @@ from sparkdl_tpu_torch.bench_bounds import (
 )
 from sparkdl_tpu_torch.dataframe import DataFrame
 from sparkdl_tpu_torch.dataframe.frame import partition_row_spans
+from sparkdl_tpu_torch import udf as udf_catalog
 from sparkdl_tpu_torch.estimators import DataParallelEstimator, LogisticRegression
+from sparkdl_tpu_torch.evaluation import MulticlassClassificationEvaluator
 from sparkdl_tpu_torch.graph.function import ModelFunction
 from sparkdl_tpu_torch.graph.pieces import image_structs_to_batch
 from sparkdl_tpu_torch.graph.precision import bf16_rung
@@ -195,11 +222,14 @@ from sparkdl_tpu_torch.parallel import (
     make_mesh,
 )
 from sparkdl_tpu_torch.runtime import cuda_build, knobs
+from sparkdl_tpu_torch.runtime.feeder import shutdown_feeders
+from sparkdl_tpu_torch.session import SparkSession
 from sparkdl_tpu_torch.transformers.named_image import (
     DeepImageFeaturizer,
     DeepImagePredictor,
 )
 from sparkdl_tpu_torch.transformers.text import HashingTokenizer, TextEmbedder
+from sparkdl_tpu_torch.tuning import CrossValidator, ParamGridBuilder
 from sparkdl_tpu_torch.utils.metrics import metrics
 
 ATOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -260,6 +290,13 @@ LR_ATOL = 1e-4
 #: keeps their scale), so that the default penalty holds every weight
 #: near 0 and the fit predicts one class
 LR_REG = {"ResNet50": 1e-4, "InceptionV3": 0.0}
+#: phase 6's model selection (ResNet50 only): the grid, folds and threads
+#: of CrossValidator over the f32 features, and its card-vs-CPU metric gap
+CV_MODEL = "ResNet50"
+CV_REG = (0.0, 0.01)
+CV_FOLDS = 3
+CV_PARALLELISM = 2
+CV_ATOL = 1e-4
 #: BGR colours of the two synthetic classes, and the noise around them
 CLASS_BGR = ((40, 60, 200), (200, 80, 40))
 NOISE = 40
@@ -327,6 +364,19 @@ TRAIN_SGD_NOISE = 4.0
 TRAIN_ALLREDUCE_ITERS = 20
 #: rows scored by the trained model through the executor and the feeder
 TRAIN_SCORE_ROWS = 64
+#: phase 13, BASELINE config[2]: the UDF and its model, images (and where
+#: the null image goes), partitions, the UDF's batch (bench.py's udf modes
+#: on a chip), the warm-up view's rows; a probability row sums to 1
+SQL_UDF = "mnv2"
+SQL_MODEL = "MobileNetV2"
+SQL_IMAGES = 2048
+SQL_NULL_ROW = 777
+SQL_PARTITIONS = 4
+SQL_BATCH = 128
+SQL_WARM_ROWS = 128
+SQL_SUM_ATOL = 1e-5
+SQL_QUERY = "SELECT mnv2(image) AS probs FROM {table}"
+SQL_FILTER_QUERY = "SELECT label, mnv2(image) AS probs FROM {table} WHERE label = 'a'"
 
 
 class PhaseError(RuntimeError):
@@ -709,17 +759,25 @@ def _featurize(feat, df, col: str = "features"):
     return [r[col] for r in rows], time.perf_counter() - t0
 
 
-def _profiled_pass(feat, df):
-    """One more pass under torch.profiler (its overhead is in the wall
-    time): (wall seconds, device busy seconds, {kernel: device seconds})."""
+def _profiled(run):
+    """``run()`` under torch.profiler (its overhead is in the wall time):
+    (wall seconds, device busy seconds, {kernel: device seconds})."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = _featurize(feat, df)
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     by_kernel = {key: sec for key, (sec, _) in device_kernels(prof).items()}
     busy = sum(by_kernel.values())
     check(busy > 0, "the profiler saw no device time")
     return wall, busy, by_kernel
+
+
+def _profiled_pass(feat, df):
+    """One more featurizer pass under torch.profiler."""
+    return _profiled(lambda: _featurize(feat, df))
 
 
 def _macs(feat) -> int:
@@ -850,6 +908,37 @@ def phase_transfer_learning(model: str, seed: int, structs, labels, device_name:
         f"{card_s:.2f} s, CPU fit {cpu_s:.2f} s, max |w| gap {w_err:.3e}, "
         f"|b| gap {b_err:.3e} (atol {LR_ATOL}); test accuracy: {acc:.3f} on {len(scored)} rows"
     )
+    if model == CV_MODEL:
+        _cross_validate(model, features["float32"], labels, seed)
+
+
+def _cross_validate(model: str, feats: np.ndarray, labels, seed: int) -> None:
+    """CrossValidator over LogisticRegression on the card against the
+    same on the CPU, over the same features."""
+    df = DataFrame.fromColumns({"features": list(feats), "label": labels}, numPartitions=IMAGE_PARTITIONS)
+    runs = []
+    for device in (None, "cpu"):
+        lr = LogisticRegression(device=device)
+        cv = CrossValidator(
+            estimator=lr, estimatorParamMaps=ParamGridBuilder().addGrid(lr.regParam, CV_REG).build(),
+            evaluator=MulticlassClassificationEvaluator(), numFolds=CV_FOLDS,
+            parallelism=CV_PARALLELISM, seed=seed,
+        )
+        t0 = time.perf_counter()
+        fitted = cv.fit(df)
+        torch.cuda.synchronize()
+        runs.append((fitted, time.perf_counter() - t0))
+    (card, card_s), (cpu, cpu_s) = runs
+    gap = float(np.abs(np.asarray(card.avgMetrics) - np.asarray(cpu.avgMetrics)).max())
+    best = (int(np.argmax(card.avgMetrics)), int(np.argmax(cpu.avgMetrics)))
+    print(
+        f"image path {model} CrossValidator(LogisticRegression, regParam in {list(CV_REG)}, {CV_FOLDS} folds, "
+        f"parallelism {CV_PARALLELISM}) over {len(labels)} f32 feature rows: card {card_s:.2f} s, CPU "
+        f"{cpu_s:.2f} s; avgMetrics (accuracy) card {card.avgMetrics}, CPU {cpu.avgMetrics}, max gap "
+        f"{gap:.3e} (atol {CV_ATOL}); best ParamMap card {best[0]}, CPU {best[1]}"
+    )
+    check(gap <= CV_ATOL, f"{model} CrossValidator: card avgMetrics off the CPU's by {gap:.3e}")
+    check(best[0] == best[1], f"{model} CrossValidator: the card picked ParamMap {best[0]}, the CPU {best[1]}")
 
 
 def phase_image_breakdown(model: str, structs, weights: str) -> None:
@@ -1076,7 +1165,6 @@ def phase_serving(seed: int, device_name: str) -> None:
     """Phase 11: the online serving path on the card."""
     from torch.profiler import ProfilerActivity, profile
 
-    from sparkdl_tpu_torch.runtime.feeder import shutdown_feeders
     from sparkdl_tpu_torch.serving import Router, ServingClient, ServingServer
     from sparkdl_tpu_torch.serving.__main__ import serving_env_defaults
 
@@ -1594,6 +1682,151 @@ def phase_training(seed: int, device_name: str, tmp: str) -> None:
         distributed.shutdown()
 
 
+def phase_sql(seed: int, device_name: str) -> None:
+    """Phase 13, BASELINE config[2]: a model UDF over an image view,
+    scored through sql() on the card."""
+    spec = get_image_model(SQL_MODEL)
+    t0 = time.perf_counter()
+    structs, _ = _colour_structs(seed, SQL_IMAGES, spec.height)
+    structs.insert(SQL_NULL_ROW, None)
+    labels = [str(x) for x in np.random.default_rng(seed + 13).choice(["a", "b"], size=len(structs))]
+    n = len(structs)
+    valid = [i for i, s in enumerate(structs) if s is not None]
+    a_rows = [i for i, lab in enumerate(labels) if lab == "a"]
+    spans = partition_row_spans(n, SQL_PARTITIONS)
+    print(f"sql: {SQL_IMAGES} synthetic {spec.height}x{spec.width} structs and a null image (row "
+          f"{SQL_NULL_ROW}) in {time.perf_counter() - t0:.2f} s (host); 'a' rows per partition "
+          f"{[sum(labels[i] == 'a' for i in range(a, b)) for a, b in spans]} of {[b - a for a, b in spans]}")
+    for name in ("SPARKDL_FEEDER_IDLE_S", "SPARKDL_MAX_FEEDERS"):
+        os.environ.pop(name, None)  # phase 11's serving keepalive: offline here
+    shutdown_feeders()
+    spark = SparkSession.builder.appName("chip_smoke").getOrCreate()
+    DataFrame.fromColumns({"image": structs, "label": labels}, numPartitions=SQL_PARTITIONS) \
+        .createOrReplaceTempView("images")
+    DataFrame.fromColumns(
+        {"image": structs[:SQL_WARM_ROWS], "label": labels[:SQL_WARM_ROWS]}, numPartitions=SQL_PARTITIONS
+    ).createOrReplaceTempView("images_warm")
+    t0 = time.perf_counter()
+    udf_catalog.registerKerasImageUDF(SQL_UDF, SQL_MODEL, batch_size=SQL_BATCH)
+    print(f"sql: registerKerasImageUDF({SQL_UDF!r}, {SQL_MODEL!r}, batch_size={SQL_BATCH}) on "
+          f"{device_name} in {time.perf_counter() - t0:.2f} s")
+
+    def plain(table):
+        return spark.sql(SQL_QUERY.format(table=table))
+
+    arms = (
+        ("apply_udf", {}, lambda t: udf_catalog.apply_udf(SQL_UDF, spark.table(t), "image", "probs")),
+        ("sql", {}, plain),
+        ("sql WHERE label = 'a'", {}, lambda t: spark.sql(SQL_FILTER_QUERY.format(table=t))),
+        ("sql SPARKDL_SQL_VECTORIZE=0", {"SPARKDL_SQL_VECTORIZE": "0"}, plain),
+        ("sql SPARKDL_SHARED_FEEDER=0", {"SPARKDL_SHARED_FEEDER": "0"}, plain),
+    )
+    counter_names = ("sql.udf.batches", "sql.udf.batch_rows", "sql.pushdown.pruned_cols",
+                     "sql.pushdown.skipped_rows", "feeder.coalesced_batches", "transform.batches")
+    results = {}
+    flash_attention.launches = 0
+    for name, env, run in arms:
+        os.environ.update(env)
+        try:
+            run("images_warm").collect()  # cuDNN and allocator warm-up: not counted
+            torch.cuda.synchronize()
+            metrics.reset()
+            t0 = time.perf_counter()
+            rows = run("images").collect()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = {c: int(metrics.counter(c)) for c in counter_names}
+        finally:
+            for key in env:
+                os.environ.pop(key)
+        results[name] = (rows, dt, counts)
+    check(flash_attention.launches == 0, f"sql: {flash_attention.launches} flash launches on a CNN path")
+
+    def probs(name, expected_rows):
+        rows = results[name][0]
+        check(len(rows) == len(expected_rows), f"sql {name}: {len(rows)} rows, not {len(expected_rows)}")
+        out = {}
+        for i, r in zip(expected_rows, rows):
+            p = r["probs"]
+            if structs[i] is None:
+                check(p is None, f"sql {name}: the null image gave {type(p).__name__}, not null")
+                continue
+            check(p is not None and p.shape == (1000,) and bool(np.isfinite(p).all()),
+                  f"sql {name}: row {i} is not a finite 1000-vector")
+            check(abs(float(p.astype(np.float64).sum()) - 1.0) <= SQL_SUM_ATOL,
+                  f"sql {name}: row {i} sums to {float(p.sum())}")
+            out[i] = p
+        return out
+
+    base = probs("sql", range(n))
+    base_rows = np.stack([base[i] for i in valid])
+    filtered = results["sql WHERE label = 'a'"]
+    check(all(r["label"] == "a" for r in filtered[0]), "sql WHERE: a row that is not 'a'")
+    a_valid = [i for i in a_rows if structs[i] is not None]
+    arm_errs = {}
+    for name, _, _ in arms:
+        if name == "sql":
+            continue
+        got = probs(name, a_rows if name.startswith("sql WHERE") else range(n))
+        keys = a_valid if name.startswith("sql WHERE") else valid
+        arm_errs[name] = _relative_error(np.stack([got[i] for i in keys]), np.stack([base[i] for i in keys]))
+        check(arm_errs[name] <= IMAGE_F32_REL, f"sql {name}: rows off the plain query's by {arm_errs[name]:.3e}")
+    # the card against the port on the CPU, same registry weights
+    sample = [i for i in _sample_rows(n) if structs[i] is not None]
+    udf_catalog.registerKerasImageUDF("mnv2_cpu", SQL_MODEL, batch_size=SQL_BATCH, device="cpu")
+    t0 = time.perf_counter()
+    cpu = udf_catalog.apply_udf(
+        "mnv2_cpu", DataFrame.fromColumns({"image": [structs[i] for i in sample]}), "image", "probs"
+    ).collect()
+    cpu_s = time.perf_counter() - t0
+    udf_catalog.unregister("mnv2_cpu")
+    cpu_err = _relative_error(np.stack([base[i] for i in sample]), np.stack([r.probs for r in cpu]))
+    check(cpu_err <= IMAGE_F32_REL, f"sql: card vs CPU probabilities relative error {cpu_err:.3e}")
+    # what the pushdown and the feeder did
+    where_counts = filtered[2]
+    n_b = n - len(a_rows)
+    check(where_counts["sql.udf.batch_rows"] == len(a_valid),
+          f"sql WHERE: the model scored {where_counts['sql.udf.batch_rows']} rows, not the {len(a_valid)} 'a' rows")
+    check(where_counts["sql.pushdown.skipped_rows"] == n_b,
+          f"sql WHERE: the pushdown skipped {where_counts['sql.pushdown.skipped_rows']} rows, not the {n_b} 'b' rows")
+    shared_batches = results["sql"][2]["sql.udf.batches"]
+    own_batches = results["sql SPARKDL_SHARED_FEEDER=0"][2]["sql.udf.batches"]
+    check(0 < shared_batches <= own_batches,
+          f"sql: the shared feeder dispatched {shared_batches} batches, the partitions' own pipelines {own_batches}")
+    card = f"{device_name} ({_smi()})"
+    # the SQL arm and apply_udf once more each, in the other order (ABBA),
+    # so that the overhead is not the order the arms ran in
+    again = {}
+    for name, _, run in (arms[1], arms[0]):
+        t0 = time.perf_counter()
+        run("images").collect()
+        torch.cuda.synchronize()
+        again[name] = time.perf_counter() - t0
+    for name, _, _ in arms:
+        _, dt, counts = results[name]
+        scored = len(a_valid) if name.startswith("sql WHERE") else len(valid)
+        print(f"sql {name} on {card}: {scored} images scored in {dt:.3f} s = {scored / dt:.1f} images/s; "
+              + ", ".join(f"{c} {v}" for c, v in counts.items())
+              + (f"; rows vs the plain query: relative error {arm_errs[name]:.3e} (limit {IMAGE_F32_REL})"
+                 if name in arm_errs else ""))
+    sql_s = (results["sql"][1], again["sql"])
+    apply_s = (results["apply_udf"][1], again["apply_udf"])
+    print(f"sql: the SQL arm's overhead over apply_udf {100 * (sum(sql_s) / sum(apply_s) - 1):+.1f} % over two "
+          f"passes each, run apply, sql, sql, apply (sql {sql_s[0]:.3f} + {sql_s[1]:.3f} s, apply_udf "
+          f"{apply_s[0]:.3f} + {apply_s[1]:.3f} s; the JAX bench expected about 10 %); sql.udf.batches shared "
+          f"feeder {shared_batches}, SPARKDL_SHARED_FEEDER=0 {own_batches}; WHERE label = 'a': batch_rows "
+          f"{where_counts['sql.udf.batch_rows']} = the {len(a_valid)} non-null 'a' rows, skipped_rows "
+          f"{where_counts['sql.pushdown.skipped_rows']} = the {n_b} 'b' rows; card vs CPU over {len(sample)} "
+          f"rows (CPU {cpu_s:.2f} s) relative error {cpu_err:.3e} (limit {IMAGE_F32_REL}); flash launches 0")
+    wall, busy, by_kernel = _profiled(lambda: plain("images").collect())
+    print(f"sql profiled pass of {SQL_QUERY.format(table='images')!r}: wall {wall:.3f} s, device busy "
+          f"{busy:.3f} s (share {busy / wall:.3f})")
+    for name, sec in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]:
+        print(f"  device {sec:.4f} s  {name[:90]}")
+    udf_catalog.unregister(SQL_UDF)
+    shutdown_feeders()
+
+
 def _direct_fn(spec, mode: str, dtype, seed: int):
     """The registry's ModelFunction of ``spec`` at ``dtype``, seeded as
     the serving loader seeds it."""
@@ -1642,6 +1875,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_training(args.seed, device_name, tmp)
     done("phase 12")
+    phase_sql(args.seed, device_name)
+    done("phase 13")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[torch.float32], records[torch.bfloat16]]}))
     print(json.dumps({

@@ -22,10 +22,50 @@ What it covers today:
   by the shared feeder;
 - data-parallel training over a ``torch.distributed`` process group:
   :class:`~sparkdl_tpu_torch.estimators.DataParallelEstimator`
-  (``parallel/``), the evaluators and stage persistence.
+  (``parallel/``), the evaluators and stage persistence;
+- SQL scoring: a model registered as a UDF
+  (:func:`~sparkdl_tpu_torch.udf.registerKerasImageUDF`) and called from
+  :func:`~sparkdl_tpu_torch.sql.sql` over a temp view, with projection
+  and predicate pushdown (``sql.py``, ``session.py``);
+- model selection: ``CrossValidator`` and ``TrainValidationSplit`` over
+  ``Estimator.fitMultiple`` (``tuning.py``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-with the default device and no CUDA card they raise.
+with the default device and no CUDA card they raise. The names below are
+exported lazily: importing the package imports none of its modules
+(``sparkdl_tpu_torch.sql`` is the module; its ``sql`` is the function).
 """
 
 __version__ = "0.1.0"
+
+_EXPORTS = {
+    "DataFrame": "sparkdl_tpu_torch.dataframe",
+    "Row": "sparkdl_tpu_torch.dataframe",
+    "Pipeline": "sparkdl_tpu_torch.pipeline",
+    "PipelineModel": "sparkdl_tpu_torch.pipeline",
+    "DeepImageFeaturizer": "sparkdl_tpu_torch.transformers.named_image",
+    "DeepImagePredictor": "sparkdl_tpu_torch.transformers.named_image",
+    "LogisticRegression": "sparkdl_tpu_torch.estimators",
+    "DataParallelEstimator": "sparkdl_tpu_torch.estimators",
+    "registerImageUDF": "sparkdl_tpu_torch.udf",
+    "registerKerasImageUDF": "sparkdl_tpu_torch.udf",
+    "registerModelUDF": "sparkdl_tpu_torch.udf",
+    "makeGraphUDF": "sparkdl_tpu_torch.udf",
+    "SQLContext": "sparkdl_tpu_torch.sql",
+    "SparkSession": "sparkdl_tpu_torch.session",
+    "ParamGridBuilder": "sparkdl_tpu_torch.tuning",
+    "CrossValidator": "sparkdl_tpu_torch.tuning",
+    "CrossValidatorModel": "sparkdl_tpu_torch.tuning",
+    "TrainValidationSplit": "sparkdl_tpu_torch.tuning",
+    "TrainValidationSplitModel": "sparkdl_tpu_torch.tuning",
+}
+
+__all__ = sorted(_EXPORTS) + ["__version__"]
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module 'sparkdl_tpu_torch' has no attribute {name!r}")
+    from importlib import import_module
+
+    return getattr(import_module(_EXPORTS[name]), name)

@@ -1,12 +1,13 @@
 """A minimal partitioned DataFrame.
 
-The part of the JAX package's DataFrame that the text, image and
-training slices drive: a frame is a list of partitions (each a
-``{column: list}`` dict) plus a lazy plan of partition-wise ops. Actions
-run the plan over the partitions through the default executor
+The part of the JAX package's DataFrame that the text, image, training,
+SQL and model-selection slices drive: a frame is a list of partitions
+(each a ``{column: list}`` dict) plus a lazy plan of partition-wise ops.
+Actions run the plan over the partitions through the default executor
 (``runtime/executor.py``): several at once, results in partition order,
 with bounded retry. :meth:`DataFrame.iterPartitions` runs them one at a
-time instead, keeping one in memory (the streamed trainer's feed).
+time instead, keeping one in memory (the streamed trainer's feed, and
+:meth:`DataFrame.limit`, which stops at the partition that fills it).
 """
 
 from __future__ import annotations
@@ -38,6 +39,10 @@ def partition_row_spans(total_rows: int, num_partitions: int):
         spans.append((start, start + size))
         start += size
     return spans
+
+
+def _take(values: list, indices: Sequence[int]) -> list:
+    return [values[i] for i in indices]
 
 
 def _run_plan(ops, columns: List[str], part: Partition) -> Partition:
@@ -116,6 +121,10 @@ class DataFrame:
 
         return self._with_op(op, wanted)
 
+    def drop(self, *cols: str) -> "DataFrame":
+        keep = [c for c in self._columns if c not in cols]
+        return self.select(*keep)
+
     def withColumn(self, name: str, fn: Callable[[Row], Any]) -> "DataFrame":
         """Row-wise UDF column: ``fn`` gets each row as a :class:`Row`."""
 
@@ -127,6 +136,128 @@ class DataFrame:
 
         cols = self._columns + ([name] if name not in self._columns else [])
         return self._with_op(op, cols)
+
+    def filter(self, fn: Callable[[Row], Any]) -> "DataFrame":
+        """Keep the rows where ``fn`` (a row-callable over every column)
+        is truthy."""
+
+        def op(part: Partition) -> Partition:
+            n = _part_num_rows(part)
+            keep = [
+                i for i in range(n) if fn(Row({c: part[c][i] for c in part}))
+            ]
+            return {c: _take(part[c], keep) for c in part}
+
+        return self._with_op(op, self._columns)
+
+    def filterOnColumns(
+        self,
+        fn: Callable[[Row], Any],
+        cols: Sequence[str],
+        on_skipped: Optional[Callable[[int], None]] = None,
+    ) -> "DataFrame":
+        """Pushdown filter: ``fn`` sees Rows holding ONLY ``cols``, and the
+        survivors are taken across every column, so a cell of another
+        column is read only for a row that stays (the SQL planner's
+        cheap-predicate-first arm). ``on_skipped`` receives each
+        partition's count of dropped rows."""
+        missing = [c for c in cols if c not in self._columns]
+        if missing:
+            raise KeyError(f"No such columns: {missing}")
+        pred_cols = list(cols)
+
+        def op(part: Partition) -> Partition:
+            n = _part_num_rows(part)
+            keep = [
+                i
+                for i in range(n)
+                if fn(Row({c: part[c][i] for c in pred_cols}))
+            ]
+            if len(keep) == n:
+                return part
+            if on_skipped is not None:
+                on_skipped(n - len(keep))
+            return {c: _take(part[c], keep) for c in part}
+
+        return self._with_op(op, self._columns)
+
+    def limit(self, n: int) -> "DataFrame":
+        """The first ``n`` rows in partition-then-row order, as one
+        partition. Runs the plan now, partition by partition, and stops
+        at the partition that fills ``n``."""
+        taken: Partition = {c: [] for c in self._columns}
+        remaining = max(0, n)
+        if remaining:
+            for part in self.iterPartitions():
+                k = min(remaining, _part_num_rows(part))
+                for c in self._columns:
+                    taken[c].extend(part[c][i] for i in range(k))
+                remaining -= k
+                if not remaining:
+                    break
+        if remaining == max(0, n):
+            return DataFrame([], self._columns)
+        return DataFrame([taken], self._columns)
+
+    def orderBy(self, *cols: str, ascending: Any = True) -> "DataFrame":
+        """Sort rows globally by scalar key columns (Spark ``orderBy``):
+        ``ascending`` is one bool or one per key; nulls come first
+        ascending and last descending. The sort is stable and runs on
+        the collected keys; the rows are split again into as many
+        partitions as the frame had."""
+        if not cols:
+            raise ValueError("orderBy needs at least one column")
+        asc = (
+            list(ascending)
+            if isinstance(ascending, (list, tuple))
+            else [ascending] * len(cols)
+        )
+        if len(asc) != len(cols):
+            raise ValueError(
+                f"ascending has {len(asc)} entries for {len(cols)} columns"
+            )
+        for c in cols:
+            if c not in self._columns:
+                raise KeyError(f"Unknown column {c!r} in orderBy")
+        merged = self.collectColumns()
+        n = len(merged[self._columns[0]]) if self._columns else 0
+        order = list(range(n))
+        # one stable pass per key, minor key first; the null rank keeps
+        # None out of comparisons and below every value, so after
+        # ``reverse`` nulls come last
+        for c, a in list(zip(cols, asc))[::-1]:
+            vals = merged[c]
+            order.sort(
+                key=lambda i: (0, 0) if vals[i] is None else (1, vals[i]),
+                reverse=not a,
+            )
+        return DataFrame.fromColumns(
+            {c: _take(merged[c], order) for c in self._columns},
+            numPartitions=max(1, self.numPartitions),
+        )
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """Rows of both frames (the same column set), each side's
+        partitions kept: this frame's first (Spark ``union``)."""
+        if set(self._columns) != set(other._columns):
+            raise ValueError(
+                f"union requires matching columns: {self._columns} vs "
+                f"{other._columns}"
+            )
+        left = self._execute()
+        right = [{c: p[c] for c in self._columns} for p in other._execute()]
+        return DataFrame(left + right, self._columns)
+
+    def cache(self) -> "DataFrame":
+        """Run the plan now; a frame over the materialized partitions."""
+        return DataFrame(self._execute(), self._columns)
+
+    def createOrReplaceTempView(self, name: str) -> None:
+        """Register this frame under ``name`` in the default SQL context
+        (``sparkdl_tpu_torch.sql.sql``)."""
+        from sparkdl_tpu_torch import sql as _sql
+
+        _sql.registerDataFrameAsTable(self, name)
 
     def mapPartitions(
         self, fn: Callable[[Partition], Partition], columns: List[str]

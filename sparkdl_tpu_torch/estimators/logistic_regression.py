@@ -141,6 +141,9 @@ class LogisticRegression(Estimator, HasLabelCol, HasBatchSize):
     )
     seed = Param(None, "seed", "init seed", TypeConverters.toInt)
 
+    #: not saved: a loaded estimator fits where ``load`` puts it
+    _persist_ignore = ("_device",)
+
     @keyword_only
     def __init__(
         self,
@@ -170,6 +173,10 @@ class LogisticRegression(Estimator, HasLabelCol, HasBatchSize):
         kwargs = dict(self._input_kwargs)
         self._device = kwargs.pop("device", None)
         self._set(**kwargs)
+
+    def _load_extra(self, path: str, meta: dict) -> None:
+        if not hasattr(self, "_device"):  # load_stage without a device
+            self._device = None
 
     def _fit(self, dataset: DataFrame) -> LogisticRegressionModel:
         device = resolve_device(self._device)

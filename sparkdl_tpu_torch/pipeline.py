@@ -4,15 +4,56 @@ spark.ml semantics, as in the JAX package's ``pipeline.py``: an
 Estimator's ``fit`` returns a Model (itself a Transformer); a Pipeline
 fits its stages left to right, transforming the running DataFrame
 through each fitted stage; ParamMap overrides flow through
-``fit(df, params=...)``.
+``fit(df, params=...)`` and ``fitMultiple``, whose thread-safe iterator
+model selection (``tuning.py``) consumes from ``parallelism`` threads.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+import threading
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 from sparkdl_tpu_torch.dataframe import DataFrame
 from sparkdl_tpu_torch.params import Param, Params, TypeConverters, keyword_only
+
+
+class FitMultipleIterator:
+    """Thread-safe (index, model) iterator: ``next()`` claims the next
+    index under a lock and runs the fit outside it, so N consumers train
+    N models at once (pyspark's ``fitMultiple`` contract)."""
+
+    def __init__(self, fit_single: Callable[[int], "Model"], n: int):
+        self._fit_single = fit_single
+        self._n = n
+        self._counter = 0
+        self._lock = threading.Lock()
+
+    def __iter__(self) -> "FitMultipleIterator":
+        return self
+
+    def __next__(self) -> Tuple[int, "Model"]:
+        with self._lock:
+            i = self._counter
+            if i >= self._n:
+                raise StopIteration
+            self._counter = i + 1
+        return i, self._fit_single(i)
+
+
+class ThreadSafeIterator:
+    """A plain iterator made safe for several consumers: ``next()`` runs
+    under a lock, the work included (for fits that must not overlap)."""
+
+    def __init__(self, it: Iterator):
+        self._it = it
+        self._lock = threading.Lock()
+
+    def __iter__(self) -> "ThreadSafeIterator":
+        return self
+
+    def __next__(self):
+        with self._lock:
+            return next(self._it)
 
 
 class Transformer(Params):
@@ -36,6 +77,16 @@ class Estimator(Params):
         if params:
             return self.copy(params)._fit(dataset)
         return self._fit(dataset)
+
+    def fitMultiple(
+        self, dataset: DataFrame, paramMaps: Sequence[dict]
+    ) -> Iterator[Tuple[int, Model]]:
+        """One model per ParamMap, as a thread-safe iterator of
+        (index, model); each ``next()`` trains one."""
+        maps = list(paramMaps)
+        return FitMultipleIterator(
+            lambda i: self.fit(dataset, params=maps[i]), len(maps)
+        )
 
     def _fit(self, dataset: DataFrame) -> Model:
         raise NotImplementedError

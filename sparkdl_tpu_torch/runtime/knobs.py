@@ -32,6 +32,10 @@ _KNOBS: Dict[str, Tuple[str, Optional[str]]] = {
     "SPARKDL_EXEC_RETRY_MAX_MS": ("float", None),
     "SPARKDL_EXEC_RETRY_DEADLINE_S": ("float", None),
     "SPARKDL_EXEC_RETRY_SEED": ("int", None),
+    # udf/registry.py and sql.py: the SQL optimizer arm (batched UDF
+    # dispatch through the shared feeder, projection and predicate
+    # pushdown); 0/off: the row-path planner, the A/B arm
+    "SPARKDL_SQL_VECTORIZE": ("flag", "1"),
     # text/bucketing.py
     "SPARKDL_TEXT_BUCKETING": ("flag", "1"),
     "SPARKDL_TEXT_BUCKETS": ("str", "half"),

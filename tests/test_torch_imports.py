@@ -40,7 +40,7 @@ def test_no_port_file_imports_jax_flax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 10 and os.path.exists(files[0])
     rel = {os.path.relpath(path, PKG_DIR) for path in files}
-    for sub in ("serving", "obs", "resilience", "runtime", "parallel", "estimators"):
+    for sub in ("serving", "obs", "resilience", "runtime", "parallel", "estimators", "udf"):
         assert any(r.startswith(sub + os.sep) for r in rel), sub
     offenders = {
         (os.path.relpath(path, REPO), root)
@@ -81,6 +81,11 @@ def test_importing_every_port_module_loads_no_jax():
         "sparkdl_tpu_torch.estimators.data_parallel_estimator",
         "sparkdl_tpu_torch.evaluation",
         "sparkdl_tpu_torch.persistence",
+        "sparkdl_tpu_torch.udf",
+        "sparkdl_tpu_torch.udf.registry",
+        "sparkdl_tpu_torch.sql",
+        "sparkdl_tpu_torch.session",
+        "sparkdl_tpu_torch.tuning",
     ):
         assert name in modules, name
     code = (
@@ -103,6 +108,16 @@ def test_importing_every_port_module_loads_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_package_exports_resolve():
+    import sparkdl_tpu_torch.tuning as tuning
+
+    for name in sparkdl_tpu_torch.__all__:
+        assert getattr(sparkdl_tpu_torch, name) is not None, name
+    assert sparkdl_tpu_torch.CrossValidator is tuning.CrossValidator
+    with pytest.raises(AttributeError):
+        sparkdl_tpu_torch.not_an_export
 
 
 def test_default_device_entry_point_raises_without_cuda(monkeypatch):
@@ -161,4 +176,11 @@ def test_default_device_entry_point_raises_without_cuda(monkeypatch):
     labelled = DataFrame.fromColumns({"features": [np.ones(2, np.float32)], "label": [0]})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DataParallelEstimator(model=mf, inputCol="features").fit(labelled)
+    # SQL scoring: a registration builds or takes its model on cuda
+    from sparkdl_tpu_torch.udf import registerKerasImageUDF, registerModelUDF
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        registerKerasImageUDF("no_card", "MobileNetV2")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        registerModelUDF("no_card", mf)
     assert resolve_device("cpu") == torch.device("cpu")
