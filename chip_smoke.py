@@ -166,6 +166,34 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     ``apply_udf`` (two passes each, in the order apply, sql, sql, apply),
     the counters, and one profiled pass of the plain query (device busy,
     its share, the top 5 kernels).
+14. Keras file scoring, BASELINE config[1] ("KerasImageFileTransformer
+    ResNet50 batch inference", as bench.py's keras_image mode builds it):
+    ``KerasImageFileTransformer(model=..., batchSize=64,
+    preprocessing="caffe")`` over Keras ResNet50 at 224x224 with its
+    1000-way softmax, the model a ``KerasModelSpec`` of the committed
+    ``keras.applications.ResNet50(weights=None, input_shape=(224, 224,
+    3))`` config (``tests/fixtures/``) and weights drawn from ``--seed``
+    (He-scaled convs, BatchNorm gamma 0.2-0.4, positive variance), over
+    1024 random-pixel JPEGs (quality 90), 8 PNGs at 224x224, 8 at 250x300,
+    a corrupt file, a missing path and None, in a seeded order over 4
+    partitions. Prints the C++ image bridge's status (it must build where
+    the libjpeg and libpng headers exist). Each after a one-batch warm-up,
+    timed in images/s: (a) the fused path; (b) the same with
+    ``SPARKDL_TPU_NO_NATIVE=1``; (c) an ``imageLoader`` that does the
+    fused host stage in numpy/PIL with caffe normalization; (d)
+    ``SPARKDL_SHARED_FEEDER=0``; (e) ``KerasTransformer`` over (a)'s
+    column with a 1000 -> 64 relu -> 10 Dense head given as a config dict.
+    Checks: every non-null row a finite 1000-vector summing to 1 within
+    1e-5 and the null rows null in every arm; 40 rows (every PNG row and 6
+    JPEG rows of each partition) equal to the port on the CPU (relative
+    1e-5); (a) equal to (d) (relative 1e-6); (b) equal to (c) (atol 1e-5);
+    (a) equal to (b) on the 224x224 PNG rows (relative 1e-5; the JPEG and
+    resized rows' max difference printed, not gated: libjpeg against PIL
+    decode, the C++ against PIL's resize); (e) against its float64
+    reference (relative 1e-5); no flash kernel launched. Prints the
+    median row-max probability, the host batch stage's ms per batch, the
+    count of PIL decodes, and a profiled pass of (a) (device busy, its
+    share, the top 5 kernels).
 
 The line before the last is the ``kernels`` JSON record (the f32 and the
 bf16 kernel at bert-base L=512, launches from each dtype's main-path run);
@@ -202,7 +230,8 @@ from sparkdl_tpu_torch import udf as udf_catalog
 from sparkdl_tpu_torch.estimators import DataParallelEstimator, LogisticRegression
 from sparkdl_tpu_torch.evaluation import MulticlassClassificationEvaluator
 from sparkdl_tpu_torch.graph.function import ModelFunction
-from sparkdl_tpu_torch.graph.pieces import image_structs_to_batch
+from sparkdl_tpu_torch.graph.keras_graph import KerasModelSpec, walk_layers
+from sparkdl_tpu_torch.graph.pieces import host_resize_uint8, image_structs_to_batch
 from sparkdl_tpu_torch.graph.precision import bf16_rung
 from sparkdl_tpu_torch.image import imageIO
 from sparkdl_tpu_torch.models import get_image_model, get_model
@@ -221,13 +250,15 @@ from sparkdl_tpu_torch.parallel import (
     make_data_parallel_step,
     make_mesh,
 )
-from sparkdl_tpu_torch.runtime import cuda_build, knobs
+from sparkdl_tpu_torch.runtime import cuda_build, knobs, native
 from sparkdl_tpu_torch.runtime.feeder import shutdown_feeders
 from sparkdl_tpu_torch.session import SparkSession
 from sparkdl_tpu_torch.transformers.named_image import (
     DeepImageFeaturizer,
     DeepImagePredictor,
 )
+from sparkdl_tpu_torch.transformers.keras_image import KerasImageFileTransformer
+from sparkdl_tpu_torch.transformers.tensor import KerasTransformer
 from sparkdl_tpu_torch.transformers.text import HashingTokenizer, TextEmbedder
 from sparkdl_tpu_torch.tuning import CrossValidator, ParamGridBuilder
 from sparkdl_tpu_torch.utils.metrics import metrics
@@ -377,6 +408,25 @@ SQL_WARM_ROWS = 128
 SQL_SUM_ATOL = 1e-5
 SQL_QUERY = "SELECT mnv2(image) AS probs FROM {table}"
 SQL_FILTER_QUERY = "SELECT label, mnv2(image) AS probs FROM {table} WHERE label = 'a'"
+
+# phase 14: BASELINE config[1] as bench.py's keras_image mode builds it
+KERAS_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                            "keras_resnet50_224_config.json")
+KERAS_SIDE = 224
+KERAS_JPEGS = 1024
+KERAS_JPEG_QUALITY = 90
+KERAS_PNGS = 8  # at 224x224 (no resize), and as many at KERAS_PNG_RESIZED
+KERAS_PNG_RESIZED = (250, 300)  # (height, width)
+KERAS_PARTITIONS = 4
+KERAS_BATCH = 64
+KERAS_CPU_ROWS = 40
+KERAS_BN_GAMMA = (0.2, 0.4)  # keeps the seeded softmax off saturation
+KERAS_ARM_REL = 1e-6  # the shared feeder's rows against the partitions' own
+KERAS_LOADER_ATOL = 1e-5  # the fused path without the bridge against the numpy/PIL loader
+KERAS_HEAD = (64, 10)
+CAFFE_MEAN_BGR = np.array([103.939, 116.779, 123.68], np.float32)
+# the headers the C++ image bridge includes; where both exist, it must build
+BRIDGE_HEADERS = ("/usr/include/jpeglib.h", "/usr/include/png.h")
 
 
 class PhaseError(RuntimeError):
@@ -1827,6 +1877,232 @@ def phase_sql(seed: int, device_name: str) -> None:
     shutdown_feeders()
 
 
+def _seeded_keras_weights(config: dict, seed: int) -> dict:
+    """Weights for every layer of a Keras config, drawn from ``seed``:
+    conv kernels He-scaled, BatchNorm gamma in ``KERAS_BN_GAMMA`` and
+    positive variance, Dense Glorot-scaled; shapes from each layer's
+    ``build_config``."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for path, _, layer, _ in walk_layers(config):
+        cfg, cls = layer["config"], layer["class_name"]
+        cin = int(layer["build_config"]["input_shape"][-1])
+        if cls == "Conv2D":
+            kh, kw = cfg["kernel_size"]
+            shape = (kh, kw, cin, cfg["filters"])
+            w = [rng.standard_normal(shape, dtype=np.float32) * np.float32(np.sqrt(2.0 / (kh * kw * cin)))]
+            if cfg.get("use_bias", True):
+                w.append(rng.normal(0.0, 0.01, cfg["filters"]).astype(np.float32))
+        elif cls == "BatchNormalization":
+            w = [rng.uniform(*KERAS_BN_GAMMA, cin), rng.normal(0.0, 0.05, cin),
+                 rng.normal(0.0, 0.05, cin), rng.uniform(0.5, 1.5, cin)]
+            w = [a.astype(np.float32) for a in w]
+        elif cls == "Dense":
+            units = cfg["units"]
+            w = [(rng.standard_normal((cin, units)) * np.sqrt(2.0 / (cin + units))).astype(np.float32),
+                 rng.normal(0.0, 0.01, units).astype(np.float32)]
+        else:
+            raise PhaseError(f"keras: no seeded weights for {cls}")
+        out[path] = w
+    return out
+
+
+def _keras_head(seed: int) -> KerasModelSpec:
+    """Phase 14's KerasTransformer model, a Sequential Dense head given as
+    a config dict: 1000 -> 64 relu -> 10."""
+    layers = [{"class_name": "InputLayer", "config": {"name": "probs", "batch_shape": [None, 1000]}}]
+    weights, width, rng = {}, 1000, np.random.default_rng(seed + 14)
+    for i, units in enumerate(KERAS_HEAD):
+        name = f"head_{i}"
+        layers.append({"class_name": "Dense", "config": {
+            "name": name, "units": units, "activation": "relu" if i < len(KERAS_HEAD) - 1 else "linear"}})
+        weights[name] = [(rng.standard_normal((width, units)) * np.sqrt(2.0 / width)).astype(np.float32),
+                         rng.normal(0.0, 0.1, units).astype(np.float32)]
+        width = units
+    return KerasModelSpec({"name": "head", "layers": layers}, weights)
+
+
+def _keras_files(seed: int, root: str):
+    """Phase 14's URIs in a seeded order: JPEGs of random pixels at
+    224x224 (quality 90, as bench.py writes them), PNGs at 224x224 and at
+    KERAS_PNG_RESIZED, a corrupt file, a missing path and None; and each
+    row's kind."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed + 140)
+    entries = []
+    for i in range(KERAS_JPEGS):
+        path = os.path.join(root, f"img_{i}.jpg")
+        Image.fromarray(rng.integers(0, 256, size=(KERAS_SIDE, KERAS_SIDE, 3), dtype=np.uint8)).save(
+            path, quality=KERAS_JPEG_QUALITY)
+        entries.append((path, "jpeg"))
+    for kind, (h, w) in (("png", (KERAS_SIDE, KERAS_SIDE)), ("png resized", KERAS_PNG_RESIZED)):
+        for i in range(KERAS_PNGS):
+            path = os.path.join(root, f"{kind.replace(' ', '_')}_{i}.png")
+            Image.fromarray(rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)).save(path)
+            entries.append((path, kind))
+    corrupt = os.path.join(root, "corrupt.jpg")
+    with open(corrupt, "wb") as f:
+        f.write(b"\xff\xd8 not a jpeg")
+    entries += [(corrupt, "null"), (os.path.join(root, "missing.jpg"), "null"), (None, "null")]
+    order = rng.permutation(len(entries))
+    return [entries[i][0] for i in order], [entries[i][1] for i in order]
+
+
+def _caffe_loader(uri: str) -> np.ndarray:
+    """Arm (c)'s imageLoader: the fused host stage without the bridge in
+    numpy and PIL (PIL decode, RGB, PIL bilinear resize), then 'caffe'."""
+    with open(uri, "rb") as f:
+        bgr = imageIO.PIL_decode(f.read())
+    if bgr is None:
+        raise ValueError(f"{uri}: not an image")
+    rgb = host_resize_uint8(np.ascontiguousarray(bgr[:, :, ::-1]), KERAS_SIDE, KERAS_SIDE)
+    return rgb[:, :, ::-1].astype(np.float32) - CAFFE_MEAN_BGR
+
+
+def phase_keras_image(seed: int, device_name: str, tmp: str) -> None:
+    """Phase 14, BASELINE config[1]: KerasImageFileTransformer over Keras
+    ResNet50 at 224x224 on the card, and KerasTransformer after it."""
+    headers = all(os.path.exists(h) for h in BRIDGE_HEADERS)
+    status = native.status()
+    print(f"keras: native image bridge {status}; libjpeg and libpng headers "
+          f"{'present' if headers else 'absent'} ({', '.join(BRIDGE_HEADERS)})")
+    if headers:
+        check(native.available(), f"keras: the bridge did not build where its headers exist: {status}")
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "keras_images")
+    os.makedirs(root)
+    uris, kinds = _keras_files(seed, root)
+    n = len(uris)
+    with open(KERAS_CONFIG) as f:
+        config = json.load(f)
+    spec = KerasModelSpec(config, _seeded_keras_weights(config, seed))
+    spans = partition_row_spans(n, KERAS_PARTITIONS)
+    print(f"keras: {KERAS_JPEGS} JPEGs (q{KERAS_JPEG_QUALITY}) and {KERAS_PNGS} PNGs at {KERAS_SIDE}x{KERAS_SIDE}, "
+          f"{KERAS_PNGS} PNGs at {KERAS_PNG_RESIZED[0]}x{KERAS_PNG_RESIZED[1]}, a corrupt file, a missing path and "
+          f"None ({n} rows, {[b - a for a, b in spans]} per partition) and {spec.name}'s seeded weights in "
+          f"{time.perf_counter() - t0:.2f} s (host)")
+    for name in ("SPARKDL_FEEDER_IDLE_S", "SPARKDL_MAX_FEEDERS"):
+        os.environ.pop(name, None)
+    shutdown_feeders()
+    df = DataFrame.fromColumns({"uri": uris}, numPartitions=KERAS_PARTITIONS)
+    warm = DataFrame.fromColumns({"uri": uris[:KERAS_BATCH]}, numPartitions=KERAS_PARTITIONS)
+    t0 = time.perf_counter()
+    fused = KerasImageFileTransformer(inputCol="uri", outputCol="probs", model=spec, batchSize=KERAS_BATCH,
+                                      preprocessing="caffe")
+    loader = KerasImageFileTransformer(inputCol="uri", outputCol="probs", model=spec, batchSize=KERAS_BATCH,
+                                       imageLoader=_caffe_loader)
+    fused._model_function()
+    print(f"keras: {spec.name} translated to torch and put on {device_name} in {time.perf_counter() - t0:.2f} s")
+    arms = (
+        ("(a) fused, bridge", fused, {}),
+        ("(b) fused, SPARKDL_TPU_NO_NATIVE=1", fused, {"SPARKDL_TPU_NO_NATIVE": "1"}),
+        ("(c) imageLoader (numpy/PIL, caffe)", loader, {}),
+        ("(d) fused, SPARKDL_SHARED_FEEDER=0", fused, {"SPARKDL_SHARED_FEEDER": "0"}),
+    )
+    flash_attention.launches = 0
+    results = {}
+    for name, stage, env in arms:
+        os.environ.update(env)
+        try:
+            stage.transform(warm).collect()  # cuDNN and allocator warm-up: not counted
+            torch.cuda.synchronize()
+            metrics.reset()
+            t0 = time.perf_counter()
+            rows = [r["probs"] for r in stage.transform(df).collect()]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            snap = metrics.snapshot()
+        finally:
+            for key in env:
+                os.environ.pop(key)
+        results[name] = (rows, dt, snap)
+    valid = [i for i, k in enumerate(kinds) if k != "null"]
+    for name, (rows, _, _) in results.items():
+        check(len(rows) == n, f"keras {name}: {len(rows)} rows, not {n}")
+        for i, (p, kind) in enumerate(zip(rows, kinds)):
+            if kind == "null":
+                check(p is None, f"keras {name}: row {i} ({uris[i]}) is not null")
+                continue
+            check(p is not None and p.shape == (1000,) and bool(np.isfinite(p).all()),
+                  f"keras {name}: row {i} is not a finite 1000-vector")
+            check(abs(float(p.astype(np.float64).sum()) - 1.0) <= SQL_SUM_ATOL,
+                  f"keras {name}: row {i} sums to {float(p.sum())}")
+
+    def stack(name, rows_at):
+        return np.stack([results[name][0][i] for i in rows_at])
+
+    a, b, c, d = (name for name, _, _ in arms)
+    err_ad = _relative_error(stack(d, valid), stack(a, valid))
+    check(err_ad <= KERAS_ARM_REL, f"keras: (a) vs (d) relative error {err_ad:.3e}")
+    err_bc = float(np.abs(stack(b, valid) - stack(c, valid)).max())
+    check(err_bc <= KERAS_LOADER_ATOL, f"keras: (b) vs (c) max abs difference {err_bc:.3e}")
+    by_kind = {k: [i for i in valid if kinds[i] == k] for k in ("jpeg", "png", "png resized")}
+    err_png = _relative_error(stack(b, by_kind["png"]), stack(a, by_kind["png"]))
+    check(err_png <= IMAGE_F32_REL, f"keras: (a) vs (b) on the {KERAS_SIDE}x{KERAS_SIDE} PNG rows {err_png:.3e}")
+    ab_max = {k: float(np.abs(stack(b, by_kind[k]) - stack(a, by_kind[k])).max()) for k in ("jpeg", "png resized")}
+    # the card against the port on the CPU: the PNG rows and rows spread
+    # over every partition
+    png_rows = by_kind["png"] + by_kind["png resized"]
+    per_part = (KERAS_CPU_ROWS - len(png_rows)) // KERAS_PARTITIONS
+    sample = list(png_rows)
+    for lo, hi in spans:
+        inside = [i for i in by_kind["jpeg"] if lo <= i < hi]
+        sample += [inside[j] for j in np.linspace(0, len(inside) - 1, per_part).round().astype(int)]
+    sample = sorted(sample)
+    cpu_stage = KerasImageFileTransformer(inputCol="uri", outputCol="probs", model=spec, batchSize=KERAS_BATCH,
+                                          preprocessing="caffe", device="cpu")
+    t0 = time.perf_counter()
+    cpu = [r["probs"] for r in cpu_stage.transform(
+        DataFrame.fromColumns({"uri": [uris[i] for i in sample]})).collect()]
+    cpu_s = time.perf_counter() - t0
+    cpu_err = _relative_error(stack(a, sample), np.stack(cpu))
+    check(cpu_err <= IMAGE_F32_REL, f"keras: card vs CPU relative error {cpu_err:.3e} over {len(sample)} rows")
+    # (e): KerasTransformer over (a)'s output column
+    head = _keras_head(seed)
+    head_stage = KerasTransformer(inputCol="probs", outputCol="logits", model=head, batchSize=KERAS_BATCH)
+    probs_df = DataFrame.fromColumns({"probs": results[a][0]}, numPartitions=KERAS_PARTITIONS)
+    head_stage.transform(DataFrame.fromColumns({"probs": results[a][0][:KERAS_BATCH]})).collect()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = [r["logits"] for r in head_stage.transform(probs_df).collect()]
+    torch.cuda.synchronize()
+    head_s = time.perf_counter() - t0
+    check(all((lg is None) == (k == "null") for lg, k in zip(logits, kinds)), "keras (e): null rows do not match")
+    x = stack(a, valid).astype(np.float64)
+    (w1, b1), (w2, b2) = (head.get_layer(f"head_{i}").get_weights() for i in range(2))
+    ref = np.maximum(x @ w1 + b1, 0.0) @ w2 + b2
+    head_err = _relative_error(np.stack([logits[i] for i in valid]), ref)
+    check(head_err <= IMAGE_F32_REL, f"keras (e): head vs its float64 reference relative error {head_err:.3e}")
+    check(flash_attention.launches == 0, f"keras: {flash_attention.launches} flash launches on a CNN path")
+    card = f"{device_name} ({_smi()})"
+    for name, (rows, dt, snap) in results.items():
+        host = snap["timers"].get("transform.host_batch", {"count": 0, "total_s": 0.0})
+        per_batch = 1e3 * host["total_s"] / max(1, host["count"])
+        print(f"keras {name} on {card}: {len(valid)} images in {dt:.3f} s = {len(valid) / dt:.1f} images/s; "
+              f"host batch stage {per_batch:.1f} ms per batch over {host['count']} batches; "
+              f"image.pil_decodes {int(snap['counters'].get('image.pil_decodes', 0))}")
+    print(f"keras (e) KerasTransformer({KERAS_HEAD}) over (a)'s column on {card}: {len(valid)} rows in "
+          f"{head_s:.3f} s = {len(valid) / head_s:.1f} rows/s; vs its float64 reference relative error "
+          f"{head_err:.3e} (limit {IMAGE_F32_REL})")
+    row_max = stack(a, valid).max(axis=1)
+    print(f"keras: median row-max probability {float(np.median(row_max)):.5f} (min {float(row_max.min()):.5f}, "
+          f"max {float(row_max.max()):.5f}; 1.0 would be a saturated softmax, 0.001 a flat one); card vs CPU over "
+          f"{len(sample)} rows ({len(png_rows)} PNG, CPU {cpu_s:.2f} s) relative error {cpu_err:.3e} (limit "
+          f"{IMAGE_F32_REL}); (a) vs (d) {err_ad:.3e} (limit {KERAS_ARM_REL}); (b) vs (c) max abs {err_bc:.3e} "
+          f"(limit {KERAS_LOADER_ATOL}); (a) vs (b) on the {KERAS_SIDE}x{KERAS_SIDE} PNG rows {err_png:.3e} "
+          f"(limit {IMAGE_F32_REL}), not gated: JPEG rows max abs {ab_max['jpeg']:.3e}, resized PNG rows "
+          f"{ab_max['png resized']:.3e}; null rows null; flash launches 0")
+    metrics.reset()
+    wall, busy, by_kernel = _profiled(lambda: fused.transform(df).collect())
+    host = metrics.snapshot()["timers"].get("transform.host_batch", {"count": 0, "total_s": 0.0})
+    print(f"keras profiled pass of (a): wall {wall:.3f} s, device busy {busy:.3f} s (share {busy / wall:.3f}); "
+          f"host batch stage {1e3 * host['total_s'] / max(1, host['count']):.1f} ms per batch")
+    for name, sec in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]:
+        print(f"  device {sec:.4f} s  {name[:90]}")
+    shutdown_feeders()
+
+
 def _direct_fn(spec, mode: str, dtype, seed: int):
     """The registry's ModelFunction of ``spec`` at ``dtype``, seeded as
     the serving loader seeds it."""
@@ -1877,6 +2153,9 @@ def main(argv=None) -> int:
     done("phase 12")
     phase_sql(args.seed, device_name)
     done("phase 13")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_keras_image(args.seed, device_name, tmp)
+    done("phase 14")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[torch.float32], records[torch.bfloat16]]}))
     print(json.dumps({

@@ -28,7 +28,13 @@ What it covers today:
   :func:`~sparkdl_tpu_torch.sql.sql` over a temp view, with projection
   and predicate pushdown (``sql.py``, ``session.py``);
 - model selection: ``CrossValidator`` and ``TrainValidationSplit`` over
-  ``Estimator.fitMultiple`` (``tuning.py``).
+  ``Estimator.fitMultiple`` (``tuning.py``);
+- Keras models, translated into torch without keras
+  (``graph/keras_graph.py``, ``graph/ingest.py``): a column of image
+  file URIs through
+  :class:`~sparkdl_tpu_torch.transformers.keras_image.KerasImageFileTransformer`
+  (decoded by the C++ image bridge, ``runtime/native.py``), and array
+  columns through ``KerasTransformer``/``ModelTransformer``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with the default device and no CUDA card they raise. The names below are
@@ -45,6 +51,10 @@ _EXPORTS = {
     "PipelineModel": "sparkdl_tpu_torch.pipeline",
     "DeepImageFeaturizer": "sparkdl_tpu_torch.transformers.named_image",
     "DeepImagePredictor": "sparkdl_tpu_torch.transformers.named_image",
+    "KerasImageFileTransformer": "sparkdl_tpu_torch.transformers.keras_image",
+    "KerasTransformer": "sparkdl_tpu_torch.transformers.tensor",
+    "ModelTransformer": "sparkdl_tpu_torch.transformers.tensor",
+    "TFTransformer": "sparkdl_tpu_torch.transformers.tensor",
     "LogisticRegression": "sparkdl_tpu_torch.estimators",
     "DataParallelEstimator": "sparkdl_tpu_torch.estimators",
     "registerImageUDF": "sparkdl_tpu_torch.udf",

@@ -9,8 +9,9 @@ Channel order in ``data`` is **BGR** (the OpenCV convention the Spark
 ImageSchema inherited); the image converter (``graph/pieces.py``) flips
 it to RGB for the model.
 
-Decoding uses PIL. A file that fails to read or decode gives a ``None``
-cell (a null row).
+``readImages`` decodes with PIL; :func:`default_decode` goes through the
+C++ image bridge (``runtime/native.py``) first. A file that fails to read
+or decode gives a ``None`` cell (a null row).
 """
 
 from __future__ import annotations
@@ -99,6 +100,21 @@ def PIL_decode(raw_bytes: bytes) -> Optional[np.ndarray]:
     except (UnidentifiedImageError, Image.DecompressionBombError, OSError, ValueError):
         return None
     return np.asarray(img, dtype=np.uint8)[:, :, ::-1]  # RGB -> BGR
+
+
+def default_decode(raw_bytes: bytes) -> Optional[np.ndarray]:
+    """bytes -> HWC uint8 **BGR** array through the C++ bridge (JPEG and
+    PNG), else PIL: for the formats the bridge does not decode (GIF, BMP,
+    ...) and where the bridge is off or not built."""
+    from sparkdl_tpu_torch.runtime import native
+
+    if native.available():
+        arr = native.decode(raw_bytes)
+        if arr is not None:
+            if arr.shape[2] == 1:
+                arr = np.repeat(arr, 3, axis=2)
+            return np.ascontiguousarray(arr[:, :, ::-1])  # RGB -> BGR
+    return PIL_decode(raw_bytes)
 
 
 def _list_files(path: str) -> List[str]:

@@ -7,6 +7,7 @@ from sparkdl_tpu_torch.params.base import (
     keyword_only,
 )
 from sparkdl_tpu_torch.params.shared import (
+    CanLoadImage,
     HasBatchSize,
     HasChannelOrder,
     HasInputCol,
@@ -21,6 +22,7 @@ __all__ = [
     "Params",
     "TypeConverters",
     "keyword_only",
+    "CanLoadImage",
     "HasBatchSize",
     "HasChannelOrder",
     "HasInputCol",

@@ -1,7 +1,11 @@
 """Shared Param mixins: column names, batch size, channel order, output
-mode, model function."""
+mode, model function, image loader."""
 
 from __future__ import annotations
+
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
 
 from sparkdl_tpu_torch.params.base import Param, Params, TypeConverters
 
@@ -110,3 +114,47 @@ class HasModelFunction(Params):
 
     def getModelFunction(self):
         return self.getOrDefault(self.modelFunction)
+
+
+class CanLoadImage(Params):
+    """The image loader of URI-column paths: a callable that turns a file
+    path into one preprocessed HWC float array of the model's input
+    geometry."""
+
+    imageLoader = Param(
+        None,
+        "imageLoader",
+        "callable (uri: str) -> np.ndarray HWC float array, loading and "
+        "preprocessing one image for the model",
+        TypeConverters.identity,
+    )
+
+    def setImageLoader(self, value: Callable):
+        return self._set(imageLoader=value)
+
+    def getImageLoader(self) -> Optional[Callable]:
+        return self.getOrDefault(self.imageLoader)
+
+    def _load_uris(self, uris: Sequence[Optional[str]]) -> List[Optional[np.ndarray]]:
+        """Each URI through the loader as a float32 array; a None URI, or
+        one the loader fails on, gives None (a null row)."""
+        loader = self.getImageLoader()
+        out: List[Optional[np.ndarray]] = []
+        for u in uris:
+            if u is None:
+                out.append(None)
+                continue
+            try:
+                out.append(np.asarray(loader(u), dtype=np.float32))
+            except Exception:  # noqa: BLE001 - any loader failure is a null row
+                out.append(None)
+        return out
+
+    def loadImagesInternal(self, dataframe, input_col: str, output_col: str):
+        """URI column -> image-array column through the imageLoader; null
+        or unloadable URIs give null cells."""
+        if not self.isDefined("imageLoader"):
+            raise ValueError("imageLoader param must be set")
+        return dataframe.withColumnPartition(
+            output_col, lambda part: {output_col: self._load_uris(part[input_col])}
+        )

@@ -36,6 +36,9 @@ _KNOBS: Dict[str, Tuple[str, Optional[str]]] = {
     # dispatch through the shared feeder, projection and predicate
     # pushdown); 0/off: the row-path planner, the A/B arm
     "SPARKDL_SQL_VECTORIZE": ("flag", "1"),
+    # runtime/native.py: set, the C++ image bridge is not used (PIL
+    # decodes; read at every call)
+    "SPARKDL_TPU_NO_NATIVE": ("flag", None),
     # text/bucketing.py
     "SPARKDL_TEXT_BUCKETING": ("flag", "1"),
     "SPARKDL_TEXT_BUCKETS": ("str", "half"),

@@ -13,9 +13,9 @@ names here, so a registered model is at once SQL-callable.
 
 Every registration that builds or takes a model runs it on ``device``:
 ``cuda`` by default (raising when there is none), ``"cpu"`` to run on the
-CPU. ``registerImageUDF`` takes a registry name or a
-:class:`~sparkdl_tpu_torch.graph.function.ModelFunction`; keras models
-and model files wait for the keras reader (ROADMAP Queue A item 3).
+CPU. ``registerImageUDF`` takes a registry name, a
+:class:`~sparkdl_tpu_torch.graph.function.ModelFunction`, a Keras model
+or a Keras model file (both translated into torch by ``graph/ingest.py``).
 """
 
 from __future__ import annotations
@@ -225,13 +225,14 @@ def registerImageUDF(
     preprocessor)``).
 
     ``kerasModelOrFile``: a registry model name (``"MobileNetV2"``: its
-    class probabilities, seeded random weights) or a ModelFunction. A
-    keras model or model file raises NotImplementedError: the port has no
-    keras reader yet (ROADMAP Queue A item 3).
+    class probabilities, seeded random weights), a ModelFunction, a Keras
+    model (anything with ``get_config`` and ``get_layer``) or a
+    ``.keras``/``.h5``/``.hdf5`` file; any other object raises TypeError.
     ``preprocessor``: an optional host function (HWC uint8 RGB) -> HWC
     float applied per image in place of the converter.
     """
     from sparkdl_tpu_torch.graph.function import ModelFunction, piece
+    from sparkdl_tpu_torch.graph.ingest import ModelIngest
     from sparkdl_tpu_torch.graph.pieces import (
         build_flattener,
         build_image_converter,
@@ -243,21 +244,22 @@ def registerImageUDF(
     if isinstance(kerasModelOrFile, ModelFunction):
         mf = kerasModelOrFile
         _on_device(mf, device)
-    elif isinstance(kerasModelOrFile, str) and not kerasModelOrFile.endswith(
-        _KERAS_EXTENSIONS
-    ):
+    elif isinstance(kerasModelOrFile, str) and kerasModelOrFile.endswith(_KERAS_EXTENSIONS):
+        mf = ModelIngest.from_keras_file(kerasModelOrFile, device=resolve_device(device))
+    elif isinstance(kerasModelOrFile, str):
         from sparkdl_tpu_torch.models.registry import get_image_model
 
         spec = get_image_model(kerasModelOrFile)
         mf = spec.model_function(mode="probabilities", device=resolve_device(device))
         preprocessing = spec.preprocessing
         height, width = height or spec.height, width or spec.width
+    elif hasattr(kerasModelOrFile, "get_config") and hasattr(kerasModelOrFile, "get_layer"):
+        mf = ModelIngest.from_keras(kerasModelOrFile, device=resolve_device(device))
     else:
-        raise NotImplementedError(
-            f"registerImageUDF({udfName!r}): keras models and keras model "
-            "files (.keras/.h5/.hdf5) need the keras-to-torch reader, which "
-            "the port does not have yet (ROADMAP Queue A item 3); pass a "
-            "registry model name or a ModelFunction"
+        raise TypeError(
+            f"registerImageUDF({udfName!r}): {type(kerasModelOrFile).__name__} is "
+            "not a registry model name, a ModelFunction, a Keras model or a "
+            "Keras model file"
         )
 
     if height is None or width is None:

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``sparkdl_tpu_torch`` and not
-``chip_smoke.py`` imports jax, flax or the JAX package, and an entry point
-left at its default device refuses to run without CUDA."""
+``chip_smoke.py`` imports jax, flax, keras, tensorflow or the JAX package,
+and an entry point left at its default device refuses to run without
+CUDA."""
 
 import ast
 import os
@@ -15,7 +16,7 @@ import sparkdl_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.join(REPO, "sparkdl_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sparkdl_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "keras", "tensorflow", "sparkdl_tpu")
 
 
 def _port_files():
@@ -42,6 +43,9 @@ def test_no_port_file_imports_jax_flax_or_the_jax_package():
     rel = {os.path.relpath(path, PKG_DIR) for path in files}
     for sub in ("serving", "obs", "resilience", "runtime", "parallel", "estimators", "udf"):
         assert any(r.startswith(sub + os.sep) for r in rel), sub
+    for required in ("graph/ingest.py", "graph/keras_graph.py", "graph/keras_file.py",
+                     "runtime/native.py", "transformers/keras_image.py", "transformers/tensor.py"):
+        assert required.replace("/", os.sep) in rel, required
     offenders = {
         (os.path.relpath(path, REPO), root)
         for path in files
@@ -86,6 +90,12 @@ def test_importing_every_port_module_loads_no_jax():
         "sparkdl_tpu_torch.sql",
         "sparkdl_tpu_torch.session",
         "sparkdl_tpu_torch.tuning",
+        "sparkdl_tpu_torch.graph.ingest",
+        "sparkdl_tpu_torch.graph.keras_graph",
+        "sparkdl_tpu_torch.graph.keras_file",
+        "sparkdl_tpu_torch.runtime.native",
+        "sparkdl_tpu_torch.transformers.keras_image",
+        "sparkdl_tpu_torch.transformers.tensor",
     ):
         assert name in modules, name
     code = (
@@ -183,4 +193,25 @@ def test_default_device_entry_point_raises_without_cuda(monkeypatch):
         registerKerasImageUDF("no_card", "MobileNetV2")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         registerModelUDF("no_card", mf)
+    # Keras models: ingest, the transformers (a stage built over a spec)
+    from sparkdl_tpu_torch.graph.ingest import ModelIngest
+    from sparkdl_tpu_torch.graph.keras_graph import KerasModelSpec
+    from sparkdl_tpu_torch.transformers import KerasImageFileTransformer, KerasTransformer
+
+    spec = KerasModelSpec({"name": "head", "layers": [
+        {"class_name": "InputLayer", "config": {"name": "in", "batch_shape": [None, 2]}},
+        {"class_name": "Dense", "config": {"name": "fc", "units": 1}},
+    ]}, {"fc": [np.ones((2, 1), np.float32), np.zeros(1, np.float32)]})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ModelIngest.from_keras(spec)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ModelIngest.from_callable(lambda x: x)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        KerasTransformer(inputCol="x", outputCol="y", model=spec)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        KerasImageFileTransformer(inputCol="uri", outputCol="y", model=spec).transform(
+            DataFrame.fromColumns({"uri": [None]}))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        registerKerasImageUDF("no_card", spec)
+    assert ModelIngest.from_keras(spec, device="cpu").device == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")

@@ -10,8 +10,11 @@ package's on the CPU.
   the JAX package's registry-name UDF at relative 1e-4
   (``test_torch_image_family.F32_REL``);
 - the preprocessor branch against the JAX one (exact up to f32 sums);
-- the keras branches and ``blocked=False`` raise; the counting wrapper is
-  built once per registration, so queries reuse one feeder.
+- the keras branches (a Keras model, a .keras, .h5 and .hdf5 file)
+  against the JAX package's at relative 1e-5; a Keras model outside the
+  translator's table, another object and ``blocked=False`` raise; the
+  counting wrapper is built once per registration, so queries reuse one
+  feeder.
 """
 
 import numpy as np
@@ -165,13 +168,58 @@ def test_registration_holds_the_model_on_its_device(names, monkeypatch):
     assert "t_dev" not in udf_catalog.list_udfs()
 
 
-@pytest.mark.parametrize("model", ["model.h5", "model.keras", "model.hdf5", object()],
-                         ids=["h5", "keras", "hdf5", "keras object"])
-def test_keras_branches_raise(names, model):
+def _keras_model(unsupported: bool = False):
+    import keras
+
+    from test_torch_keras_graph import randomize
+
+    L = keras.layers
+    middle = [L.LayerNormalization()] if unsupported else [L.BatchNormalization()]
+    return randomize(keras.Sequential(
+        [L.Input((8, 8, 3)), L.Conv2D(4, 3, padding="same", activation="relu"), *middle,
+         L.GlobalAveragePooling2D(), L.Dense(6, activation="softmax")], name="udf_keras"), seed=9)
+
+
+def _keras_source(kind, model, tmp_path):
+    if kind == "keras object":
+        return model
+    path = str(tmp_path / f"model.{kind}")
+    model.save(path)
+    return path
+
+
+@pytest.mark.parametrize("kind", ["h5", "keras", "hdf5", "keras object"])
+def test_keras_branches_raise(names, tmp_path, kind):
+    """A Keras model or file with a layer outside the translator's table
+    is refused, naming the ROADMAP item; another object is a TypeError."""
     names.append("t_keras")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 3"):
-        udf_catalog.registerKerasImageUDF("t_keras", model, device="cpu")
+        udf_catalog.registerKerasImageUDF("t_keras", _keras_source(kind, _keras_model(True), tmp_path),
+                                          device="cpu")
+    with pytest.raises(TypeError, match="object is not a registry model name"):
+        udf_catalog.registerKerasImageUDF("t_keras", object(), device="cpu")
+    assert "t_keras" not in udf_catalog.list_udfs()
     assert udf_catalog.registerKerasImageUDF is udf_catalog.registerImageUDF
+
+
+@pytest.mark.parametrize("kind", ["keras object", "keras", "h5", "hdf5"])
+def test_keras_branches_match_jax(names, tmp_path, no_bridge, kind):
+    """registerKerasImageUDF over a Keras model, a .keras and a .h5/.hdf5
+    file (seeded weights) in both packages: rows at the model's size,
+    resized and null, over 2 partitions at batch 2, within 1e-5 of the
+    JAX UDF's."""
+    names.append("t_keras")
+    source = _keras_source(kind, _keras_model(), tmp_path)
+    udf_catalog.registerKerasImageUDF("t_keras", source, batch_size=2, device="cpu")
+    jax_udf.registerKerasImageUDF("t_keras", source, batch_size=2)
+    structs = _structs(14, [(8, 8, 3), None, (12, 10, 3), (8, 8, 3), (8, 8, 1)])
+    got = _collect(udf_catalog.apply_udf("t_keras", DataFrame.fromColumns({"image": structs}, 2), "image", "p"), "p")
+    want = _collect(jax_udf.apply_udf("t_keras", JaxDataFrame.fromColumns({"image": structs}, 2), "image", "p"), "p")
+    assert [g is None for g in got] == [s is None for s in structs] == [w is None for w in want]
+    for g, w in zip(got, want):
+        if w is not None:
+            assert g.shape == (6,) and abs(float(g.sum()) - 1.0) < 1e-5
+            assert family._rel(g, np.asarray(w)) <= 1e-5
 
 
 # -- image UDFs ----------------------------------------------------------------------
