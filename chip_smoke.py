@@ -195,6 +195,34 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     count of PIL decodes, and a profiled pass of (a) (device busy, its
     share, the top 5 kernels).
 
+15. the rest of the Keras path, on a machine with neither keras nor h5py:
+    (a) the committed fixtures (``tests/fixtures/keras_cnn.keras``,
+    ``.h5`` and ``.weights.h5``, a small CNN) read by the port's own HDF5
+    reader, each model built on the card and held to the Keras output
+    stored beside them (relative 1e-5); (b) a seeded full-width Keras
+    ResNet50 (phase 14's ``KerasModelSpec``) mapped by
+    ``load_keras_weights("ResNet50", spec)`` into the registry ResNet50
+    (a flax ``.npz`` as ``weightsFile``): ``DeepImageFeaturizer``'s f32
+    features over 64 structs equal the translated Keras graph's
+    ``avg_pool`` output on the card (relative 1e-5); (c) ``ImageFileEstimator``
+    fine-tunes that Keras ResNet50 with a 10-way head on the card over 512
+    synthetic 224x224 images in 10 colour classes (an ``imageLoader``,
+    caffe), Adam and categorical cross-entropy, ``epochs=2,
+    batch_size=32, shuffle=False``: prints epoch 2's mean step ms and
+    images/s, and a profiled 1-epoch fit's device busy share; the first
+    3 steps' weights and moving statistics on the card against the same
+    steps on the CPU, each tensor within 1e-4 + 4 x the CPU's own float32
+    error of float64 steps on the card (relative to its max |value|);
+    (d) ``DeepImageFeaturizer(ResNet50)`` over 512 structs at a 320x320
+    source with ``SPARKDL_DEVICE_PREPROC=1`` (the host ships 320x320
+    uint8 rows and the bilinear resize runs on the card) and with 0:
+    images/s and a profiled pass's busy share per arm, the device arm's
+    rows against the same arm on the CPU over 8 rows (relative 1e-5);
+    (e) a seeded bert-base flax ``.npz`` loaded through ``weights_file``:
+    ``TextEmbedder`` rows over 64 texts equal those of the model built
+    from the same params (atol 1e-6) and the flash kernel launched (the
+    count is printed and must be > 0).
+
 The line before the last is the ``kernels`` JSON record (the f32 and the
 bf16 kernel at bert-base L=512, launches from each dtype's main-path run);
 the last line is ``{"ok": true, "device": {...}}``.
@@ -227,15 +255,25 @@ from sparkdl_tpu_torch.bench_bounds import (
 from sparkdl_tpu_torch.dataframe import DataFrame
 from sparkdl_tpu_torch.dataframe.frame import partition_row_spans
 from sparkdl_tpu_torch import udf as udf_catalog
-from sparkdl_tpu_torch.estimators import DataParallelEstimator, LogisticRegression
+from sparkdl_tpu_torch.estimators import DataParallelEstimator, ImageFileEstimator, LogisticRegression
+from sparkdl_tpu_torch.estimators import keras_fit
 from sparkdl_tpu_torch.evaluation import MulticlassClassificationEvaluator
 from sparkdl_tpu_torch.graph.function import ModelFunction
-from sparkdl_tpu_torch.graph.keras_graph import KerasModelSpec, walk_layers
+from sparkdl_tpu_torch.graph.ingest import ModelIngest
+from sparkdl_tpu_torch.graph.keras_file import read_keras_file, read_keras_weights
+from sparkdl_tpu_torch.graph.keras_graph import (
+    KerasModelSpec,
+    KerasModule,
+    collect_weights,
+    spec_from_module,
+    walk_layers,
+)
 from sparkdl_tpu_torch.graph.pieces import host_resize_uint8, image_structs_to_batch
 from sparkdl_tpu_torch.graph.precision import bf16_rung
 from sparkdl_tpu_torch.image import imageIO
 from sparkdl_tpu_torch.models import get_image_model, get_model
-from sparkdl_tpu_torch.models.convert import cnn_params_to_flax
+from sparkdl_tpu_torch.models.convert import bert_params_to_flax, cnn_params_to_flax
+from sparkdl_tpu_torch.models.keras_weights import load_keras_weights
 from sparkdl_tpu_torch.models.layers import init_cnn_params
 from sparkdl_tpu_torch.models.registry import _bert_text_builder, save_flax_npz
 from sparkdl_tpu_torch.models.resnet import ResNet50
@@ -257,6 +295,7 @@ from sparkdl_tpu_torch.transformers.named_image import (
     DeepImageFeaturizer,
     DeepImagePredictor,
 )
+from sparkdl_tpu_torch.transformers.image_model import ImageModelTransformer
 from sparkdl_tpu_torch.transformers.keras_image import KerasImageFileTransformer
 from sparkdl_tpu_torch.transformers.tensor import KerasTransformer
 from sparkdl_tpu_torch.transformers.text import HashingTokenizer, TextEmbedder
@@ -427,6 +466,25 @@ KERAS_HEAD = (64, 10)
 CAFFE_MEAN_BGR = np.array([103.939, 116.779, 123.68], np.float32)
 # the headers the C++ image bridge includes; where both exist, it must build
 BRIDGE_HEADERS = ("/usr/include/jpeglib.h", "/usr/include/png.h")
+
+# phase 15: the rest of the Keras path
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures")
+FIXTURE_MODEL = "keras_cnn"
+REGISTRY_ROWS = 64
+FT_IMAGES = 512
+FT_CLASSES = 10
+FT_BATCH = 32
+FT_FIT = {"epochs": 2, "batch_size": FT_BATCH, "shuffle": False}
+FT_PARTITIONS = 4
+FT_CHECK_STEPS = 3
+FT_REL = 1e-4  # plus FT_NOISE x the CPU's own float32 error, as phase 12
+FT_NOISE = 4.0
+FT_PROFILE_ROWS = 256
+PREPROC_IMAGES = 512
+PREPROC_SIDE = 320
+PREPROC_CPU_ROWS = 8
+TEXT_WEIGHT_TEXTS = 64
+TEXT_WEIGHT_ATOL = 1e-6
 
 
 class PhaseError(RuntimeError):
@@ -2103,6 +2161,271 @@ def phase_keras_image(seed: int, device_name: str, tmp: str) -> None:
     shutdown_feeders()
 
 
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _resnet50_config(head: int = None, headless: bool = False) -> dict:
+    """The committed Keras ResNet50 config; ``head`` re-sizes the softmax,
+    ``headless`` ends the model at ``avg_pool`` (the pooled features)."""
+    with open(KERAS_CONFIG) as f:
+        config = json.load(f)
+    if headless:
+        config["layers"] = [l for l in config["layers"] if l["name"] != "predictions"]
+        config["output_layers"] = ["avg_pool", 0, 0]
+    elif head is not None:
+        config["layers"][-1]["config"]["units"] = head
+    return config
+
+
+def phase_keras_files(device) -> None:
+    """15(a): the committed fixtures through the port's HDF5 reader."""
+    import importlib.util
+
+    have = {name: importlib.util.find_spec(name) is not None for name in ("h5py", "keras")}
+    t0 = time.perf_counter()
+    archive = read_keras_file(os.path.join(FIXTURES, f"{FIXTURE_MODEL}.keras"))
+    legacy = read_keras_file(os.path.join(FIXTURES, f"{FIXTURE_MODEL}.h5"))
+    config = archive.get_config()
+    layers = [(layer["class_name"], path) for path, _, layer, _ in walk_layers(config)]
+    weights = read_keras_weights(os.path.join(FIXTURES, f"{FIXTURE_MODEL}.weights.h5"), layers)
+    read_s = time.perf_counter() - t0
+    stored = np.load(os.path.join(FIXTURES, f"{FIXTURE_MODEL}_io.npz"))
+    x, y = stored["x"], stored["y"]
+    errs = {}
+    for layout, spec in (("keras", archive), ("h5", legacy), ("weights.h5", KerasModelSpec(config, weights))):
+        mf = ModelIngest.from_keras(spec, device=device)
+        out = mf(torch.from_numpy(x).permute(0, 3, 1, 2).to(device)).cpu().numpy()
+        check(out.shape == y.shape, f"keras files {layout}: output {out.shape}, stored {y.shape}")
+        errs[layout] = _relative_error(out, y)
+        check(errs[layout] <= IMAGE_F32_REL, f"keras files {layout}: {errs[layout]:.3e} off the stored Keras output")
+    print(f"keras files (15a): h5py importable {have['h5py']}, keras importable {have['keras']}; the three "
+          f"fixtures read by the port's HDF5 reader in {read_s:.3f} s; each model built on {device} against the "
+          f"stored Keras output, relative error " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (limit {IMAGE_F32_REL})")
+
+
+def phase_registry_weights(seed: int, device, tmp: str, structs) -> str:
+    """15(b): a seeded Keras ResNet50 through load_keras_weights into the
+    registry ResNet50; returns the written weights file."""
+    config = _resnet50_config()
+    spec = KerasModelSpec(config, _seeded_keras_weights(config, seed))
+    t0 = time.perf_counter()
+    tree = load_keras_weights("ResNet50", spec)
+    path = os.path.join(tmp, "resnet50_from_keras.npz")
+    save_flax_npz(tree, path)
+    map_s = time.perf_counter() - t0
+    feat = _featurizer("ResNet50", "float32", path, device=device)
+    ours, _ = _featurize(feat, DataFrame.fromColumns({"image": structs}, numPartitions=IMAGE_PARTITIONS))
+    headless = _resnet50_config(headless=True)
+    graph = ModelIngest.from_keras(KerasModelSpec(headless, collect_weights(spec)), device=device)
+    keras_stage = ImageModelTransformer(inputCol="image", outputCol="features", modelFunction=graph,
+                                        preprocessing="caffe", batchSize=IMAGE_BATCH)
+    theirs = [r["features"] for r in keras_stage.transform(
+        DataFrame.fromColumns({"image": structs}, numPartitions=IMAGE_PARTITIONS)).collect()]
+    _sync(device)
+    a, b = np.stack(ours), np.stack(theirs)
+    check(a.shape == b.shape == (len(structs), 2048), f"registry weights: shapes {a.shape} {b.shape}")
+    err = _relative_error(a, b)
+    check(err <= IMAGE_F32_REL, f"registry weights: featurizer vs the Keras graph {err:.3e}")
+    print(f"registry weights (15b): Keras ResNet50 spec -> load_keras_weights -> {len(tree['params'])} flax "
+          f"modules in {map_s:.2f} s; DeepImageFeaturizer(ResNet50, weightsFile) vs the translated Keras graph's "
+          f"avg_pool over {len(structs)} rows on {device}: relative error {err:.3e} (limit {IMAGE_F32_REL})")
+    del feat, graph, keras_stage
+    return path
+
+
+def _palette_images(seed: int, n: int, side: int):
+    """``n`` caffe-normalized (BGR minus the mean) float32 NHWC images in
+    FT_CLASSES colour classes with noise, by URI; and their labels."""
+    rng = np.random.default_rng(seed + 15)
+    palette = rng.integers(30, 226, size=(FT_CLASSES, 3))
+    images, labels = {}, []
+    for i in range(n):
+        label = i % FT_CLASSES
+        noise = rng.integers(-NOISE, NOISE + 1, size=(side, side, 3))
+        bgr = np.clip(palette[label] + noise, 0, 255).astype(np.float32)
+        images[f"synthetic/{i}"] = bgr - CAFFE_MEAN_BGR
+        labels.append(label)
+    return images, labels
+
+
+def _fit_steps(spec, device, dtype, x, y, seed):
+    """The estimator's first steps, alone: a fresh module of ``spec`` on
+    ``device`` in ``dtype``, one epoch over ``x``; its weights after, by
+    (layer path, index), in ``dtype``."""
+    module = KerasModule(spec.get_config(), spec).to(device=device, dtype=dtype)
+    keras_fit.fit(module, x.astype(np.float64) if dtype == torch.float64 else x,
+                  y.astype(np.float64) if dtype == torch.float64 else y, optimizer="adam",
+                  loss="categorical_crossentropy", params={"epochs": 1, "batch_size": FT_BATCH, "shuffle": False},
+                  seed=seed)
+    out = spec_from_module(module)
+    return {(path, i): a for path, arrays in collect_weights(out).items() for i, a in enumerate(arrays)}
+
+
+def phase_keras_training(seed: int, device_name: str, device="cuda") -> None:
+    """15(c): ImageFileEstimator fine-tunes the Keras ResNet50."""
+    from torch.profiler import ProfilerActivity, profile
+
+    config = _resnet50_config(head=FT_CLASSES)
+    spec = KerasModelSpec(config, _seeded_keras_weights(config, seed))
+    t0 = time.perf_counter()
+    images, labels = _palette_images(seed, FT_IMAGES, KERAS_SIDE)
+    df = DataFrame.fromColumns({"uri": list(images), "label": labels}, numPartitions=FT_PARTITIONS)
+    print(f"keras training (15c): {FT_IMAGES} synthetic {KERAS_SIDE}x{KERAS_SIDE} images in {FT_CLASSES} colour "
+          f"classes in {time.perf_counter() - t0:.2f} s (host); Keras ResNet50 with a {FT_CLASSES}-way head, "
+          f"seeded; kerasFitParams {FT_FIT}, adam, categorical_crossentropy")
+    est = ImageFileEstimator(inputCol="uri", outputCol="probs", labelCol="label", model=spec,
+                             imageLoader=images.__getitem__, kerasOptimizer="adam",
+                             kerasLoss="categorical_crossentropy", kerasFitParams=FT_FIT, batchSize=FT_BATCH,
+                             device=device, seed=seed)
+    t0 = time.perf_counter()
+    model = est.fit(df)
+    fit_s = time.perf_counter() - t0
+    hist = model.history
+    steps = -(-FT_IMAGES // FT_BATCH)
+    check(hist["steps"] == [steps] * FT_FIT["epochs"], f"keras training: steps {hist['steps']}")
+    check(all(np.isfinite(hist["loss"])), f"keras training: losses {hist['loss']}")
+    step_ms = hist["epoch_time_s"][-1] / steps * 1e3
+    few = DataFrame.fromColumns({"uri": list(images)[:FT_BATCH * 2]}, numPartitions=2)
+    probs = [r["probs"] for r in model.transform(few).collect()]
+    check(all(p is not None and p.shape == (FT_CLASSES,) and abs(float(p.astype(np.float64).sum()) - 1) <= 1e-5
+              for p in probs), "keras training: the trained transformer's rows are not 10-way probabilities")
+    print(f"keras training on {device_name} ({_smi()}): fit {fit_s:.2f} s (features materialized and the model "
+          f"built included); losses {[round(v, 4) for v in hist['loss']]}; epoch {FT_FIT['epochs']} "
+          f"{hist['epoch_time_s'][-1]:.3f} s = {step_ms:.2f} ms per step = {FT_IMAGES / hist['epoch_time_s'][-1]:.1f} "
+          f"images/s (epoch 1 {hist['epoch_time_s'][0]:.3f} s, the first step's set-up included)")
+    x = np.stack([images[u] for u in list(images)[:FT_PROFILE_ROWS]])
+    y = np.eye(FT_CLASSES, dtype=np.float32)[labels[:FT_PROFILE_ROWS]]
+    module = KerasModule(spec.get_config(), spec).to(device, memory_format=torch.channels_last)
+    keras_fit.fit(module, x[:FT_BATCH], y[:FT_BATCH], params={"epochs": 1, "batch_size": FT_BATCH}, seed=seed)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        keras_fit.fit(module, x, y, params={"epochs": 1, "batch_size": FT_BATCH, "shuffle": False}, seed=seed)
+        _sync(device)
+        wall = time.perf_counter() - t0
+    kernels = device_kernels(prof)
+    busy = sum(sec for sec, _ in kernels.values())
+    check(busy > 0, "the profiler saw no device time")
+    n_steps = -(-FT_PROFILE_ROWS // FT_BATCH)
+    print(f"keras training profiled 1-epoch fit over {FT_PROFILE_ROWS} rows: wall {wall:.3f} s, device busy "
+          f"{busy:.3f} s (share {busy / wall:.3f}; {busy / n_steps * 1e3:.2f} ms per step)")
+    for name, (sec, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:5]:
+        print(f"  device {sec:.4f} s  x{n}  {name[:90]}")
+    del module, model, est
+    torch.cuda.empty_cache()
+    # the first steps on the card, on the CPU and in float64 on the card
+    rows = FT_CHECK_STEPS * FT_BATCH
+    x, y = x[:rows], y[:rows]
+    t0 = time.perf_counter()
+    card = _fit_steps(spec, device, torch.float32, x, y, seed)
+    t_card = time.perf_counter() - t0
+    cpu = _fit_steps(spec, "cpu", torch.float32, x, y, seed)
+    t_cpu = time.perf_counter() - t0 - t_card
+    ref = _fit_steps(spec, device, torch.float64, x, y, seed)
+    torch.cuda.empty_cache()
+
+    def rel(a, key):
+        return float(np.abs(a[key].astype(np.float64) - ref[key]).max() / max(np.abs(ref[key]).max(), 1e-300))
+
+    errs = {k: (rel(card, k), rel(cpu, k)) for k in ref}
+    over = [k for k, (c, p) in errs.items() if c > FT_REL + FT_NOISE * p]
+    worst_card = max((c, k) for k, (c, _) in errs.items())
+    worst_cpu = max((p, k) for k, (_, p) in errs.items())
+    card_vs_cpu = max(float(np.abs(card[k] - cpu[k]).max() / max(np.abs(cpu[k]).max(), 1e-30)) for k in cpu)
+    print(f"keras training: the first {FT_CHECK_STEPS} steps ({rows} rows; card {t_card:.2f} s, CPU {t_cpu:.2f} s) "
+          f"against float64 on the card, each of {len(errs)} tensors (weights and moving statistics) relative to "
+          f"its max: card worst {worst_card[0]:.3e} ({worst_card[1]}), CPU worst {worst_cpu[0]:.3e} "
+          f"({worst_cpu[1]}); card vs CPU worst {card_vs_cpu:.3e}; tensors where the card exceeds {FT_REL} + "
+          f"{FT_NOISE} x the CPU's error: {len(over)}")
+    check(not over, f"keras training: card steps off float64 beyond the CPU's float32 error in {over[:5]}")
+
+
+def phase_device_preproc(seed: int, device_name: str, weights: str, device="cuda") -> None:
+    """15(d): DeepImageFeaturizer over 320x320 sources, the resize on the
+    card (SPARKDL_DEVICE_PREPROC=1) and on the host (0)."""
+    structs, _ = _colour_structs(seed, PREPROC_IMAGES, PREPROC_SIDE)
+    df = DataFrame.fromColumns({"image": structs}, numPartitions=IMAGE_PARTITIONS)
+    warm = DataFrame.fromColumns({"image": structs[:IMAGE_BATCH]}, numPartitions=1)
+    feat = _featurizer("ResNet50", "float32", weights, device=device)
+    rows, rate, share = {}, {}, {}
+    for arm in ("1", "0"):
+        os.environ["SPARKDL_DEVICE_PREPROC"] = arm
+        try:
+            _featurize(feat, warm)
+            rows[arm], dt = _featurize(feat, df)
+            rate[arm] = len(structs) / dt
+            wall, busy, _ = _profiled_pass(feat, df)
+            share[arm] = busy / wall
+        finally:
+            os.environ.pop("SPARKDL_DEVICE_PREPROC")
+    built = [k[-1] for k in feat._inner().__dict__.get("_device_fn_cache", {})]
+    check((PREPROC_SIDE, PREPROC_SIDE) in built, f"device preproc: no device fn for the 320x320 source: {built}")
+    for arm, out in rows.items():
+        check(all(r is not None and r.shape == (2048,) and np.isfinite(r).all() for r in out),
+              f"device preproc arm {arm}: rows are not finite 2048-vectors")
+    sample = np.linspace(0, len(structs) - 1, PREPROC_CPU_ROWS).round().astype(int).tolist()
+    os.environ["SPARKDL_DEVICE_PREPROC"] = "1"
+    try:
+        cpu, _ = _featurize(_featurizer("ResNet50", "float32", weights, device="cpu"),
+                            DataFrame.fromColumns({"image": [structs[i] for i in sample]}))
+    finally:
+        os.environ.pop("SPARKDL_DEVICE_PREPROC")
+    err = _relative_error(np.stack([rows["1"][i] for i in sample]), np.stack(cpu))
+    check(err <= IMAGE_F32_REL, f"device preproc: the card's arm vs the CPU's {err:.3e}")
+    arms = _relative_error(np.stack(rows["1"]), np.stack(rows["0"]))
+    print(f"device preproc (15d) DeepImageFeaturizer(ResNet50) f32 over {len(structs)} structs at "
+          f"{PREPROC_SIDE}x{PREPROC_SIDE} on {device_name} ({_smi()}): SPARKDL_DEVICE_PREPROC=1 (uint8 rows "
+          f"shipped at the source geometry, resized on the card) {rate['1']:.1f} images/s, busy share {share['1']:.3f}; =0 (PIL "
+          f"resize on the host) {rate['0']:.1f} images/s, busy share {share['0']:.3f}; device arm vs the CPU over "
+          f"{len(sample)} rows relative error {err:.3e} (limit {IMAGE_F32_REL}); device vs host arm {arms:.3e} "
+          f"(not gated: jax's antialiased bilinear against PIL's)")
+    shutdown_feeders()
+
+
+def phase_text_weights(seed: int, device_name: str, tmp: str, device="cuda") -> int:
+    """15(e): bert-base from a flax .npz through weights_file; returns
+    the flash launches of that run."""
+    spec = get_model("bert-base")
+    t0 = time.perf_counter()
+    tree = bert_params_to_flax(spec.model_function(seed=seed, device="cpu").module)
+    path = os.path.join(tmp, "bert_base.npz")
+    save_flax_npz(tree, path)
+    write_s = time.perf_counter() - t0
+    texts = _texts(seed + 15, TEXT_WEIGHT_TEXTS)
+    df = DataFrame.fromColumns({"text": texts}, numPartitions=4)
+    from_file = spec.model_function(weights_file=path, device=device)
+    flash_attention.launches = 0
+    rows, dt, batches, _ = _embed(from_file, df)
+    launches = flash_attention.launches
+    del from_file
+    from_params = spec.model_function(params=tree, device=device)
+    ref, _, _, _ = _embed(from_params, df)
+    del from_params
+    torch.cuda.empty_cache()
+    err = max(float(np.abs(a - b).max()) for a, b in zip(rows, ref))
+    check(launches > 0 and launches == BERT_BASE_LAYERS * batches,
+          f"text weights: {launches} flash launches for {batches} batches")
+    check(err <= TEXT_WEIGHT_ATOL, f"text weights: weights_file rows off the params rows by {err:.3e}")
+    print(f"text weights (15e): seeded bert-base written as a flax .npz in {write_s:.2f} s; TextEmbedder over "
+          f"{len(texts)} texts on {device_name} from weights_file: {batches} batches, {launches} flash launches, "
+          f"{dt:.3f} s; vs the model built from the same params max |diff| {err:.3e} (atol {TEXT_WEIGHT_ATOL})")
+    return launches
+
+
+def phase_keras_rest(seed: int, device_name: str, tmp: str) -> int:
+    """Phase 15; returns 15(e)'s flash launches."""
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    phase_keras_files(cuda)
+    structs, _ = _colour_structs(seed, REGISTRY_ROWS, KERAS_SIDE)
+    weights = phase_registry_weights(seed, cuda, tmp, structs)
+    shutdown_feeders()
+    phase_keras_training(seed, device_name, cuda)
+    phase_device_preproc(seed, device_name, weights, cuda)
+    return phase_text_weights(seed, device_name, tmp, cuda)
+
+
 def _direct_fn(spec, mode: str, dtype, seed: int):
     """The registry's ModelFunction of ``spec`` at ``dtype``, seeded as
     the serving loader seeds it."""
@@ -2156,6 +2479,10 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_keras_image(args.seed, device_name, tmp)
     done("phase 14")
+    with tempfile.TemporaryDirectory() as tmp:
+        text_weight_launches = phase_keras_rest(args.seed, device_name, tmp)
+    done("phase 15")
+    print(f"flash launches in 15(e) (bert-base from weights_file): {text_weight_launches}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[torch.float32], records[torch.bfloat16]]}))
     print(json.dumps({

@@ -34,7 +34,11 @@ What it covers today:
   file URIs through
   :class:`~sparkdl_tpu_torch.transformers.keras_image.KerasImageFileTransformer`
   (decoded by the C++ image bridge, ``runtime/native.py``), and array
-  columns through ``KerasTransformer``/``ModelTransformer``.
+  columns through ``KerasTransformer``/``ModelTransformer``; Keras model
+  and weight files read by the port's own HDF5 reader (``graph/hdf5.py``);
+  fine-tuning with
+  :class:`~sparkdl_tpu_torch.estimators.ImageFileEstimator`
+  (``KerasImageFileEstimator``), Keras's optimizers and losses by name.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with the default device and no CUDA card they raise. The names below are
@@ -57,6 +61,8 @@ _EXPORTS = {
     "TFTransformer": "sparkdl_tpu_torch.transformers.tensor",
     "LogisticRegression": "sparkdl_tpu_torch.estimators",
     "DataParallelEstimator": "sparkdl_tpu_torch.estimators",
+    "ImageFileEstimator": "sparkdl_tpu_torch.estimators",
+    "KerasImageFileEstimator": "sparkdl_tpu_torch.estimators",
     "registerImageUDF": "sparkdl_tpu_torch.udf",
     "registerKerasImageUDF": "sparkdl_tpu_torch.udf",
     "registerModelUDF": "sparkdl_tpu_torch.udf",

@@ -5,6 +5,10 @@ from sparkdl_tpu_torch.estimators.data_parallel_estimator import (
     DataParallelModel,
     HorovodEstimator,
 )
+from sparkdl_tpu_torch.estimators.image_file_estimator import (
+    ImageFileEstimator,
+    KerasImageFileEstimator,
+)
 from sparkdl_tpu_torch.estimators.logistic_regression import (
     LogisticRegression,
     LogisticRegressionModel,
@@ -14,6 +18,8 @@ __all__ = [
     "DataParallelEstimator",
     "DataParallelModel",
     "HorovodEstimator",
+    "ImageFileEstimator",
+    "KerasImageFileEstimator",
     "LogisticRegression",
     "LogisticRegressionModel",
 ]

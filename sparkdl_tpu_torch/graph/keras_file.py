@@ -12,21 +12,34 @@
   lists its trainable variables first and then the rest, each in layer
   order, as Keras's legacy writer does.
 
-Both weight stores are HDF5 and are read with h5py, imported at the read:
-where h5py is absent the read raises ImportError (an HDF5 reader of the
-port's own is ROADMAP Queue A item 3). A configuration the translator
+Both weight stores are HDF5, read by the port's own reader
+(``graph/hdf5.py``, numpy only), so a model file is read where h5py is
+not installed, as on the card's machine. A configuration the translator
 does not cover fails when the model is built from the spec.
+
+A weights-only file holds no config. :func:`read_keras_weights` maps one
+onto an architecture's weighted layers, given them in order as
+(Keras class, layer name) (``models/keras_app_layers.py`` lists
+keras.applications'):
+
+- a Keras 3 ``.weights.h5`` keys each layer by its object path (class
+  name and order of appearance, ``layers/conv2d_1/vars/0``), not by its
+  name;
+- a legacy ``.h5`` weight file lists its layers in order (the
+  ``layer_names`` attribute); Keras loads such a file by topology, the
+  k-th layer holding weights into the model's k-th weighted layer, and
+  so does the port.
 """
 
 from __future__ import annotations
 
-import io
 import json
 import zipfile
-from typing import Dict, List
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from sparkdl_tpu_torch.graph import hdf5
 from sparkdl_tpu_torch.graph.keras_graph import (
     MODEL_CLASSES,
     ROADMAP_ITEM,
@@ -36,17 +49,6 @@ from sparkdl_tpu_torch.graph.keras_graph import (
 
 ARCHIVE_CONFIG = "config.json"
 ARCHIVE_WEIGHTS = "model.weights.h5"
-
-
-def _h5py():
-    try:
-        import h5py
-    except ImportError as e:
-        raise ImportError(
-            "reading the weights of a Keras model file needs h5py, which is "
-            f"not installed here (an HDF5 reader of the port's own: {ROADMAP_ITEM})"
-        ) from e
-    return h5py
 
 
 def _model_config(blob: dict, path: str) -> dict:
@@ -70,9 +72,8 @@ def _read_archive(path: str) -> KerasModelSpec:
     with zipfile.ZipFile(path) as z:
         config = _model_config(json.loads(z.read(ARCHIVE_CONFIG)), path)
         raw = z.read(ARCHIVE_WEIGHTS)
-    h5py = _h5py()
     weights: Dict[str, List[np.ndarray]] = {}
-    with h5py.File(io.BytesIO(raw), "r") as f:
+    with hdf5.File(raw) as f:
         for layer_path, obj_path, _, _ in walk_layers(config):
             group = f.get(f"{obj_path}/vars")
             if group is None:
@@ -92,9 +93,8 @@ def _var_trainable(layer: dict) -> List[bool]:
 
 
 def _read_legacy_h5(path: str) -> KerasModelSpec:
-    h5py = _h5py()
     weights: Dict[str, List[np.ndarray]] = {}
-    with h5py.File(path, "r") as f:
+    with hdf5.File(path) as f:
         raw = f.attrs.get("model_config")
         if raw is None:
             raise ValueError(f"{path}: no model_config (a weights-only file?)")
@@ -105,8 +105,7 @@ def _read_legacy_h5(path: str) -> KerasModelSpec:
             if name not in store:
                 continue
             group = store[name]
-            names = [n.decode() if isinstance(n, bytes) else n for n in group.attrs["weight_names"]]
-            arrays = [np.asarray(group[n]) for n in names]
+            arrays = _legacy_arrays(group)
             if layer["class_name"] in MODEL_CLASSES:
                 slots = _legacy_slots(layer["config"], name)
             else:
@@ -128,3 +127,47 @@ def _legacy_slots(config: dict, name: str) -> list:
         for i, t in enumerate(_var_trainable(layer)):
             (trainable if t and on else frozen).append((leaf, i))
     return trainable + frozen
+
+
+def _str(v) -> str:
+    return v.decode() if isinstance(v, bytes) else str(v)
+
+
+def _legacy_attribute(group, name: str) -> list:
+    """A legacy list attribute, which Keras splits into ``name0``,
+    ``name1``, ... when it outgrows an object header."""
+    if name in group.attrs:
+        return [_str(v) for v in group.attrs[name]]
+    out, i = [], 0
+    while f"{name}{i}" in group.attrs:
+        out += [_str(v) for v in group.attrs[f"{name}{i}"]]
+        i += 1
+    return out
+
+
+def _legacy_arrays(group) -> List[np.ndarray]:
+    return [np.asarray(group[n]) for n in _legacy_attribute(group, "weight_names")]
+
+
+def read_keras_weights(path: str, layers: Sequence[Tuple[str, str]]) -> Dict[str, List[np.ndarray]]:
+    """A weights-only file (Keras 3 ``.weights.h5`` or legacy ``.h5``)
+    -> ``{layer name: weight arrays}`` for ``layers``, the model's
+    weighted layers in order as (Keras class, layer name). Raises
+    ValueError when the file's layers do not fit ``layers``."""
+    with hdf5.File(path) as f:
+        if "layer_names" in f.attrs or "layer_names0" in f.attrs:
+            stored = [n for n in _legacy_attribute(f, "layer_names") if _legacy_attribute(f[n], "weight_names")]
+            if len(stored) != len(layers):
+                raise ValueError(
+                    f"{path}: {len(stored)} layers hold weights, the architecture has {len(layers)}"
+                )
+            return {name: _legacy_arrays(f[s]) for (_, name), s in zip(layers, stored)}
+        config = {"input_layers": [], "layers": [
+            {"class_name": cls, "config": {"name": name}} for cls, name in layers]}
+        weights = {}
+        for name, obj_path, _, _ in walk_layers(config):
+            group = f.get(f"{obj_path}/vars")
+            if group is None:
+                raise ValueError(f"{path}: no weights for layer {name!r} at {obj_path!r}")
+            weights[name] = [np.asarray(group[str(i)]) for i in range(len(group))]
+        return weights

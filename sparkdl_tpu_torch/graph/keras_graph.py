@@ -7,6 +7,19 @@ or Sequential, nested models included) and each layer's weights
 (``model.get_layer(name).get_weights()``, numpy arrays), and builds an
 ``nn.Module`` that computes what the Keras model computes at inference.
 
+Training: the module trains as Keras's ``fit`` does
+(``estimators/keras_fit.py``). A layer's kernels, biases, gamma and beta
+are ``nn.Parameter``s that require grad where Keras trains them (the
+layer and every model around it ``trainable``); the moving statistics are
+buffers. In ``train()`` mode a trainable BatchNormalization normalizes
+with the batch's mean and biased variance and moves its statistics as
+Keras does (``moving = moving * momentum + batch * (1 - momentum)``, the
+config's momentum, 0.99 by default; ``F.batch_norm`` would move the
+variance by the unbiased estimate); a frozen one uses its moving
+statistics. Dropout drops with the module's ``torch.Generator``
+(:meth:`KerasModule.seed_dropout`). :func:`spec_from_module` writes the
+weights back into a :class:`KerasModelSpec`.
+
 Layout: Keras is NHWC. Inside the module every rank-4 tensor is NCHW
 (cuDNN's layout; on the card in ``channels_last`` memory format, as the
 image converter of ``graph/pieces.py`` emits it). A rank-4 model input is
@@ -19,7 +32,7 @@ The layer table (``_BUILDERS``) covers what ``keras.applications``'
 ResNet50, MobileNetV2, InceptionV3, Xception and VGG16/19 use, and the
 common head layers. Another layer class, a dtype policy other than
 float32, a ``channels_first`` layer or a model with more than one input
-raises NotImplementedError naming ROADMAP Queue A item 3.
+raises NotImplementedError naming ROADMAP Queue A item 9.
 
 :class:`KerasModelSpec` is a Keras model held as data (its config and its
 weights by layer path) that offers the same four members a Keras model
@@ -41,7 +54,7 @@ from torch import nn
 
 from sparkdl_tpu_torch.runtime.device import exact_float32
 
-ROADMAP_ITEM = "ROADMAP Queue A item 3"
+ROADMAP_ITEM = "ROADMAP Queue A item 9"
 
 #: Keras classes whose config nests a whole model
 MODEL_CLASSES = ("Functional", "Sequential")
@@ -138,17 +151,46 @@ class _Identity(nn.Module):
         return x
 
 
+def _param(t: Optional[torch.Tensor]) -> Optional[nn.Parameter]:
+    return None if t is None else nn.Parameter(t)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A weight as numpy: float32 and float64 as they are, other dtypes
+    (bfloat16) as float32."""
+    t = t.detach()
+    if t.dtype not in (torch.float32, torch.float64):
+        t = t.float()
+    return t.cpu().numpy()
+
+
 class _Conv(nn.Module):
     """Conv2D, DepthwiseConv2D and SeparableConv2D (a depthwise conv,
-    then a 1x1 conv, then the bias), each then its activation."""
+    then a 1x1 conv, then the bias), each then its activation.
+    ``depthwise``: the depth multiplier of a depthwise kernel (None for
+    Conv2D), which :meth:`keras_weights` needs to give Keras's layout
+    back."""
 
-    def __init__(self, weight, bias, stride, dilation, groups, padding, act, pointwise=None):
+    def __init__(self, weight, bias, stride, dilation, groups, padding, act, pointwise=None,
+                 depthwise: Optional[int] = None):
         super().__init__()
-        self.weight = nn.Parameter(weight, requires_grad=False)
-        self.pointwise = None if pointwise is None else nn.Parameter(pointwise, requires_grad=False)
-        self.bias = None if bias is None else nn.Parameter(bias, requires_grad=False)
+        self.weight = _param(weight)
+        self.pointwise = _param(pointwise)
+        self.bias = _param(bias)
         self.stride, self.dilation, self.groups = stride, dilation, groups
-        self.padding, self.act = padding, act
+        self.padding, self.act, self.depthwise = padding, act, depthwise
+
+    def keras_weights(self) -> List[np.ndarray]:
+        """The weights in Keras's layout and order."""
+        if self.depthwise is None:
+            out = [_numpy(self.weight.permute(2, 3, 1, 0))]  # OIHW -> HWIO
+        else:
+            out = [_keras_depthwise(_numpy(self.weight), self.depthwise)]
+        if self.pointwise is not None:
+            out.append(_numpy(self.pointwise.permute(2, 3, 1, 0)))
+        if self.bias is not None:
+            out.append(_numpy(self.bias))
+        return out
 
     def forward(self, x):
         k = self.weight.shape[2:]
@@ -166,21 +208,48 @@ class _Conv(nn.Module):
 
 
 class _BatchNorm(nn.Module):
-    def __init__(self, gamma, beta, mean, var, eps, axis):
+    """BatchNormalization over the channel axis (NCHW dim 1, or the last
+    axis below rank 4). In ``train()`` mode, when ``trainable``, Keras's
+    training arithmetic: the batch's mean and biased variance,
+    ``x * inv + (beta - mean * inv)`` with ``inv = gamma / sqrt(var +
+    eps)``, and the moving statistics moved by ``momentum``."""
+
+    def __init__(self, gamma, beta, mean, var, eps, axis, momentum: float = 0.99):
         super().__init__()
         self.axis = axis
-        self.weight = None if gamma is None else nn.Parameter(gamma, requires_grad=False)
-        self.bias = None if beta is None else nn.Parameter(beta, requires_grad=False)
+        self.weight = _param(gamma)
+        self.bias = _param(beta)
         self.register_buffer("running_mean", mean)
         self.register_buffer("running_var", var)
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
+        self.trainable = True
 
     def forward(self, x):
         if x.dim() > 1 and _torch_dim(self.axis, x.dim()) != 1:
             raise _unsupported(f"BatchNormalization over Keras axis {self.axis} of a rank-{x.dim()} tensor")
-        return F.batch_norm(
-            x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps
-        )
+        if not (self.training and self.trainable):
+            return F.batch_norm(
+                x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps
+            )
+        dims = [d for d in range(x.dim()) if d != 1]
+        mean = x.mean(dim=dims)
+        var = x.var(dim=dims, unbiased=False)
+        with torch.no_grad():
+            self.running_mean.copy_(self.running_mean * self.momentum + mean.detach() * (1.0 - self.momentum))
+            self.running_var.copy_(self.running_var * self.momentum + var.detach() * (1.0 - self.momentum))
+        shape = [1] * x.dim()
+        shape[1] = -1
+        inv = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            inv = inv * self.weight
+        shift = -mean * inv
+        if self.bias is not None:
+            shift = shift + self.bias
+        return x * inv.view(shape) + shift.view(shape)
+
+    def keras_weights(self) -> List[np.ndarray]:
+        out = [_numpy(t) for t in (self.weight, self.bias) if t is not None]
+        return out + [_numpy(self.running_mean), _numpy(self.running_var)]
 
 
 class _Dense(nn.Module):
@@ -188,14 +257,38 @@ class _Dense(nn.Module):
 
     def __init__(self, weight, bias, act):
         super().__init__()
-        self.weight = nn.Parameter(weight, requires_grad=False)
-        self.bias = None if bias is None else nn.Parameter(bias, requires_grad=False)
+        self.weight = _param(weight)
+        self.bias = _param(bias)
         self.act = act
+
+    def keras_weights(self) -> List[np.ndarray]:
+        return [_numpy(self.weight.t())] + ([] if self.bias is None else [_numpy(self.bias)])
 
     def forward(self, x):
         if x.dim() == 4:
             return self.act(F.linear(x.movedim(1, -1), self.weight, self.bias).movedim(-1, 1))
         return self.act(F.linear(x, self.weight, self.bias))
+
+
+class _Dropout(nn.Module):
+    """Keras Dropout: in ``train()`` mode, each element kept with
+    probability ``1 - rate`` and scaled by its inverse, the draws from
+    ``generator`` (set by :meth:`KerasModule.seed_dropout`); the identity
+    otherwise, and at rate 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if not self.training or self.rate <= 0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("a training Dropout needs its generator: call KerasModule.seed_dropout first")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class _Pool(nn.Module):
@@ -338,12 +431,18 @@ def _depthwise(kernel: torch.Tensor) -> torch.Tensor:
     return kernel.reshape(kh, kw, cin * mult).permute(2, 0, 1).unsqueeze(1).contiguous()
 
 
+def _keras_depthwise(weight: np.ndarray, mult: int) -> np.ndarray:
+    """The inverse of :func:`_depthwise`."""
+    channels, _, kh, kw = weight.shape
+    return np.ascontiguousarray(weight[:, 0].transpose(1, 2, 0).reshape(kh, kw, channels // mult, mult))
+
+
 def _build_depthwise(cfg, source):
     use_bias = cfg.get("use_bias", True)
     ws = _weights(source, cfg["name"], 2 if use_bias else 1)
     stride, dilation, padding, act = _conv_common(cfg)
     return _Conv(_depthwise(ws[0]), ws[1] if use_bias else None, stride, dilation,
-                 ws[0].shape[2], padding, act)
+                 ws[0].shape[2], padding, act, depthwise=ws[0].shape[3])
 
 
 def _build_separable(cfg, source):
@@ -352,7 +451,7 @@ def _build_separable(cfg, source):
     stride, dilation, padding, act = _conv_common(cfg)
     pointwise = ws[1].permute(3, 2, 0, 1).contiguous()
     return _Conv(_depthwise(ws[0]), ws[2] if use_bias else None, stride, dilation,
-                 ws[0].shape[2], padding, act, pointwise=pointwise)
+                 ws[0].shape[2], padding, act, pointwise=pointwise, depthwise=ws[0].shape[3])
 
 
 def _build_batchnorm(cfg, source):
@@ -365,7 +464,8 @@ def _build_batchnorm(cfg, source):
     ws = _weights(source, cfg["name"], 2 + scale + center)
     gamma = ws.pop(0) if scale else None
     beta = ws.pop(0) if center else None
-    return _BatchNorm(gamma, beta, ws[0], ws[1], float(cfg.get("epsilon", 1e-3)), int(axis))
+    return _BatchNorm(gamma, beta, ws[0], ws[1], float(cfg.get("epsilon", 1e-3)), int(axis),
+                      momentum=float(cfg.get("momentum", 0.99)))
 
 
 def _build_dense(cfg, source):
@@ -408,6 +508,12 @@ def _build_relu(cfg, source):
     )
 
 
+def _build_dropout(cfg, source):
+    if cfg.get("noise_shape") is not None:
+        raise _unsupported(f"Dropout {cfg['name']!r} with a noise_shape")
+    return _Dropout(float(cfg.get("rate", 0.0)))
+
+
 _BUILDERS: Dict[str, Callable[[dict, Any], nn.Module]] = {
     "InputLayer": lambda cfg, source: _Identity(),
     "Conv2D": _build_conv2d,
@@ -425,22 +531,31 @@ _BUILDERS: Dict[str, Callable[[dict, Any], nn.Module]] = {
     "Concatenate": lambda cfg, source: _Concat(int(cfg.get("axis", -1))),
     "Dense": _build_dense,
     "Flatten": lambda cfg, source: _Flatten(),
-    "Dropout": lambda cfg, source: _Identity(),
+    "Dropout": _build_dropout,
 }
 
 #: the Keras layer classes the translator builds (nested models aside)
 LAYER_CLASSES = tuple(sorted(_BUILDERS))
 
 
-def _build_layer(layer: dict, source) -> nn.Module:
+def _build_layer(layer: dict, source, trainable: bool) -> nn.Module:
+    """One layer's module. ``trainable``: whether every model around the
+    layer trains; the layer's own flag is read here. A frozen layer's
+    parameters do not require grad, and a frozen BatchNormalization keeps
+    its moving statistics in training."""
     class_name = layer["class_name"]
     cfg = layer.get("config") or {}
+    on = trainable and cfg.get("trainable", True)
     if class_name in MODEL_CLASSES:
-        return KerasGraph(cfg, source.get_layer(cfg["name"]))
+        return KerasGraph(cfg, source.get_layer(cfg["name"]), trainable=on)
     if class_name not in _BUILDERS:
         raise _unsupported(f"Keras layer class {class_name!r} (layer {cfg.get('name')!r})")
     _check_policy(class_name, cfg)
-    return _BUILDERS[class_name](cfg, source)
+    module = _BUILDERS[class_name](cfg, source)
+    module.requires_grad_(on)
+    if isinstance(module, _BatchNorm):
+        module.trainable = on
+    return module
 
 
 # -- graphs -------------------------------------------------------------------
@@ -499,9 +614,10 @@ class KerasGraph(nn.Module):
     inputs exist, and each intermediate value is dropped after its last
     use."""
 
-    def __init__(self, config: dict, source):
+    def __init__(self, config: dict, source, trainable: bool = True):
         super().__init__()
         self.mods = nn.ModuleDict()
+        self._trainable = trainable
         layers = config.get("layers") or []
         if is_functional(config):
             self._plan_functional(config, layers, source)
@@ -510,7 +626,7 @@ class KerasGraph(nn.Module):
 
     def _add(self, layer: dict, source) -> str:
         key = _module_key(layer.get("name") or layer["config"]["name"])
-        self.mods[key] = _build_layer(layer, source)
+        self.mods[key] = _build_layer(layer, source, self._trainable)
         return key
 
     def _plan_sequential(self, layers, source) -> None:
@@ -591,15 +707,44 @@ def _to_keras_layout(y):
 class KerasModule(nn.Module):
     """A Keras model as a torch module: a rank-4 input NCHW, outputs in
     Keras's layout and structure (a tensor, or a list of them); the
-    forward runs under ``exact_float32``."""
+    forward runs under ``exact_float32``. ``config`` is kept for
+    :func:`spec_from_module`."""
 
     def __init__(self, config: dict, source):
         super().__init__()
+        self.config = config
         self.graph = KerasGraph(config, source)
 
     def forward(self, x):
         with exact_float32():
             return _to_keras_layout(self.graph(x))
+
+    def seed_dropout(self, seed: int) -> None:
+        """Give every Dropout one ``torch.Generator`` on the module's
+        device, seeded with ``seed``."""
+        device = next((t.device for t in self.parameters()), torch.device("cpu"))
+        generator = torch.Generator(device=device).manual_seed(int(seed))
+        for m in self.modules():
+            if isinstance(m, _Dropout):
+                m.generator = generator
+
+
+def _layer_module(module: KerasModule, path: str) -> nn.Module:
+    node: nn.Module = module.graph
+    for name in path.split("/"):
+        node = node.mods[_module_key(name)]
+    return node
+
+
+def spec_from_module(module: KerasModule) -> "KerasModelSpec":
+    """A translated (and perhaps trained) module's config and current
+    weights as a :class:`KerasModelSpec`: each weighted layer's arrays in
+    Keras's layout and order, as ``get_weights()`` gives them."""
+    weights = {
+        path: _layer_module(module, path).keras_weights()
+        for path, _, _, _ in walk_layers(module.config)
+    }
+    return KerasModelSpec(module.config, weights)
 
 
 # -- a Keras model held as data --------------------------------------------------

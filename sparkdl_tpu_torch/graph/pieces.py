@@ -12,6 +12,10 @@ Port of the JAX package's ``graph/pieces.py``. The split is the same:
   ImageNet conventions), then the model's dtype in ``channels_last``
   memory format, which cuDNN's convolutions take without a transpose.
 
+The on-device preprocessing arm (``SPARKDL_DEVICE_PREPROC``,
+:func:`build_device_preproc`) moves the resize to the device: the host
+ships uint8 rows at the source geometry.
+
 Where the JAX package works on NHWC (channel axis -1), the pieces here
 work on NCHW (channel axis 1); the arithmetic is the same.
 """
@@ -25,6 +29,7 @@ import torch
 
 from sparkdl_tpu_torch.graph.function import ModelFunction, piece
 from sparkdl_tpu_torch.image import imageIO
+from sparkdl_tpu_torch.runtime.device import exact_float32
 
 _IMAGENET_MEAN_RGB = (123.68, 116.779, 103.939)
 _TORCH_MEAN = (0.485, 0.456, 0.406)
@@ -82,6 +87,64 @@ def build_image_converter(
         return y.to(out_dtype).contiguous(memory_format=torch.channels_last)
 
     return piece(convert, name=f"spImageConverter[{preprocessing}]")
+
+
+def resize_weights(in_size: int, out_size: int) -> np.ndarray:
+    """The (in_size, out_size) matrix of ``jax.image.resize``'s bilinear
+    resize along one axis (``jax._src.image.scale.compute_weight_mat``
+    with the triangle kernel, antialiased): half-pixel centres, and when
+    the axis shrinks the kernel widened by the factor, so each output
+    averages the inputs it covers; each column sums to 1. Computed in
+    float64 and rounded to float32 once: jax computes the sample
+    positions in float32, whose rounding (about 1e-5 of a pixel at 320)
+    moves an output by up to 4e-3 on the 0-255 scale between two
+    evaluations of the same resize."""
+    inv_scale = in_size / out_size
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (np.arange(out_size, dtype=np.float64) + 0.5) * inv_scale - 0.5
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=np.float64)[:, None]) / kernel_scale
+    weights = np.maximum(0.0, 1.0 - x)
+    total = weights.sum(axis=0, keepdims=True)
+    weights = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                       weights / np.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], weights, 0.0).astype(np.float32)
+
+
+def build_device_preproc(src_hw: Tuple[int, int], dst_hw: Tuple[int, int]) -> ModelFunction:
+    """Device piece of the on-device preprocessing arm
+    (``SPARKDL_DEVICE_PREPROC``): an NCHW uint8 batch at the source
+    geometry -> float32 NCHW at the model geometry, resized as
+    ``jax.image.resize(method="bilinear")`` resizes (antialiased when it
+    shrinks; ``F.interpolate`` does not follow that convention): one
+    product per resized axis with the weight matrix of
+    :func:`resize_weights`, in float32 (TF32 off). An axis of equal size
+    is not touched, so at identity geometry the arm is bit-identical to
+    the host path."""
+    src = (int(src_hw[0]), int(src_hw[1]))
+    dst = (int(dst_hw[0]), int(dst_hw[1]))
+    rows = None if src[0] == dst[0] else resize_weights(src[0], dst[0]).T.copy()  # (H_out, H_in)
+    cols = None if src[1] == dst[1] else resize_weights(src[1], dst[1])  # (W_in, W_out)
+    made = {}
+
+    def on(device: torch.device):
+        if device not in made:
+            made[device] = tuple(None if m is None else torch.from_numpy(m).to(device) for m in (rows, cols))
+        return made[device]
+
+    def pre(x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.float32)
+        if rows is None and cols is None:
+            return x
+        r, c = on(x.device)
+        with exact_float32():
+            if r is not None:
+                x = torch.matmul(r, x)
+            if c is not None:
+                x = torch.matmul(x, c)
+        return x
+
+    return piece(pre, name=f"deviceResize[{src[0]}x{src[1]}->{dst[0]}x{dst[1]}]")
 
 
 def build_flattener() -> ModelFunction:

@@ -259,3 +259,49 @@ def init_bert_params(module: BertEncoder, generator: torch.Generator) -> None:
             if isinstance(mod, nn.LayerNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
+
+
+def load_hf_bert_params(hf_params: dict, config: BertConfig) -> dict:
+    """A Hugging Face ``FlaxBertModel`` params tree (numpy arrays, or
+    anything ``np.asarray`` takes) -> the flax ``{"params": ...}`` tree of
+    the JAX package's ``BertEncoder``, which
+    ``models/convert.bert_params_from_flax`` carries into this module:
+    the embeddings and ``config.num_layers`` encoder layers. The HF pooler
+    head is not used: the pooled output here is the masked mean."""
+    import numpy as np
+
+    def t(x):
+        return np.asarray(x)
+
+    def dense(node):
+        return {"kernel": t(node["kernel"]), "bias": t(node["bias"])}
+
+    def norm(node):
+        return {"scale": t(node["scale"]), "bias": t(node["bias"])}
+
+    emb = hf_params["embeddings"]
+    out = {
+        "embeddings": {
+            "word_embeddings": {"embedding": t(emb["word_embeddings"]["embedding"])},
+            "position_embeddings": {"embedding": t(emb["position_embeddings"]["embedding"])},
+            "token_type_embeddings": {"embedding": t(emb["token_type_embeddings"]["embedding"])},
+            "layer_norm": norm(emb["LayerNorm"]),
+        }
+    }
+    layers = hf_params["encoder"]["layer"]
+    for i in range(config.num_layers):
+        layer = layers[str(i)]
+        att = layer["attention"]
+        out[f"layer_{i}"] = {
+            "attention": {
+                "query": dense(att["self"]["query"]),
+                "key": dense(att["self"]["key"]),
+                "value": dense(att["self"]["value"]),
+                "output": dense(att["output"]["dense"]),
+            },
+            "attention_norm": norm(att["output"]["LayerNorm"]),
+            "intermediate": dense(layer["intermediate"]["dense"]),
+            "mlp_output": dense(layer["output"]["dense"]),
+            "output_norm": norm(layer["output"]["LayerNorm"]),
+        }
+    return {"params": out}

@@ -11,8 +11,11 @@ row to any length never changes its embedding.
 
 An image entry builds one over preprocessed NCHW float batches at the
 entry's geometry, producing pooled features, logits or probabilities.
-Its weights come from a ``torch.Generator`` seeded with ``seed``, or from
-a flax ``.npz`` that the JAX package's ``save_flax_weights`` wrote.
+Its weights come from a ``torch.Generator`` seeded with ``seed``, from a
+flax ``.npz`` that the JAX package's ``save_flax_weights`` wrote, or from
+a Keras file of the ``keras.applications`` architecture (``.keras``,
+``.h5``/``.hdf5``, ``.weights.h5``; ``models/keras_weights.py``). A text
+entry takes a flax ``.npz`` too.
 ResNet101 and ResNet152 are modules of both packages but, as in the JAX
 registry, not registered models.
 
@@ -91,10 +94,13 @@ class NamedTextModel:
         seed: int = 0,
         params: Any = None,
         device=None,
+        weights_file: Optional[str] = None,
     ) -> ModelFunction:
         """mode: 'embed' (masked-mean pooled embedding; 'features' is an
         alias). ``params``: the JAX package's flax ``{"params": ...}`` tree
-        to carry across; without it the weights come from a
+        to carry across; ``weights_file``: the same tree as a flax ``.npz``
+        (keys joined by '/', as the JAX package's ``save_flax_weights``
+        writes it); without either the weights come from a
         ``torch.Generator`` seeded with ``seed``. ``device``: ``cuda`` by
         default (raises when there is none); pass ``"cpu"`` for the CPU."""
         if mode not in ("embed", "features"):
@@ -102,6 +108,10 @@ class NamedTextModel:
                 f"Unknown text-model mode {mode!r}; supported: embed "
                 "(alias: features)"
             )
+        if weights_file:
+            if params is not None:
+                raise ValueError("pass params or weights_file, not both")
+            params = load_flax_npz(weights_file)
         return self.builder(
             self, mode=mode, dtype=dtype, seed=seed, params=params,
             device=resolve_device(device),
@@ -200,10 +210,13 @@ class NamedImageModel:
     ) -> ModelFunction:
         """mode: 'features' (the pooled bottleneck vector), 'logits', or
         'probabilities' (softmax over the head). ``weights_file``: a flax
-        ``.npz`` (``{"params", "batch_stats"}`` keys joined by '/'); without
-        one the weights come from a CPU ``torch.Generator`` seeded with
-        ``seed``, the same on every device. ``device``: ``cuda`` by default
-        (raises when there is none); pass ``"cpu"`` for the CPU."""
+        ``.npz`` (``{"params", "batch_stats"}`` keys joined by '/', a
+        ResNet's in either block layout) or a Keras file of the
+        architecture (``.keras``, ``.h5``/``.hdf5``, ``.weights.h5``; a
+        headless one serves 'features' only); without one the weights come
+        from a CPU ``torch.Generator`` seeded with ``seed``, the same on
+        every device. ``device``: ``cuda`` by default (raises when there
+        is none); pass ``"cpu"`` for the CPU."""
         if mode not in ("features", "logits", "probabilities"):
             raise ValueError(
                 f"Unknown image-model mode {mode!r}; supported: features, "
@@ -215,15 +228,29 @@ class NamedImageModel:
         )
 
 
-def load_flax_npz(weights_file: str) -> Dict[str, Any]:
-    """A flat ``.npz`` of flax variables (keys joined by '/') -> nested
-    dict of numpy arrays. Other weight formats (keras ``.h5``/``.keras``,
-    pickled trees, the 'imagenet' artifact) are not ported yet."""
+def load_flax_npz(weights_file: str, spec: Optional["NamedImageModel"] = None,
+                  module: Optional[nn.Module] = None,
+                  allow_missing_head: bool = True) -> Dict[str, Any]:
+    """A weights file -> flax variables as a nested dict of numpy arrays,
+    as the JAX package's ``_load_flax_weights``: a flat ``.npz`` (keys
+    joined by '/'), or a Keras file (``.keras``, ``.h5``/``.hdf5``,
+    ``.weights.h5``) of ``spec``'s architecture, converted by
+    ``keras_weights.load_keras_weights`` and checked against ``module``.
+    Pickled trees are not read (unpickling runs code), and the
+    'imagenet' artifact needs a download."""
+    from sparkdl_tpu_torch.models import keras_weights
+
+    if keras_weights.is_keras_weights_file(weights_file):
+        if spec is None:
+            raise ValueError("Keras weight files need a registry spec for conversion")
+        return keras_weights.load_keras_weights(
+            spec.name, weights_file, module=module, allow_missing_head=allow_missing_head,
+        )
     if not weights_file.endswith(".npz"):
         raise NotImplementedError(
-            f"weights file {weights_file!r}: the port loads flax .npz files "
-            "only; keras .h5/.keras, pickled trees and 'imagenet' weights "
-            "wait for a later slice of the port"
+            f"weights file {weights_file!r}: the port loads flax .npz and "
+            "Keras .keras/.h5/.hdf5/.weights.h5 files; pickled trees are "
+            "not read, and 'imagenet' weights need a download (not queued)"
         )
     tree: Dict[str, Any] = {}
     with np.load(weights_file, allow_pickle=False) as blob:
@@ -266,10 +293,19 @@ def _cnn_builder(module_factory: Callable[..., nn.Module]):
                 input_size=(spec.height, spec.width),
             )
         if weights_file:
-            module.load_state_dict(
-                cnn_params_from_flax(load_flax_npz(weights_file), module),
-                assign=True,
+            # logits and probabilities need the head: a headless Keras
+            # file is refused here, at load time, as the JAX package does
+            headless_ok = mode == "features"
+            state = cnn_params_from_flax(
+                load_flax_npz(weights_file, spec, module, allow_missing_head=headless_ok),
+                module, allow_missing_head=headless_ok,
             )
+            missing = set(module.state_dict()) - set(state)
+            if missing:  # a headless source: the unused head is zeros
+                module = module.to_empty(device="cpu")
+                for name in missing:
+                    state[name] = torch.zeros_like(module.state_dict()[name])
+            module.load_state_dict(state, assign=True)
         else:
             module = module.to_empty(device="cpu")
             init_cnn_params(module, torch.Generator().manual_seed(seed))

@@ -25,6 +25,9 @@ _KNOBS: Dict[str, Tuple[str, Optional[str]]] = {
     # partition runs its own pipeline, the A/B arm)
     "SPARKDL_PREFETCH_PER_DEVICE": ("int", "2"),
     "SPARKDL_SHARED_FEEDER": ("flag", "1"),
+    # transformers/image_model.py: image rows ship at their source
+    # geometry and the resize runs on the device (opt-in A/B arm)
+    "SPARKDL_DEVICE_PREPROC": ("flag", "0"),
     # runtime/executor.py: the partition retry family
     # (resilience/policy.policy_from_env)
     "SPARKDL_EXEC_RETRY_ATTEMPTS": ("int", None),

@@ -299,6 +299,17 @@ def shared_feeder_enabled() -> bool:
     return knobs.get_flag("SPARKDL_SHARED_FEEDER")
 
 
+def device_preproc_enabled() -> bool:
+    """SPARKDL_DEVICE_PREPROC gates the on-device image preprocessing
+    arm: the host ships uint8 rows at each partition's source geometry
+    and the resize (then the normalization it feeds) runs on the device,
+    so H2D bytes scale with the source, not the model input. Default off
+    (opt-in A/B arm): a real resize is not bit-identical to the host
+    resizers, and rows of another size than the partition's first pay a
+    host resize to its geometry first (``ImageModelTransformer``)."""
+    return knobs.get_flag("SPARKDL_DEVICE_PREPROC")
+
+
 def run_batched_shared(
     cells: Sequence,
     to_batch: Callable[[Sequence], Tuple[np.ndarray, np.ndarray]],

@@ -6,6 +6,9 @@ lookup (geometry, preprocessing, feature width) wrapped around an inner
 :class:`~sparkdl_tpu_torch.transformers.image_model.ImageModelTransformer`
 that runs converter ∘ model ∘ flattener. The featurizer emits the pooled
 features, the predictor the class probabilities or their decoded top k.
+With ``SPARKDL_DEVICE_PREPROC`` on, the inner transformer ships rows at
+their source geometry and resizes them on the device to the entry's
+geometry (its height and width stay the model's).
 """
 
 from __future__ import annotations

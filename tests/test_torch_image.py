@@ -468,7 +468,7 @@ def _unknown_leaf(v):
 
 
 def _scanned(v):
-    # scan_blocks=True stacks a stage's identity blocks under stage<i>_rest
+    # a stage<i>_rest entry whose leaves are not stacked on one leading axis
     v["params"]["stage1_rest"] = {"block": copy.deepcopy(v["params"]["stage1_block1"])}
 
 
@@ -523,8 +523,12 @@ def test_registry_image_entry_matches_jax(tmp_path):
         get_image_model("bert-tiny")
     with pytest.raises(ValueError, match="mode"):
         ours.model_function(mode="embed", device="cpu")
-    for weights in ("weights.h5", "imagenet"):
-        with pytest.raises(NotImplementedError, match="later slice"):
+    # a Keras file is read now (a missing one is not found); pickles and
+    # the 'imagenet' artifact are still refused
+    with pytest.raises(FileNotFoundError):
+        ours.model_function(weights_file=str(tmp_path / "weights.h5"), device="cpu")
+    for weights in ("weights.pkl", "imagenet"):
+        with pytest.raises(NotImplementedError, match="need a download"):
             ours.model_function(weights_file=weights, device="cpu")
 
 

@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``sparkdl_tpu_torch`` and not
-``chip_smoke.py`` imports jax, flax, keras, tensorflow or the JAX package,
-and an entry point left at its default device refuses to run without
-CUDA."""
+``chip_smoke.py`` imports jax, flax, keras, tensorflow, h5py or the JAX
+package, and an entry point left at its default device refuses to run
+without CUDA."""
 
 import ast
 import os
@@ -16,7 +16,7 @@ import sparkdl_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.join(REPO, "sparkdl_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "keras", "tensorflow", "sparkdl_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "keras", "tensorflow", "h5py", "sparkdl_tpu")
 
 
 def _port_files():
@@ -44,7 +44,9 @@ def test_no_port_file_imports_jax_flax_or_the_jax_package():
     for sub in ("serving", "obs", "resilience", "runtime", "parallel", "estimators", "udf"):
         assert any(r.startswith(sub + os.sep) for r in rel), sub
     for required in ("graph/ingest.py", "graph/keras_graph.py", "graph/keras_file.py",
-                     "runtime/native.py", "transformers/keras_image.py", "transformers/tensor.py"):
+                     "runtime/native.py", "transformers/keras_image.py", "transformers/tensor.py",
+                     "graph/hdf5.py", "models/keras_app_layers.py", "estimators/keras_fit.py",
+                     "estimators/image_file_estimator.py"):
         assert required.replace("/", os.sep) in rel, required
     offenders = {
         (os.path.relpath(path, REPO), root)
@@ -96,6 +98,10 @@ def test_importing_every_port_module_loads_no_jax():
         "sparkdl_tpu_torch.runtime.native",
         "sparkdl_tpu_torch.transformers.keras_image",
         "sparkdl_tpu_torch.transformers.tensor",
+        "sparkdl_tpu_torch.graph.hdf5",
+        "sparkdl_tpu_torch.models.keras_app_layers",
+        "sparkdl_tpu_torch.estimators.keras_fit",
+        "sparkdl_tpu_torch.estimators.image_file_estimator",
     ):
         assert name in modules, name
     code = (
@@ -215,3 +221,9 @@ def test_default_device_entry_point_raises_without_cuda(monkeypatch):
         registerKerasImageUDF("no_card", spec)
     assert ModelIngest.from_keras(spec, device="cpu").device == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")
+    # fine-tuning a Keras model: no CPU training behind the caller's back
+    from sparkdl_tpu_torch.estimators import ImageFileEstimator
+
+    est = ImageFileEstimator(inputCol="x", labelCol="y", model=spec, imageLoader=lambda u: np.ones(2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        est._fit_on_arrays(np.ones((2, 2), np.float32), np.ones((2, 1), np.float32))

@@ -10,8 +10,9 @@ package's ``ModelIngest.from_keras_file``.
 - a legacy ``.h5`` file of a model that nests a frozen Functional model
   lists that model's trainable variables before the others;
 - the refusals: an unknown layer class and a bfloat16 policy
-  (NotImplementedError naming the ROADMAP item), a missing h5py
-  (ImportError naming h5py).
+  (NotImplementedError naming the ROADMAP item);
+- the port reads the files with its own HDF5 reader, so a missing h5py
+  changes nothing.
 """
 
 import sys
@@ -135,13 +136,15 @@ def test_refusals(tmp_path, ext, case):
         match = "dtype policy 'bfloat16'"
     with pytest.raises(NotImplementedError, match=match) as err:
         ModelIngest.from_keras_file(_save(model, tmp_path, ext), device="cpu")
-    assert "ROADMAP Queue A item 3" in str(err.value)
+    assert "ROADMAP Queue A item 9" in str(err.value)
 
 
 @pytest.mark.parametrize("ext", ["keras", "h5"])
 def test_without_h5py_the_read_raises(saved, monkeypatch, ext):
-    _, _, paths = saved
+    """The read no longer raises where h5py is absent: the port's own
+    HDF5 reader reads the file, to the model's output (relative 1e-5)."""
+    model, _, paths = saved
     monkeypatch.setitem(sys.modules, "h5py", None)  # import h5py raises ImportError
-    with pytest.raises(ImportError, match="h5py") as err:
-        ModelIngest.from_keras_file(paths[ext], device="cpu")
-    assert "ROADMAP Queue A item 3" in str(err.value)
+    mf = ModelIngest.from_keras_file(paths[ext], device="cpu")
+    x = inputs((9, 10, 3))
+    assert rel(mf(to_torch(x)).numpy(), model.predict(x, verbose=0)) <= REL

@@ -261,4 +261,4 @@ def test_refusals(case):
         match = "channels_first"
     with pytest.raises(NotImplementedError, match=match) as err:
         ModelIngest.from_keras(model, device="cpu")
-    assert "ROADMAP Queue A item 3" in str(err.value)
+    assert "ROADMAP Queue A item 9" in str(err.value)

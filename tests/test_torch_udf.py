@@ -193,7 +193,7 @@ def test_keras_branches_raise(names, tmp_path, kind):
     """A Keras model or file with a layer outside the translator's table
     is refused, naming the ROADMAP item; another object is a TypeError."""
     names.append("t_keras")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 9"):
         udf_catalog.registerKerasImageUDF("t_keras", _keras_source(kind, _keras_model(True), tmp_path),
                                           device="cpu")
     with pytest.raises(TypeError, match="object is not a registry model name"):
