@@ -223,6 +223,39 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     from the same params (atol 1e-6) and the flash kernel launched (the
     count is printed and must be > 0).
 
+16. generation (``mode="generate"``) over bert-base (768 wide, 12 layers,
+    ``max_length`` 512, random weights from ``--seed``), f32 on the card:
+    (a) ``get_model("bert-base").generate_function()`` called directly:
+    prompts of 7, 64, 200 and 447 seeded tokens prefilled (sequence
+    buckets) into slots 0-3 of an 8-slot cache, then 16 batched decode
+    steps. Checks: prefill logits, K and V against the same generator on
+    the CPU with the same weights, and each decode step's logits against
+    the cacheless recompute (``oracle_logits``: a prefill over the grown
+    prefix) on the card, each within relative 1e-4 of the tensor's max
+    |value|; the 17 greedy tokens of each slot equal to the oracle's under
+    the near-tie rule: a token that differs fails unless the served
+    token's oracle logit is within 1e-4 x that step's max |logit| of the
+    oracle's top, and then the step, the top-two gap and both tokens are
+    printed and the sequence is compared up to that step. (b)
+    ``Router()`` behind ``ServingServer`` at ``SPARKDL_GEN_MAX_SEQS=8``:
+    after a warm-up request, 32 greedy requests at once (prompts of 8-128
+    seeded tokens, ``max_new_tokens`` 32), 4 of them streamed over HTTP
+    (chunked ndjson) and 28 through ``router.submit``. Checks: every
+    sequence 32 tokens and equal to the oracle on the card under the
+    near-tie rule; the streamed tokens equal to each request's result;
+    ``gen.joins`` and ``gen.slot_reuse`` > 0; no KV bytes reserved once
+    idle, and ``memory_allocated`` back at its value before the flood
+    (the stream drops its slab when the last slot empties); no flash
+    kernel launched (the path runs dense causal prefill and einsum decode,
+    as the JAX package's does). Prints new tokens/s (as ``bench.py``'s
+    generate mode counts them: new tokens over the flood's wall), prefill
+    and decode-step ms (mean, p95), the peak of ``gen.kv_bytes``, and a
+    profiled burst of 8 requests (device busy share, top 5 kernels). (c)
+    a prompt of 500 tokens with ``max_new_tokens`` 32 gets 400; under
+    ``SPARKDL_SERVE_HBM_BUDGET_MB`` = the generator's parameters + half of
+    one 48-token reservation, that request gets 429 and the reserved KV
+    bytes return to 0. About 30 s.
+
 The line before the last is the ``kernels`` JSON record (the f32 and the
 bf16 kernel at bert-base L=512, launches from each dtype's main-path run);
 the last line is ``{"ok": true, "device": {...}}``.
@@ -485,6 +518,19 @@ PREPROC_SIDE = 320
 PREPROC_CPU_ROWS = 8
 TEXT_WEIGHT_TEXTS = 64
 TEXT_WEIGHT_ATOL = 1e-6
+# phase 16: generation over bert-base, f32
+GEN_MODEL = "bert-base"
+GEN_SLOTS = 8  # SPARKDL_GEN_MAX_SEQS, the default
+GEN_PROMPTS = (7, 64, 200, 447)  # (a): one per slot, 447 + 16 + 1 <= 512
+GEN_STEPS = 16
+GEN_REL = 1e-4  # card vs CPU and decode vs recompute, of the tensor's max |value|
+GEN_TIE_REL = 1e-4  # the near-tie rule, of the step's max |logit|
+GEN_FLOOD = 32
+GEN_FLOOD_HTTP = 4  # of GEN_FLOOD, streamed over HTTP
+GEN_FLOOD_LENGTHS = (8, 128)
+GEN_FLOOD_NEW = 32
+GEN_PROFILED = 8  # requests in the profiled burst
+GEN_IDLE_S = 10.0  # how long the check waits for the stream to drop its slab
 
 
 class PhaseError(RuntimeError):
@@ -2426,6 +2472,266 @@ def phase_keras_rest(seed: int, device_name: str, tmp: str) -> int:
     return phase_text_weights(seed, device_name, tmp, cuda)
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def _hold_to_oracle(gen, prompt, served, tag: str) -> int:
+    """Hold ``served`` tokens to the cacheless greedy oracle on ``gen``.
+    A token that differs from the oracle's fails, unless it is a near-tie:
+    the served token's oracle logit within ``GEN_TIE_REL`` x max |logit|
+    of the oracle's top logit (so the oracle's top two are that close
+    too). A near-tie is printed and the sequence compared up to it.
+    Returns the tokens compared."""
+    ids = [int(t) for t in prompt]
+    for step, tok in enumerate(served):
+        logits = _host(gen.oracle_logits(ids))
+        want = int(np.argmax(logits))
+        if tok != want:
+            top2 = np.sort(logits)[-2:]
+            limit = GEN_TIE_REL * float(np.abs(logits).max())
+            behind = float(logits[want] - logits[tok])
+            check(behind < limit,
+                  f"{tag}: token {step} is {tok}, the oracle's is {want} ({behind:.3e} behind, "
+                  f"near-tie limit {limit:.3e})")
+            print(f"{tag}: near-tie at step {step}: oracle top-two gap {top2[1] - top2[0]:.3e} "
+                  f"(limit {limit:.3e}), tokens {want} (oracle) and {tok} (served); compared up to it")
+            return step
+        ids.append(tok)
+    return len(served)
+
+
+def _wait_for(cond, timeout: float) -> bool:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.01)
+    return True
+
+
+def phase_generator(seed: int, card: str):
+    """16(a): ``BertGenerator`` over bert-base on the card, called
+    directly: prefill and K/V against the CPU, decode against the
+    cacheless recompute, greedy tokens against the oracle. Returns the
+    generator (phase 16(b)'s oracle)."""
+    from sparkdl_tpu_torch.text.bucketing import next_bucket
+
+    spec = get_model(GEN_MODEL)
+    t0 = time.perf_counter()
+    gen = spec.generate_function(seed=seed, device=SERVE_DEVICE)
+    cpu = spec.generate_function(params=bert_params_to_flax(gen.encoder), device="cpu")
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 16)
+    prompts = [rng.integers(4, spec.vocab_size, size=n).tolist() for n in GEN_PROMPTS]
+    k_cache, v_cache = gen.new_cache(GEN_SLOTS)
+    seqs, first_logits, worst = [], [], {"logits": 0.0, "k": 0.0, "v": 0.0}
+    for slot, prompt in enumerate(prompts):
+        width = min(next_bucket(len(prompt)), gen.max_length)
+        ids = np.zeros((1, width), np.int64)
+        ids[0, :len(prompt)] = prompt
+        k, v, logits = gen.prefill(ids, len(prompt))
+        ck, cv, clogits = cpu.prefill(ids, len(prompt))
+        for name, a, b in (("logits", logits, clogits), ("k", k, ck), ("v", v, cv)):
+            worst[name] = max(worst[name], _relative_error(_host(a), b.numpy()))
+        gen.write_prefill(k_cache, v_cache, slot, k, v)
+        first_logits.append(_host(logits[0]))
+        seqs.append(list(prompt) + [int(torch.argmax(logits[0]))])
+    del cpu
+    for name, err in worst.items():
+        check(err <= GEN_REL, f"generator: prefill {name} on the card off the CPU's by {err:.3e} (limit {GEN_REL})")
+    step_err, step_ms = 0.0, []
+    live = len(prompts)
+    for _ in range(GEN_STEPS):
+        tokens = np.zeros(GEN_SLOTS, np.int64)
+        positions = np.zeros(GEN_SLOTS, np.int64)
+        for slot, ids in enumerate(seqs):
+            tokens[slot], positions[slot] = ids[-1], len(ids) - 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, logits = gen.decode_step(k_cache, v_cache, tokens, positions)
+        logits = _host(logits)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        for slot in range(live):
+            step_err = max(step_err, _relative_error(logits[slot], _host(gen.oracle_logits(seqs[slot]))))
+            seqs[slot].append(int(np.argmax(logits[slot])))
+    check(step_err <= GEN_REL,
+          f"generator: decode logits off the cacheless recompute by {step_err:.3e} (limit {GEN_REL})")
+    compared = sum(
+        _hold_to_oracle(gen, p, ids[len(p):], f"generator slot {slot} ({len(p)} tokens)")
+        for slot, (p, ids) in enumerate(zip(prompts, seqs))
+    )
+    spread = np.mean([float(l.max() - l.min()) for l in first_logits])
+    print(f"generator (16a): {GEN_MODEL} f32 built on the card and copied to the CPU in {build_s:.2f} s; prompts "
+          f"{list(GEN_PROMPTS)} in slots 0-{live - 1} of a cache of {GEN_SLOTS} slots, {GEN_STEPS} batched decode steps "
+          f"({np.mean(step_ms):.2f} ms mean per step, called directly, logits read back); prefill vs CPU relative "
+          f"logits {worst['logits']:.3e} K {worst['k']:.3e} V {worst['v']:.3e}, decode vs cacheless recompute "
+          f"{step_err:.3e} (limit {GEN_REL}); {compared} of {live * (GEN_STEPS + 1)} greedy tokens compared "
+          f"equal to the oracle; prefill logits spread {spread:.3f} (mean max - min) on {card}")
+    return gen
+
+
+def _gen_flood(seed: int, spec, n: int):
+    """``n`` seeded prompts, lengths in ``GEN_FLOOD_LENGTHS``."""
+    rng = np.random.default_rng(seed + 17)
+    lo, hi = GEN_FLOOD_LENGTHS
+    return [rng.integers(4, spec.vocab_size, size=int(rng.integers(lo, hi + 1))).tolist() for _ in range(n)]
+
+
+def _stream_generate(base: str, prompt, max_new: int):
+    """One streamed ``POST /v1/predict`` (``"stream": true``): the tokens
+    of the per-token records and the terminal record."""
+    body = {"model": GEN_MODEL, "inputs": prompt, "mode": "generate", "max_new_tokens": max_new,
+            "stream": True, "dtype": "int32"}
+    req = urllib.request.Request(base + "/v1/predict", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        check(resp.headers.get("Transfer-Encoding") == "chunked", "generation: the stream is not chunked")
+        records = [json.loads(line) for line in resp if line.strip()]
+    check(records and records[-1].get("done") and "error" not in records[-1],
+          f"generation: streamed reply ended with {records[-1] if records else None}")
+    return [r["token"] for r in records[:-1]], records[-1]["tokens"][0]
+
+
+def _timer_ms(name: str) -> str:
+    t = metrics.timing(name)
+    if t is None or not t.count:
+        return "none"
+    return f"mean {t.total_s / t.count:.2f} ms, p95 {t.percentile(95):.2f} ms (n={t.count})"
+
+
+def phase_generation(seed: int, device_name: str) -> None:
+    """Phase 16: generation on the card, (a) the generator, (b) a flood
+    through the router and the HTTP server, (c) refusals."""
+    from sparkdl_tpu_torch.serving import Router, ServingServer
+
+    card = f"{device_name} ({_smi()})"
+    shutdown_feeders()
+    os.environ["SPARKDL_GEN_MAX_SEQS"] = str(GEN_SLOTS)
+    for name in ("SPARKDL_SERVE_HBM_BUDGET_MB", "SPARKDL_GEN_MAX_NEW_TOKENS",
+                 "SPARKDL_SERVE_PRECISION_BATCH"):
+        os.environ.pop(name, None)
+    flash_attention.launches = 0
+    oracle = phase_generator(seed, card)
+    check(flash_attention.launches == 0, f"generator: {flash_attention.launches} flash launches")
+
+    # (b) the flood: warm up (the generator loads), then GEN_FLOOD greedy
+    # requests at once, GEN_FLOOD_HTTP of them streamed over HTTP
+    spec = get_model(GEN_MODEL)
+    router = Router(seed=seed, device=SERVE_DEVICE)
+    server = ServingServer(router, port=0)
+    base = f"http://127.0.0.1:{server.port}"
+    t0 = time.perf_counter()
+    warm = router.submit(GEN_MODEL, np.arange(4, 20)[None], mode="generate",
+                         gen_params={"max_new_tokens": GEN_FLOOD_NEW})
+    warm.result(timeout=300)
+
+    def idle():
+        st = router.stats()["generation"]
+        return st["active_seqs"] == 0 and st["pending_seqs"] == 0
+
+    check(_wait_for(idle, GEN_IDLE_S), "generation: the stream did not go idle after the warm-up")
+    torch.cuda.synchronize()
+    allocated0 = torch.cuda.memory_allocated()
+    warm_s = time.perf_counter() - t0
+    prompts = _gen_flood(seed, spec, GEN_FLOOD)
+    metrics.reset()
+    flash_attention.launches = 0
+    streamed = {}
+
+    def over_http(i):
+        streamed[i] = _stream_generate(base, prompts[i], GEN_FLOOD_NEW)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(GEN_FLOOD_HTTP) as pool:
+        http = [pool.submit(over_http, i) for i in range(GEN_FLOOD_HTTP)]
+        reqs = {
+            i: router.submit(GEN_MODEL, np.asarray(prompts[i])[None], mode="generate",
+                             gen_params={"max_new_tokens": GEN_FLOOD_NEW})
+            for i in range(GEN_FLOOD_HTTP, GEN_FLOOD)
+        }
+        results = {i: np.asarray(r.result(timeout=300)).ravel().tolist() for i, r in reqs.items()}
+        for f in http:
+            f.result()
+    wall = time.perf_counter() - t0
+    for i, req in reqs.items():
+        streamed[i] = ([tok for tok, _ in req.iter_tokens(timeout=1)], results[i])
+    launches = flash_attention.launches
+    counters = metrics.snapshot()["counters"]
+    kv_peak = (metrics.gauge_stats("gen.kv_bytes") or {}).get("max", 0)
+    prefill_ms, decode_ms = _timer_ms("gen.prefill_ms"), _timer_ms("gen.decode_step_ms")
+    new_tokens = sum(len(done) for _, done in streamed.values())
+    check(all(tokens == done for tokens, done in streamed.values()),
+          "generation: streamed tokens differ from the request's result")
+    check(all(len(done) == GEN_FLOOD_NEW for _, done in streamed.values()),
+          "generation: a sequence ended early")
+    check(counters.get("gen.joins", 0) > 0 and counters.get("gen.slot_reuse", 0) > 0,
+          f"generation: joins {counters.get('gen.joins', 0)}, slot reuse {counters.get('gen.slot_reuse', 0)}")
+    check(launches == 0, f"generation: {launches} flash launches")
+    check(_wait_for(idle, GEN_IDLE_S), "generation: the stream did not go idle after the flood")
+    check(router.residency.kv_reserved_bytes() == 0,
+          f"generation: {router.residency.kv_reserved_bytes()} KV bytes still reserved")
+    settled = _wait_for(lambda: torch.cuda.memory_allocated() == allocated0, GEN_IDLE_S)
+    allocated1 = torch.cuda.memory_allocated()
+    check(settled, f"generation: memory_allocated {allocated1} after the flood, {allocated0} before")
+    t1 = time.perf_counter()
+    compared = sum(
+        _hold_to_oracle(oracle, prompts[i], streamed[i][1], f"generation request {i}") for i in range(GEN_FLOOD)
+    )
+    oracle_s = time.perf_counter() - t1
+    print(f"generation (16b): Router + ServingServer on {router.device}, {GEN_MODEL} f32 from --seed, "
+          f"SPARKDL_GEN_MAX_SEQS={GEN_SLOTS}; warm-up (load + one request) {warm_s:.2f} s; {GEN_FLOOD} greedy "
+          f"requests at once (prompts {GEN_FLOOD_LENGTHS[0]}-{GEN_FLOOD_LENGTHS[1]} tokens, "
+          f"max_new_tokens {GEN_FLOOD_NEW}, {GEN_FLOOD_HTTP} streamed over HTTP): {new_tokens} new tokens in "
+          f"{wall:.3f} s = {new_tokens / wall:.1f} new tokens/s; prefill {prefill_ms}; decode step {decode_ms}; "
+          f"decode steps {int(counters.get('gen.decode_steps', 0))}, joins {int(counters.get('gen.joins', 0))}, "
+          f"slot reuse {int(counters.get('gen.slot_reuse', 0))}; gen.kv_bytes peak {int(kv_peak)} B; "
+          f"memory_allocated {allocated0} B before and {allocated1} B after, idle; flash launches {launches}; "
+          f"{compared} of {new_tokens} tokens compared equal to the cacheless oracle ({oracle_s:.2f} s) on {card}")
+
+    # a profiled burst: every slot busy, then the decode steps to the end
+    def burst():
+        rs = [router.submit(GEN_MODEL, np.asarray(p)[None], mode="generate",
+                            gen_params={"max_new_tokens": GEN_FLOOD_NEW}) for p in prompts[:GEN_PROFILED]]
+        for r in rs:
+            r.result(timeout=300)
+
+    metrics.reset()
+    wall_p, busy, by_kernel = _profiled(burst)
+    steps = metrics.timing("gen.decode_step_ms")
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
+    print(f"generation profiled burst: {GEN_PROFILED} requests x {GEN_FLOOD_NEW} tokens, "
+          f"{steps.count if steps else 0} decode steps ({_timer_ms('gen.decode_step_ms')}), wall {wall_p:.3f} s, "
+          f"device busy {busy:.4f} s = share {busy / wall_p:.3f}; top kernels: "
+          + "; ".join(f"{k[:70]} {sec:.4f} s" for k, sec in top))
+
+    # (c) refusals: an overlong prompt, then a KV budget that holds the
+    # parameters and not one more reservation
+    status, _, reply, _ = _post(base, {"model": GEN_MODEL, "inputs": list(range(4, 504)), "mode": "generate",
+                                       "max_new_tokens": GEN_FLOOD_NEW, "dtype": "int32"})
+    check(status == 400 and "position table" in reply.get("error", ""),
+          f"generation: an overlong prompt got {status} {reply}")
+    params = oracle.param_bytes
+    one = spec.kv_bytes_per_token() * (16 + GEN_FLOOD_NEW)
+    os.environ["SPARKDL_SERVE_HBM_BUDGET_MB"] = repr((params + one // 2) / 2**20)
+    rejected0 = metrics.counter("gen.kv_rejected")
+    try:
+        status, headers, reply, _ = _post(base, {"model": GEN_MODEL, "inputs": list(range(4, 20)),
+                                                 "mode": "generate", "max_new_tokens": GEN_FLOOD_NEW,
+                                                 "dtype": "int32"})
+    finally:
+        os.environ.pop("SPARKDL_SERVE_HBM_BUDGET_MB")
+    check(status == 429 and headers.get("Retry-After"), f"generation: over the KV budget got {status} {reply}")
+    check(metrics.counter("gen.kv_rejected") == rejected0 + 1, "generation: the refusal was not counted")
+    check(router.residency.kv_reserved_bytes() == 0,
+          f"generation: {router.residency.kv_reserved_bytes()} KV bytes reserved after the refusal")
+    stats = router.stats()["generation"]
+    server.stop(close_router=True)
+    print(f"generation (16c): {len(range(4, 504))} + {GEN_FLOOD_NEW} tokens > {spec.max_length}: HTTP 400; a budget "
+          f"of {params} parameter bytes + {one // 2} (half of one {one}-byte reservation): HTTP 429, reserved KV "
+          f"bytes back at 0; engine status {stats}; after close memory_allocated {torch.cuda.memory_allocated()} B")
+
+
 def _direct_fn(spec, mode: str, dtype, seed: int):
     """The registry's ModelFunction of ``spec`` at ``dtype``, seeded as
     the serving loader seeds it."""
@@ -2482,6 +2788,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         text_weight_launches = phase_keras_rest(args.seed, device_name, tmp)
     done("phase 15")
+    phase_generation(args.seed, device_name)
+    done("phase 16")
     print(f"flash launches in 15(e) (bert-base from weights_file): {text_weight_launches}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[torch.float32], records[torch.bfloat16]]}))

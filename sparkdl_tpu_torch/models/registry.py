@@ -38,6 +38,7 @@ from sparkdl_tpu_torch.graph.function import ModelFunction
 from sparkdl_tpu_torch.models.bert import (
     BERT_CONFIGS,
     BertEncoder,
+    BertGenerator,
     dense_attention,
     init_bert_params,
 )
@@ -108,14 +109,65 @@ class NamedTextModel:
                 f"Unknown text-model mode {mode!r}; supported: embed "
                 "(alias: features)"
             )
-        if weights_file:
-            if params is not None:
-                raise ValueError("pass params or weights_file, not both")
-            params = load_flax_npz(weights_file)
         return self.builder(
-            self, mode=mode, dtype=dtype, seed=seed, params=params,
-            device=resolve_device(device),
+            self, mode=mode, dtype=dtype, seed=seed,
+            params=_text_params(params, weights_file), device=resolve_device(device),
         )
+
+    def supports_generate(self) -> bool:
+        """Every registered text entry is a BERT encoder, whose modules the
+        generator runs over."""
+        return True
+
+    def kv_bytes_per_token(self) -> int:
+        """Per-token K/V cache bytes (float32 cache): 2 x layers x hidden
+        x 4, what the admission-time KV reservation charges per position
+        and ``/v1/models`` advertises."""
+        c = BERT_CONFIGS[self.size]
+        return 2 * c.num_layers * c.hidden_size * 4
+
+    def generate_function(
+        self,
+        dtype: torch.dtype = torch.float32,
+        weights_file: Optional[str] = None,
+        seed: int = 0,
+        params: Any = None,
+        device=None,
+    ) -> BertGenerator:
+        """The ``mode='generate'`` surface: a
+        :class:`~sparkdl_tpu_torch.models.bert.BertGenerator` over the
+        encoder that :meth:`model_function` builds from the same ``seed``,
+        ``params`` or ``weights_file`` (the same weights). Generation runs
+        float32 only; another ``dtype`` raises."""
+        if dtype != torch.float32:
+            raise ValueError(f"generation runs float32 only; got dtype {dtype}")
+        encoder = _bert_encoder(
+            BERT_CONFIGS[self.size], dense_attention, seed,
+            _text_params(params, weights_file), resolve_device(device),
+        )
+        return BertGenerator(encoder, max_length=self.max_length)
+
+
+def _text_params(params: Any, weights_file: Optional[str]) -> Any:
+    if weights_file:
+        if params is not None:
+            raise ValueError("pass params or weights_file, not both")
+        return load_flax_npz(weights_file)
+    return params
+
+
+def _bert_encoder(config, attention_fn, seed: int, params: Any, device) -> BertEncoder:
+    """A BERT encoder on ``device``: weights from ``params`` (a flax tree)
+    or drawn from a ``torch.Generator`` on ``device`` seeded with
+    ``seed``; projections stored in ``config.dtype``."""
+    with torch.device("meta"):
+        module = BertEncoder(config, attention_fn)
+    module = module.to_empty(device=device)
+    if params is None:
+        init_bert_params(module, torch.Generator(device=device).manual_seed(seed))
+    else:
+        module.load_state_dict(bert_params_from_flax(params, config))
+    return module.cast_projections().eval()
 
 
 def _bert_text_builder(size: str, attention: str = "flash"):
@@ -131,16 +183,7 @@ def _bert_text_builder(size: str, attention: str = "flash"):
         attention_fn = (
             dense_attention if attention == "dense" else make_flash_attention_fn()
         )
-        with torch.device("meta"):
-            module = BertEncoder(config, attention_fn)
-        module = module.to_empty(device=device)
-        if params is None:
-            init_bert_params(
-                module, torch.Generator(device=device).manual_seed(seed)
-            )
-        else:
-            module.load_state_dict(bert_params_from_flax(params, config))
-        module.cast_projections().eval()
+        module = _bert_encoder(config, attention_fn, seed, params, device)
         max_pos = config.max_position_embeddings
 
         def fn(mod, x):
@@ -434,7 +477,10 @@ def supported_models(kind: Optional[str] = None, with_memory: bool = False) -> l
             "param_mb": None if est is None else round(est / 2**20, 2),
         }
         if isinstance(spec, NamedTextModel):
-            row.update(kind="text", max_length=spec.max_length, modes=["embed"])
+            row.update(
+                kind="text", max_length=spec.max_length, modes=["embed", "generate"],
+                kv_bytes_per_token=spec.kv_bytes_per_token(),
+            )
         else:
             row.update(
                 kind="image", input_shape=list(spec.input_shape),

@@ -21,12 +21,15 @@ from sparkdl_tpu_torch.utils.metrics import metrics
 #: HTTP header that carries a trace id between hops
 TRACE_HEADER = "X-Sparkdl-Trace"
 
-#: a served request's stages, in order, seconds each (``Request.trace_segments``)
+#: a served request's stages, in order, seconds each (``Request.trace_segments``);
+#: ``decode`` is the wall of the decode steps a generate request rode, 0
+#: for every other request
 SEGMENTS = (
     "queue_wait",
     "group_wait",
     "stage_wait",
     "dispatch",
+    "decode",
     "drain_wait",
     "scatter",
 )

@@ -125,11 +125,16 @@ class Launcher:
 
     def _loop(self) -> None:
         while True:
-            done, fn, args = self._q.get()
-            try:
-                done.set_result(fn(*args))
-            except BaseException as e:  # noqa: BLE001 - the caller re-raises
-                done.set_exception(e)
+            self._run_one(*self._q.get())
+
+    @staticmethod
+    def _run_one(done: Future, fn: Callable, args) -> None:
+        # a call of its own, so that nothing of the job (its callable, its
+        # arguments, its result) stays referenced while the queue is empty
+        try:
+            done.set_result(fn(*args))
+        except BaseException as e:  # noqa: BLE001 - the caller re-raises
+            done.set_exception(e)
 
 
 def launcher(device: torch.device) -> Launcher:

@@ -87,6 +87,11 @@ _KNOBS: Dict[str, Tuple[str, Optional[str]]] = {
     "SPARKDL_SERVE_PRECISION_INTERACTIVE": ("str", None),
     "SPARKDL_SERVE_PRECISION_BATCH": ("str", None),
     "SPARKDL_SERVE_PRECISION_BACKGROUND": ("str", None),
+    # serving/generation.py: decode slots per generation stream, and the
+    # default and cap of a request's max_new_tokens (the bound its KV
+    # reservation is computed from)
+    "SPARKDL_GEN_MAX_SEQS": ("int", "8"),
+    "SPARKDL_GEN_MAX_NEW_TOKENS": ("int", "64"),
 }
 
 

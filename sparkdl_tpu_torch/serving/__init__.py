@@ -7,7 +7,10 @@
   (model, geometry, precision rung) and dispatches them through feeder
   streams (``runtime/feeder.py``) with adaptive batch sizing;
 - :mod:`~sparkdl_tpu_torch.serving.residency`: load on first request,
-  budget by parameter bytes, LRU-evict idle models;
+  budget by parameter bytes and KV-cache reservations, LRU-evict idle
+  models;
+- :mod:`~sparkdl_tpu_torch.serving.generation`: ``mode="generate"``,
+  token-level continuous batching over one K/V slab per model;
 - :mod:`~sparkdl_tpu_torch.serving.server`: the stdlib HTTP front end and
   the in-process :class:`ServingClient`.
 
@@ -23,6 +26,7 @@ from sparkdl_tpu_torch.serving.request import (
     Draining,
     Request,
 )
+from sparkdl_tpu_torch.serving.generation import GenerationEngine
 from sparkdl_tpu_torch.serving.residency import ResidencyManager, ResidentModel
 from sparkdl_tpu_torch.serving.router import Router, choose_rung, choose_seq_bucket
 from sparkdl_tpu_torch.serving.server import ServingClient, ServingServer, start_server
@@ -32,6 +36,7 @@ __all__ = [
     "AdmissionRejected",
     "DeadlineExceeded",
     "Draining",
+    "GenerationEngine",
     "PRIORITY_CLASSES",
     "Request",
     "ResidencyManager",

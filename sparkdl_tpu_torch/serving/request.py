@@ -25,18 +25,23 @@ Completion is future-shaped: the router calls ``req.set_result`` /
 completion records ``serve.latency.<class>`` (submit to result, queue wait
 included: the number an SLA is written against).
 
-Not ported yet: the token-streaming half (``push_token`` /
-``iter_tokens``, for generation), the SLO engine's events and the trace
-store.
+A generate request (``mode="generate"``) also carries its sampling
+parameters, its prompt length and its KV-cache reservation, released once
+by whichever path completes it, and a token mailbox: the generation
+engine pushes each token as it lands (:meth:`Request.push_token`) and a
+streaming caller reads them (:meth:`Request.iter_tokens`).
+
+Not ported yet: the SLO engine's events and the trace store.
 """
 
 from __future__ import annotations
 
 import itertools
+import queue
 import threading
 import time
 from collections import deque
-from typing import Dict, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -104,7 +109,8 @@ class Request:
     __slots__ = (
         "id", "model", "payload", "priority", "deadline_at", "mode",
         "enqueue_t", "dequeue_t", "ordinal", "precision", "precision_armed",
-        "trace_id", "trace_segments", "_event", "_outputs", "_error",
+        "trace_id", "trace_segments", "gen_params", "prompt_len", "kv_bytes",
+        "_event", "_outputs", "_error", "_kv_release", "_token_q",
     )
 
     def __init__(
@@ -148,9 +154,23 @@ class Request:
         #: when the admission queue released this request to the dispatcher
         self.dequeue_t: Optional[float] = None
         self.enqueue_t = time.monotonic()
+        #: generate only: max_new_tokens, temperature, top_k, eos_id, seed
+        #: (validated and filled by the router at submit)
+        self.gen_params: Optional[Dict[str, Any]] = None
+        #: generate only: the prompt's token count
+        self.prompt_len: int = 0
+        #: generate only: the KV-cache bytes reserved at admission
+        self.kv_bytes: int = 0
         self._event = threading.Event()
         self._outputs: Optional[np.ndarray] = None
         self._error: Optional[BaseException] = None
+        #: the router's release of this request's KV reservation: run once,
+        #: by whichever path completes the request
+        self._kv_release: Optional[Callable[[], None]] = None
+        #: generate only: (token, index) pairs as they land, then None
+        self._token_q: Optional["queue.Queue"] = (
+            queue.Queue() if mode == "generate" else None
+        )
 
     @property
     def rows(self) -> int:
@@ -187,7 +207,7 @@ class Request:
         self._outputs = outputs
         self._record_latency()
         metrics.inc("serve.completed")
-        self._event.set()
+        self._complete()
 
     def set_error(self, exc: BaseException, count_failure: bool = True) -> None:
         """Fail the request. ``serve.failures`` means the serving path
@@ -198,7 +218,51 @@ class Request:
         self._error = exc
         if count_failure and not isinstance(exc, DeadlineExceeded):
             metrics.inc("serve.failures")
+        self._complete()
+
+    def _complete(self) -> None:
+        """Release the KV reservation, so that it is back before any
+        waiter wakes, then wake the waiters and end the token stream."""
+        self.release_kv()
         self._event.set()
+        if self._token_q is not None:
+            self._token_q.put(None)
+
+    def release_kv(self) -> None:
+        """Run the KV-release hook, at most once over the request's life
+        (also called by the router when a reserved submit fails)."""
+        release, self._kv_release = self._kv_release, None
+        if release is not None:
+            release()
+
+    # -- streamed tokens (generate mode) -------------------------------------
+
+    def push_token(self, token: int, index: int) -> None:
+        """Engine side: publish one new token (``index``: its 0-based place
+        among the new tokens). A no-op for other modes and once the request
+        completed."""
+        if self._token_q is not None and not self._event.is_set():
+            self._token_q.put((int(token), int(index)))
+
+    def iter_tokens(self, timeout: Optional[float] = None) -> Iterator[Tuple[int, int]]:
+        """Caller side: yield ``(token, index)`` as the engine emits them,
+        until the request completes; then re-raise its failure, as
+        :meth:`result` would. ``timeout`` bounds the wait for EACH token
+        (a stall bound, not a total budget)."""
+        if self._token_q is None:
+            raise ValueError("iter_tokens is only available for mode='generate' requests")
+        while True:
+            try:
+                item = self._token_q.get(timeout=timeout)
+            except queue.Empty:
+                raise TimeoutError(
+                    f"request {self.id} ({self.model}): no token within {timeout}s"
+                ) from None
+            if item is None:
+                break
+            yield item
+        if self._error is not None:
+            raise self._error
 
     # -- waiting (caller side) ----------------------------------------------
 

@@ -31,8 +31,15 @@ from ``seed``; any ``loader(name, mode)`` (or ``loader(name, mode,
 precision)``) returning a ModelFunction works the same, as in the JAX
 package.
 
-Not ported yet: KV-cache reservations and the generator branch (for
-generation), the memory ledger and its leak check, and mesh widths.
+Generation: ``mode="generate"`` loads the registry's float32
+``BertGenerator`` (never a precision rung; no device fn: the generation
+engine drives it), charged by its parameter bytes like any model. Each
+admitted generate sequence reserves its KV-cache bytes against the same
+budget (:meth:`ResidencyManager.reserve_kv`); a reservation that does not
+fit raises :class:`~sparkdl_tpu_torch.serving.request.AdmissionRejected`
+(HTTP 429) before anything reaches the device.
+
+Not ported yet: the memory ledger and its leak check, and mesh widths.
 """
 
 from __future__ import annotations
@@ -75,7 +82,9 @@ def hbm_budget_bytes() -> Optional[int]:
 def _default_loader(
     name: str, mode: str, precision: str = "f32", device=None, seed: int = 0
 ):
-    """Registry-backed loader. The ``bf16`` rung builds the module in
+    """Registry-backed loader. ``mode="generate"`` builds the float32
+    :class:`~sparkdl_tpu_torch.models.bert.BertGenerator` whatever the
+    rung. The ``bf16`` rung builds the module in
     bfloat16 natively (the registry's own precision policy: bf16 convs and
     projections), then stores every floating parameter and buffer in
     bfloat16, norms and embeddings included, as the JAX rung's
@@ -86,6 +95,8 @@ def _default_loader(
     from sparkdl_tpu_torch.models import get_model
 
     spec = get_model(name)
+    if mode == "generate":
+        return spec.generate_function(seed=seed, device=device)
     if precision == "bf16":
         return bf16_rung(spec.model_function(
             mode=mode, dtype=torch.bfloat16, seed=seed, device=device
@@ -168,6 +179,9 @@ class ResidencyManager:
         #: first loads of DIFFERENT models cannot each pass the check and
         #: jointly blow the budget
         self._reserved: Dict[tuple, int] = {}
+        #: KV-cache bytes reserved by admitted generate sequences, charged
+        #: against the same budget as the parameters
+        self._kv_bytes = 0
 
     def _budget(self) -> Optional[int]:
         if self._budget_override is not None:
@@ -218,6 +232,52 @@ class ResidencyManager:
         metrics.gauge(
             "serve.resident_mb",
             sum(m.param_bytes for m in self._models.values()) / 2**20,
+        )
+
+    # -- KV-cache reservations (generation) ----------------------------------
+
+    def reserve_kv(self, nbytes: int) -> int:
+        """Reserve ``nbytes`` of KV cache against the budget at admission.
+        Raises :class:`~sparkdl_tpu_torch.serving.request.AdmissionRejected`
+        (HTTP 429, ``gen.kv_rejected``) when resident parameters, loads in
+        flight and earlier reservations leave no room: the sequence is
+        refused before any device allocation."""
+        from sparkdl_tpu_torch.serving.request import AdmissionRejected
+
+        nbytes = int(nbytes)
+        budget = self._budget()
+        with self._lock:
+            if budget is not None:
+                used = self._used_locked()
+                if used + nbytes > budget:
+                    metrics.inc("gen.kv_rejected")
+                    raise AdmissionRejected(
+                        f"KV-cache reservation of {nbytes / 2**20:.2f} MB "
+                        f"refused: HBM budget {budget / 2**20:.1f} MB has "
+                        f"{used / 2**20:.1f} MB resident/reserved"
+                    )
+            self._kv_bytes += nbytes
+            metrics.gauge("gen.kv_bytes", self._kv_bytes)
+        return nbytes
+
+    def release_kv(self, nbytes: int) -> None:
+        """Return a sequence's reservation; floors at zero, so a double
+        release opens no phantom room."""
+        with self._lock:
+            self._kv_bytes = max(0, self._kv_bytes - int(nbytes))
+            metrics.gauge("gen.kv_bytes", self._kv_bytes)
+
+    def kv_reserved_bytes(self) -> int:
+        with self._lock:
+            return self._kv_bytes
+
+    def _used_locked(self, except_key=None) -> int:
+        """Resident parameters + loads in flight (but ``except_key``'s own)
+        + KV reservations."""
+        return (
+            sum(m.param_bytes for m in self._models.values())
+            + sum(b for k, b in self._reserved.items() if k != except_key)
+            + self._kv_bytes
         )
 
     # -- the acquire/release protocol ---------------------------------------
@@ -284,19 +344,24 @@ class ResidencyManager:
             if estimate is not None:
                 self._evict_for(key, estimate, loading=name)
             mf = self._build(name, mode, precision)
-            # the rung's casts apply uniformly: a loader that already
-            # built at the rung (mf.precision) is left alone
-            mf = apply_precision(mf, precision)
-            if mf.device is not None and torch.device(mf.device).type != self.device.type:
+            generate = mode == "generate"
+            if not generate:
+                # the rung's casts apply uniformly: a loader that already
+                # built at the rung (mf.precision) is left alone
+                mf = apply_precision(mf, precision)
+            built_on = getattr(mf, "device", None)
+            if built_on is not None and torch.device(built_on).type != self.device.type:
                 raise ValueError(
-                    f"the loader built {name!r} on {mf.device}, but this "
+                    f"the loader built {name!r} on {built_on}, but this "
                     f"router serves on {self.device}"
                 )
-            nbytes = param_bytes(mf)
+            # a generator (prefill/decode over its own encoder) has no
+            # device fn: the generation engine drives it
+            nbytes = mf.param_bytes if generate else param_bytes(mf)
             # the charge is the module actually loaded: evicts more if the
             # estimate fell short, and replaces its reservation
             self._evict_for(key, nbytes, loading=name)
-            device_fn = model_device_fn(mf)
+            device_fn = None if generate else model_device_fn(mf)
         metrics.inc("serve.model_loads")
         return ResidentModel(key, name, mode, mf, device_fn, nbytes, precision=precision)
 
@@ -327,9 +392,7 @@ class ResidencyManager:
             return
         while True:
             with self._lock:
-                used = sum(m.param_bytes for m in self._models.values()) + sum(
-                    b for k, b in self._reserved.items() if k != key
-                )
+                used = self._used_locked(except_key=key)
                 if used + incoming_bytes <= budget:
                     self._reserved[key] = incoming_bytes
                     return
@@ -354,7 +417,7 @@ class ResidencyManager:
         fn: the entry must not be what keeps the parameters alive."""
         from sparkdl_tpu_torch.runtime.feeder import close_feeders_for
 
-        closed = close_feeders_for(victim.device_fn)
+        closed = 0 if victim.device_fn is None else close_feeders_for(victim.device_fn)
         victim.model_function = None
         victim.device_fn = None
         return closed

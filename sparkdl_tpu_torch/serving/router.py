@@ -29,11 +29,18 @@ Graceful drain (:meth:`Router.drain`): admission closes
 and in-flight groups quiesce, resident models unload and their feeder
 streams close.
 
+Generation (``mode="generate"``): one prompt per request, screened at
+admission (:func:`_validate_generate`), its KV-cache bytes reserved
+against the residency budget before it is queued (a refusal is HTTP 429);
+the dispatcher hands it to the :class:`~sparkdl_tpu_torch.serving.generation.GenerationEngine`,
+which carries it in the in-flight count until it retires, so a drain
+waits for running generations.
+
 The router runs on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card the default raises.
 
-Not ported yet: the canary rollout, the generation engine, mesh widths,
-the ``serve.mfu`` gauge, the SLO engine and fault-injection hooks.
+Not ported yet: the canary rollout, mesh widths, the ``serve.mfu`` gauge,
+the SLO engine and fault-injection hooks.
 """
 
 from __future__ import annotations
@@ -176,6 +183,56 @@ def _bucket_token_payload(model: str, payload: np.ndarray):
     return payload, real, rows * bucket - real
 
 
+def _validate_generate(model: str, payload: np.ndarray, gen_params):
+    """Admission-time screening of a generate request. Returns ``(payload
+    [1, L] int32, prompt_len, params, kv_bytes)`` or raises ``ValueError``
+    (HTTP 400):
+
+    - one prompt per request (one admission, one decode slot);
+    - integer token ids, as the embed path coerces them;
+    - ``prompt_len + max_new_tokens`` within the spec's position table (a
+      longer sequence has no position embedding for its tail);
+    - ``max_new_tokens`` (default and cap ``SPARKDL_GEN_MAX_NEW_TOKENS``)
+      clamped to the cap, the bound the KV reservation is computed from.
+    """
+    from sparkdl_tpu_torch.models import NamedTextModel, get_model
+    from sparkdl_tpu_torch.serving.generation import max_new_tokens_cap
+
+    spec = get_model(model)  # ValueError (400) for an unknown name
+    if not isinstance(spec, NamedTextModel) or not spec.supports_generate():
+        raise ValueError(f"model {model!r} does not support mode='generate'")
+    if payload.ndim == 1:
+        payload = payload.reshape(1, -1)
+    if payload.ndim != 2 or payload.shape[0] != 1:
+        raise ValueError(
+            "generate mode takes ONE prompt per request (shape [1, "
+            f"prompt_len] or [prompt_len]); got {payload.shape}"
+        )
+    if not np.issubdtype(payload.dtype, np.integer) and not np.all(np.mod(payload, 1) == 0):
+        raise ValueError(
+            f"model {model!r} expects integer token ids; got non-integral "
+            f"{payload.dtype} values"
+        )
+    payload = payload.astype(np.int32, copy=False)
+    prompt_len = int(payload.shape[1])
+    if prompt_len < 1:
+        raise ValueError("generate prompt must hold at least one token")
+    params = dict(gen_params or {})
+    cap = max_new_tokens_cap()
+    max_new = int(params.get("max_new_tokens") or cap)
+    if max_new < 1:
+        raise ValueError(f"max_new_tokens must be >= 1; got {max_new}")
+    max_new = min(max_new, cap)
+    if prompt_len + max_new > spec.max_length:
+        raise ValueError(
+            f"prompt_len {prompt_len} + max_new_tokens {max_new} exceeds "
+            f"model {model!r}'s position table ({spec.max_length}); shorten "
+            "the prompt or request fewer tokens"
+        )
+    params["max_new_tokens"] = max_new
+    return payload, prompt_len, params, spec.kv_bytes_per_token() * (prompt_len + max_new)
+
+
 class Router:
     """Admission queue + dispatcher + completion pool over a residency
     manager. One router per serving process; :class:`ServingClient` and
@@ -219,6 +276,8 @@ class Router:
         self._drained = threading.Event()
         self._idle_cv = threading.Condition()
         self._inflight = 0
+        #: created by the dispatcher on the first generate admission
+        self._gen_engine = None
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -257,6 +316,7 @@ class Router:
             dispatcher.join(timeout=timeout)
         if pool is not None:
             pool.shutdown(wait=True)
+        self._close_generation(timeout)
         self.residency.unload_all()
         # a drain interrupted by close still terminates
         self._drained.set()
@@ -271,22 +331,31 @@ class Router:
         deadline_s: Optional[float] = None,
         mode: str = "features",
         trace_id: Optional[str] = None,
+        gen_params: Optional[dict] = None,
     ) -> Request:
         """Admit one request (raises :class:`AdmissionRejected`,
         :class:`Draining` or ``ValueError`` synchronously); the returned
         request's ``result()`` blocks for the answer. Starts the router
-        lazily."""
+        lazily.
+
+        ``mode="generate"`` admits ONE prompt for autoregressive decode
+        (``gen_params``: max_new_tokens, temperature, top_k, eos_id,
+        seed). Its KV-cache bytes are reserved against the budget here,
+        so an over-budget sequence is refused (429) before it reaches the
+        device; tokens stream through ``req.iter_tokens`` and
+        ``req.result()`` returns the [1, n_new] int32 tokens."""
         from sparkdl_tpu_torch.graph.precision import (
             precision_active,
             serve_precision,
         )
 
-        if mode == "generate":
-            raise NotImplementedError(
-                "mode='generate' is not ported to sparkdl_tpu_torch yet"
-            )
         tokens = pad_tokens = 0
-        if mode == "embed" or _text_spec(model) is not None:
+        generate = mode == "generate"
+        if generate:
+            payload, prompt_len, gen_params, kv_bytes = _validate_generate(
+                model, np.asarray(payload), gen_params
+            )
+        elif mode == "embed" or _text_spec(model) is not None:
             # registry text models bucket whatever the mode ('features'
             # is an alias of 'embed'), so the position-table guard cannot
             # be bypassed by the alias
@@ -303,12 +372,26 @@ class Router:
         req.precision_armed = precision_active()
         if not self._started:
             self.start()
+        if generate:
+            # generation runs the generator's own f32 forward: the rungs
+            # are an embed/feature arm
+            req.precision, req.precision_armed = "f32", False
+            req.gen_params, req.prompt_len = gen_params, prompt_len
+            self.residency.reserve_kv(kv_bytes)  # AdmissionRejected: 429
+            req.kv_bytes = kv_bytes
+            req._kv_release = lambda: self.residency.release_kv(kv_bytes)
         # put() never blocks, so holding the lock across it keeps (assign
         # ordinal, enqueue) atomic; a rejected submit spends no ordinal
-        with self._lock:
-            req.ordinal = self._ordinal
-            self.queue.put(req)
-            self._ordinal += 1
+        try:
+            with self._lock:
+                req.ordinal = self._ordinal
+                self.queue.put(req)
+                self._ordinal += 1
+        except BaseException:
+            # never admitted (rejected, draining, closed): the KV
+            # reservation must not strand
+            req.release_kv()
+            raise
         if tokens:
             metrics.inc("text.tokens", tokens)
         if pad_tokens:
@@ -363,8 +446,25 @@ class Router:
     def _finish_drain(self) -> None:
         if self._drained.is_set():
             return
+        # quiesced: the streams are idle, and closing them unpins their
+        # generators so the unload below evicts them
+        self._close_generation()
         self.residency.unload_all()
         self._drained.set()
+
+    def _close_generation(self, timeout: float = 10.0) -> None:
+        with self._lock:
+            engine = self._gen_engine
+        if engine is not None:
+            engine.close(timeout=timeout)
+
+    def _generation_engine(self):
+        from sparkdl_tpu_torch.serving.generation import GenerationEngine
+
+        with self._lock:
+            if self._gen_engine is None or self._gen_engine.closed:
+                self._gen_engine = GenerationEngine(self)
+            return self._gen_engine
 
     def _inflight_inc(self) -> None:
         with self._idle_cv:
@@ -400,6 +500,18 @@ class Router:
                 req = self.queue.pop(timeout=0.2)
                 if req is None:
                     self._maybe_finish_drain()
+                    continue
+                if req.mode == "generate":
+                    # token-level work: the engine's decode thread takes
+                    # it and this worker slot frees at once; the engine
+                    # carries the in-flight count until the sequence
+                    # retires, so a drain waits for running generations
+                    self._inflight_inc()
+                    try:
+                        self._generation_engine().enroll(req)
+                    except RuntimeError as e:  # the stream failed to load or closed
+                        req.set_error(e)
+                        self._inflight_dec()
                     continue
                 self._inflight_inc()
                 popped = True
@@ -628,6 +740,9 @@ class Router:
             "evictions": int(metrics.counter("serve.evictions")),
             "draining": self._draining,
         }
+        engine = self._gen_engine
+        if engine is not None:
+            out["generation"] = engine.status()
         from sparkdl_tpu_torch.graph.precision import PRECISIONS, precision_active
 
         if precision_active():

@@ -15,8 +15,16 @@ Endpoints:
   "outputs", "rows", "priority", "precision", "latency_ms", "trace_id"}``.
   An unknown model or a bad body is 400, admission rejection 429 with
   ``Retry-After``, draining 503 with ``Retry-After``, deadline expiry 504,
-  a device failure 500. ``"mode": "generate"`` answers 501: generation is
-  not ported yet.
+  a device failure 500. ``"mode": "generate"`` takes one prompt of token
+  ids as ``inputs`` and the fields ``max_new_tokens``, ``temperature``,
+  ``top_k``, ``eos_id`` and ``seed``; it replies ``{"model", "priority",
+  "prompt_len", "tokens": [[...]], "latency_ms", "trace_id"}``, or with
+  ``"stream": true`` a chunked ``application/x-ndjson`` stream of one
+  ``{"token", "index", "trace_id"}`` record per token and a terminal
+  ``{"done": true, ...}`` record (an error after the first byte becomes
+  that record's ``"error"``). A prompt whose length plus
+  ``max_new_tokens`` exceeds the model's position table is 400; a KV-cache
+  reservation over ``SPARKDL_SERVE_HBM_BUDGET_MB`` is 429.
 - ``GET /v1/models``: the residency table, queue and latency stats, and
   the registry with its memory estimates (``supported``).
 - ``GET /healthz``: ``{"status": "ok"}``, or ``"draining"`` once a drain
@@ -114,6 +122,27 @@ class ServingClient:
         """Async variant: the underlying :class:`Request` future."""
         return self.router.submit(*args, **kwargs)
 
+    def generate(
+        self,
+        model: str,
+        prompt,
+        priority: str = "interactive",
+        deadline_ms: Optional[float] = None,
+        **gen_params,
+    ):
+        """Admit one autoregressive request (``max_new_tokens``,
+        ``temperature``, ``top_k``, ``eos_id``, ``seed`` as keywords) and
+        return its :class:`Request`: stream with ``req.iter_tokens()`` or
+        block in ``req.result()`` for the [1, n_new] tokens."""
+        return self.router.submit(
+            model,
+            np.asarray(prompt, np.int32).reshape(1, -1),
+            priority=priority,
+            deadline_s=deadline_ms / 1e3 if deadline_ms is not None else None,
+            mode="generate",
+            gen_params=gen_params or None,
+        )
+
 
 def send_raw(
     handler: BaseHTTPRequestHandler,
@@ -147,9 +176,15 @@ def send_prometheus(handler: BaseHTTPRequestHandler) -> None:
     )
 
 
+#: the generate body's sampling and limit fields
+GEN_FIELDS = ("max_new_tokens", "temperature", "top_k", "eos_id", "seed")
+
+
 class _Handler(BaseHTTPRequestHandler):
     server_version = "sparkdl-serve"
-    protocol_version = "HTTP/1.1"  # keep-alive; every reply sets a length
+    #: HTTP/1.1: keep-alive (every other reply sets a length) and the
+    #: chunked coding of the streamed generate reply
+    protocol_version = "HTTP/1.1"
 
     def log_message(self, *args) -> None:  # no per-request stderr lines
         pass
@@ -207,6 +242,73 @@ class _Handler(BaseHTTPRequestHandler):
             except OSError:
                 pass
 
+    # -- streamed generation -------------------------------------------------
+
+    def _begin_stream(self, trace_id: str) -> None:
+        self.send_response(200)
+        self.send_header("Content-Type", "application/x-ndjson")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.send_header(TRACE_HEADER, trace_id)
+        self.end_headers()
+
+    def _chunk(self, record: dict) -> None:
+        data = (json.dumps(record) + "\n").encode()
+        self.wfile.write(f"{len(data):X}\r\n".encode() + data + b"\r\n")
+        self.wfile.flush()
+
+    def _end_stream(self) -> None:
+        self.wfile.write(b"0\r\n\r\n")
+        self.wfile.flush()
+
+    def _finish_generate(self, req, stream: bool, reply, priority: str, t0: float) -> None:
+        """Answer one admitted generate request: the whole token array, or
+        one chunked ndjson record per token as the engine emits it and a
+        terminal ``done`` record. An error before the first streamed byte
+        raises into ``do_POST``'s status mapping; after it the status line
+        is gone, and the error becomes the terminal record."""
+        timeout = knobs.get_float("SPARKDL_SERVE_HTTP_TIMEOUT_S")
+        if not stream:
+            tokens = req.result(timeout=timeout)
+            reply(200, {
+                "model": req.model,
+                "priority": priority,
+                "prompt_len": req.prompt_len,
+                "tokens": np.asarray(tokens).tolist(),
+                "latency_ms": round((time.monotonic() - t0) * 1e3, 3),
+            })
+            return
+        started = False
+        try:
+            for token, index in req.iter_tokens(timeout=timeout):
+                if not started:
+                    # headers once the first token exists: an admission-
+                    # time failure still gets its own status
+                    self._begin_stream(req.trace_id)
+                    started = True
+                self._chunk({"token": token, "index": index, "trace_id": req.trace_id})
+            tokens = req.result(timeout=timeout)
+            if not started:
+                self._begin_stream(req.trace_id)
+                started = True
+            self._chunk({
+                "done": True,
+                "model": req.model,
+                "prompt_len": req.prompt_len,
+                "tokens": np.asarray(tokens).tolist(),
+                "latency_ms": round((time.monotonic() - t0) * 1e3, 3),
+                "trace_id": req.trace_id,
+            })
+            self._end_stream()
+        except Exception as e:  # noqa: BLE001 - see the docstring
+            if not started:
+                raise
+            try:
+                self._chunk({"done": True, "error": f"{type(e).__name__}: {e}",
+                             "trace_id": req.trace_id})
+                self._end_stream()
+            except OSError:  # the client went away mid-stream
+                pass
+
     # -- POST ---------------------------------------------------------------
 
     def do_POST(self) -> None:  # noqa: N802 (http.server API)
@@ -241,10 +343,9 @@ class _Handler(BaseHTTPRequestHandler):
             if not model:
                 raise ValueError("missing 'model'")
             mode = body.get("mode", "features")
+            gen_params = None
             if mode == "generate":
-                _reply(501, {"error": "mode 'generate' is not ported to "
-                             "sparkdl_tpu_torch yet", "status": "unavailable"})
-                return
+                gen_params = {k: body[k] for k in GEN_FIELDS if body.get(k) is not None}
             inputs = np.asarray(body.get("inputs"), dtype=body.get("dtype", "float32"))
             single_row = bool(body.get("single_row", inputs.ndim == 1))
             if single_row:
@@ -267,7 +368,11 @@ class _Handler(BaseHTTPRequestHandler):
                 deadline_s=deadline_ms / 1e3 if deadline_ms is not None else None,
                 mode=mode,
                 trace_id=trace_id,
+                gen_params=gen_params,
             )
+            if mode == "generate":
+                self._finish_generate(req, bool(body.get("stream", False)), _reply, priority, t0)
+                return
             outputs = req.result(
                 timeout=knobs.get_float("SPARKDL_SERVE_HTTP_TIMEOUT_S")
             )

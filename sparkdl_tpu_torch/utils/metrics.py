@@ -2,7 +2,8 @@
 
 The subset of the JAX package's registry that the ported slices record
 into, under the same names (``text.*``, ``transform.*``, ``feeder.*``,
-``transfer.*``, ``serve.*``). Timers keep a seeded reservoir of samples,
+``transfer.*``, ``serve.*``, ``gen.*``). Gauges keep their min and max too
+(:meth:`MetricsRegistry.gauge_stats`). Timers keep a seeded reservoir of samples,
 so their percentiles are exact up to ``RESERVOIR_SIZE`` observations and
 a uniform-sample estimate above. Thread-safe: producer, owner, drainer
 and serving threads all record.
@@ -76,6 +77,8 @@ class MetricsRegistry:
         self._lock = threading.Lock()
         self._counters: Dict[str, float] = defaultdict(float)
         self._gauges: Dict[str, float] = {}
+        #: per-gauge [last, min, max], so a burst between two reads shows
+        self._gauge_stats: Dict[str, List[float]] = {}
         self._timers: Dict[str, TimerStat] = defaultdict(TimerStat)
 
     def inc(self, name: str, value: float = 1.0) -> None:
@@ -83,8 +86,21 @@ class MetricsRegistry:
             self._counters[name] += value
 
     def gauge(self, name: str, value: float) -> None:
+        value = float(value)
         with self._lock:
-            self._gauges[name] = float(value)
+            self._gauges[name] = value
+            st = self._gauge_stats.get(name)
+            if st is None:
+                self._gauge_stats[name] = [value, value, value]
+            else:
+                st[0], st[1], st[2] = value, min(st[1], value), max(st[2], value)
+
+    def gauge_stats(self, name: str) -> Optional[dict]:
+        """``{"last", "min", "max"}`` of one gauge since the last reset, or
+        None."""
+        with self._lock:
+            st = self._gauge_stats.get(name)
+            return {"last": st[0], "min": st[1], "max": st[2]} if st else None
 
     def record_time(self, name: str, seconds: float) -> None:
         with self._lock:
@@ -119,6 +135,7 @@ class MetricsRegistry:
         with self._lock:
             self._counters.clear()
             self._gauges.clear()
+            self._gauge_stats.clear()
             self._timers.clear()
 
 

@@ -46,7 +46,7 @@ def test_no_port_file_imports_jax_flax_or_the_jax_package():
     for required in ("graph/ingest.py", "graph/keras_graph.py", "graph/keras_file.py",
                      "runtime/native.py", "transformers/keras_image.py", "transformers/tensor.py",
                      "graph/hdf5.py", "models/keras_app_layers.py", "estimators/keras_fit.py",
-                     "estimators/image_file_estimator.py"):
+                     "estimators/image_file_estimator.py", "serving/generation.py"):
         assert required.replace("/", os.sep) in rel, required
     offenders = {
         (os.path.relpath(path, REPO), root)
@@ -76,6 +76,7 @@ def test_importing_every_port_module_loads_no_jax():
         "sparkdl_tpu_torch.resilience.policy",
         "sparkdl_tpu_torch.serving.request",
         "sparkdl_tpu_torch.serving.residency",
+        "sparkdl_tpu_torch.serving.generation",
         "sparkdl_tpu_torch.serving.router",
         "sparkdl_tpu_torch.serving.server",
         "sparkdl_tpu_torch.serving.__main__",

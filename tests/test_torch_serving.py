@@ -722,12 +722,20 @@ class TestRouter:
                 router.submit("m", _rows(1))
 
     def test_generate_is_not_ported(self):
-        router = PORT.router()
-        try:
-            with pytest.raises(NotImplementedError, match="generate"):
-                router.submit("m", _rows(1), mode="generate")
-        finally:
-            router.close()
+        """Generation serves the registry's text models only
+        (``tests/test_torch_generation.py``): on a custom-loader model or
+        an image model ``mode="generate"`` is a ValueError (HTTP 400) on
+        both sides, and nothing is reserved."""
+        for side in SIDES:
+            router = side.router()
+            try:
+                with pytest.raises(ValueError, match="Unknown model"):
+                    router.submit("m", _rows(1), mode="generate")
+                with pytest.raises(ValueError, match="generate"):
+                    router.submit("ResNet50", _rows(1), mode="generate")
+                assert router.residency.kv_reserved_bytes() == 0
+            finally:
+                router.close()
 
     def test_router_and_residency_default_to_cuda(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -921,9 +929,11 @@ class TestHTTP:
                                ("/admin/profile", {}), ("/admin/canary", {})):
                 status, _, reply = _http(base, path, body)
                 assert status == 501 and "not ported" in reply["error"], path
+            # generate is served for the registry's text models; on this
+            # custom-loader model it is a bad request
             status, _, reply = _http(base, "/v1/predict", {
                 "model": "m", "inputs": _rows(1).tolist(), "mode": "generate"})
-            assert status == 501 and "generate" in reply["error"]
+            assert status == 400 and "Unknown model" in reply["error"]
             assert _http(base, "/v1/nothing")[0] == 404
         finally:
             server.stop(close_router=True)
