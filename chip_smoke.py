@@ -255,6 +255,45 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     ``SPARKDL_SERVE_HBM_BUDGET_MB`` = the generator's parameters + half of
     one 48-token reservation, that request gets 429 and the reserved KV
     bytes return to 0. About 30 s.
+17. the serving control plane: after a warm-up router has dispatched
+    bert-base and ResNet50 and closed (the baseline of memory_allocated,
+    the launch thread's cuBLAS workspace in it), one ``Router`` behind
+    ``ServingServer`` on the card, f32, random weights from ``--seed``,
+    events to ``SPARKDL_OBS_JSONL`` in a temp dir. (a) 64 bert-base
+    requests over HTTP and 32 ResNet50 through the client at once, under
+    torch.profiler: the f32 flash kernel launches (> 0, the profiler's
+    count equal to the wrapper's); the utilization ledger's busy + idle
+    equal to the flood's wall by the script's clock within max(10 ms, 5 %);
+    ``serve.mfu`` in (0, 1], printed with ``util.busy_frac`` and the
+    profiler's busy share; ``GET /v1/memory``'s per-model bytes equal to
+    residency's charges, ground truth from ``memory_allocated``. (b) 8
+    generate requests of 32 tokens: the ``kv_cache`` class allocates and
+    frees equal bytes and holds 0 once idle; under
+    ``SPARKDL_SERVE_HBM_BUDGET_MB=1`` a generate request gets 429 and one
+    ``{"kind": "oom"}`` event names the resident models. (c) with
+    ``SPARKDL_SLO_AVAIL=0.999``, ``SPARKDL_SLO_P95_MS_INTERACTIVE=0.001``
+    and windows of 2 s and 4 s: 32 healthy batch requests trip nothing, 20
+    interactive ones trip ``interactive`` (``GET /v1/slo``,
+    ``slo.trips.interactive``, an ``slo_alert`` event), and a poll after
+    the fast window drains recovers it (``slo_recovery``). (d) a
+    registered ``bert-base-canary`` (weights from ``--seed`` + 1) at weight
+    0.25 takes 16 +- 1 of 64 requests and, after ``POST /admin/canary
+    {"weight": 0.5}``, 16 +- 1 of 32; each arm's rows equal its own model
+    called directly (relative 1e-5); on a router of its own, a canary
+    whose build raises fails 4 requests, rolls back once
+    (``serve.canary.rollbacks``, a ``canary_rollback`` event) and later
+    requests are the primary's; a ``bert-base-v30000`` canary (a table of
+    30000 ids) gets none of 8 requests holding id 30100 and 4 +- 1 of 8
+    without (``serve.canary.ineligible`` +8). (e) token id 30522 in an embed and a
+    generate request: 400 each, nothing reserved or loaded, and the next
+    request's rows equal its rows before. Then, the router closed:
+    tracked bytes 0, memory_allocated back at the baseline within
+    ``SPARKDL_MEM_LEAK_TOL_MB``, no ``mem_leak`` event, and no leak record
+    in the ledger from any router of the run (phases 11, 16 and 17). ``serve.mfu``
+    is checked as published, unclamped. About 25 s.
+    Phases 6 and 8 also save the fitted featurizer -> LogisticRegression
+    ``PipelineModel`` and load it back on the card: its predictions on the
+    40 sampled rows equal the fitted one's.
 
 The line before the last is the ``kernels`` JSON record (the f32 and the
 bf16 kernel at bert-base L=512, launches from each dtype's main-path run);
@@ -308,7 +347,7 @@ from sparkdl_tpu_torch.models import get_image_model, get_model
 from sparkdl_tpu_torch.models.convert import bert_params_to_flax, cnn_params_to_flax
 from sparkdl_tpu_torch.models.keras_weights import load_keras_weights
 from sparkdl_tpu_torch.models.layers import init_cnn_params
-from sparkdl_tpu_torch.models.registry import _bert_text_builder, save_flax_npz
+from sparkdl_tpu_torch.models.registry import NamedTextModel, _bert_text_builder, register_model, save_flax_weights
 from sparkdl_tpu_torch.models.resnet import ResNet50
 from sparkdl_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -321,6 +360,10 @@ from sparkdl_tpu_torch.parallel import (
     make_data_parallel_step,
     make_mesh,
 )
+from sparkdl_tpu_torch import persistence
+from sparkdl_tpu_torch.obs import memory as mem_ledger
+from sparkdl_tpu_torch.obs import slo, utilization
+from sparkdl_tpu_torch.pipeline import PipelineModel
 from sparkdl_tpu_torch.runtime import cuda_build, knobs, native
 from sparkdl_tpu_torch.runtime.feeder import shutdown_feeders
 from sparkdl_tpu_torch.session import SparkSession
@@ -531,6 +574,24 @@ GEN_FLOOD_LENGTHS = (8, 128)
 GEN_FLOOD_NEW = 32
 GEN_PROFILED = 8  # requests in the profiled burst
 GEN_IDLE_S = 10.0  # how long the check waits for the stream to drop its slab
+CP_TEXT_REQUESTS = 64  # phase 17(a)'s flood, bert-base f32 over HTTP
+CP_IMAGE_REQUESTS = 32  # and ResNet50 f32 through ServingClient, at once
+CP_CONSERVATION_ABS_S = 0.010  # busy + idle against the flood's wall: max(10 ms, 5 %)
+CP_CONSERVATION_REL = 0.05
+CP_GEN = 8  # 17(b): generate requests of CP_GEN_NEW tokens
+CP_GEN_NEW = 32
+CP_SLO = {"SPARKDL_SLO_AVAIL": "0.999", "SPARKDL_SLO_P95_MS_INTERACTIVE": "0.001",
+          "SPARKDL_SLO_FAST_S": "2", "SPARKDL_SLO_SLOW_S": "4", "SPARKDL_SLO_MIN_REQUESTS": "5"}
+CP_SLO_BATCH = 32  # 17(c): a healthy batch-class flood, then interactive requests
+CP_SLO_INTERACTIVE = 20
+CP_CANARY = "bert-base-canary"  # 17(d): bert-base with weights from --seed + 1
+CP_CANARY_BROKEN = "bert-base-broken"  # a canary whose loader raises
+CP_CANARY_WEIGHT, CP_CANARY_N = 0.25, 64  # 16 +- 1 to the canary
+CP_CANARY_WIDENED, CP_CANARY_N2 = 0.5, 32  # after POST /admin/canary: 16 +- 1
+CP_CANARY_MIN = 4  # SPARKDL_SERVE_CANARY_MIN_REQUESTS of the rollback arm
+CP_CANARY_REL = 1e-5  # each arm's rows against its own model called directly
+CP_CANARY_SMALL = "bert-base-v30000"  # a canary whose vocabulary (and table) is smaller
+CP_SMALL_VOCAB, CP_SMALL_N = 30000, 8  # CP_SMALL_N requests with an id past it, CP_SMALL_N without
 
 
 class PhaseError(RuntimeError):
@@ -893,7 +954,7 @@ def _write_seeded_weights(model: str, seed: int, path: str) -> None:
     """``model``'s weights drawn from ``seed`` (flax's distributions, on a
     CPU generator), saved as the flax ``.npz`` that ``weightsFile`` takes."""
     module = get_image_model(model).model_function(mode="logits", seed=seed, device="cpu").module
-    save_flax_npz(cnn_params_to_flax(module), path)
+    save_flax_weights(cnn_params_to_flax(module), path)
 
 
 def _featurizer(model: str, dtype_name: str, weights: str, device=None) -> DeepImageFeaturizer:
@@ -1062,6 +1123,24 @@ def phase_transfer_learning(model: str, seed: int, structs, labels, device_name:
         f"{card_s:.2f} s, CPU fit {cpu_s:.2f} s, max |w| gap {w_err:.3e}, "
         f"|b| gap {b_err:.3e} (atol {LR_ATOL}); test accuracy: {acc:.3f} on {len(scored)} rows"
     )
+    # the fitted featurizer -> head pipeline saved and loaded back (Queue
+    # C item 4): the loaded one predicts exactly what the fitted one does
+    fitted = PipelineModel([_featurizer(model, "bfloat16", weights), card])
+    saved = os.path.join(os.path.dirname(weights), f"{model}-pipeline")
+    t0 = time.perf_counter()
+    fitted.save(saved)
+    loaded = persistence.load(saved)
+    io_s = time.perf_counter() - t0
+    before = fitted.transform(few).collect()
+    after = loaded.transform(few).collect()
+    check(type(loaded) is PipelineModel and [s.uid for s in loaded.stages] == [s.uid for s in fitted.stages],
+          f"{model} pipeline: loaded {loaded!r} with stages {[s.uid for s in loaded.stages]}")
+    check([r.prediction for r in after] == [r.prediction for r in before],
+          f"{model} pipeline: the loaded model's predictions differ from the fitted one's")
+    feat_gap = max(float(np.abs(a.features - b.features).max()) for a, b in zip(after, before))
+    print(f"image path {model} PipelineModel(featurizer bf16, LogisticRegression) saved and loaded back on "
+          f"{loaded.stages[1].w.device} in {io_s:.2f} s ({sorted(os.listdir(os.path.join(saved, 'stages')))}): "
+          f"{len(after)} predictions equal, features max |diff| {feat_gap:.3e}")
     if model == CV_MODEL:
         _cross_validate(model, features["float32"], labels, seed)
 
@@ -2260,7 +2339,7 @@ def phase_registry_weights(seed: int, device, tmp: str, structs) -> str:
     t0 = time.perf_counter()
     tree = load_keras_weights("ResNet50", spec)
     path = os.path.join(tmp, "resnet50_from_keras.npz")
-    save_flax_npz(tree, path)
+    save_flax_weights(tree, path)
     map_s = time.perf_counter() - t0
     feat = _featurizer("ResNet50", "float32", path, device=device)
     ours, _ = _featurize(feat, DataFrame.fromColumns({"image": structs}, numPartitions=IMAGE_PARTITIONS))
@@ -2437,7 +2516,7 @@ def phase_text_weights(seed: int, device_name: str, tmp: str, device="cuda") -> 
     t0 = time.perf_counter()
     tree = bert_params_to_flax(spec.model_function(seed=seed, device="cpu").module)
     path = os.path.join(tmp, "bert_base.npz")
-    save_flax_npz(tree, path)
+    save_flax_weights(tree, path)
     write_s = time.perf_counter() - t0
     texts = _texts(seed + 15, TEXT_WEIGHT_TEXTS)
     df = DataFrame.fromColumns({"text": texts}, numPartitions=4)
@@ -2732,6 +2811,391 @@ def phase_generation(seed: int, device_name: str) -> None:
           f"bytes back at 0; engine status {stats}; after close memory_allocated {torch.cuda.memory_allocated()} B")
 
 
+def _events(path: str, kind: str) -> list:
+    """The ``kind`` records of a JSONL event log."""
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [e for e in map(json.loads, f) if e.get("kind") == kind]
+
+
+def _get(base: str, path: str):
+    with urllib.request.urlopen(base + path, timeout=60) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def _post_json(base: str, path: str, body: dict):
+    req = urllib.request.Request(base + path, data=json.dumps(body).encode())
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def _text_spec_builder(size: str, offset: int = None):
+    """A builder of the BERT preset ``size`` whose weights come from the
+    router's seed + ``offset``; without an offset, one whose load fails."""
+    base = _bert_text_builder(size)
+
+    def build(spec, mode, dtype, seed, params, device):
+        if offset is None:
+            raise RuntimeError(f"{spec.name}: the canary's weights failed to load")
+        return base(spec, mode=mode, dtype=dtype, seed=seed + offset, params=params, device=device)
+
+    return build
+
+
+def _small_vocab_builder(size: str, vocab: int, offset: int = 2):
+    """A builder of the BERT preset ``size`` with an embedding table of
+    ``vocab`` rows, weights from the router's seed + ``offset``."""
+    from dataclasses import replace
+
+    from sparkdl_tpu_torch.models.bert import BERT_CONFIGS
+
+    def build(spec, mode, dtype, seed, params, device):
+        name = f"{size}-v{vocab}"
+        BERT_CONFIGS[name] = replace(BERT_CONFIGS[size], vocab_size=vocab)
+        try:
+            return _bert_text_builder(name)(spec, mode=mode, dtype=dtype, seed=seed + offset, params=params,
+                                            device=device)
+        finally:
+            BERT_CONFIGS.pop(name, None)
+
+    return build
+
+
+def phase_control_plane(seed: int, device_name: str) -> None:
+    """Phase 17: the serving control plane on the card: (a) the
+    utilization and memory ledgers under a flood, (b) KV churn and an OOM
+    record, (c) the SLO engine, (d) the canary, (e) out-of-vocabulary ids,
+    then every byte back after the router closes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparkdl_tpu_torch.serving import Router, ServingClient, ServingServer
+    from sparkdl_tpu_torch.serving.__main__ import serving_env_defaults
+
+    card = f"{device_name} ({_smi()})"
+    text_spec, image_spec = get_model(SERVE_TEXT_MODEL), get_model(SERVE_IMAGE_MODEL)
+    for name in ("SPARKDL_SERVE_PRECISION_BATCH", "SPARKDL_SERVE_HBM_BUDGET_MB", "SPARKDL_OBS_JSONL",
+                 *CP_SLO, "SPARKDL_SERVE_CANARY_MODEL", "SPARKDL_SERVE_CANARY_VERSION"):
+        os.environ.pop(name, None)
+    shutdown_feeders()
+    serving_env_defaults()
+    texts = _text_requests(seed + 17, text_spec, CP_TEXT_REQUESTS)
+    images = _image_requests(seed + 17, image_spec, CP_IMAGE_REQUESTS)
+
+    def text_body(ids, cls="interactive"):
+        return {"model": SERVE_TEXT_MODEL, "inputs": ids.tolist(), "dtype": "int32", "mode": "embed",
+                "priority": cls}
+
+    # the leak records so far: the routers of phases 11 and 16 (phase 11
+    # clears the cuBLAS workspaces between two of its routers) left none,
+    # and no router of this phase may add one, the warm-up router's first
+    # evicts included
+    leaks0 = (mem_ledger.memory_status() or {}).get("leak_events", 0)
+    check(leaks0 == 0, f"control plane: {leaks0} leak records from the earlier phases' routers: "
+                       f"{[e for e in mem_ledger.get_ledger().events_tail(mem_ledger.mem_ring_capacity()) if e['op'] == 'leak']}")
+    # the baseline: after a warm-up dispatch of each model (the launch
+    # thread's cuBLAS workspace exists) and with nothing resident
+    warm = Router(seed=seed, device=SERVE_DEVICE)
+    warm.submit(SERVE_TEXT_MODEL, texts[0][0], mode="embed").result(timeout=300)
+    warm.submit(SERVE_IMAGE_MODEL, images[0]).result(timeout=300)
+    warm.close()
+    shutdown_feeders()
+    gc.collect()
+    torch.cuda.synchronize()
+    baseline = torch.cuda.memory_allocated()
+    jsonl = os.path.join(tempfile.mkdtemp(prefix="sparkdl_obs_"), "events.jsonl")
+    os.environ["SPARKDL_OBS_JSONL"] = jsonl
+
+    metrics.reset()
+    router = Router(seed=seed, device=SERVE_DEVICE)
+    server = ServingServer(router, port=0)
+    client = ServingClient(router)
+    base = f"http://127.0.0.1:{server.port}"
+    t0 = time.perf_counter()
+    for ids, cls in texts[:2]:
+        status, _, reply, _ = _post(base, text_body(ids, cls))
+        check(status == 200, f"control plane warm-up: HTTP {status} {reply}")
+    client.predict(SERVE_IMAGE_MODEL, images[0], priority="interactive", timeout=300)
+    print(f"control plane: router on {router.device}, {SERVE_TEXT_MODEL} and {SERVE_IMAGE_MODEL} f32 loaded in "
+          f"{time.perf_counter() - t0:.2f} s, baseline memory_allocated {baseline} B")
+
+    # (a) the flood: text over HTTP and images through the client, at once
+    utilization.reset()
+    flash_attention.launches_by_dtype = dict.fromkeys(flash_attention.launches_by_dtype, 0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with ThreadPoolExecutor(SERVE_CLIENT_THREADS) as pool:
+            t_start = time.monotonic()
+            text_f, image_f = [], []
+            for i, (ids, cls) in enumerate(texts):  # two text requests, then an image one
+                text_f.append(pool.submit(_post, base, text_body(ids, cls)))
+                if i % 2:
+                    image_f.append(pool.submit(
+                        lambda x: client.predict(SERVE_IMAGE_MODEL, x, priority="batch", timeout=300),
+                        images[i // 2]))
+            replies = [f.result() for f in text_f]
+            outs = [f.result() for f in image_f]
+            t_end = time.monotonic()
+        torch.cuda.synchronize()
+    wall = t_end - t_start
+    util = utilization.utilization_status(now=t_end)
+    for (ids, _), (status, _, reply, _) in zip(texts, replies):
+        rows = np.asarray(reply.get("outputs"), np.float32)
+        check(status == 200 and rows.shape == (len(ids), text_spec.feature_dim) and np.isfinite(rows).all(),
+              f"control plane flood: HTTP {status}, rows {rows.shape}")
+    for x, out in zip(images, outs):
+        check(out.shape == (len(x), image_spec.feature_dim) and np.isfinite(out).all(),
+              f"control plane flood: image rows {out.shape}")
+    launched = flash_attention.launches_by_dtype[torch.float32]
+    recorded = _flash_kernel_counts(prof)[torch.float32]
+    check(launched > 0 and launched == recorded,
+          f"control plane: flash f32 launches counted {launched}, recorded by the profiler {recorded}")
+    busy_prof = sum(sec for sec, _ in device_kernels(prof).values())
+    dev = util["devices"]["0"]
+    ledger_wall = (dev["busy_ms"] + dev["idle_ms"]) / 1e3
+    tol = max(CP_CONSERVATION_ABS_S, CP_CONSERVATION_REL * wall)
+    check(abs(ledger_wall - dev["wall_ms"] / 1e3) <= 5e-6, f"control plane: busy + idle != the ledger's wall: {dev}")
+    check(dev["busy_ms"] > 0 and abs(ledger_wall - wall) <= tol,
+          f"control plane: the ledger's busy + idle {ledger_wall:.4f} s against the flood's wall {wall:.4f} s "
+          f"(tolerance {tol:.4f} s)")
+    # the gauge is published unclamped: a FLOP count off by more than the
+    # peak fails here
+    mfu = metrics.gauge_stats("serve.mfu")
+    check(mfu is not None and 0 < mfu["last"] <= 1, f"control plane: serve.mfu {mfu}")
+    check(util["busy_source"] == utilization.BUSY_SOURCE, f"control plane: busy_source {util.get('busy_source')}")
+    busy_frac = metrics.gauge_stats("util.busy_frac")["last"]
+    status, mem = _get(base, "/v1/memory")
+    charged = {}
+    for m in router.stats()["models"]:
+        charged[m["name"]] = charged.get(m["name"], 0) + m["param_bytes"]
+    check(status == 200 and mem["models"] == charged,
+          f"control plane: /v1/memory models {mem.get('models')} against residency's charges {charged}")
+    check(mem["ground_truth_source"] == "memory_allocated" and mem["ground_truth_bytes"] > 0,
+          f"control plane: ground truth {mem['ground_truth_bytes']} from {mem['ground_truth_source']}")
+    estimate_error = {n: metrics.gauge_stats(f"mem.estimate_error.{n}") for n in charged}
+    print(
+        f"control plane (a) on {card}: {len(texts)} {SERVE_TEXT_MODEL} requests over HTTP and {len(images)} "
+        f"{SERVE_IMAGE_MODEL} "
+        f"through the client at once, f32, in {wall:.3f} s = {(len(texts) + len(images)) / wall:.1f} requests/s; "
+        f"flash f32 launches {launched} (profiler {recorded}); utilization ledger busy {dev['busy_ms']:.3f} ms + idle "
+        f"{dev['idle_ms']:.3f} ms = {ledger_wall:.4f} s against the flood's {wall:.4f} s (tolerance {tol:.4f} s), "
+        f"h2d {dev['h2d_ms']:.3f} ms, d2h {dev['d2h_ms']:.3f} ms; util.busy_frac {busy_frac:.4f} (busy_source "
+        f"{util['busy_source']}), the profiler's device busy {busy_prof:.4f} s = share {busy_prof / wall:.4f}; "
+        f"serve.mfu {mfu['last']:.6f} (bf16 dense peak {PEAK_FLOP_PER_S['bf16']:.4g} FLOP/s; against the f32 peak "
+        f"{PEAK_FLOP_PER_S['f32']:.4g} FLOP/s {mfu['last'] * PEAK_FLOP_PER_S['bf16'] / PEAK_FLOP_PER_S['f32']:.6f}); "
+        f"/v1/memory: models {mem['models']} equal residency's charges, "
+        f"tracked {mem['tracked_bytes']} B, watermark {mem['watermark_bytes']} B, ground truth "
+        f"{mem['ground_truth_bytes']} B, mem.unattributed_bytes {mem['unattributed_bytes']} B, estimate errors "
+        f"{ {n: (e['last'] if e else None) for n, e in estimate_error.items()} }"
+    )
+
+    # (b) KV churn, then an allocation refused under the budget
+    kv0 = {k: metrics.counter(f"mem.{k}_bytes_total.kv_cache") for k in ("alloc", "free")}
+    prompts = [np.arange(4 + i, 20 + i, dtype=np.int32)[None] for i in range(CP_GEN)]
+    gens = [router.submit(SERVE_TEXT_MODEL, p, mode="generate", gen_params={"max_new_tokens": CP_GEN_NEW})
+            for p in prompts]
+    tokens = [g.result(timeout=300) for g in gens]
+    check(all(t.shape == (1, CP_GEN_NEW) for t in tokens), "control plane: a generate request fell short")
+
+    def kv_idle():
+        st = mem_ledger.memory_status()
+        return st["devices"]["0"]["kv_bytes"] == 0 and router.residency.kv_reserved_bytes() == 0
+
+    check(_wait_for(kv_idle, GEN_IDLE_S), "control plane: kv_cache bytes still held once idle")
+    kv = {k: metrics.counter(f"mem.{k}_bytes_total.kv_cache") - v for k, v in kv0.items()}
+    check(kv["alloc"] == kv["free"] > 0, f"control plane: kv_cache allocated {kv['alloc']} B, freed {kv['free']} B")
+    resident = sorted({m["name"] for m in router.stats()["models"]})
+    os.environ["SPARKDL_SERVE_HBM_BUDGET_MB"] = "1"
+    try:
+        status, headers, reply, _ = _post(base, {"model": SERVE_TEXT_MODEL, "inputs": list(range(4, 20)),
+                                                 "mode": "generate", "max_new_tokens": CP_GEN_NEW,
+                                                 "dtype": "int32"})
+    finally:
+        os.environ.pop("SPARKDL_SERVE_HBM_BUDGET_MB")
+    ooms = _events(jsonl, "oom")
+    check(status == 429 and len(ooms) == 1 and sorted(ooms[0]["models"]) == resident,
+          f"control plane: under a 1 MB budget HTTP {status} {reply}; oom events {ooms} (resident {resident})")
+    print(f"control plane (b): {CP_GEN} generate requests x {CP_GEN_NEW} tokens: kv_cache allocated {kv['alloc']:.0f} B "
+          f"and freed {kv['free']:.0f} B, 0 held once idle; under SPARKDL_SERVE_HBM_BUDGET_MB=1 a generate request got "
+          f"HTTP 429 and one oom event (phase {ooms[0]['phase']}) naming {sorted(ooms[0]['models'])}, "
+          f"watermark {ooms[0]['watermark_bytes']} B, {len(ooms[0]['recent_allocations'])} ring events")
+
+    # (c) the SLO engine: a healthy batch flood trips nothing, an
+    # impossible interactive p95 trips, the drained fast window recovers
+    os.environ.update(CP_SLO)
+    slo.reset()
+    trips0 = metrics.counter("slo.trips.interactive")
+    small = [(ids[:, :64], cls) for ids, cls in texts]
+    with ThreadPoolExecutor(SERVE_CLIENT_THREADS) as pool:
+        healthy = list(pool.map(lambda r: _post(base, text_body(r[0], "batch")), small[:CP_SLO_BATCH]))
+    check(all(r[0] == 200 for r in healthy), "control plane: the healthy batch flood failed")
+    _, st = _get(base, "/v1/slo")
+    check(st["armed"] and "batch" in st["classes"] and not any(c["tripped"] for c in st["classes"].values())
+          and st["windows"]["batch"]["ok_slow"] == CP_SLO_BATCH,
+          f"control plane: after the healthy flood /v1/slo reads {st}")
+    for ids, _ in small[:CP_SLO_INTERACTIVE]:
+        check(_post(base, text_body(ids, "interactive"))[0] == 200, "control plane: an interactive request failed")
+    _, tripped = _get(base, "/v1/slo")
+    alerts = _events(jsonl, "slo_alert")
+    check(tripped["classes"]["interactive"]["tripped"] and metrics.counter("slo.trips.interactive") - trips0 == 1
+          and [a["cls"] for a in alerts] == ["interactive"],
+          f"control plane: interactive did not trip: {tripped}, alerts {alerts}")
+    time.sleep(float(CP_SLO["SPARKDL_SLO_FAST_S"]) * 1.25)
+    _, recovered = _get(base, "/v1/slo")
+    recoveries = _events(jsonl, "slo_recovery")
+    check(not recovered["classes"]["interactive"]["tripped"] and [r["cls"] for r in recoveries] == ["interactive"],
+          f"control plane: no recovery after the fast window drained: {recovered}, {recoveries}")
+    hot = next(o for o in tripped["classes"]["interactive"]["objectives"] if o["objective"] == "latency_p95")
+    print(f"control plane (c): {CP_SLO_BATCH} healthy batch requests tripped nothing; {CP_SLO_INTERACTIVE} "
+          f"interactive requests against a {CP_SLO['SPARKDL_SLO_P95_MS_INTERACTIVE']} ms p95 tripped interactive "
+          f"(burn fast {hot['burn_fast']}, slow {hot['burn_slow']}, observed p95 {hot.get('observed_p95_ms')} ms); "
+          f"slo_alert {alerts[0]['objective']}, then slo_recovery after {CP_SLO['SPARKDL_SLO_FAST_S']} s")
+    for name in CP_SLO:
+        os.environ.pop(name)
+    slo.reset()
+
+    # (d) the canary: bert-base with other weights takes a quarter of the
+    # traffic, then half; a canary that fails to load rolls back
+    register_model(NamedTextModel(CP_CANARY, text_spec.max_length, text_spec.feature_dim,
+                                  _text_spec_builder(text_spec.size, 1), vocab_size=text_spec.vocab_size,
+                                  size=text_spec.size))
+    register_model(NamedTextModel(CP_CANARY_BROKEN, text_spec.max_length, text_spec.feature_dim,
+                                  _text_spec_builder(text_spec.size), vocab_size=text_spec.vocab_size,
+                                  size=text_spec.size))
+    os.environ.update({"SPARKDL_SERVE_CANARY_MODEL": SERVE_TEXT_MODEL, "SPARKDL_SERVE_CANARY_VERSION": CP_CANARY,
+                       "SPARKDL_SERVE_CANARY_WEIGHT": str(CP_CANARY_WEIGHT)})
+    canary_texts = _text_requests(seed + 18, text_spec, CP_CANARY_N + CP_CANARY_N2)
+    # the canary version loads alone, named directly (a load measured
+    # beside requests in flight would be charged their activations too)
+    status, _, reply, _ = _post(base, {**text_body(canary_texts[0][0]), "model": CP_CANARY})
+    check(status == 200, f"control plane: {CP_CANARY} named directly got {status} {reply}")
+
+    def canary_burst(reqs):
+        with ThreadPoolExecutor(SERVE_CLIENT_THREADS) as pool:
+            out = list(pool.map(lambda r: _post(base, text_body(*r)), reqs))
+        check(all(r[0] == 200 for r in out), f"control plane: a canary burst failed: {[r[0] for r in out]}")
+        return out
+
+    first = canary_burst(canary_texts[:CP_CANARY_N])
+    status, widened = _post_json(base, "/admin/canary", {"weight": CP_CANARY_WIDENED})
+    check(status == 200 and widened == {"weight": CP_CANARY_WIDENED, "tripped": False},
+          f"control plane: POST /admin/canary replied {status} {widened}")
+    second = canary_burst(canary_texts[CP_CANARY_N:])
+    taken = [sum(r[2]["model"] == CP_CANARY for r in burst) for burst in (first, second)]
+    check(abs(taken[0] - CP_CANARY_N * CP_CANARY_WEIGHT) <= 1 and abs(taken[1] - CP_CANARY_N2 * CP_CANARY_WIDENED) <= 1,
+          f"control plane: the canary took {taken[0]} of {CP_CANARY_N} and {taken[1]} of {CP_CANARY_N2}")
+    direct = {SERVE_TEXT_MODEL: _direct_fn(text_spec, "embed", torch.float32, seed),
+              CP_CANARY: _direct_fn(get_model(CP_CANARY), "embed", torch.float32, seed)}
+    worst = {name: 0.0 for name in direct}
+    for (ids, _), (_, _, reply, _) in zip(canary_texts, first + second):
+        want = _direct(direct[reply["model"]], ids, nhwc=False)
+        worst[reply["model"]] = max(worst[reply["model"]],
+                                    _relative_error(np.asarray(reply["outputs"], np.float32), want))
+    primary_vs_canary = _relative_error(_direct(direct[CP_CANARY], canary_texts[0][0], nhwc=False),
+                                        _direct(direct[SERVE_TEXT_MODEL], canary_texts[0][0], nhwc=False))
+    del direct
+    check(max(worst.values()) <= CP_CANARY_REL and primary_vs_canary > 1e-2,
+          f"control plane: arms against their own models {worst} (limit {CP_CANARY_REL}), the two models differ "
+          f"by {primary_vs_canary:.3e}")
+    stats = router.stats()["canary"]
+    # a canary with a smaller vocabulary, its table that size: a request
+    # holding an id only the primary knows stays on the primary (in the
+    # canary's gather it would be a device-side assert, the end of the
+    # CUDA context), and the canary's share holds over the rest
+    register_model(NamedTextModel(CP_CANARY_SMALL, text_spec.max_length, text_spec.feature_dim,
+                                  _small_vocab_builder(text_spec.size, CP_SMALL_VOCAB),
+                                  vocab_size=CP_SMALL_VOCAB, size=text_spec.size))
+    os.environ["SPARKDL_SERVE_CANARY_VERSION"] = CP_CANARY_SMALL
+    ineligible0 = metrics.counter("serve.canary.ineligible")
+    routed = []
+    for i, (ids, _) in enumerate(small[: 2 * CP_SMALL_N]):  # one at a time: the split's order is the list's
+        ids = np.minimum(ids, CP_SMALL_VOCAB - 1)
+        if i % 2 == 0:
+            ids[0, 1] = CP_SMALL_VOCAB + 100
+        status, _, reply, _ = _post(base, text_body(ids))
+        rows = np.asarray(reply.get("outputs"), np.float32)
+        routed.append((i % 2 == 0, status, reply.get("model"), bool(np.isfinite(rows).all())))
+    small_taken = sum(m == CP_CANARY_SMALL for high, _, m, _ in routed if not high)
+    ineligible = metrics.counter("serve.canary.ineligible") - ineligible0
+    check(all(st == 200 and ok for _, st, _, ok in routed)
+          and all(m == SERVE_TEXT_MODEL for high, _, m, _ in routed if high)
+          and abs(small_taken - CP_SMALL_N * CP_CANARY_WIDENED) <= 1 and ineligible == CP_SMALL_N,
+          f"control plane: the {CP_CANARY_SMALL} canary: {routed}, serve.canary.ineligible +{ineligible}")
+    # the rollback arm: a router of its own, whose canary cannot load
+    os.environ.update({"SPARKDL_SERVE_CANARY_VERSION": CP_CANARY_BROKEN,
+                       "SPARKDL_SERVE_CANARY_WEIGHT": str(CP_CANARY_WIDENED),
+                       "SPARKDL_SERVE_CANARY_MIN_REQUESTS": str(CP_CANARY_MIN)})
+    rolled = Router(seed=seed, device=SERVE_DEVICE)
+    rolled_server = ServingServer(rolled, port=0)
+    rolled_base = f"http://127.0.0.1:{rolled_server.port}"
+    rollbacks0 = metrics.counter("serve.canary.rollbacks")
+    answers = []
+    for ids, _ in small[: 4 * CP_CANARY_MIN]:  # one at a time: each failure lands before the next admission
+        status, _, reply, _ = _post(rolled_base, text_body(ids))
+        answers.append((status, reply.get("model")))
+    rollback_events = _events(jsonl, "canary_rollback")
+    rolled_server.stop(close_router=True)
+    failed = [i for i, (status, _) in enumerate(answers) if status != 200]
+    check(len(failed) == CP_CANARY_MIN and all(a == (200, SERVE_TEXT_MODEL) for a in answers[failed[-1] + 1:])
+          and metrics.counter("serve.canary.rollbacks") - rollbacks0 == 1
+          and [(e["version"], e["failures"]) for e in rollback_events] == [(CP_CANARY_BROKEN, CP_CANARY_MIN)],
+          f"control plane: the broken canary's rollback: answers {answers}, events {rollback_events}")
+    for name in ("SPARKDL_SERVE_CANARY_MODEL", "SPARKDL_SERVE_CANARY_VERSION", "SPARKDL_SERVE_CANARY_WEIGHT",
+                 "SPARKDL_SERVE_CANARY_MIN_REQUESTS"):
+        os.environ.pop(name)
+    print(f"control plane (d): the canary took {taken[0]} of {CP_CANARY_N} at weight {CP_CANARY_WEIGHT} and "
+          f"{taken[1]} of {CP_CANARY_N2} after POST /admin/canary {CP_CANARY_WIDENED}; each arm against its own "
+          f"model, relative {worst} (limit {CP_CANARY_REL}; the models differ by {primary_vs_canary:.3e}); "
+          f"router canary stats {stats}; a canary of {CP_SMALL_VOCAB} ids took {small_taken} of the {CP_SMALL_N} "
+          f"requests it could serve and none of the {CP_SMALL_N} holding id {CP_SMALL_VOCAB + 100} "
+          f"(serve.canary.ineligible +{ineligible:.0f}); the broken canary failed {len(failed)} requests (admissions {failed}), "
+          f"rolled back once ({rollback_events[0]}) and the rest went to the primary")
+
+    # (e) an out-of-vocabulary id (the vocabulary's size: 30522 for
+    # bert-base): 400 on both paths, nothing reserved, and the CUDA
+    # context still serves the same rows
+    oov = text_spec.vocab_size
+    probe = texts[3][0]
+    _, _, before, _ = _post(base, text_body(probe))
+    bad = probe.copy()
+    bad[0, 1] = oov
+    loads0 = metrics.counter("serve.model_loads")
+    codes = []
+    for body in (text_body(bad), {"model": SERVE_TEXT_MODEL, "inputs": [5, oov, 7], "mode": "generate",
+                                  "max_new_tokens": 4, "dtype": "int32"}):
+        status, _, reply, _ = _post(base, body)
+        codes.append(status)
+        check(status == 400 and str(oov) in reply["error"], f"control plane: id {oov} got {status} {reply}")
+    check(router.residency.kv_reserved_bytes() == 0 and metrics.counter("serve.model_loads") == loads0,
+          "control plane: a refused request reserved or loaded something")
+    status, _, after, _ = _post(base, text_body(probe))
+    gap = float(np.abs(np.asarray(after["outputs"]) - np.asarray(before["outputs"])).max())
+    check(status == 200 and gap <= 1e-6 * float(np.abs(np.asarray(before["outputs"])).max()),
+          f"control plane: after the refused ids HTTP {status}, rows moved by {gap}")
+    print(f"control plane (e): id {oov} (vocabulary {text_spec.vocab_size}) embed and generate got HTTP "
+          f"{codes}, no KV bytes or model loads; the next request served, max |diff| to its rows before {gap:.3e}")
+
+    # every byte back: the ledger at 0, the allocator at the baseline, no leak
+    server.stop(close_router=True)
+    shutdown_feeders()
+    gc.collect()
+    torch.cuda.synchronize()
+    final = mem_ledger.memory_status()
+    truth = torch.cuda.memory_allocated()
+    leaks = _events(jsonl, "mem_leak")
+    leak_ring = [e for e in mem_ledger.get_ledger().events_tail(mem_ledger.mem_ring_capacity()) if e["op"] == "leak"]
+    tol_bytes = mem_ledger.leak_tolerance_bytes()
+    check(final["tracked_bytes"] == 0 and final["models"] == {} and abs(truth - baseline) <= tol_bytes
+          and not leaks and final["leak_events"] == leaks0,
+          f"control plane: after unload_all tracked {final['tracked_bytes']} B, models {final['models']}, "
+          f"memory_allocated {truth} B against the baseline {baseline} B (tolerance {tol_bytes} B), leaks {leaks}, "
+          f"leak records {leaks0} before this phase's routers and {final['leak_events']} after ({leak_ring})")
+    print(f"control plane: after unload_all tracked 0 B, memory_allocated {truth} B against the baseline {baseline} B "
+          f"(tolerance {tol_bytes} B), leak records {leaks0} before this phase's routers and {final['leak_events']} "
+          f"after {leak_ring}, {final['oom_events']} oom events, watermark {final['watermark_bytes']} B")
+    for name in ("SPARKDL_OBS_JSONL", "SPARKDL_FEEDER_IDLE_S", "SPARKDL_MAX_FEEDERS"):
+        os.environ.pop(name, None)
+
+
 def _direct_fn(spec, mode: str, dtype, seed: int):
     """The registry's ModelFunction of ``spec`` at ``dtype``, seeded as
     the serving loader seeds it."""
@@ -2790,6 +3254,8 @@ def main(argv=None) -> int:
     done("phase 15")
     phase_generation(args.seed, device_name)
     done("phase 16")
+    phase_control_plane(args.seed, device_name)
+    done("phase 17")
     print(f"flash launches in 15(e) (bert-base from weights_file): {text_weight_launches}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[torch.float32], records[torch.bfloat16]]}))

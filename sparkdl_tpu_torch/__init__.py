@@ -38,7 +38,10 @@ What it covers today:
   and weight files read by the port's own HDF5 reader (``graph/hdf5.py``);
   fine-tuning with
   :class:`~sparkdl_tpu_torch.estimators.ImageFileEstimator`
-  (``KerasImageFileEstimator``), Keras's optimizers and losses by name.
+  (``KerasImageFileEstimator``), Keras's optimizers and losses by name;
+- the serving control plane (``obs/``): the SLO engine, the device-memory
+  and utilization ledgers with the ``serve.mfu`` gauge, and the canary
+  rollout in the router.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with the default device and no CUDA card they raise. The names below are
@@ -51,8 +54,14 @@ __version__ = "0.1.0"
 _EXPORTS = {
     "DataFrame": "sparkdl_tpu_torch.dataframe",
     "Row": "sparkdl_tpu_torch.dataframe",
+    "imageIO": "sparkdl_tpu_torch.image",
+    "ModelFunction": "sparkdl_tpu_torch.graph.function",
+    "ModelIngest": "sparkdl_tpu_torch.graph.ingest",
+    "Transformer": "sparkdl_tpu_torch.pipeline",
+    "Estimator": "sparkdl_tpu_torch.pipeline",
     "Pipeline": "sparkdl_tpu_torch.pipeline",
     "PipelineModel": "sparkdl_tpu_torch.pipeline",
+    "ImageModelTransformer": "sparkdl_tpu_torch.transformers.image_model",
     "DeepImageFeaturizer": "sparkdl_tpu_torch.transformers.named_image",
     "DeepImagePredictor": "sparkdl_tpu_torch.transformers.named_image",
     "KerasImageFileTransformer": "sparkdl_tpu_torch.transformers.keras_image",
@@ -61,6 +70,7 @@ _EXPORTS = {
     "TFTransformer": "sparkdl_tpu_torch.transformers.tensor",
     "LogisticRegression": "sparkdl_tpu_torch.estimators",
     "DataParallelEstimator": "sparkdl_tpu_torch.estimators",
+    "HorovodEstimator": "sparkdl_tpu_torch.estimators",
     "ImageFileEstimator": "sparkdl_tpu_torch.estimators",
     "KerasImageFileEstimator": "sparkdl_tpu_torch.estimators",
     "registerImageUDF": "sparkdl_tpu_torch.udf",
@@ -68,6 +78,12 @@ _EXPORTS = {
     "registerModelUDF": "sparkdl_tpu_torch.udf",
     "makeGraphUDF": "sparkdl_tpu_torch.udf",
     "SQLContext": "sparkdl_tpu_torch.sql",
+    "registerDataFrameAsTable": "sparkdl_tpu_torch.sql",
+    "Evaluator": "sparkdl_tpu_torch.evaluation",
+    "MulticlassClassificationEvaluator": "sparkdl_tpu_torch.evaluation",
+    "BinaryClassificationEvaluator": "sparkdl_tpu_torch.evaluation",
+    "RegressionEvaluator": "sparkdl_tpu_torch.evaluation",
+    "load": "sparkdl_tpu_torch.persistence",
     "SparkSession": "sparkdl_tpu_torch.session",
     "ParamGridBuilder": "sparkdl_tpu_torch.tuning",
     "CrossValidator": "sparkdl_tpu_torch.tuning",
@@ -84,4 +100,6 @@ def __getattr__(name):
         raise AttributeError(f"module 'sparkdl_tpu_torch' has no attribute {name!r}")
     from importlib import import_module
 
-    return getattr(import_module(_EXPORTS[name]), name)
+    # a submodule (imageIO) is imported as one
+    module = import_module(_EXPORTS[name])
+    return getattr(module, name) if hasattr(module, name) else import_module(f"{_EXPORTS[name]}.{name}")

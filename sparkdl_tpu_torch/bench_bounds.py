@@ -1,6 +1,8 @@
 """The least time an H100 could take for a kernel's work, and the work of
 a model's products: the yardsticks ``chip_smoke.py`` holds measured times
-against. Nothing on the port's path imports this module."""
+against. The serving path reads two of them: the registry's image FLOPs
+(``model_macs``) and the bf16 peak behind ``serve.mfu``
+(``utils/flops.py``)."""
 
 from __future__ import annotations
 

@@ -6,6 +6,8 @@ from sparkdl_tpu_torch.models.registry import (
     get_image_model,
     get_model,
     param_bytes,
+    register_model,
+    save_flax_weights,
     supported_models,
 )
 
@@ -15,5 +17,7 @@ __all__ = [
     "get_image_model",
     "get_model",
     "param_bytes",
+    "register_model",
+    "save_flax_weights",
     "supported_models",
 ]

@@ -38,7 +38,7 @@ flax                                port
 VGG's ``fc1`` rows stay in the flax order: the port flattens block 5 in
 NHWC order, as the flax module does. ``cnn_params_to_flax`` is the
 inverse: a port module's weights as flax variables, which
-``registry.save_flax_npz`` writes in the layout the JAX package's
+``registry.save_flax_weights`` writes in the layout the JAX package's
 ``save_flax_weights`` uses.
 
 The flax ResNet's ``scan_blocks`` layout stacks each stage's identity

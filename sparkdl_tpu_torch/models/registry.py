@@ -21,8 +21,18 @@ registry, not registered models.
 
 What serving residency and ``GET /v1/models`` read off a spec:
 ``param_bytes_estimate()`` (the float32 parameter bytes of a module built
-on the ``meta`` device: shapes only, no storage) and ``input_dtype`` (the
-wire dtype).
+on the ``meta`` device: shapes only, no storage), ``input_dtype`` (the
+wire dtype) and the analytic forward FLOPs the ``serve.mfu`` gauge counts:
+``flops_per_item()`` and, for text, ``flops_fn(seq_len)`` (the JAX
+package's formula, ``utils/flops.py``); an image entry's FLOPs are 2 x
+``bench_bounds.model_macs`` of its module at the registry geometry, so
+the port has one source of MACs.
+
+:func:`register_model` adds a user entry: an image entry needs only a
+torch module factory (``module_factory(dtype=, num_classes=,
+input_size=)`` returning a ``models.layers.ImageCNN``), from which the
+builder is made. :func:`save_flax_weights` writes the flax ``.npz`` that
+``weights_file`` reads.
 """
 
 from __future__ import annotations
@@ -58,6 +68,8 @@ from sparkdl_tpu_torch.runtime.device import resolve_device
 #: name -> parameter-byte estimate (building a module, even on meta,
 #: takes a few hundred ms; GET /v1/models asks for every entry)
 _ESTIMATE_CACHE: Dict[str, int] = {}
+#: name -> forward FLOPs of one image at the registry geometry
+_FLOPS_CACHE: Dict[str, float] = {}
 
 
 def _meta_param_bytes(name: str, factory: Callable[[], nn.Module]) -> int:
@@ -87,6 +99,22 @@ class NamedTextModel:
         """float32 parameter bytes, from a module built on ``meta``."""
         config = BERT_CONFIGS[self.size]
         return _meta_param_bytes(self.name, lambda: BertEncoder(config, dense_attention))
+
+    def flops_fn(self, seq_len: int) -> float:
+        """Analytic forward FLOPs of one sequence of ``seq_len`` tokens
+        (``utils/flops.bert_flops_per_example`` at this entry's geometry)."""
+        from sparkdl_tpu_torch.utils.flops import bert_flops_per_example
+
+        c = BERT_CONFIGS[self.size]
+        return bert_flops_per_example(
+            seq_len, hidden=c.hidden_size, num_layers=c.num_layers,
+            intermediate=c.intermediate_size,
+        )
+
+    def flops_per_item(self, seq_len: Optional[int] = None) -> float:
+        """Forward FLOPs of one example at ``seq_len`` (default: the full
+        ``max_length``)."""
+        return self.flops_fn(seq_len if seq_len else self.max_length)
 
     def model_function(
         self,
@@ -213,17 +241,41 @@ def _bert_text_builder(size: str, attention: str = "flash"):
 @dataclass(frozen=True)
 class NamedImageModel:
     """A registered image model: its input geometry, its preprocessing
-    convention ('tf' | 'caffe' | 'torch') and its feature width."""
+    convention ('tf' | 'caffe' | 'torch') and its feature width. Without a
+    ``builder``, the registry's own is made from ``module_factory``."""
 
     name: str
     height: int
     width: int
     preprocessing: str
     feature_dim: int
-    builder: Callable[..., ModelFunction]
+    builder: Optional[Callable[..., ModelFunction]] = None
     num_classes: int = 1000
     #: (dtype=, num_classes=, input_size=) -> the module the builder builds
     module_factory: Optional[Callable[..., nn.Module]] = None
+
+    def __post_init__(self):
+        if self.builder is None:
+            if self.module_factory is None:
+                raise ValueError(f"image model {self.name!r} needs a builder or a module_factory")
+            object.__setattr__(self, "builder", _cnn_builder(self.module_factory))
+
+    def flops_per_item(self) -> Optional[float]:
+        """Forward FLOPs of one image at the registry geometry: 2 x the
+        MACs of the module's convolutions and dense layers, head included
+        (``bench_bounds.model_macs`` on a ``meta`` module), computed once."""
+        if self.module_factory is None:
+            return None
+        if self.name not in _FLOPS_CACHE:
+            from sparkdl_tpu_torch.bench_bounds import model_macs
+
+            with torch.device("meta"):
+                module = self.module_factory(
+                    dtype=torch.float32, num_classes=self.num_classes,
+                    input_size=(self.height, self.width),
+                )
+            _FLOPS_CACHE[self.name] = 2.0 * model_macs(module, (3, self.height, self.width))
+        return _FLOPS_CACHE[self.name]
 
     @property
     def input_shape(self) -> Tuple[int, int, int]:
@@ -306,10 +358,11 @@ def load_flax_npz(weights_file: str, spec: Optional["NamedImageModel"] = None,
     return tree
 
 
-def save_flax_npz(tree: Any, path: str) -> None:
-    """Write a nested dict of arrays as a flat ``.npz`` (keys joined by
-    '/'), the layout :func:`load_flax_npz` and the JAX package's
-    ``save_flax_weights`` share."""
+def save_flax_weights(tree: Any, path: str) -> None:
+    """Write a flax variable tree (a nested dict of arrays or tensors) as a
+    flat ``.npz``, keys joined by '/': the JAX package's
+    ``save_flax_weights`` layout, which :func:`load_flax_npz` and every
+    ``weights_file`` read."""
     flat: Dict[str, np.ndarray] = {}
 
     def visit(node, prefix):
@@ -406,8 +459,7 @@ def _register(spec: Union[NamedTextModel, NamedImageModel]) -> None:
 
 def _image(name, height, width, preprocessing, feature_dim, factory):
     _register(NamedImageModel(
-        name, height, width, preprocessing, feature_dim, _cnn_builder(factory),
-        module_factory=factory,
+        name, height, width, preprocessing, feature_dim, module_factory=factory,
     ))
 
 
@@ -429,6 +481,15 @@ for _name, _size, _max_length, _dim, _vocab in (
         _name, _max_length, _dim, _bert_text_builder(_size),
         vocab_size=_vocab, size=_size,
     ))
+
+
+def register_model(spec: Union[NamedTextModel, NamedImageModel]) -> None:
+    """Add a user entry to the registry (or replace one of that name, whose
+    cached estimates are dropped: the new spec may be another
+    architecture)."""
+    _ESTIMATE_CACHE.pop(spec.name, None)
+    _FLOPS_CACHE.pop(spec.name, None)
+    _register(spec)
 
 
 def get_model(name: str) -> Union[NamedTextModel, NamedImageModel]:

@@ -3,14 +3,16 @@
 Semantics follow pyspark.ml.param, as in the JAX package: a ``Param`` is
 a typed, documented slot declared as a class attribute on a ``Params``
 stage; values live in per-instance maps (explicitly set vs. defaults);
-``copy(extra)`` gives ParamMap overrides. Only what the ported slices
-use is kept here.
+``copy(extra)`` gives ParamMap overrides; ``params``,
+``extractParamMap``, ``explainParam(s)``, ``clear`` and ``saveParams``
+are the JAX package's public surface, with its strings and ordering.
 """
 
 from __future__ import annotations
 
 import copy as _copy
 import functools
+import json
 import numbers
 import threading
 from typing import Any, Callable, Dict, List, Optional
@@ -109,6 +111,21 @@ class TypeConverters:
         raise TypeError(f"Could not convert {value!r} to list")
 
     @staticmethod
+    def toListString(value: Any) -> List[str]:
+        lst = TypeConverters.toList(value)
+        if all(isinstance(v, str) for v in lst):
+            return lst
+        raise TypeError(f"Could not convert {value!r} to list of strings")
+
+    @staticmethod
+    def toListInt(value: Any) -> List[int]:
+        return [TypeConverters.toInt(v) for v in TypeConverters.toList(value)]
+
+    @staticmethod
+    def toListFloat(value: Any) -> List[float]:
+        return [TypeConverters.toFloat(v) for v in TypeConverters.toList(value)]
+
+    @staticmethod
     def toDict(value: Any) -> dict:
         if isinstance(value, dict):
             return value
@@ -159,6 +176,19 @@ class Params:
             attr = getattr(type(self), name, None)
             if isinstance(attr, Param):
                 setattr(self, name, attr._copy_new_parent(self))
+
+    @property
+    def params(self) -> List[Param]:
+        """Every Param of this stage, sorted by name."""
+        # declared on the class, bound per instance; no property runs
+        return sorted(
+            (
+                getattr(self, name)
+                for name in dir(type(self))
+                if isinstance(getattr(type(self), name, None), Param)
+            ),
+            key=lambda p: p.name,
+        )
 
     def getParam(self, name: str) -> Param:
         p = getattr(self, name, None)
@@ -223,6 +253,35 @@ class Params:
             )
         return self
 
+    def clear(self, param) -> "Params":
+        """Unset ``param``; its default, if any, applies again."""
+        self._paramMap.pop(self._resolveParam(param), None)
+        return self
+
+    def extractParamMap(self, extra: Optional[dict] = None) -> Dict[Param, Any]:
+        """Defaults, overlaid by set values, overlaid by ``extra`` (whose
+        keys must be this stage's params or their names)."""
+        pm = dict(self._defaultParamMap)
+        pm.update(self._paramMap)
+        for k, v in (extra or {}).items():
+            pm[self._resolveParam(k)] = v
+        return pm
+
+    def explainParam(self, param) -> str:
+        """``name: doc (current: v | default: v | undefined)``."""
+        param = self._resolveParam(param)
+        if self.isSet(param):
+            state = f"current: {self.getOrDefault(param)!r}"
+        elif self.hasDefault(param):
+            state = f"default: {self._defaultParamMap[param]!r}"
+        else:
+            state = "undefined"
+        return f"{param.name}: {param.doc} ({state})"
+
+    def explainParams(self) -> str:
+        """One :meth:`explainParam` line per param, sorted by name."""
+        return "\n".join(self.explainParam(p) for p in self.params)
+
     def copy(self, extra: Optional[dict] = None) -> "Params":
         """Copy with ParamMap overrides; Param-keyed entries of another
         stage are skipped (pyspark parity)."""
@@ -282,6 +341,42 @@ class Params:
         from sparkdl_tpu_torch import persistence
 
         persistence.save_stage(self, path, overwrite=overwrite)
+
+    def _params_to_json(self) -> str:
+        def enc(v):
+            try:
+                json.dumps(v)
+                return v
+            except (TypeError, ValueError):
+                return f"<non-serializable:{type(v).__name__}>"
+
+        return json.dumps(
+            {
+                "class": f"{type(self).__module__}.{type(self).__name__}",
+                "uid": self.uid,
+                "paramMap": {p.name: enc(v) for p, v in self._paramMap.items()},
+                "defaultParamMap": {p.name: enc(v) for p, v in self._defaultParamMap.items()},
+            },
+            indent=2,
+            sort_keys=True,
+        )
+
+    def saveParams(self, path: str) -> None:
+        """Write this stage's params as one JSON file (values that JSON
+        cannot hold are written as ``<non-serializable:Type>``)."""
+        with open(path, "w") as f:
+            f.write(self._params_to_json())
+
+    def _load_params_json(self, path: str) -> None:
+        """Set the params a :meth:`saveParams` file holds (its explicitly
+        set values, not its defaults)."""
+        with open(path) as f:
+            blob = json.load(f)
+        for name, value in blob.get("paramMap", {}).items():
+            if self.hasParam(name) and not (
+                isinstance(value, str) and value.startswith("<non-serializable:")
+            ):
+                self._set(**{name: value})
 
     @classmethod
     def load(cls, path: str, device=None) -> "Params":

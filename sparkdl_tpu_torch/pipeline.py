@@ -6,10 +6,17 @@ fits its stages left to right, transforming the running DataFrame
 through each fitted stage; ParamMap overrides flow through
 ``fit(df, params=...)`` and ``fitMultiple``, whose thread-safe iterator
 model selection (``tuning.py``) consumes from ``parallelism`` threads.
+
+Persistence uses the JAX package's layout: a ``Pipeline`` or
+``PipelineModel`` saves each stage in ``<path>/stages/<i>_<uid>/`` and
+lists those directories under ``stageDirs`` in its metadata's ``extra``.
+``load(path, device)`` puts the tensors of every fitted stage on
+``device``.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
@@ -92,6 +99,29 @@ class Estimator(Params):
         raise NotImplementedError
 
 
+def _save_stage_list(stages: Sequence[Params], path: str) -> dict:
+    """Save each stage in ``<path>/stages/<i>_<uid>/`` (MLlib's layout for
+    a Pipeline and a PipelineModel alike)."""
+    from sparkdl_tpu_torch import persistence
+
+    dirs = []
+    for i, stage in enumerate(stages):
+        sub = os.path.join("stages", f"{i}_{stage.uid}")
+        os.makedirs(os.path.join(path, sub), exist_ok=True)
+        persistence.save_stage(stage, os.path.join(path, sub), overwrite=True)
+        dirs.append(sub)
+    return {"stageDirs": dirs}
+
+
+def _load_stage_list(path: str, meta: dict, device=None) -> List[Params]:
+    from sparkdl_tpu_torch import persistence
+
+    return [
+        persistence.load_stage(os.path.join(path, sub), device=device)
+        for sub in meta["extra"]["stageDirs"]
+    ]
+
+
 class PipelineModel(Model):
     def __init__(self, stages: List[Transformer]):
         super().__init__()
@@ -101,6 +131,12 @@ class PipelineModel(Model):
         for stage in self.stages:
             dataset = stage.transform(dataset)
         return dataset
+
+    def _save_extra(self, path: str) -> dict:
+        return _save_stage_list(self.stages, path)
+
+    def _load_extra(self, path: str, meta: dict) -> None:
+        self.stages = _load_stage_list(path, meta, getattr(self, "_device", None))
 
 
 class Pipeline(Estimator):
@@ -116,6 +152,15 @@ class Pipeline(Estimator):
 
     def getStages(self) -> List[Params]:
         return self.getOrDefault(self.stages)
+
+    def _non_json_params(self) -> List[str]:
+        return ["stages"]
+
+    def _save_extra(self, path: str) -> dict:
+        return _save_stage_list(self.getStages(), path)
+
+    def _load_extra(self, path: str, meta: dict) -> None:
+        self._set(stages=_load_stage_list(path, meta, getattr(self, "_device", None)))
 
     def copy(self, extra: Optional[dict] = None) -> "Pipeline":
         """Propagate ParamMap overrides into the stages (pyspark parity)."""

@@ -145,3 +145,30 @@ def launcher(device: torch.device) -> Launcher:
         if la is None:
             la = _launchers[idx] = Launcher(f"sparkdl-launch-cuda{idx}")
         return la
+
+
+def _warm_blas(device: torch.device) -> None:
+    """A plain product, one with a bias (the cuBLASLt epilogue) and a
+    batched one, in float32 and bfloat16, on ``device``'s compute stream."""
+    with torch.cuda.stream(compute_stream(device)):
+        for dtype in (torch.float32, torch.bfloat16):
+            a = torch.ones(64, 64, device=device, dtype=dtype)
+            bias = torch.ones(64, device=device, dtype=dtype)
+            torch.mm(a, a)
+            torch.addmm(bias, a, a)
+            torch.bmm(a[None], a[None])
+
+
+def warm_launcher(device: torch.device) -> None:
+    """Make sure the launch thread's cuBLAS and cuBLASLt workspaces exist
+    on ``device``'s compute stream.
+
+    A thread's first GEMM on a stream allocates them, and they stay for
+    the life of the process unless cleared
+    (``torch._C._cuda_clearCublasWorkspaces``). A reading of
+    ``torch.cuda.memory_allocated`` taken right after this call (the
+    memory ledger's baseline before a model's load) already holds them, so
+    the model's first forward does not add them to its residue at evict.
+    Six products of 64 x 64 once they exist."""
+    idx = _index(device)
+    launcher(device).run(_warm_blas, torch.device("cuda", idx))

@@ -54,8 +54,13 @@ Env knobs (read per event, so tests can flip them live):
 ``SPARKDL_DEVICE_STAGE`` and ``SPARKDL_DEVICE_STAGE_DEPTH`` (read at
 feeder construction: it sizes the ring).
 
-Not ported yet: the fault-injection hook (``maybe_fault``) and the memory
-ledger and utilization notes (``obs.memory``, ``obs.utilization``).
+The control plane's notes: each dispatch's wall and each drain's
+residual are device busy time in the utilization ledger
+(``obs/utilization.py``), the staged-copy claim's residual its H2D wait;
+staged batches and outputs in the drain are device bytes in the memory
+ledger (``obs/memory.py``) until dispatch or delivery.
+
+Not ported yet: the fault-injection hook (``maybe_fault``).
 """
 
 from __future__ import annotations
@@ -69,7 +74,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from sparkdl_tpu_torch.obs import span
+from sparkdl_tpu_torch.obs import memory, span, utilization
 from sparkdl_tpu_torch.resilience.policy import RetryPolicy
 from sparkdl_tpu_torch.runtime import knobs, readback, transfer
 from sparkdl_tpu_torch.utils.metrics import metrics
@@ -511,11 +516,15 @@ class DeviceFeeder:
             # slot once the ring is `stage_lag` batches ahead — while
             # batch N computes, batch N+1's copy is already in flight.
             slot = transfer.stage_batch(stage_fn, batch, rows=fill)
+            staged_bytes = int(getattr(batch, "nbytes", 0) or 0)
+            # memory ledger: the staged copy holds device bytes until
+            # dispatch claims it (or a failure reset reclaims it)
+            memory.note_staged(staged_bytes)
             # buf is now owned by the staged entry: drop it from _cur
             # BEFORE anything below can raise, or _fail_all would hand
             # the same buffer out twice (once from _cur, once from the
             # entry) and corrupt a dispatched batch.
-            self._staged.append((segs, fill, pad, slot, buf))
+            self._staged.append((segs, fill, pad, slot, buf, staged_bytes))
             self._cur = None
             self._fill = 0
             self._segs = []
@@ -546,13 +555,17 @@ class DeviceFeeder:
         the residual (hit/miss counted in StagedBatch.take). A failed
         claim or dispatch returns the buffer to the ring before the
         error reaches the owner's fail-all."""
-        segs, fill, pad, slot, buf = self._staged.popleft()
+        segs, fill, pad, slot, buf, staged_bytes = self._staged.popleft()
         try:
             t0 = time.perf_counter()
             batch = slot.take()
             dt = time.perf_counter() - t0
             for h in {s[0] for s in segs}:
                 h._note_seg("stage_wait", dt)
+            if dt > 0:
+                # utilization ledger: the residual H2D wait is device idle
+                # time attributed to the transfer
+                utilization.note_transfer(h2d_s=dt)
             self._dispatch(segs, fill, pad, batch, buf, staged=True)
         except BaseException:
             # the copy may still be reading buf: wait it out first
@@ -561,6 +574,9 @@ class DeviceFeeder:
                 self._free.append(buf)
                 self._drain_cv.notify_all()
             raise
+        finally:
+            # dispatched or reclaimed: no longer a staged holding
+            memory.release_staged(staged_bytes)
 
     def _dispatch(self, segs, fill, pad, batch, buf, staged=False) -> None:
         arm = readback.async_readback_enabled()
@@ -592,6 +608,9 @@ class DeviceFeeder:
         dt = time.perf_counter() - t0
         for h in {s[0] for s in segs}:
             h._note_seg("dispatch", dt)
+        # utilization ledger: the dispatch's wall is device busy time (on
+        # CUDA the eager forward issues its kernels as the card runs them)
+        utilization.note_busy(dt)
         metrics.inc("feeder.coalesced_batches")
         with self._drain_cv:
             self._inflight.append((segs, fill, y_dev, buf, arm))
@@ -706,6 +725,10 @@ class DeviceFeeder:
         return True
 
     def _drain_entry(self, segs, fill, y_dev, buf, arm) -> None:
+        # memory ledger: the output holds device bytes for the drain
+        # window; released in the finally, before the drain lock
+        readback_bytes = int(getattr(y_dev, "nbytes", 0) or 0)
+        memory.note_readback(readback_bytes)
         try:
             if arm:
                 ready = readback.is_ready(y_dev)
@@ -725,6 +748,11 @@ class DeviceFeeder:
                 y = readback.to_host(y_dev, self._stream)
             dt = time.perf_counter() - t0
             metrics.record_time("transform.device_wait", dt)
+            if dt > 0:
+                # the drain residual is the tail of the program and its
+                # D2H copy still running: busy, attributed to readback
+                utilization.note_busy(dt)
+                utilization.note_transfer(d2h_s=dt)
             # the readback residual is the handle's drain_wait segment on
             # either arm (the span names differ so each arm stays
             # readable on its own)
@@ -744,6 +772,7 @@ class DeviceFeeder:
                 metrics.inc("transform.rows", delivered)
                 metrics.inc("feeder.rows", delivered)
         finally:
+            memory.release_readback(readback_bytes)
             with self._drain_cv:
                 # a readback error must not shrink the ring
                 self._free.append(buf)
@@ -825,8 +854,9 @@ class DeviceFeeder:
         failure reset, waiting out any copy still reading them (a
         device_put may alias the host buffer zero-copy)."""
         while self._staged:
-            _, _, _, slot, buf = self._staged.popleft()
+            _, _, _, slot, buf, staged_bytes = self._staged.popleft()
             slot.settle()
+            memory.release_staged(staged_bytes)
             with self._drain_cv:
                 self._free.append(buf)
                 self._drain_cv.notify_all()

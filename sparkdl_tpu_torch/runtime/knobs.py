@@ -92,6 +92,35 @@ _KNOBS: Dict[str, Tuple[str, Optional[str]]] = {
     # reservation is computed from)
     "SPARKDL_GEN_MAX_SEQS": ("int", "8"),
     "SPARKDL_GEN_MAX_NEW_TOKENS": ("int", "64"),
+    # serving/router.py: the canary rollout (both _MODEL and _VERSION set
+    # engage it; _WEIGHT is the Bresenham split, _TRIP_RATE the canary
+    # failure rate that rolls it back once _MIN_REQUESTS were seen)
+    "SPARKDL_SERVE_CANARY_MODEL": ("str", None),
+    "SPARKDL_SERVE_CANARY_VERSION": ("str", None),
+    "SPARKDL_SERVE_CANARY_WEIGHT": ("float", "0.1"),
+    "SPARKDL_SERVE_CANARY_TRIP_RATE": ("float", "0.5"),
+    "SPARKDL_SERVE_CANARY_MIN_REQUESTS": ("int", "20"),
+    # obs/slo.py: availability and p95 objectives, the base knob for
+    # every class and a per-class override (an explicit 0 disarms that
+    # class), and the burn-rate windows and thresholds
+    "SPARKDL_SLO_AVAIL": ("float", None),
+    "SPARKDL_SLO_AVAIL_INTERACTIVE": ("float", None),
+    "SPARKDL_SLO_AVAIL_BATCH": ("float", None),
+    "SPARKDL_SLO_AVAIL_BACKGROUND": ("float", None),
+    "SPARKDL_SLO_P95_MS": ("float", None),
+    "SPARKDL_SLO_P95_MS_INTERACTIVE": ("float", None),
+    "SPARKDL_SLO_P95_MS_BATCH": ("float", None),
+    "SPARKDL_SLO_P95_MS_BACKGROUND": ("float", None),
+    "SPARKDL_SLO_FAST_S": ("float", "60"),
+    "SPARKDL_SLO_SLOW_S": ("float", "3600"),
+    "SPARKDL_SLO_BURN_FAST": ("float", "14"),
+    "SPARKDL_SLO_BURN_SLOW": ("float", "14"),
+    "SPARKDL_SLO_MIN_REQUESTS": ("int", "10"),
+    # obs/memory.py: the allocation-event ring and the leak tolerance
+    "SPARKDL_MEM_RING": ("int", "256"),
+    "SPARKDL_MEM_LEAK_TOL_MB": ("float", "8"),
+    # obs/export.py: the JSONL event log (unset: no events written)
+    "SPARKDL_OBS_JSONL": ("str", None),
 }
 
 

@@ -12,7 +12,9 @@
 - :mod:`~sparkdl_tpu_torch.serving.generation`: ``mode="generate"``,
   token-level continuous batching over one K/V slab per model;
 - :mod:`~sparkdl_tpu_torch.serving.server`: the stdlib HTTP front end and
-  the in-process :class:`ServingClient`.
+  the in-process :class:`ServingClient`;
+- the control plane beside them (``obs/``): the SLO engine, the memory
+  and utilization ledgers, and the router's canary rollout.
 
 ``python -m sparkdl_tpu_torch.serving serve`` runs the registry-backed
 server on ``cuda`` (``--device cpu`` on request).
@@ -28,7 +30,7 @@ from sparkdl_tpu_torch.serving.request import (
 )
 from sparkdl_tpu_torch.serving.generation import GenerationEngine
 from sparkdl_tpu_torch.serving.residency import ResidencyManager, ResidentModel
-from sparkdl_tpu_torch.serving.router import Router, choose_rung, choose_seq_bucket
+from sparkdl_tpu_torch.serving.router import Router, canary_config, choose_rung, choose_seq_bucket
 from sparkdl_tpu_torch.serving.server import ServingClient, ServingServer, start_server
 
 __all__ = [
@@ -44,6 +46,7 @@ __all__ = [
     "Router",
     "ServingClient",
     "ServingServer",
+    "canary_config",
     "choose_rung",
     "choose_seq_bucket",
     "start_server",

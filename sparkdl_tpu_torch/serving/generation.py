@@ -23,9 +23,10 @@ wait for the longest in its batch. This engine regroups per token:
 KV-cache bytes are reserved by the router at admission
 (``ResidencyManager.reserve_kv``: ``kv_bytes_per_token x (prompt +
 max_new)``, refusal is HTTP 429) and released by the request's completion,
-whichever path completes it. The JAX package also attributes them to its
-memory ledger's ``kv_cache`` class at slot assignment and records OOMs
-there; that waits for the ledger's port (ROADMAP Queue A item 4.4).
+whichever path completes it. The memory ledger (``obs/memory.py``)
+charges them to its ``kv_cache`` class at slot assignment and frees them
+when the sequence retires; an allocation failure at load, prefill or
+decode is filed there as an ``{"kind": "oom"}`` event.
 
 Tokens stream back as they land (``Request.push_token``, read by the HTTP
 layer's chunked reply), and each sequence's ``decode`` trace segment sums
@@ -48,6 +49,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from sparkdl_tpu_torch.obs import memory as mem_mod
 from sparkdl_tpu_torch.obs import span
 from sparkdl_tpu_torch.runtime import knobs
 from sparkdl_tpu_torch.runtime.device import compute_stream, launcher
@@ -73,13 +75,15 @@ class _Seq:
 
     __slots__ = (
         "req", "slot", "length", "last_token", "emitted", "max_new",
-        "eos_id", "temperature", "top_k", "rng",
+        "eos_id", "temperature", "top_k", "rng", "kv_noted",
     )
 
     def __init__(self, req: Request, slot: int):
         gp = req.gen_params or {}
         self.req = req
         self.slot = slot
+        #: whether the memory ledger holds this sequence's KV charge
+        self.kv_noted = False
         #: tokens so far (prompt + emitted): the next decode step writes
         #: ``last_token`` at position ``length - 1``
         self.length = req.prompt_len
@@ -214,6 +218,8 @@ class GenStream:
                 # compute stream waits for them once
                 self._stream.wait_stream(torch.cuda.current_stream(self._router.device))
         except Exception as e:  # noqa: BLE001 - the load failed
+            if mem_mod.is_oom_error(e):
+                mem_mod.record_oom("load", self.model, e)
             with self._cv:
                 self._failed = e
                 doomed = list(self._pending)
@@ -247,6 +253,8 @@ class GenStream:
                     self._active_count = len(active)
                 metrics.gauge("gen.active_seqs", len(active))
         except Exception as e:  # noqa: BLE001 - fail, never hang
+            if mem_mod.is_oom_error(e):
+                mem_mod.record_oom("decode", self.model, e)
             with self._cv:
                 # the next admission builds a fresh stream
                 self._failed = e
@@ -300,12 +308,16 @@ class GenStream:
                       slot=slot, trace_id=req.trace_id):
                 logits = self._to_host(self._on_device(prefill))
         except Exception as e:  # noqa: BLE001 - fail this sequence only
+            if mem_mod.is_oom_error(e):
+                mem_mod.record_oom("prefill", self.model, e)
             self._retire_error(req, e)
             return
         dt = time.monotonic() - t0
         req.trace_segments["dispatch"] = dt
         metrics.record_time("gen.prefill_ms", dt * 1e3)
         seq = _Seq(req, slot)
+        mem_mod.note_kv_alloc(req.kv_bytes)
+        seq.kv_noted = True
         metrics.inc("gen.seqs")
         if active:
             # the continuous-batching event: this prefill landed while
@@ -375,6 +387,9 @@ class GenStream:
         request (whose completion releases its KV reservation)."""
         if active is not None:
             active.pop(seq.slot, None)
+        if seq.kv_noted:
+            mem_mod.note_kv_free(seq.req.kv_bytes)
+            seq.kv_noted = False
         req = seq.req
         req.trace_segments["scatter"] = 0.0
         if error is not None:

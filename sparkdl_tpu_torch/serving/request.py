@@ -31,7 +31,13 @@ by whichever path completes it, and a token mailbox: the generation
 engine pushes each token as it lands (:meth:`Request.push_token`) and a
 streaming caller reads them (:meth:`Request.iter_tokens`).
 
-Not ported yet: the SLO engine's events and the trace store.
+Completions feed the SLO engine (``obs/slo.py``): a result is a good
+event (and a slow one past the class's p95 objective), a failure or an
+expiry a bad one; a shutdown spends nothing. A request that a canary
+split routed (``canary_arm``) records its latency and failures per arm
+(``serve.canary.*``, ``serve.primary.*``).
+
+Not ported yet: the trace store.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from sparkdl_tpu_torch.obs import slo
 from sparkdl_tpu_torch.obs.trace import SEGMENTS, mint_trace_id
 from sparkdl_tpu_torch.runtime import knobs
 from sparkdl_tpu_torch.utils.metrics import metrics, percentile_of_sorted
@@ -108,7 +115,7 @@ class Request:
 
     __slots__ = (
         "id", "model", "payload", "priority", "deadline_at", "mode",
-        "enqueue_t", "dequeue_t", "ordinal", "precision", "precision_armed",
+        "enqueue_t", "dequeue_t", "ordinal", "canary_arm", "precision", "precision_armed",
         "trace_id", "trace_segments", "gen_params", "prompt_len", "kv_bytes",
         "_event", "_outputs", "_error", "_kv_release", "_token_q",
     )
@@ -142,6 +149,9 @@ class Request:
             time.monotonic() + float(deadline_s) if deadline_s is not None else None
         )
         self.mode = mode
+        #: 'canary' | 'primary' when a canary split applied to this
+        #: request's model (the router sets it at submit), else None
+        self.canary_arm: Optional[str] = None
         #: the precision rung this request serves at (the router sets it
         #: at submit from SPARKDL_SERVE_PRECISION[_<CLASS>]); part of the
         #: grouping key
@@ -198,8 +208,11 @@ class Request:
         dt = time.monotonic() - self.enqueue_t
         metrics.record_time(f"serve.latency.{self.priority}", dt)
         _recent_latency[self.priority].append(dt)
+        if self.canary_arm is not None:
+            metrics.record_time(f"serve.{self.canary_arm}.latency", dt)
         if self.precision_armed:
             metrics.record_time(f"serve.precision.{self.precision}.latency", dt)
+        slo.note_ok(self.priority, dt)
 
     def set_result(self, outputs: np.ndarray) -> None:
         if self._event.is_set():
@@ -216,8 +229,14 @@ class Request:
         if self._event.is_set():
             return
         self._error = exc
-        if count_failure and not isinstance(exc, DeadlineExceeded):
+        expired = isinstance(exc, DeadlineExceeded)
+        if count_failure and not expired:
             metrics.inc("serve.failures")
+            if self.canary_arm is not None:
+                metrics.inc(f"serve.{self.canary_arm}.failures")
+        if count_failure:
+            # one availability debit either way; a shutdown spends nothing
+            slo.note_bad(self.priority, "expired" if expired else "failure")
         self._complete()
 
     def _complete(self) -> None:

@@ -39,7 +39,18 @@ budget (:meth:`ResidencyManager.reserve_kv`); a reservation that does not
 fit raises :class:`~sparkdl_tpu_torch.serving.request.AdmissionRejected`
 (HTTP 429) before anything reaches the device.
 
-Not ported yet: the memory ledger and its leak check, and mesh widths.
+Every load and evict is noted in the memory ledger (``obs/memory.py``).
+On CUDA a model is charged the bytes ``torch.cuda.memory_allocated``
+grew by across its build (``mem.estimate_error.<name>`` publishes the
+gap to the module's own parameter bytes), so the budget runs on what the
+allocator holds; on the CPU, which has no probe, the module's parameter
+bytes. An evict checks that the allocator went back to its count before
+the load (the leak check), and a load that fails for memory files an
+``{"kind": "oom"}`` event. Each entry carries its registry spec's
+analytic FLOPs (``flops_per_item``, and ``flops_fn`` for text), which the
+router feeds into ``serve.mfu``.
+
+Not ported yet: mesh widths.
 """
 
 from __future__ import annotations
@@ -52,8 +63,9 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from sparkdl_tpu_torch.obs import memory as mem_mod
 from sparkdl_tpu_torch.runtime import knobs
-from sparkdl_tpu_torch.runtime.device import DeviceLike, resolve_device
+from sparkdl_tpu_torch.runtime.device import DeviceLike, resolve_device, warm_launcher
 from sparkdl_tpu_torch.utils.metrics import metrics
 
 
@@ -111,11 +123,12 @@ class ResidentModel:
     __slots__ = (
         "key", "name", "mode", "model_function", "device_fn", "param_bytes",
         "pins", "loads", "last_used", "requests", "precision",
+        "flops_per_item", "flops_fn", "mem_charge", "mem_baseline",
     )
 
     def __init__(
         self, key, name, mode, model_function, device_fn, nbytes,
-        precision="f32",
+        precision="f32", flops_per_item=None, flops_fn=None,
     ):
         self.key = key
         self.name = name
@@ -128,6 +141,14 @@ class ResidentModel:
         self.last_used = time.monotonic()
         self.requests = 0
         self.precision = precision
+        #: the registry spec's analytic forward FLOPs per row, and for
+        #: text the per-sequence-length function (None: a custom model)
+        self.flops_per_item = float(flops_per_item) if flops_per_item else None
+        self.flops_fn = flops_fn
+        #: the bytes noted in the memory ledger, and the (ground truth,
+        #: tracked) before the load, for the leak check
+        self.mem_charge: Optional[int] = None
+        self.mem_baseline: Optional[tuple] = None
 
     @property
     def busy(self) -> bool:
@@ -335,35 +356,77 @@ class ResidencyManager:
         from sparkdl_tpu_torch.obs import span
         from sparkdl_tpu_torch.transformers.execution import model_device_fn
 
-        with span("serve.model_load", model=name, mode=mode, precision=precision):
-            # The default loader builds straight onto the device, so the
-            # victims leave BEFORE the build, sized by the registry's
-            # estimate: the new parameters land in freed memory, not
-            # beside the models they replace.
-            estimate = self._estimate_bytes(name, precision)
-            if estimate is not None:
-                self._evict_for(key, estimate, loading=name)
-            mf = self._build(name, mode, precision)
-            generate = mode == "generate"
-            if not generate:
-                # the rung's casts apply uniformly: a loader that already
-                # built at the rung (mf.precision) is left alone
-                mf = apply_precision(mf, precision)
-            built_on = getattr(mf, "device", None)
-            if built_on is not None and torch.device(built_on).type != self.device.type:
-                raise ValueError(
-                    f"the loader built {name!r} on {built_on}, but this "
-                    f"router serves on {self.device}"
-                )
-            # a generator (prefill/decode over its own encoder) has no
-            # device fn: the generation engine drives it
-            nbytes = mf.param_bytes if generate else param_bytes(mf)
-            # the charge is the module actually loaded: evicts more if the
-            # estimate fell short, and replaces its reservation
-            self._evict_for(key, nbytes, loading=name)
-            device_fn = None if generate else model_device_fn(mf)
+        try:
+            with span("serve.model_load", model=name, mode=mode, precision=precision):
+                # The default loader builds straight onto the device, so the
+                # victims leave BEFORE the build, sized by the registry's
+                # estimate: the new parameters land in freed memory, not
+                # beside the models they replace.
+                estimate = self._estimate_bytes(name, precision)
+                if estimate is not None:
+                    self._evict_for(key, estimate, loading=name)
+                if self.device.type == "cuda":
+                    # the launch thread's cuBLAS workspaces outlive every
+                    # model: made before the baseline, the leak check does
+                    # not read them as this model's residue
+                    warm_launcher(self.device)
+                truth0, _ = mem_mod.ground_truth()
+                tracked0 = mem_mod.tracked_bytes()
+                mf = self._build(name, mode, precision)
+                generate = mode == "generate"
+                if not generate:
+                    # the rung's casts apply uniformly: a loader that already
+                    # built at the rung (mf.precision) is left alone
+                    mf = apply_precision(mf, precision)
+                built_on = getattr(mf, "device", None)
+                if built_on is not None and torch.device(built_on).type != self.device.type:
+                    raise ValueError(
+                        f"the loader built {name!r} on {built_on}, but this "
+                        f"router serves on {self.device}"
+                    )
+                # a generator (prefill/decode over its own encoder) has no
+                # device fn: the generation engine drives it
+                nbytes = mf.param_bytes if generate else param_bytes(mf)
+                truth1, _ = mem_mod.ground_truth()
+                measured = None
+                if truth0 is not None and truth1 is not None and truth1 > truth0:
+                    measured = int(truth1 - truth0)
+                # the charge is what the allocator holds for the module (its
+                # own bytes without a probe): evicts more if the estimate
+                # fell short, and replaces its reservation
+                charge = nbytes if measured is None else measured
+                self._evict_for(key, charge, loading=name)
+                device_fn = None if generate else model_device_fn(mf)
+        except Exception as e:
+            if mem_mod.is_oom_error(e):
+                mem_mod.record_oom("load", name, e)
+            raise
         metrics.inc("serve.model_loads")
-        return ResidentModel(key, name, mode, mf, device_fn, nbytes, precision=precision)
+        flops = flops_fn = None
+        spec = self._spec(name)
+        if spec is not None:
+            flops = spec.flops_per_item()
+            flops_fn = getattr(spec, "flops_fn", None)
+        entry = ResidentModel(
+            key, name, mode, mf, device_fn, charge, precision=precision,
+            flops_per_item=flops, flops_fn=flops_fn,
+        )
+        entry.mem_charge = charge
+        entry.mem_baseline = (truth0, tracked0)
+        mem_mod.note_model_loaded(
+            name, charge, estimate_bytes=nbytes if measured is not None else None
+        )
+        return entry
+
+    @staticmethod
+    def _spec(name: str):
+        """The registry spec of ``name``, or None (a custom-loader name)."""
+        from sparkdl_tpu_torch.models import get_model
+
+        try:
+            return get_model(name)
+        except ValueError:
+            return None
 
     # -- eviction -----------------------------------------------------------
 
@@ -413,13 +476,20 @@ class ResidencyManager:
 
     @staticmethod
     def _close_entry(victim: ResidentModel) -> int:
-        """Close the victim's feeder streams and drop its module and device
-        fn: the entry must not be what keeps the parameters alive."""
+        """Close the victim's feeder streams, drop its module and device fn
+        (the entry must not be what keeps the parameters alive), return its
+        charge to the memory ledger and check for a leak."""
         from sparkdl_tpu_torch.runtime.feeder import close_feeders_for
 
         closed = 0 if victim.device_fn is None else close_feeders_for(victim.device_fn)
         victim.model_function = None
         victim.device_fn = None
+        if victim.mem_charge is not None:
+            mem_mod.note_model_evicted(victim.name, victim.mem_charge)
+            victim.mem_charge = None
+        if victim.mem_baseline is not None:
+            mem_mod.leak_check(victim.name, *victim.mem_baseline)
+            victim.mem_baseline = None
         return closed
 
     def unload_all(self) -> None:

@@ -36,11 +36,41 @@ the dispatcher hands it to the :class:`~sparkdl_tpu_torch.serving.generation.Gen
 which carries it in the in-flight count until it retires, so a drain
 waits for running generations.
 
+Token ids are checked at admission: an id outside ``[0, vocab_size)`` of
+a registry text model is a ``ValueError`` (HTTP 400) on both paths, with
+nothing reserved. The JAX package's gathers clamp such an id and answer
+with silently wrong rows; the port refuses it, the contract the JAX
+``_validate_generate`` states for positions. On CUDA the embedding gather
+would raise a device-side assert instead, which leaves the process's CUDA
+context unusable for every later request.
+
+The canary rollout (:func:`canary_config`): with
+``SPARKDL_SERVE_CANARY_MODEL`` and ``_VERSION`` set, a deterministic
+Bresenham split routes ``SPARKDL_SERVE_CANARY_WEIGHT`` of that model's
+admissions to the canary version (``req.canary_arm``; per-arm
+``serve.canary.*`` / ``serve.primary.*`` metrics); once the canary's
+failure rate reaches ``SPARKDL_SERVE_CANARY_TRIP_RATE`` over at least
+``SPARKDL_SERVE_CANARY_MIN_REQUESTS`` requests, every later admission
+routes to the primary (sticky; ``serve.canary.rollbacks`` and a
+``{"kind": "canary_rollback"}`` event). ``set_canary_weight`` (``POST
+/admin/canary``) overrides the weight at run time. A request is screened
+against the spec of the model it routes to: a request that the canary's
+own vocabulary, position table or modes refuse stays on the primary and
+takes no turn of the split (``serve.canary.ineligible``), and a generate
+request reserves the KV bytes of the model that serves it.
+
+The control plane: admission shedding spends the SLO engine's budget
+(``obs/slo.py``); each dispatch that landed notes its real rows' analytic
+FLOPs, at the sequence bucket that ran, into the utilization ledger's
+``serve.mfu`` (``obs/utilization.py``); an allocation failure at admission
+or dispatch is filed with the memory ledger (``obs/memory.record_oom``).
+``stats()`` carries their ``slo``, ``utilization``, ``memory`` and
+``canary`` blocks.
+
 The router runs on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card the default raises.
 
-Not ported yet: the canary rollout, mesh widths, the ``serve.mfu`` gauge,
-the SLO engine and fault-injection hooks.
+Not ported yet: mesh widths and fault-injection hooks.
 """
 
 from __future__ import annotations
@@ -53,13 +83,15 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from sparkdl_tpu_torch.obs import span
+from sparkdl_tpu_torch.obs import memory as mem_mod
+from sparkdl_tpu_torch.obs import slo, span
 from sparkdl_tpu_torch.resilience.policy import policy_from_env
 from sparkdl_tpu_torch.runtime import knobs
 from sparkdl_tpu_torch.runtime.device import DeviceLike
 from sparkdl_tpu_torch.serving.request import (
     PRIORITY_CLASSES,
     AdmissionQueue,
+    AdmissionRejected,
     DeadlineExceeded,
     Request,
     recent_p95_s,
@@ -117,6 +149,31 @@ def choose_rung(rows: int, max_rows: Optional[int] = None) -> int:
     return min(cap, 1 << max(0, math.ceil(math.log2(rows))))
 
 
+def canary_config() -> Optional[tuple]:
+    """``(base_name_lower, canary_version, weight)`` when a canary rollout
+    is set (both ``SPARKDL_SERVE_CANARY_MODEL`` and ``_VERSION``), else
+    None. The weight is clamped to [0, 1]; the split is a deterministic
+    Bresenham counter over admissions, so N requests route
+    ``round(N * weight)`` +- 1 of them to the canary."""
+    base = knobs.get_str("SPARKDL_SERVE_CANARY_MODEL")
+    version = knobs.get_str("SPARKDL_SERVE_CANARY_VERSION")
+    if not base or not version:
+        return None
+    weight = min(1.0, max(0.0, knobs.get_float("SPARKDL_SERVE_CANARY_WEIGHT")))
+    return (base.lower(), version, weight)
+
+
+def _check_vocabulary(model: str, payload: np.ndarray, vocab_size: int) -> None:
+    """Refuse token ids outside ``[0, vocab_size)`` (checked before the
+    int32 cast, so a wide id cannot wrap into range)."""
+    bad = payload[(payload < 0) | (payload >= vocab_size)]
+    if bad.size:
+        raise ValueError(
+            f"token id {bad.flat[0]} is outside model {model!r}'s vocabulary "
+            f"[0, {vocab_size}) (vocab_size {vocab_size})"
+        )
+
+
 def choose_seq_bucket(seq_len: int) -> int:
     """The sequence-length sibling of :func:`choose_rung`: the text
     ladder's bucket edge a token payload of ``seq_len`` pads up to."""
@@ -146,9 +203,10 @@ def _bucket_token_payload(model: str, payload: np.ndarray):
     bucket. int32-normalized: JSON ids arrive as int64 or float.
 
     For registry text models the spec's ``max_length`` is the hard
-    ceiling: a longer payload raises ``ValueError`` (HTTP 400). Custom-
-    loader models bucket uncapped, and a non-integer payload for one
-    passes through untouched.
+    ceiling, and every id must lie in ``[0, vocab_size)``: a longer
+    payload or an id outside the vocabulary raises ``ValueError`` (HTTP
+    400). Custom-loader models bucket uncapped, and a non-integer payload
+    for one passes through untouched.
 
     Returns ``(payload, real_tokens, pad_tokens)``."""
     if payload.ndim != 2:
@@ -163,6 +221,8 @@ def _bucket_token_payload(model: str, payload: np.ndarray):
                 f"model {model!r} expects integer token ids; got "
                 f"non-integral {payload.dtype} values"
             )
+    if spec is not None:
+        _check_vocabulary(model, payload, spec.vocab_size)
     payload = payload.astype(np.int32, copy=False)
     rows, length = payload.shape
     if max_len is not None and length > max_len:
@@ -189,7 +249,8 @@ def _validate_generate(model: str, payload: np.ndarray, gen_params):
     (HTTP 400):
 
     - one prompt per request (one admission, one decode slot);
-    - integer token ids, as the embed path coerces them;
+    - integer token ids in ``[0, vocab_size)``, as the embed path takes
+      them;
     - ``prompt_len + max_new_tokens`` within the spec's position table (a
       longer sequence has no position embedding for its tail);
     - ``max_new_tokens`` (default and cap ``SPARKDL_GEN_MAX_NEW_TOKENS``)
@@ -213,6 +274,7 @@ def _validate_generate(model: str, payload: np.ndarray, gen_params):
             f"model {model!r} expects integer token ids; got non-integral "
             f"{payload.dtype} values"
         )
+    _check_vocabulary(model, payload, spec.vocab_size)
     payload = payload.astype(np.int32, copy=False)
     prompt_len = int(payload.shape[1])
     if prompt_len < 1:
@@ -231,6 +293,25 @@ def _validate_generate(model: str, payload: np.ndarray, gen_params):
         )
     params["max_new_tokens"] = max_new
     return payload, prompt_len, params, spec.kv_bytes_per_token() * (prompt_len + max_new)
+
+
+def _prepare_payload(model: str, mode: str, payload: np.ndarray, gen_params):
+    """Screen and shape one admission's payload for ``model`` (``ValueError``,
+    HTTP 400, when it cannot serve it). Returns ``(payload, real_tokens,
+    pad_tokens, prompt_len, gen_params, kv_bytes)``; the last three are
+    for generate requests, the token counts for text payloads."""
+    if mode == "generate":
+        payload, prompt_len, gen_params, kv_bytes = _validate_generate(
+            model, payload, gen_params
+        )
+        return payload, 0, 0, prompt_len, gen_params, kv_bytes
+    if mode == "embed" or _text_spec(model) is not None:
+        # registry text models bucket whatever the mode ('features' is an
+        # alias of 'embed'), so the position-table guard cannot be
+        # bypassed by the alias
+        payload, tokens, pad_tokens = _bucket_token_payload(model, payload)
+        return payload, tokens, pad_tokens, 0, None, 0
+    return payload, 0, 0, 0, None, 0
 
 
 class Router:
@@ -278,6 +359,15 @@ class Router:
         self._inflight = 0
         #: created by the dispatcher on the first generate admission
         self._gen_engine = None
+        #: canary split state, under _lock: the Bresenham admission
+        #: counter, the sticky rollback trip and POST /admin/canary's
+        #: weight. The trip reads the canary counters' deltas from this
+        #: router's construction (the registry is process-global).
+        self._canary_count = 0
+        self._canary_tripped = False
+        self._canary_weight_override: Optional[float] = None
+        self._canary_base_requests = metrics.counter("serve.canary.requests")
+        self._canary_base_failures = metrics.counter("serve.canary.failures")
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -349,21 +439,15 @@ class Router:
             serve_precision,
         )
 
-        tokens = pad_tokens = 0
         generate = mode == "generate"
-        if generate:
-            payload, prompt_len, gen_params, kv_bytes = _validate_generate(
-                model, np.asarray(payload), gen_params
-            )
-        elif mode == "embed" or _text_spec(model) is not None:
-            # registry text models bucket whatever the mode ('features'
-            # is an alias of 'embed'), so the position-table guard cannot
-            # be bypassed by the alias
-            payload, tokens, pad_tokens = _bucket_token_payload(
-                model, np.asarray(payload)
-            )
+        raw = np.asarray(payload)
+        prepared = _prepare_payload(model, mode, raw, gen_params)
+        # a canary that cannot take this payload (a smaller vocabulary, a
+        # shorter position table) leaves it on the primary: screened here
+        # against the canary's own spec, outside the lock
+        canary = self._canary_candidate(model, mode, raw, gen_params)
         req = Request(
-            model, payload, priority=priority, deadline_s=deadline_s,
+            model, prepared[0], priority=priority, deadline_s=deadline_s,
             mode=mode, trace_id=trace_id,
         )
         # the precision rung, resolved at admission from the SLA class:
@@ -376,30 +460,152 @@ class Router:
             # generation runs the generator's own f32 forward: the rungs
             # are an embed/feature arm
             req.precision, req.precision_armed = "f32", False
-            req.gen_params, req.prompt_len = gen_params, prompt_len
-            self.residency.reserve_kv(kv_bytes)  # AdmissionRejected: 429
-            req.kv_bytes = kv_bytes
-            req._kv_release = lambda: self.residency.release_kv(kv_bytes)
         # put() never blocks, so holding the lock across it keeps (assign
-        # ordinal, enqueue) atomic; a rejected submit spends no ordinal
+        # ordinal, enqueue) atomic; a rejected submit spends no ordinal.
+        # The canary split counts admissions under the same lock, so the
+        # routed arm is a function of admission order; the routed model's
+        # payload and KV reservation are settled before the put.
+        tripped_now = None
         try:
             with self._lock:
+                tripped_now, routed = self._canary_resolve_locked(req, canary)
+                if routed is not None:
+                    prepared = routed
+                    req.payload = prepared[0]
+                if generate:
+                    self._reserve_kv(req, *prepared[3:])
                 req.ordinal = self._ordinal
                 self.queue.put(req)
                 self._ordinal += 1
-        except BaseException:
+        except BaseException as e:
             # never admitted (rejected, draining, closed): the KV
-            # reservation must not strand
+            # reservation must not strand. Shedding spends the SLO
+            # budget; a drain does not.
+            if isinstance(e, AdmissionRejected):
+                slo.note_bad(req.priority, "rejected")
+                if generate and mem_mod.is_oom_error(e):
+                    mem_mod.record_oom("admission", req.model, e)
             req.release_kv()
             raise
+        finally:
+            # the trip is sticky: this admission alone carries its event
+            if tripped_now is not None:
+                self._emit_canary_rollback(tripped_now)
+        tokens, pad_tokens = prepared[1], prepared[2]
         if tokens:
             metrics.inc("text.tokens", tokens)
         if pad_tokens:
             metrics.inc("text.pad_tokens", pad_tokens)
+        if req.canary_arm is not None:
+            metrics.inc(f"serve.{req.canary_arm}.requests")
         if req.precision_armed:
             metrics.inc(f"serve.precision.{req.precision}.requests")
             metrics.inc(f"serve.precision.{req.precision}.rows", req.rows)
         return req
+
+    def _reserve_kv(self, req: Request, prompt_len: int, gen_params: dict, kv_bytes: int) -> None:
+        """Reserve a generate request's KV-cache bytes, sized for the model
+        it routes to (raises :class:`AdmissionRejected`, 429)."""
+        req.gen_params, req.prompt_len = gen_params, prompt_len
+        self.residency.reserve_kv(kv_bytes)
+        req.kv_bytes = kv_bytes
+        req._kv_release = lambda: self.residency.release_kv(kv_bytes)
+
+    # -- canary rollout -----------------------------------------------------
+
+    def _canary_candidate(self, model: str, mode: str, raw: np.ndarray, gen_params):
+        """``(version, prepared)`` when a canary split applies to ``model``:
+        ``prepared`` is the payload screened against the canary version's
+        own spec, or None when the canary cannot take it (its vocabulary,
+        position table or mode refuse it). None when no split applies."""
+        cfg = canary_config()
+        if cfg is None or str(model).lower() != cfg[0]:
+            return None
+        version = cfg[1]
+        try:
+            return version, _prepare_payload(version, mode, raw, gen_params)
+        except ValueError:
+            return version, None
+
+    def _canary_resolve_locked(self, req: Request, candidate) -> tuple:
+        """Apply the split to one admission (the caller holds ``_lock``):
+        on the Bresenham take ``req.model`` becomes the canary version,
+        and ``req.canary_arm`` is set either way. ``candidate`` is
+        :meth:`_canary_candidate`'s answer. A request the canary cannot
+        serve stays on the primary and leaves the counter where it was, so
+        the canary's share holds over the requests it can take
+        (``serve.canary.ineligible`` counts the others). Returns (the
+        rollback info when this admission tripped it, the canary's
+        prepared payload when it took the request)."""
+        if candidate is None:
+            return None, None
+        cfg = canary_config()
+        if cfg is None or str(req.model).lower() != cfg[0]:
+            return None, None
+        base, version, weight = cfg
+        if self._canary_weight_override is not None:
+            weight = self._canary_weight_override
+        tripped_now = self._maybe_trip_canary_locked(base, version)
+        req.canary_arm = "primary"
+        cand_version, prepared = candidate
+        if prepared is None or cand_version != version:
+            metrics.inc("serve.canary.ineligible")
+            return tripped_now, None
+        take = False
+        if not self._canary_tripped and weight > 0.0:
+            n = self._canary_count
+            take = math.floor((n + 1) * weight) > math.floor(n * weight)
+        self._canary_count += 1
+        if not take:
+            return tripped_now, None
+        req.model = version
+        req.canary_arm = "canary"
+        return tripped_now, prepared
+
+    def _maybe_trip_canary_locked(self, base: str, version: str) -> Optional[dict]:
+        """The rollback rule: the canary's failure rate (this router's
+        deltas) at or over ``SPARKDL_SERVE_CANARY_TRIP_RATE`` after at
+        least ``SPARKDL_SERVE_CANARY_MIN_REQUESTS`` canary requests.
+        Sticky until the router is replaced."""
+        if self._canary_tripped:
+            return None
+        reqs = metrics.counter("serve.canary.requests") - self._canary_base_requests
+        if reqs < max(1, knobs.get_int("SPARKDL_SERVE_CANARY_MIN_REQUESTS")):
+            return None
+        fails = metrics.counter("serve.canary.failures") - self._canary_base_failures
+        trip_rate = knobs.get_float("SPARKDL_SERVE_CANARY_TRIP_RATE")
+        rate = fails / reqs
+        if trip_rate <= 0 or rate < trip_rate:
+            return None
+        self._canary_tripped = True
+        metrics.inc("serve.canary.rollbacks")
+        return {
+            "model": base,
+            "version": version,
+            "requests": int(reqs),
+            "failures": int(fails),
+            "rate": round(rate, 4),
+        }
+
+    @staticmethod
+    def _emit_canary_rollback(info: dict) -> None:
+        from sparkdl_tpu_torch.obs.export import append_jsonl
+
+        append_jsonl({"kind": "canary_rollback", "ts": round(time.time(), 3), **info})
+
+    def set_canary_weight(self, weight: float) -> dict:
+        """Override the split weight at run time (``POST /admin/canary``),
+        clamped to [0, 1]. A sticky trip stays tripped."""
+        w = min(1.0, max(0.0, float(weight)))
+        with self._lock:
+            self._canary_weight_override = w
+            tripped = self._canary_tripped
+        return {"weight": w, "tripped": tripped}
+
+    @property
+    def canary_tripped(self) -> bool:
+        with self._lock:
+            return self._canary_tripped
 
     # -- graceful drain -----------------------------------------------------
 
@@ -619,6 +825,9 @@ class Router:
         except BaseException as e:  # noqa: BLE001 — fail, never hang
             for req in live:
                 req.set_error(e)
+            if mem_mod.is_oom_error(e):
+                # filed once: a load that already recorded it marked it
+                mem_mod.record_oom("dispatch", live[0].model, e)
 
     def _acquire_and_dispatch(self, group: List[Request]):
         entry = self.residency.acquire(
@@ -697,6 +906,16 @@ class Router:
         metrics.inc("serve.dispatches", n_batches)
         metrics.inc(f"serve.dispatches.{entry.name}.{entry.precision}", n_batches)
         metrics.inc("serve.dispatched_rows", n)
+        flops_per_row = entry.flops_per_item
+        if entry.flops_fn is not None and rows.ndim == 2:
+            # a token dispatch: the FLOPs of the sequence bucket that ran
+            flops_per_row = entry.flops_fn(int(rows.shape[1]))
+        if flops_per_row:
+            # the real rows that landed (padding is device time, not
+            # goodput), with the other landed-only counts
+            from sparkdl_tpu_torch.obs import utilization
+
+            utilization.note_flops(flops_per_row * n)
         if pad:
             metrics.inc("serve.pad_rows", pad)
         starts = []
@@ -758,12 +977,48 @@ class Router:
                 arms[p] = arm
             if arms:
                 out["precision"] = arms
+        try:
+            slo_status = slo.engine_status()
+        except ValueError as e:
+            # a malformed SLO knob must not take /v1/models down; GET
+            # /v1/slo raises it
+            slo_status = {"armed": True, "error": str(e)}
+        if slo_status is not None:
+            out["slo"] = slo_status
+        from sparkdl_tpu_torch.obs import utilization
+
+        util = utilization.utilization_status()
+        if util is not None:
+            out["utilization"] = util
+        mem = mem_mod.memory_status()
+        if mem is not None:
+            try:
+                mem["budget_bytes"] = self.residency.budget_bytes()
+            except ValueError:
+                mem["budget_bytes"] = None  # a malformed knob: stats stay up
+            out["memory"] = mem
+        cfg = canary_config()
+        if cfg is not None:
+            base, version, weight = cfg
+            with self._lock:
+                if self._canary_weight_override is not None:
+                    weight = self._canary_weight_override
+                tripped = self._canary_tripped
+            out["canary"] = {
+                "model": base,
+                "version": version,
+                "weight": weight,
+                "requests": int(metrics.counter("serve.canary.requests") - self._canary_base_requests),
+                "failures": int(metrics.counter("serve.canary.failures") - self._canary_base_failures),
+                "tripped": tripped,
+            }
         return out
 
 
 __all__ = [
     "Router",
     "batch_window_s",
+    "canary_config",
     "choose_rung",
     "choose_seq_bucket",
     "max_batch_rows",

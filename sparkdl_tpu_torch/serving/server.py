@@ -32,9 +32,19 @@ Endpoints:
 - ``GET /metrics``: Prometheus text of the whole metrics registry.
 - ``POST /admin/drain``: graceful drain; admission answers 503 while
   queued and in-flight work completes.
-- ``GET /v1/slo``, ``GET /v1/memory``, ``POST /admin/profile`` and
-  ``POST /admin/canary`` answer 501: the SLO engine, the memory ledger,
-  the profiler capture and the canary are not ported yet.
+- ``GET /v1/slo``: the SLO engine's live burn-rate status (reading it is
+  an evaluation, so a quiet tripped class recovers when polled), with the
+  raw per-class window counts (``windows``); ``{"armed": false}`` when no
+  ``SPARKDL_SLO_*`` objective is set. ``exemplars`` is empty until the
+  trace store is ported (ROADMAP Queue A item 4.11).
+- ``GET /v1/memory``: the device-memory ledger reconciled against
+  ``torch.cuda.memory_allocated`` on read, with ``budget_bytes``;
+  ``{"tracked": false}`` before anything was tracked.
+- ``POST /admin/canary``: body ``{"weight": W}`` overrides the canary
+  split weight; replies ``{"weight", "tripped"}``; a body without a
+  number is 400.
+- ``POST /admin/profile`` answers 501: the profiler capture is not ported
+  yet (ROADMAP Queue A item 4.10).
 
 HTTP threads only decode JSON and block in ``Request.result()``; every
 policy decision lives in the :class:`~sparkdl_tpu_torch.serving.router.Router`,
@@ -65,10 +75,7 @@ from sparkdl_tpu_torch.serving.router import Router
 
 #: endpoints of the JAX server that the port answers with 501
 NOT_PORTED = {
-    ("GET", "/v1/slo"): "the SLO engine",
-    ("GET", "/v1/memory"): "the device-memory ledger",
     ("POST", "/admin/profile"): "on-demand profiling",
-    ("POST", "/admin/canary"): "the canary rollout",
 }
 
 
@@ -221,14 +228,33 @@ class _Handler(BaseHTTPRequestHandler):
                     200,
                     {**router.stats(), "supported": supported_models(with_memory=True)},
                 )
+            elif path == "/v1/slo":
+                from sparkdl_tpu_torch.obs import slo
+
+                payload = dict(slo.engine_status() or {"armed": False})
+                totals = slo.window_totals()
+                if totals is not None:
+                    payload["windows"] = totals
+                    payload["exemplars"] = {}  # the trace store is not ported
+                self._send_json(200, payload)
+            elif path == "/v1/memory":
+                from sparkdl_tpu_torch.obs import memory
+
+                payload = memory.memory_status() or {"tracked": False}
+                try:
+                    payload["budget_bytes"] = router.residency.budget_bytes()
+                except ValueError as e:
+                    payload["budget_error"] = str(e)
+                self._send_json(200, payload)
             elif path in ("/", "/healthz"):
                 self._send_json(
                     200,
                     {
                         "status": "draining" if router.draining else "ok",
                         "endpoints": [
-                            "POST /v1/predict", "/v1/models", "/healthz",
-                            "/metrics", "POST /admin/drain",
+                            "POST /v1/predict", "/v1/models", "/v1/slo",
+                            "/v1/memory", "/healthz", "/metrics",
+                            "POST /admin/drain", "POST /admin/canary",
                         ],
                     },
                 )
@@ -317,6 +343,15 @@ class _Handler(BaseHTTPRequestHandler):
         if path == "/admin/drain":
             router.drain()
             self._send_json(200, {"status": "draining"})
+            return
+        if path == "/admin/canary":
+            try:
+                length = int(self.headers.get("Content-Length") or 0)
+                weight = float(json.loads(self.rfile.read(length) or b"{}")["weight"])
+            except (KeyError, TypeError, ValueError, json.JSONDecodeError):
+                self._send_json(400, {"error": "body must carry {'weight': W}"})
+                return
+            self._send_json(200, router.set_canary_weight(weight))
             return
         if self._not_ported("POST", path):
             return

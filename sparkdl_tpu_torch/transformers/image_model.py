@@ -110,6 +110,11 @@ class ImageModelTransformer(
         )
         self._set(**self._input_kwargs)
 
+    @keyword_only
+    def setParams(self, **kwargs):
+        """Set any of the constructor's params by keyword."""
+        return self._set(**self._input_kwargs)
+
     def _build_device_fn(self, src_hw: Optional[Tuple[int, int]] = None):
         """converter ∘ model ∘ flattener as a device fn
         (``execution.model_device_fn``), built once per configuration.

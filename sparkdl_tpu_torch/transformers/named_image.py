@@ -67,6 +67,10 @@ class _NamedImageTransformer(
     )
 
     _mode = "features"  # overridden by subclasses
+    #: a loaded stage runs where ``load``'s ``device`` puts it (cuda when
+    #: none is given); the inner transformer is rebuilt on first use
+    _device = None
+    _persist_ignore = ("_inner_cache", "_device")
 
     def getModelName(self) -> str:
         return self.getOrDefault("modelName")

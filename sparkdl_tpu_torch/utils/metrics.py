@@ -2,7 +2,9 @@
 
 The subset of the JAX package's registry that the ported slices record
 into, under the same names (``text.*``, ``transform.*``, ``feeder.*``,
-``transfer.*``, ``serve.*``, ``gen.*``). Gauges keep their min and max too
+``transfer.*``, ``serve.*``, ``gen.*``, ``slo.*``, ``mem.*``, ``util.*``),
+and the time-bucketed windows the SLO engine and the utilization ledger
+read (:class:`WindowedCounter`, :class:`WindowedReservoir`). Gauges keep their min and max too
 (:meth:`MetricsRegistry.gauge_stats`). Timers keep a seeded reservoir of samples,
 so their percentiles are exact up to ``RESERVOIR_SIZE`` observations and
 a uniform-sample estimate above. Thread-safe: producer, owner, drainer
@@ -14,6 +16,7 @@ from __future__ import annotations
 import random
 import re
 import threading
+import time
 from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
@@ -68,6 +71,108 @@ class TimerStat:
             "p50_s": percentile_of_sorted(vals, 50),
             "p95_s": percentile_of_sorted(vals, 95),
         }
+
+
+class WindowedCounter:
+    """Time-bucketed event counter: the rolling-window half of the SLO
+    engine's burn-rate arithmetic. Events land in ``bucket_s``-wide buckets
+    and a read sums the buckets inside the asked-for window, so one
+    structure answers both the fast and the slow window. Every method takes
+    an explicit ``now`` (``time.monotonic()`` when omitted). Not locked:
+    the caller serializes access under its own lock."""
+
+    def __init__(self, horizon_s: float, bucket_s: float):
+        self.horizon_s = float(horizon_s)
+        self.bucket_s = max(1e-6, float(bucket_s))
+        self._buckets: Dict[int, float] = {}
+
+    def _index(self, now: float) -> int:
+        return int(now / self.bucket_s)
+
+    def _prune(self, now: float) -> None:
+        # whole buckets older than the horizon expire at once
+        floor = self._index(now - self.horizon_s)
+        for idx in [i for i in self._buckets if i < floor]:
+            del self._buckets[idx]
+
+    def add(self, n: float = 1.0, now: Optional[float] = None) -> None:
+        t = time.monotonic() if now is None else float(now)
+        self._prune(t)
+        idx = self._index(t)
+        self._buckets[idx] = self._buckets.get(idx, 0.0) + float(n)
+
+    def total(self, window_s: float, now: Optional[float] = None) -> float:
+        """Events in the trailing ``window_s`` (capped at the horizon); a
+        bucket counts while any of it overlaps the window."""
+        t = time.monotonic() if now is None else float(now)
+        self._prune(t)
+        floor = self._index(t - min(float(window_s), self.horizon_s))
+        return sum(v for i, v in self._buckets.items() if i >= floor)
+
+    def clear(self) -> None:
+        self._buckets.clear()
+
+
+class WindowedReservoir:
+    """Timestamped latency samples under the same bucket ring as
+    :class:`WindowedCounter`: per-bucket Algorithm R reservoirs, exact
+    below ``cap_per_bucket`` observations per bucket and a seeded uniform
+    sample above, so a windowed percentile ages out by time. Same ``now``
+    and locking contract as :class:`WindowedCounter`."""
+
+    def __init__(self, horizon_s: float, bucket_s: float, cap_per_bucket: int = 128):
+        self.horizon_s = float(horizon_s)
+        self.bucket_s = max(1e-6, float(bucket_s))
+        self.cap = max(1, int(cap_per_bucket))
+        #: bucket index -> [count, samples, rng]
+        self._buckets: Dict[int, list] = {}
+
+    def _index(self, now: float) -> int:
+        return int(now / self.bucket_s)
+
+    def _prune(self, now: float) -> None:
+        floor = self._index(now - self.horizon_s)
+        for idx in [i for i in self._buckets if i < floor]:
+            del self._buckets[idx]
+
+    def note(self, value: float, now: Optional[float] = None) -> None:
+        t = time.monotonic() if now is None else float(now)
+        self._prune(t)
+        idx = self._index(t)
+        b = self._buckets.get(idx)
+        if b is None:
+            b = self._buckets[idx] = [0, [], None]
+        b[0] += 1
+        if len(b[1]) < self.cap:
+            b[1].append(float(value))
+            return
+        if b[2] is None:
+            b[2] = random.Random(0xC0FFEE ^ idx)
+        j = b[2].randrange(b[0])
+        if j < self.cap:
+            b[1][j] = float(value)
+
+    def _window_buckets(self, window_s: float, now: float) -> list:
+        self._prune(now)
+        floor = self._index(now - min(float(window_s), self.horizon_s))
+        return [b for i, b in self._buckets.items() if i >= floor]
+
+    def count(self, window_s: float, now: Optional[float] = None) -> int:
+        """Observations in the window (the reservoirs bound memory, not
+        the count)."""
+        t = time.monotonic() if now is None else float(now)
+        return sum(b[0] for b in self._window_buckets(window_s, t))
+
+    def values(self, window_s: float, now: Optional[float] = None) -> List[float]:
+        t = time.monotonic() if now is None else float(now)
+        return [v for b in self._window_buckets(window_s, t) for v in b[1]]
+
+    def percentile(self, q: float, window_s: float, now: Optional[float] = None) -> Optional[float]:
+        """Windowed percentile of the retained samples; None for none."""
+        vals = sorted(self.values(window_s, now))
+        if not vals:
+            return None
+        return percentile_of_sorted(vals, q)
 
 
 class MetricsRegistry:

@@ -38,7 +38,7 @@ from sparkdl_tpu_torch.image import imageIO
 from sparkdl_tpu_torch.models import get_image_model, get_model, supported_models
 from sparkdl_tpu_torch.models.convert import cnn_params_from_flax, cnn_params_to_flax
 from sparkdl_tpu_torch.models.layers import BatchNorm, init_cnn_params
-from sparkdl_tpu_torch.models.registry import load_flax_npz, save_flax_npz
+from sparkdl_tpu_torch.models.registry import load_flax_npz, save_flax_weights
 from sparkdl_tpu_torch.models.resnet import ResNet, ResNet50
 from sparkdl_tpu_torch.transformers.image_model import ImageModelTransformer
 from sparkdl_tpu_torch.transformers.named_image import DeepImageFeaturizer
@@ -442,7 +442,7 @@ def test_port_weights_round_trip_through_a_flax_npz(small_variables, tmp_path):
     for (_, a), (_, b) in zip(flat(back), flat(small_variables)):
         np.testing.assert_array_equal(a, b)
     path = str(tmp_path / "w.npz")
-    save_flax_npz(back, path)
+    save_flax_weights(back, path)
     loaded = jax_registry._load_flax_weights(path)
     for (_, a), (_, b) in zip(flat(loaded), flat(small_variables)):
         np.testing.assert_array_equal(np.asarray(a), b)

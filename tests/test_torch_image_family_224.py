@@ -12,7 +12,7 @@ import torch
 import test_torch_image_family as family
 from sparkdl_tpu.models import registry as jax_registry
 from sparkdl_tpu_torch.models.convert import cnn_params_from_flax, cnn_params_to_flax
-from sparkdl_tpu_torch.models.registry import load_flax_npz, save_flax_npz
+from sparkdl_tpu_torch.models.registry import load_flax_npz, save_flax_weights
 
 FAMILIES, SMALL, MODES = family.FAMILIES, family.SMALL, family.MODES
 CASES = [("MobileNetV2", 32), ("MobileNetV2", 33), ("VGG16", 32), ("VGG16", 64), ("VGG19", 32)]
@@ -82,7 +82,7 @@ def test_family_weights_round_trip_through_a_flax_npz(name, tmp_path, small_tree
     for (_, a), (_, b) in zip(flat(back), flat(variables)):
         np.testing.assert_array_equal(a, b)
     path = str(tmp_path / "w.npz")
-    save_flax_npz(back, path)
+    save_flax_weights(back, path)
     loaded = jax_registry._load_flax_weights(path)
     for (_, a), (_, b) in zip(flat(loaded), flat(variables)):
         np.testing.assert_array_equal(np.asarray(a), b)

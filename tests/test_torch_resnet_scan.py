@@ -19,7 +19,7 @@ import torch
 
 from sparkdl_tpu.models.resnet import ResNet as JaxResNet
 from sparkdl_tpu_torch.models.convert import cnn_params_from_flax, cnn_params_to_flax
-from sparkdl_tpu_torch.models.registry import load_flax_npz, save_flax_npz
+from sparkdl_tpu_torch.models.registry import load_flax_npz, save_flax_weights
 from sparkdl_tpu_torch.models.resnet import ResNet
 from test_resnet_scan import _stack_identity_params
 from test_torch_image import _perturbed
@@ -79,7 +79,7 @@ def test_round_trip_to_the_scan_layout_is_exact(variables, tmp_path):
         np.testing.assert_array_equal(got[key], value, err_msg=str(key))
     # and through the .npz the registry reads
     path = str(tmp_path / "scanned.npz")
-    save_flax_npz(back, path)
+    save_flax_weights(back, path)
     again = _port(load_flax_npz(path))
     torch.testing.assert_close(again.state_dict(), port.state_dict(), rtol=0, atol=0)
     # the unrolled layout is the default
