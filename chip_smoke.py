@@ -287,10 +287,44 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     without (``serve.canary.ineligible`` +8). (e) token id 30522 in an embed and a
     generate request: 400 each, nothing reserved or loaded, and the next
     request's rows equal its rows before. Then, the router closed:
-    tracked bytes 0, memory_allocated back at the baseline within
+    tracked bytes back to the launch thread's cuBLAS workspace (the ledger's
+    ``workspace`` class; no model), memory_allocated back at the baseline within
     ``SPARKDL_MEM_LEAK_TOL_MB``, no ``mem_leak`` event, and no leak record
     in the ledger from any router of the run (phases 11, 16 and 17). ``serve.mfu``
     is checked as published, unclamped. About 25 s.
+18. the supervised serving gang: an in-process ``ServingGateway`` over 2
+    ``python -m sparkdl_tpu_torch.serving worker`` processes sharing the
+    card (compute mode ``Default`` required, printed in phase 1), each with
+    its own CUDA context, ``--seed`` and ``--budget-mb`` for every model of
+    the flood, ``SPARKDL_SERVE_PRECISION_BATCH=bf16``,
+    ``SPARKDL_LOCK_SANITIZER=1``, a canary ``bert-base-canary`` (weights
+    from ``--seed`` + 1, through ``--loader
+    sparkdl_tpu_torch.serving.canary_loader:loader``) at weight 0.25, and
+    the fault plan ``site=serve.request:rank=0:request=<k>:crash`` with its
+    claim in a temp dir, ``k`` rank 0's admission ordinal 24 requests into
+    the flood. After each model and rung warmed once on each rank through
+    the gateway: 96 bert-base ``embed`` requests (1-4 rows, widths 8-512,
+    half interactive, half batch) and 32 ResNet50 f32 requests (1-2 NHWC
+    224x224 rows), all over HTTP to the gateway from 8 threads, then a
+    post-restart burst. Checks: (a) every request 200; (b) exactly one
+    supervisor restart, then generation 1 with both ranks ready; (c) every
+    row against the same model called directly in this process (bert-base
+    f32 atol 1e-4, the bf16 rung against its own build atol 3e-2, ResNet50
+    relative 1e-5; canary rows against the canary's model); (d) the
+    canary's share of the bert-base replies within 0.25 +- 0.12; (e) both
+    flash kernels launched in the workers, read from the gateway's
+    federated ``/metrics`` (``kernel.flash_attention.launches.<dtype>``);
+    (f) no ``locks.cycles`` in any worker; (g) ``POST /admin/drain
+    {"rank": 1}``: rank 1 reads draining, a direct submit to it gets 503
+    with ``Retry-After``, the gateway keeps answering 200, rank 1 exits 0
+    and the gang reaches generation 2 with both ranks ready; (h) after
+    ``stop()`` no worker process is alive and no thread of the phase is
+    left. Prints requests/s beside phase 11's single process, p50/p95 per
+    class, the crash-to-ready relaunch window (from the JSONL events)
+    against ``SPARKDL_GATEWAY_PENDING_S``, each rank's ``util.busy_frac``
+    and the fleet's verdict beside ``nvidia-smi`` utilization sampled every
+    100 ms, and each fresh worker's ``GET /v1/memory`` beside
+    ``nvidia-smi --query-compute-apps``. About 90 s.
     Phases 6 and 8 also save the fitted featurizer -> LogisticRegression
     ``PipelineModel`` and load it back on the card: its predictions on the
     40 sampled rows equal the fitted one's.
@@ -365,6 +399,7 @@ from sparkdl_tpu_torch.obs import memory as mem_ledger
 from sparkdl_tpu_torch.obs import slo, utilization
 from sparkdl_tpu_torch.pipeline import PipelineModel
 from sparkdl_tpu_torch.runtime import cuda_build, knobs, native
+from sparkdl_tpu_torch.runtime.device import clear_workspaces
 from sparkdl_tpu_torch.runtime.feeder import shutdown_feeders
 from sparkdl_tpu_torch.session import SparkSession
 from sparkdl_tpu_torch.transformers.named_image import (
@@ -592,6 +627,24 @@ CP_CANARY_MIN = 4  # SPARKDL_SERVE_CANARY_MIN_REQUESTS of the rollback arm
 CP_CANARY_REL = 1e-5  # each arm's rows against its own model called directly
 CP_CANARY_SMALL = "bert-base-v30000"  # a canary whose vocabulary (and table) is smaller
 CP_SMALL_VOCAB, CP_SMALL_N = 30000, 8  # CP_SMALL_N requests with an id past it, CP_SMALL_N without
+# phase 18: the supervised serving gang, 2 worker processes on the card
+GANG_WORKERS = 2
+GANG_DEVICE = "cuda"  # every worker's --device
+GANG_TEXT_REQUESTS = 96
+GANG_IMAGE_REQUESTS = 32
+GANG_AFTER = (8, 4)  # the post-restart burst: text, image requests
+GANG_LOADER = "sparkdl_tpu_torch.serving.canary_loader:loader"
+GANG_CANARY_WEIGHT, GANG_CANARY_TOL = 0.25, 0.12
+#: warm-ups each rank admits before the flood: bert-base at both rungs, the
+#: canary by name at both rungs, ResNet50
+GANG_WARMUPS = 5
+#: rank 0's admission ordinal of the crash: 24 flood requests into its share
+GANG_CRASH_AT = GANG_WARMUPS + 24
+#: each worker's budget: every model of the flood at once (bert-base and the
+#: canary at both rungs, ResNet50: about 1.4 GiB), so nothing evicts
+GANG_BUDGET_MB = 8192
+GANG_READY_TIMEOUT_S = 300
+GANG_SCRAPE_S = "0.25"  # SPARKDL_FLEET_SCRAPE_S of the gateway in this process
 
 
 class PhaseError(RuntimeError):
@@ -674,6 +727,7 @@ def phase_device() -> str:
     ).stdout.strip()
     print(f"device: {name} (count {torch.cuda.device_count()})")
     print(f"nvidia-smi name, power.limit: {smi}")
+    print(f"nvidia-smi compute_mode: {_smi_query('--query-gpu=compute_mode')}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     print(
         f"TF32 switches at PyTorch's defaults, left as they are: cudnn.allow_tf32="
@@ -1394,8 +1448,9 @@ def _flash_kernel_counts(prof) -> dict:
     }
 
 
-def phase_serving(seed: int, device_name: str) -> None:
-    """Phase 11: the online serving path on the card."""
+def phase_serving(seed: int, device_name: str) -> dict:
+    """Phase 11: the online serving path on the card. Returns the warm
+    passes' requests/s (``text_rps``, ``image_rps``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from sparkdl_tpu_torch.serving import Router, ServingClient, ServingServer
@@ -1438,6 +1493,7 @@ def phase_serving(seed: int, device_name: str) -> None:
     # handles and GEMM shapes), the warm pass runs under torch.profiler.
     text_rows = sum(len(ids) for ids, _ in texts)
     text_passes = {}
+    rates = {}
     for name in SERVE_PASSES:
         metrics.reset()
         flash_attention.launches = 0
@@ -1492,6 +1548,7 @@ def phase_serving(seed: int, device_name: str) -> None:
                   f"{timer['p50_s'] * 1e3:.2f} ms, p95 {timer['p95_s'] * 1e3:.2f} ms")
         print(f"serving text segments, {name} pass: {_segments(snap['timers'])}")
         text_passes[name] = replies
+        rates["text_rps"] = len(texts) / wall
 
     # the image burst: a few requests over HTTP, the rest through the
     # client; cold, then warm
@@ -1528,6 +1585,7 @@ def phase_serving(seed: int, device_name: str) -> None:
         )
         print(f"serving image segments, {name} pass: {_segments(snap['timers'])}")
         image_passes[name] = replies
+        rates["image_rps"] = len(images) / wall
 
     # refusals: an unknown model and an over-long payload are 400
     status, _, reply, _ = _post(base, {"model": "no-such-model", "inputs": images[0].tolist()})
@@ -1606,14 +1664,13 @@ def phase_serving(seed: int, device_name: str) -> None:
     # the launch thread (and this one, through the direct models) hold a
     # cuBLAS workspace for each (handle, stream) they ran a GEMM on
     left = torch.cuda.memory_allocated()
-    clear_workspaces = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
-    if clear_workspaces is not None:
-        clear_workspaces()
+    workspace = (mem_ledger.memory_status() or {}).get("devices", {}).get("0", {}).get("workspace_bytes")
+    clear_workspaces()  # the ledger's workspace class returns with them
     print(
         f"serving router closed: memory_allocated {allocated_before / 2**20:.1f} MiB before the router, "
-        f"{left / 2**20:.1f} MiB after it closed with no model resident, "
-        + (f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB after clearing the cuBLAS workspaces"
-           if clear_workspaces is not None else "cuBLAS workspaces not cleared (no such call)")
+        f"{left / 2**20:.1f} MiB after it closed with no model resident (the launch thread's cuBLAS workspace "
+        f"in the memory ledger: {workspace} B), {torch.cuda.memory_allocated() / 2**20:.1f} MiB after clearing "
+        f"the cuBLAS workspaces"
     )
     _launch_probe(_direct_fn(text_spec, "embed", torch.float32, seed), text_spec, seed, card)
 
@@ -1660,6 +1717,7 @@ def phase_serving(seed: int, device_name: str) -> None:
     shutdown_feeders()
     for name in ("SPARKDL_SERVE_HBM_BUDGET_MB", "SPARKDL_FEEDER_IDLE_S", "SPARKDL_MAX_FEEDERS"):
         os.environ.pop(name, None)
+    return rates
 
 
 def _launch_probe(mf, spec, seed: int, card: str) -> None:
@@ -3184,16 +3242,340 @@ def phase_control_plane(seed: int, device_name: str) -> None:
     leaks = _events(jsonl, "mem_leak")
     leak_ring = [e for e in mem_ledger.get_ledger().events_tail(mem_ledger.mem_ring_capacity()) if e["op"] == "leak"]
     tol_bytes = mem_ledger.leak_tolerance_bytes()
-    check(final["tracked_bytes"] == 0 and final["models"] == {} and abs(truth - baseline) <= tol_bytes
+    # what stays tracked is the launch thread's cuBLAS workspace, a class
+    # of its own that outlives every model
+    workspace = final["devices"]["0"]["workspace_bytes"]
+    check(final["tracked_bytes"] == workspace and final["models"] == {} and abs(truth - baseline) <= tol_bytes
           and not leaks and final["leak_events"] == leaks0,
-          f"control plane: after unload_all tracked {final['tracked_bytes']} B, models {final['models']}, "
+          f"control plane: after unload_all tracked {final['tracked_bytes']} B (workspace {workspace} B), "
+          f"models {final['models']}, "
           f"memory_allocated {truth} B against the baseline {baseline} B (tolerance {tol_bytes} B), leaks {leaks}, "
           f"leak records {leaks0} before this phase's routers and {final['leak_events']} after ({leak_ring})")
-    print(f"control plane: after unload_all tracked 0 B, memory_allocated {truth} B against the baseline {baseline} B "
+    print(f"control plane: after unload_all tracked {final['tracked_bytes']} B (the launch thread's cuBLAS workspace; "
+          f"no model), memory_allocated {truth} B against the baseline {baseline} B "
           f"(tolerance {tol_bytes} B), leak records {leaks0} before this phase's routers and {final['leak_events']} "
           f"after {leak_ring}, {final['oom_events']} oom events, watermark {final['watermark_bytes']} B")
     for name in ("SPARKDL_OBS_JSONL", "SPARKDL_FEEDER_IDLE_S", "SPARKDL_MAX_FEEDERS"):
         os.environ.pop(name, None)
+
+
+def _smi_query(*args: str) -> str:
+    return subprocess.run(["nvidia-smi", *args, "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip()
+
+
+def _gang_metric(text: str, name: str) -> dict:
+    """``{rank: value}`` of one counter family in a federated exposition."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(f"{name}{{") and 'rank="' in line:
+            rank = int(line.split('rank="', 1)[1].split('"', 1)[0])
+            out[rank] = float(line.rsplit(" ", 1)[1])
+    return out
+
+
+def _utilization_sampler() -> subprocess.Popen:
+    """``nvidia-smi`` printing the card's utilization.gpu every 100 ms
+    until terminated."""
+    return subprocess.Popen(["nvidia-smi", "--query-gpu=utilization.gpu", "--format=csv,noheader,nounits",
+                             "-lms", "100"], stdout=subprocess.PIPE, text=True)
+
+
+def phase_gang(seed: int, device_name: str, phase11: dict) -> dict:
+    """Phase 18: the supervised serving gang on the card, through a worker
+    crash mid-flood and a rolling drain. Returns the flash launches the
+    workers counted, per dtype."""
+    import threading
+
+    from sparkdl_tpu_torch.serving import canary_loader
+    from sparkdl_tpu_torch.serving.gateway import ServingGateway
+
+    card = f"{device_name} ({_smi()})"
+    mode = _smi_query("--query-gpu=compute_mode")
+    check(mode == "Default", f"gang: compute mode {mode!r}: two worker contexts and this one need 'Default'")
+    text_spec, image_spec = get_model(SERVE_TEXT_MODEL), get_model(SERVE_IMAGE_MODEL)
+    canary_loader.register_canary()  # this process's registry: the same canary the workers load
+    canary_spec = get_model(canary_loader.CANARY_NAME)
+    shutdown_feeders()
+    tmp = tempfile.mkdtemp(prefix="sparkdl_gang_")
+    jsonl = os.path.join(tmp, "events.jsonl")
+    os.environ["SPARKDL_OBS_JSONL"] = jsonl  # the gateway's and the workers' events
+    os.environ["SPARKDL_FLEET_SCRAPE_S"] = GANG_SCRAPE_S
+    threads_before = {t.ident for t in threading.enumerate()}
+    gw = ServingGateway(
+        num_workers=GANG_WORKERS, device=GANG_DEVICE, seed=seed, loader_spec=GANG_LOADER,
+        budget_mb=GANG_BUDGET_MB, gang_dir=os.path.join(tmp, "gang"),
+        extra_env={
+            "SPARKDL_SERVE_PRECISION_BATCH": "bf16",
+            "SPARKDL_LOCK_SANITIZER": "1",
+            "SPARKDL_FAULT_PLAN": f"site=serve.request:rank=0:request={GANG_CRASH_AT}:crash",
+            "SPARKDL_FAULT_STATE": os.path.join(tmp, "faults"),
+            "SPARKDL_SERVE_CANARY_MODEL": SERVE_TEXT_MODEL,
+            "SPARKDL_SERVE_CANARY_VERSION": canary_loader.CANARY_NAME,
+            "SPARKDL_SERVE_CANARY_WEIGHT": str(GANG_CANARY_WEIGHT),
+        },
+    )
+    pids = set()
+
+    def workers():
+        table = json.loads(urllib.request.urlopen(base + "/v1/workers", timeout=30).read())
+        pids.update(w["pid"] for w in table["workers"] if w["pid"])
+        return table
+
+    def ready(generation):
+        table = workers()
+        return (table["generation"] == generation and len(table["workers"]) == GANG_WORKERS
+                and all(w["status"] == "ready" for w in table["workers"]))
+
+    def logs_tail():
+        out = []
+        for r in range(GANG_WORKERS):
+            path = os.path.join(gw.gang_dir, f"worker.{r}.log")
+            if os.path.exists(path):
+                out.append(f"worker.{r}.log: " + open(path).read()[-3000:])
+        return "\n".join(out)
+
+    def body(x, model, cls):
+        if x.dtype == np.int32:
+            return {"model": model, "inputs": x.tolist(), "dtype": "int32", "mode": "embed", "priority": cls}
+        return {"model": model, "inputs": x.tolist(), "priority": cls}
+
+    t_start = time.perf_counter()
+    gw.start()
+    base = f"http://127.0.0.1:{gw.port}"
+    try:
+        if not _wait_for(lambda: ready(0), GANG_READY_TIMEOUT_S):
+            raise PhaseError(f"gang: generation 0 never ready: {workers()}\n{logs_tail()}")
+        t_ready = time.perf_counter() - t_start
+        texts = _text_requests(seed + 18, text_spec, GANG_TEXT_REQUESTS + GANG_AFTER[0])
+        images = _image_requests(seed + 18, image_spec, GANG_IMAGE_REQUESTS + GANG_AFTER[1])
+        # warm-up: each model and rung once on each rank, in pairs (the
+        # gateway's round-robin gives one of each pair to each rank)
+        t0 = time.perf_counter()
+        warm = [(texts[0][0], SERVE_TEXT_MODEL, "interactive"), (texts[0][0], SERVE_TEXT_MODEL, "batch"),
+                (texts[0][0], canary_spec.name, "interactive"), (texts[0][0], canary_spec.name, "batch"),
+                (images[0], SERVE_IMAGE_MODEL, "interactive")]
+        assert len(warm) == GANG_WARMUPS
+        for x, model, cls in warm:
+            for _ in range(GANG_WORKERS):
+                status, _, reply, _ = _post(base, body(x, model, cls))
+                check(status == 200, f"gang warm-up {model} {cls}: HTTP {status} {reply}")
+        table = workers()
+        fresh_mem = {}
+        for w in table["workers"]:
+            wbase = f"http://127.0.0.1:{w['port']}"
+            stats = json.loads(urllib.request.urlopen(wbase + "/v1/models", timeout=60).read())
+            check(stats["admitted"] == GANG_WARMUPS,
+                  f"gang: rank {w['rank']} admitted {stats['admitted']} warm-ups, not {GANG_WARMUPS}")
+            fresh_mem[w["rank"]] = json.loads(urllib.request.urlopen(wbase + "/v1/memory", timeout=60).read())
+        apps = _smi_query("--query-compute-apps=pid,used_memory")
+        print(f"gang on {card}: {GANG_WORKERS} workers (pids {sorted(pids)}) ready in {t_ready:.2f} s after "
+              f"start, warm-ups ({GANG_WARMUPS} per rank) in {time.perf_counter() - t0:.2f} s")
+        for rank, mem in sorted(fresh_mem.items()):
+            dev = mem["devices"]["0"]
+            print(f"gang fresh worker rank {rank} GET /v1/memory: models {mem['models']}, tracked "
+                  f"{mem['tracked_bytes']} B (workspace {dev['workspace_bytes']} B, staged {dev['staged_bytes']} B, "
+                  f"readback {dev['readback_bytes']} B), ground truth {mem['ground_truth_bytes']} B "
+                  f"({mem['ground_truth_source']}), mem.unattributed_bytes {mem['unattributed_bytes']} B "
+                  f"= {(mem['unattributed_bytes'] or 0) / 2**20:.2f} MiB, budget {mem['budget_bytes']} B")
+        print(f"gang nvidia-smi --query-compute-apps=pid,used_memory: {apps!r}")
+
+        # the flood: 3 text requests, then an image one, from 8 threads,
+        # while nvidia-smi samples the card's utilization and a poller
+        # reads the fleet's per-rank view
+        flood = []
+        for i in range(GANG_TEXT_REQUESTS):
+            flood.append(("text", i))
+            if i % 3 == 2 and i // 3 < GANG_IMAGE_REQUESTS:
+                flood.append(("image", i // 3))
+        assert len(flood) == GANG_TEXT_REQUESTS + GANG_IMAGE_REQUESTS
+
+        def send(item):
+            kind, i = item
+            if kind == "text":
+                ids, cls = texts[i]
+                return _post(base, body(ids, SERVE_TEXT_MODEL, cls))
+            return _post(base, body(images[i], SERVE_IMAGE_MODEL, "interactive"))
+
+        smi = _utilization_sampler()
+        seen_busy, verdicts, cycles = {}, set(), []
+        stop_poll = threading.Event()
+
+        def poll():
+            while not stop_poll.wait(0.25):
+                for w in gw.fleet.status()["workers"]:
+                    if w["busy_frac"] is not None:
+                        seen_busy.setdefault(w["rank"], []).append(w["busy_frac"])
+                rec = gw.fleet.recommendation()
+                if rec:
+                    verdicts.add(rec["action"])
+                found = _gang_metric(gw.federated_metrics_text(), "sparkdl_locks_cycles_total")
+                if found:
+                    cycles.append(found)
+
+        poller = threading.Thread(target=poll, name="gang-poll", daemon=True)
+        poller.start()
+        t0 = time.perf_counter()
+        try:
+            with ThreadPoolExecutor(SERVE_CLIENT_THREADS) as pool:
+                replies = list(pool.map(send, flood))
+            wall = time.perf_counter() - t0
+        finally:
+            smi.terminate()
+            smi_out = smi.communicate(timeout=30)[0]
+        util_samples = [float(v) for v in smi_out.split() if v.strip().replace(".", "", 1).isdigit()]
+        codes = [r[0] for r in replies]
+        check(codes == [200] * len(flood),
+              f"gang: not every request was answered 200: {sorted(set(codes))} "
+              f"{[r[2] for r in replies if r[0] != 200][:3]}\n{logs_tail()}")
+        # (b) one restart, then generation 1 with both ranks ready
+        if not _wait_for(lambda: ready(1), GANG_READY_TIMEOUT_S):
+            raise PhaseError(f"gang: generation 1 never ready: {workers()}\n{logs_tail()}")
+        check(gw.restarts() == 1, f"gang: {gw.restarts()} supervisor restarts, not 1")
+        events = _events(jsonl, "fault")
+        check(len(events) == 1 and events[0]["coords"]["request"] == GANG_CRASH_AT and events[0]["coords"]["rank"] == "0",
+              f"gang: fault events {events}")
+        crash_ts = events[0]["ts"]
+        ready1 = [e["ts"] for e in _events(jsonl, "gateway")
+                  if e.get("event") == "worker_ready" and e.get("generation") == 1]
+        restart = [e for e in _events(jsonl, "supervisor") if e.get("event") == "gang_restart"]
+        window = max(ready1) - crash_ts if len(ready1) >= GANG_WORKERS else None
+        stats = gw.stats()
+
+        # the post-restart burst: each rung and ResNet50 on each rank
+        after = []
+        for j in range(GANG_AFTER[0]):
+            after.append(("text", GANG_TEXT_REQUESTS + j))
+        for j in range(GANG_AFTER[1]):
+            after.append(("image", GANG_IMAGE_REQUESTS + j))
+        after_replies = [send(item) for item in after]
+        check([r[0] for r in after_replies] == [200] * len(after), "gang: the post-restart burst failed")
+        stop_poll.set()
+        poller.join(timeout=10)
+
+        # (c) every row against the same model called directly on the card
+        rungs = {"f32": torch.float32, "bf16": torch.bfloat16}
+        direct = {}
+        for spec in (text_spec, canary_spec):
+            for rung, dtype in rungs.items():
+                mf = _direct_fn(spec, "embed", dtype, seed)
+                direct[(spec.name, rung)] = bf16_rung(mf) if rung == "bf16" else mf
+        image_mf = _direct_fn(image_spec, "features", torch.float32, seed)
+        worst = {"f32": 0.0, "bf16": 0.0}
+        image_err = 0.0
+        served = {"primary": 0, "canary": 0}
+        for (kind, i), (status, _, reply, _) in list(zip(flood, replies)) + list(zip(after, after_replies)):
+            got = np.asarray(reply["outputs"], np.float32)
+            if kind == "image":
+                image_err = max(image_err, _relative_error(got, _direct(image_mf, images[i], nhwc=True)))
+                continue
+            ids, cls = texts[i]
+            rung = reply["precision"]
+            check(rung == ("bf16" if cls == "batch" else "f32"), f"gang: {cls} served at {rung}")
+            check(reply["model"] in (SERVE_TEXT_MODEL, canary_spec.name), f"gang: served by {reply['model']}")
+            served["canary" if reply["model"] == canary_spec.name else "primary"] += 1
+            want = _direct(direct[(reply["model"], rung)], ids, nhwc=False)
+            check(got.shape == want.shape and np.isfinite(got).all(), f"gang text {i}: {got.shape} for {want.shape}")
+            worst[rung] = max(worst[rung], float(np.abs(got - want).max()))
+        del direct, image_mf
+        share = served["canary"] / max(1, sum(served.values()))
+        for rung, dtype in rungs.items():
+            check(worst[rung] <= ATOL[dtype], f"gang: {rung} rows off the direct model by {worst[rung]}")
+        check(image_err <= IMAGE_F32_REL, f"gang: ResNet50 rows off the direct model by {image_err:.3e}")
+        check(abs(share - GANG_CANARY_WEIGHT) <= GANG_CANARY_TOL,
+              f"gang: the canary served {served['canary']} of {sum(served.values())} bert-base replies")
+
+        # (e) both flash kernels in the workers, from the federated /metrics
+        def fed():
+            return urllib.request.urlopen(base + "/metrics", timeout=30).read().decode()
+
+        def launched():
+            text = fed()
+            return {dtype: _gang_metric(text, f"sparkdl_kernel_flash_attention_launches_{dtype}_total")
+                    for dtype in ("float32", "bfloat16")}
+
+        _wait_for(lambda: all(len(v) == GANG_WORKERS for v in launched().values()), 10)
+        launches = launched()
+        text = fed()
+        check(all(len(v) == GANG_WORKERS and min(v.values()) > 0 for v in launches.values()),
+              f"gang: flash launches per rank in the federated /metrics {launches}")
+        # (f) no lock cycle in any worker, during the flood or after
+        cycles.append(_gang_metric(text, "sparkdl_locks_cycles_total"))
+        check(not any(c for c in cycles), f"gang: lock cycles reported {cycles}")
+        edges = _gang_metric(text, "sparkdl_locks_edges_observed")
+        check(edges and all(v > 0 for v in edges.values()), f"gang: the lock sanitizer saw no edges {edges}")
+        fleet = gw.fleet_status()
+        busy_now = {w["rank"]: w["busy_frac"] for w in fleet["workers"]}
+
+        # (g) a rolling drain of rank 1
+        table = workers()
+        rank1 = f"http://127.0.0.1:{table['workers'][1]['port']}"
+        req = urllib.request.Request(base + "/admin/drain", data=json.dumps({"rank": 1}).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            drain_reply = json.loads(resp.read())
+        check(drain_reply.get("status") == "draining", f"gang: /admin/drain replied {drain_reply}")
+        health = json.loads(urllib.request.urlopen(rank1 + "/healthz", timeout=30).read())
+        check(health["status"] == "draining", f"gang: rank 1 reads {health}")
+        status, headers, reply, _ = _post(rank1, body(texts[0][0], SERVE_TEXT_MODEL, "interactive"))
+        check(status == 503 and headers.get("Retry-After"), f"gang: direct submit to draining rank 1: HTTP {status}")
+        during = [_post(base, body(texts[1][0], SERVE_TEXT_MODEL, "interactive"))[0] for _ in range(4)]
+        check(during == [200] * 4, f"gang: the gateway during the drain answered {during}")
+        if not _wait_for(lambda: ready(2), GANG_READY_TIMEOUT_S):
+            raise PhaseError(f"gang: generation 2 never ready after the drain: {workers()}\n{logs_tail()}")
+        exits = [e for e in gw._sup._events if e["event"] == "rank_dead" and e["generation"] == 1]
+        check([(e["rank"], e["returncode"]) for e in exits] == [(1, 0)], f"gang: generation 1 ended with {exits}")
+        check(gw.restarts() == 2, f"gang: {gw.restarts()} restarts after the drain, not 2")
+        workers()
+    finally:
+        gw.stop()
+        for name in ("SPARKDL_OBS_JSONL", "SPARKDL_FLEET_SCRAPE_S"):
+            os.environ.pop(name, None)
+    # (h) nothing left: no worker process, no thread of this phase
+    alive = []
+    for pid in sorted(pids):
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    left = [t.name for t in threading.enumerate()
+            if t.ident not in threads_before and (t.name.startswith("sparkdl-") or t.name == "gang-poll")]
+    check(not alive and not left, f"gang: after stop() workers alive {alive}, threads left {left}")
+
+    n = len(flood)
+    rps = n / wall
+    lat = {("text", "interactive"): [], ("text", "batch"): [], ("image", "interactive"): []}
+    for (kind, i), rep in zip(flood, replies):
+        cls = texts[i][1] if kind == "text" else "interactive"
+        lat[(kind, cls)].append(rep[3])
+    print(f"gang flood on {card}: {GANG_TEXT_REQUESTS} {SERVE_TEXT_MODEL} embed + {GANG_IMAGE_REQUESTS} "
+          f"{SERVE_IMAGE_MODEL} requests over HTTP to the gateway from {SERVE_CLIENT_THREADS} threads, every one 200, "
+          f"across the crash of rank 0 at its admission {GANG_CRASH_AT}, in {wall:.3f} s = {rps:.2f} requests/s "
+          f"(phase 11's single process, warm: text {phase11['text_rps']:.1f} requests/s, image "
+          f"{phase11['image_rps']:.1f} requests/s); rerouted {stats['rerouted']}, retries "
+          f"{int(metrics.counter('gateway.retries'))}, unroutable {stats['unroutable']}")
+    for (kind, cls), secs in lat.items():
+        print(f"gang latency {kind} {cls} through the gateway: {_percentiles_ms(secs)}")
+    print(f"gang relaunch window: crash (fault event) to generation 1 with both ranks ready "
+          + (f"{window:.3f} s" if window is not None else "not measured")
+          + f" against SPARKDL_GATEWAY_PENDING_S = {knobs.get_float('SPARKDL_GATEWAY_PENDING_S')} s; supervisor "
+          f"backoff {[e['backoff_s'] for e in restart]} s; restarts {stats['restarts']}, then 1 more by the drain")
+    print(f"gang checks: {SERVE_TEXT_MODEL} rows vs the direct model max |diff| f32 {worst['f32']:.3e} "
+          f"(atol {ATOL[torch.float32]}), bf16 rung {worst['bf16']:.3e} (atol {ATOL[torch.bfloat16]}); "
+          f"{SERVE_IMAGE_MODEL} relative {image_err:.3e} (limit {IMAGE_F32_REL}); the canary served "
+          f"{served['canary']} of {sum(served.values())} {SERVE_TEXT_MODEL} replies = {share:.3f} "
+          f"({GANG_CANARY_WEIGHT} +- {GANG_CANARY_TOL}); no lock cycle, sanitizer edges per rank {edges}")
+    print(f"gang flash launches per rank in the federated /metrics (generation 1's processes): {launches}")
+    mean_util = sum(util_samples) / len(util_samples) if util_samples else float("nan")
+    print(f"gang utilization: util.busy_frac per rank sampled by the fleet scrape during the flood "
+          f"{ {r: (min(v), max(v)) for r, v in sorted(seen_busy.items())} } (min, max), after it {busy_now}; "
+          f"fleet verdicts seen {sorted(verdicts)}; nvidia-smi utilization.gpu every 100 ms over the flood: "
+          f"{len(util_samples)} samples, mean {mean_util:.1f} %, max {max(util_samples, default=float('nan')):.0f} %")
+    print(f"gang drain: rank 1 draining, its direct submit HTTP 503 Retry-After {headers.get('Retry-After')} s, "
+          f"the gateway answered {during}, rank 1 exited 0, generation 2 ready; after stop() no worker alive, "
+          f"no thread left; {time.perf_counter() - t_start:.1f} s in all")
+    return {torch.float32: int(sum(launches["float32"].values())),
+            torch.bfloat16: int(sum(launches["bfloat16"].values()))}
 
 
 def _direct_fn(spec, mode: str, dtype, seed: int):
@@ -3239,7 +3621,7 @@ def main(argv=None) -> int:
             done(f"phase 10 {model}")
         phase_predictor(PREDICTOR_MODEL, args.seed, tmp)
     done("phase 10")
-    phase_serving(args.seed, device_name)
+    phase11 = phase_serving(args.seed, device_name)
     done("phase 11")
     with tempfile.TemporaryDirectory() as tmp:
         phase_training(args.seed, device_name, tmp)
@@ -3256,7 +3638,11 @@ def main(argv=None) -> int:
     done("phase 16")
     phase_control_plane(args.seed, device_name)
     done("phase 17")
+    gang_launches = phase_gang(args.seed, device_name, phase11)
+    done("phase 18")
     print(f"flash launches in 15(e) (bert-base from weights_file): {text_weight_launches}")
+    print(f"flash launches in phase 18's workers (generation 1, from the federated /metrics): "
+          f"f32 {gang_launches[torch.float32]}, bf16 {gang_launches[torch.bfloat16]}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[torch.float32], records[torch.bfloat16]]}))
     print(json.dumps({

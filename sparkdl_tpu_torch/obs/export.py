@@ -1,6 +1,7 @@
-"""The JSONL event log: one JSON object per line, appended.
+"""The JSONL event log: one JSON object per line, appended; the gang rank.
 
-The port of ``append_jsonl`` from the JAX package's ``obs/export.py``.
+The port of ``append_jsonl`` and ``obs_rank`` from the JAX package's
+``obs/export.py``.
 The serving control plane writes its events here (``slo_alert``,
 ``slo_recovery``, ``oom``, ``mem_leak``, ``canary_rollback``) to the file
 ``SPARKDL_OBS_JSONL`` names; unset, nothing is written. The flight
@@ -18,6 +19,16 @@ from typing import Optional
 from sparkdl_tpu_torch.runtime import knobs
 
 _jsonl_lock = threading.Lock()
+
+
+def obs_rank() -> Optional[int]:
+    """This process's gang rank for telemetry, or None: the serving
+    gateway sets ``SPARKDL_OBS_RANK`` in each worker's environment, so its
+    events, ``/metrics`` lines and replies are attributable."""
+    try:
+        return knobs.get_int("SPARKDL_OBS_RANK")
+    except ValueError:
+        return None
 
 
 def jsonl_path() -> Optional[str]:
@@ -46,4 +57,4 @@ def append_jsonl(event: dict, path: Optional[str] = None) -> Optional[str]:
         return None
 
 
-__all__ = ["append_jsonl", "jsonl_path"]
+__all__ = ["append_jsonl", "jsonl_path", "obs_rank"]

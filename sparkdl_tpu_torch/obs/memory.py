@@ -7,18 +7,27 @@ on the device is attributed here, and the ledger is reconciled against
 the allocator, so the gap between the two is a metric of its own.
 
 - **Attribution**: resident parameters per model (residency load and
-  evict), staged H2D input batches (the feeder's staging path), D2H
-  readback buffers (the drain), and the generation engine's ``kv_cache``
-  class (charged at slot assignment, freed when the sequence retires),
-  summed with a running **watermark**. Counters
+  evict), staged H2D input batches (the feeder's staging path, from the
+  copy to the dispatch that claims it), D2H readback buffers (the drain),
+  the generation engine's ``kv_cache`` class (charged at slot assignment,
+  freed when the sequence retires), and the launch thread's cuBLAS and
+  cuBLASLt ``workspace`` (measured across the launch thread's first job,
+  which creates them, ``runtime/device.launcher``; a class the JAX ledger
+  has no counterpart of), summed with a running **watermark**. Each advance of
+  the watermark appends a sample to the watermark ring
+  (``obs/timeseries.mem_append``, ``SPARKDL_MEM_WATERMARK_RING``).
+  Counters
   ``mem.alloc_bytes_total.<class>`` / ``mem.free_bytes_total.<class>``,
   gauges ``mem.device_bytes.<device>``, ``mem.watermark_bytes.<device>``
   and ``mem.model_bytes.<name>``.
 - **Reconciliation**: ground truth is ``torch.cuda.memory_allocated`` on
   CUDA (:func:`ground_truth_bytes`); ``mem.unattributed_bytes`` is ground
   truth minus tracked. What the allocator holds outside the ledger's
-  classes lands there: activations in flight, each thread's cuBLAS
-  workspace, the staging ring. On the CPU there is no probe: ground truth
+  classes lands there: activations in flight, and the cuBLAS workspaces
+  of threads other than the launch thread. The port's feeder keeps no
+  device-side staging ring (its ring is pinned host memory; each staged
+  device copy is charged as ``staged``), so a feeder's build allocates
+  nothing on the device. On the CPU there is no probe: ground truth
   is None and no gap is published. The JAX package sizes
   ``jax.live_arrays()`` there; the port has no counterpart, and a test
   passes its own probe to :class:`MemoryLedger` instead. Residency feeds
@@ -37,8 +46,7 @@ the allocator, so the gap between the two is a metric of its own.
   sure the launch thread's cuBLAS workspaces exist first
   (``runtime/device.warm_launcher``).
 
-Not ported: the JAX ledger's watermark history ring (``obs/timeseries.py``,
-ROADMAP Queue A item 8) and the flight-recorder dump on an OOM (item
+Not ported: the flight-recorder dump on an OOM (ROADMAP Queue A item
 4.11), and the JAX ledger's mesh widths: every program of the port runs
 on one device, accounted as device 0, and the JAX allocation events'
 ``width`` field is left out.
@@ -49,12 +57,11 @@ happen outside it.
 from __future__ import annotations
 
 import gc
-import threading
 import time
 from collections import deque
 from typing import Callable, Dict, List, Optional, Tuple
 
-from sparkdl_tpu_torch.runtime import knobs
+from sparkdl_tpu_torch.runtime import knobs, locksmith
 from sparkdl_tpu_torch.utils.metrics import metrics
 
 #: substrings that mark an allocation failure in an error's text: the
@@ -113,17 +120,28 @@ def is_oom_error(err: BaseException) -> bool:
 
 
 class _DeviceMem:
-    __slots__ = ("resident", "staged_bytes", "readback_bytes", "kv_bytes", "watermark")
+    __slots__ = ("resident", "staged_bytes", "readback_bytes", "kv_bytes", "workspace_bytes",
+                 "watermark")
 
     def __init__(self):
         self.resident: Dict[str, int] = {}
         self.staged_bytes = 0
         self.readback_bytes = 0
         self.kv_bytes = 0
+        self.workspace_bytes = 0
         self.watermark = 0
 
     def total(self) -> int:
-        return sum(self.resident.values()) + self.staged_bytes + self.readback_bytes + self.kv_bytes
+        return (sum(self.resident.values()) + self.staged_bytes + self.readback_bytes
+                + self.kv_bytes + self.workspace_bytes)
+
+    def raise_watermark(self) -> bool:
+        """Lift the watermark to the total; whether it advanced."""
+        total = self.total()
+        if total > self.watermark:
+            self.watermark = total
+            return True
+        return False
 
 
 class MemoryLedger:
@@ -134,7 +152,7 @@ class MemoryLedger:
 
     def __init__(self, probe: Optional[Probe] = None):
         self._probe: Probe = probe or ground_truth_bytes
-        self._lock = threading.Lock()
+        self._lock = locksmith.lock("sparkdl_tpu_torch/obs/memory.py::MemoryLedger._lock")
         #: device 0's tables, created by the first note (``status`` lists
         #: no device before it)
         self._dev: Optional[_DeviceMem] = None
@@ -169,6 +187,15 @@ class MemoryLedger:
         metrics.gauge("mem.device_bytes.0", total)
         metrics.gauge("mem.watermark_bytes.0", watermark)
 
+    @staticmethod
+    def _append_sample(t: float, total: int, wm: int) -> None:
+        """One watermark advance into the timeseries ring."""
+        from sparkdl_tpu_torch.obs import timeseries
+
+        timeseries.mem_append(
+            {"ts": round(t, 3), "device_bytes": int(total), "watermark_bytes": int(wm)}
+        )
+
     # -- ingest: resident parameters -------------------------------------------
 
     def note_model_loaded(self, name: str, nbytes: int,
@@ -183,11 +210,13 @@ class MemoryLedger:
         with self._lock:
             st = self._touch_locked()
             st.resident[name] = st.resident.get(name, 0) + nbytes
-            st.watermark = max(st.watermark, st.total())
+            advanced = st.raise_watermark()
             total, wm, model_total = st.total(), st.watermark, st.resident[name]
             self._ring_locked(cap, {"ts": round(t, 3), "op": "model_load", "model": name,
                                     "bytes": nbytes})
         self._publish(total, wm)
+        if advanced:
+            self._append_sample(t, total, wm)
         metrics.gauge(f"mem.model_bytes.{name}", model_total)
         metrics.inc("mem.alloc_bytes_total.model", nbytes)
         if estimate_bytes is not None:
@@ -228,12 +257,16 @@ class MemoryLedger:
                 st.staged_bytes = max(0, st.staged_bytes + sign * nbytes)
             elif cls == "kv_cache":
                 st.kv_bytes = max(0, st.kv_bytes + sign * nbytes)
+            elif cls == "workspace":
+                st.workspace_bytes = max(0, st.workspace_bytes + sign * nbytes)
             else:
                 st.readback_bytes = max(0, st.readback_bytes + sign * nbytes)
-            st.watermark = max(st.watermark, st.total())
+            advanced = st.raise_watermark()
             total, wm = st.total(), st.watermark
             self._ring_locked(cap, {"ts": round(t, 3), "op": op, "bytes": nbytes})
         self._publish(total, wm)
+        if advanced:
+            self._append_sample(t, total, wm)
         metrics.inc(
             f"mem.alloc_bytes_total.{cls}" if sign > 0 else f"mem.free_bytes_total.{cls}",
             nbytes,
@@ -261,6 +294,17 @@ class MemoryLedger:
 
     def release_readback(self, nbytes: int, now: Optional[float] = None) -> None:
         self._note_transfer("readback", "readback_free", nbytes, -1, now)
+
+    def note_workspace(self, nbytes: int, now: Optional[float] = None) -> None:
+        """The launch thread's cuBLAS/cuBLASLt workspaces came to exist:
+        ``nbytes`` measured across their warm-up. They live until cleared."""
+        self._note_transfer("workspace", "workspace", nbytes, 1, now)
+
+    def release_workspace(self, now: Optional[float] = None) -> None:
+        """The workspaces were cleared: the whole class returns."""
+        with self._lock:
+            held = self._dev.workspace_bytes if self._dev is not None else 0
+        self._note_transfer("workspace", "workspace_free", held, -1, now)
 
     # -- reconciliation and reading -----------------------------------------------
 
@@ -303,6 +347,7 @@ class MemoryLedger:
                     "staged_bytes": st.staged_bytes,
                     "readback_bytes": st.readback_bytes,
                     "kv_bytes": st.kv_bytes,
+                    "workspace_bytes": st.workspace_bytes,
                     "device_bytes": st.total(),
                     "watermark_bytes": st.watermark,
                 }},
@@ -407,7 +452,7 @@ class MemoryLedger:
 
 
 _ledger: Optional[MemoryLedger] = None
-_ledger_lock = threading.Lock()
+_ledger_lock = locksmith.lock("sparkdl_tpu_torch/obs/memory.py::_ledger_lock")
 
 
 def get_ledger() -> MemoryLedger:
@@ -456,6 +501,14 @@ def release_readback(nbytes: int, now: Optional[float] = None) -> None:
     get_ledger().release_readback(nbytes, now=now)
 
 
+def note_workspace(nbytes: int, now: Optional[float] = None) -> None:
+    get_ledger().note_workspace(nbytes, now=now)
+
+
+def release_workspace(now: Optional[float] = None) -> None:
+    get_ledger().release_workspace(now=now)
+
+
 def tracked_bytes() -> int:
     return get_ledger().tracked_bytes()
 
@@ -502,10 +555,12 @@ __all__ = [
     "note_model_loaded",
     "note_readback",
     "note_staged",
+    "note_workspace",
     "reconcile",
     "record_oom",
     "release_readback",
     "release_staged",
+    "release_workspace",
     "reset",
     "tracked_bytes",
 ]

@@ -7,7 +7,8 @@ online softmax, forward only:
 - on CUDA tensors it launches the hand-written Hopper kernel in
   ``csrc/flash_attention.cu`` (bf16: wgmma fed by TMA; f32: 3xTF32 on
   mma.sync; built with ``nvcc`` at first use) and counts the launch in
-  ``flash_attention.launches``;
+  ``flash_attention.launches`` and in the metrics registry
+  (``kernel.flash_attention.launches.<dtype>``);
 - on CPU tensors it runs :func:`flash_attention_reference`, the same
   online-softmax arithmetic written in PyTorch one key tile at a time.
 
@@ -30,6 +31,8 @@ from typing import Optional
 
 import torch
 
+from sparkdl_tpu_torch.utils.metrics import metrics
+
 NEG_INF = -1e30  # finite -inf stand-in: keeps exp()/max() NaN-free
 
 #: Key tile of the plain version. The kernels walk K/V tiles of 64 keys
@@ -39,6 +42,11 @@ NEG_INF = -1e30  # finite -inf stand-in: keeps exp()/max() NaN-free
 BLOCK_K = 64
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the registry counter of each dtype's kernel launches
+LAUNCH_COUNTERS = {
+    torch.float32: "kernel.flash_attention.launches.float32",
+    torch.bfloat16: "kernel.flash_attention.launches.bfloat16",
+}
 _HEAD_DIMS = (32, 64)
 
 _lib_lock = threading.Lock()
@@ -196,6 +204,9 @@ def flash_attention(
     with _count_lock:
         flash_attention.launches += 1
         flash_attention.launches_by_dtype[q.dtype] += 1
+    # the same count in the metrics registry, so a serving worker's
+    # /metrics (and a gateway's federated /metrics) shows it per dtype
+    metrics.inc(LAUNCH_COUNTERS[q.dtype])
     return out
 
 

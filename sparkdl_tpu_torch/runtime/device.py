@@ -109,10 +109,13 @@ class Launcher:
     :meth:`run` blocks until the callable has returned on the launcher
     thread (its kernels are queued, not finished) and returns its result
     or raises its exception. The thread is a daemon that waits on its
-    queue for the life of the process."""
+    queue for the life of the process. ``first``: a callable that runs as
+    the thread's first job, before anything :meth:`run` hands it."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, first: Optional[Callable] = None):
         self._q: "queue.SimpleQueue" = queue.SimpleQueue()
+        if first is not None:
+            self._q.put((Future(), first, ()))
         self.thread = threading.Thread(target=self._loop, name=name, daemon=True)
         self.thread.start()
 
@@ -138,12 +141,16 @@ class Launcher:
 
 
 def launcher(device: torch.device) -> Launcher:
-    """The launcher of CUDA ``device``, started on first use."""
+    """The launcher of CUDA ``device``, started on first use. Its first job
+    creates its cuBLAS workspaces and notes them in the memory ledger
+    (:func:`_note_workspaces`), before any GEMM it is handed."""
     with _streams_lock:
         idx = _index(device)
         la = _launchers.get(idx)
         if la is None:
-            la = _launchers[idx] = Launcher(f"sparkdl-launch-cuda{idx}")
+            la = _launchers[idx] = Launcher(
+                f"sparkdl-launch-cuda{idx}", first=lambda: _note_workspaces(idx)
+            )
         return la
 
 
@@ -159,16 +166,56 @@ def _warm_blas(device: torch.device) -> None:
             torch.bmm(a[None], a[None])
 
 
+#: devices whose launch thread's workspaces the memory ledger holds
+_workspace_noted: set = set()
+
+
+def _note_workspaces(idx: int) -> None:
+    """On the launch thread: :func:`_warm_blas`, measured when the ledger
+    does not hold this device's workspaces yet (the launcher's first job,
+    and the first warm-up after :func:`clear_workspaces`): the bytes
+    ``memory_allocated`` gained across it are the workspaces it created,
+    attributed as the memory ledger's ``workspace`` class. What another
+    thread allocates during those six products would be counted with
+    them."""
+    from sparkdl_tpu_torch.obs import memory
+
+    dev = torch.device("cuda", idx)
+    with _streams_lock:
+        measure = idx not in _workspace_noted
+        _workspace_noted.add(idx)
+    before = torch.cuda.memory_allocated(dev) if measure else 0
+    _warm_blas(dev)
+    if measure:
+        nbytes = torch.cuda.memory_allocated(dev) - before
+        if nbytes > 0:
+            memory.note_workspace(nbytes)
+
+
 def warm_launcher(device: torch.device) -> None:
     """Make sure the launch thread's cuBLAS and cuBLASLt workspaces exist
     on ``device``'s compute stream.
 
     A thread's first GEMM on a stream allocates them, and they stay for
-    the life of the process unless cleared
-    (``torch._C._cuda_clearCublasWorkspaces``). A reading of
-    ``torch.cuda.memory_allocated`` taken right after this call (the
-    memory ledger's baseline before a model's load) already holds them, so
-    the model's first forward does not add them to its residue at evict.
-    Six products of 64 x 64 once they exist."""
+    the life of the process unless cleared (:func:`clear_workspaces`). A
+    reading of ``torch.cuda.memory_allocated`` taken right after this call
+    (the memory ledger's baseline before a model's load) already holds
+    them, so the model's first forward does not add them to its residue at
+    evict. Six products of 64 x 64 once they exist."""
     idx = _index(device)
-    launcher(device).run(_warm_blas, torch.device("cuda", idx))
+    launcher(device).run(_note_workspaces, idx)
+
+
+def clear_workspaces() -> None:
+    """Free every thread's cuBLAS workspaces
+    (``torch._C._cuda_clearCublasWorkspaces``) and return the launch
+    threads' from the memory ledger; the next :func:`warm_launcher`
+    measures them anew."""
+    from sparkdl_tpu_torch.obs import memory
+
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    with _streams_lock:
+        _workspace_noted.clear()
+    memory.release_workspace()

@@ -15,8 +15,10 @@ The port of the JAX package's ``runtime/executor.py``:
 
 One process drives one device; the threads overlap host work (decode,
 batch assembly) with the device, whose forwards the launch thread issues
-(``runtime/device.Launcher``). Not ported: the fault-injection hook and
-the flight-recorder dump on failure.
+(``runtime/device.Launcher``). Each attempt runs the fault-injection hook
+``maybe_fault("executor.partition", partition=i, attempt=n)``
+(``resilience/faults.py``). Not ported: the flight-recorder dump on
+failure.
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, List, Optional, Sequence
 
 from sparkdl_tpu_torch.obs import span
+from sparkdl_tpu_torch.resilience.faults import maybe_fault
 from sparkdl_tpu_torch.resilience.policy import RetryPolicy, policy_from_env
+from sparkdl_tpu_torch.runtime import locksmith
 from sparkdl_tpu_torch.utils.metrics import metrics as global_metrics
 
 
@@ -94,7 +98,7 @@ class Executor:
             base_delay_s=0.05,
             max_delay_s=2.0,
         )
-        self._lock = threading.Lock()
+        self._lock = locksmith.lock("sparkdl_tpu_torch/runtime/executor.py::Executor._lock")
         self._pool: Optional[ThreadPoolExecutor] = None
         self._active_calls = 0
         self.last_metrics: Optional[TaskMetrics] = None
@@ -162,6 +166,7 @@ class Executor:
                 pt0 = time.perf_counter()
                 try:
                     with span("executor.partition", partition=i, attempt=attempt) as sp:
+                        maybe_fault("executor.partition", partition=i, attempt=attempt)
                         out = fn(i, part)
                         rows = count_rows(out) if count_rows else None
                         if rows is not None:
@@ -224,7 +229,7 @@ class Executor:
 
 
 _default_executor: Optional[Executor] = None
-_default_lock = threading.Lock()
+_default_lock = locksmith.lock("sparkdl_tpu_torch/runtime/executor.py::_default_lock")
 
 
 def default_executor() -> Executor:

@@ -60,7 +60,8 @@ residual are device busy time in the utilization ledger
 staged batches and outputs in the drain are device bytes in the memory
 ledger (``obs/memory.py``) until dispatch or delivery.
 
-Not ported yet: the fault-injection hook (``maybe_fault``).
+Fault injection: ``maybe_fault("feeder.dispatch")`` before each dispatch
+(``resilience/faults.py``); a raised fault takes the fail-all path.
 """
 
 from __future__ import annotations
@@ -75,8 +76,9 @@ import numpy as np
 import torch
 
 from sparkdl_tpu_torch.obs import memory, span, utilization
+from sparkdl_tpu_torch.resilience.faults import maybe_fault
 from sparkdl_tpu_torch.resilience.policy import RetryPolicy
-from sparkdl_tpu_torch.runtime import knobs, readback, transfer
+from sparkdl_tpu_torch.runtime import knobs, locksmith, readback, transfer
 from sparkdl_tpu_torch.utils.metrics import metrics
 
 
@@ -142,7 +144,7 @@ class _Handle:
         self.feeder = feeder
         self.out = out
         self.partition = partition
-        self._lock = threading.Lock()
+        self._lock = locksmith.lock("sparkdl_tpu_torch/runtime/feeder.py::_Handle._lock")
         self._event = threading.Event()
         self._pending = 0
         self._ended = False
@@ -239,7 +241,7 @@ class DeviceFeeder:
         self.dtype = np.dtype(dtype)
         self.prefetch = max(1, int(prefetch))
         self._q: "queue.Queue" = queue.Queue(maxsize=max(4, 2 * self.prefetch))
-        self._lock = threading.Lock()
+        self._lock = locksmith.lock("sparkdl_tpu_torch/runtime/feeder.py::DeviceFeeder._lock")
         self._open = 0  # producers registered whose "end" is unprocessed
         self._handles: set = set()
         self._thread: Optional[threading.Thread] = None
@@ -264,7 +266,7 @@ class DeviceFeeder:
         # waiting for readback, the free-buffer ring they return to, a
         # count of entries popped-but-not-finished, and the drainer's
         # first error (the owner resets its assembly state on seeing it).
-        self._drain_cv = threading.Condition()
+        self._drain_cv = locksmith.condition("sparkdl_tpu_torch/runtime/feeder.py::DeviceFeeder._drain_cv")
         self._inflight: deque = deque()
         self._draining = 0
         self._drainer: Optional[threading.Thread] = None
@@ -585,6 +587,9 @@ class DeviceFeeder:
         self._throttle_inflight(arm)  # cap device residency at `prefetch`
         depth = self._q.qsize()
         metrics.gauge("feeder.queue_depth", depth)
+        # chaos hook (a no-op without a fault plan): a raise= here takes
+        # the owner's fail-all path, every open handle re-raises
+        maybe_fault("feeder.dispatch", rows=fill, depth=depth)
 
         def launch():
             y = self.device_fn(batch)
@@ -919,7 +924,7 @@ class DeviceFeeder:
 # -- registry ----------------------------------------------------------------
 
 _feeders: "OrderedDict[tuple, DeviceFeeder]" = OrderedDict()
-_feeders_lock = threading.Lock()
+_feeders_lock = locksmith.lock("sparkdl_tpu_torch/runtime/feeder.py::_feeders_lock")
 
 
 def get_feeder(device_fn, dispatch_rows, row_shape, dtype, prefetch) -> DeviceFeeder:

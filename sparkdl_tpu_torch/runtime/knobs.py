@@ -119,8 +119,68 @@ _KNOBS: Dict[str, Tuple[str, Optional[str]]] = {
     # obs/memory.py: the allocation-event ring and the leak tolerance
     "SPARKDL_MEM_RING": ("int", "256"),
     "SPARKDL_MEM_LEAK_TOL_MB": ("float", "8"),
-    # obs/export.py: the JSONL event log (unset: no events written)
+    # obs/export.py: the JSONL event log (unset: no events written), and
+    # the gang rank that tags events, /metrics lines and heartbeats
     "SPARKDL_OBS_JSONL": ("str", None),
+    "SPARKDL_OBS_RANK": ("int", None),
+    # obs/timeseries.py: the sampler's interval (0: off) and points kept
+    # per series; the fleet-sample and memory-watermark rings
+    "SPARKDL_OBS_SAMPLE_S": ("float", "1"),
+    "SPARKDL_OBS_SERIES": ("int", "720"),
+    "SPARKDL_FLEET_RING": ("int", "360"),
+    "SPARKDL_MEM_WATERMARK_RING": ("int", "512"),
+    # obs/trace.py: head-sampling rate and the trace store's depth
+    "SPARKDL_TRACE_SAMPLE": ("float", "0.01"),
+    "SPARKDL_TRACE_RING": ("int", "512"),
+    # runtime/locksmith.py: order-recording lock proxies (read at lock
+    # creation) and the held-too-long threshold
+    "SPARKDL_LOCK_SANITIZER": ("flag", "0"),
+    "SPARKDL_LOCK_HELD_MS": ("float", "500"),
+    # resilience/faults.py: the fault plan, the claim directory shared
+    # across processes and generations, and the p= coin's seed
+    "SPARKDL_FAULT_PLAN": ("str", None),
+    "SPARKDL_FAULT_STATE": ("str", None),
+    "SPARKDL_FAULT_SEED": ("int", "0"),
+    # resilience/supervisor.py: the generation and resume flag it exports
+    # to every rank, and its restart budget (policy_from_env)
+    "SPARKDL_GANG_GENERATION": ("int", None),
+    "SPARKDL_GANG_RESUME": ("flag", None),
+    "SPARKDL_SUPERVISOR_RETRY_ATTEMPTS": ("int", None),
+    "SPARKDL_SUPERVISOR_RETRY_BASE_MS": ("float", None),
+    "SPARKDL_SUPERVISOR_RETRY_MAX_MS": ("float", None),
+    "SPARKDL_SUPERVISOR_RETRY_DEADLINE_S": ("float", None),
+    "SPARKDL_SUPERVISOR_RETRY_SEED": ("int", None),
+    # serving/__main__.py: how long a drained worker waits for accepted work
+    "SPARKDL_SERVE_DRAIN_TIMEOUT_S": ("float", "30"),
+    # serving/gateway.py: gang size, health poll, the pending window a
+    # request waits for a ready worker, the per-attempt forward bound, the
+    # re-dispatch policy, affinity routing, autoscale and canary waves
+    "SPARKDL_GATEWAY_WORKERS": ("int", "2"),
+    "SPARKDL_GATEWAY_HEALTH_S": ("float", "0.25"),
+    "SPARKDL_GATEWAY_PENDING_S": ("float", "30"),
+    "SPARKDL_GATEWAY_FORWARD_TIMEOUT_S": ("float", "300"),
+    "SPARKDL_GATEWAY_RETRY_ATTEMPTS": ("int", None),
+    "SPARKDL_GATEWAY_RETRY_BASE_MS": ("float", None),
+    "SPARKDL_GATEWAY_RETRY_MAX_MS": ("float", None),
+    "SPARKDL_GATEWAY_RETRY_DEADLINE_S": ("float", None),
+    "SPARKDL_GATEWAY_RETRY_SEED": ("int", None),
+    "SPARKDL_GATEWAY_AFFINITY": ("flag", "0"),
+    "SPARKDL_GATEWAY_AFFINITY_REPLICAS": ("int", "64"),
+    "SPARKDL_GATEWAY_SPILL_BUSY": ("float", "0.9"),
+    "SPARKDL_FLEET_AUTOSCALE": ("flag", "0"),
+    "SPARKDL_FLEET_COOLDOWN_S": ("float", "30"),
+    "SPARKDL_FLEET_MIN_WORKERS": ("int", "1"),
+    "SPARKDL_FLEET_MAX_WORKERS": ("int", "4"),
+    "SPARKDL_SERVE_CANARY_WAVES": ("str", None),
+    "SPARKDL_SERVE_CANARY_WAVE_S": ("float", "10"),
+    # obs/fleet.py: scrape cadence and bound, staleness, the recommender's
+    # cadence and its busy thresholds
+    "SPARKDL_FLEET_SCRAPE_S": ("float", "1.0"),
+    "SPARKDL_FLEET_SCRAPE_TIMEOUT_S": ("float", "2.0"),
+    "SPARKDL_FLEET_STALE_S": ("float", "10.0"),
+    "SPARKDL_FLEET_RECOMMEND_S": ("float", "10.0"),
+    "SPARKDL_FLEET_SCALE_UP_BUSY": ("float", "0.8"),
+    "SPARKDL_FLEET_SCALE_DOWN_BUSY": ("float", "0.2"),
 }
 
 

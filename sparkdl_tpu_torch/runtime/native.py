@@ -22,13 +22,12 @@ import ctypes
 import hashlib
 import os
 import subprocess
-import threading
 import warnings
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from sparkdl_tpu_torch.runtime import knobs
+from sparkdl_tpu_torch.runtime import knobs, locksmith
 from sparkdl_tpu_torch.runtime.cuda_build import BUILD_DIR
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -38,7 +37,7 @@ LIBS = ("-ljpeg", "-lpng")
 #: the C interface version the bindings below declare
 ABI_VERSION = 2
 
-_lock = threading.Lock()
+_lock = locksmith.lock("sparkdl_tpu_torch/runtime/native.py::_lock")
 _lib: Optional[ctypes.CDLL] = None
 _failure: Optional[str] = None
 

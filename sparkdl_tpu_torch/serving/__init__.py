@@ -13,11 +13,16 @@
   token-level continuous batching over one K/V slab per model;
 - :mod:`~sparkdl_tpu_torch.serving.server`: the stdlib HTTP front end and
   the in-process :class:`ServingClient`;
+- :mod:`~sparkdl_tpu_torch.serving.gateway`: the supervised serving
+  gang, one routing door over N worker processes under the
+  ``GangSupervisor``, with re-dispatch across a worker's death;
 - the control plane beside them (``obs/``): the SLO engine, the memory
-  and utilization ledgers, and the router's canary rollout.
+  and utilization ledgers, the router's canary rollout and the gateway's
+  fleet plane.
 
 ``python -m sparkdl_tpu_torch.serving serve`` runs the registry-backed
-server on ``cuda`` (``--device cpu`` on request).
+server on ``cuda`` (``--device cpu`` on request); ``... gateway`` the
+supervised gang, ``... worker`` one of its members.
 """
 
 from sparkdl_tpu_torch.serving.request import (
@@ -28,6 +33,7 @@ from sparkdl_tpu_torch.serving.request import (
     Draining,
     Request,
 )
+from sparkdl_tpu_torch.serving.gateway import ServingGateway
 from sparkdl_tpu_torch.serving.generation import GenerationEngine
 from sparkdl_tpu_torch.serving.residency import ResidencyManager, ResidentModel
 from sparkdl_tpu_torch.serving.router import Router, canary_config, choose_rung, choose_seq_bucket
@@ -45,6 +51,7 @@ __all__ = [
     "ResidentModel",
     "Router",
     "ServingClient",
+    "ServingGateway",
     "ServingServer",
     "canary_config",
     "choose_rung",

@@ -51,7 +51,7 @@ import torch
 
 from sparkdl_tpu_torch.obs import memory as mem_mod
 from sparkdl_tpu_torch.obs import span
-from sparkdl_tpu_torch.runtime import knobs
+from sparkdl_tpu_torch.runtime import knobs, locksmith
 from sparkdl_tpu_torch.runtime.device import compute_stream, launcher
 from sparkdl_tpu_torch.serving.request import DeadlineExceeded, Request
 from sparkdl_tpu_torch.utils.metrics import metrics
@@ -129,7 +129,7 @@ class GenStream:
         self._router = engine.router
         self.model = model
         self.precision = precision
-        self._cv = threading.Condition()
+        self._cv = locksmith.condition("sparkdl_tpu_torch/serving/generation.py::GenStream._cv")
         self._pending: deque = deque()
         self._stop = False
         self._failed: Optional[BaseException] = None
@@ -414,7 +414,7 @@ class GenerationEngine:
 
     def __init__(self, router):
         self.router = router
-        self._lock = threading.Lock()
+        self._lock = locksmith.lock("sparkdl_tpu_torch/serving/generation.py::GenerationEngine._lock")
         self._streams: Dict[tuple, GenStream] = {}
         self._closed = False
 

@@ -53,7 +53,7 @@ import numpy as np
 
 from sparkdl_tpu_torch.obs import slo
 from sparkdl_tpu_torch.obs.trace import SEGMENTS, mint_trace_id
-from sparkdl_tpu_torch.runtime import knobs
+from sparkdl_tpu_torch.runtime import knobs, locksmith
 from sparkdl_tpu_torch.utils.metrics import metrics, percentile_of_sorted
 
 #: SLA classes, strictest first; index = base priority (lower serves first).
@@ -315,7 +315,7 @@ class AdmissionQueue:
         cap_rows: Optional[int] = None,
         aging_s_override: Optional[float] = None,
     ):
-        self._cv = threading.Condition()
+        self._cv = locksmith.condition("sparkdl_tpu_torch/serving/request.py::AdmissionQueue._cv")
         self._queues: Dict[str, List[Request]] = {
             cls: [] for cls in PRIORITY_CLASSES
         }

@@ -57,14 +57,13 @@ from __future__ import annotations
 
 import inspect
 import math
-import threading
 import time
 from typing import Callable, Dict, List, Optional
 
 import torch
 
 from sparkdl_tpu_torch.obs import memory as mem_mod
-from sparkdl_tpu_torch.runtime import knobs
+from sparkdl_tpu_torch.runtime import knobs, locksmith
 from sparkdl_tpu_torch.runtime.device import DeviceLike, resolve_device, warm_launcher
 from sparkdl_tpu_torch.utils.metrics import metrics
 
@@ -192,9 +191,9 @@ class ResidencyManager:
                 p.kind == p.VAR_POSITIONAL for p in params
             )
         self._budget_override = budget_bytes
-        self._lock = threading.Lock()
+        self._lock = locksmith.lock("sparkdl_tpu_torch/serving/residency.py::ResidencyManager._lock")
         self._models: Dict[tuple, ResidentModel] = {}
-        self._load_locks: Dict[tuple, threading.Lock] = {}
+        self._load_locks: Dict[tuple, object] = {}
         #: bytes reserved by loads in flight (key -> size): the budget
         #: check counts them beside resident models, so two concurrent
         #: first loads of DIFFERENT models cannot each pass the check and
@@ -319,7 +318,12 @@ class ResidencyManager:
                 entry.requests += 1
                 entry.last_used = time.monotonic()
                 return entry
-            load_lock = self._load_locks.setdefault(key, threading.Lock())
+            load_lock = self._load_locks.setdefault(
+                key,
+                locksmith.lock(
+                    "sparkdl_tpu_torch/serving/residency.py::ResidencyManager._load_locks"
+                ),
+            )
         with load_lock:
             # double-check: a racing first request may have loaded it
             with self._lock:

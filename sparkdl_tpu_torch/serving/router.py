@@ -70,7 +70,9 @@ or dispatch is filed with the memory ledger (``obs/memory.record_oom``).
 The router runs on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card the default raises.
 
-Not ported yet: mesh widths and fault-injection hooks.
+Fault injection: ``maybe_fault("serve.request", request=<admission
+ordinal>, model=..., cls=...)`` runs for each request as its group is
+served (``resilience/faults.py``). Not ported yet: mesh widths.
 """
 
 from __future__ import annotations
@@ -85,8 +87,9 @@ import numpy as np
 
 from sparkdl_tpu_torch.obs import memory as mem_mod
 from sparkdl_tpu_torch.obs import slo, span
+from sparkdl_tpu_torch.resilience.faults import maybe_fault
 from sparkdl_tpu_torch.resilience.policy import policy_from_env
-from sparkdl_tpu_torch.runtime import knobs
+from sparkdl_tpu_torch.runtime import knobs, locksmith
 from sparkdl_tpu_torch.runtime.device import DeviceLike
 from sparkdl_tpu_torch.serving.request import (
     PRIORITY_CLASSES,
@@ -339,7 +342,7 @@ class Router:
         self.queue = AdmissionQueue()
         self._max_batch = max_batch
         self._workers = workers or max(2, knobs.get_int("SPARKDL_SERVE_WORKERS"))
-        self._lock = threading.Lock()
+        self._lock = locksmith.lock("sparkdl_tpu_torch/serving/router.py::Router._lock")
         self._ordinal = 0
         self._dispatcher: Optional[threading.Thread] = None
         self._pool: Optional[ThreadPoolExecutor] = None
@@ -355,7 +358,7 @@ class Router:
         #: queue and in-flight groups have quiesced and models unloaded
         self._draining = False
         self._drained = threading.Event()
-        self._idle_cv = threading.Condition()
+        self._idle_cv = locksmith.condition("sparkdl_tpu_torch/serving/router.py::Router._idle_cv")
         self._inflight = 0
         #: created by the dispatcher on the first generate admission
         self._gen_engine = None
@@ -796,6 +799,18 @@ class Router:
                 req.set_error(
                     DeadlineExceeded(f"request {req.id} expired before dispatch")
                 )
+                continue
+            try:
+                # chaos hook (a no-op without a fault plan), keyed by the
+                # admission ordinal
+                maybe_fault(
+                    "serve.request", request=req.ordinal, model=req.model, cls=req.priority
+                )
+            except BaseException as e:  # noqa: BLE001 - an injected fault
+                if mem_mod.is_oom_error(e):
+                    # the {"kind": "oom"} forensics name what was resident
+                    mem_mod.record_oom("dispatch", req.model, e)
+                req.set_error(e)
                 continue
             live.append(req)
         if not live:

@@ -29,7 +29,9 @@ Endpoints:
   the registry with its memory estimates (``supported``).
 - ``GET /healthz``: ``{"status": "ok"}``, or ``"draining"`` once a drain
   began, so load balancers route around the worker.
-- ``GET /metrics``: Prometheus text of the whole metrics registry.
+- ``GET /metrics``: Prometheus text of the whole metrics registry; a gang
+  worker's lines carry its ``rank="N"`` label, and its ``/v1/slo`` and
+  ``/v1/memory`` replies a ``rank`` key.
 - ``POST /admin/drain``: graceful drain; admission answers 503 while
   queued and in-flight work completes.
 - ``GET /v1/slo``: the SLO engine's live burn-rate status (reading it is
@@ -63,6 +65,7 @@ from typing import Optional
 
 import numpy as np
 
+from sparkdl_tpu_torch.obs.export import obs_rank
 from sparkdl_tpu_torch.obs.trace import TRACE_HEADER, coerce_trace_id
 from sparkdl_tpu_torch.runtime import knobs
 from sparkdl_tpu_torch.serving.request import (
@@ -175,10 +178,13 @@ def send_json(
 
 
 def send_prometheus(handler: BaseHTTPRequestHandler) -> None:
+    """The ``/metrics`` reply. A gang worker's lines carry its
+    ``rank="N"`` label (``SPARKDL_OBS_RANK``, set by the gateway's launch
+    environment); a standalone server's carry none."""
     from sparkdl_tpu_torch.utils.metrics import prometheus_text
 
     send_raw(
-        handler, 200, prometheus_text().encode(),
+        handler, 200, prometheus_text(rank=obs_rank()).encode(),
         content_type="text/plain; version=0.0.4; charset=utf-8",
     )
 
@@ -232,6 +238,10 @@ class _Handler(BaseHTTPRequestHandler):
                 from sparkdl_tpu_torch.obs import slo
 
                 payload = dict(slo.engine_status() or {"armed": False})
+                # a gang worker names itself, so the gateway's fleet
+                # fusion can attribute the windows
+                if obs_rank() is not None:
+                    payload["rank"] = obs_rank()
                 totals = slo.window_totals()
                 if totals is not None:
                     payload["windows"] = totals
@@ -245,6 +255,8 @@ class _Handler(BaseHTTPRequestHandler):
                     payload["budget_bytes"] = router.residency.budget_bytes()
                 except ValueError as e:
                     payload["budget_error"] = str(e)
+                if obs_rank() is not None:
+                    payload["rank"] = obs_rank()
                 self._send_json(200, payload)
             elif path in ("/", "/healthz"):
                 self._send_json(

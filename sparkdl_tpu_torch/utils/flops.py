@@ -56,7 +56,9 @@ def local_device_kind() -> Optional[str]:
 def device_peak_flops(device_kind: str) -> Optional[float]:
     """Dense bf16 peak FLOP/s of one device, or None when unknown: an H100
     has one (``bench_bounds.PEAK_FLOP_PER_S["bf16"]``), every other name,
-    the CPU's among them, has none."""
+    the CPU's among them, has none. One yardstick for every rung, as the
+    JAX package keeps it: the f32 rung's ``serve.mfu`` reads against the
+    bf16 peak too, about 15 times under its share of its own peak."""
     if "H100" not in (device_kind or ""):
         return None
     from sparkdl_tpu_torch.bench_bounds import PEAK_FLOP_PER_S

@@ -236,6 +236,17 @@ class MetricsRegistry:
                 "timers": {k: v.as_dict() for k, v in self._timers.items()},
             }
 
+    def scalar_snapshot(self) -> dict:
+        """Counters, gauges and each timer's event count, without the
+        timers' reservoirs: what the time-series sampler reads every
+        interval."""
+        with self._lock:
+            return {
+                "counters": dict(self._counters),
+                "gauges": dict(self._gauges),
+                "timer_counts": {k: v.count for k, v in self._timers.items()},
+            }
+
     def reset(self) -> None:
         with self._lock:
             self._counters.clear()
@@ -252,10 +263,25 @@ def _prom_name(name: str) -> str:
     return "sparkdl_" + re.sub(r"[^a-zA-Z0-9_]", "_", name)
 
 
-def prometheus_text(registry: Optional[MetricsRegistry] = None) -> str:
+def _label_line(line: str, label: str) -> str:
+    """One ``key="value"`` label injected into a sample line, merged with
+    a label set it already has; comment lines pass through."""
+    if line.startswith("#"):
+        return line
+    name, _, rest = line.partition(" ")
+    if name.endswith("}") and "{" in name:
+        head, _, tail = name.rpartition("}")
+        return f"{head},{label}}}{tail} {rest}"
+    return f"{name}{{{label}}} {rest}"
+
+
+def prometheus_text(registry: Optional[MetricsRegistry] = None,
+                    rank: Optional[int] = None) -> str:
     """The registry as Prometheus 0.0.4 text: counters as ``<name>_total``,
     gauges as they are, timers as summaries (p50 and p95 quantiles,
-    ``_sum`` in seconds, ``_count``)."""
+    ``_sum`` in seconds, ``_count``). A ``rank`` stamps every sample line
+    with ``rank="N"``, so the gateway's federated ``/metrics`` never
+    collides one worker's families with another's."""
     snap = (registry or metrics).snapshot()
     lines = []
     for name, value in sorted(snap["counters"].items()):
@@ -273,4 +299,7 @@ def prometheus_text(registry: Optional[MetricsRegistry] = None) -> str:
             f"{n}_sum {t['total_s']}",
             f"{n}_count {t['count']}",
         ]
+    if rank is not None:
+        label = f'rank="{int(rank)}"'
+        lines = [_label_line(ln, label) for ln in lines]
     return "\n".join(lines) + "\n"

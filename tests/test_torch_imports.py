@@ -46,7 +46,10 @@ def test_no_port_file_imports_jax_flax_or_the_jax_package():
     for required in ("graph/ingest.py", "graph/keras_graph.py", "graph/keras_file.py",
                      "runtime/native.py", "transformers/keras_image.py", "transformers/tensor.py",
                      "graph/hdf5.py", "models/keras_app_layers.py", "estimators/keras_fit.py",
-                     "estimators/image_file_estimator.py", "serving/generation.py"):
+                     "estimators/image_file_estimator.py", "serving/generation.py",
+                     "runtime/locksmith.py", "runtime/heartbeat.py", "resilience/faults.py",
+                     "resilience/supervisor.py", "resilience/__main__.py", "obs/timeseries.py",
+                     "obs/fleet.py", "serving/gateway.py", "serving/canary_loader.py"):
         assert required.replace("/", os.sep) in rel, required
     offenders = {
         (os.path.relpath(path, REPO), root)
@@ -103,6 +106,18 @@ def test_importing_every_port_module_loads_no_jax():
         "sparkdl_tpu_torch.models.keras_app_layers",
         "sparkdl_tpu_torch.estimators.keras_fit",
         "sparkdl_tpu_torch.estimators.image_file_estimator",
+        # the supervised serving gang
+        "sparkdl_tpu_torch.runtime.locksmith",
+        "sparkdl_tpu_torch.runtime.heartbeat",
+        "sparkdl_tpu_torch.resilience",
+        "sparkdl_tpu_torch.resilience.faults",
+        "sparkdl_tpu_torch.resilience.supervisor",
+        "sparkdl_tpu_torch.resilience.__main__",
+        "sparkdl_tpu_torch.obs.timeseries",
+        "sparkdl_tpu_torch.obs.fleet",
+        "sparkdl_tpu_torch.obs.export",
+        "sparkdl_tpu_torch.serving.gateway",
+        "sparkdl_tpu_torch.serving.canary_loader",
     ):
         assert name in modules, name
     code = (

@@ -86,6 +86,10 @@ def _view(ledger, registry, before, t):
     status = ledger.status(now=t)
     for key in ("ground_truth_bytes", "ground_truth_source", "unattributed_bytes"):
         status.pop(key)
+    # the port's workspace class (the launch thread's cuBLAS workspaces)
+    # has no JAX counterpart; these steps never charge it
+    for dev in status["devices"].values():
+        assert dev.pop("workspace_bytes", 0) == 0
     counters = registry.snapshot()["counters"]
     gauges = registry.snapshot()["gauges"]
     deltas = {k: int(v - before.get(k, 0)) for k, v in counters.items() if k.startswith("mem.")}
@@ -178,6 +182,9 @@ def test_record_oom_event_under_an_injected_probe(monkeypatch, tmp_path):
         event.pop("ts")
         event["recent_allocations"] = [{k: v for k, v in e.items() if k != "width"}
                                        for e in event["recent_allocations"]]
+        # the port's workspace class has no JAX counterpart; uncharged here
+        for dev in event["devices"].values():
+            assert dev.pop("workspace_bytes", 0) == 0
         events.append(event)
         assert ledger.status(now=T0 + 5)["oom_events"] == 1
     assert events[0] == events[1]
@@ -251,3 +258,84 @@ def test_router_attribution_and_http_payload(monkeypatch):
         server.stop(close_router=True)
     status = memory.memory_status()
     assert status["tracked_bytes"] == 0 and status["models"] == {} and status["leak_events"] == 0
+
+
+def test_watermark_ring_matches_jax():
+    """Every watermark advance of the step sequence lands in the
+    timeseries memory ring, the same samples as the JAX ledger's."""
+    from sparkdl_tpu.obs import timeseries as jax_timeseries
+    from sparkdl_tpu_torch.obs import timeseries
+
+    timeseries.mem_clear()
+    jax_timeseries.mem_clear()
+    ours, ref = memory.MemoryLedger(probe=lambda: (None, None)), jax_memory.MemoryLedger()
+    for i, step in enumerate(STEPS):
+        _apply(ours, step, T0 + i)
+        _apply(ref, step, T0 + i)
+    samples = timeseries.mem_series()
+    assert samples == jax_timeseries.mem_series()
+    assert [s["watermark_bytes"] for s in samples] == sorted({s["watermark_bytes"] for s in samples})
+    assert len(samples) == 7  # the loads and charges that raised the watermark
+    timeseries.mem_clear()
+    jax_timeseries.mem_clear()
+
+
+def test_workspace_class_through_the_probe():
+    """The launch thread's cuBLAS workspace is a class of the ledger: a
+    probe that holds a model and the workspace reads no unattributed
+    bytes once both are noted, and a clear returns the class."""
+    probe = _Probe(0)
+    ledger = memory.MemoryLedger(probe=probe)
+    workspace, model = 33 * 2**20, 5 * 2**20
+    probe.value += workspace  # the warm-up allocated the workspaces
+    ledger.note_workspace(workspace, now=T0)
+    probe.value += model
+    ledger.note_model_loaded("m", model, now=T0 + 1)
+    status = ledger.status(now=T0 + 2)
+    assert status["unattributed_bytes"] == 0
+    assert status["devices"]["0"]["workspace_bytes"] == workspace
+    assert status["tracked_bytes"] == workspace + model == status["watermark_bytes"]
+    assert status["models"] == {"m": model}  # the workspace is no model's
+    ledger.release_workspace(now=T0 + 3)
+    probe.value -= workspace
+    status = ledger.status(now=T0 + 4)
+    assert status["unattributed_bytes"] == 0 and status["devices"]["0"]["workspace_bytes"] == 0
+    assert [e["op"] for e in ledger.events_tail()] == ["workspace", "model_load", "workspace_free"]
+
+
+def test_warm_launcher_measures_the_workspace_once(monkeypatch):
+    """``runtime/device``: a CUDA launcher's first job warms its cuBLAS
+    workspaces and the growth of ``memory_allocated`` across it is noted as
+    the ledger's workspace class; later warm-ups (each load's
+    ``warm_launcher``) add nothing, and ``clear_workspaces`` returns the
+    class and re-arms the measurement. ``memory_allocated`` and the
+    products are stand-ins here (this machine has no card)."""
+    from sparkdl_tpu_torch.runtime import device
+
+    allocated = {"bytes": 100}
+    warmed = []
+
+    def fake_warm(dev):
+        warmed.append(dev)
+        if len(warmed) in (1, 4):  # the launcher's first job, and the first after a clear
+            allocated["bytes"] += 32 * 2**20
+
+    monkeypatch.setattr(device, "_warm_blas", fake_warm)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda d=None: allocated["bytes"])
+    monkeypatch.setattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None, raising=False)
+    monkeypatch.setattr(device, "_workspace_noted", set())
+    monkeypatch.setattr(device, "_launchers", {})
+    memory.reset()
+    cuda0 = torch.device("cuda", 0)
+    before = metrics.counter("mem.alloc_bytes_total.workspace")
+    device.warm_launcher(cuda0)  # starts the launcher: its first job, then this warm-up
+    device.warm_launcher(cuda0)
+    assert memory.get_ledger().status()["devices"]["0"]["workspace_bytes"] == 32 * 2**20
+    device.clear_workspaces()
+    assert memory.get_ledger().status()["devices"]["0"]["workspace_bytes"] == 0
+    device.warm_launcher(cuda0)
+    assert memory.get_ledger().status()["devices"]["0"]["workspace_bytes"] == 32 * 2**20
+    assert metrics.counter("mem.alloc_bytes_total.workspace") - before == 64 * 2**20
+    assert len(warmed) == 4
+    assert device.launcher(cuda0).thread.name == "sparkdl-launch-cuda0"
+    memory.reset()
