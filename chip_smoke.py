@@ -264,8 +264,10 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     torch.profiler: the f32 flash kernel launches (> 0, the profiler's
     count equal to the wrapper's); the utilization ledger's busy + idle
     equal to the flood's wall by the script's clock within max(10 ms, 5 %);
-    ``serve.mfu`` in (0, 1], printed with ``util.busy_frac`` and the
-    profiler's busy share; ``GET /v1/memory``'s per-model bytes equal to
+    ``serve.mfu`` in (0, 1]; ``util.busy_frac`` read from NVML
+    (``busy_source`` ``nvml``) over the ledger's window run on 2 s past the
+    flood (NVML's reading trails it), within 0.15 of the profiler's busy
+    share of that window, printed beside it with NVML's sample period; ``GET /v1/memory``'s per-model bytes equal to
     residency's charges, ground truth from ``memory_allocated``. (b) 8
     generate requests of 32 tokens: the ``kv_cache`` class allocates and
     frees equal bytes and holds 0 once idle; under
@@ -322,9 +324,39 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     left. Prints requests/s beside phase 11's single process, p50/p95 per
     class, the crash-to-ready relaunch window (from the JSONL events)
     against ``SPARKDL_GATEWAY_PENDING_S``, each rank's ``util.busy_frac``
-    and the fleet's verdict beside ``nvidia-smi`` utilization sampled every
-    100 ms, and each fresh worker's ``GET /v1/memory`` beside
-    ``nvidia-smi --query-compute-apps``. About 90 s.
+    (from NVML, ``busy_source`` ``nvml`` on every worker: the whole card's
+    share, within 0.15 of ``nvidia-smi``'s mean utilization sampled every
+    100 ms over the flood) and the fleet's verdict, and each fresh
+    worker's ``GET /v1/memory`` beside ``nvidia-smi --query-compute-apps``.
+    About 90 s.
+19. the batch gang: ``python -m sparkdl_tpu_torch.worker`` ranks under
+    ``python -m sparkdl_tpu_torch.resilience supervise --job`` on the
+    card. (a) ``tests/fixtures/pyarrow_defaults.parquet`` (written by
+    pyarrow with its defaults: Snappy, dictionary pages, 4 row groups, a
+    null in every column kind, an image struct, a list and a
+    FixedShapeTensor column) read by the port's reader equal to the values
+    its seed regenerates with numpy (this machine has no pyarrow). (b)
+    512 synthetic texts (phase 4's generator) written by the port's
+    ``writeParquet`` in 8 partitions; a ``TextEmbedder`` (maxLength 512,
+    batchSize 32) saved with ``persistence.save_stage``, whose bert-base
+    f32 each rank builds from a seeded flax ``.npz`` (the job's ``model``
+    builder); 2 ranks with ``heartbeat_dir`` and
+    ``SPARKDL_FAULT_PLAN=site=worker.partition:rank=0:step=1:crash``.
+    Checks: exactly one restart; generation 1 resumed rank 0's published
+    partition 0; ``gather_results(out, 2)`` equal to this process's
+    single-process transform row for row in global order (f32 atol
+    1e-4); both ranks' ``obs.rank.<r>.json`` with
+    ``kernel.flash_attention.launches.float32`` > 0. (c) the fitted
+    ``DeepImageFeaturizer(ResNet50, f32) -> LogisticRegression``
+    ``PipelineModel`` as a fault-free 2-rank job over 512 synthetic 224x224
+    structs (about 77 MB of Parquet) in 8 partitions: predictions equal,
+    features within relative 1e-5 of the single process. (d) a ``"type":
+    "train"`` job at one rank (NCCL world 1): phase 12's ResNet50 from the
+    ``chip_smoke:train_builder`` builder, 128 structs, 2 epochs; its
+    ``trained_params.pkl`` equal to the same fit in this process (cuDNN
+    deterministic in both) within atol 1e-5. Prints rows/s through the
+    gang beside the single process, the crash-to-``_SUCCESS`` wall,
+    partitions per rank and resumed partitions. About 150 s.
     Phases 6 and 8 also save the fitted featurizer -> LogisticRegression
     ``PipelineModel`` and load it back on the card: its predictions on the
     40 sampled rows equal the fitted one's.
@@ -645,6 +677,23 @@ GANG_CRASH_AT = GANG_WARMUPS + 24
 GANG_BUDGET_MB = 8192
 GANG_READY_TIMEOUT_S = 300
 GANG_SCRAPE_S = "0.25"  # SPARKDL_FLEET_SCRAPE_S of the gateway in this process
+#: util.busy_frac (NVML) against the profiler's busy share (17) or
+#: nvidia-smi's mean utilization (18) over the same window
+BUSY_NVML_TOL = 0.15
+#: how long phase 17's window runs past the flood for NVML's trailing samples
+NVML_SETTLE_S = 2.0
+# phase 19: the batch gang (python -m sparkdl_tpu_torch.worker)
+BATCH_RANKS = 2
+BATCH_TEXTS = 512
+BATCH_PARTITIONS = 8
+BATCH_TEXT_CRASH = "site=worker.partition:rank=0:step=1:crash"
+BATCH_IMAGES = 512
+BATCH_IMAGE_SIDE = 224
+BATCH_TRAIN_IMAGES = 128
+BATCH_TRAIN_EPOCHS = 2
+BATCH_TRAIN_ATOL = 1e-5
+BATCH_TIMEOUT_S = 600
+MODEL_BUILDER = "sparkdl_tpu_torch.models.registry:build_model_function"
 
 
 class PhaseError(RuntimeError):
@@ -3019,8 +3068,22 @@ def phase_control_plane(seed: int, device_name: str) -> None:
     # peak fails here
     mfu = metrics.gauge_stats("serve.mfu")
     check(mfu is not None and 0 < mfu["last"] <= 1, f"control plane: serve.mfu {mfu}")
-    check(util["busy_source"] == utilization.BUSY_SOURCE, f"control plane: busy_source {util.get('busy_source')}")
+    # util.busy_frac is the card's own kernel-busy share from NVML, held to
+    # the profiler's share of the same window. NVML's reading averages over
+    # its own sample period and so trails the flood: the window runs on
+    # NVML_SETTLE_S past the flood's end (the card idle) so that the trailing
+    # samples fall inside it, and both shares are over that window.
+    check(util["busy_source"] == utilization.NVML_SOURCE, f"control plane: busy_source {util.get('busy_source')}")
     busy_frac = metrics.gauge_stats("util.busy_frac")["last"]
+    time.sleep(max(0.0, t_end + NVML_SETTLE_S - time.monotonic()))
+    settled = utilization.utilization_status(now=t_end + NVML_SETTLE_S)
+    settled_wall = settled["devices"]["0"]["wall_ms"] / 1e3
+    check(abs(settled["busy_frac"] - busy_prof / settled_wall) <= BUSY_NVML_TOL,
+          f"control plane: util.busy_frac {settled['busy_frac']:.4f} (NVML) against the profiler's busy share "
+          f"{busy_prof / settled_wall:.4f} over the ledger's {settled_wall:.3f} s window")
+    probe = utilization.get_ledger()._probe
+    nvml_period = getattr(probe, "period_s", None)
+    nvml_mode = getattr(probe, "mode", None)
     status, mem = _get(base, "/v1/memory")
     charged = {}
     for m in router.stats()["models"]:
@@ -3036,8 +3099,12 @@ def phase_control_plane(seed: int, device_name: str) -> None:
         f"through the client at once, f32, in {wall:.3f} s = {(len(texts) + len(images)) / wall:.1f} requests/s; "
         f"flash f32 launches {launched} (profiler {recorded}); utilization ledger busy {dev['busy_ms']:.3f} ms + idle "
         f"{dev['idle_ms']:.3f} ms = {ledger_wall:.4f} s against the flood's {wall:.4f} s (tolerance {tol:.4f} s), "
-        f"h2d {dev['h2d_ms']:.3f} ms, d2h {dev['d2h_ms']:.3f} ms; util.busy_frac {busy_frac:.4f} (busy_source "
-        f"{util['busy_source']}), the profiler's device busy {busy_prof:.4f} s = share {busy_prof / wall:.4f}; "
+        f"h2d {dev['h2d_ms']:.3f} ms, d2h {dev['d2h_ms']:.3f} ms; util.busy_frac {util['busy_frac']:.4f} at the "
+        f"flood's end (gauge at the last note {busy_frac:.4f}; busy_source {util['busy_source']} by {nvml_mode}, period "
+        f"{nvml_period if nvml_period is None else round(nvml_period, 4)} s), the profiler's device busy "
+        f"{busy_prof:.4f} s = share {busy_prof / wall:.4f}; over the window run on {NVML_SETTLE_S} s past the "
+        f"flood ({settled_wall:.3f} s) util.busy_frac {settled['busy_frac']:.4f} against the profiler's share "
+        f"{busy_prof / settled_wall:.4f} (|diff| <= {BUSY_NVML_TOL}); "
         f"serve.mfu {mfu['last']:.6f} (bf16 dense peak {PEAK_FLOP_PER_S['bf16']:.4g} FLOP/s; against the f32 peak "
         f"{PEAK_FLOP_PER_S['f32']:.4g} FLOP/s {mfu['last'] * PEAK_FLOP_PER_S['bf16'] / PEAK_FLOP_PER_S['f32']:.6f}); "
         f"/v1/memory: models {mem['models']} equal residency's charges, "
@@ -3506,6 +3573,12 @@ def phase_gang(seed: int, device_name: str, phase11: dict) -> dict:
         check(edges and all(v > 0 for v in edges.values()), f"gang: the lock sanitizer saw no edges {edges}")
         fleet = gw.fleet_status()
         busy_now = {w["rank"]: w["busy_frac"] for w in fleet["workers"]}
+        sources = {}
+        for w in workers()["workers"]:
+            _, models = _get(f"http://127.0.0.1:{w['port']}", "/v1/models")
+            sources[w["rank"]] = (models.get("utilization") or {}).get("busy_source")
+        check(set(sources.values()) == {utilization.NVML_SOURCE},
+              f"gang: the workers' util.busy_frac sources {sources}")
 
         # (g) a rolling drain of rank 1
         table = workers()
@@ -3567,7 +3640,11 @@ def phase_gang(seed: int, device_name: str, phase11: dict) -> dict:
           f"({GANG_CANARY_WEIGHT} +- {GANG_CANARY_TOL}); no lock cycle, sanitizer edges per rank {edges}")
     print(f"gang flash launches per rank in the federated /metrics (generation 1's processes): {launches}")
     mean_util = sum(util_samples) / len(util_samples) if util_samples else float("nan")
-    print(f"gang utilization: util.busy_frac per rank sampled by the fleet scrape during the flood "
+    # each rank's NVML share is the whole card's (two processes share it),
+    # held to nvidia-smi's mean over the flood
+    check(all(v is not None and abs(v - mean_util / 100) <= BUSY_NVML_TOL for v in busy_now.values()),
+          f"gang: util.busy_frac per rank {busy_now} against nvidia-smi's mean {mean_util:.1f} %")
+    print(f"gang utilization (busy_source {sources}): util.busy_frac per rank sampled by the fleet scrape during the flood "
           f"{ {r: (min(v), max(v)) for r, v in sorted(seen_busy.items())} } (min, max), after it {busy_now}; "
           f"fleet verdicts seen {sorted(verdicts)}; nvidia-smi utilization.gpu every 100 ms over the flood: "
           f"{len(util_samples)} samples, mean {mean_util:.1f} %, max {max(util_samples, default=float('nan')):.0f} %")
@@ -3582,6 +3659,228 @@ def _direct_fn(spec, mode: str, dtype, seed: int):
     """The registry's ModelFunction of ``spec`` at ``dtype``, seeded as
     the serving loader seeds it."""
     return spec.model_function(mode=mode, dtype=dtype, seed=seed, device=SERVE_DEVICE)
+
+
+def train_builder(seed: int = 0, device: str = "cuda") -> ModelFunction:
+    """Phase 19(d)'s model builder (``chip_smoke:train_builder``): phase
+    12's ResNet50 with a 10-way head from ``seed``. cuDNN runs its
+    deterministic algorithms, in the worker and in this process alike, so
+    the two fits can agree to f32 rounding."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    return _train_model(torch.float32, seed, device)
+
+
+def _supervise(job: dict, path: str, env_extra: dict, *extra_args, ranks: int = BATCH_RANKS):
+    """``python -m sparkdl_tpu_torch.resilience supervise --job`` over
+    ``ranks`` workers on the card: (verdict, seconds)."""
+    with open(path, "w") as f:
+        json.dump(job, f)
+    env = {**os.environ, **env_extra}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sparkdl_tpu_torch.resilience", "supervise", "--num-ranks",
+         str(ranks), "--job", path, "--device", "cuda", "--poll-interval", "0.2",
+         *extra_args],
+        capture_output=True, text=True, timeout=BATCH_TIMEOUT_S, env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+    )
+    dt = time.perf_counter() - t0
+    check(proc.returncode == 0, f"batch gang: supervise exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                                f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1]), dt
+
+
+def _success(out: str, rank: int) -> dict:
+    with open(os.path.join(out, f"_SUCCESS.{rank}")) as f:
+        return json.load(f)
+
+
+def phase_batch_gang(seed: int, device_name: str) -> None:
+    """Phase 19: the batch gang worker on the card (see the docstring)."""
+    import importlib.util
+    import pickle
+
+    from sparkdl_tpu_torch.dataframe.parquet import ParquetFile
+    from sparkdl_tpu_torch.obs.aggregate import load_rank_snapshots
+    from sparkdl_tpu_torch.worker import gather_results
+
+    t_phase = time.perf_counter()
+    card = f"{device_name} ({_smi_query('--query-gpu=name,power.limit')})"
+    # (a) the reader on a file pyarrow wrote
+    spec = importlib.util.spec_from_file_location(
+        "make_parquet_fixture", os.path.join(FIXTURES, "make_parquet_fixture.py"))
+    fixture = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixture)
+    pf = ParquetFile(fixture.PATH)
+    got, want = pf.read(), fixture.fixture_columns()
+    for c, values in want.items():
+        same = np.array_equal(got[c], values) if c == "t" else got[c] == values
+        check(same, f"batch gang (a): the pyarrow fixture's column {c!r} read differently")
+    print(f"batch gang (a): {os.path.basename(fixture.PATH)} ({pf.key_value.get('ARROW:schema') is not None and 'ARROW:schema'}, "
+          f"{len(pf.row_groups)} row groups of {pf.row_group_rows()} rows, written by pyarrow with its defaults) "
+          f"read exactly against the values its seed regenerates: {sorted(want)}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) text: bert-base over 512 texts in 8 partitions, a crash of rank 0
+        texts = _texts(seed + 19, BATCH_TEXTS)
+        inp = os.path.join(tmp, "texts.parquet")
+        t0 = time.perf_counter()
+        DataFrame.fromColumns({"text": texts}, numPartitions=BATCH_PARTITIONS).writeParquet(inp)
+        write_s = time.perf_counter() - t0
+        text_spec = get_model("bert-base")
+        weights = os.path.join(tmp, "bert_base.npz")
+        save_flax_weights(bert_params_to_flax(text_spec.model_function(seed=seed, device="cpu").module), weights)
+        stage = os.path.join(tmp, "text_stage")
+        persistence.save_stage(TextEmbedder(inputCol="text", outputCol="emb", maxLength=512, batchSize=32), stage)
+        hb = os.path.join(tmp, "hb_text")
+        out = os.path.join(tmp, "out_text")
+        events = os.path.join(tmp, "events.jsonl")
+        job = {"stage_path": stage, "input_parquet": inp, "num_partitions": BATCH_PARTITIONS,
+               "output_dir": out, "heartbeat_dir": hb, "heartbeat_interval": 1.0,
+               "model": {"builder": MODEL_BUILDER,
+                         "kwargs": {"name": "bert-base", "weights_file": weights, "dtype": "float32"}}}
+        verdict, gang_s = _supervise(job, os.path.join(tmp, "text_job.json"), {
+            "SPARKDL_FAULT_PLAN": BATCH_TEXT_CRASH, "SPARKDL_FAULT_STATE": os.path.join(tmp, "faults"),
+            "SPARKDL_OBS_JSONL": events, "SPARKDL_SUPERVISOR_RETRY_BASE_MS": "100"})
+        check(verdict["supervise"] == "OK" and verdict["restarts"] == 1,
+              f"batch gang (b): expected exactly one restart, got {verdict}")
+        done = [_success(out, r) for r in range(BATCH_RANKS)]
+        resumed = {r: d["resumed"] for r, d in enumerate(done)}
+        check(all(d["generation"] == 1 for d in done) and 0 in resumed[0],
+              f"batch gang (b): generation 1 did not resume rank 0's published partition 0: {done}")
+        with open(events) as f:
+            recs = [json.loads(line) for line in f if line.strip()]
+        crash_ts = [e["ts"] for e in recs if e.get("kind") == "fault"]
+        check(len(crash_ts) == 1, f"batch gang (b): {len(crash_ts)} fault events")
+        finish = max(os.path.getmtime(os.path.join(out, f"_SUCCESS.{r}")) for r in range(BATCH_RANKS))
+        t0 = time.perf_counter()
+        gathered = gather_results(out, BATCH_RANKS).collectColumns()
+        gather_s = time.perf_counter() - t0
+        mf = text_spec.model_function(weights_file=weights, device="cuda")
+        embedder = TextEmbedder(inputCol="text", outputCol="emb", modelFunction=mf, maxLength=512, batchSize=32)
+        embedder.transform(DataFrame.fromColumns({"text": texts[:32]}, 1)).collect()  # warm-up
+        t0 = time.perf_counter()
+        ref = embedder.transform(DataFrame.readParquet(inp, BATCH_PARTITIONS)).collectColumns()
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+        del mf, embedder
+        torch.cuda.empty_cache()
+        check(list(gathered["text"]) == texts, "batch gang (b): the gathered rows are not in global order")
+        err = float(np.abs(np.stack(gathered["emb"]) - np.stack(ref["emb"])).max())
+        check(err <= ATOL[torch.float32], f"batch gang (b): rows off the single process by {err:.3e}")
+        snaps = load_rank_snapshots(hb)
+        launches = {r: snaps.get(r, {}).get("metrics", {}).get("counters", {}).get(
+            "kernel.flash_attention.launches.float32", 0) for r in range(BATCH_RANKS)}
+        check(all(v > 0 for v in launches.values()), f"batch gang (b): flash f32 launches per rank {launches}")
+        print(f"batch gang (b) on {card}: {BATCH_TEXTS} texts (8-500 words) written by the port's writeParquet in "
+              f"{BATCH_PARTITIONS} row groups in {write_s:.2f} s; supervise --job over {BATCH_RANKS} workers with "
+              f"{BATCH_TEXT_CRASH}: {verdict}; {gang_s:.2f} s in all = {BATCH_TEXTS / gang_s:.1f} rows/s through the "
+              f"gang (worker start-up and the restart included) against this process's single-process transform "
+              f"{single_s:.2f} s = {BATCH_TEXTS / single_s:.1f} rows/s; crash to the last _SUCCESS "
+              f"{finish - crash_ts[0]:.3f} s; partitions per rank {[d['partitions'] for d in done]}, resumed "
+              f"{resumed}; gathered in {gather_s:.2f} s, max |diff| {err:.3e} (atol {ATOL[torch.float32]}); flash "
+              f"f32 launches per rank (generation 1's snapshots) {launches}")
+
+        # (c) images: the fitted ResNet50 f32 -> LogisticRegression pipeline
+        structs, labels = _colour_structs(seed + 19, BATCH_IMAGES, BATCH_IMAGE_SIDE)
+        iw = os.path.join(tmp, "resnet50.npz")
+        _write_seeded_weights("ResNet50", seed, iw)
+        feat = _featurizer("ResNet50", "float32", iw)
+        img_df = DataFrame.fromColumns({"image": structs}, numPartitions=BATCH_PARTITIONS)
+        feats, _ = _featurize(feat, img_df)
+        head = LogisticRegression().fit(DataFrame.fromColumns({"features": feats, "label": labels}, 4))
+        pipeline = PipelineModel([feat, head])
+        ipath = os.path.join(tmp, "images.parquet")
+        t0 = time.perf_counter()
+        img_df.writeParquet(ipath)
+        img_write_s = time.perf_counter() - t0
+        pdir = os.path.join(tmp, "pipeline")
+        pipeline.save(pdir)
+        del structs, feats, img_df
+        iout = os.path.join(tmp, "out_images")
+        ijob = {"stage_path": pdir, "input_parquet": ipath, "num_partitions": BATCH_PARTITIONS, "output_dir": iout}
+        iverdict, igang_s = _supervise(ijob, os.path.join(tmp, "image_job.json"), {})
+        check(iverdict["supervise"] == "OK" and iverdict["restarts"] == 0, f"batch gang (c): {iverdict}")
+        igot = gather_results(iout, BATCH_RANKS).collectColumns()
+        t0 = time.perf_counter()
+        iref = pipeline.transform(DataFrame.readParquet(ipath, BATCH_PARTITIONS)).collectColumns()
+        torch.cuda.synchronize()
+        isingle_s = time.perf_counter() - t0
+        check(list(igot["prediction"]) == list(iref["prediction"]),
+              "batch gang (c): the gang's predictions differ from the single process's")
+        irel = _relative_error(np.stack(igot["features"]), np.stack(iref["features"]))
+        check(irel <= IMAGE_F32_REL, f"batch gang (c): features relative error {irel:.3e}")
+        print(f"batch gang (c) on {card}: PipelineModel(DeepImageFeaturizer ResNet50 f32, LogisticRegression) over "
+              f"{BATCH_IMAGES} {BATCH_IMAGE_SIDE}x{BATCH_IMAGE_SIDE} structs ({os.path.getsize(ipath) / 2**20:.1f} MiB "
+              f"of Parquet, written in {img_write_s:.2f} s) in {BATCH_PARTITIONS} partitions, {BATCH_RANKS} ranks "
+              f"fault-free: {iverdict}, {igang_s:.2f} s in all = {BATCH_IMAGES / igang_s:.1f} images/s through the "
+              f"gang (start-up included) against the single process {isingle_s:.2f} s = "
+              f"{BATCH_IMAGES / isingle_s:.1f} images/s; {len(igot['prediction'])} predictions equal, features "
+              f"relative {irel:.3e} (limit {IMAGE_F32_REL})")
+        del pipeline, feat, head, igot, iref
+        torch.cuda.empty_cache()
+
+        # (d) training: phase 12's model from a module:function builder, one rank
+        tstructs, tlabels = _colour_structs(seed + 20, BATCH_TRAIN_IMAGES, TRAIN_SIDE)
+        tpath = os.path.join(tmp, "train.parquet")
+        DataFrame.fromColumns({"image": tstructs, "label": tlabels}, TRAIN_PARTITIONS).writeParquet(tpath)
+        del tstructs
+        est_kw = dict(inputCol="image", labelCol="label", outputCol="logits", batchSize=TRAIN_BATCH,
+                      epochs=BATCH_TRAIN_EPOCHS, stepSize=TRAIN_STEP_SIZE, targetHeight=TRAIN_SIDE,
+                      targetWidth=TRAIN_SIDE)
+        epath = os.path.join(tmp, "estimator")
+        persistence.save_stage(DataParallelEstimator(**est_kw), epath)
+        tout = os.path.join(tmp, "out_train")
+        tjob = {"type": "train", "estimator_path": epath, "input_parquet": tpath,
+                "num_partitions": TRAIN_PARTITIONS, "output_dir": tout,
+                "model": {"builder": "chip_smoke:train_builder", "kwargs": {"seed": seed}}}
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        tverdict, tgang_s = _supervise(tjob, os.path.join(tmp, "train_job.json"), {},
+                                       "--distributed", "--coordinator", f"localhost:{port}", ranks=1)
+        check(tverdict["supervise"] == "OK", f"batch gang (d): {tverdict}")
+        with open(os.path.join(tout, "trained_params.pkl"), "rb") as f:
+            theirs = pickle.load(f)
+        with open(os.path.join(tout, "history.json")) as f:
+            thist = json.load(f)
+        deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        try:
+            model = train_builder(seed, torch.device("cuda", torch.cuda.current_device()))
+            t0 = time.perf_counter()
+            fitted = DataParallelEstimator(model=model, **est_kw).fit(DataFrame.readParquet(tpath, TRAIN_PARTITIONS))
+            tsingle_s = time.perf_counter() - t0
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+        ours = cnn_params_to_flax(fitted.modelFunction.module)
+        terr = 0.0
+        for coll, tree in ours.items():
+            for key, value in _flat_tree(tree):
+                other = theirs[coll]
+                for part in key:
+                    other = other[part]
+                terr = max(terr, float(np.abs(np.asarray(other) - value).max()))
+        check(terr <= BATCH_TRAIN_ATOL, f"batch gang (d): trained params off the in-process fit by {terr:.3e}")
+        print(f"batch gang (d) on {card}: a train job at 1 rank (NCCL world 1) of ResNet50(num_classes="
+              f"{TRAIN_CLASSES}) from chip_smoke:train_builder over {BATCH_TRAIN_IMAGES} structs, "
+              f"{BATCH_TRAIN_EPOCHS} epochs: {tverdict}, {tgang_s:.2f} s in all (the fit in this process "
+              f"{tsingle_s:.2f} s); losses {[round(h['loss'], 5) for h in thist]} (in process "
+              f"{[round(h['loss'], 5) for h in fitted.history]}); trained_params.pkl max |diff| {terr:.3e} "
+              f"(atol {BATCH_TRAIN_ATOL})")
+        del fitted, model
+        torch.cuda.empty_cache()
+    print(f"batch gang: {time.perf_counter() - t_phase:.1f} s in all")
+
+
+def _flat_tree(tree, prefix=()):
+    for key, sub in tree.items():
+        if isinstance(sub, dict):
+            yield from _flat_tree(sub, prefix + (key,))
+        else:
+            yield prefix + (key,), sub
 
 
 def main(argv=None) -> int:
@@ -3640,6 +3939,8 @@ def main(argv=None) -> int:
     done("phase 17")
     gang_launches = phase_gang(args.seed, device_name, phase11)
     done("phase 18")
+    phase_batch_gang(args.seed, device_name)
+    done("phase 19")
     print(f"flash launches in 15(e) (bert-base from weights_file): {text_weight_launches}")
     print(f"flash launches in phase 18's workers (generation 1, from the federated /metrics): "
           f"f32 {gang_launches[torch.float32]}, bf16 {gang_launches[torch.bfloat16]}")

@@ -8,11 +8,23 @@ Actions run the plan over the partitions through the default executor
 with bounded retry. :meth:`DataFrame.iterPartitions` runs them one at a
 time instead, keeping one in memory (the streamed trainer's feed, and
 :meth:`DataFrame.limit`, which stops at the partition that fills it).
+
+Files: :meth:`DataFrame.readParquet`, :meth:`DataFrame.scanParquet`
+(lazy partitions over row spans, reading only the footer up front),
+:meth:`DataFrame.writeParquet` (streamed, one row group per partition) and
+:meth:`DataFrame.fromArrowFiles` (lazy, one partition per Arrow IPC
+file), over the port's own readers and writers (``dataframe/parquet.py``,
+``dataframe/arrow_ipc.py``): the port never imports ``pyarrow``, so the
+JAX package's ``fromArrow``/``toArrow``, which take and return ``pyarrow``
+Tables, have no counterpart. A tensor column read from a file is one
+contiguous numpy block ``(rows, *shape)`` in its partition, as the JAX
+package's ``TensorColumn`` is; indexing it gives row views.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
+from collections.abc import Mapping
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -20,9 +32,101 @@ Partition = Dict[str, list]
 
 
 def _part_num_rows(part: Partition) -> int:
+    rows = getattr(part, "num_rows", None)
+    if rows is not None:
+        return int(rows)
     if not part:
         return 0
     return len(next(iter(part.values())))
+
+
+class LazyPartition(Mapping):
+    """A partition backed by a file: a column is read on its first access
+    and :meth:`release` drops what was read, so a file-backed frame never
+    holds every partition at once. A Mapping, not a dict, so ``dict(part)``
+    in an op goes through ``__getitem__`` and reads."""
+
+    def __init__(self, columns: Sequence[str]):
+        self._lazy_columns = list(columns)
+        self._data: Dict[str, Any] = {}
+
+    def _read(self, names: List[str]) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def __getitem__(self, key):
+        if key not in self._data:
+            if key not in self._lazy_columns:
+                raise KeyError(key)
+            self._data.update(self._read([key]))
+        return self._data[key]
+
+    def __iter__(self):
+        return iter(self._lazy_columns)
+
+    def __len__(self) -> int:
+        return len(self._lazy_columns)
+
+    def __contains__(self, key) -> bool:
+        return key in self._lazy_columns
+
+    def release(self) -> None:
+        self._data = {}
+
+
+class LazyArrowPartition(LazyPartition):
+    """One partition = one Arrow IPC file (the gang's gather layout); the
+    whole file is read on the first access."""
+
+    def __init__(self, path: str, columns: Sequence[str]):
+        super().__init__(columns)
+        self._path = path
+
+    def _read(self, names: List[str]) -> Dict[str, Any]:
+        from sparkdl_tpu_torch.dataframe.arrow_ipc import read_file
+
+        return read_file(self._path)[1]
+
+    @property
+    def num_rows(self) -> int:
+        if not self._lazy_columns:
+            return 0
+        return len(self[self._lazy_columns[0]])
+
+
+class LazyParquetPartition(LazyPartition):
+    """One partition = one row span of a Parquet file; a column access
+    decodes that column in the row groups that meet the span and no
+    other."""
+
+    def __init__(self, path: str, span: Tuple[int, int], columns: Sequence[str]):
+        super().__init__(columns)
+        self._path = path
+        self._span = (int(span[0]), int(span[1]))
+        self._pf = None
+
+    @property
+    def num_rows(self) -> int:
+        return self._span[1] - self._span[0]
+
+    def _read(self, names: List[str]) -> Dict[str, Any]:
+        if self._pf is None:
+            from sparkdl_tpu_torch.dataframe.parquet import ParquetFile
+
+            self._pf = ParquetFile(self._path)
+        return self._pf.read_rows(self._span[0], self._span[1], names)
+
+    def release(self) -> None:
+        super().release()
+        self._pf = None
+
+
+def _split(columns: Dict[str, Any], names: List[str], num_partitions: int) -> List[Partition]:
+    """Balanced partitions of whole columns; a numpy block stays a block."""
+    n = len(columns[names[0]]) if names else 0
+    return [
+        {c: columns[c][start:end] for c in names}
+        for start, end in partition_row_spans(n, num_partitions)
+    ]
 
 
 def partition_row_spans(total_rows: int, num_partitions: int):
@@ -88,6 +192,77 @@ class DataFrame:
             for start, end in partition_row_spans(n, numPartitions)
         ]
         return DataFrame(parts, names)
+
+    @staticmethod
+    def readParquet(path: str, numPartitions: int = 1) -> "DataFrame":
+        """The whole Parquet file, split into ``numPartitions`` balanced
+        partitions (``dataframe/parquet.py``)."""
+        from sparkdl_tpu_torch.dataframe.parquet import ParquetFile
+
+        pf = ParquetFile(path)
+        names = pf.column_names
+        return DataFrame(_split(pf.read(), names, numPartitions), names)
+
+    @staticmethod
+    def scanParquet(path: str, numPartitions: int = 1) -> "DataFrame":
+        """A lazy Parquet scan: one partition per balanced row span, each
+        reading only the row groups that meet its span, on first access.
+        Only the footer is read here; streaming actions and the streamed
+        trainer hold one partition at a time."""
+        from sparkdl_tpu_torch.dataframe.parquet import ParquetFile
+
+        pf = ParquetFile(path)
+        names = pf.column_names
+        spans = partition_row_spans(pf.num_rows, numPartitions)
+        return DataFrame(
+            [LazyParquetPartition(path, span, names) for span in spans], names
+        )
+
+    @staticmethod
+    def fromArrowFiles(paths: Sequence[str]) -> "DataFrame":
+        """One lazy partition per Arrow IPC file, in the order given; only
+        the first file's schema is read here."""
+        from sparkdl_tpu_torch.dataframe.arrow_ipc import read_schema
+
+        paths = list(paths)
+        if not paths:
+            return DataFrame([], [])
+        names = [f.name for f in read_schema(paths[0])]
+        return DataFrame([LazyArrowPartition(p, names) for p in paths], names)
+
+    def writeParquet(self, path: str, compression: str = "snappy") -> None:
+        """Streaming Parquet writer: partitions run, convert and write one
+        at a time, one row group each (empty partitions are skipped).
+        Every partition must convert to the schema of the first (a null
+        column takes any type); one that converts otherwise raises rather
+        than writing a file its readers would reject."""
+        from sparkdl_tpu_torch.dataframe.arrow_ipc import infer_field, unify_field
+        from sparkdl_tpu_torch.dataframe.parquet import ParquetWriter
+
+        writer = ParquetWriter(path, compression=compression)
+        try:
+            for part in self.iterPartitions():
+                if _part_num_rows(part) == 0:
+                    continue
+                fields = [infer_field(c, part[c]) for c in self._columns]
+                if writer.fields is None:
+                    writer.fields = fields
+                else:
+                    unified = [unify_field(a, b) for a, b in zip(writer.fields, fields)]
+                    if any(u is None for u in unified):
+                        raise ValueError(
+                            "writeParquet: partition schema diverged from the "
+                            f"first partition's ({fields} vs {writer.fields}); "
+                            "make the column uniformly shaped (or write one "
+                            "partition to force a single global conversion)"
+                        )
+                writer.write({c: part[c] for c in self._columns})
+            if writer.fields is None:  # no non-empty partition: still a valid file
+                empty = {c: [] for c in self._columns}
+                writer.fields = [infer_field(c, []) for c in self._columns]
+                writer.write(empty)
+        finally:
+            writer.close()
 
     @property
     def columns(self) -> List[str]:
@@ -339,14 +514,17 @@ class DataFrame:
         max_failures = default_executor().max_failures
         indices = range(len(self._source)) if order is None else order
         for i in indices:
+            src = self._source[i]
             for _attempt in range(max_failures):
                 try:
-                    result = _run_plan(self._ops, self._columns, self._source[i])
+                    result = _run_plan(self._ops, self._columns, src)
                     break
                 except Exception as e:  # noqa: BLE001 — retried, then raised
                     last_err = e
             else:
                 raise PartitionTaskError(i, max_failures, last_err)
+            if isinstance(src, LazyPartition):
+                src.release()  # a streaming pass keeps no file's columns
             yield result
 
     def collect(self) -> List[Row]:

@@ -501,6 +501,22 @@ def get_model(name: str) -> Union[NamedTextModel, NamedImageModel]:
     return _REGISTRY[key]
 
 
+def build_model_function(name: str, mode: Optional[str] = None, dtype: str = "float32",
+                         weights_file: Optional[str] = None, seed: int = 0,
+                         device=None) -> ModelFunction:
+    """``get_model(name).model_function(...)`` from JSON-able arguments:
+    the model builder a gang job spec names
+    (``"sparkdl_tpu_torch.models.registry:build_model_function"``), so
+    every rank builds the same weights (``weights_file``, else ``seed``)
+    on its own device."""
+    spec = get_model(name)
+    kwargs = dict(dtype=getattr(torch, dtype), weights_file=weights_file,
+                  seed=seed, device=device)
+    if mode is not None:
+        kwargs["mode"] = mode
+    return spec.model_function(**kwargs)
+
+
 def get_image_model(name: str) -> NamedImageModel:
     """``get_model`` restricted to image models: a text name fails here
     with a pointer to the text surface."""

@@ -17,9 +17,10 @@ busy roll-up and ``memory`` key the device-memory ledger), and fuses them:
   events name the contributing ranks.
 - **capacity headroom**: per-model achievable requests/s, each resident
   arm's observed rate scaled by 1 / its rank's ``util.busy_frac``
-  (``fleet.headroom.<model>`` gauges). On the port ``busy_frac`` is host
-  dispatch occupancy (``obs/utilization.py``, ``busy_source``), so a
-  loaded worker reads near-saturated whatever the card's own busy share.
+  (``fleet.headroom.<model>`` gauges). On the card ``busy_frac`` is the
+  card's own kernel-busy share, from NVML (``obs/utilization.py``,
+  ``busy_source: nvml``), so a host-bound worker does not read as
+  saturated.
 - **advisory recommender**: a scale_up / scale_down / rebalance / hold
   verdict re-derived every ``SPARKDL_FLEET_RECOMMEND_S``, with a
   ``{"kind": "fleet_recommendation"}`` JSONL event when it changes. It

@@ -8,18 +8,23 @@ server runs.
   H2D claim's residual wait as **h2d** and each readback drain's residual
   as **d2h**, which is busy wall too: the drain waits for the rest of the
   program and its copy.
-- What busy measures differs from the JAX package. A TPU program is one
-  compiled executable, so its wall is the device's. An eager PyTorch
-  forward issues its kernels one at a time from the host, and the card is
-  idle in the gaps between them whenever the host issues slower than the
-  card runs. On the port, busy is therefore **host dispatch occupancy**:
-  the wall during which a forward was being issued to the card or its
-  result waited for. It bounds the card's kernel time from above in that
-  host-bound regime and is not the kernel-busy share, which only a
-  profiler trace gives (``torch.profiler``; the chip smoke prints both).
-  Events recorded on the compute stream would not close the gap: the
-  stream's span between them holds the same host-bound gaps. ``status()``
-  says so in ``busy_source``.
+- What busy measures on the card is the card's own **kernel-busy share**,
+  as the JAX package's busy is a TPU program's wall: NVML's GPU
+  utilization samples (the share of each sample period in which a kernel
+  ran, ``nvmlDeviceGetSamples``, or ``nvmlDeviceGetUtilizationRates``
+  polled every 50 ms where NVML keeps no samples), integrated over the
+  ledger's window by :class:`NvmlBusyProbe`, which opens
+  ``libnvidia-ml.so.1`` through ``ctypes`` (it ships with the NVIDIA
+  kernel module's user libraries; ``pynvml`` is not needed). An eager
+  forward issues its kernels one at a time, and the card idles between
+  them whenever the host issues slower than the card runs, so the host's
+  dispatch wall would read a host-bound worker as saturated; NVML does
+  not. ``status()["busy_source"]`` is ``"nvml"`` there. NVML that cannot
+  be opened on a machine with a card is an error naming it, never a
+  silent fall back. Only where there is no card (the CPU tests) is busy
+  the host dispatch occupancy (``busy_source``: ``"host_dispatch"``). A
+  test injects its own probe (``DeviceLedger(busy_probe=...)``), as the
+  memory ledger takes its probe.
 - Between two notes, ``busy`` gets ``min(program time, elapsed)`` and
   ``idle`` the rest, so ``busy + idle`` equals the observed wall by
   construction. Concurrent programs are truncated to the wall: busy is a
@@ -42,7 +47,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Optional
+from typing import Callable, List, Optional
 
 from sparkdl_tpu_torch.utils.metrics import WindowedCounter, metrics
 
@@ -50,8 +55,176 @@ from sparkdl_tpu_torch.utils.metrics import WindowedCounter, metrics
 MFU_WINDOW_S = 30.0
 
 
-#: what ``busy`` measures on the port (see the module docstring)
+#: what ``busy`` measures where there is no card (see the module docstring)
 BUSY_SOURCE = "host_dispatch"
+#: what ``busy`` measures on the card: NVML's kernel-busy samples
+NVML_SOURCE = "nvml"
+
+#: a probe of the card's kernel-busy time: cumulative busy seconds since
+#: the probe was made, monotone
+BusyProbe = Callable[[], float]
+
+_UNSET = object()
+
+
+class NvmlBusyProbe:
+    """Cumulative kernel-busy seconds of one CUDA device, from NVML.
+
+    Where NVML keeps GPU utilization samples
+    (``nvmlDeviceGetSamples``), each new sample's value (the percent of
+    its period in which a kernel ran) times the time since the previous
+    sample. Where it does not (``NVML_ERROR_NOT_SUPPORTED``, as on some
+    virtualized cards), a daemon thread reads ``nvmlDeviceGetUtilizationRates``
+    (what ``nvidia-smi`` prints as utilization.gpu) every ``poll_s`` and
+    integrates the reading over the time since the last one. ``mode``
+    names which. The device is found by its PCI bus id
+    (``torch.cuda.get_device_properties``), so ``CUDA_VISIBLE_DEVICES``
+    renumbering cannot pick the wrong card. Raises RuntimeError naming
+    NVML when the library, its init, the device handle or both reads
+    fail."""
+
+    _SAMPLES_GPU_UTIL = 1  # NVML_GPU_UTILIZATION_SAMPLES
+    _NOT_SUPPORTED = 3  # NVML_ERROR_NOT_SUPPORTED
+    _NOT_FOUND = 6  # NVML_ERROR_NOT_FOUND: no sample newer than asked
+
+    def __init__(self, device_index: int = 0, poll_s: float = 0.05):
+        import ctypes
+
+        import torch
+
+        self._ct = ctypes
+        try:
+            lib = ctypes.CDLL("libnvidia-ml.so.1")
+        except OSError as e:
+            raise RuntimeError(
+                f"NVML (libnvidia-ml.so.1) cannot be opened for util.busy_frac: {e}"
+            ) from e
+        self._lib = lib
+        self._check(lib.nvmlInit_v2(), "nvmlInit_v2")
+        props = torch.cuda.get_device_properties(device_index)
+        handle = ctypes.c_void_p()
+        bus = getattr(props, "pci_bus_id", None)
+        if bus is not None:
+            bus_id = (f"{getattr(props, 'pci_domain_id', 0):08x}:{bus:02x}:"
+                      f"{getattr(props, 'pci_device_id', 0):02x}.0").encode()
+            self._check(lib.nvmlDeviceGetHandleByPciBusId_v2(bus_id, ctypes.byref(handle)),
+                        f"nvmlDeviceGetHandleByPciBusId_v2({bus_id.decode()})")
+        else:
+            uuid = f"GPU-{props.uuid}".encode()
+            self._check(lib.nvmlDeviceGetHandleByUUID(uuid, ctypes.byref(handle)),
+                        f"nvmlDeviceGetHandleByUUID({uuid.decode()})")
+        self._handle = handle
+
+        class _Sample(ctypes.Structure):
+            _fields_ = [("ts", ctypes.c_ulonglong), ("raw", ctypes.c_uint64)]
+
+        class _Rates(ctypes.Structure):
+            _fields_ = [("gpu", ctypes.c_uint), ("memory", ctypes.c_uint)]
+
+        self._Sample, self._Rates = _Sample, _Rates
+        self._busy_s = 0.0
+        #: the gap between NVML's last two samples (its sample period), or
+        #: the polling thread's interval
+        self.period_s: Optional[float] = None
+        self._lock = threading.Lock()
+        try:
+            latest = self._samples(0)
+            self.mode = "nvmlDeviceGetSamples"
+            self._last_us = latest[-1][0] if latest else int(time.time() * 1e6)
+        except _NvmlNotSupported:
+            self.mode = "nvmlDeviceGetUtilizationRates"
+            self._rate()  # fails loudly here if this read is refused too
+            self.period_s = float(poll_s)
+            self._last_t = time.monotonic()
+            self._stop = threading.Event()
+            self._thread = threading.Thread(target=self._poll, args=(float(poll_s),),
+                                            name="sparkdl-nvml-busy", daemon=True)
+            self._thread.start()
+
+    def _check(self, rc: int, what: str) -> None:
+        if rc == self._NOT_SUPPORTED:
+            raise _NvmlNotSupported(what)
+        if rc != 0:
+            msg = ""
+            try:
+                self._lib.nvmlErrorString.restype = self._ct.c_char_p
+                msg = self._lib.nvmlErrorString(rc).decode()
+            except Exception:
+                pass
+            raise RuntimeError(f"NVML {what} failed ({rc}: {msg}) for util.busy_frac")
+
+    def _samples(self, since_us: int) -> List[tuple]:
+        ct = self._ct
+        vtype, count = ct.c_int(), ct.c_uint(0)
+        rc = self._lib.nvmlDeviceGetSamples(
+            self._handle, self._SAMPLES_GPU_UTIL, ct.c_ulonglong(since_us),
+            ct.byref(vtype), ct.byref(count), None)
+        if rc == self._NOT_FOUND:
+            return []
+        self._check(rc, "nvmlDeviceGetSamples")
+        if count.value == 0:
+            return []
+        buf = (self._Sample * count.value)()
+        rc = self._lib.nvmlDeviceGetSamples(
+            self._handle, self._SAMPLES_GPU_UTIL, ct.c_ulonglong(since_us),
+            ct.byref(vtype), ct.byref(count), buf)
+        if rc == self._NOT_FOUND:
+            return []
+        self._check(rc, "nvmlDeviceGetSamples")
+        out = []
+        for smp in buf[:count.value]:
+            if vtype.value == 0:  # NVML_VALUE_TYPE_DOUBLE
+                value = ct.c_double.from_buffer_copy(ct.c_uint64(smp.raw)).value
+            else:  # an unsigned int in the union's low bytes
+                value = float(smp.raw & 0xFFFFFFFF)
+            out.append((int(smp.ts), value))
+        out.sort()
+        return out
+
+    def _rate(self) -> float:
+        rates = self._Rates()
+        rc = self._lib.nvmlDeviceGetUtilizationRates(self._handle, self._ct.byref(rates))
+        if rc == self._NOT_SUPPORTED:
+            raise RuntimeError("NVML nvmlDeviceGetUtilizationRates is not supported for util.busy_frac")
+        self._check(rc, "nvmlDeviceGetUtilizationRates")
+        return min(100.0, float(rates.gpu)) / 100.0
+
+    def _poll(self, interval: float) -> None:
+        while not self._stop.wait(interval):
+            self._integrate_rate()
+
+    def _integrate_rate(self) -> None:
+        share = self._rate()
+        now = time.monotonic()
+        with self._lock:
+            self._busy_s += share * max(0.0, now - self._last_t)
+            self._last_t = now
+
+    def __call__(self) -> float:
+        with self._lock:
+            if self.mode != "nvmlDeviceGetSamples":
+                return self._busy_s
+            for ts, pct in self._samples(self._last_us):
+                if ts <= self._last_us:
+                    continue
+                self.period_s = (ts - self._last_us) * 1e-6
+                self._busy_s += (ts - self._last_us) * 1e-6 * min(100.0, max(0.0, pct)) / 100.0
+                self._last_us = ts
+            return self._busy_s
+
+
+class _NvmlNotSupported(RuntimeError):
+    """NVML_ERROR_NOT_SUPPORTED: the probe switches reads."""
+
+
+def default_busy_probe() -> Optional[BusyProbe]:
+    """NVML on the current CUDA device where there is a card; None (host
+    dispatch occupancy) where there is none."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return None
+    return NvmlBusyProbe(torch.cuda.current_device())
 
 
 def _local_device_kind() -> Optional[str]:
@@ -63,23 +236,30 @@ def _local_device_kind() -> Optional[str]:
 
 
 class _DeviceState:
-    __slots__ = ("busy_s", "idle_s", "h2d_s", "d2h_s", "first_t", "last_t")
+    __slots__ = ("busy_s", "idle_s", "h2d_s", "d2h_s", "first_t", "last_t", "probe_s")
 
-    def __init__(self, now: float):
+    def __init__(self, now: float, probe_s: float = 0.0):
         self.busy_s = 0.0
         self.idle_s = 0.0
         self.h2d_s = 0.0
         self.d2h_s = 0.0
         self.first_t = now
         self.last_t = now
+        #: the busy probe's reading at the last note
+        self.probe_s = probe_s
 
 
 class DeviceLedger:
     """Busy, idle and transfer accounting of device 0 with wall
     conservation. Every method takes an explicit ``now`` for tests; the
-    registry counters move by the same increments as the ledger."""
+    registry counters move by the same increments as the ledger.
 
-    def __init__(self):
+    ``busy_probe``: a :data:`BusyProbe` of the card's kernel-busy time
+    (NVML, :func:`default_busy_probe`, resolved at the first note when
+    not given); None, the host dispatch wall is busy."""
+
+    def __init__(self, busy_probe=_UNSET):
+        self._probe = busy_probe
         self._lock = threading.Lock()
         #: created by the first note (``status`` is None before it)
         self._dev: Optional[_DeviceState] = None
@@ -106,11 +286,41 @@ class DeviceLedger:
         st.last_t = now
         return busy_inc, idle_inc
 
+    def _probe_locked(self) -> Optional[BusyProbe]:
+        if self._probe is _UNSET:
+            self._probe = default_busy_probe()
+        return self._probe
+
+    @property
+    def busy_source(self) -> str:
+        with self._lock:
+            return BUSY_SOURCE if self._probe_locked() is None else NVML_SOURCE
+
+    def _account_probe_locked(self, probe_s: float, now: float) -> tuple:
+        """Advance the clock to ``now`` with the probe's busy since the last
+        note as busy (clamped to the elapsed wall)."""
+        st = self._dev
+        if st is None:
+            st = self._dev = _DeviceState(now, probe_s)
+        elapsed = max(0.0, now - st.last_t)
+        busy_inc = min(max(0.0, probe_s - st.probe_s), elapsed)
+        idle_inc = elapsed - busy_inc
+        st.busy_s += busy_inc
+        st.idle_s += idle_inc
+        st.last_t = now
+        st.probe_s = max(st.probe_s, probe_s)
+        return busy_inc, idle_inc
+
     def note_busy(self, busy_s: float, now: Optional[float] = None) -> None:
-        """One program's busy time (its dispatch's host wall)."""
+        """One program's dispatch wall: busy where there is no card; on the
+        card the note only advances the clock and the probe gives busy."""
         t = time.monotonic() if now is None else float(now)
         with self._lock:
-            busy_inc, idle_inc = self._account_locked(busy_s, t)
+            probe = self._probe_locked()
+            if probe is None:
+                busy_inc, idle_inc = self._account_locked(busy_s, t)
+            else:
+                busy_inc, idle_inc = self._account_probe_locked(probe(), t)
         if busy_inc:
             metrics.inc("util.device_busy_ms.0", busy_inc * 1e3)
         if idle_inc:
@@ -125,7 +335,8 @@ class DeviceLedger:
         with self._lock:
             st = self._dev
             if st is None:
-                st = self._dev = _DeviceState(t)
+                probe = self._probe_locked()
+                st = self._dev = _DeviceState(t, probe() if probe is not None else 0.0)
             st.h2d_s += max(0.0, h2d_s)
             st.d2h_s += max(0.0, d2h_s)
         if h2d_s > 0:
@@ -177,28 +388,42 @@ class DeviceLedger:
     def status(self, now: Optional[float] = None) -> Optional[dict]:
         """The device's view with idle advanced to ``now`` (the tail since
         the last note is idle), or None before any dispatch.
-        ``busy_source`` names what busy measures (:data:`BUSY_SOURCE`)."""
+        ``busy_source`` names what busy measures (:data:`NVML_SOURCE` on
+        the card, :data:`BUSY_SOURCE` where there is none)."""
         t = time.monotonic() if now is None else float(now)
         with self._lock:
             st = self._dev
             if st is None:
                 return None
-            tail_idle = max(0.0, t - st.last_t)
-            wall = (st.last_t - st.first_t) + tail_idle
-            busy_frac = round(st.busy_s / wall, 4) if wall > 0 else 0.0
+            probe = self._probe_locked()
+            tail = max(0.0, t - st.last_t)
+            tail_busy = 0.0
+            if probe is not None:  # the card's busy since the last note
+                tail_busy = min(max(0.0, probe() - st.probe_s), tail)
+            busy = st.busy_s + tail_busy
+            wall = (st.last_t - st.first_t) + tail
+            busy_frac = round(busy / wall, 4) if wall > 0 else 0.0
+            source = BUSY_SOURCE if probe is None else NVML_SOURCE
             device = {
-                "busy_ms": round(st.busy_s * 1e3, 3),
-                "idle_ms": round((st.idle_s + tail_idle) * 1e3, 3),
+                "busy_ms": round(busy * 1e3, 3),
+                "idle_ms": round((st.idle_s + tail - tail_busy) * 1e3, 3),
                 "h2d_ms": round(st.h2d_s * 1e3, 3),
                 "d2h_ms": round(st.d2h_s * 1e3, 3),
                 "wall_ms": round(wall * 1e3, 3),
                 "busy_frac": busy_frac,
             }
-        out = {"devices": {"0": device}, "busy_frac": busy_frac, "busy_source": BUSY_SOURCE}
+        out = {"devices": {"0": device}, "busy_frac": busy_frac, "busy_source": source}
         mfu = metrics.gauge_stats("serve.mfu")
         if mfu is not None:
             out["mfu"] = mfu["last"]
         return out
+
+    def set_busy_probe(self, probe: Optional[BusyProbe]) -> None:
+        """Swap the busy probe (None: host dispatch wall); the window
+        restarts."""
+        with self._lock:
+            self._probe = probe
+            self._dev = None
 
     def clear(self) -> None:
         with self._lock:
@@ -243,7 +468,11 @@ def utilization_status(now: Optional[float] = None) -> Optional[dict]:
 
 __all__ = [
     "BUSY_SOURCE",
+    "BusyProbe",
     "DeviceLedger",
+    "NVML_SOURCE",
+    "NvmlBusyProbe",
+    "default_busy_probe",
     "MFU_WINDOW_S",
     "get_ledger",
     "note_busy",

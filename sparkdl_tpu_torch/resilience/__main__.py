@@ -2,14 +2,16 @@
 
 Subcommands::
 
-    supervise --num-ranks N --cmd TEMPLATE
+    supervise --num-ranks N (--job JOB.json | --cmd TEMPLATE)
+              [--device cuda|cpu] [--distributed] [--coordinator H:P]
               [--heartbeat-dir D] [--stale-after S] [--poll-interval S]
               [--grace S] [--max-restarts R]
         Launch and supervise an N-rank gang: gang-kill + relaunch on any
         rank death or staleness, capped restarts, a JSON verdict on
-        stdout. --cmd is a shlex template with {rank}/{generation}/
-        {num_ranks} placeholders. --job (the JAX package's batch worker)
-        is refused: that worker is not ported (ROADMAP Queue A item 4.12).
+        stdout. --job runs ``python -m sparkdl_tpu_torch.worker`` per rank
+        (the heartbeat dir defaults to the job's ``heartbeat_dir``);
+        --cmd is a shlex template with {rank}/{generation}/{num_ranks}
+        placeholders, for any other gang binary.
 
     plan [PLAN]
         Parse a fault plan (argument, or $SPARKDL_FAULT_PLAN) and print
@@ -42,8 +44,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     p_sup.add_argument("--num-ranks", type=int, required=True)
     p_sup.add_argument(
         "--job", default=None,
-        help="batch worker job spec (refused: not ported, ROADMAP Queue A "
-        "item 4.12)",
+        help="batch worker job spec (python -m sparkdl_tpu_torch.worker per rank)",
+    )
+    p_sup.add_argument(
+        "--device", choices=("cuda", "cpu"), default=None,
+        help="--job: the workers' device (their default: cuda)",
+    )
+    p_sup.add_argument(
+        "--distributed", action="store_true",
+        help="--job: join the torch.distributed process group (train jobs)",
+    )
+    p_sup.add_argument(
+        "--coordinator", default=None,
+        help="--job with --distributed: the process group's host:port",
     )
     p_sup.add_argument(
         "--cmd", default=None,

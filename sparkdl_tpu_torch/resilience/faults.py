@@ -40,8 +40,10 @@ it acts.
 
 Hook points: the executor's partition loop (``site=executor.partition``),
 the feeder's owner thread before a dispatch (``site=feeder.dispatch``)
-and the serving router's per-request path (``site=serve.request``,
-coordinates ``request``/``model``/``cls``). A hook costs one env lookup
+the serving router's per-request path (``site=serve.request``,
+coordinates ``request``/``model``/``cls``) and the batch gang worker's
+partition loop (``site=worker.partition``, coordinates
+``rank``/``step``/``partition``/``gen``). A hook costs one env lookup
 when no plan is set.
 """
 

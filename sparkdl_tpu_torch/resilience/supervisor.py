@@ -20,13 +20,9 @@ JSONL event. Restarts are capped by a
 :class:`~sparkdl_tpu_torch.resilience.policy.RetryPolicy`
 (``SPARKDL_SUPERVISOR_RETRY_*``), whose backoff is the pause between
 generations. The serving gateway (``serving/gateway.py``) runs one over
-its workers. CLI: ``python -m sparkdl_tpu_torch.resilience supervise
---cmd``.
-
-Not ported: the batch gang worker (the JAX package's ``worker.py``, which
-reads parquet and writes Arrow IPC through ``pyarrow``), so
-:func:`worker_launcher` and ``supervise --job`` refuse with a message
-naming ROADMAP Queue A item 4.12.
+its workers; :func:`worker_launcher` launches the batch gang worker
+(``python -m sparkdl_tpu_torch.worker``). CLI: ``python -m
+sparkdl_tpu_torch.resilience supervise --job`` or ``--cmd``.
 """
 
 from __future__ import annotations
@@ -453,19 +449,45 @@ class GangSupervisor:
             generation += 1
 
 
-#: what a refusal names: the batch gang worker is not ported yet
-WORKER_NOT_PORTED = (
-    "the batch gang worker (the JAX package's worker.py, "
-    "parquet in and Arrow IPC out through pyarrow) is not ported to "
-    "sparkdl_tpu_torch yet: ROADMAP Queue A item 4.12; supervise any "
-    "gang binary with --cmd"
-)
+def worker_launcher(
+    job_path: str,
+    num_ranks: int,
+    *,
+    python: Optional[str] = None,
+    device: Optional[str] = None,
+    distributed: bool = False,
+    coordinator: Optional[str] = None,
+    extra_env: Optional[dict] = None,
+    stdout=subprocess.DEVNULL,
+    stderr=subprocess.DEVNULL,
+) -> Callable[[int, int], subprocess.Popen]:
+    """The standard ``launch`` callable: one ``python -m
+    sparkdl_tpu_torch.worker`` per rank, generation and resume plumbed
+    through the environment. Generations > 0 run with
+    ``SPARKDL_GANG_RESUME=1``: already-published partition outputs are
+    verified and skipped, so a restart re-pays only the partitions the
+    dead generation never finished. ``device``: the worker's ``--device``
+    (its own default, ``cuda``, when None)."""
 
+    def launch(rank: int, generation: int) -> subprocess.Popen:
+        argv = [
+            python or sys.executable, "-m", "sparkdl_tpu_torch.worker",
+            "--job", job_path,
+            "--process-id", str(rank),
+            "--num-processes", str(num_ranks),
+        ]
+        if not distributed:
+            argv.append("--no-distributed")
+        if coordinator:
+            argv += ["--coordinator", coordinator]
+        if device:
+            argv += ["--device", device]
+        env = {**os.environ, **(extra_env or {}), GENERATION_ENV: str(generation)}
+        if generation > 0:
+            env.setdefault(RESUME_ENV, "1")
+        return subprocess.Popen(argv, env=env, stdout=stdout, stderr=stderr)
 
-def worker_launcher(*args, **kwargs) -> Callable[[int, int], subprocess.Popen]:
-    """The JAX package's standard batch-worker launcher. It refuses: the
-    batch gang worker is not ported (:data:`WORKER_NOT_PORTED`)."""
-    raise NotImplementedError(WORKER_NOT_PORTED)
+    return launch
 
 
 def _cmd_launcher(
@@ -493,13 +515,27 @@ def _cmd_launcher(
 def supervise_main(args) -> int:
     """Body of ``python -m sparkdl_tpu_torch.resilience supervise``."""
     hb_dir = args.heartbeat_dir
+    if hb_dir is None and args.job:
+        try:
+            with open(args.job) as f:
+                hb_dir = json.load(f).get("heartbeat_dir")
+        except (OSError, json.JSONDecodeError) as e:
+            print(f"supervise: cannot read job spec {args.job}: {e}", file=sys.stderr)
+            return 2
     if args.cmd:
         launch = _cmd_launcher(args.cmd, args.num_ranks)
     elif args.job:
-        print(f"supervise: --job: {WORKER_NOT_PORTED}", file=sys.stderr)
-        return 2
+        launch = worker_launcher(
+            args.job,
+            args.num_ranks,
+            device=args.device,
+            distributed=args.distributed,
+            coordinator=args.coordinator,
+            stdout=None,  # operator CLI: rank output flows to the terminal
+            stderr=None,
+        )
     else:
-        print("supervise: need --cmd (--job is not ported)", file=sys.stderr)
+        print("supervise: need --job or --cmd", file=sys.stderr)
         return 2
     policy = default_restart_policy()
     if args.max_restarts is not None:

@@ -30,8 +30,9 @@ thread, and their kernels time-slice. What the gang buys is survival:
   default): the placement key ``(model, precision, mesh)``
   consistent-hashes onto a ring of ready workers, spilling past
   draining/down ranks and ranks the fleet scrape reports saturated
-  (``util.busy_frac >= SPARKDL_GATEWAY_SPILL_BUSY``). The port's programs
-  run on one device, so the key's mesh width is 1.
+  (``util.busy_frac >= SPARKDL_GATEWAY_SPILL_BUSY``; on the card the
+  card's NVML kernel-busy share, ``obs/utilization.py``). The port's
+  programs run on one device, so the key's mesh width is 1.
 - **elasticity**: :meth:`ServingGateway.resize` grows or shrinks the gang
   through the normal verbs, and ``SPARKDL_FLEET_AUTOSCALE=1`` turns the
   fleet engine's scale_up/scale_down advice into ``resize`` calls under

@@ -323,3 +323,33 @@ def test_rank_labels_on_the_port_exposition():
 
     for line in text.splitlines() + ['x{a="1",b="2"} 4', "# HELP x y"]:
         assert _label_line(line, 'rank="5"') == jax_label_line(line, 'rank="5"')
+
+
+def test_a_host_bound_worker_with_an_idle_card_is_not_scaled_up(monkeypatch):
+    """A worker whose host dispatch fills the wall while NVML reads the card
+    at 5% busy: its ledger publishes 0.05, and the fleet does not read it
+    as saturated (the host-dispatch number, near 1, would scale up)."""
+    from sparkdl_tpu_torch.obs import utilization
+
+    verdicts = {}
+    for name, probe_share in (("nvml", 0.05), ("host_dispatch", None)):
+        ledger = utilization.DeviceLedger(busy_probe=None)
+        clock = {"t": 100.0}
+        if probe_share is not None:
+            ledger.set_busy_probe(lambda: probe_share * (clock["t"] - 100.0))
+        for _ in range(40):
+            clock["t"] += 0.1
+            ledger.note_busy(0.1, now=clock["t"])
+        view = ledger.status(now=clock["t"])
+        assert view["busy_source"] == name
+        workers = [FakeWorker(r) for r in range(2)]
+        for w in workers:
+            w.busy = view["busy_frac"]
+        states = [{"rank": r, "generation": 0, "status": "ready", "base_url": f"http://w{r}"}
+                  for r in range(2)]
+        eng = fleet.FleetEngine(fetch=_fetcher(workers))
+        for now in CLOCKS[:3]:
+            eng.scrape_once([dict(s) for s in states], now=now)
+        verdicts[name] = eng.recommend_once(now=CLOCKS[2] + 0.5)["action"]
+    assert verdicts["nvml"] != "scale_up"
+    assert verdicts["host_dispatch"] == "scale_up"

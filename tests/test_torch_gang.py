@@ -140,8 +140,15 @@ def test_gang_survives_a_crash_mid_flood_and_drains(gang):
         worst = max(worst, float(np.abs(got - ref).max()))
     assert worst <= ATOL, worst
 
-    # the lock sanitizer ran in the workers and saw no cycle
-    metrics_text = urllib.request.urlopen(base + "/metrics", timeout=10).read().decode()
+    # the lock sanitizer ran in the workers and saw no cycle. A relaunched
+    # rank's lines join the federated /metrics at the gateway's first fresh
+    # scrape of it, which a loaded machine delays past "ready": wait for it
+    def federated():
+        return urllib.request.urlopen(base + "/metrics", timeout=10).read().decode()
+
+    _wait(lambda: all(f'sparkdl_serve_completed_total{{rank="{r}"}}' in federated() for r in (0, 1)),
+          60, "both ranks' lines in the federated /metrics")
+    metrics_text = federated()
     assert 'sparkdl_serve_completed_total{rank="0"}' in metrics_text
     assert 'sparkdl_serve_completed_total{rank="1"}' in metrics_text
     assert "locks_cycles" not in metrics_text

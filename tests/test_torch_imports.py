@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``sparkdl_tpu_torch`` and not
-``chip_smoke.py`` imports jax, flax, keras, tensorflow, h5py or the JAX
+``chip_smoke.py`` imports jax, flax, keras, tensorflow, h5py, pyarrow or the JAX
 package, and an entry point left at its default device refuses to run
 without CUDA."""
 
@@ -16,7 +16,8 @@ import sparkdl_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.join(REPO, "sparkdl_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "keras", "tensorflow", "h5py", "sparkdl_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "keras", "tensorflow", "h5py", "pyarrow",
+             "sparkdl_tpu")
 
 
 def _port_files():

@@ -9,7 +9,8 @@ stale heartbeat gives a kill and a restart; the restart cap raises
 ``GangFailedError``; a clean exit of a serving gang relaunches it; a stop
 kills the gang; ``resize`` grows and shrinks a live gang. ``supervise
 --cmd`` prints the same verdict as the JAX CLI for the same template, and
-``--job`` (the batch worker, not ported) is refused.
+``supervise --job`` runs the port's batch gang worker on the CPU through a
+crashed rank into a gather equal to a fault-free transform.
 """
 
 import json
@@ -230,8 +231,49 @@ def test_supervise_cmd_cli_same_verdict(plan, rc, tmp_path):
         assert json.loads(ours.stderr) == json.loads(ref.stderr.strip().splitlines()[-1])
 
 
-def test_supervise_job_and_worker_launcher_refuse():
-    proc = _cli("sparkdl_tpu_torch.resilience", ["supervise", "--num-ranks", "2", "--job", "job.json"])
-    assert proc.returncode == 2 and "ROADMAP Queue A item 4.12" in proc.stderr
-    with pytest.raises(NotImplementedError, match="pyarrow"):
-        supervisor.worker_launcher("job.json", 2)
+def test_supervise_job_recovers_a_crashed_rank(tmp_path):
+    import numpy as np
+
+    from sparkdl_tpu_torch.dataframe import DataFrame
+    from sparkdl_tpu_torch.estimators.logistic_regression import LogisticRegressionModel
+    from sparkdl_tpu_torch.persistence import save_stage
+    from sparkdl_tpu_torch.worker import gather_results
+
+    rng = np.random.default_rng(5)
+    stage = LogisticRegressionModel(
+        w=rng.normal(size=(4, 3)).astype(np.float32), b=rng.normal(size=(3,)).astype(np.float32),
+        featuresCol="features", predictionCol="pred", probabilityCol=None, device="cpu")
+    save_stage(stage, str(tmp_path / "stage"))
+    DataFrame.fromColumns({"features": list(rng.normal(size=(30, 4)).astype(np.float32))}, 1) \
+        .writeParquet(str(tmp_path / "in.parquet"))
+    job = {"stage_path": str(tmp_path / "stage"), "input_parquet": str(tmp_path / "in.parquet"),
+           "num_partitions": 6, "output_dir": str(tmp_path / "out"),
+           "heartbeat_dir": str(tmp_path / "hb"), "heartbeat_interval": 0.2}
+    (tmp_path / "job.json").write_text(json.dumps(job))
+    proc = subprocess.run(
+        [sys.executable, "-m", "sparkdl_tpu_torch.resilience", "supervise", "--num-ranks", "2",
+         "--job", str(tmp_path / "job.json"), "--device", "cpu", "--poll-interval", "0.1"],
+        capture_output=True, text=True, timeout=240,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        env={**os.environ, "SPARKDL_SUPERVISOR_RETRY_BASE_MS": "10",
+             "SPARKDL_FAULT_PLAN": "site=worker.partition:rank=1:step=0:crash",
+             "SPARKDL_FAULT_STATE": str(tmp_path / "faults")},
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    verdict = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert verdict["supervise"] == "OK" and verdict["restarts"] == 1
+    got = gather_results(job["output_dir"], 2).collectColumns()
+    want = stage.transform(DataFrame.readParquet(job["input_parquet"], 6)).collectColumns()
+    assert got["pred"] == want["pred"]
+    np.testing.assert_array_equal(np.stack(got["features"]), np.stack(want["features"]))
+    # generation 1 finished both ranks; rank 1 crashed before publishing,
+    # so it resumed nothing, and rank 0 resumed only its own partitions
+    success = [json.loads((tmp_path / "out" / f"_SUCCESS.{r}").read_text()) for r in (0, 1)]
+    assert [s["generation"] for s in success] == [1, 1]
+    assert set(success[0]["resumed"]) <= {0, 2, 4} and success[1]["resumed"] == []
+    with pytest.raises(ValueError, match="module:function"):
+        from sparkdl_tpu_torch.worker import _resolve_model_builder
+
+        _resolve_model_builder({"builder": "no_colon"})
+    launch = supervisor.worker_launcher(str(tmp_path / "job.json"), 2, device="cpu")
+    assert callable(launch)

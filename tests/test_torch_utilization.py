@@ -193,3 +193,52 @@ def test_router_notes_busy_time_and_no_mfu_on_the_cpu():
     assert dev["busy_ms"] > 0 and 0 < status["busy_frac"] <= 1
     assert metrics.gauge_stats("serve.mfu") == mfu_before  # nothing published on the CPU
     assert math.isclose(dev["busy_ms"] + dev["idle_ms"], dev["wall_ms"], abs_tol=2e-3)
+
+
+def _host_bound_loop(ledger, card_share=0.05, steps=50, dt=0.1):
+    """A loop whose host dispatch wall fills every interval (occupancy
+    near 1) while the injected NVML probe reads ``card_share`` of the
+    wall as kernel-busy."""
+    clock = {"t": T0}
+    probe = lambda: card_share * (clock["t"] - T0)  # noqa: E731 — cumulative busy s
+    ledger.set_busy_probe(probe)
+    for _ in range(steps):
+        clock["t"] += dt
+        ledger.note_busy(dt, now=clock["t"])
+    return clock["t"]
+
+
+def test_busy_is_the_cards_share_under_an_nvml_probe():
+    ledger = utilization.DeviceLedger(busy_probe=None)
+    end = _host_bound_loop(ledger, card_share=0.05)
+    view = ledger.status(now=end)
+    assert view["busy_source"] == "nvml" == utilization.NVML_SOURCE
+    assert abs(view["busy_frac"] - 0.05) < 1e-3
+    assert abs(metrics.gauge_stats("util.busy_frac")["last"] - 0.05) < 1e-3
+    dev = view["devices"]["0"]
+    assert abs(dev["busy_ms"] + dev["idle_ms"] - dev["wall_ms"]) < 1e-3
+    # the same loop without a card probe reads the host dispatch wall: near 1
+    host = utilization.DeviceLedger(busy_probe=None)
+    t = T0
+    for _ in range(50):
+        t += 0.1
+        host.note_busy(0.1, now=t)
+    assert host.status(now=t)["busy_source"] == "host_dispatch"
+    assert host.status(now=t)["busy_frac"] > 0.95
+
+
+def test_nvml_that_cannot_open_on_a_card_is_an_error(monkeypatch):
+    import ctypes
+
+    def no_lib(*a, **k):
+        raise OSError("libnvidia-ml.so.1: cannot open shared object file")
+
+    monkeypatch.setattr(ctypes, "CDLL", no_lib)
+    with pytest.raises(RuntimeError, match="NVML"):
+        utilization.NvmlBusyProbe(0)
+    # a ledger on a machine with a card resolves NVML at its first note and
+    # raises there, never falling back to the host dispatch wall
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    with pytest.raises(RuntimeError, match="libnvidia-ml"):
+        utilization.DeviceLedger().note_busy(0.01, now=T0)
