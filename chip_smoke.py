@@ -267,7 +267,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     ``serve.mfu`` in (0, 1]; ``util.busy_frac`` read from NVML
     (``busy_source`` ``nvml``) over the ledger's window run on 2 s past the
     flood (NVML's reading trails it), within 0.15 of the profiler's busy
-    share of that window, printed beside it with NVML's sample period; ``GET /v1/memory``'s per-model bytes equal to
+    share of that window, its busy seconds 0.5-1.5 times the profiler's;
+    ``GET /v1/memory``'s per-model bytes equal to
     residency's charges, ground truth from ``memory_allocated``. (b) 8
     generate requests of 32 tokens: the ``kv_cache`` class allocates and
     frees equal bytes and holds 0 once idle; under
@@ -325,8 +326,10 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     class, the crash-to-ready relaunch window (from the JSONL events)
     against ``SPARKDL_GATEWAY_PENDING_S``, each rank's ``util.busy_frac``
     (from NVML, ``busy_source`` ``nvml`` on every worker: the whole card's
-    share, within 0.15 of ``nvidia-smi``'s mean utilization sampled every
-    100 ms over the flood) and the fleet's verdict, and each fresh
+    share; read at both ends of a 5 s window of steady bert-base load
+    after the flood, above 0, within 0.15 of ``nvidia-smi``'s mean
+    utilization sampled every 100 ms across it and 0.5-1.5 times it) and
+    the fleet's verdict, and each fresh
     worker's ``GET /v1/memory`` beside ``nvidia-smi --query-compute-apps``.
     About 90 s.
 19. the batch gang: ``python -m sparkdl_tpu_torch.worker`` ranks under
@@ -352,9 +355,10 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     structs (about 77 MB of Parquet) in 8 partitions: predictions equal,
     features within relative 1e-5 of the single process. (d) a ``"type":
     "train"`` job at one rank (NCCL world 1): phase 12's ResNet50 from the
-    ``chip_smoke:train_builder`` builder, 128 structs, 2 epochs; its
-    ``trained_params.pkl`` equal to the same fit in this process (cuDNN
-    deterministic in both) within atol 1e-5. Prints rows/s through the
+    ``chip_smoke:train_builder`` builder, 128 structs, 2 epochs of Adam at
+    1e-4; its loss finite and lower at the last epoch's end than at the
+    first's, and its ``trained_params.pkl`` equal to the same fit in this
+    process (cuDNN deterministic in both) within atol 1e-5. Prints rows/s through the
     gang beside the single process, the crash-to-``_SUCCESS`` wall,
     partitions per rank and resumed partitions. About 150 s.
     Phases 6 and 8 also save the fitted featurizer -> LogisticRegression
@@ -675,11 +679,21 @@ GANG_CRASH_AT = GANG_WARMUPS + 24
 #: each worker's budget: every model of the flood at once (bert-base and the
 #: canary at both rungs, ResNet50: about 1.4 GiB), so nothing evicts
 GANG_BUDGET_MB = 8192
+#: util.busy_frac against nvidia-smi: a steady text load from
+#: SERVE_CLIENT_THREADS threads, GANG_BUSY_SETTLE_S for it (and then for
+#: nvidia-smi) to settle, then each rank's ledger read at both ends of a
+#: GANG_BUSY_WINDOW_S window
+GANG_BUSY_SETTLE_S = 1.0
+GANG_BUSY_WINDOW_S = 5.0
 GANG_READY_TIMEOUT_S = 300
 GANG_SCRAPE_S = "0.25"  # SPARKDL_FLEET_SCRAPE_S of the gateway in this process
 #: util.busy_frac (NVML) against the profiler's busy share (17) or
 #: nvidia-smi's mean utilization (18) over the same window
 BUSY_NVML_TOL = 0.15
+#: ... and the NVML busy seconds over the other's, over the same window
+#: (a dead probe reads 0 and fails here, where it could pass the absolute
+#: tolerance on a mostly idle window)
+BUSY_NVML_RATIO = (0.5, 1.5)
 #: how long phase 17's window runs past the flood for NVML's trailing samples
 NVML_SETTLE_S = 2.0
 # phase 19: the batch gang (python -m sparkdl_tpu_torch.worker)
@@ -691,6 +705,9 @@ BATCH_IMAGES = 512
 BATCH_IMAGE_SIDE = 224
 BATCH_TRAIN_IMAGES = 128
 BATCH_TRAIN_EPOCHS = 2
+#: Adam's rate for 19(d) (the saved estimator's stepSize): phase 12's
+#: TRAIN_STEP_SIZE diverges on these unnormalized pixels
+BATCH_TRAIN_STEP_SIZE = 1e-4
 BATCH_TRAIN_ATOL = 1e-5
 BATCH_TIMEOUT_S = 600
 MODEL_BUILDER = "sparkdl_tpu_torch.models.registry:build_model_function"
@@ -3078,12 +3095,14 @@ def phase_control_plane(seed: int, device_name: str) -> None:
     time.sleep(max(0.0, t_end + NVML_SETTLE_S - time.monotonic()))
     settled = utilization.utilization_status(now=t_end + NVML_SETTLE_S)
     settled_wall = settled["devices"]["0"]["wall_ms"] / 1e3
-    check(abs(settled["busy_frac"] - busy_prof / settled_wall) <= BUSY_NVML_TOL,
-          f"control plane: util.busy_frac {settled['busy_frac']:.4f} (NVML) against the profiler's busy share "
-          f"{busy_prof / settled_wall:.4f} over the ledger's {settled_wall:.3f} s window")
-    probe = utilization.get_ledger()._probe
-    nvml_period = getattr(probe, "period_s", None)
-    nvml_mode = getattr(probe, "mode", None)
+    nvml_busy = settled["devices"]["0"]["busy_ms"] / 1e3
+    nvml_ratio = nvml_busy / busy_prof
+    check(abs(settled["busy_frac"] - busy_prof / settled_wall) <= BUSY_NVML_TOL
+          and nvml_busy > 0 and BUSY_NVML_RATIO[0] <= nvml_ratio <= BUSY_NVML_RATIO[1],
+          f"control plane: util.busy_frac {settled['busy_frac']:.4f} (NVML, {nvml_busy:.4f} s busy) against the "
+          f"profiler's busy share {busy_prof / settled_wall:.4f} ({busy_prof:.4f} s) over the ledger's "
+          f"{settled_wall:.3f} s window")
+    nvml_poll = utilization.get_ledger()._probe.poll_s
     status, mem = _get(base, "/v1/memory")
     charged = {}
     for m in router.stats()["models"]:
@@ -3100,11 +3119,12 @@ def phase_control_plane(seed: int, device_name: str) -> None:
         f"flash f32 launches {launched} (profiler {recorded}); utilization ledger busy {dev['busy_ms']:.3f} ms + idle "
         f"{dev['idle_ms']:.3f} ms = {ledger_wall:.4f} s against the flood's {wall:.4f} s (tolerance {tol:.4f} s), "
         f"h2d {dev['h2d_ms']:.3f} ms, d2h {dev['d2h_ms']:.3f} ms; util.busy_frac {util['busy_frac']:.4f} at the "
-        f"flood's end (gauge at the last note {busy_frac:.4f}; busy_source {util['busy_source']} by {nvml_mode}, period "
-        f"{nvml_period if nvml_period is None else round(nvml_period, 4)} s), the profiler's device busy "
+        f"flood's end (gauge at the last note {busy_frac:.4f}; busy_source {util['busy_source']}, "
+        f"nvmlDeviceGetUtilizationRates polled every {nvml_poll} s), the profiler's device busy "
         f"{busy_prof:.4f} s = share {busy_prof / wall:.4f}; over the window run on {NVML_SETTLE_S} s past the "
         f"flood ({settled_wall:.3f} s) util.busy_frac {settled['busy_frac']:.4f} against the profiler's share "
-        f"{busy_prof / settled_wall:.4f} (|diff| <= {BUSY_NVML_TOL}); "
+        f"{busy_prof / settled_wall:.4f} (|diff| <= {BUSY_NVML_TOL}), NVML busy {nvml_busy:.4f} s = "
+        f"{nvml_ratio:.4f} x the profiler's (within {BUSY_NVML_RATIO}); "
         f"serve.mfu {mfu['last']:.6f} (bf16 dense peak {PEAK_FLOP_PER_S['bf16']:.4g} FLOP/s; against the f32 peak "
         f"{PEAK_FLOP_PER_S['f32']:.4g} FLOP/s {mfu['last'] * PEAK_FLOP_PER_S['bf16'] / PEAK_FLOP_PER_S['f32']:.6f}); "
         f"/v1/memory: models {mem['models']} equal residency's charges, "
@@ -3580,6 +3600,53 @@ def phase_gang(seed: int, device_name: str, phase11: dict) -> dict:
         check(set(sources.values()) == {utilization.NVML_SOURCE},
               f"gang: the workers' util.busy_frac sources {sources}")
 
+        # each rank's util.busy_frac against nvidia-smi over one window of
+        # steady load: every rank's ledger (NVML: the whole card, which the
+        # two processes share) read at both ends, nvidia-smi sampling the
+        # same card across it
+        def rank_devices():
+            out = {}
+            for w in workers()["workers"]:
+                _, models = _get(f"http://127.0.0.1:{w['port']}", "/v1/models")
+                out[w["rank"]] = models["utilization"]["devices"]["0"]
+            return out
+
+        stop_load, load_codes = threading.Event(), []
+
+        def load(k):
+            while not stop_load.is_set():
+                load_codes.append(_post(base, body(texts[k % len(texts)][0], SERVE_TEXT_MODEL, "interactive"))[0])
+                k += SERVE_CLIENT_THREADS
+
+        loaders = [threading.Thread(target=load, args=(k,), name="gang-load", daemon=True)
+                   for k in range(SERVE_CLIENT_THREADS)]
+        for t in loaders:
+            t.start()
+        smi_w = None
+        try:
+            time.sleep(GANG_BUSY_SETTLE_S)
+            smi_w = _utilization_sampler()
+            time.sleep(GANG_BUSY_SETTLE_S)
+            dev_a, t_a = rank_devices(), time.perf_counter()
+            time.sleep(GANG_BUSY_WINDOW_S)
+            dev_b, t_b = rank_devices(), time.perf_counter()
+        finally:
+            if smi_w is not None:
+                smi_w.terminate()
+            stop_load.set()
+            for t in loaders:
+                t.join(timeout=120)
+        smi_w_out = smi_w.communicate(timeout=30)[0]
+        win_samples = [float(v) for v in smi_w_out.split() if v.strip().replace(".", "", 1).isdigit()]
+        check(load_codes and set(load_codes) == {200}, f"gang: the steady load answered {sorted(set(load_codes))}")
+        win_smi = sum(win_samples) / len(win_samples) / 100 if win_samples else float("nan")
+        win_busy = {r: (dev_b[r]["busy_ms"] - dev_a[r]["busy_ms"]) / (dev_b[r]["wall_ms"] - dev_a[r]["wall_ms"])
+                    for r in dev_a}
+        check(win_smi > 0 and all(
+            v > 0 and abs(v - win_smi) <= BUSY_NVML_TOL and BUSY_NVML_RATIO[0] <= v / win_smi <= BUSY_NVML_RATIO[1]
+            for v in win_busy.values()),
+            f"gang: util.busy_frac per rank {win_busy} against nvidia-smi's mean {win_smi:.4f} over the window")
+
         # (g) a rolling drain of rank 1
         table = workers()
         rank1 = f"http://127.0.0.1:{table['workers'][1]['port']}"
@@ -3640,14 +3707,15 @@ def phase_gang(seed: int, device_name: str, phase11: dict) -> dict:
           f"({GANG_CANARY_WEIGHT} +- {GANG_CANARY_TOL}); no lock cycle, sanitizer edges per rank {edges}")
     print(f"gang flash launches per rank in the federated /metrics (generation 1's processes): {launches}")
     mean_util = sum(util_samples) / len(util_samples) if util_samples else float("nan")
-    # each rank's NVML share is the whole card's (two processes share it),
-    # held to nvidia-smi's mean over the flood
-    check(all(v is not None and abs(v - mean_util / 100) <= BUSY_NVML_TOL for v in busy_now.values()),
-          f"gang: util.busy_frac per rank {busy_now} against nvidia-smi's mean {mean_util:.1f} %")
     print(f"gang utilization (busy_source {sources}): util.busy_frac per rank sampled by the fleet scrape during the flood "
           f"{ {r: (min(v), max(v)) for r, v in sorted(seen_busy.items())} } (min, max), after it {busy_now}; "
           f"fleet verdicts seen {sorted(verdicts)}; nvidia-smi utilization.gpu every 100 ms over the flood: "
           f"{len(util_samples)} samples, mean {mean_util:.1f} %, max {max(util_samples, default=float('nan')):.0f} %")
+    print(f"gang utilization over one window of steady load ({SERVE_CLIENT_THREADS} threads of {SERVE_TEXT_MODEL} "
+          f"f32 requests, {len(load_codes)} answered 200 in all): each rank's util.busy_frac (NVML) between two reads "
+          f"{t_b - t_a:.3f} s apart { {r: round(v, 4) for r, v in sorted(win_busy.items())} } against nvidia-smi's "
+          f"mean {win_smi:.4f} ({len(win_samples)} samples every 100 ms across it); |diff| <= {BUSY_NVML_TOL}, "
+          f"ratio within {BUSY_NVML_RATIO}")
     print(f"gang drain: rank 1 draining, its direct submit HTTP 503 Retry-After {headers.get('Retry-After')} s, "
           f"the gateway answered {during}, rank 1 exited 0, generation 2 ready; after stop() no worker alive, "
           f"no thread left; {time.perf_counter() - t_start:.1f} s in all")
@@ -3827,7 +3895,7 @@ def phase_batch_gang(seed: int, device_name: str) -> None:
         DataFrame.fromColumns({"image": tstructs, "label": tlabels}, TRAIN_PARTITIONS).writeParquet(tpath)
         del tstructs
         est_kw = dict(inputCol="image", labelCol="label", outputCol="logits", batchSize=TRAIN_BATCH,
-                      epochs=BATCH_TRAIN_EPOCHS, stepSize=TRAIN_STEP_SIZE, targetHeight=TRAIN_SIDE,
+                      epochs=BATCH_TRAIN_EPOCHS, stepSize=BATCH_TRAIN_STEP_SIZE, targetHeight=TRAIN_SIDE,
                       targetWidth=TRAIN_SIDE)
         epath = os.path.join(tmp, "estimator")
         persistence.save_stage(DataParallelEstimator(**est_kw), epath)
@@ -3864,9 +3932,12 @@ def phase_batch_gang(seed: int, device_name: str) -> None:
                     other = other[part]
                 terr = max(terr, float(np.abs(np.asarray(other) - value).max()))
         check(terr <= BATCH_TRAIN_ATOL, f"batch gang (d): trained params off the in-process fit by {terr:.3e}")
+        tlosses = [h["loss"] for h in thist]
+        check(len(tlosses) == BATCH_TRAIN_EPOCHS and np.isfinite(tlosses).all() and tlosses[-1] < tlosses[0],
+              f"batch gang (d): the job's loss at each epoch's end {tlosses} is not finite and falling")
         print(f"batch gang (d) on {card}: a train job at 1 rank (NCCL world 1) of ResNet50(num_classes="
               f"{TRAIN_CLASSES}) from chip_smoke:train_builder over {BATCH_TRAIN_IMAGES} structs, "
-              f"{BATCH_TRAIN_EPOCHS} epochs: {tverdict}, {tgang_s:.2f} s in all (the fit in this process "
+              f"{BATCH_TRAIN_EPOCHS} epochs, Adam at {BATCH_TRAIN_STEP_SIZE}: {tverdict}, {tgang_s:.2f} s in all (the fit in this process "
               f"{tsingle_s:.2f} s); losses {[round(h['loss'], 5) for h in thist]} (in process "
               f"{[round(h['loss'], 5) for h in fitted.history]}); trained_params.pkl max |diff| {terr:.3e} "
               f"(atol {BATCH_TRAIN_ATOL})")

@@ -1,18 +1,18 @@
 """Per-rank snapshot drops: a gang rank's terminal telemetry beside its
 heartbeat file.
 
-The port of ``rank_snapshot_path``, ``write_rank_snapshot``,
-``maybe_write_rank_snapshot`` and ``load_rank_snapshots`` from the JAX
-package's ``obs/aggregate.py``. A batch gang worker force-drops
-``obs.rank.<r>.json`` into its heartbeat directory on the way out
-(``worker._obs_services``), so a reader finds every rank's counters
-there, the flash wrapper's ``kernel.flash_attention.launches.<dtype>``
-among them. The files keep the JAX package's name and top-level keys
+The port of ``rank_snapshot_path``, ``write_rank_snapshot`` and
+``load_rank_snapshots`` from the JAX package's ``obs/aggregate.py``. A
+batch gang worker drops ``obs.rank.<r>.json`` into its heartbeat
+directory on the way out (``worker._obs_services``), so a reader finds
+every rank's counters there, the flash wrapper's
+``kernel.flash_attention.launches.<dtype>`` among them. The files keep the JAX package's name and top-level keys
 (``schema``, ``rank``, ``spans``, ``metrics``), so the JAX package's
 loader reads them too. The port keeps no span ring buffer: ``spans`` is
 empty and ``open_spans`` lists the spans open at the drop. The
-cross-rank Chrome-trace merge and the straggler table are not ported
-(ROADMAP Queue A item 8, the obs tail).
+cross-rank Chrome-trace merge, the straggler table and the periodic,
+time-gated drop (``maybe_write_rank_snapshot``, ``SPARKDL_OBS_SNAP_S``)
+are not ported (ROADMAP Queue A item 8, the obs tail).
 """
 
 from __future__ import annotations
@@ -21,25 +21,14 @@ import json
 import os
 import platform
 import re
-import threading
 import time
 from typing import Dict, Optional
 
 from sparkdl_tpu_torch.obs.export import obs_rank
-from sparkdl_tpu_torch.runtime import knobs
 from sparkdl_tpu_torch.utils.metrics import metrics
 
 SNAPSHOT_SCHEMA = 1
 _RANK_SNAP_RE = re.compile(r"^obs\.rank\.(\d+)\.json$")
-
-
-def snap_interval_s() -> float:
-    """The least gap between two periodic drops (``SPARKDL_OBS_SNAP_S``,
-    default 30 s)."""
-    try:
-        return knobs.get_float("SPARKDL_OBS_SNAP_S")
-    except ValueError:
-        return 30.0
 
 
 def snapshot(rank: Optional[int] = None, reason: Optional[str] = None) -> dict:
@@ -85,30 +74,6 @@ def write_rank_snapshot(directory: str, rank: int, snap: Optional[dict] = None) 
     return path
 
 
-_last_drop: Dict[tuple, float] = {}
-_drop_lock = threading.Lock()
-
-
-def maybe_write_rank_snapshot(directory: str, rank: int, force: bool = False) -> Optional[str]:
-    """A time-gated drop: at most one per ``SPARKDL_OBS_SNAP_S`` per
-    (directory, rank), the first always, ``force`` for exit paths. Never
-    raises: a full disk must not fail the rank."""
-    try:
-        interval = snap_interval_s()
-        if interval <= 0 and not force:
-            return None
-        key = (os.path.abspath(directory), int(rank))
-        now = time.monotonic()
-        with _drop_lock:
-            last = _last_drop.get(key)
-            if not force and last is not None and now - last < interval:
-                return None
-            _last_drop[key] = now
-        return write_rank_snapshot(directory, rank)
-    except Exception:
-        return None
-
-
 def load_rank_snapshots(directory: str) -> Dict[int, dict]:
     """Every ``obs.rank.<r>.json`` drop in ``directory``, by rank; torn or
     foreign files are skipped."""
@@ -132,6 +97,5 @@ def load_rank_snapshots(directory: str) -> Dict[int, dict]:
 
 
 __all__ = [
-    "load_rank_snapshots", "maybe_write_rank_snapshot", "rank_snapshot_path",
-    "snapshot", "write_rank_snapshot",
+    "load_rank_snapshots", "rank_snapshot_path", "snapshot", "write_rank_snapshot",
 ]

@@ -10,10 +10,9 @@ server runs.
   program and its copy.
 - What busy measures on the card is the card's own **kernel-busy share**,
   as the JAX package's busy is a TPU program's wall: NVML's GPU
-  utilization samples (the share of each sample period in which a kernel
-  ran, ``nvmlDeviceGetSamples``, or ``nvmlDeviceGetUtilizationRates``
-  polled every 50 ms where NVML keeps no samples), integrated over the
-  ledger's window by :class:`NvmlBusyProbe`, which opens
+  utilization (the share of NVML's sample period in which a kernel ran,
+  ``nvmlDeviceGetUtilizationRates`` polled every 50 ms), integrated over
+  the ledger's window by :class:`NvmlBusyProbe`, which opens
   ``libnvidia-ml.so.1`` through ``ctypes`` (it ships with the NVIDIA
   kernel module's user libraries; ``pynvml`` is not needed). An eager
   forward issues its kernels one at a time, and the card idles between
@@ -47,7 +46,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, List, Optional
+from typing import Callable, Optional
 
 from sparkdl_tpu_torch.utils.metrics import WindowedCounter, metrics
 
@@ -70,22 +69,15 @@ _UNSET = object()
 class NvmlBusyProbe:
     """Cumulative kernel-busy seconds of one CUDA device, from NVML.
 
-    Where NVML keeps GPU utilization samples
-    (``nvmlDeviceGetSamples``), each new sample's value (the percent of
-    its period in which a kernel ran) times the time since the previous
-    sample. Where it does not (``NVML_ERROR_NOT_SUPPORTED``, as on some
-    virtualized cards), a daemon thread reads ``nvmlDeviceGetUtilizationRates``
-    (what ``nvidia-smi`` prints as utilization.gpu) every ``poll_s`` and
-    integrates the reading over the time since the last one. ``mode``
-    names which. The device is found by its PCI bus id
-    (``torch.cuda.get_device_properties``), so ``CUDA_VISIBLE_DEVICES``
-    renumbering cannot pick the wrong card. Raises RuntimeError naming
-    NVML when the library, its init, the device handle or both reads
-    fail."""
-
-    _SAMPLES_GPU_UTIL = 1  # NVML_GPU_UTILIZATION_SAMPLES
-    _NOT_SUPPORTED = 3  # NVML_ERROR_NOT_SUPPORTED
-    _NOT_FOUND = 6  # NVML_ERROR_NOT_FOUND: no sample newer than asked
+    A daemon thread reads ``nvmlDeviceGetUtilizationRates`` (what
+    ``nvidia-smi`` prints as utilization.gpu: the percent of NVML's sample
+    period in which a kernel ran) every ``poll_s`` and integrates the
+    reading over the time since the last one. The device is found by its
+    PCI bus id (``torch.cuda.get_device_properties``), so
+    ``CUDA_VISIBLE_DEVICES`` renumbering cannot pick the wrong card.
+    Raises RuntimeError naming NVML when the library, its init, the device
+    handle or the first read fail; a read that fails later in the polling
+    thread is raised by the next call."""
 
     def __init__(self, device_index: int = 0, poll_s: float = 0.05):
         import ctypes
@@ -115,35 +107,21 @@ class NvmlBusyProbe:
                         f"nvmlDeviceGetHandleByUUID({uuid.decode()})")
         self._handle = handle
 
-        class _Sample(ctypes.Structure):
-            _fields_ = [("ts", ctypes.c_ulonglong), ("raw", ctypes.c_uint64)]
-
         class _Rates(ctypes.Structure):
             _fields_ = [("gpu", ctypes.c_uint), ("memory", ctypes.c_uint)]
 
-        self._Sample, self._Rates = _Sample, _Rates
+        self._Rates = _Rates
         self._busy_s = 0.0
-        #: the gap between NVML's last two samples (its sample period), or
-        #: the polling thread's interval
-        self.period_s: Optional[float] = None
+        self._error: Optional[BaseException] = None
         self._lock = threading.Lock()
-        try:
-            latest = self._samples(0)
-            self.mode = "nvmlDeviceGetSamples"
-            self._last_us = latest[-1][0] if latest else int(time.time() * 1e6)
-        except _NvmlNotSupported:
-            self.mode = "nvmlDeviceGetUtilizationRates"
-            self._rate()  # fails loudly here if this read is refused too
-            self.period_s = float(poll_s)
-            self._last_t = time.monotonic()
-            self._stop = threading.Event()
-            self._thread = threading.Thread(target=self._poll, args=(float(poll_s),),
-                                            name="sparkdl-nvml-busy", daemon=True)
-            self._thread.start()
+        self._rate()  # fails loudly here if the read is refused
+        self.poll_s = float(poll_s)
+        self._last_t = time.monotonic()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, name="sparkdl-nvml-busy", daemon=True)
+        self._thread.start()
 
     def _check(self, rc: int, what: str) -> None:
-        if rc == self._NOT_SUPPORTED:
-            raise _NvmlNotSupported(what)
         if rc != 0:
             msg = ""
             try:
@@ -153,68 +131,29 @@ class NvmlBusyProbe:
                 pass
             raise RuntimeError(f"NVML {what} failed ({rc}: {msg}) for util.busy_frac")
 
-    def _samples(self, since_us: int) -> List[tuple]:
-        ct = self._ct
-        vtype, count = ct.c_int(), ct.c_uint(0)
-        rc = self._lib.nvmlDeviceGetSamples(
-            self._handle, self._SAMPLES_GPU_UTIL, ct.c_ulonglong(since_us),
-            ct.byref(vtype), ct.byref(count), None)
-        if rc == self._NOT_FOUND:
-            return []
-        self._check(rc, "nvmlDeviceGetSamples")
-        if count.value == 0:
-            return []
-        buf = (self._Sample * count.value)()
-        rc = self._lib.nvmlDeviceGetSamples(
-            self._handle, self._SAMPLES_GPU_UTIL, ct.c_ulonglong(since_us),
-            ct.byref(vtype), ct.byref(count), buf)
-        if rc == self._NOT_FOUND:
-            return []
-        self._check(rc, "nvmlDeviceGetSamples")
-        out = []
-        for smp in buf[:count.value]:
-            if vtype.value == 0:  # NVML_VALUE_TYPE_DOUBLE
-                value = ct.c_double.from_buffer_copy(ct.c_uint64(smp.raw)).value
-            else:  # an unsigned int in the union's low bytes
-                value = float(smp.raw & 0xFFFFFFFF)
-            out.append((int(smp.ts), value))
-        out.sort()
-        return out
-
     def _rate(self) -> float:
         rates = self._Rates()
-        rc = self._lib.nvmlDeviceGetUtilizationRates(self._handle, self._ct.byref(rates))
-        if rc == self._NOT_SUPPORTED:
-            raise RuntimeError("NVML nvmlDeviceGetUtilizationRates is not supported for util.busy_frac")
-        self._check(rc, "nvmlDeviceGetUtilizationRates")
+        self._check(self._lib.nvmlDeviceGetUtilizationRates(self._handle, self._ct.byref(rates)),
+                    "nvmlDeviceGetUtilizationRates")
         return min(100.0, float(rates.gpu)) / 100.0
 
-    def _poll(self, interval: float) -> None:
-        while not self._stop.wait(interval):
-            self._integrate_rate()
-
-    def _integrate_rate(self) -> None:
-        share = self._rate()
-        now = time.monotonic()
-        with self._lock:
-            self._busy_s += share * max(0.0, now - self._last_t)
-            self._last_t = now
+    def _poll(self) -> None:
+        try:
+            while not self._stop.wait(self.poll_s):
+                share = self._rate()
+                now = time.monotonic()
+                with self._lock:
+                    self._busy_s += share * max(0.0, now - self._last_t)
+                    self._last_t = now
+        except Exception as e:  # handed to the next reader: busy must not freeze silently
+            with self._lock:
+                self._error = e
 
     def __call__(self) -> float:
         with self._lock:
-            if self.mode != "nvmlDeviceGetSamples":
-                return self._busy_s
-            for ts, pct in self._samples(self._last_us):
-                if ts <= self._last_us:
-                    continue
-                self.period_s = (ts - self._last_us) * 1e-6
-                self._busy_s += (ts - self._last_us) * 1e-6 * min(100.0, max(0.0, pct)) / 100.0
-                self._last_us = ts
+            if self._error is not None:
+                raise RuntimeError(f"NVML polling stopped: {self._error}") from self._error
             return self._busy_s
-
-
-class _NvmlNotSupported(RuntimeError):
-    """NVML_ERROR_NOT_SUPPORTED: the probe switches reads."""
 
 
 def default_busy_probe() -> Optional[BusyProbe]:
@@ -245,7 +184,8 @@ class _DeviceState:
         self.d2h_s = 0.0
         self.first_t = now
         self.last_t = now
-        #: the busy probe's reading at the last note
+        #: the busy probe's reading credited so far (its reading at the
+        #: window's start plus the busy credited since)
         self.probe_s = probe_s
 
 
@@ -297,8 +237,11 @@ class DeviceLedger:
             return BUSY_SOURCE if self._probe_locked() is None else NVML_SOURCE
 
     def _account_probe_locked(self, probe_s: float, now: float) -> tuple:
-        """Advance the clock to ``now`` with the probe's busy since the last
-        note as busy (clamped to the elapsed wall)."""
+        """Advance the clock to ``now`` with the probe's busy not yet
+        credited as busy, up to the elapsed wall. The probe moves in steps
+        of its poll interval, so notes closer together than that see a
+        step land in one short gap: what the gap cannot hold stays owed
+        to the next notes, never dropped."""
         st = self._dev
         if st is None:
             st = self._dev = _DeviceState(now, probe_s)
@@ -308,7 +251,7 @@ class DeviceLedger:
         st.busy_s += busy_inc
         st.idle_s += idle_inc
         st.last_t = now
-        st.probe_s = max(st.probe_s, probe_s)
+        st.probe_s += busy_inc
         return busy_inc, idle_inc
 
     def note_busy(self, busy_s: float, now: Optional[float] = None) -> None:

@@ -126,8 +126,6 @@ _KNOBS: Dict[str, Tuple[str, Optional[str]]] = {
     # obs/timeseries.py: the sampler's interval (0: off) and points kept
     # per series; the fleet-sample and memory-watermark rings
     "SPARKDL_OBS_SAMPLE_S": ("float", "1"),
-    # obs/aggregate.py: the least gap between two periodic rank drops
-    "SPARKDL_OBS_SNAP_S": ("float", "30"),
     "SPARKDL_OBS_SERIES": ("int", "720"),
     "SPARKDL_FLEET_RING": ("int", "360"),
     "SPARKDL_MEM_WATERMARK_RING": ("int", "512"),

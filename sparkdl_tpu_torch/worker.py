@@ -35,7 +35,10 @@ Param (``TextEmbedder``) cannot persist its model, in either package, so
 the worker builds it from code importable on its host, as a train job
 builds its model, with ``device=`` the worker's device (for example
 ``sparkdl_tpu_torch.models.registry:build_model_function`` over a
-``weights_file``).
+``weights_file``). The JAX worker does not read it, and a stage saved by
+the JAX package (``sparkdl_tpu.*`` class paths) does not load here
+(``persistence._locate``), so one job file does not yet run under both
+workers (ROADMAP Queue A item 12).
 
 Resilience, as in the JAX package: ``_STARTED.<rank>`` and
 ``_SUCCESS.<rank>`` JSON markers (``resumed`` and ``generation`` in the
@@ -323,9 +326,9 @@ def _obs_services(job: dict, rank: int):
         try:
             hb_dir = job.get("heartbeat_dir")
             if hb_dir:
-                from sparkdl_tpu_torch.obs.aggregate import maybe_write_rank_snapshot
+                from sparkdl_tpu_torch.obs.aggregate import write_rank_snapshot
 
-                maybe_write_rank_snapshot(hb_dir, rank, force=True)
+                write_rank_snapshot(hb_dir, rank)
         except Exception:
             pass
         try:

@@ -242,3 +242,89 @@ def test_nvml_that_cannot_open_on_a_card_is_an_error(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     with pytest.raises(RuntimeError, match="libnvidia-ml"):
         utilization.DeviceLedger().note_busy(0.01, now=T0)
+
+
+class _FakeNvml:
+    """``libnvidia-ml.so.1`` as far as :class:`NvmlBusyProbe` calls it:
+    every read returns ``gpu`` percent, or ``fail`` as its error code."""
+
+    def __init__(self, gpu):
+        self.gpu, self.fail, self.reads = gpu, 0, 0
+        self.nvmlErrorString = lambda rc: b"fake NVML error"
+
+    def nvmlInit_v2(self):
+        return 0
+
+    def nvmlDeviceGetHandleByPciBusId_v2(self, bus_id, handle):
+        self.bus_id = bus_id
+        return 0
+
+    def nvmlDeviceGetUtilizationRates(self, handle, rates):
+        self.reads += 1
+        if self.fail:
+            return self.fail
+        rates._obj.gpu = self.gpu
+        return 0
+
+
+def _wait(cond, timeout=10.0):
+    import time
+
+    end = time.monotonic() + timeout
+    while not cond() and time.monotonic() < end:
+        time.sleep(0.005)
+    return cond()
+
+
+def test_nvml_probe_integrates_the_polled_rate_and_raises_a_failed_poll(monkeypatch):
+    import ctypes
+    import time
+    import types
+
+    lib = _FakeNvml(gpu=40)
+    monkeypatch.setattr(ctypes, "CDLL", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda i: types.SimpleNamespace(
+        pci_bus_id=0x1B, pci_domain_id=0, pci_device_id=0))
+    t0 = time.monotonic()
+    probe = utilization.NvmlBusyProbe(0, poll_s=0.005)
+    assert lib.bus_id == b"00000000:1b:00.0"
+    assert _wait(lambda: lib.reads >= 6 and probe() > 0)
+    busy = probe()
+    # 40 % of the wall polled so far, never more
+    assert 0 < busy <= 0.4 * (time.monotonic() - t0) + 1e-9
+    # a read that fails later is raised by the next call, never a frozen busy
+    lib.fail = 999
+    with pytest.raises(RuntimeError, match="NVML polling stopped.*nvmlDeviceGetUtilizationRates"):
+        _wait(lambda: probe() < 0, timeout=5.0)
+    assert _wait(lambda: not probe._thread.is_alive())
+
+
+def test_nvml_probe_refused_at_its_first_read_is_an_error(monkeypatch):
+    import ctypes
+    import types
+
+    lib = _FakeNvml(gpu=0)
+    lib.fail = 3  # NVML_ERROR_NOT_SUPPORTED
+    monkeypatch.setattr(ctypes, "CDLL", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda i: types.SimpleNamespace(
+        pci_bus_id=0x1B, pci_domain_id=0, pci_device_id=0))
+    with pytest.raises(RuntimeError, match=r"NVML nvmlDeviceGetUtilizationRates failed \(3"):
+        utilization.NvmlBusyProbe(0)
+
+
+def test_a_probe_stepping_slower_than_the_notes_loses_no_busy():
+    """NVML is polled every 50 ms while a busy card's dispatches note every
+    10 ms: each probe step lands in one 10 ms gap, and what that gap cannot
+    hold is credited at the next notes, so the share stays the card's."""
+    clock = {"t": T0}
+    share, poll, dt = 0.9, 0.05, 0.01
+    ledger = utilization.DeviceLedger(busy_probe=None)
+    # cumulative busy as a poller sees it: integrated at its last poll
+    ledger.set_busy_probe(lambda: share * poll * math.floor((clock["t"] - T0) / poll + 1e-9))
+    for _ in range(500):
+        clock["t"] += dt
+        ledger.note_busy(dt, now=clock["t"])
+    view = ledger.status(now=clock["t"])
+    assert abs(view["busy_frac"] - share) < 0.01
+    dev = view["devices"]["0"]
+    assert abs(dev["busy_ms"] + dev["idle_ms"] - dev["wall_ms"]) < 1e-3
