@@ -363,11 +363,56 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     partitions per rank and resumed partitions. About 150 s.
     Phases 6 and 8 also save the fitted featurizer -> LogisticRegression
     ``PipelineModel`` and load it back on the card: its predictions on the
-    40 sampled rows equal the fitted one's.
+    40 sampled rows equal the fitted one's. The text job's rank drops are
+    kept for phase 20(d).
+20. the int8-dynamic rung, on-demand profiling and the flight recorder.
+    Phase 17 runs with ``SPARKDL_OBS_DUMP_DIR`` set, so its OOM (b) and its
+    canary rollback (d) leave dumps. (a) One ``Router`` on the card behind
+    ``ServingServer``, random weights from ``--seed``, with
+    ``SPARKDL_SERVE_PRECISION_BACKGROUND=int8-dynamic`` (interactive stays
+    f32): after a warm-up of each model at both rungs, 32 bert-base
+    ``embed`` requests (1-4 rows, widths 8-512) and 16 ResNet50
+    ``features`` requests (1-2 rows), half interactive and half
+    background, over HTTP from 8 threads. Checks: every reply names its
+    rung (``"precision"``); every row equal to that rung's own build
+    called directly on the card (``serving.residency._default_loader``;
+    bert-base atol 1e-4, ResNet50 relative 1e-5); the f32 flash kernel
+    launched 12 times per bert-base dispatch of either rung, the bf16
+    kernel never; the card's int8 values and scales of both models equal
+    to the CPU port's quantizing the same f32 weights, exactly;
+    ``/v1/models``' int8 entries under their f32 entries' bytes / 3.5 and
+    ``/v1/memory`` equal to residency's charges; one direct int8 call on
+    a [4, 512] batch raises ``max_memory_allocated`` by less than half the
+    f32 parameter bytes (no whole-model f32 copy), with 12 flash launches
+    by the wrapper's count and the profiler's. Prints rows/s of the direct
+    int8 and f32 builds on a [32, 128] batch and the int8 rows'
+    row-relative error against f32 (random weights at bert-base width: not
+    gated). (b) ``POST /admin/profile {"seconds": 2}`` while 4 threads send
+    32 f32 bert-base requests: 200 with a run directory under
+    ``SPARKDL_PROFILE_DIR`` whose ``trace.json`` parses and holds
+    ``flash_f32_tf32x3_kernel`` kernel events; a second POST during the
+    capture 409, ``{"seconds": -1}`` 400; one ``{"kind": "profile"}``
+    event; every flood reply 200 and equal to the direct model (atol
+    1e-4). (c) With ``SPARKDL_TRACE_SAMPLE=1`` and phase 17(c)'s SLO knobs,
+    32 batch and 20 interactive requests trip ``interactive``: ``GET
+    /v1/slo`` names its exemplars, each resolved by
+    ``obs.trace.collect_trace`` with a waterfall whose segments sum to at
+    most e2e + 1 ms; one new ``obs-slo_burn-*.json`` dump whose context
+    names the class, whose exemplars equal the ``slo_alert`` event's
+    ``exemplar_trace_ids`` (each resolving in the dump) and whose span ring
+    holds the flood's dispatches; phase 17's ``obs-oom-*`` and
+    ``obs-canary_rollback-*`` dumps exist; ``python -m
+    sparkdl_tpu_torch.obs report``, ``trace <id>`` and ``chrome --out`` on
+    the dump exit 0 and the Chrome file loads. (d) ``python -m
+    sparkdl_tpu_torch.obs merge`` over phase 19's rank drops gives one
+    Chrome trace with a lane per rank (2), and ``obs.serve.start_server(port=0)``
+    answers 200 on ``/metrics``, ``/snapshot``, ``/series``, ``/slo`` and
+    ``/healthz``. About 60 s.
 
 The line before the last is the ``kernels`` JSON record (the f32 and the
-bf16 kernel at bert-base L=512, launches from each dtype's main-path run);
-the last line is ``{"ok": true, "device": {...}}``.
+bf16 kernel at bert-base L=512, launches from each dtype's main-path run,
+and ``launches_phase20``, phase 20(a)'s flood); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -711,6 +756,22 @@ BATCH_TRAIN_STEP_SIZE = 1e-4
 BATCH_TRAIN_ATOL = 1e-5
 BATCH_TIMEOUT_S = 600
 MODEL_BUILDER = "sparkdl_tpu_torch.models.registry:build_model_function"
+# phase 20: the int8-dynamic rung, POST /admin/profile and the flight recorder
+INT8 = "int8-dynamic"
+INT8_CLASSES = ("interactive", "background")  # f32, and the int8 rung
+INT8_TEXT_REQUESTS = 32
+INT8_IMAGE_REQUESTS = 16
+#: the int8 entry's parameter bytes under the f32 entry's over this
+#: (the JAX package's bound for its rung, tests/test_mesh_serving.py)
+INT8_BYTES_RATIO = 3.5
+INT8_MEM_BATCH = (4, 512)  # the direct call whose peak is held under half the f32 bytes
+INT8_RATE_BATCH = (32, 128)  # rows/s of the direct int8 and f32 builds
+INT8_RATE_ITERS = 5
+PROFILE_S = 2.0  # POST /admin/profile {"seconds": 2} ...
+PROFILE_FLOOD, PROFILE_THREADS = 32, 4  # ... during f32 bert-base requests from 4 threads
+#: a waterfall's seven segments against the record's e2e
+WATERFALL_SLACK_S = 1e-3
+OBS_PATHS = ("/metrics", "/snapshot", "/series", "/slo", "/healthz")
 
 
 class PhaseError(RuntimeError):
@@ -3764,10 +3825,12 @@ def _success(out: str, rank: int) -> dict:
         return json.load(f)
 
 
-def phase_batch_gang(seed: int, device_name: str) -> None:
-    """Phase 19: the batch gang worker on the card (see the docstring)."""
+def phase_batch_gang(seed: int, device_name: str, drops_dir: str) -> None:
+    """Phase 19: the batch gang worker on the card (see the docstring). The
+    text job's rank drops are copied to ``drops_dir`` for phase 20(d)."""
     import importlib.util
     import pickle
+    import shutil
 
     from sparkdl_tpu_torch.dataframe.parquet import ParquetFile
     from sparkdl_tpu_torch.obs.aggregate import load_rank_snapshots
@@ -3838,6 +3901,8 @@ def phase_batch_gang(seed: int, device_name: str) -> None:
         err = float(np.abs(np.stack(gathered["emb"]) - np.stack(ref["emb"])).max())
         check(err <= ATOL[torch.float32], f"batch gang (b): rows off the single process by {err:.3e}")
         snaps = load_rank_snapshots(hb)
+        for r in snaps:
+            shutil.copy(os.path.join(hb, f"obs.rank.{r}.json"), drops_dir)
         launches = {r: snaps.get(r, {}).get("metrics", {}).get("counters", {}).get(
             "kernel.flash_attention.launches.float32", 0) for r in range(BATCH_RANKS)}
         check(all(v > 0 for v in launches.values()), f"batch gang (b): flash f32 launches per rank {launches}")
@@ -3946,6 +4011,307 @@ def phase_batch_gang(seed: int, device_name: str) -> None:
     print(f"batch gang: {time.perf_counter() - t_phase:.1f} s in all")
 
 
+def _post_any(base: str, path: str, body: dict, timeout: float = 300.0):
+    """(status, reply) of one POST, an error status included."""
+    req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def _obs_cli(*args: str):
+    """``python -m sparkdl_tpu_torch.obs <args>``: (exit code, stdout, stderr)."""
+    r = subprocess.run([sys.executable, "-m", "sparkdl_tpu_torch.obs", *args], capture_output=True,
+                       text=True, timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    return r.returncode, r.stdout, r.stderr
+
+
+def _int8_buffers(module) -> dict:
+    return {n: b for n, b in module.named_buffers() if n.endswith(("_int8", "_scale"))}
+
+
+def phase_int8_obs(seed: int, device_name: str, dump_dir: str, drops_dir: str) -> int:
+    """Phase 20: (a) the int8-dynamic rung served beside f32, (b) POST
+    /admin/profile during a flood, (c) the flight recorder on an SLO trip
+    and phase 17's dumps, (d) phase 19's rank drops merged and the pull
+    exporter. Returns the f32 flash launches of (a)'s flood."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparkdl_tpu_torch.graph.precision import quantize_module
+    from sparkdl_tpu_torch.models.registry import param_bytes
+    from sparkdl_tpu_torch.obs import export, serve as obs_serve, trace as obs_trace
+    from sparkdl_tpu_torch.serving import Router, ServingServer
+    from sparkdl_tpu_torch.serving.__main__ import serving_env_defaults
+    from sparkdl_tpu_torch.serving.residency import _default_loader
+    from sparkdl_tpu_torch.utils.profiler import TRACE_FILE
+
+    t_phase = time.perf_counter()
+    card = f"{device_name} ({_smi()})"
+    text_spec, image_spec = get_model(SERVE_TEXT_MODEL), get_model(SERVE_IMAGE_MODEL)
+    tmp = tempfile.mkdtemp(prefix="sparkdl_p20_")
+    jsonl = os.path.join(tmp, "events.jsonl")
+    for name in ("SPARKDL_SERVE_PRECISION_BATCH", "SPARKDL_SERVE_HBM_BUDGET_MB", *CP_SLO,
+                 "SPARKDL_SERVE_CANARY_MODEL", "SPARKDL_SERVE_CANARY_VERSION"):
+        os.environ.pop(name, None)
+    env = {"SPARKDL_SERVE_PRECISION_BACKGROUND": INT8, "SPARKDL_OBS_JSONL": jsonl,
+           "SPARKDL_PROFILE_DIR": os.path.join(tmp, "profiles"), "SPARKDL_TRACE_SAMPLE": "1",
+           "SPARKDL_OBS_DUMP_DIR": dump_dir}
+    os.environ.update(env)
+    shutdown_feeders()
+    serving_env_defaults()
+    obs_trace.reset()
+    slo.reset()
+    specs = {SERVE_TEXT_MODEL: (text_spec, "embed"), SERVE_IMAGE_MODEL: (image_spec, "features")}
+    texts = [(ids, INT8_CLASSES[i % 2]) for i, (ids, _) in
+             enumerate(_text_requests(seed + 20, text_spec, INT8_TEXT_REQUESTS))]
+    images = [(x, INT8_CLASSES[i % 2]) for i, x in enumerate(_image_requests(seed + 20, image_spec, INT8_IMAGE_REQUESTS))]
+
+    def body(model, x, cls):
+        out = {"model": model, "inputs": x.tolist(), "priority": cls}
+        return {**out, "dtype": "int32", "mode": "embed"} if model == SERVE_TEXT_MODEL else out
+
+    router = Router(seed=seed, device=SERVE_DEVICE)
+    server = ServingServer(router, port=0)
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        # (a) the int8 rung: every model at both rungs, warmed, then the flood
+        t0 = time.perf_counter()
+        for model, reqs in ((SERVE_TEXT_MODEL, texts), (SERVE_IMAGE_MODEL, images)):
+            for x, cls in reqs[:2]:
+                status, _, reply, _ = _post(base, body(model, x, cls))
+                check(status == 200 and reply["precision"] == ("f32" if cls == "interactive" else INT8),
+                      f"int8 (a) warm-up {model} {cls}: HTTP {status} {reply.get('precision', reply)}")
+        print(f"int8 (a): {SERVE_TEXT_MODEL} and {SERVE_IMAGE_MODEL} loaded at f32 and {INT8} in "
+              f"{time.perf_counter() - t0:.2f} s")
+        metrics.reset()
+        flash_attention.launches_by_dtype = dict.fromkeys(flash_attention.launches_by_dtype, 0)
+        with ThreadPoolExecutor(SERVE_CLIENT_THREADS) as pool:
+            t0 = time.perf_counter()
+            futs = [(model, x, cls, pool.submit(_post, base, body(model, x, cls)))
+                    for model, reqs in ((SERVE_TEXT_MODEL, texts), (SERVE_IMAGE_MODEL, images)) for x, cls in reqs]
+            replies = [(model, x, cls, f.result()) for model, x, cls, f in futs]
+            flood_s = time.perf_counter() - t0
+        launched = dict(flash_attention.launches_by_dtype)
+        counters = metrics.snapshot()["counters"]
+        bert_dispatches = sum(counters.get(f"serve.dispatches.{SERVE_TEXT_MODEL}.{p}", 0) for p in ("f32", INT8))
+        check(launched[torch.float32] == 12 * bert_dispatches > 0 and launched[torch.bfloat16] == 0,
+              f"int8 (a): flash launches {launched} against 12 x {bert_dispatches} bert-base dispatches")
+        direct = {(m, p): _default_loader(m, mode, p, device="cuda", seed=seed)
+                  for m, (_, mode) in specs.items() for p in ("f32", INT8)}
+        worst = {}
+        for model, x, cls, (status, _, reply, _) in replies:
+            rung = "f32" if cls == "interactive" else INT8
+            check(status == 200 and reply.get("precision") == rung,
+                  f"int8 (a): {model} {cls} got HTTP {status}, precision {reply.get('precision')}")
+            got = np.asarray(reply["outputs"], np.float32)
+            want = _direct(direct[(model, rung)], x, nhwc=model == SERVE_IMAGE_MODEL)
+            err = (float(np.abs(got - want).max()) if model == SERVE_TEXT_MODEL
+                   else _relative_error(got, want))
+            worst[(model, rung)] = max(worst.get((model, rung), 0.0), err)
+        for (model, rung), err in worst.items():
+            limit = ATOL[torch.float32] if model == SERVE_TEXT_MODEL else IMAGE_F32_REL
+            check(err <= limit, f"int8 (a): {model} at {rung} off its direct build by {err:.3e} (limit {limit})")
+        # the card's int8 values and scales against the CPU port's, from the same f32 weights
+        same = 0
+        for model, (spec, mode) in specs.items():
+            card_f32 = direct[(model, "f32")].module
+            cpu = spec.model_function(mode=mode, device="cpu").module
+            cpu.load_state_dict({k: v.cpu() for k, v in card_f32.state_dict().items()})
+            want = _int8_buffers(quantize_module(cpu))
+            got = _int8_buffers(direct[(model, INT8)].module)
+            check(sorted(got) == sorted(want) and all(torch.equal(got[n].cpu(), want[n]) for n in want),
+                  f"int8 (a): {model}'s q and s on the card differ from the CPU's")
+            same += len(want)
+            del cpu, want, got
+        stats = router.stats()
+        held = {(m["name"], m["precision"]): m["param_bytes"] for m in stats["models"]}
+        for model in specs:
+            check(held[(model, INT8)] < held[(model, "f32")] / INT8_BYTES_RATIO,
+                  f"int8 (a): {model} holds {held[(model, INT8)]} B at {INT8} against {held[(model, 'f32')]} B at f32")
+        _, mem = _get(base, "/v1/memory")
+        charged = {}
+        for m in stats["models"]:
+            charged[m["name"]] = charged.get(m["name"], 0) + m["param_bytes"]
+        check(mem["models"] == charged, f"int8 (a): /v1/memory {mem['models']} against residency {charged}")
+        # one direct int8 call: its peak stays under half the f32 parameters,
+        # and the flash kernel runs 12 times, by the wrapper and the profiler
+        int8_text, f32_text = direct[(SERVE_TEXT_MODEL, INT8)], direct[(SERVE_TEXT_MODEL, "f32")]
+        f32_bytes = param_bytes(f32_text)
+        rng = np.random.default_rng(seed + 20)
+        ids = torch.from_numpy(rng.integers(4, text_spec.vocab_size, size=INT8_MEM_BATCH).astype(np.int32)).cuda()
+        peaks = {}
+        for rung, mf in (("f32", f32_text), (INT8, int8_text)):
+            gc.collect()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            flash_attention.launches_by_dtype = dict.fromkeys(flash_attention.launches_by_dtype, 0)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                mf(ids)
+                torch.cuda.synchronize()
+            peaks[rung] = (torch.cuda.max_memory_allocated() - before, flash_attention.launches_by_dtype[torch.float32],
+                           _flash_kernel_counts(prof)[torch.float32])
+        peak, by_wrapper, by_profiler = peaks[INT8]
+        check(peak < f32_bytes / 2 and by_wrapper == by_profiler == BERT_BASE_LAYERS,
+              f"int8 (a): a direct {INT8_MEM_BATCH} call raised the peak by {peak} B (f32 parameters {f32_bytes} B); "
+              f"flash f32 launches {by_wrapper} (profiler {by_profiler})")
+        x = torch.from_numpy(rng.integers(4, text_spec.vocab_size, size=INT8_RATE_BATCH).astype(np.int32)).cuda()
+        rate = {rung: INT8_RATE_BATCH[0] / (time_ms(lambda mf=mf: mf(x), INT8_RATE_ITERS) / 1e3)
+                for rung, mf in (("f32", f32_text), (INT8, int8_text))}
+        rung_err = _row_relative_error(int8_text(x).cpu().numpy(), f32_text(x).cpu().numpy())
+        del direct, int8_text, f32_text
+        torch.cuda.empty_cache()
+        print(f"int8 (a) on {card}: {len(texts)} {SERVE_TEXT_MODEL} and {len(images)} {SERVE_IMAGE_MODEL} requests "
+              f"over HTTP, half interactive (f32), half background ({INT8}), in {flood_s:.2f} s = "
+              f"{len(replies) / flood_s:.1f} requests/s; every reply names its rung; worst error against each "
+              f"rung's direct build { {f'{m}@{r}': f'{e:.3e}' for (m, r), e in worst.items()} }; flash f32 launches "
+              f"{launched[torch.float32]} = 12 x {bert_dispatches} bert-base dispatches; {same} int8/scale tensors "
+              f"equal to the CPU's exactly; resident bytes {held}; /v1/memory equals residency; a direct "
+              f"{INT8_MEM_BATCH} call raised max_memory_allocated by {peaks[INT8][0]} B at {INT8} and "
+              f"{peaks['f32'][0]} B at f32 (f32 parameters {f32_bytes} B), flash f32 launches {by_wrapper} (profiler "
+              f"{by_profiler}); direct {INT8_RATE_BATCH} batches: {rate[INT8]:.1f} rows/s at {INT8} against "
+              f"{rate['f32']:.1f} at f32; {INT8} rows against f32, row-relative {rung_err:.3e} (random weights, "
+              f"not gated)")
+
+        # (b) POST /admin/profile during an f32 flood
+        f32_direct = _default_loader(SERVE_TEXT_MODEL, "embed", "f32", device="cuda", seed=seed)
+        flood = [(ids, "interactive") for ids, _ in
+                 _text_requests(seed + 21, text_spec, PROFILE_FLOOD)]
+        with ThreadPoolExecutor(PROFILE_THREADS + 1) as pool:
+            capture = pool.submit(_post_any, base, "/admin/profile", {"seconds": PROFILE_S})
+            time.sleep(0.3)
+            busy = _post_any(base, "/admin/profile", {"seconds": 1})
+            futs = [pool.submit(_post, base, body(SERVE_TEXT_MODEL, ids, cls)) for ids, cls in flood]
+            bad = _post_any(base, "/admin/profile", {"seconds": -1})
+            flood_replies = [f.result() for f in futs]
+            status, reply = capture.result()
+        check(status == 200 and reply["path"].startswith(env["SPARKDL_PROFILE_DIR"]),
+              f"profile (b): HTTP {status} {reply}")
+        check(busy[0] == 409 and bad[0] == 400, f"profile (b): a second capture got {busy}, seconds -1 got {bad}")
+        worst_b = 0.0
+        for (ids, _), (st, _, rep, _) in zip(flood, flood_replies):
+            check(st == 200, f"profile (b): a flood request got HTTP {st}")
+            worst_b = max(worst_b, float(np.abs(np.asarray(rep["outputs"], np.float32)
+                                                - _direct(f32_direct, ids, nhwc=False)).max()))
+        check(worst_b <= ATOL[torch.float32], f"profile (b): flood rows off the direct model by {worst_b:.3e}")
+        del f32_direct
+        trace_path = os.path.join(reply["path"], TRACE_FILE)
+        with open(trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        flash_in_trace = sum(FLASH_KERNEL_NAMES[1] in e.get("name", "") for e in kernels)
+        check(flash_in_trace > 0, f"profile (b): no {FLASH_KERNEL_NAMES[1]} among {len(kernels)} kernel events")
+        profiles = _events(jsonl, "profile")
+        check(len(profiles) == 1 and profiles[0]["path"] == reply["path"], f"profile (b): profile events {profiles}")
+        print(f"profile (b) on {card}: POST /admin/profile {{\"seconds\": {PROFILE_S}}} during {PROFILE_FLOOD} f32 "
+              f"{SERVE_TEXT_MODEL} requests from {PROFILE_THREADS} threads: HTTP 200, {trace_path} "
+              f"({os.path.getsize(trace_path)} B, {len(events)} events, {len(kernels)} kernel events, "
+              f"{flash_in_trace} of {FLASH_KERNEL_NAMES[1]}); a second POST during it got {busy[0]}, seconds -1 "
+              f"got {bad[0]}; one profile event; flood rows within {worst_b:.3e} of the direct model")
+
+        # (c) the flight recorder: an SLO trip names its exemplars and dumps
+        os.environ.update(CP_SLO)
+        slo.reset()
+        obs_trace.reset()
+        burns0 = {n for n in os.listdir(dump_dir) if n.startswith("obs-slo_burn-")}
+        small = [(ids[:, :64], cls) for ids, cls in _text_requests(seed + 22, text_spec, CP_SLO_BATCH)]
+        t_flood = time.time()
+        with ThreadPoolExecutor(SERVE_CLIENT_THREADS) as pool:
+            healthy = list(pool.map(lambda r: _post(base, body(SERVE_TEXT_MODEL, r[0], "batch")), small))
+        check(all(r[0] == 200 for r in healthy), "recorder (c): the healthy batch flood failed")
+        for ids, _ in small[:CP_SLO_INTERACTIVE]:
+            check(_post(base, body(SERVE_TEXT_MODEL, ids, "interactive"))[0] == 200,
+                  "recorder (c): an interactive request failed")
+        _, st = _get(base, "/v1/slo")
+        check(st["classes"]["interactive"]["tripped"], f"recorder (c): interactive did not trip: {st}")
+        exemplar_ids = st["exemplars"]["interactive"]
+        check(len(exemplar_ids) > 0, f"recorder (c): /v1/slo exemplars {st['exemplars']}")
+        live = {0: export.snapshot()}
+        sums = []
+        for tid in exemplar_ids:
+            records = obs_trace.collect_trace(tid, live)
+            check(len(records) >= 1, f"recorder (c): exemplar {tid} does not resolve")
+            text = obs_trace.render_waterfall(tid, records)
+            for rec in records:
+                seg = sum(rec["segments"].values())
+                check(seg <= rec["e2e_s"] + WATERFALL_SLACK_S and "segments sum" in text,
+                      f"recorder (c): {tid}'s segments sum to {seg:.6f} s against e2e {rec['e2e_s']:.6f} s")
+                sums.append((seg, rec["e2e_s"]))
+        alerts = _events(jsonl, "slo_alert")
+        burns = sorted({n for n in os.listdir(dump_dir) if n.startswith("obs-slo_burn-")} - burns0)
+        check(len(alerts) == 1 and len(burns) == 1, f"recorder (c): alerts {alerts}, new slo_burn dumps {burns}")
+        with open(os.path.join(dump_dir, burns[0])) as f:
+            dump = json.load(f)
+        alert_ids = alerts[0]["exemplar_trace_ids"]
+        dumped_ids = [e["trace_id"] for e in dump["exemplars"].get("serve.latency.interactive", [])]
+        check(dump["context"]["cls"] == "interactive" and alert_ids and alert_ids == dumped_ids
+              and alert_ids == dump["context"]["exemplar_trace_ids"]
+              and all(obs_trace.collect_trace(t, {0: dump}) for t in alert_ids),
+              f"recorder (c): the alert's exemplars {alert_ids}, the dump's {dumped_ids}, context {dump['context']}")
+        flood_spans = [sp for sp in dump["spans"] if sp["name"] == "serve.dispatch"
+                       and sp["attrs"].get("model") == SERVE_TEXT_MODEL and sp["start_unix"] >= t_flood]
+        check(flood_spans, f"recorder (c): the dump's span ring ({len(dump['spans'])} spans) holds no flood dispatch")
+        earlier = {kind: [n for n in os.listdir(dump_dir) if n.startswith(f"obs-{kind}-")]
+                   for kind in ("oom", "canary_rollback")}
+        check(all(earlier.values()), f"recorder (c): phase 17's dumps {earlier}")
+        dump_path = os.path.join(dump_dir, burns[0])
+        chrome = os.path.join(tmp, "dump_chrome.json")
+        merged = os.path.join(tmp, "merged.json")
+        with ThreadPoolExecutor(4) as pool:
+            cli = dict(zip(("report", "trace", "chrome", "merge"), pool.map(lambda a: _obs_cli(*a), (
+                ("report", "--snapshot", dump_path), ("trace", alert_ids[0], "--snapshot", dump_path),
+                ("chrome", "--snapshot", dump_path, "--out", chrome), ("merge", drops_dir, "--out", merged)))))
+        for name, (rc, out, err) in cli.items():
+            check(rc == 0, f"recorder: python -m sparkdl_tpu_torch.obs {name} exited {rc}: {err[-2000:]}")
+        check("serve.dispatch" in cli["report"][1] and alert_ids[0] in cli["trace"][1],
+              f"recorder (c): report or trace printed neither the stage nor the id: {cli['trace'][1][:500]}")
+        with open(chrome) as f:
+            chrome_events = json.load(f)["traceEvents"]
+        check(any(e["ph"] == "X" for e in chrome_events), "recorder (c): the dump's Chrome trace has no span")
+        for name in CP_SLO:
+            os.environ.pop(name)
+        slo.reset()
+        print(f"recorder (c): {CP_SLO_BATCH} batch then {CP_SLO_INTERACTIVE} interactive requests tripped interactive; "
+              f"/v1/slo names {len(exemplar_ids)} exemplars, each resolved by collect_trace with segments summing "
+              f"to {[f'{a * 1e3:.3f}/{b * 1e3:.3f} ms' for a, b in sums]} of e2e; the slo_alert's "
+              f"{len(alert_ids)} exemplar ids equal the dump's and resolve in it; {burns[0]} "
+              f"({os.path.getsize(dump_path)} B, {len(dump['spans'])} spans, {len(flood_spans)} flood dispatches); "
+              f"phase 17 left {earlier}; obs report / trace / chrome on the dump exited 0 "
+              f"({len(chrome_events)} Chrome events)")
+
+        # (d) phase 19's rank drops merged; the pull exporter
+        with open(merged) as f:
+            merged_events = json.load(f)["traceEvents"]
+        lanes = {e["pid"] for e in merged_events if e["ph"] == "X"}
+        labels = [e["args"]["name"] for e in merged_events if e.get("name") == "process_name"]
+        check(lanes == set(range(BATCH_RANKS)) and len(labels) == BATCH_RANKS,
+              f"merge (d): lanes {lanes}, labels {labels}")
+        exporter = obs_serve.start_server(port=0)
+        try:
+            codes = {}
+            for path in OBS_PATHS:
+                with urllib.request.urlopen(f"http://127.0.0.1:{exporter.port}{path}", timeout=60) as resp:
+                    codes[path] = resp.status
+        finally:
+            obs_serve.stop_server()
+        check(all(c == 200 for c in codes.values()), f"exporter (d): {codes}")
+        print(f"merge (d): python -m sparkdl_tpu_torch.obs merge over phase 19's drops: {len(merged_events)} events "
+              f"in lanes {sorted(lanes)} ({labels}); the exporter on port 0 answered {codes}")
+    finally:
+        server.stop(close_router=True)
+        shutdown_feeders()
+        for name in env:
+            os.environ.pop(name, None)
+        for name in CP_SLO:
+            os.environ.pop(name, None)
+        slo.reset()
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s in all")
+    return launched[torch.float32]
+
+
 def _flat_tree(tree, prefix=()):
     for key, sub in tree.items():
         if isinstance(sub, dict):
@@ -4006,15 +4372,28 @@ def main(argv=None) -> int:
     done("phase 15")
     phase_generation(args.seed, device_name)
     done("phase 16")
-    phase_control_plane(args.seed, device_name)
+    # phase 17's failure edges (its OOM, its canary rollback) leave flight
+    # recorder dumps that phase 20 reads
+    dump_dir = tempfile.mkdtemp(prefix="sparkdl_dumps_")
+    drops_dir = tempfile.mkdtemp(prefix="sparkdl_drops_")
+    os.environ["SPARKDL_OBS_DUMP_DIR"] = dump_dir
+    try:
+        phase_control_plane(args.seed, device_name)
+    finally:
+        os.environ.pop("SPARKDL_OBS_DUMP_DIR")
     done("phase 17")
     gang_launches = phase_gang(args.seed, device_name, phase11)
     done("phase 18")
-    phase_batch_gang(args.seed, device_name)
+    phase_batch_gang(args.seed, device_name, drops_dir)
     done("phase 19")
+    int8_launches = phase_int8_obs(args.seed, device_name, dump_dir, drops_dir)
+    done("phase 20")
+    records[torch.float32]["launches_phase20"] = int8_launches
+    records[torch.bfloat16]["launches_phase20"] = 0
     print(f"flash launches in 15(e) (bert-base from weights_file): {text_weight_launches}")
     print(f"flash launches in phase 18's workers (generation 1, from the federated /metrics): "
           f"f32 {gang_launches[torch.float32]}, bf16 {gang_launches[torch.bfloat16]}")
+    print(f"flash launches in phase 20(a)'s flood (f32 and int8 bert-base): f32 {int8_launches}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[torch.float32], records[torch.bfloat16]]}))
     print(json.dumps({

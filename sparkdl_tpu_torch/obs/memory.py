@@ -46,8 +46,10 @@ the allocator, so the gap between the two is a metric of its own.
   sure the launch thread's cuBLAS workspaces exist first
   (``runtime/device.warm_launcher``).
 
-Not ported: the flight-recorder dump on an OOM (ROADMAP Queue A item
-4.11), and the JAX ledger's mesh widths: every program of the port runs
+An OOM also flushes the flight recorder
+(``obs/export.dump_on_failure("oom", phase=..., model=...)``).
+
+Not ported: the JAX ledger's mesh widths: every program of the port runs
 on one device, accounted as device 0, and the JAX allocation events'
 ``width`` field is left out.
 One plain leaf lock guards the tables; probes, registry writes and events
@@ -425,7 +427,7 @@ class MemoryLedger:
         with self._lock:
             self._oom_events += 1
         metrics.inc("mem.oom_events")
-        from sparkdl_tpu_torch.obs.export import append_jsonl
+        from sparkdl_tpu_torch.obs.export import append_jsonl, dump_on_failure
 
         append_jsonl({
             "kind": "oom",
@@ -440,6 +442,9 @@ class MemoryLedger:
             "ground_truth_bytes": status.get("ground_truth_bytes"),
             "recent_allocations": tail,
         })
+        dump_on_failure(
+            "oom", phase=phase, model=model, error=f"{type(error).__name__}: {error}"
+        )
 
     def clear(self) -> None:
         with self._lock:

@@ -29,10 +29,10 @@ Evaluation runs on every completion or failure (at most every 1/8 of the
 fast window) and on every read (``GET /v1/slo``, ``Router.stats()``), so
 a quiet server recovers as soon as anyone looks.
 
-Not ported yet (ROADMAP Queue A item 4.11, the trace store): the JAX alert
-names the class's current tail-exemplar trace ids and flushes the flight
-recorder (``dump_on_failure``). Here the alert's ``exemplar_trace_ids``
-is ``[]`` and nothing is dumped.
+A trip's alert names the class's current tail exemplars
+(``exemplar_trace_ids``, ``obs/trace.get_exemplars``), whose waterfalls
+``python -m sparkdl_tpu_torch.obs trace`` renders, and flushes the flight
+recorder (``obs/export.dump_on_failure("slo_burn", cls=...)``).
 
 One plain leaf lock guards the windows and the trip state; events and
 gauges are emitted after it is released.
@@ -335,17 +335,30 @@ class SloEngine:
 
     @staticmethod
     def _emit_transition(tr: dict) -> None:
-        from sparkdl_tpu_torch.obs.export import append_jsonl
+        from sparkdl_tpu_torch.obs.export import append_jsonl, dump_on_failure
+        from sparkdl_tpu_torch.obs.trace import get_exemplars
 
         cls = tr["cls"]
         fields = _rounded({k: v for k, v in tr.items() if k != "event"})
         if tr["event"] == "trip":
+            # the evidence: the class's current tail exemplars
+            exemplars = [
+                e["trace_id"]
+                for e in get_exemplars().snapshot().get(f"serve.latency.{cls}") or []
+            ]
             metrics.gauge(f"slo.alert.{cls}", 1)
             metrics.inc(f"slo.trips.{cls}")
             append_jsonl({
                 "kind": "slo_alert", "ts": round(time.time(), 3), **fields,
-                "exemplar_trace_ids": [],
+                "exemplar_trace_ids": exemplars,
             })
+            dump_on_failure(
+                "slo_burn", cls=cls, objective=tr.get("objective"),
+                burn_fast=tr.get("burn_fast"), burn_slow=tr.get("burn_slow"),
+                fast_window_s=tr.get("fast_window_s"),
+                slow_window_s=tr.get("slow_window_s"),
+                exemplar_trace_ids=exemplars,
+            )
         else:
             metrics.gauge(f"slo.alert.{cls}", 0)
             metrics.inc(f"slo.recoveries.{cls}")

@@ -1,21 +1,33 @@
-"""Request trace identity, timing spans, and the gateway's trace records.
+"""Per-request tracing: trace ids, the trace store, tail exemplars and
+the waterfall.
 
-A trimmed copy of the JAX package's ``obs/trace.py``:
+The port of the JAX package's ``obs/trace.py``:
 
-- the trace id that every serving request carries (minted here or taken
-  from the inbound ``X-Sparkdl-Trace`` header);
-- :func:`span`, which times a block into the metrics registry as
-  ``span.<name>`` and lists itself in the open-span table while it runs
-  (:func:`active_spans`; a heartbeat's :func:`compact_status` carries it,
-  as the JAX package's ``obs/spans.compact_status`` does);
-- the gateway's half of the trace store: :class:`TraceStore`
-  (:func:`get_store`), the deterministic head-sampling coin
-  (:func:`trace_sampled`, ``SPARKDL_TRACE_SAMPLE``) and
-  :func:`record_gateway_trace`, the gateway's record of one forwarded
-  request with its attempt ledger.
+- the trace id that every serving request carries: minted here, or taken
+  from the inbound ``X-Sparkdl-Trace`` header; every hop forwards it and
+  every reply (errors included) returns it;
+- a request's seven waterfall segments (:data:`SEGMENTS`), which the
+  router writes on the :class:`~sparkdl_tpu_torch.serving.request.Request`
+  and which sum to its end-to-end latency;
+- head sampling (``SPARKDL_TRACE_SAMPLE``, a deterministic coin on the
+  trace id, so every process of a gang agrees) and, independently, tail
+  exemplars: each successful completion is offered to its class's top-K
+  slowest (``SPARKDL_TRACE_EXEMPLARS``), and a promoted one's record is
+  pinned in the store, so every tail number in ``/metrics``, ``GET
+  /v1/slo`` and an SLO alert resolves to a trace. Failed and expired
+  requests always store their record;
+- the store (:class:`TraceStore`, ``SPARKDL_TRACE_RING`` ids, pinned ids
+  never evicted) holding the worker's records
+  (:func:`record_serve_trace`) and the gateway's
+  (:func:`record_gateway_trace`, with its attempt ledger); records ride
+  the obs snapshot's ``"traces"`` key, so ``obs merge`` and ``obs trace``
+  stitch one request across processes (:func:`collect_trace`,
+  :func:`render_waterfall`).
 
-Not ported yet (ROADMAP Queue A item 4.11): the tail exemplars, the
-worker-side request records and the per-request waterfall.
+The span layer lives in ``obs/spans.py``; :func:`span`,
+:func:`active_spans` and :func:`compact_status` are re-exported here for
+the call sites that import them from this module. The store's and the
+reservoir's locks are leaf locks: nothing is called while one is held.
 """
 
 from __future__ import annotations
@@ -27,9 +39,9 @@ import threading
 import time
 import uuid
 from collections import OrderedDict
-from contextlib import contextmanager
-from typing import Dict, Iterator, List, Optional, Set
+from typing import Dict, List, Optional, Set, Tuple
 
+from sparkdl_tpu_torch.obs.spans import active_spans, compact_status, span
 from sparkdl_tpu_torch.runtime import knobs
 from sparkdl_tpu_torch.utils.metrics import metrics
 
@@ -72,70 +84,6 @@ def coerce_trace_id(raw: Optional[str]) -> str:
     return mint_trace_id()
 
 
-class Span:
-    """An open span: ``add`` attaches attributes learned inside it."""
-
-    __slots__ = ("name", "attrs")
-
-    def __init__(self, name: str, attrs: dict):
-        self.name = name
-        self.attrs = attrs
-
-    def add(self, **attrs) -> None:
-        self.attrs.update(attrs)
-
-
-#: the spans open right now: id -> (span, start on the perf clock, thread
-#: name); one dict insert and one pop per span (atomic under the GIL)
-_open_spans: Dict[int, tuple] = {}
-_span_ids = itertools.count()
-
-
-@contextmanager
-def span(name: str, **attrs) -> Iterator[Span]:
-    """Time the block on the host clock into ``span.<name>`` (recorded
-    whether the block returns or raises)."""
-    sp = Span(name, attrs)
-    key = next(_span_ids)
-    t0 = time.perf_counter()
-    _open_spans[key] = (sp, t0, threading.current_thread().name)
-    try:
-        yield sp
-    finally:
-        _open_spans.pop(key, None)
-        metrics.record_time(f"span.{name}", time.perf_counter() - t0)
-
-
-def active_spans() -> List[dict]:
-    """The spans open across all threads, oldest first: what this
-    process is doing right now."""
-    now = time.perf_counter()
-    out = [
-        {
-            "name": sp.name,
-            "age_s": round(now - t0, 4),
-            "thread": thread,
-            "attrs": dict(sp.attrs),
-        }
-        for sp, t0, thread in list(_open_spans.values())
-    ]
-    out.sort(key=lambda d: -d["age_s"])
-    return out
-
-
-def compact_status(max_spans: int = 8, max_counters: int = 16) -> dict:
-    """Small liveness payload for heartbeat beats: the open spans and the
-    top counters by value (JAX ``obs/spans.compact_status``)."""
-    snap = metrics.snapshot()
-    counters = dict(
-        sorted(snap["counters"].items(), key=lambda kv: -kv[1])[:max_counters]
-    )
-    return {"active": active_spans()[:max_spans], "counters": counters}
-
-
-# -- the gateway's trace records -------------------------------------------------
-
-
 def trace_sample_rate() -> float:
     """Head-sampling probability (``SPARKDL_TRACE_SAMPLE``, clamped to
     [0, 1])."""
@@ -159,21 +107,34 @@ def trace_ring_capacity() -> int:
     return max(1, knobs.get_int("SPARKDL_TRACE_RING"))
 
 
+def exemplar_k() -> int:
+    return max(1, knobs.get_int("SPARKDL_TRACE_EXEMPLARS"))
+
+
 class TraceStore:
     """Bounded per-process retention of finished trace records.
 
-    Keyed by trace id; one id may hold several records. The oldest
-    unpinned ids fall off beyond capacity (``SPARKDL_TRACE_RING``)."""
+    Keyed by trace_id; one id may hold several records (a gateway retry
+    that re-lands on the same worker, an error then a re-dispatch).
+    Oldest UNPINNED ids fall off beyond capacity; exemplar-pinned ids
+    survive eviction (their count is bounded by classes x K), so the
+    slow trace a ``/metrics`` exemplar names is still resolvable long
+    after the flood that produced it."""
 
     def __init__(self, capacity: Optional[int] = None):
-        # a leaf lock: nothing is called while it is held
+        # leaf lock by design (metrics-registry discipline): nothing is
+        # called while held, so it can never participate in an order cycle
         self._lock = threading.Lock()
         self._capacity = capacity
         self._records: "OrderedDict[str, List[dict]]" = OrderedDict()
         self._pinned: Set[str] = set()
 
     def _cap(self) -> int:
-        return self._capacity if self._capacity is not None else trace_ring_capacity()
+        return (
+            self._capacity
+            if self._capacity is not None
+            else trace_ring_capacity()
+        )
 
     def add(self, record: dict, pin: bool = False) -> None:
         tid = record.get("trace_id")
@@ -198,21 +159,28 @@ class TraceStore:
             self._pinned.add(trace_id)
 
     def unpin(self, trace_id: str) -> None:
+        """Release an eviction pin (the trace fell out of its exemplar
+        reservoir): the records stay retained but age out of the ring
+        like any other id — pins stay bounded by classes x K."""
         with self._lock:
             self._pinned.discard(trace_id)
 
     def get(self, trace_id: str) -> List[dict]:
-        """Records for ``trace_id``: an exact match, or a unique prefix."""
+        """Records for ``trace_id`` — exact match, or unique-prefix
+        (operators paste truncated ids from report lines)."""
         with self._lock:
             if trace_id in self._records:
                 return list(self._records[trace_id])
-            hits = [k for k in self._records if k.startswith(trace_id)]
+            hits = [
+                k for k in self._records if k.startswith(trace_id)
+            ]
             if len(hits) == 1:
                 return list(self._records[hits[0]])
             return []
 
     def records(self) -> List[dict]:
-        """Every retained record, oldest id first."""
+        """Every retained record, oldest id first — what rides the obs
+        snapshot's ``"traces"`` key."""
         with self._lock:
             return [r for recs in self._records.values() for r in recs]
 
@@ -226,7 +194,68 @@ class TraceStore:
             self._pinned.clear()
 
 
+class ExemplarStore:
+    """Top-K slowest (value, trace_id) per metric name — the tail-based
+    half of sampling. ``note`` returns True when the observation entered
+    the top-K (the caller pins its trace), so "every p99 links to a
+    trace" holds by construction: the K slowest completions ever seen
+    bound the reservoir's p99 from above."""
+
+    def __init__(self, k: Optional[int] = None):
+        self._lock = threading.Lock()  # leaf lock, same discipline
+        self._k = k
+        self._top: Dict[str, List[Tuple[float, str]]] = {}
+
+    def note(
+        self, name: str, value_s: float, trace_id: str
+    ) -> Tuple[bool, List[str]]:
+        """Offer one observation. Returns ``(promoted, displaced)`` —
+        ``displaced`` lists trace ids that just fell OUT of the top-K,
+        so the caller can release their store pins (without that, a
+        long-lived server with drifting tails would pin every
+        record-breaking completion forever and the trace ring would
+        grow past its cap)."""
+        k = self._k if self._k is not None else exemplar_k()
+        with self._lock:
+            entries = self._top.setdefault(name, [])
+            if len(entries) >= k and value_s <= entries[-1][0]:
+                return False, []
+            entries.append((float(value_s), trace_id))
+            entries.sort(key=lambda e: -e[0])
+            dropped = entries[k:]
+            del entries[k:]
+            kept = {tid for _, tid in entries}
+            return True, [
+                tid for _, tid in dropped if tid not in kept
+            ]
+
+    def exemplar(self, name: str) -> Optional[dict]:
+        """The slowest entry for ``name`` (the one a p99 line links),
+        or None."""
+        with self._lock:
+            entries = self._top.get(name)
+            if not entries:
+                return None
+            value_s, tid = entries[0]
+            return {"value_s": value_s, "trace_id": tid}
+
+    def snapshot(self) -> Dict[str, List[dict]]:
+        with self._lock:
+            return {
+                name: [
+                    {"value_s": v, "trace_id": tid} for v, tid in entries
+                ]
+                for name, entries in self._top.items()
+                if entries
+            }
+
+    def clear(self) -> None:
+        with self._lock:
+            self._top.clear()
+
+
 _store: Optional[TraceStore] = None
+_exemplars: Optional[ExemplarStore] = None
 _trace_lock = threading.Lock()
 
 
@@ -238,9 +267,77 @@ def get_store() -> TraceStore:
         return _store
 
 
+def get_exemplars() -> ExemplarStore:
+    global _exemplars
+    with _trace_lock:
+        if _exemplars is None:
+            _exemplars = ExemplarStore()
+        return _exemplars
+
+
 def reset() -> None:
-    """Drop the retained traces (tests)."""
+    """Drop retained traces + exemplars (tests, bench warmup resets)."""
     get_store().clear()
+    get_exemplars().clear()
+
+
+def _obs_rank() -> Optional[int]:
+    # imported at call time: obs/export imports this module
+    from sparkdl_tpu_torch.obs.export import obs_rank
+
+    return obs_rank()
+
+
+def record_serve_trace(
+    request, e2e_s: float, status: str = "ok", error: Optional[str] = None
+) -> Optional[dict]:
+    """Offer one completed serving request to the trace layer (called
+    from ``Request`` completion, success and failure paths alike).
+
+    Always: successful completions feed the per-class exemplar
+    reservoir. Stored (and counted) only when head-sampled, promoted to
+    an exemplar (then PINNED), or failed/expired — the storage policy,
+    not the measurement, is what the sample rate dials."""
+    tid = getattr(request, "trace_id", None)
+    if not tid:
+        return None
+    promoted = False
+    if status == "ok":
+        promoted, displaced = get_exemplars().note(
+            f"serve.latency.{request.priority}", e2e_s, tid
+        )
+        if promoted:
+            metrics.inc("trace.exemplars")
+            for old in displaced:
+                get_store().unpin(old)
+    sampled = trace_sampled(tid)
+    if sampled:
+        metrics.inc("trace.sampled")
+    if not (sampled or promoted or status != "ok"):
+        return None
+    segments = {
+        name: round(float(getattr(request, "trace_segments", {}).get(name, 0.0)), 6)
+        for name in SEGMENTS
+    }
+    record = {
+        "kind": "serve",
+        "trace_id": tid,
+        "model": request.model,
+        "cls": request.priority,
+        "rows": int(request.rows),
+        "rank": _obs_rank(),
+        "start_unix": round(
+            float(getattr(request, "enqueue_unix", time.time())), 6
+        ),
+        "e2e_s": round(float(e2e_s), 6),
+        "segments": segments,
+        "status": status,
+    }
+    if error:
+        record["error"] = error
+    get_store().add(record, pin=promoted)
+    metrics.inc("trace.records")
+    return record
 
 
 def record_gateway_trace(
@@ -251,20 +348,25 @@ def record_gateway_trace(
     status: int,
     start_unix: Optional[float] = None,
 ) -> Optional[dict]:
-    """The gateway-side record of one forwarded request. Stored when
+    """The gateway-side record for one forwarded request. Stored when
     head-sampled, when the request needed more than one attempt (the
-    re-dispatch is the record), or when it failed."""
-    keep = trace_sampled(trace_id) or len(attempts) > 1 or int(status) >= 400
+    stitched-re-dispatch story IS the record), or when it failed — a
+    single clean 200 at a 1% sample rate stays storage-free."""
+    keep = (
+        trace_sampled(trace_id)
+        or len(attempts) > 1
+        or int(status) >= 400
+    )
     if not keep:
         return None
-    from sparkdl_tpu_torch.obs.export import obs_rank
-
     record = {
         "kind": "gateway",
         "trace_id": trace_id,
         "path": path,
-        "rank": obs_rank(),
-        "start_unix": round(float(start_unix if start_unix is not None else time.time()), 6),
+        "rank": _obs_rank(),
+        "start_unix": round(
+            float(start_unix if start_unix is not None else time.time()), 6
+        ),
         "e2e_s": round(float(e2e_s), 6),
         "attempts": list(attempts),
         "status": int(status),
@@ -276,20 +378,120 @@ def record_gateway_trace(
     return record
 
 
+# -- rendering ----------------------------------------------------------------
+
+
+def collect_trace(
+    trace_id: str, snaps: Dict[int, dict]
+) -> List[dict]:
+    """All records matching ``trace_id`` (exact or unique prefix) across
+    per-rank snapshots, each tagged with the lane it came from."""
+    matches: List[dict] = []
+    candidates: Set[str] = set()
+    exact = False
+    for rank, snap in snaps.items():
+        for rec in snap.get("traces") or []:
+            tid = rec.get("trace_id", "")
+            if tid == trace_id or tid.startswith(trace_id):
+                candidates.add(tid)
+                exact = exact or tid == trace_id
+                lane = rec.get("rank")
+                matches.append(
+                    {
+                        **rec,
+                        "lane": lane if lane is not None else rank,
+                        "role": snap.get("role"),
+                    }
+                )
+    if exact:
+        # an exact id wins outright: a short honored inbound id must
+        # stay queryable even when a longer id shares its prefix
+        matches = [m for m in matches if m.get("trace_id") == trace_id]
+    elif len(candidates) > 1:
+        # ambiguous prefix: refuse to silently merge two requests
+        return []
+    matches.sort(key=lambda r: r.get("start_unix", 0.0))
+    return matches
+
+
+def _fmt_ms(v: float) -> str:
+    return f"{v * 1e3:.2f}ms"
+
+
+def render_waterfall(trace_id: str, records: List[dict]) -> str:
+    """Human-readable per-request waterfall across every process that
+    recorded this trace: the gateway's attempt ledger, then each
+    worker-side record's seven-segment breakdown with cumulative offsets
+    and a proportional bar."""
+    if not records:
+        return f"trace {trace_id}: no records found"
+    full_id = records[0].get("trace_id", trace_id)
+    lines = [
+        f"trace {full_id} — {len(records)} record(s) across "
+        f"{len({r['lane'] for r in records})} process lane(s)"
+    ]
+    for rec in records:
+        lane = rec.get("lane")
+        role = rec.get("role") or rec.get("kind")
+        if rec.get("kind") == "gateway":
+            lines.append(
+                f"[gateway lane={lane}] {rec.get('path')} "
+                f"status={rec.get('status')} e2e={_fmt_ms(rec['e2e_s'])}"
+            )
+            for i, att in enumerate(rec.get("attempts") or [], 1):
+                lines.append(
+                    f"  attempt {i} -> rank {att.get('rank')}: "
+                    f"{att.get('dur_ms', 0.0):.2f}ms "
+                    f"({att.get('outcome')})"
+                )
+            continue
+        lines.append(
+            f"[{role} lane={lane}] model={rec.get('model')} "
+            f"cls={rec.get('cls')} rows={rec.get('rows')} "
+            f"status={rec.get('status')} e2e={_fmt_ms(rec['e2e_s'])}"
+            + (
+                f" error={rec['error']}" if rec.get("error") else ""
+            )
+        )
+        segments = rec.get("segments") or {}
+        total = max(rec.get("e2e_s", 0.0), 1e-9)
+        offset = 0.0
+        width = 32
+        for name in SEGMENTS:
+            dur = float(segments.get(name, 0.0))
+            pad = int(round(offset / total * width))
+            bar = max(1, int(round(dur / total * width))) if dur > 0 else 0
+            lines.append(
+                f"  {name:<11} {_fmt_ms(offset):>10} +{_fmt_ms(dur):>10}  "
+                f"{' ' * pad}{'#' * bar}"
+            )
+            offset += dur
+        lines.append(
+            f"  segments sum {_fmt_ms(offset)} vs e2e "
+            f"{_fmt_ms(rec['e2e_s'])}"
+        )
+    return "\n".join(lines)
+
+
 __all__ = [
+    "ExemplarStore",
+    "active_spans",
+    "compact_status",
+    "span",
     "SEGMENTS",
     "TRACE_HEADER",
-    "Span",
     "TraceStore",
-    "active_spans",
     "coerce_trace_id",
-    "compact_status",
+    "collect_trace",
+    "exemplar_k",
+    "get_exemplars",
     "get_store",
     "mint_trace_id",
     "record_gateway_trace",
+    "record_serve_trace",
+    "render_waterfall",
     "reset",
-    "span",
-    "trace_ring_capacity",
     "trace_sample_rate",
     "trace_sampled",
+    "trace_ring_capacity",
 ]

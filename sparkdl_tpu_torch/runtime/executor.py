@@ -17,8 +17,9 @@ One process drives one device; the threads overlap host work (decode,
 batch assembly) with the device, whose forwards the launch thread issues
 (``runtime/device.Launcher``). Each attempt runs the fault-injection hook
 ``maybe_fault("executor.partition", partition=i, attempt=n)``
-(``resilience/faults.py``). Not ported: the flight-recorder dump on
-failure.
+(``resilience/faults.py``). A partition that fails past its retries
+flushes the flight recorder
+(``obs/export.dump_on_failure("partition_task_error")``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, List, Optional, Sequence
 
 from sparkdl_tpu_torch.obs import span
+from sparkdl_tpu_torch.obs.export import dump_on_failure
 from sparkdl_tpu_torch.resilience.faults import maybe_fault
 from sparkdl_tpu_torch.resilience.policy import RetryPolicy, policy_from_env
 from sparkdl_tpu_torch.runtime import locksmith
@@ -200,7 +202,10 @@ class Executor:
                 if attempt > 0
                 else "executor.partition.fatal_errors"
             )
-            raise PartitionTaskError(i, attempt + 1, last_err)
+            err = PartitionTaskError(i, attempt + 1, last_err)
+            # the flight recorder around a failed partition (env-gated)
+            dump_on_failure("partition_task_error")
+            raise err
 
         with span("executor.map_partitions", partitions=len(partitions)):
             if sequential:

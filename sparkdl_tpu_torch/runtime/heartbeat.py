@@ -8,7 +8,7 @@ must notice that it went quiet. The data plane is files:
   ``<dir>/hb.<rank>`` every ``interval`` seconds with a small JSON
   payload: pid, beat count, wall time, ``done``, the gang ``generation``
   and a compact obs status (the rank's open spans and top counters,
-  ``obs/trace.compact_status``), so a reader sees what a rank was doing
+  ``obs/spans.compact_status``), so a reader sees what a rank was doing
   when it went quiet;
 - the supervisor (``resilience/supervisor.py``) polls :func:`stale_ranks`,
   and an operator runs the CLI: ``python -m
@@ -16,10 +16,14 @@ must notice that it went quiet. The data plane is files:
   --stale-after 60`` exits 1 listing the stale ranks (``--json`` for the
   per-rank verdicts, ``--obs`` for each stale rank's last obs payload).
 
-The files keep the JAX package's names and format, so either package's
-reader judges the other's writers. Not ported: the periodic flight-
-recorder snapshot beside the beat, the dump on a failing exit, and the
-CLI's cross-rank stage comparison (ROADMAP Queue A item 4.11).
+A rank that exits by exception flushes the flight recorder
+(``obs/export.dump_on_failure("gang_rank<r>_<Exception>")``) and drops
+its final ``obs.rank.<r>.json`` beside the beat, and the CLI's ``--obs``
+adds the cross-rank stage comparison of those drops
+(``stage_divergence``, ``obs/aggregate.straggler_summary``). The files
+keep the JAX package's names and format, so either package's reader
+judges the other's writers. Not ported: the periodic snapshot beside the
+beat (ROADMAP Queue A item 8).
 """
 
 from __future__ import annotations
@@ -65,7 +69,7 @@ class Heartbeat:
         path = _hb_path(self.directory, self.rank)
         tmp = f"{path}.tmp.{os.getpid()}"
         try:
-            from sparkdl_tpu_torch.obs.trace import compact_status
+            from sparkdl_tpu_torch.obs.spans import compact_status
 
             obs_status = compact_status()
         except Exception:  # a broken obs layer must not stop the beat
@@ -106,6 +110,19 @@ class Heartbeat:
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=self.interval + 5)
+        if exc_type is not None:
+            # dying by exception: the beat goes stale (the supervisor's
+            # signal), and the flight recorder and the rank's final
+            # snapshot are written; a broken obs layer must never mask
+            # the worker's own exception
+            try:
+                from sparkdl_tpu_torch.obs.aggregate import write_rank_snapshot
+                from sparkdl_tpu_torch.obs.export import dump_on_failure
+
+                dump_on_failure(f"gang_rank{self.rank}_{exc_type.__name__}")
+                write_rank_snapshot(self.directory, self.rank)
+            except Exception:
+                pass
         if exc_type is None:
             # terminal state: finished-and-exited reads as done, not as a
             # crash whose beat aged out. A rank dying by exception leaves
@@ -232,6 +249,17 @@ def main(argv: Optional[List[str]] = None) -> int:
             out["generation"] = args.generation
     if args.obs and stale:
         out["obs"] = {str(r): last_obs(args.dir, r) for r in stale}
+        # which stage diverged, from the ranks' snapshot drops
+        try:
+            from sparkdl_tpu_torch.obs.aggregate import load_rank_snapshots, straggler_summary
+
+            snaps = load_rank_snapshots(args.dir)
+            if snaps:
+                flagged = straggler_summary(snaps)
+                if flagged:
+                    out["stage_divergence"] = flagged
+        except Exception:
+            pass  # the diagnosis must not break the staleness report
     print(json.dumps(out))
     return 1 if stale else 0
 

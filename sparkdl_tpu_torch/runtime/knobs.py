@@ -119,19 +119,38 @@ _KNOBS: Dict[str, Tuple[str, Optional[str]]] = {
     # obs/memory.py: the allocation-event ring and the leak tolerance
     "SPARKDL_MEM_RING": ("int", "256"),
     "SPARKDL_MEM_LEAK_TOL_MB": ("float", "8"),
-    # obs/export.py: the JSONL event log (unset: no events written), and
-    # the gang rank that tags events, /metrics lines and heartbeats
+    # obs/spans.py: span recording (0/off: spans are no-ops) and the
+    # span ring's depth
+    "SPARKDL_OBS": ("flag", "1"),
+    "SPARKDL_OBS_RING": ("int", "4096"),
+    # obs/export.py: the JSONL event log (unset: no events written), the
+    # gang rank that tags events, /metrics lines and heartbeats, and the
+    # flight recorder's dump directory (unset: failures dump nothing)
     "SPARKDL_OBS_JSONL": ("str", None),
     "SPARKDL_OBS_RANK": ("int", None),
+    "SPARKDL_OBS_DUMP_DIR": ("str", None),
+    # obs/aggregate.py: the straggler test (slowest vs median p95 factor,
+    # and the absolute gap also required)
+    "SPARKDL_OBS_STRAGGLER_X": ("float", "1.5"),
+    "SPARKDL_OBS_STRAGGLER_MIN_S": ("float", "0.1"),
+    # obs/serve.py: the pull exporter's port (rank r binds port + r;
+    # unset, 0 or malformed: off) and bind address
+    "SPARKDL_OBS_PORT": ("int", None),
+    "SPARKDL_OBS_BIND": ("str", "127.0.0.1"),
     # obs/timeseries.py: the sampler's interval (0: off) and points kept
     # per series; the fleet-sample and memory-watermark rings
     "SPARKDL_OBS_SAMPLE_S": ("float", "1"),
     "SPARKDL_OBS_SERIES": ("int", "720"),
     "SPARKDL_FLEET_RING": ("int", "360"),
     "SPARKDL_MEM_WATERMARK_RING": ("int", "512"),
-    # obs/trace.py: head-sampling rate and the trace store's depth
+    # obs/trace.py: head-sampling rate, the trace store's depth and the
+    # slowest completions kept per class as tail exemplars
     "SPARKDL_TRACE_SAMPLE": ("float", "0.01"),
     "SPARKDL_TRACE_RING": ("int", "512"),
+    "SPARKDL_TRACE_EXEMPLARS": ("int", "4"),
+    # serving/server.py: where POST /admin/profile writes its captures
+    # (unset: a temporary directory made once per process)
+    "SPARKDL_PROFILE_DIR": ("str", None),
     # runtime/locksmith.py: order-recording lock proxies (read at lock
     # creation) and the held-too-long threshold
     "SPARKDL_LOCK_SANITIZER": ("flag", "0"),

@@ -112,6 +112,10 @@ def _worker_main(args) -> int:
     router.start()
     server = ServingServer(router, port=args.port)
     _write_port_file(args.gang_dir, rank, server.port, generation)
+    # the pull exporter on SPARKDL_OBS_PORT + rank (off when unset)
+    from sparkdl_tpu_torch.obs import serve as obs_serve
+
+    obs_serve.maybe_start_from_env(rank=rank)
 
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
@@ -149,6 +153,7 @@ def _worker_main(args) -> int:
         router.drain()
         drained = router.wait_drained(timeout=drain_timeout)
         server.stop(close_router=True)
+        obs_serve.stop_server()
     print(
         json.dumps({
             "serving_worker": "drained" if drained else "drain_timeout",

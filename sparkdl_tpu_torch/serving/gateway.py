@@ -56,9 +56,10 @@ first streamed byte), ``GET /healthz`` (ok when >= 1 worker is ready),
 ``GET /v1/workers`` (the gang table), ``GET /v1/models`` / ``/v1/slo`` /
 ``/v1/memory`` (forwarded to one ready worker), ``GET /v1/fleet`` (the
 fused fleet view, ``obs/fleet.py``), ``GET /metrics`` (federated),
-``POST /admin/drain`` (body ``{"rank": N}``, a pinned forward). ``POST
-/admin/profile`` answers 501, as the port's server does (ROADMAP Queue A
-item 4.10).
+``POST /admin/drain`` (body ``{"rank": N}``, a pinned forward) and ``POST
+/admin/profile`` (body ``{"rank": N, "seconds": S}``, a pinned forward of
+the worker's ``torch.profiler`` capture; S at most the forward timeout
+less 5 s, else 400).
 
 CLI: ``python -m sparkdl_tpu_torch.serving gateway --workers 2 --port 8000``.
 """
@@ -691,7 +692,7 @@ class ServingGateway:
     def federated_metrics_text(self) -> str:
         """Gateway registry + every rank's cached rank-labeled
         exposition + staleness markers — the gateway's ``/metrics``."""
-        from sparkdl_tpu_torch.utils.metrics import prometheus_text
+        from sparkdl_tpu_torch.obs.export import prometheus_text
 
         return self.fleet.federated_text(prometheus_text())
 
@@ -1539,16 +1540,35 @@ class _GatewayHandler(BaseHTTPRequestHandler):
                 )
                 self._send_raw(code, out, headers)
             elif path == "/admin/profile":
-                # the profiler capture is not ported (ROADMAP Queue A
-                # item 4.10); the port's workers answer it 501 too
-                self._send_json(
-                    501,
-                    {
-                        "error": "on-demand profiling (POST /admin/profile) "
-                        "is not ported to sparkdl_tpu_torch yet",
-                        "status": "unavailable",
-                    },
+                # a pinned-rank forward, as /admin/drain: a profile is a
+                # statement about one worker's card, never re-dispatched
+                try:
+                    payload = json.loads(body or b"{}")
+                    rank = int(payload.get("rank"))
+                except (TypeError, ValueError, AttributeError, json.JSONDecodeError):
+                    self._send_json(
+                        400, {"error": "body must carry {'rank': N, 'seconds': S}"}
+                    )
+                    return
+                # the worker holds the reply for the whole capture: a
+                # window the forward timeout cannot cover is refused here
+                cap = forward_timeout_s() - 5.0
+                try:
+                    seconds = float(payload.get("seconds", 1.0))
+                except (TypeError, ValueError):
+                    seconds = -1.0
+                if not 0.0 < seconds <= cap:
+                    self._send_json(400, {"error": (
+                        f"seconds must be in (0, {cap:g}] via the gateway "
+                        "(the forward timeout, SPARKDL_GATEWAY_FORWARD_TIMEOUT_S, "
+                        "bounds the capture; POST the worker directly for "
+                        "longer windows)"
+                    )})
+                    return
+                code, out, headers = gw.forward(
+                    "/admin/profile", json.dumps({"seconds": seconds}).encode(), rank=rank
                 )
+                self._send_raw(code, out, headers)
             else:
                 self._send_json(404, {"error": "not found"})
         except Exception as e:

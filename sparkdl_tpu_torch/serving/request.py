@@ -35,9 +35,10 @@ Completions feed the SLO engine (``obs/slo.py``): a result is a good
 event (and a slow one past the class's p95 objective), a failure or an
 expiry a bad one; a shutdown spends nothing. A request that a canary
 split routed (``canary_arm``) records its latency and failures per arm
-(``serve.canary.*``, ``serve.primary.*``).
-
-Not ported yet: the trace store.
+(``serve.canary.*``, ``serve.primary.*``). Every completion, success
+and failure alike, is offered to the trace layer
+(``obs/trace.record_serve_trace``): the class's tail exemplars, and the
+request's record when it is head-sampled, promoted or failed.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 
 from sparkdl_tpu_torch.obs import slo
-from sparkdl_tpu_torch.obs.trace import SEGMENTS, mint_trace_id
+from sparkdl_tpu_torch.obs.trace import SEGMENTS, mint_trace_id, record_serve_trace
 from sparkdl_tpu_torch.runtime import knobs, locksmith
 from sparkdl_tpu_torch.utils.metrics import metrics, percentile_of_sorted
 
@@ -115,7 +116,7 @@ class Request:
 
     __slots__ = (
         "id", "model", "payload", "priority", "deadline_at", "mode",
-        "enqueue_t", "dequeue_t", "ordinal", "canary_arm", "precision", "precision_armed",
+        "enqueue_t", "enqueue_unix", "dequeue_t", "ordinal", "canary_arm", "precision", "precision_armed",
         "trace_id", "trace_segments", "gen_params", "prompt_len", "kv_bytes",
         "_event", "_outputs", "_error", "_kv_release", "_token_q",
     )
@@ -164,6 +165,8 @@ class Request:
         #: when the admission queue released this request to the dispatcher
         self.dequeue_t: Optional[float] = None
         self.enqueue_t = time.monotonic()
+        #: the admission's wall-clock stamp (a trace record's start)
+        self.enqueue_unix = time.time()
         #: generate only: max_new_tokens, temperature, top_k, eos_id, seed
         #: (validated and filled by the router at submit)
         self.gen_params: Optional[Dict[str, Any]] = None
@@ -212,6 +215,9 @@ class Request:
             metrics.record_time(f"serve.{self.canary_arm}.latency", dt)
         if self.precision_armed:
             metrics.record_time(f"serve.precision.{self.precision}.latency", dt)
+        # the trace layer: the class's tail exemplars always, the record
+        # when head-sampled or promoted (obs/trace.py owns the policy)
+        record_serve_trace(self, dt)
         slo.note_ok(self.priority, dt)
 
     def set_result(self, outputs: np.ndarray) -> None:
@@ -237,6 +243,12 @@ class Request:
         if count_failure:
             # one availability debit either way; a shutdown spends nothing
             slo.note_bad(self.priority, "expired" if expired else "failure")
+            # a failed or expired request always stores its trace
+            record_serve_trace(
+                self, time.monotonic() - self.enqueue_t,
+                status="expired" if expired else "error",
+                error=f"{type(exc).__name__}: {exc}",
+            )
         self._complete()
 
     def _complete(self) -> None:
@@ -373,6 +385,7 @@ class AdmissionQueue:
                     "rows rejected"
                 )
             req.enqueue_t = time.monotonic()
+            req.enqueue_unix = time.time()
             self._queues[req.priority].append(req)
             self._rows += req.rows
             self._puts += 1

@@ -17,7 +17,7 @@ Two hard rules:
   pinned model stays, however far over budget the manager is. Pinning is
   refcount-shaped: ``acquire`` pins, ``release`` unpins;
 - sizing is honest: the budget compares the parameter and buffer bytes
-  of the module actually loaded, so a bf16 rung charges its own bytes.
+  of the module actually loaded, so a bf16 or int8 rung charges its own bytes.
 
 The registry loader builds straight onto the card, so its victims are
 evicted before the build, sized by the registry's estimate; a custom
@@ -101,8 +101,10 @@ def _default_loader(
     bfloat16, norms and embeddings included, as the JAX rung's
     ``apply_precision`` casts every floating leaf; the norms compute in
     float32 by upcasting in their forward (``graph/precision.bf16_rung``,
-    which adds the rung's edge casts)."""
-    from sparkdl_tpu_torch.graph.precision import bf16_rung
+    which adds the rung's edge casts). The ``int8-dynamic`` rung builds
+    the float32 module on the device, then quantizes it in place
+    (``graph/precision.int8_rung``), so only the int8 copy stays."""
+    from sparkdl_tpu_torch.graph.precision import bf16_rung, int8_rung
     from sparkdl_tpu_torch.models import get_model
 
     spec = get_model(name)
@@ -112,7 +114,8 @@ def _default_loader(
         return bf16_rung(spec.model_function(
             mode=mode, dtype=torch.bfloat16, seed=seed, device=device
         ))
-    return spec.model_function(mode=mode, seed=seed, device=device)
+    mf = spec.model_function(mode=mode, seed=seed, device=device)
+    return int8_rung(mf) if precision == "int8-dynamic" else mf
 
 
 class ResidentModel:
@@ -437,8 +440,10 @@ class ResidencyManager:
     def _estimate_bytes(self, name: str, precision: str) -> Optional[int]:
         """The default loader's parameter bytes before it builds: the
         registry's float32 estimate, halved on the bf16 rung (exact: the
-        rung stores every parameter and buffer in bfloat16). None for a
-        custom loader, whose module is sized once it exists."""
+        rung stores every parameter and buffer in bfloat16). The int8 rung
+        is built in float32 first, so its build needs the float32 bytes;
+        the charge that replaces this reservation is what it then holds.
+        None for a custom loader, whose module is sized once it exists."""
         if self._loader is not None or self._budget() is None:
             return None
         from sparkdl_tpu_torch.models import get_model

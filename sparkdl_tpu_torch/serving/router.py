@@ -592,9 +592,12 @@ class Router:
 
     @staticmethod
     def _emit_canary_rollback(info: dict) -> None:
-        from sparkdl_tpu_torch.obs.export import append_jsonl
+        from sparkdl_tpu_torch.obs.export import append_jsonl, dump_on_failure
 
         append_jsonl({"kind": "canary_rollback", "ts": round(time.time(), 3), **info})
+        # the failing canary requests' spans and traces are still in the
+        # ring: flush it with the rollback decision attached
+        dump_on_failure("canary_rollback", **info)
 
     def set_canary_weight(self, weight: float) -> dict:
         """Override the split weight at run time (``POST /admin/canary``),
@@ -843,6 +846,17 @@ class Router:
             if mem_mod.is_oom_error(e):
                 # filed once: a load that already recorded it marked it
                 mem_mod.record_oom("dispatch", live[0].model, e)
+            # the requests are lost after the retries: flush the flight
+            # recorder naming their trace ids
+            from sparkdl_tpu_torch.obs.export import dump_on_failure
+
+            dump_on_failure(
+                "serve_retry_exhausted",
+                trace_id=live[0].trace_id,
+                trace_ids=[r.trace_id for r in live],
+                model=live[0].model,
+                error=f"{type(e).__name__}: {e}",
+            )
 
     def _acquire_and_dispatch(self, group: List[Request]):
         entry = self.residency.acquire(

@@ -37,16 +37,22 @@ Endpoints:
 - ``GET /v1/slo``: the SLO engine's live burn-rate status (reading it is
   an evaluation, so a quiet tripped class recovers when polled), with the
   raw per-class window counts (``windows``); ``{"armed": false}`` when no
-  ``SPARKDL_SLO_*`` objective is set. ``exemplars`` is empty until the
-  trace store is ported (ROADMAP Queue A item 4.11).
+  ``SPARKDL_SLO_*`` objective is set; ``exemplars`` names each class's
+  current tail-exemplar trace ids (``obs/trace.py``).
 - ``GET /v1/memory``: the device-memory ledger reconciled against
   ``torch.cuda.memory_allocated`` on read, with ``budget_bytes``;
   ``{"tracked": false}`` before anything was tracked.
 - ``POST /admin/canary``: body ``{"weight": W}`` overrides the canary
   split weight; replies ``{"weight", "tripped"}``; a body without a
   number is 400.
-- ``POST /admin/profile`` answers 501: the profiler capture is not ported
-  yet (ROADMAP Queue A item 4.10).
+- ``POST /admin/profile``: body ``{"seconds": N}`` (default 1, at most
+  600) records N seconds of live traffic with ``torch.profiler``
+  (``utils/profiler.capture_profile``; CUDA kernels on the card) into a
+  run directory under ``SPARKDL_PROFILE_DIR`` (unset: one temporary
+  directory per process) and replies ``{"status": "ok", "path",
+  "seconds"}`` with a ``{"kind": "profile"}`` event. Bad seconds or a
+  body that is not an object: 400; a capture in flight: 409; a profiler
+  that cannot record (CUDA activity on a ``cuda`` router included): 501.
 
 HTTP threads only decode JSON and block in ``Request.result()``; every
 policy decision lives in the :class:`~sparkdl_tpu_torch.serving.router.Router`,
@@ -76,10 +82,23 @@ from sparkdl_tpu_torch.serving.request import (
 )
 from sparkdl_tpu_torch.serving.router import Router
 
-#: endpoints of the JAX server that the port answers with 501
-NOT_PORTED = {
-    ("POST", "/admin/profile"): "on-demand profiling",
-}
+
+
+_default_profile_dir: Optional[str] = None
+
+
+def profile_dir() -> str:
+    """Where ``POST /admin/profile`` writes: ``SPARKDL_PROFILE_DIR``, else
+    one temporary directory made on first use and kept for the process."""
+    global _default_profile_dir
+    configured = knobs.get_str("SPARKDL_PROFILE_DIR")
+    if configured:
+        return configured
+    if _default_profile_dir is None:
+        import tempfile
+
+        _default_profile_dir = tempfile.mkdtemp(prefix="sparkdl_profile_")
+    return _default_profile_dir
 
 
 def configured_port() -> Optional[int]:
@@ -181,7 +200,7 @@ def send_prometheus(handler: BaseHTTPRequestHandler) -> None:
     """The ``/metrics`` reply. A gang worker's lines carry its
     ``rank="N"`` label (``SPARKDL_OBS_RANK``, set by the gateway's launch
     environment); a standalone server's carry none."""
-    from sparkdl_tpu_torch.utils.metrics import prometheus_text
+    from sparkdl_tpu_torch.obs.export import prometheus_text
 
     send_raw(
         handler, 200, prometheus_text(rank=obs_rank()).encode(),
@@ -205,28 +224,12 @@ class _Handler(BaseHTTPRequestHandler):
     def _send_json(self, code: int, payload: dict, headers: Optional[dict] = None) -> None:
         send_json(self, code, payload, headers)
 
-    def _not_ported(self, method: str, path: str) -> bool:
-        what = NOT_PORTED.get((method, path))
-        if what is None:
-            return False
-        length = int(self.headers.get("Content-Length") or 0)
-        if length:
-            self.rfile.read(length)
-        self._send_json(
-            501,
-            {"error": f"{what} ({method} {path}) is not ported to "
-                      "sparkdl_tpu_torch yet", "status": "unavailable"},
-        )
-        return True
-
     # -- GET ----------------------------------------------------------------
 
     def do_GET(self) -> None:  # noqa: N802 (http.server API)
         path = self.path.split("?", 1)[0]
         router: Router = self.server.router  # type: ignore[attr-defined]
         try:
-            if self._not_ported("GET", path):
-                return
             if path == "/v1/models":
                 from sparkdl_tpu_torch.models.registry import supported_models
 
@@ -236,6 +239,7 @@ class _Handler(BaseHTTPRequestHandler):
                 )
             elif path == "/v1/slo":
                 from sparkdl_tpu_torch.obs import slo
+                from sparkdl_tpu_torch.obs.trace import get_exemplars
 
                 payload = dict(slo.engine_status() or {"armed": False})
                 # a gang worker names itself, so the gateway's fleet
@@ -245,7 +249,13 @@ class _Handler(BaseHTTPRequestHandler):
                 totals = slo.window_totals()
                 if totals is not None:
                     payload["windows"] = totals
-                    payload["exemplars"] = {}  # the trace store is not ported
+                    payload["exemplars"] = {
+                        cls: [
+                            e["trace_id"]
+                            for e in get_exemplars().snapshot().get(f"serve.latency.{cls}") or []
+                        ]
+                        for cls in slo.CLASSES
+                    }
                 self._send_json(200, payload)
             elif path == "/v1/memory":
                 from sparkdl_tpu_torch.obs import memory
@@ -349,6 +359,48 @@ class _Handler(BaseHTTPRequestHandler):
 
     # -- POST ---------------------------------------------------------------
 
+    def _handle_profile(self, router: Router) -> None:
+        """``POST /admin/profile``: a ``torch.profiler`` capture of the
+        next N seconds (see the module docstring). The handler thread
+        waits out the window while the server's other threads go on
+        serving the traffic the capture records."""
+        from sparkdl_tpu_torch.obs.export import append_jsonl
+        from sparkdl_tpu_torch.utils.profiler import (
+            ProfilerBusy,
+            ProfilerUnavailable,
+            capture_profile,
+        )
+
+        try:
+            length = int(self.headers.get("Content-Length") or 0)
+            body = json.loads(self.rfile.read(length) or b"{}")
+            if not isinstance(body, dict):
+                raise ValueError("body must be a JSON object")
+            seconds = float(body.get("seconds", 1.0))
+            if not 0.0 < seconds <= 600.0:
+                raise ValueError(f"seconds must be in (0, 600], got {seconds}")
+        except (ValueError, TypeError, json.JSONDecodeError) as e:
+            self._send_json(400, {"error": f"bad request: {e}"})
+            return
+        try:
+            path = capture_profile(
+                profile_dir(), seconds, cuda=router.device.type == "cuda"
+            )
+        except ProfilerBusy as e:
+            self._send_json(409, {"error": str(e)})
+            return
+        except ProfilerUnavailable as e:
+            self._send_json(501, {"error": str(e), "status": "unavailable"})
+            return
+        except Exception as e:  # noqa: BLE001 - fail the request, not the server
+            self._send_json(500, {"error": f"{type(e).__name__}: {e}"})
+            return
+        append_jsonl({
+            "kind": "profile", "ts": round(time.time(), 3), "path": path,
+            "seconds": seconds, "rank": obs_rank(),
+        })
+        self._send_json(200, {"status": "ok", "path": path, "seconds": seconds})
+
     def do_POST(self) -> None:  # noqa: N802 (http.server API)
         path = self.path.split("?", 1)[0]
         router: Router = self.server.router  # type: ignore[attr-defined]
@@ -365,7 +417,8 @@ class _Handler(BaseHTTPRequestHandler):
                 return
             self._send_json(200, router.set_canary_weight(weight))
             return
-        if self._not_ported("POST", path):
+        if path == "/admin/profile":
+            self._handle_profile(router)
             return
         if path != "/v1/predict":
             self._send_json(404, {"error": "not found"})
@@ -492,11 +545,11 @@ def start_server(
 
 
 __all__ = [
-    "NOT_PORTED",
     "ServingClient",
     "ServingServer",
     "bind_address",
     "configured_port",
+    "profile_dir",
     "retry_after_s",
     "send_json",
     "send_prometheus",

@@ -19,7 +19,7 @@ import threading
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterable, List, Optional
 
 #: samples kept per timer (the JAX registry's size)
 RESERVOIR_SIZE = 512
@@ -43,12 +43,16 @@ def percentile_of_sorted(sorted_vals: List[float], q: float) -> float:
 class TimerStat:
     count: int = 0
     total_s: float = 0.0
+    min_s: float = float("inf")
+    max_s: float = 0.0
     samples: List[float] = field(default_factory=list, repr=False)
     _rng: Any = field(default=None, repr=False, compare=False)
 
     def record(self, dt: float) -> None:
         self.count += 1
         self.total_s += dt
+        self.min_s = min(self.min_s, dt)
+        self.max_s = max(self.max_s, dt)
         # Algorithm R reservoir, seeded per stat so a replay reproduces
         # its percentiles
         if len(self.samples) < RESERVOIR_SIZE:
@@ -60,17 +64,70 @@ class TimerStat:
         if j < RESERVOIR_SIZE:
             self.samples[j] = dt
 
+    @property
+    def mean_s(self) -> float:
+        return self.total_s / self.count if self.count else 0.0
+
     def percentile(self, q: float) -> float:
         return percentile_of_sorted(sorted(self.samples), q)
 
     def as_dict(self) -> dict:
+        """The JAX package's timer payload: the reservoir rides along
+        (sorted, rounded to 100 ns), so cross-rank tools merge timers by
+        resampling (:func:`merge_timer_dicts`)."""
         vals = sorted(self.samples)
         return {
             "count": self.count,
             "total_s": self.total_s,
+            "mean_s": self.mean_s,
+            "min_s": self.min_s if self.count else 0.0,
+            "max_s": self.max_s,
             "p50_s": percentile_of_sorted(vals, 50),
             "p95_s": percentile_of_sorted(vals, 95),
+            "p99_s": percentile_of_sorted(vals, 99),
+            "samples": [round(v, 7) for v in vals],
         }
+
+
+def merge_timer_dicts(dicts: Iterable[dict]) -> dict:
+    """Count-weighted combination of :meth:`TimerStat.as_dict` payloads
+    (one per rank): counts, totals, min and max exactly; percentiles from
+    a count-weighted re-reservoir of the samples, or, where a payload has
+    none, a count-weighted mean of the percentiles."""
+    dicts = [d for d in dicts if d and d.get("count")]
+    total_count = sum(int(d["count"]) for d in dicts)
+    if not total_count:
+        return {
+            "count": 0, "total_s": 0.0, "mean_s": 0.0, "min_s": 0.0,
+            "max_s": 0.0, "p50_s": 0.0, "p95_s": 0.0, "p99_s": 0.0,
+            "samples": [],
+        }
+    total_s = sum(float(d.get("total_s", 0.0)) for d in dicts)
+    out = {
+        "count": total_count,
+        "total_s": total_s,
+        "mean_s": total_s / total_count,
+        "min_s": min(float(d.get("min_s", 0.0)) for d in dicts),
+        "max_s": max(float(d.get("max_s", 0.0)) for d in dicts),
+    }
+    if all(d.get("samples") for d in dicts):
+        rng = random.Random(0xC0FFEE)
+        merged: List[float] = []
+        for d in dicts:
+            samples = list(d["samples"])
+            want = max(1, round(RESERVOIR_SIZE * d["count"] / total_count))
+            merged.extend(samples if len(samples) <= want else rng.sample(samples, want))
+        if len(merged) > RESERVOIR_SIZE:
+            merged = rng.sample(merged, RESERVOIR_SIZE)
+        vals = sorted(merged)
+        out["samples"] = vals
+        for q, key in ((50, "p50_s"), (95, "p95_s"), (99, "p99_s")):
+            out[key] = percentile_of_sorted(vals, q)
+    else:
+        out["samples"] = []
+        for key in ("p50_s", "p95_s", "p99_s"):
+            out[key] = sum(float(d.get(key, 0.0)) * d["count"] for d in dicts) / total_count
+    return out
 
 
 class WindowedCounter:

@@ -307,17 +307,20 @@ def _obs_services(job: dict, rank: int):
     rank (``SPARKDL_OBS_RANK``), the metrics sampler runs
     (``SPARKDL_OBS_SAMPLE_S=0`` turns it off), and on the way out a final
     snapshot drops beside the heartbeat files, so a reader always has the
-    rank's terminal counters. Telemetry failures never propagate. The JAX
-    package's ``/metrics`` exporter on ``SPARKDL_OBS_PORT`` + rank is not
-    ported (ROADMAP Queue A item 8)."""
+    rank's terminal counters. The pull exporter (``obs/serve.py``) binds
+    ``SPARKDL_OBS_PORT`` + rank when that is set. Only what this context
+    started is stopped on the way out. Telemetry failures never
+    propagate."""
     prev_rank = knobs.get_raw("SPARKDL_OBS_RANK")
     os.environ["SPARKDL_OBS_RANK"] = str(rank)
-    sampler = None
+    sampler = server = None
     try:
-        from sparkdl_tpu_torch.obs import timeseries
+        from sparkdl_tpu_torch.obs import serve, timeseries
 
         if not timeseries.get_sampler().running():
             sampler = timeseries.start_sampler()
+        if serve.server_port() is None:
+            server = serve.maybe_start_from_env(rank=rank)
     except Exception:
         pass
     try:
@@ -336,6 +339,10 @@ def _obs_services(job: dict, rank: int):
                 from sparkdl_tpu_torch.obs import timeseries
 
                 timeseries.stop_sampler()
+            if server is not None:
+                from sparkdl_tpu_torch.obs import serve
+
+                serve.stop_server()
         except Exception:
             pass
         if prev_rank is None:

@@ -33,7 +33,8 @@ PACKAGES = {"jax": (jax_gateway, jax_trace), "torch": (gateway, trace)}
 class FakeWorker:
     """Just enough worker protocol: ``/healthz`` with a settable status,
     ``/v1/predict`` answering with this worker's index (or dying or
-    draining on demand), ``/admin/canary`` and ``/admin/drain``."""
+    draining on demand), ``/admin/canary``, ``/admin/drain`` and
+    ``/admin/profile``."""
 
     def __init__(self, index):
         self.index = index
@@ -76,6 +77,10 @@ class FakeWorker:
                     return
                 if self.path == "/admin/drain":
                     self._json(200, {"status": "draining"})
+                    return
+                if self.path == "/admin/profile":
+                    seconds = json.loads(body or b"{}")["seconds"]
+                    self._json(200, {"status": "ok", "worker": outer.index, "seconds": seconds})
                     return
                 if self.path != "/v1/predict":
                     self._json(404, {"error": "not found"})
@@ -401,12 +406,9 @@ def test_same_scenario_same_routing(name, tmp_path, monkeypatch):
                 for w in workers:
                     w.stop()
     if name == "http_door":
-        # /admin/profile is the one difference: the port answers 501 (the
-        # capture is not ported, ROADMAP Queue A item 4.10)
-        (ours, profile), (ref, _) = seen["torch"], seen["jax"]
-        assert ours == ref
-        assert profile[0] == 501 and profile[1]["status"] == "unavailable"
-        return
+        # /admin/profile is a pinned-rank forward in both gateways
+        profile = seen["torch"][1]
+        assert profile[0] == 200 and profile[1]["worker"] == 0 and profile[1]["seconds"] == 1.0
     assert seen["torch"] == seen["jax"]
 
 

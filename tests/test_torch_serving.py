@@ -769,8 +769,7 @@ class TestPrecision:
             with pytest.raises(ValueError, match="SPARKDL_SERVE_PRECISION_BATCH"):
                 mod.serve_precision("batch")
         monkeypatch.setenv("SPARKDL_SERVE_PRECISION_BATCH", "int8-dynamic")
-        with pytest.raises(ValueError, match="not ported"):
-            precision.serve_precision("batch")
+        assert precision.serve_precision("batch") == jax_precision.serve_precision("batch") == "int8-dynamic"
 
     def test_apply_precision_bf16_casts_at_the_edges(self):
         mf = _port_mlp("m")
@@ -922,11 +921,14 @@ class TestHTTP:
         finally:
             server.stop(close_router=True)
 
-    def test_features_not_ported_answer_501(self):
+    def test_features_not_ported_answer_501(self, tmp_path, monkeypatch):
+        """Every endpoint of the JAX server answers on the port: the
+        profiler capture too (200 with a run directory on the CPU)."""
+        monkeypatch.setenv("SPARKDL_PROFILE_DIR", str(tmp_path))
         server, base = self._serve(PORT)
         try:
-            status, _, reply = _http(base, "/admin/profile", {})
-            assert status == 501 and "not ported" in reply["error"]
+            status, _, reply = _http(base, "/admin/profile", {"seconds": 0.1})
+            assert status == 200 and reply["path"].startswith(str(tmp_path))
             # the control plane's endpoints answer now
             for path, body, code in (("/v1/slo", None, 200), ("/v1/memory", None, 200),
                                      ("/admin/canary", {}, 400), ("/admin/canary", {"weight": 0.5}, 200)):

@@ -21,9 +21,10 @@ import torch
 import sparkdl_tpu.serving as jax_serving
 from sparkdl_tpu.graph.function import ModelFunction as JaxModelFunction
 from sparkdl_tpu.obs import slo as jax_slo
+from sparkdl_tpu.obs import trace as jax_trace
 from sparkdl_tpu.utils.metrics import metrics as jax_metrics
 from sparkdl_tpu_torch.graph.function import ModelFunction
-from sparkdl_tpu_torch.obs import slo
+from sparkdl_tpu_torch.obs import slo, trace
 from sparkdl_tpu_torch.runtime import feeder
 from sparkdl_tpu_torch.serving import Router, ServingServer
 from sparkdl_tpu_torch.utils.metrics import metrics
@@ -124,6 +125,8 @@ def _replay(mod, registry, jsonl, monkeypatch):
 def test_engines_agree_on_one_sequence(knobs, monkeypatch, tmp_path):
     for name, value in knobs.items():
         monkeypatch.setenv(name, value)
+    trace.reset()  # the alerts name the tail exemplars: none were offered here
+    jax_trace.reset()
     ours = _replay(slo, metrics, str(tmp_path / "ours.jsonl"), monkeypatch)
     ref = _replay(jax_slo, jax_metrics, str(tmp_path / "ref.jsonl"), monkeypatch)
     ours_evals, ours_windows, ours_events, ours_counters, ours_gauges = ours
@@ -132,8 +135,7 @@ def test_engines_agree_on_one_sequence(knobs, monkeypatch, tmp_path):
     _equal(ours_windows, ref_windows)
     assert [e["kind"] for e in ours_events] == [e["kind"] for e in ref_events]
     for mine, theirs in zip(ours_events, ref_events):
-        assert mine.pop("exemplar_trace_ids", []) == []  # no trace store in the port
-        theirs.pop("exemplar_trace_ids", None)
+        assert mine.pop("exemplar_trace_ids", None) == theirs.pop("exemplar_trace_ids", None)
         mine.pop("ts"), theirs.pop("ts")
         _equal(mine, theirs)
     _equal(ours_counters, ref_counters)
@@ -203,15 +205,21 @@ def test_http_slo_payload_equals_jax(monkeypatch):
     monkeypatch.setenv("SPARKDL_SLO_AVAIL", "0.99")
     monkeypatch.setenv("SPARKDL_SLO_P95_MS", "60000")  # never slow: latency varies by run
     rows = np.random.default_rng(1).normal(size=(3, ROW)).astype(np.float32)
-    payloads = []
+    payloads, submitted = [], []
     for engine, server_cls, router in ((slo, ServingServer, Router(loader=_port_loader, device="cpu")),
                                        (jax_slo, jax_serving.ServingServer, jax_serving.Router(loader=_jax_loader))):
+        trace.reset()
+        jax_trace.reset()
         server = server_cls(router, port=0)
         base = f"http://127.0.0.1:{server.port}"
         try:
             assert _get(base, "/v1/slo")[1]["armed"] is True
+            ids = {}
             for i in range(12):
-                router.submit("m", rows[i % 3:i % 3 + 1], priority=("interactive", "batch")[i % 2]).result(timeout=60)
+                req = router.submit("m", rows[i % 3:i % 3 + 1], priority=("interactive", "batch")[i % 2])
+                req.result(timeout=60)
+                ids.setdefault(req.priority, set()).add(req.trace_id)
+            submitted.append(ids)
             status, payload = _get(base, "/v1/slo")
             assert status == 200
             payloads.append(payload)
@@ -225,8 +233,16 @@ def test_http_slo_payload_equals_jax(monkeypatch):
                 if obj["objective"] == "latency_p95":
                     observed = obj.pop("observed_p95_ms", None)
                     assert (observed is None) == (name == "background")
-    assert ours.pop("exemplars") == {}  # the trace store is not ported
-    assert set(ref.pop("exemplars")) == set(slo.CLASSES)
+    # each class's tail exemplars: as many as the JAX server names (the
+    # slowest K of its completions), each one of that class's own requests
+    ex_ours, ex_ref = ours.pop("exemplars"), ref.pop("exemplars")
+    assert set(ex_ours) == set(ex_ref) == set(slo.CLASSES)
+    for cls in slo.CLASSES:
+        assert len(ex_ours[cls]) == len(ex_ref[cls]) == (0 if cls == "background" else 4)
+        assert set(ex_ours[cls]) <= submitted[0].get(cls, set())
+        assert set(ex_ref[cls]) <= submitted[1].get(cls, set())
+    trace.reset()
+    jax_trace.reset()
     _equal(ours, ref)
     assert ours["windows"]["interactive"]["ok_fast"] == 6.0
 
