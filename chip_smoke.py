@@ -409,6 +409,30 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     answers 200 on ``/metrics``, ``/snapshot``, ``/series``, ``/slo`` and
     ``/healthz``. About 60 s.
 
+21. TF model ingestion (``TFInputGraph``), without tensorflow or protobuf
+    in the process. The frozen GraphDef of phase 14's Keras ResNet50 config
+    (224x224, 1000 classes) with weights from ``--seed`` is written by
+    ``tests/fixtures/tf_graph_writer.py`` (the nodes
+    ``convert_variables_to_constants_v2`` gives: Conv2D, BiasAdd,
+    FusedBatchNormV3, Relu, Pad, MaxPool, AddV2, Mean, MatMul, Softmax).
+    (a) ``TFInputGraph.from_graph_def(bytes, ...)`` on the card, then
+    ``TFImageTransformer(outputMode="vector", preprocessing="caffe")`` over
+    phase 6's 1024 synthetic 224x224 BGR structs, 4 partitions, batch 32,
+    f32, after a warm-up pass: images/s and NVML's busy share over the
+    pass. (b) Every row against the port's ``KerasModule`` of the same
+    config and weights on the card through ``ImageModelTransformer``, and
+    16 rows against the translated graph on the CPU, both at relative 1e-5
+    (TF32 off in both forwards). (c) One warm batch of 32 under
+    torch.profiler: no device-to-host copy and no ``aten::_local_scalar_dense``
+    inside the translated forward; its peak ``max_memory_allocated`` over
+    the batch within ``TF_PEAK_RATIO`` of ``KerasModule``'s (the walk drops
+    each value after its last use); the flash kernel launched 0 times in
+    (a). (d) The committed small fixture (``tests/fixtures/tf_model``) as a
+    frozen GraphDef, a SavedModel and a TF1 checkpoint through
+    ``TFTransformer`` on the card: each equal to TF's stored outputs at
+    relative 1e-5, and to each other. (e) ``tensorflow`` and
+    ``google.protobuf`` absent from ``sys.modules``. About 5 s.
+
 The line before the last is the ``kernels`` JSON record (the f32 and the
 bf16 kernel at bert-base L=512, launches from each dtype's main-path run,
 and ``launches_phase20``, phase 20(a)'s flood); the last line is
@@ -446,7 +470,7 @@ from sparkdl_tpu_torch.estimators import DataParallelEstimator, ImageFileEstimat
 from sparkdl_tpu_torch.estimators import keras_fit
 from sparkdl_tpu_torch.evaluation import MulticlassClassificationEvaluator
 from sparkdl_tpu_torch.graph.function import ModelFunction
-from sparkdl_tpu_torch.graph.ingest import ModelIngest
+from sparkdl_tpu_torch.graph.ingest import ModelIngest, TFInputGraph
 from sparkdl_tpu_torch.graph.keras_file import read_keras_file, read_keras_weights
 from sparkdl_tpu_torch.graph.keras_graph import (
     KerasModelSpec,
@@ -487,9 +511,9 @@ from sparkdl_tpu_torch.transformers.named_image import (
     DeepImageFeaturizer,
     DeepImagePredictor,
 )
-from sparkdl_tpu_torch.transformers.image_model import ImageModelTransformer
+from sparkdl_tpu_torch.transformers.image_model import ImageModelTransformer, TFImageTransformer
 from sparkdl_tpu_torch.transformers.keras_image import KerasImageFileTransformer
-from sparkdl_tpu_torch.transformers.tensor import KerasTransformer
+from sparkdl_tpu_torch.transformers.tensor import KerasTransformer, TFTransformer
 from sparkdl_tpu_torch.transformers.text import HashingTokenizer, TextEmbedder
 from sparkdl_tpu_torch.tuning import CrossValidator, ParamGridBuilder
 from sparkdl_tpu_torch.utils.metrics import metrics
@@ -658,6 +682,13 @@ KERAS_HEAD = (64, 10)
 CAFFE_MEAN_BGR = np.array([103.939, 116.779, 123.68], np.float32)
 # the headers the C++ image bridge includes; where both exist, it must build
 BRIDGE_HEADERS = ("/usr/include/jpeglib.h", "/usr/include/png.h")
+
+# phase 21: TF model ingestion, ResNet50 as a frozen GraphDef
+TF_IMAGES = 1024
+TF_CPU_ROWS = 16
+TF_PEAK_RATIO = 1.5  # the translated walk's peak memory over KerasModule's, one batch
+TF_PARITY_REL = 1e-5  # the small fixture's three formats against TF's stored outputs
+TF_MODEL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures", "tf_model")
 
 # phase 15: the rest of the Keras path
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures")
@@ -4312,6 +4343,164 @@ def phase_int8_obs(seed: int, device_name: str, dump_dir: str, drops_dir: str) -
     return launched[torch.float32]
 
 
+def _tf_graph(seed: int):
+    """Phase 21's ResNet50 as a frozen GraphDef: (bytes, input name, output
+    name, the Keras spec of the same config and weights)."""
+    sys.path.insert(0, FIXTURES)
+    try:
+        from tf_graph_writer import frozen_graph_def
+    finally:
+        sys.path.remove(FIXTURES)
+    config = _resnet50_config()
+    spec = KerasModelSpec(config, _seeded_keras_weights(config, seed))
+    raw, feed, fetch = frozen_graph_def(spec)
+    return raw, feed, fetch, spec
+
+
+def _forward_peak(mf, x) -> int:
+    """Bytes allocated at the peak of one forward above the allocation
+    before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y = mf(x)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del y
+    return peak
+
+
+def phase_tf_ingest(seed: int, device_name: str, device="cuda") -> None:
+    """Phase 21: TF model ingestion on the card (``device="cpu"``: a
+    rehearsal without NVML, the profiler's device side and the memory
+    check)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+
+    t0 = time.perf_counter()
+    raw, feed, fetch, spec = _tf_graph(seed)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mf = TFInputGraph.from_graph_def(raw, [feed], [fetch], input_shape=(KERAS_SIDE, KERAS_SIDE, 3), device=device)
+    _sync(device)
+    ingest_s = time.perf_counter() - t0
+    check(mf.takes_nhwc and mf.device == device, f"tf ingest: {mf.name} on {mf.device}")
+    print(f"tf ingest (21a): frozen GraphDef of Keras ResNet50 written without TF in {write_s:.2f} s "
+          f"({len(raw)} bytes), ingested on {mf.device} in {ingest_s:.2f} s "
+          f"({len(mf.module.tf_names)} lifted weights)")
+    structs, _ = _colour_structs(seed, TF_IMAGES, KERAS_SIDE)
+    df = DataFrame.fromColumns({"image": structs}, numPartitions=IMAGE_PARTITIONS)
+    warm = DataFrame.fromColumns({"image": structs[:64]}, numPartitions=1)
+    kw = dict(inputCol="image", outputCol="out", outputMode="vector", preprocessing="caffe",
+              batchSize=IMAGE_BATCH)
+    stage = TFImageTransformer(modelFunction=mf, **kw)
+    _featurize(stage, warm, "out")
+    flash_attention.launches = 0
+    flash_attention.launches_by_dtype = dict.fromkeys(flash_attention.launches_by_dtype, 0)
+    probe = utilization.NvmlBusyProbe(torch.cuda.current_device()) if on_card else None
+    try:
+        busy0 = probe() if on_card else 0.0
+        rows, dt = _featurize(stage, df, "out")
+        if on_card:
+            time.sleep(2 * probe.poll_s)  # NVML's last sample of the pass
+        busy = probe() - busy0 if on_card else float("nan")
+    finally:
+        if on_card:
+            probe.close()
+    flash_launches = flash_attention.launches
+    for i, r in enumerate(rows):
+        check(r is not None and r.shape == (1000,) and bool(np.isfinite(r).all()),
+              f"tf ingest: row {i} is not a finite 1000-d vector")
+    card = np.stack(rows)
+    print(f"tf ingest (21a) TFImageTransformer over the translated ResNet50 {KERAS_SIDE}x{KERAS_SIDE} float32 on "
+          f"{device_name}: {TF_IMAGES} images, {IMAGE_PARTITIONS} partitions, batch {IMAGE_BATCH}, {dt:.3f} s = "
+          f"{TF_IMAGES / dt:.1f} images/s; NVML busy {busy:.3f} s = share {busy / dt:.3f} of the pass "
+          f"(polled every {probe.poll_s if on_card else 'never'} s); flash launches {flash_launches}")
+    check(flash_launches == 0, f"tf ingest: the translated graph launched the flash kernel {flash_launches} times")
+    # (b) the same config and weights as a KerasModule on the card; the
+    # translated graph on the CPU for a sample of rows
+    keras_mf = ModelIngest.from_keras(spec, device=device)
+    keras_rows, keras_dt = _featurize(ImageModelTransformer(modelFunction=keras_mf, **kw), df, "out")
+    keras_err = _relative_error(card, np.stack(keras_rows))
+    spread_rows = _sample_rows(TF_IMAGES)
+    sample = [spread_rows[i] for i in np.linspace(0, len(spread_rows) - 1, TF_CPU_ROWS).round().astype(int)]
+    cpu_mf = TFInputGraph.from_graph_def(raw, [feed], [fetch], input_shape=(KERAS_SIDE, KERAS_SIDE, 3), device="cpu")
+    few = DataFrame.fromColumns({"image": [structs[i] for i in sample]}, numPartitions=1)
+    cpu_rows, cpu_dt = _featurize(TFImageTransformer(modelFunction=cpu_mf, **kw), few, "out")
+    cpu_err = _relative_error(card[sample], np.stack(cpu_rows))
+    print(f"tf ingest (21b): card rows against KerasModule on the card ({keras_dt:.3f} s = "
+          f"{TF_IMAGES / keras_dt:.1f} images/s) relative error {keras_err:.3e}, {len(sample)} rows against the "
+          f"translated graph on the CPU ({cpu_dt:.2f} s) {cpu_err:.3e} (limit {IMAGE_F32_REL}); max |prob| "
+          f"{card.max():.4f}, least row max {card.max(axis=1).min():.4f}")
+    check(keras_err <= IMAGE_F32_REL, f"tf ingest: card vs KerasModule relative error {keras_err:.3e}")
+    check(cpu_err <= IMAGE_F32_REL, f"tf ingest: card vs CPU relative error {cpu_err:.3e}")
+    # (c) one warm batch: no read back inside the forward, and the walk's
+    # peak memory against KerasModule's
+    batch = image_structs_to_batch(structs[:IMAGE_BATCH], height=KERAS_SIDE, width=KERAS_SIDE, chw=False)[0]
+    # BGR minus the caffe mean, NHWC: what the converter hands the graph
+    x = torch.from_numpy(batch).to(device).float() - torch.from_numpy(CAFFE_MEAN_BGR).to(device)
+    x_nchw = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    for _ in range(2):
+        mf(x)
+        keras_mf(x_nchw)
+    _sync(device)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    with profile(activities=activities) as prof:
+        y = mf(x)
+        _sync(device)
+    names = [e.name for e in prof.events()]
+    d2h = [n for n in names if "DtoH" in n or "Memcpy D2H" in n]
+    syncs = [n for n in names if n in ("aten::_local_scalar_dense", "aten::item")]
+    kernels = device_kernels(prof) if on_card else {"(cpu)": (0.0, 0)}
+    tf_peak = _forward_peak(mf, x) if on_card else 0
+    keras_peak = _forward_peak(keras_mf, x_nchw) if on_card else 1
+    batch_err = _relative_error(y.cpu().numpy(), keras_mf(x_nchw).cpu().numpy())
+    print(f"tf ingest (21c): one warm batch of {IMAGE_BATCH} under torch.profiler: {len(kernels)} device kernels, "
+          f"{sum(sec for sec, _ in kernels.values()) * 1e3:.3f} ms of device time, {len(d2h)} device-to-host "
+          f"copies, {len(syncs)} scalar reads; peak memory over the batch {tf_peak} B translated against {keras_peak} B "
+          f"KerasModule = {tf_peak / keras_peak:.3f} (limit {TF_PEAK_RATIO}); batch vs KerasModule {batch_err:.3e}")
+    check(kernels, "tf ingest: the profiler saw no device kernel")
+    check(not d2h and not syncs, f"tf ingest: the translated forward reads the device back: {d2h + syncs}")
+    check(batch_err <= IMAGE_F32_REL, f"tf ingest: one batch vs KerasModule relative error {batch_err:.3e}")
+    check(tf_peak <= TF_PEAK_RATIO * keras_peak,
+          f"tf ingest: peak {tf_peak} B over {TF_PEAK_RATIO} x KerasModule's {keras_peak} B")
+    del mf, keras_mf, cpu_mf, x, x_nchw, y
+    shutdown_feeders()
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    # (d) the parity matrix over the small fixture, through TFTransformer
+    io = np.load(os.path.join(TF_MODEL_DIR, "io.npz"))
+    probs_out = str(io["gd_outputs"][1])  # dict outputs in sorted-key order: features, probs
+    doors = {
+        "GraphDef": TFInputGraph.from_graph_def(os.path.join(TF_MODEL_DIR, "frozen.pb"), [str(io["gd_inputs"][0])],
+                                                [probs_out], device=device),
+        "SavedModel": TFInputGraph.from_saved_model(os.path.join(TF_MODEL_DIR, "saved_model"), outputs=["probs"],
+                                                    device=device),
+        "checkpoint": TFInputGraph.from_tf_checkpoint(os.path.join(TF_MODEL_DIR, "ckpt", "model"), ["image"],
+                                                      ["probs"], device=device),
+    }
+    arrays = DataFrame.fromColumns({"x": list(io["x"])}, numPartitions=2)
+    outs = {}
+    for door, door_mf in doors.items():
+        rows = TFTransformer(inputCol="x", outputCol="probs", modelFunction=door_mf).transform(arrays).collect()
+        outs[door] = np.stack([r.probs for r in rows])
+    errs = {door: _relative_error(o, io["probs"]) for door, o in outs.items()}
+    spread = max(_relative_error(o, outs["GraphDef"]) for o in outs.values())
+    print("tf ingest (21d): TFTransformer on the card over the small fixture's " + ", ".join(
+        f"{door} {err:.3e}" for door, err in errs.items()) + f" off TF's stored outputs (limit {TF_PARITY_REL}); "
+          f"formats against each other {spread:.3e}")
+    check(all(err <= TF_PARITY_REL for err in errs.values()), f"tf ingest: a format is off TF's outputs: {errs}")
+    check(spread <= TF_PARITY_REL, f"tf ingest: the formats disagree by {spread:.3e}")
+    # (e) nothing of TF in the process
+    present = [m for m in ("tensorflow", "google.protobuf") if m in sys.modules]
+    print(f"tf ingest (21e): tensorflow in sys.modules {'tensorflow' in sys.modules}, google.protobuf "
+          f"{'google.protobuf' in sys.modules}")
+    check(not present, f"tf ingest: {present} imported")
+
+
 def _flat_tree(tree, prefix=()):
     for key, sub in tree.items():
         if isinstance(sub, dict):
@@ -4389,11 +4578,14 @@ def main(argv=None) -> int:
     int8_launches = phase_int8_obs(args.seed, device_name, dump_dir, drops_dir)
     done("phase 20")
     records[torch.float32]["launches_phase20"] = int8_launches
+    phase_tf_ingest(args.seed, device_name)
+    done("phase 21")
     records[torch.bfloat16]["launches_phase20"] = 0
     print(f"flash launches in 15(e) (bert-base from weights_file): {text_weight_launches}")
     print(f"flash launches in phase 18's workers (generation 1, from the federated /metrics): "
           f"f32 {gang_launches[torch.float32]}, bf16 {gang_launches[torch.bfloat16]}")
     print(f"flash launches in phase 20(a)'s flood (f32 and int8 bert-base): f32 {int8_launches}")
+    print("flash launches in phase 21(a) (the translated ResNet50 GraphDef): 0")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[torch.float32], records[torch.bfloat16]]}))
     print(json.dumps({

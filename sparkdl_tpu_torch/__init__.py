@@ -41,7 +41,17 @@ What it covers today:
   (``KerasImageFileEstimator``), Keras's optimizers and losses by name;
 - the serving control plane (``obs/``): the SLO engine, the device-memory
   and utilization ledgers with the ``serve.mfu`` gauge, and the canary
-  rollout in the router.
+  rollout in the router;
+- TF models (``TFInputGraph``: a frozen GraphDef, a SavedModel, a TF1
+  checkpoint), read without TensorFlow or protobuf and translated once
+  into torch ops (``graph/tf_proto.py``, ``tf_bundle.py``,
+  ``tf_import.py``), scored by ``TFImageTransformer`` and
+  ``TFTransformer``.
+
+Two modules of the JAX package need no counterpart here: torch builds a
+model's weights on the host, so ``SPARKDL_BERT_INIT=host`` has nothing to
+choose, and the port runs eagerly, with nothing compiled to cache, so
+``runtime/compile_cache.py`` has nothing to keep.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with the default device and no CUDA card they raise. The names below are
@@ -57,11 +67,16 @@ _EXPORTS = {
     "imageIO": "sparkdl_tpu_torch.image",
     "ModelFunction": "sparkdl_tpu_torch.graph.function",
     "ModelIngest": "sparkdl_tpu_torch.graph.ingest",
+    "TFInputGraph": "sparkdl_tpu_torch.graph.ingest",
+    "GraphFunction": "sparkdl_tpu_torch.graph",
+    "IsolatedSession": "sparkdl_tpu_torch.graph",
+    "imageInputPlaceholder": "sparkdl_tpu_torch.graph.pieces",
     "Transformer": "sparkdl_tpu_torch.pipeline",
     "Estimator": "sparkdl_tpu_torch.pipeline",
     "Pipeline": "sparkdl_tpu_torch.pipeline",
     "PipelineModel": "sparkdl_tpu_torch.pipeline",
     "ImageModelTransformer": "sparkdl_tpu_torch.transformers.image_model",
+    "TFImageTransformer": "sparkdl_tpu_torch.transformers.image_model",
     "DeepImageFeaturizer": "sparkdl_tpu_torch.transformers.named_image",
     "DeepImagePredictor": "sparkdl_tpu_torch.transformers.named_image",
     "KerasImageFileTransformer": "sparkdl_tpu_torch.transformers.keras_image",

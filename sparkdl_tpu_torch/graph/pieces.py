@@ -22,7 +22,7 @@ work on NCHW (channel axis 1); the arithmetic is the same.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -218,3 +218,33 @@ def image_structs_to_batch(
     if chw:
         batch = np.ascontiguousarray(batch.transpose(0, 3, 1, 2))
     return batch, mask
+
+
+class ImageInputSpec(NamedTuple):
+    """A declared image input: the port's counterpart of the reference's
+    shared TF placeholder (see :func:`imageInputPlaceholder`)."""
+
+    name: str
+    shape: tuple  # (batch, height, width, channels); None = any
+    dtype: Any
+
+    @property
+    def tensor_name(self) -> str:
+        return f"{self.name}:0"
+
+
+def imageInputPlaceholder(nChannels: int = 3, name: str = "sparkdl_image_input") -> ImageInputSpec:
+    """The reference's image-input declaration.
+
+    Upstream (``sparkdl.imageInputPlaceholder``) returned a shared
+    ``tf.placeholder`` of shape ``[None, None, None, nChannels]`` named
+    ``"sparkdl_image_input"`` that user graphs attached to. The port has no
+    placeholders, so, as the JAX package does, it returns an input SPEC
+    with the same name, shape and dtype, for the ingestion doors' input
+    mapping::
+
+        spec = imageInputPlaceholder(3)
+        mf = TFInputGraph.from_graph_def(pb, inputs=[spec.tensor_name],
+                                         outputs=["features:0"])
+    """
+    return ImageInputSpec(name=name, shape=(None, None, None, nChannels), dtype=np.float32)

@@ -155,6 +155,11 @@ class NvmlBusyProbe:
                 raise RuntimeError(f"NVML polling stopped: {self._error}") from self._error
             return self._busy_s
 
+    def close(self) -> None:
+        """Stop the polling thread (NVML stays initialized)."""
+        self._stop.set()
+        self._thread.join(timeout=5 * self.poll_s + 1.0)
+
 
 def default_busy_probe() -> Optional[BusyProbe]:
     """NVML on the current CUDA device where there is a card; None (host

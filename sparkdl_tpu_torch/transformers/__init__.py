@@ -6,6 +6,7 @@ imports none of its modules.
 
 _EXPORTS = {
     "ImageModelTransformer": "sparkdl_tpu_torch.transformers.image_model",
+    "TFImageTransformer": "sparkdl_tpu_torch.transformers.image_model",
     "KerasImageFileTransformer": "sparkdl_tpu_torch.transformers.keras_image",
     "DeepImageFeaturizer": "sparkdl_tpu_torch.transformers.named_image",
     "DeepImagePredictor": "sparkdl_tpu_torch.transformers.named_image",

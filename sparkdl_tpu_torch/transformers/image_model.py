@@ -6,7 +6,10 @@ flattener compose into one ``ModelFunction`` on the model's device,
 dispatched through its ``model_device_fn`` (on CUDA, on the device's launch
 thread); the batched engine (``execution.run_batched_shared``: the shared
 feeder when partitions run at once) feeds it uint8 NCHW batches that the
-host stage decodes and resizes to the model's fixed geometry.
+host stage decodes and resizes to the model's fixed geometry. A model
+function that takes NHWC rows itself (``takes_nhwc``: a translated TF
+graph) gets the converter's batch as an NHWC view. ``TFImageTransformer``
+is the upstream name of this class.
 
 With ``SPARKDL_DEVICE_PREPROC`` on (read at each transform), the host
 ships each partition's uint8 rows at the partition's source geometry
@@ -153,6 +156,11 @@ class ImageModelTransformer(
                 preprocessing=self.getOrDefault("preprocessing"),
                 out_dtype=mf.input_dtype or torch.float32,
             )
+            if mf.takes_nhwc:
+                # a function that takes NHWC rows itself (a translated TF
+                # graph): the converter's NCHW batch in channels_last
+                # memory is that as a view
+                converter = converter.and_then(lambda x: x.permute(0, 2, 3, 1))
             pipeline_mf = converter.and_then(mf)
             if src_hw is not None:
                 pipeline_mf = build_device_preproc(src_hw, self._geometry()).and_then(pipeline_mf)
@@ -224,3 +232,7 @@ class ImageModelTransformer(
             return {out_col: outputs}
 
         return dataset.withColumnPartition(out_col, run_partition)
+
+
+#: the upstream name (sparkdl.TFImageTransformer)
+TFImageTransformer = ImageModelTransformer

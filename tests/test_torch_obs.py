@@ -367,14 +367,21 @@ def test_cli_rejects_non_snapshot(tmp_path):
 
 @pytest.mark.parametrize("cmd", ["slo", "fleet", "mem"])
 def test_cli_live_views_answer_unarmed_as_jax(cmd, capsys):
-    """Unarmed live views print the JAX CLI's JSON."""
+    """Unarmed live views print the JAX CLI's JSON. Both packages' SLO
+    engine, memory ledger and fleet series are reset first: an earlier
+    test file on the same worker may have left state in either."""
+    from sparkdl_tpu.obs import memory as jax_memory
+    from sparkdl_tpu.obs import slo as jax_slo
+    from sparkdl_tpu.obs import timeseries as jax_timeseries
     from sparkdl_tpu.obs.__main__ import main as jax_main
     from sparkdl_tpu_torch.obs import memory, slo, timeseries
     from sparkdl_tpu_torch.obs.__main__ import main
 
-    slo.reset()
-    memory.get_ledger().clear()
-    timeseries.fleet_clear()
+    for pkg_slo, pkg_memory, pkg_timeseries in ((slo, memory, timeseries),
+                                                (jax_slo, jax_memory, jax_timeseries)):
+        pkg_slo.reset()
+        pkg_memory.get_ledger().clear()
+        pkg_timeseries.fleet_clear()
     assert main([cmd]) == 0
     ours = json.loads(capsys.readouterr().out)
     assert jax_main([cmd]) == 0
