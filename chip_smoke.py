@@ -433,10 +433,52 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     relative 1e-5, and to each other. (e) ``tensorflow`` and
     ``google.protobuf`` absent from ``sys.modules``. About 5 s.
 
+22. the rest of model ingestion: exported programs (``torch.export``, the
+    flash kernel as the registered op ``sparkdl_tpu_torch::flash_attention``)
+    and orbax checkpoints read without orbax. First the op's dispatch
+    cost: host microseconds per call, warm, over 2000 calls at B=1 H=1
+    L=64 Dh=64 bf16 (the kernel shorter than the call), of the registered
+    op against the bare ctypes launch it wraps, and of the public
+    ``flash_attention`` (its checks and mask reshape beside). (a) The bert-base text
+    composite (``ids -> (ids, ids != 0)`` then the bf16 rung's model,
+    weights from ``--seed``), L=128: ``ModelFunction.export`` with a
+    symbolic batch, then ``ModelFunction.load`` in a child process (a fresh
+    interpreter, which has not imported the op's module before ``load``)
+    over the same 32 rows of ids: its rows against the direct composite in
+    this process (max |diff|, limit the bf16 atol 3e-2, expected 0: the
+    same ops and kernel), the loaded program's flash launches per dispatch
+    from the child's counters (exactly 12), loaded and direct rows/s over
+    20 warm dispatches each, export and load seconds, the artifact's MB.
+    (b) The ModelFunction ``DeepImageFeaturizer("ResNet50")`` applies
+    (f32, 224x224, seeded weights), exported and loaded here: rows against
+    the direct function over one batch of 32 (relative 1e-6), its conv
+    weights ``channels_last`` on the card, loaded and direct images/s over
+    20 batches, seconds and MB. (c) The committed orbax fixture
+    (``tests/fixtures/orbax_model``: a 2-layer BERT, hidden 32, one head of
+    32, saved by orbax's ``StandardCheckpointer``) read on the card through
+    ``ModelIngest.from_orbax_checkpoint`` with the flash kernel: rows
+    against the JAX outputs stored beside it (1e-5 of their largest
+    magnitude), 2 f32 flash launches per call, read seconds and the zstd
+    decoder's rate over the fixture's compressed values. (d) The bf16
+    GraphDef fixture (``tests/fixtures/tf_bf16``: ``BiasAdd(MatMul(x, W),
+    b)``, W and b bfloat16 constants) on the card: a bfloat16 result,
+    within one bf16 step of its largest magnitude of the JAX outputs
+    stored beside it. (e) A bert-base checkpoint at full width, written in
+    orbax's ``use_ocdbt=False`` layout with arrays uncompressed
+    (``tests/fixtures/orbax_writer.py``, held against orbax's ``restore``
+    in the CPU tests) from the seeded registry model, read back and bound
+    through ``from_orbax_checkpoint`` on the card: read seconds and MB/s,
+    hidden states equal to the model it was written from (max |diff| 0),
+    12 f32 flash launches. Before (a), the registered op's host cost per
+    warm call against the bare ctypes launch, in interleaved rounds. About
+    70 s.
+
 The line before the last is the ``kernels`` JSON record (the f32 and the
 bf16 kernel at bert-base L=512, launches from each dtype's main-path run,
-and ``launches_phase20``, phase 20(a)'s flood); the last line is
-``{"ok": true, "device": {...}}``.
+``launches_phase20``, phase 20(a)'s flood, and ``launches_phase22``,
+phase 22(a)'s loaded program (bf16) and 22(c)'s and 22(e)'s orbax models
+(f32)); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -445,6 +487,8 @@ import argparse
 import gc
 import json
 import os
+import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -453,6 +497,7 @@ import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -689,6 +734,19 @@ TF_CPU_ROWS = 16
 TF_PEAK_RATIO = 1.5  # the translated walk's peak memory over KerasModule's, one batch
 TF_PARITY_REL = 1e-5  # the small fixture's three formats against TF's stored outputs
 TF_MODEL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures", "tf_model")
+# phase 22
+EXPORT_TEXT_MODEL = "bert-base"
+EXPORT_TEXT_LEN = 128
+EXPORT_BATCH = 32
+EXPORT_ITERS = 20
+EXPORT_IMAGE_MODEL = "ResNet50"
+EXPORT_IMAGE_REL = 1e-6
+ORBAX_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures", "orbax_model")
+ORBAX_ROW_TOL = 1e-5
+TF_BF16_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures", "tf_bf16")
+BF16_STEP = 2.0 ** -7
+DISPATCH_CALLS = 2000
+DISPATCH_ROUNDS = 5
 
 # phase 15: the rest of the Keras path
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures")
@@ -4501,6 +4559,257 @@ def phase_tf_ingest(seed: int, device_name: str, device="cuda") -> None:
     check(not present, f"tf ingest: {present} imported")
 
 
+#: the child process of phase 22(a): loads the exported program in a fresh
+#: interpreter, then times it and reads the flash counters
+_LOAD_CHILD = r"""
+import json, sys, time
+import numpy as np, torch
+from sparkdl_tpu_torch.graph.function import ModelFunction
+path, ids_file, out_file, iters, device = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4]), sys.argv[5]
+fresh = "sparkdl_tpu_torch.ops.flash_attention" not in sys.modules
+t0 = time.perf_counter()
+mf = ModelFunction.load(path, device=device)
+load_s = time.perf_counter() - t0
+from sparkdl_tpu_torch.ops.flash_attention import flash_attention
+ids = torch.from_numpy(np.load(ids_file)).to(device)
+sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+for _ in range(3):
+    out = mf(ids)
+sync()
+flash_attention.launches = 0
+t0 = time.perf_counter()
+for _ in range(iters):
+    out = mf(ids)
+sync()
+dt = time.perf_counter() - t0
+np.save(out_file, out.float().cpu().numpy())
+print(json.dumps({"fresh": fresh, "load_s": load_s, "launches": flash_attention.launches,
+                  "rows_per_s": iters * ids.shape[0] / dt}))
+"""
+
+
+def _dir_mb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(r, n)) for r, _, names in os.walk(path) for n in names) / 1e6
+
+
+def _timed_calls(mf, x, iters: int, device) -> float:
+    """Seconds for ``iters`` warm calls of ``mf`` on ``x``."""
+    for _ in range(3):
+        mf(x)
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        mf(x)
+    _sync(device)
+    return time.perf_counter() - t0
+
+
+def phase_export_ingest(seed: int, device_name: str, tmp: str, device="cuda") -> dict:
+    """Phase 22: exported programs and orbax checkpoints (``device="cpu"``:
+    a rehearsal, with the models cut by the caller). Returns the flash
+    launches by dtype."""
+    from sparkdl_tpu_torch.graph.function import piece
+    from sparkdl_tpu_torch.graph.orbax_ckpt import OcdbtStore, read_orbax_checkpoint
+    from sparkdl_tpu_torch.models.bert import BertConfig, BertEncoder
+    from sparkdl_tpu_torch.ops.flash_attention import make_flash_attention_fn
+    from sparkdl_tpu_torch.utils import zstd
+
+    from sparkdl_tpu_torch.ops import flash_attention as fa
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    launches = {}
+    if on_card:
+        q, k, v = (torch.randn(1, 1, 64, 64, device=device, dtype=torch.bfloat16) for _ in range(3))
+        m = torch.zeros(1, 64, device=device)
+        calls = {"bare": fa._launch, "op": fa.flash_attention_op, "public": fa.flash_attention}
+        per_call = {name: [] for name in list(calls) + ["op_grad_mode"]}
+        # interleaved rounds, under inference_mode as the main path calls it;
+        # the op once more outside it, where its autograd formula is passed
+        for _ in range(DISPATCH_ROUNDS):
+            for name in per_call:
+                call = calls.get(name, fa.flash_attention_op)
+                with torch.inference_mode(name != "op_grad_mode"):
+                    for _ in range(50):
+                        call(q, k, v, m)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(DISPATCH_CALLS):
+                        call(q, k, v, m)
+                    per_call[name].append((time.perf_counter() - t0) / DISPATCH_CALLS * 1e6)
+                    torch.cuda.synchronize()
+        med = {name: statistics.median(v) for name, v in per_call.items()}
+        extra = [o - b for o, b in zip(per_call["op"], per_call["bare"])]
+        print(f"export (22): flash dispatch, host us per warm call, median (min-max) of {DISPATCH_ROUNDS} interleaved "
+              f"rounds of {DISPATCH_CALLS} calls under inference_mode: bare ctypes launch {med['bare']:.2f} "
+              f"({min(per_call['bare']):.2f}-{max(per_call['bare']):.2f}), registered op {med['op']:.2f} "
+              f"({min(per_call['op']):.2f}-{max(per_call['op']):.2f}), op minus bare per round median "
+              f"{statistics.median(extra):+.2f} ({min(extra):+.2f} to {max(extra):+.2f}), public flash_attention "
+              f"{med['public']:.2f}; the op in grad mode {med['op_grad_mode']:.2f}")
+    # (a) the bert-base text composite, bf16 rung, through a child process
+    mf = bf16_rung(get_model(EXPORT_TEXT_MODEL).model_function(dtype=torch.bfloat16, seed=seed, device=device))
+    comp = piece(lambda ids: (ids, (ids != 0).to(torch.int32)), name="mask").and_then(mf)
+    comp = replace(comp, input_shape=(EXPORT_TEXT_LEN,), input_dtype=torch.int32)
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, mf.vocab_size, size=(EXPORT_BATCH, EXPORT_TEXT_LEN)).astype(np.int32)
+    for i, n in enumerate(rng.integers(8, EXPORT_TEXT_LEN + 1, size=EXPORT_BATCH)):
+        ids[i, n:] = 0
+    path = os.path.join(tmp, "bert_export")
+    t0 = time.perf_counter()
+    comp.export(path)
+    export_s = time.perf_counter() - t0
+    x = torch.from_numpy(ids).to(device)
+    direct_dt = _timed_calls(comp, x, EXPORT_ITERS, device)
+    direct = comp(x).float().cpu().numpy()
+    ids_file, out_file = os.path.join(tmp, "ids.npy"), os.path.join(tmp, "loaded_rows.npy")
+    np.save(ids_file, ids)
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-c", _LOAD_CHILD, path, ids_file, out_file, str(EXPORT_ITERS), device.type],
+        cwd=root, env=dict(os.environ, PYTHONPATH=root), capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"export (22a): the child's load failed: {proc.stderr[-3000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    loaded = np.load(out_file)
+    diff = float(np.abs(loaded - direct).max())
+    per_dispatch = child["launches"] / EXPORT_ITERS
+    direct_rps = EXPORT_ITERS * EXPORT_BATCH / direct_dt
+    layers = mf.module.config.num_layers
+    print(f"export (22a): {EXPORT_TEXT_MODEL} text composite, bf16 rung, L={EXPORT_TEXT_LEN}, batch {EXPORT_BATCH} on "
+          f"{device_name}: exported in {export_s:.2f} s ({_dir_mb(path):.1f} MB: program.pt2 "
+          f"{os.path.getsize(os.path.join(path, 'program.pt2')) / 1e6:.1f} MB), loaded in a fresh process in "
+          f"{child['load_s']:.2f} s (op module not imported before load: {child['fresh']}); loaded rows vs direct "
+          f"max |diff| {diff:.3e} (limit {ATOL[torch.bfloat16]}); flash launches per loaded dispatch "
+          f"{per_dispatch:g} (expected {layers}); loaded {child['rows_per_s']:.1f} rows/s, direct "
+          f"{direct_rps:.1f} rows/s, ratio {child['rows_per_s'] / direct_rps:.3f}")
+    check(child["fresh"], "export (22a): the child imported the op's module before load")
+    check(np.isfinite(loaded).all() and loaded.shape == direct.shape, "export (22a): loaded rows malformed")
+    check(diff <= ATOL[torch.bfloat16], f"export (22a): loaded rows off the direct ones by {diff:.3e}")
+    # the CPU runs the kernel's plain version, which counts no launch
+    check(per_dispatch == (layers if on_card else 0), f"export (22a): {per_dispatch} flash launches per dispatch")
+    launches[torch.bfloat16] = child["launches"]
+    del mf, comp, x
+    shutil.rmtree(path)
+    # (b) the featurizer's ResNet50, f32
+    weights = os.path.join(tmp, f"{EXPORT_IMAGE_MODEL}.npz")
+    _write_seeded_weights(EXPORT_IMAGE_MODEL, seed, weights)
+    img_mf = _featurizer(EXPORT_IMAGE_MODEL, "float32", weights, device=device)._inner().getModelFunction()
+    side = img_mf.input_shape[0]
+    path = os.path.join(tmp, "resnet_export")
+    t0 = time.perf_counter()
+    img_mf.export(path)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    img_loaded = ModelFunction.load(path, device=device)
+    load_s = time.perf_counter() - t0
+    convs = [m.weight for m in img_loaded.module.modules() if isinstance(m, torch.nn.Conv2d)]
+    convs = convs or [t for n, t in img_loaded.module.named_parameters() if t.dim() == 4]
+    cl = all(w.is_contiguous(memory_format=torch.channels_last) for w in convs)
+    nhwc = torch.from_numpy(rng.random((EXPORT_BATCH, side, side, 3), dtype=np.float32) * 255 - 120).to(device)
+    xi = nhwc.permute(0, 3, 1, 2)  # the view model_device_fn hands the model
+    direct_dt = _timed_calls(img_mf, xi, EXPORT_ITERS, device)
+    loaded_dt = _timed_calls(img_loaded, xi, EXPORT_ITERS, device)
+    err = _relative_error(img_loaded(xi).cpu().numpy(), img_mf(xi).cpu().numpy())
+    ratio = direct_dt / loaded_dt
+    print(f"export (22b): {EXPORT_IMAGE_MODEL} features (DeepImageFeaturizer's ModelFunction), f32 {side}x{side}: "
+          f"exported in {export_s:.2f} s, loaded in {load_s:.2f} s ({_dir_mb(path):.1f} MB); rows vs direct relative "
+          f"{err:.3e} (limit {EXPORT_IMAGE_REL}); {len(convs)} conv weights channels_last: {cl}; loaded "
+          f"{EXPORT_ITERS * EXPORT_BATCH / loaded_dt:.1f} images/s, direct "
+          f"{EXPORT_ITERS * EXPORT_BATCH / direct_dt:.1f}, ratio {ratio:.3f}")
+    check(err <= EXPORT_IMAGE_REL, f"export (22b): loaded rows off by {err:.3e}")
+    check(not on_card or (convs and cl), "export (22b): the loaded convs lost channels_last")
+    del img_mf, img_loaded, nhwc, xi
+    shutil.rmtree(path)
+    os.remove(weights)
+    shutdown_feeders()
+    gc.collect()
+    # (c) the committed orbax fixture
+    io = np.load(os.path.join(ORBAX_DIR, "io.npz"))
+    ckpt = os.path.join(ORBAX_DIR, "ckpt")
+    t0 = time.perf_counter()
+    read_orbax_checkpoint(ckpt)
+    read_s = time.perf_counter() - t0
+    store = OcdbtStore(ckpt)
+    frames = [v for v in (store.get(k.decode()) for k in store.entries if not k.endswith(b".zarray"))
+              if v[:4] == b"\x28\xb5\x2f\xfd"]
+    t0 = time.perf_counter()
+    out_bytes = sum(len(zstd.decompress(v)) for v in frames)
+    zstd_s = time.perf_counter() - t0
+    config = BertConfig(**json.loads(str(io["config"])))
+    t0 = time.perf_counter()
+    omf = ModelIngest.from_orbax_checkpoint(ckpt, BertEncoder(config, make_flash_attention_fn()), device=device)
+    ingest_s = time.perf_counter() - t0
+    flash_attention.launches = 0
+    rows = omf(torch.from_numpy(io["ids"]).to(device)).cpu().numpy()
+    launches[torch.float32] = flash_attention.launches
+    err = float(np.abs(rows - io["y_jax"]).max())
+    limit = ORBAX_ROW_TOL * max(1.0, float(np.abs(io["y_jax"]).max()))
+    print(f"orbax (22c): the committed fixture ({config.num_layers} layers, hidden {config.hidden_size}) read in "
+          f"{read_s:.3f} s, ingested on {omf.device} in {ingest_s:.3f} s; zstd decoded {len(frames)} frames, "
+          f"{sum(len(v) for v in frames)} -> {out_bytes} bytes in {zstd_s:.3f} s = {out_bytes / zstd_s / 1e6:.2f} MB/s; "
+          f"rows vs the JAX outputs max |diff| {err:.3e} (limit {limit:.1e}); f32 flash launches "
+          f"{launches[torch.float32]} (expected {config.num_layers})")
+    check(rows.shape == io["y_jax"].shape and err <= limit, f"orbax (22c): rows off the JAX outputs by {err:.3e}")
+    check(launches[torch.float32] == (config.num_layers if on_card else 0),
+          f"orbax (22c): {launches[torch.float32]} flash launches")
+    # (d) the bf16 GraphDef
+    tio = np.load(os.path.join(TF_BF16_DIR, "io.npz"))
+    gmf = TFInputGraph.from_graph_def(os.path.join(TF_BF16_DIR, "graph.pb"), [str(n) for n in tio["inputs"]],
+                                      [str(n) for n in tio["outputs"]], device=device)
+    y = gmf(torch.from_numpy(tio["x"]).to(device, torch.bfloat16))
+    want = tio["y_jax"]
+    err = float(np.abs(y.float().cpu().numpy() - want).max())
+    limit = BF16_STEP * float(np.abs(want).max())
+    print(f"tf bf16 (22d): MatMul + BiasAdd over bfloat16 constants on {gmf.device}: result {y.dtype} "
+          f"{tuple(y.shape)}, max |diff| to the JAX outputs {err:.3e} (one bf16 step of the largest: {limit:.3e}); "
+          f"lifted weights {[str(t.dtype) for t in gmf.module.tf_state_dict().values()]}")
+    check(y.dtype == torch.bfloat16, f"tf bf16 (22d): the result is {y.dtype}")
+    check(err <= limit, f"tf bf16 (22d): off the JAX outputs by {err:.3e}")
+    # (e) a bert-base checkpoint in orbax's use_ocdbt=False layout,
+    # uncompressed (no zstd compressor on this machine), bound and run
+    # against the seeded model it was written from
+    from sparkdl_tpu_torch.models.convert import bert_params_to_flax
+
+    sys.path.insert(0, FIXTURES)
+    try:
+        from orbax_writer import write_plain_checkpoint
+    finally:
+        sys.path.remove(FIXTURES)
+    direct = get_model(EXPORT_TEXT_MODEL).model_function(dtype=torch.float32, seed=seed, device=device)
+    path = os.path.join(tmp, "bert_orbax")
+    t0 = time.perf_counter()
+    nbytes = write_plain_checkpoint(path, bert_params_to_flax(direct.module))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree = read_orbax_checkpoint(path)
+    read_s = time.perf_counter() - t0
+    leaves = len(list(_flat_tree(tree)))
+    del tree
+    t0 = time.perf_counter()
+    bmf = ModelIngest.from_orbax_checkpoint(path, BertEncoder(direct.module.config, make_flash_attention_fn()),
+                                            device=device)
+    ingest_s = time.perf_counter() - t0
+    x = torch.from_numpy(ids).to(device)
+    flash_attention.launches = 0
+    rows = bmf(x).float().cpu().numpy()
+    orbax_launches = flash_attention.launches
+    launches[torch.float32] += orbax_launches
+    with torch.inference_mode():
+        want = direct.module(x).float().cpu().numpy()
+    err = float(np.abs(rows - want).max())
+    print(f"orbax (22e): {EXPORT_TEXT_MODEL} flax variables ({leaves} leaves, {nbytes / 1e6:.1f} MB f32) written in "
+          f"orbax's use_ocdbt=False layout, uncompressed, in {write_s:.2f} s; read in {read_s:.2f} s = "
+          f"{nbytes / read_s / 1e6:.1f} MB/s; from_orbax_checkpoint on {bmf.device} in {ingest_s:.2f} s; hidden "
+          f"states [{', '.join(map(str, rows.shape))}] vs the model it was written from max |diff| {err:.3e} "
+          f"(limit 0); f32 flash launches {orbax_launches}")
+    check(rows.shape == want.shape and np.isfinite(rows).all(), "orbax (22e): rows malformed")
+    check(err == 0.0, f"orbax (22e): rows off the direct build by {err:.3e}")
+    check(orbax_launches == (direct.module.config.num_layers if on_card else 0),
+          f"orbax (22e): {orbax_launches} flash launches")
+    del direct, bmf, x
+    shutil.rmtree(path)
+    return launches
+
+
 def _flat_tree(tree, prefix=()):
     for key, sub in tree.items():
         if isinstance(sub, dict):
@@ -4580,12 +4889,19 @@ def main(argv=None) -> int:
     records[torch.float32]["launches_phase20"] = int8_launches
     phase_tf_ingest(args.seed, device_name)
     done("phase 21")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase22 = phase_export_ingest(args.seed, device_name, tmp)
+    done("phase 22")
     records[torch.bfloat16]["launches_phase20"] = 0
+    for dtype, n in phase22.items():
+        records[dtype]["launches_phase22"] = n
     print(f"flash launches in 15(e) (bert-base from weights_file): {text_weight_launches}")
     print(f"flash launches in phase 18's workers (generation 1, from the federated /metrics): "
           f"f32 {gang_launches[torch.float32]}, bf16 {gang_launches[torch.bfloat16]}")
     print(f"flash launches in phase 20(a)'s flood (f32 and int8 bert-base): f32 {int8_launches}")
     print("flash launches in phase 21(a) (the translated ResNet50 GraphDef): 0")
+    print(f"flash launches in phase 22: bf16 {phase22[torch.bfloat16]} (22a's loaded program, in its process), "
+          f"f32 {phase22[torch.float32]} (22c's and 22e's orbax models)")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[torch.float32], records[torch.bfloat16]]}))
     print(json.dumps({

@@ -46,7 +46,12 @@ What it covers today:
   checkpoint), read without TensorFlow or protobuf and translated once
   into torch ops (``graph/tf_proto.py``, ``tf_bundle.py``,
   ``tf_import.py``), scored by ``TFImageTransformer`` and
-  ``TFTransformer``.
+  ``TFTransformer``;
+- exported programs (``ModelFunction.export``/``load``,
+  ``ModelIngest.from_exported``: ``torch.export``, with the flash kernel
+  as the registered op ``sparkdl_tpu_torch::flash_attention``) and orbax
+  checkpoints read without orbax (``ModelIngest.from_orbax_checkpoint``,
+  ``graph/orbax_ckpt.py`` over the port's zstd decoder ``utils/zstd.py``).
 
 Two modules of the JAX package need no counterpart here: torch builds a
 model's weights on the host, so ``SPARKDL_BERT_INIT=host`` has nothing to

@@ -10,7 +10,7 @@ usual options):
   group's row count, so a caller decodes only the groups it needs
   (:meth:`ParquetFile.read_rows`);
 - data pages v1 and v2 and dictionary pages, compressed with Snappy,
-  gzip or not at all (``dataframe/snappy.py``);
+  gzip, ZSTD or not at all (``dataframe/snappy.py``);
 - the PLAIN, PLAIN_DICTIONARY / RLE_DICTIONARY encodings and the
   RLE/bit-packed hybrid of levels and dictionary indices;
 - the physical types BOOLEAN, INT32, INT64, FLOAT, DOUBLE, BYTE_ARRAY
@@ -31,8 +31,8 @@ back as FixedShapeTensor.
 
 Anything else (the DELTA_* and BYTE_STREAM_SPLIT encodings, INT96,
 decimal and temporal annotations, maps, nesting deeper than one struct or
-one list level, the ZSTD, LZ4, BROTLI and LZO codecs) raises
-NotImplementedError naming ROADMAP Queue A item 11.
+one list level, the LZ4, BROTLI and LZO codecs, writing ZSTD) raises
+NotImplementedError naming ROADMAP Queue A item 11. ZSTD pages are read.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""Page codecs of Parquet: raw Snappy in plain Python, gzip through zlib.
+"""Page codecs of Parquet: raw Snappy in plain Python, gzip through zlib,
+ZSTD (on read) through the port's decoder ``utils/zstd.py``.
 
 Snappy is the default codec of ``pyarrow`` and of Spark, and the card's
 machine has no Snappy library, so :func:`snappy_decompress` and
@@ -10,7 +11,7 @@ match turns up, so incompressible data (image bytes) passes through in a
 few thousand lookups per block.
 
 :func:`decompress` and :func:`compress` dispatch on Parquet's
-``CompressionCodec`` ids. ZSTD, LZ4, BROTLI and LZO raise
+``CompressionCodec`` ids. LZ4, BROTLI and LZO, and writing ZSTD, raise
 NotImplementedError naming the Parquet-leftovers item.
 """
 
@@ -177,6 +178,10 @@ def decompress(codec: int, data, uncompressed_size: int) -> bytes:
         out = snappy_decompress(data)
     elif codec == GZIP:
         out = zlib.decompress(bytes(data), 16 + zlib.MAX_WBITS)
+    elif codec == ZSTD:
+        from sparkdl_tpu_torch.utils.zstd import decompress as zstd_decompress
+
+        out = zstd_decompress(data)
     else:
         raise _refuse(codec)
     if len(out) != uncompressed_size:

@@ -4,6 +4,7 @@ The names below are exported lazily (importing this package imports none
 of its modules): ``ModelFunction`` and its upstream name ``GraphFunction``
 (the serializable graph-function unit of ``sparkdl.graph.builder``),
 ``ModelIngest`` and its upstream name ``TFInputGraph``,
+``read_orbax_checkpoint`` (an orbax checkpoint's tree, without orbax),
 ``ImageInputSpec``/``imageInputPlaceholder``, ``piece`` and
 ``IsolatedSession``, whose constructor raises with the migration mapping.
 """
@@ -14,6 +15,7 @@ _EXPORTS = {
     "piece": "sparkdl_tpu_torch.graph.function",
     "ModelIngest": "sparkdl_tpu_torch.graph.ingest",
     "TFInputGraph": "sparkdl_tpu_torch.graph.ingest",
+    "read_orbax_checkpoint": "sparkdl_tpu_torch.graph.orbax_ckpt",
     "ImageInputSpec": "sparkdl_tpu_torch.graph.pieces",
     "imageInputPlaceholder": "sparkdl_tpu_torch.graph.pieces",
 }

@@ -3,8 +3,7 @@
 The PyTorch counterpart of the JAX package's ``ModelFunction`` (a pure
 ``fn(params, x)`` with its param pytree). Here it is ``fn(module, x)``
 with an ``nn.Module`` that already lives on ``device``; calls run under
-``torch.inference_mode``. There is no jit and no export: PyTorch runs
-eagerly.
+``torch.inference_mode``. There is no jit: PyTorch runs eagerly.
 
 Functions compose (``and_then``/``before``, as in the JAX package's
 ``graph/function.py``): the composed function holds the modules of its
@@ -21,16 +20,34 @@ module stores it in, and :meth:`ModelFunction.with_params` gives a new
 function over a copy of the module that holds them.
 :meth:`ModelFunction.from_module` is the counterpart of the JAX package's
 ``ModelIngest.from_flax``.
+
+:meth:`ModelFunction.export` and :meth:`ModelFunction.load` are the
+counterparts of the JAX package's StableHLO artifact, on ``torch.export``
+(its program and its params in the port's own files, no pickle):
+
+- ``program.pt2``: ``torch.export.save`` of the program ``fn(module, x)``,
+  over a symbolic batch dimension ``b`` unless ``batch_size`` pins it;
+  the flash kernel is one ``sparkdl_tpu_torch::flash_attention`` node per
+  attention (``ops/flash_attention.py``);
+- ``params.npz``: the float32 master values (:meth:`named_params`) and the
+  other state by ``state_dict`` name, for re-freezing or fine-tuning;
+- ``meta.json``: the function's attributes and the format version.
 """
 
 from __future__ import annotations
 
 import copy
+import json
+import os
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Union
 
+import numpy as np
 import torch
 from torch import nn
+
+#: version of the ``export`` artifact's layout (``meta.json``'s ``format``)
+EXPORT_FORMAT = 1
 
 
 @dataclass
@@ -164,6 +181,119 @@ class ModelFunction:
             takes_nhwc=image, params=master,
         )
 
+    # -- serialization --------------------------------------------------------
+
+    def example_input(self, batch_size: int = 1) -> torch.Tensor:
+        """Zeros of one batch as ``fn`` takes it, on the device: ``[B,
+        *input_shape]``, except for an image model that takes NCHW (a 3-d
+        ``input_shape`` without ``takes_nhwc``): NHWC rows permuted, the
+        view ``transformers/execution.model_device_fn`` hands it."""
+        if self.input_shape is None:
+            raise ValueError(
+                f"ModelFunction {self.name!r} has no input_shape recorded; set "
+                "input_shape (and input_dtype) to export it"
+            )
+        device = self.device if self.device is not None else torch.device("cpu")
+        x = torch.zeros((batch_size, *self.input_shape), dtype=self.input_dtype or torch.float32,
+                        device=device)
+        if len(self.input_shape) == 3 and not self.takes_nhwc:
+            x = x.permute(0, 3, 1, 2)
+        return x
+
+    def export(self, path: str, batch_size: Optional[int] = None) -> None:
+        """Write the program and its params under ``path``. The batch
+        dimension is symbolic by default, so the loaded program takes any
+        batch size; ``batch_size`` pins it. The program is traced under
+        ``torch.no_grad`` over the module as it stands (on its device),
+        at every precision rung (an ``int8-dynamic`` module's dequantizing
+        reads are traced into the program)."""
+        from torch.export import Dim
+
+        import sparkdl_tpu_torch.ops.flash_attention  # noqa: F401  (the op)
+
+        os.makedirs(path, exist_ok=True)
+        x = self.example_input(2 if batch_size is None else batch_size)
+        dynamic = None if batch_size is not None else ({0: Dim.DYNAMIC},)
+        with torch.no_grad():
+            program = torch.export.export(_Apply(self.fn, self.module), (x,), dynamic_shapes=dynamic)
+        torch.export.save(program, os.path.join(path, "program.pt2"))
+        least = batch_size or _least_batch(program)
+        np.savez(os.path.join(path, "params.npz"), **_host_params(self))
+        meta = {
+            "format": EXPORT_FORMAT,
+            "name": self.name,
+            "input_shape": list(self.input_shape),
+            "input_dtype": str(self.input_dtype or torch.float32).replace("torch.", ""),
+            "precision": self.precision,
+            "takes_nhwc": self.takes_nhwc,
+            "vocab_size": self.vocab_size,
+            "batch_size": batch_size,
+            "least_batch": least,
+            "device": str(x.device.type),
+        }
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump(meta, f, indent=1)
+
+    @staticmethod
+    def load(path: str, device=None) -> "ModelFunction":
+        """Load what :meth:`export` wrote. ``fn`` runs the loaded program
+        (its parameters baked in) under ``runtime/device.exact_float32``,
+        as the port's float32 models run their own forwards (the TF32
+        switches are process state, which a traced program does not keep);
+        ``raw_params`` holds ``params.npz``'s arrays. ``device``: ``cuda``
+        by default (raises when there is none), ``"cpu"`` for the CPU; a
+        program exported on another device is moved there, and an image
+        program's weights on the card are ``channels_last``, as
+        :meth:`from_module` keeps them. A JAX package artifact (StableHLO)
+        is refused."""
+        from sparkdl_tpu_torch.runtime.device import exact_float32, resolve_device
+
+        program_file = os.path.join(path, "program.pt2")
+        if not os.path.exists(program_file):
+            if os.path.exists(os.path.join(path, "program.stablehlo")):
+                raise NotImplementedError(
+                    f"{path!r} holds a StableHLO artifact (the JAX package's export), "
+                    "which only JAX can run (ROADMAP Queue A item 13)"
+                )
+            raise FileNotFoundError(f"no exported program at {program_file!r}")
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        if meta.get("format") != EXPORT_FORMAT:
+            raise ValueError(f"{path!r}: export format {meta.get('format')!r}, this reader reads {EXPORT_FORMAT}")
+        import sparkdl_tpu_torch.ops.flash_attention  # noqa: F401  (registers the op)
+
+        device = resolve_device(device)
+        program = torch.export.load(program_file)
+        if torch.device(meta["device"]).type != device.type or device.type == "cuda":
+            from torch.export.passes import move_to_device_pass
+
+            program = move_to_device_pass(program, device)
+        module = program.module()
+        if device.type == "cuda" and len(meta["input_shape"]) == 3:
+            module = module.to(memory_format=torch.channels_last)
+        with np.load(os.path.join(path, "params.npz")) as npz:
+            raw = {n: npz[n] for n in npz.files}
+        least = meta["least_batch"] if meta["batch_size"] is None else 1
+
+        def fn(mod, x):
+            n = x.shape[0]
+            if n < least:  # below the traced range: padded with copies of row 0
+                x = torch.cat([x, x[:1].expand(least - n, *x.shape[1:])])
+            with exact_float32():
+                y = mod(x)
+            if n < least:
+                y = tuple(t[:n] for t in y) if isinstance(y, tuple) else y[:n]
+            return y
+
+        mf = ModelFunction(
+            fn, module, device, name=meta["name"],
+            vocab_size=meta["vocab_size"], input_shape=tuple(meta["input_shape"]),
+            input_dtype=getattr(torch, meta["input_dtype"]), precision=meta["precision"],
+            takes_nhwc=meta["takes_nhwc"],
+        )
+        mf.raw_params = raw
+        return mf
+
     def and_then(self, g: Union["ModelFunction", Callable]) -> "ModelFunction":
         """self, then g: the output of self feeds g."""
         g_mf = g if isinstance(g, ModelFunction) else piece(
@@ -186,9 +316,11 @@ class ModelFunction:
             module=nn.ModuleList([self.module, g_mf.module]),
             device=self.device if self.device is not None else g_mf.device,
             name=f"{self.name}>>{g_mf.name}",
-            vocab_size=self.vocab_size,
+            # a parameter-free piece in front keeps the model's token bound
+            vocab_size=self.vocab_size if self.vocab_size is not None else g_mf.vocab_size,
             input_shape=self.input_shape,
             input_dtype=self.input_dtype,
+            precision=self.precision or g_mf.precision,
             takes_nhwc=self.takes_nhwc,
         )
 
@@ -211,6 +343,29 @@ class _Apply(nn.Module):
 
     def forward(self, x):
         return self.fn(self.inner, x)
+
+
+def _least_batch(program) -> int:
+    """The least batch size the exported program takes: the lower bound
+    export proved for the symbolic batch dimension (2 where tracing
+    specialized sizes 0 and 1 away, as a ``channels_last`` convolution's
+    layout checks do on the card)."""
+    name = program.graph_signature.user_inputs[0]
+    node = next(n for n in program.graph.nodes if n.name == name)
+    b = node.meta["val"].shape[0]
+    if isinstance(b, int):
+        return b
+    return int(program.range_constraints[b.node.expr].lower)
+
+
+def _host_params(mf: ModelFunction) -> Dict[str, np.ndarray]:
+    """``params.npz``'s arrays by ``state_dict`` name: the float32 master
+    values (:meth:`ModelFunction.named_params`, every floating tensor, so
+    no bfloat16 reaches numpy), then the rest of the module's state
+    (integer buffers, an int8 rung's values)."""
+    state = dict(mf.module.state_dict())
+    state.update(mf.named_params())
+    return {n: t.detach().cpu().numpy() for n, t in state.items()}
 
 
 def piece(fn: Callable[[Any], Any], name: str = "piece") -> ModelFunction:

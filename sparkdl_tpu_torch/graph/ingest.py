@@ -1,12 +1,13 @@
 """ModelIngest: model sources -> :class:`~sparkdl_tpu_torch.graph.function.ModelFunction`.
 
-The counterpart of the JAX package's ``graph/ingest.py``, for the sources
-the port reads so far: a Python callable, a Keras model and a Keras model
-file, and TF's three serialization formats (``TFInputGraph``: a frozen
-GraphDef, a SavedModel, a TF1 checkpoint with its ``.meta`` graph). The
-JAX package's ``from_exported`` and ``from_orbax_checkpoint`` (a StableHLO
-artifact, an orbax checkpoint) have no counterpart yet (ROADMAP Queue A
-item 6). The JAX package runs a Keras model through keras on its jax
+The counterpart of the JAX package's ``graph/ingest.py``: a Python
+callable, a Keras model and a Keras model file, TF's three serialization
+formats (``TFInputGraph``: a frozen GraphDef, a SavedModel, a TF1
+checkpoint with its ``.meta`` graph), an exported program
+(``from_exported``: what :meth:`ModelFunction.export` wrote, on
+``torch.export``; a JAX package StableHLO artifact is refused) and an
+orbax checkpoint (``from_orbax_checkpoint``, read without orbax by
+``graph/orbax_ckpt.py``). The JAX package runs a Keras model through keras on its jax
 backend; the port reads the model's config and weights and translates the
 model into torch (``graph/keras_graph.py``), so it never imports keras.
 A Keras model here is anything with ``get_config()``,
@@ -245,6 +246,64 @@ class ModelIngest:
             meta.graph_def, inputs, outputs, variables=variables, input_shape=input_shape,
             input_dtype=input_dtype, name="tf_checkpoint", device=device,
         )
+
+
+    # -- serialized artifacts -------------------------------------------------
+
+    @staticmethod
+    def from_exported(path: str, device=None) -> ModelFunction:
+        """Load a program directory written by :meth:`ModelFunction.export`
+        (the frozen-GraphDef analogue): :meth:`ModelFunction.load`."""
+        return ModelFunction.load(path, device=device)
+
+    @staticmethod
+    def from_orbax_checkpoint(
+        path: str,
+        module: nn.Module,
+        input_shape: Optional[Tuple[int, ...]] = None,
+        convert: Optional[Callable[[Any, nn.Module], Dict[str, torch.Tensor]]] = None,
+        device=None,
+        name: str = "orbax_restored",
+    ) -> ModelFunction:
+        """Restore a flax variable tree from an orbax checkpoint (read by
+        ``graph/orbax_ckpt.py``, without orbax) and bind it to ``module``
+        (the TF-checkpoint ingestion analogue; the JAX package binds it to
+        an ``apply_fn``). ``convert(tree, module)`` gives ``module``'s
+        ``state_dict``; by default a ``BertEncoder`` takes the tree through
+        ``models/convert.bert_params_from_flax`` and an image model of the
+        registry (``ImageCNN``) through ``cnn_params_from_flax``. Returns
+        :meth:`ModelFunction.from_module` over it."""
+        from sparkdl_tpu_torch.graph.orbax_ckpt import read_orbax_checkpoint
+        from sparkdl_tpu_torch.models.bert import BertEncoder
+        from sparkdl_tpu_torch.models.convert import bert_params_from_flax, cnn_params_from_flax
+        from sparkdl_tpu_torch.models.layers import ImageCNN
+
+        tree = _widened(read_orbax_checkpoint(path))
+        if convert is not None:
+            state = convert(tree, module)
+        elif isinstance(module, BertEncoder):
+            state = bert_params_from_flax(tree, module.config)
+        elif isinstance(module, ImageCNN):
+            state = cnn_params_from_flax(tree, module)
+        else:
+            raise TypeError(
+                f"no default mapping of a flax tree onto a {type(module).__name__}; pass "
+                "convert(tree, module) -> state_dict"
+            )
+        module.load_state_dict(state)
+        return ModelFunction.from_module(module, input_shape=input_shape, device=device, name=name)
+
+
+def _widened(tree):
+    """A restored tree with its bfloat16 leaves (torch tensors) widened to
+    float32 numpy, exactly, for the converters' ``np.asarray``."""
+    if isinstance(tree, dict):
+        return {k: _widened(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_widened(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.float().numpy()
+    return tree
 
 
 def _pick_meta_graph(saved: tf_proto.Message, path: str, tag_set: Optional[str]) -> tf_proto.Message:

@@ -45,7 +45,12 @@ device. Design, beside the JAX package's:
   iteration (a host sync each time), where the JAX package compiles
   ``lax.cond``/``lax.while_loop``.
 - **Precision.** Every walk runs under ``runtime/device.exact_float32``:
-  float32 stays float32 on the card.
+  float32 stays float32 on the card. A ``DT_BFLOAT16`` constant or
+  variable stays bfloat16, as TF's ``MakeNdarray`` keeps it in the JAX
+  package: ``make_ndarray`` widens its values to float32 exactly (numpy
+  has no bfloat16 here), and the translator narrows them back, a lifted
+  weight into a bf16 buffer and a host value through a ``bf16`` mark that
+  :func:`_from_host` reads.
 - ``XlaCallModule`` (StableHLO, which only JAX can run) is refused at
   ingestion, naming ROADMAP Queue A item 13.
 """
@@ -60,7 +65,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sparkdl_tpu_torch.graph.tf_proto import make_ndarray, np_dtype
+from sparkdl_tpu_torch.graph.tf_proto import DT_BFLOAT16, base_dtype, make_ndarray, np_dtype
 from sparkdl_tpu_torch.runtime.device import exact_float32
 
 #: ops translated nowhere, with why; each stays listed as refused
@@ -170,14 +175,20 @@ def _norm_name(ref: str) -> Tuple[str, int]:
 
 class _HostConst(np.ndarray):
     """A constant's host value, which keeps its copy on each device it has
-    met, so a constant is copied to the card once, not once per batch."""
+    met, so a constant is copied to the card once, not once per batch.
+    ``bf16``: the value is a bfloat16 one, held widened to float32."""
 
     def __array_finalize__(self, obj):
         self._copies: Dict[torch.device, torch.Tensor] = {}
+        self.bf16: bool = getattr(obj, "bf16", False)
 
 
-def _host_const(a: np.ndarray) -> np.ndarray:
-    return np.asarray(a).view(_HostConst) if np.asarray(a).dtype != object else a
+def _host_const(a: np.ndarray, bf16: bool = False) -> np.ndarray:
+    if np.asarray(a).dtype == object:
+        return a
+    out = np.asarray(a).view(_HostConst)
+    out.bf16 = bf16
+    return out
 
 
 def _static(v, what: str) -> np.ndarray:
@@ -210,11 +221,12 @@ def _tensor(v, device: torch.device) -> torch.Tensor:
 
 def _from_host(v) -> torch.Tensor:
     """A host value as a CPU tensor, 0-d kept 0-d (sharing its memory
-    where it can)."""
+    where it can); a ``bf16`` host value comes back in bfloat16."""
     a = np.asarray(v)
     if not (a.flags.c_contiguous and a.flags.writeable):
         a = np.array(a)
-    return torch.from_numpy(a)
+    t = torch.from_numpy(a)
+    return t.to(torch.bfloat16) if getattr(v, "bf16", False) else t
 
 
 def _device_of(args) -> Optional[torch.device]:
@@ -227,6 +239,8 @@ def _device_of(args) -> Optional[torch.device]:
 def _host(out):
     if isinstance(out, (list, tuple)):
         return [_host(o) for o in out]
+    if isinstance(out, torch.Tensor) and out.dtype == torch.bfloat16:
+        return _host_const(out.float().numpy(), bf16=True)
     return out.numpy() if isinstance(out, torch.Tensor) else out
 
 
@@ -281,17 +295,21 @@ class TranslatedGraph(nn.Module):
     ...`` (TF node names may hold ``.``). ``layouts`` names the weights
     stored for a convolution's filter: ``"conv"`` (``[H, W, I, O]`` over
     ``O, H, W, I`` memory, cuDNN's ``channels_last`` weight) or
-    ``"depthwise"`` (``[H, W, C, M]`` over ``C, M, H, W`` memory)."""
+    ``"depthwise"`` (``[H, W, C, M]`` over ``C, M, H, W`` memory).
+    ``bf16``: the weights stored in bfloat16 (TF's ``DT_BFLOAT16``)."""
 
-    def __init__(self, params: Dict[str, np.ndarray], layouts: Optional[Dict[str, str]] = None):
+    def __init__(self, params: Dict[str, np.ndarray], layouts: Optional[Dict[str, str]] = None,
+                 bf16: Sequence[str] = ()):
         super().__init__()
         layouts = layouts or {}
         self.tf_names: List[str] = list(params)
+        self.bf16_names = frozenset(bf16)
         self.attr_of: Dict[str, str] = {}
         for i, (name, value) in enumerate(params.items()):
             attr = f"w{i}"
             self.attr_of[name] = attr
-            self.register_buffer(attr, _stored(np.asarray(value), layouts.get(name)))
+            stored = _stored(np.asarray(value), layouts.get(name))
+            self.register_buffer(attr, stored.to(torch.bfloat16) if name in bf16 else stored)
         # tracks the module's device for a graph with no weights
         self.register_buffer("anchor", torch.empty(0), persistent=False)
 
@@ -317,14 +335,18 @@ def _stored(value: np.ndarray, layout: Optional[str]) -> torch.Tensor:
 def load_translated_params(module: TranslatedGraph, params: Dict[str, Any]) -> None:
     """Load weights keyed by TF node name (the JAX package's translated
     ``params``, numpy arrays or tensors) into ``module``'s buffers, in
-    place; every lifted weight must be given, with its shape."""
-    missing = set(module.tf_names) - set(params)
+    place; every lifted weight must be given, with its shape, but a
+    bfloat16 constant, which the JAX translator keeps in its graph rather
+    than in its params (numpy's float kind does not cover bfloat16)."""
+    missing = set(module.tf_names) - set(params) - module.bf16_names
     extra = set(params) - set(module.tf_names)
     if missing or extra:
         raise KeyError(f"params do not match the graph's weights: missing {sorted(missing)[:4]}, "
                        f"unknown {sorted(extra)[:4]}")
     with torch.no_grad():
         for name in module.tf_names:
+            if name not in params:
+                continue
             dest = module._buffers[module.attr_of[name]]
             src = torch.as_tensor(np.asarray(params[name]))
             if tuple(src.shape) != tuple(dest.shape):
@@ -367,6 +389,8 @@ class _Translator:
         self.lift_params = lift_params
         self.params: Dict[str, np.ndarray] = {}
         self.layouts: Dict[str, str] = {}
+        #: lifted weights whose TF dtype is bfloat16
+        self.bf16: set = set()
         self._const_cache: Dict[str, np.ndarray] = {}
         # evaluation order fixed at translation time (iterative — no
         # recursion-depth ceiling on deep graphs like ResNet152 chains)
@@ -420,7 +444,8 @@ class _Translator:
 
     def _const_value(self, node) -> np.ndarray:
         if node.name not in self._const_cache:
-            self._const_cache[node.name] = _host_const(make_ndarray(node.attr["value"].tensor))
+            tensor = node.attr["value"].tensor
+            self._const_cache[node.name] = _host_const(make_ndarray(tensor), bf16=tensor.dtype == DT_BFLOAT16)
         return self._const_cache[node.name]
 
     def _deps(self, name: str):
@@ -482,6 +507,8 @@ class _Translator:
                 val = self._const_value(node)
                 if val.size >= _PARAM_SIZE_THRESHOLD and val.dtype.kind == "f":
                     self.params[name] = np.asarray(val)
+                    if val.bf16:
+                        self.bf16.add(name)
                     # lifted weights are read from the module at eval time;
                     # drop the cache copy so big models aren't held twice
                     del self._const_cache[name]
@@ -492,6 +519,8 @@ class _Translator:
                         "was provided (pass `variables=` or freeze the graph first)"
                     )
                 self.params[name] = np.asarray(self.variables[name])
+                if base_dtype(node.attr["dtype"].type) == DT_BFLOAT16:
+                    self.bf16.add(name)
         # a weight read as a convolution's filter is stored in the memory
         # order cuDNN's channels_last convolution reads it in
         for name in reachable:
@@ -973,6 +1002,8 @@ def _split(node, args):
 def _cast(node, args):
     x = args[0]
     if not isinstance(x, torch.Tensor):
+        if getattr(x, "bf16", False) or base_dtype(node.attr["DstT"].type) == DT_BFLOAT16:
+            return _apply(lambda t: t.to(_attr_torch_dtype(node.attr["DstT"])), [x])
         return np.asarray(x).astype(np_dtype(node.attr["DstT"].type))
     return x.to(_attr_torch_dtype(node.attr["DstT"]))
 
@@ -1382,12 +1413,6 @@ def unregister_tf_op(op_name: str) -> None:
         _OP_TABLE[op_name] = builtin[op_name]
 
 
-def _as_input(v, device: torch.device) -> torch.Tensor:
-    if isinstance(v, torch.Tensor):
-        return v if v.device == device else v.to(device)
-    return torch.as_tensor(np.asarray(v), device=device)
-
-
 def translate_graph_def(
     graph_def,
     input_names: Sequence[str],
@@ -1404,16 +1429,16 @@ def translate_graph_def(
     module's device). ``fn`` returns one tensor, or a tuple in declared
     output order."""
     tr = _Translator(graph_def, input_names, output_names, variables)
-    module = TranslatedGraph(tr.params, tr.layouts)
+    module = TranslatedGraph(tr.params, tr.layouts, tr.bf16)
     names = list(tr.params)
 
     def fn(mod: TranslatedGraph, x):
         device = mod.device
-        feeds = [_as_input(v, device) for v in (x if isinstance(x, (tuple, list)) else [x])]
+        feeds = [_tensor(v, device) for v in (x if isinstance(x, (tuple, list)) else [x])]
         buffers = {name: mod._buffers[mod.attr_of[name]] for name in names}
         with exact_float32():
             results = tr.run(feeds, buffers)
-        results = [_as_input(r, device) for r in results]
+        results = [_tensor(r, device) for r in results]
         return results[0] if len(results) == 1 else tuple(results)
 
     return module, fn

@@ -15,6 +15,19 @@ online softmax, forward only:
 There is no fallback between the two: a CUDA tensor either goes through
 the kernel or raises.
 
+Both run behind one registered torch operator,
+``torch.ops.sparkdl_tpu_torch.flash_attention`` (defined with
+``torch.library.Library(..., "DEF")`` when this module is imported, with a
+CPU and a CUDA implementation, each checking its inputs;
+``torch.library.custom_op`` cost about three times as much per call),
+whose fake implementation gives the output's shape and dtype. Its
+autograd formula is the plain version's gradient on CPU tensors and
+raises on CUDA tensors (the kernel is forward-only), so a CPU trainer
+never loses the attention's gradient. So ``torch.export`` traces a model through
+the kernel, the exported graph holds one ``sparkdl_tpu_torch::flash_attention``
+node per attention, and a loaded program launches (and counts) the same
+kernel; ``graph/function.ModelFunction.load`` imports this module first.
+
 Semantics kept from the TPU kernel: scale ``1/sqrt(Dh)`` of the true Dh;
 the running max starts at ``NEG_INF = -1e30``, so a row whose keys are
 all masked with ``finfo(float32).min`` comes out as 0 (dense softmax
@@ -158,7 +171,7 @@ def flash_attention(
     v: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Blockwise online-softmax attention.
+    """Blockwise online-softmax attention, through the registered operator.
 
     Args:
         q, k, v: contiguous [B, H, L, Dh], float32 or bfloat16, Dh 32 or 64.
@@ -168,11 +181,21 @@ def flash_attention(
     Returns [B, H, L, Dh] in q's dtype. CUDA tensors run the kernel; CPU
     tensors run :func:`flash_attention_reference`; anything else raises.
     """
-    _check(q, k, v, mask)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, mask)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    return flash_attention_op(q, k, v, mask)
+
+
+def _plain(q, k, v, mask) -> torch.Tensor:
+    """The operator's CPU implementation: the plain version, checked."""
+    _check(q, k, v, mask)
+    return flash_attention_reference(q, k, v, mask)
+
+
+def _launch(q, k, v, mask) -> torch.Tensor:
+    """The operator's CUDA implementation: one launch of the kernel,
+    checked and counted."""
+    _check(q, k, v, mask)
     B, H, L, Dh = q.shape
     key_mask = _key_mask(mask, B, L)
     for t in (q, k, v):
@@ -202,7 +225,7 @@ def flash_attention(
             f"(B={B}, H={H}, L={L}, Dh={Dh}, dtype={q.dtype})"
         )
     with _count_lock:
-        flash_attention.launches += 1
+        flash_attention.launches += 1  # the public function holds the counts
         flash_attention.launches_by_dtype[q.dtype] += 1
     # the same count in the metrics registry, so a serving worker's
     # /metrics (and a gateway's federated /metrics) shows it per dtype
@@ -217,12 +240,57 @@ flash_attention.launches = 0
 flash_attention.launches_by_dtype = dict.fromkeys(_DTYPES, 0)
 
 
+def _save_inputs(ctx, inputs, output) -> None:
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, grad):
+    """The plain version's gradient, recomputed under autograd. The kernel
+    has no backward (the JAX kernel has no ``custom_vjp``), so a CUDA
+    tensor raises rather than losing its gradient."""
+    if grad.device.type != "cpu":
+        raise RuntimeError(
+            "the flash-attention kernel has no backward: train the "
+            "dense-attention build (models.registry._bert_text_builder(size, "
+            "attention='dense'))"
+        )
+    needs = ctx.needs_input_grad
+    with torch.enable_grad():
+        inputs = [
+            None if t is None else t.detach().requires_grad_(need)
+            for t, need in zip(ctx.saved_tensors, needs)
+        ]
+        out = flash_attention_reference(*inputs)
+        wanted = [t for t, need in zip(inputs, needs) if need]
+        grads = iter(torch.autograd.grad(out, wanted, grad))
+    return tuple(next(grads) if need else None for need in needs)
+
+
+# The operator behind flash_attention: the kernel on CUDA, the plain
+# version on the CPU, each checking its inputs (a loaded program calls the
+# operator directly); the plain version's gradient under autograd.
+_LIB = torch.library.Library("sparkdl_tpu_torch", "DEF")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, Tensor? mask) -> Tensor")
+_LIB.impl("flash_attention", _plain, "CPU")
+_LIB.impl("flash_attention", _launch, "CUDA")
+torch.library.register_fake("sparkdl_tpu_torch::flash_attention", lib=_LIB)(
+    lambda q, k, v, mask: torch.empty_like(q)
+)
+torch.library.register_autograd(
+    "sparkdl_tpu_torch::flash_attention", _backward, setup_context=_save_inputs, lib=_LIB
+)
+flash_attention_op = torch.ops.sparkdl_tpu_torch.flash_attention.default
+
+
 def make_flash_attention_fn():
     """An attention fn with the ``dense_attention(q, k, v, mask, dtype)``
-    signature, for ``BertEncoder(attention_fn=...)``. It follows the
-    tensors' device: the kernel for CUDA tensors, the plain version for
-    CPU tensors. The kernel has no backward, as the JAX kernel has none:
-    ``attention.flash`` tells a trainer so."""
+    signature, for ``BertEncoder(attention_fn=...)``. It calls the
+    registered operator, eager and under ``torch.export`` alike, which
+    follows the tensors' device: the kernel for CUDA tensors, the plain
+    version for CPU tensors. The kernel has no backward, as the JAX kernel
+    has none: ``attention.flash`` tells a trainer so, and a backward
+    through a CUDA tensor raises. On the CPU the gradient is the plain
+    version's."""
 
     def attention(q, k, v, mask, dtype):
         out = flash_attention(

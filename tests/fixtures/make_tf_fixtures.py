@@ -25,8 +25,15 @@ And ``keras_cnn_frozen.pb`` with ``keras_cnn_frozen_io.npz``: the
 committed ``keras_cnn.keras`` loaded by Keras on its TensorFlow backend
 and frozen by TF (``convert_variables_to_constants_v2``), with TF's output
 for ``keras_cnn_io.npz``'s ``x`` and the graph's tensor names: what the
-GraphDef writer (``tf_graph_writer.py``) is held against. About 60 KB in
-all. Needs tensorflow and keras; run from the repository root:
+GraphDef writer (``tf_graph_writer.py``) is held against.
+
+And ``tf_bf16/graph.pb`` with ``tf_bf16/io.npz``: a bfloat16 graph, ``y =
+BiasAdd(MatMul(x, W), b)`` with ``W`` and ``b`` bfloat16 constants (the
+graph that once came out float32 from the port), with a seeded input ``x``
+(float32 values that bfloat16 holds exactly) and the JAX package's output
+``y_jax`` for it (bfloat16, stored widened to float32; the JAX translator
+runs through TF's own proto). About 70 KB in all. Needs tensorflow, keras
+and the JAX package; run from the repository root:
 
     KERAS_BACKEND=tensorflow CUDA_VISIBLE_DEVICES=-1 python3 tests/fixtures/make_tf_fixtures.py
 """
@@ -128,6 +135,38 @@ def write_keras_cnn_frozen(tf) -> None:
     )
 
 
+BF16_IN, BF16_OUT, BF16_BATCH = 128, 64, 8
+
+
+def write_bf16_graph(tf) -> None:
+    import jax.numpy as jnp
+
+    from sparkdl_tpu.graph.tf_import import translate_graph_def
+
+    rng = np.random.default_rng(SEED + 1)
+    w = (rng.normal(size=(BF16_IN, BF16_OUT)) * 0.1).astype(np.float32)
+    b = rng.normal(size=(BF16_OUT,)).astype(np.float32)
+    x = np.asarray(jnp.asarray(rng.normal(size=(BF16_BATCH, BF16_IN)), jnp.bfloat16), np.float32)
+
+    def fn(v):
+        y = tf.raw_ops.MatMul(a=v, b=tf.constant(w, dtype=tf.bfloat16))
+        return tf.raw_ops.BiasAdd(value=y, bias=tf.constant(b, dtype=tf.bfloat16), name="y")
+
+    cf = tf.function(fn, input_signature=[tf.TensorSpec((None, BF16_IN), tf.bfloat16, name="x")])
+    cf = cf.get_concrete_function()
+    gd = cf.graph.as_graph_def()
+    inputs, outputs = [t.name for t in cf.inputs], [t.name for t in cf.outputs]
+    jax_fn, params = translate_graph_def(gd, inputs, outputs)
+    y = jax_fn(params, jnp.asarray(x, jnp.bfloat16))
+    assert str(y.dtype) == "bfloat16"
+    out = os.path.join(HERE, "tf_bf16")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "graph.pb"), "wb") as f:
+        f.write(gd.SerializeToString())
+    np.savez(os.path.join(out, "io.npz"), x=x, y_jax=np.asarray(y, np.float32), inputs=np.array(inputs),
+             outputs=np.array(outputs))
+
+
 def main() -> None:
     if os.environ.get("KERAS_BACKEND") != "tensorflow":
         raise SystemExit("run with KERAS_BACKEND=tensorflow")
@@ -135,11 +174,12 @@ def main() -> None:
 
     write_tf_model(tf)
     write_keras_cnn_frozen(tf)
+    write_bf16_graph(tf)
     sizes = {}
     for root, _, names in os.walk(OUT):
         for n in names:
             sizes[os.path.relpath(os.path.join(root, n), HERE)] = os.path.getsize(os.path.join(root, n))
-    for n in ("keras_cnn_frozen.pb", "keras_cnn_frozen_io.npz"):
+    for n in ("keras_cnn_frozen.pb", "keras_cnn_frozen_io.npz", "tf_bf16/graph.pb", "tf_bf16/io.npz"):
         sizes[n] = os.path.getsize(os.path.join(HERE, n))
     print(json.dumps(sizes, indent=1), f"\ntotal {sum(sizes.values())} bytes")
 

@@ -6,6 +6,7 @@ LayerNorm sum in another order over 4 layers); bf16 at atol 3e-2 (bf16
 rounds at slightly different places in the two frameworks)."""
 
 import re
+import warnings
 from dataclasses import replace
 
 import jax
@@ -213,3 +214,36 @@ def test_registry_matches_jax_text_entries(tiny_params):
     with torch.device("meta"):
         base = bert_base()
     assert param_bytes(base) == jax_registry.get_model("bert-base").param_bytes_estimate()
+
+
+def test_flash_encoder_gradients_match_jax_dense(tiny_params):
+    """A CPU trainer of the flash build (the registry's default) gets every
+    parameter's gradient, attention's included: held against ``jax.grad``
+    of the JAX dense encoder, as the port's dense build is, at 1e-4 of each
+    leaf's largest magnitude plus 1e-6 of the model's. The key bias's
+    gradient is 0 in exact arithmetic (softmax ignores a shift of all of a
+    query's scores), so there both sides hold rounding only."""
+    config = BERT_CONFIGS["tiny"]
+    ids = _ids(10, B=2, L=40, vocab=config.vocab_size, lengths=[40, 23])
+    mask = (ids != 0).astype(np.int32)
+    w = np.random.default_rng(11).normal(size=(2, 40, config.hidden_size)).astype(np.float32)
+    jax_enc = jax_bert.BertEncoder(
+        _jax_config(config, jnp.float32), attention_fn=jax_bert.dense_attention
+    )
+    jax_grads = jax.grad(lambda p: (jax_enc.apply(p, ids, mask) * w).sum())(tiny_params)
+    want = bert_params_from_flax(jax.tree_util.tree_map(np.asarray, jax_grads), config)
+    got = {}
+    for name, attention_fn in (("flash", make_flash_attention_fn()), ("dense", dense_attention)):
+        enc = _port_encoder(config, tiny_params, attention_fn).train()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")  # no deprecated autograd fallback
+            (enc(torch.from_numpy(ids), torch.from_numpy(mask)) * torch.from_numpy(w)).sum().backward()
+        got[name] = {n: p.grad for n, p in enc.named_parameters()}
+    assert set(got["flash"]) == set(want)
+    scale = max(float(np.abs(np.asarray(g)).max()) for g in want.values())
+    for n, g in want.items():
+        g = torch.as_tensor(np.asarray(g))
+        tol = 1e-4 * float(g.abs().max()) + 1e-6 * scale
+        for name in ("flash", "dense"):
+            assert got[name][n] is not None, (name, n)
+            torch.testing.assert_close(got[name][n], g, atol=tol, rtol=0, msg=f"{name} {n}")

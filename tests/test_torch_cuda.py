@@ -155,3 +155,13 @@ def test_kernel_stays_inside_its_tensors(cuda_device, L, dtype, dh, masked):
     atol = 1e-4 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(results[0].float(), ref.float(), atol=atol, rtol=0)
     assert all(torch.equal(results[0], r) for r in results[1:])
+
+
+def test_backward_through_the_kernel_raises(cuda_device):
+    """The kernel is forward-only, as the TPU kernel is: a gradient through
+    it raises rather than coming back empty."""
+    q, k, v, mask = _inputs(cuda_device, 1, 2, 64, 64, torch.float32)
+    q.requires_grad_(True)
+    out = flash_attention(q, k, v, mask)
+    with pytest.raises(RuntimeError, match="no backward"):
+        out.sum().backward()

@@ -4,6 +4,8 @@ the JAX package's Pallas kernel, run through the Pallas interpreter.
 Same inputs from a numpy seed on both sides; f32 at atol 2e-5 (the two
 sum in another order), bf16 I/O at atol 3e-2 (one bf16 rounding step)."""
 
+import warnings
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -203,3 +205,62 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad, error):
         k = k[:, :, :20].contiguous()
     with pytest.raises(error):
         flash_attention(q, k, v, mask)
+
+
+@pytest.mark.parametrize(
+    "bad, error",
+    [
+        ("head_dim_16", ValueError),
+        ("float16", TypeError),
+        ("non_contiguous", ValueError),
+        ("mask_shape", ValueError),
+        ("mask_dtype", TypeError),
+        ("shape_mismatch", ValueError),
+    ],
+)
+def test_the_registered_operator_checks_its_inputs(bad, error):
+    """A loaded program calls the operator directly, past the public
+    function: the operator's own implementation refuses the same inputs."""
+    Dh = 16 if bad == "head_dim_16" else 32
+    q, k, v = (torch.from_numpy(t) for t in _qkv(6, 1, 2, 24, Dh))
+    mask = torch.zeros(1, 24)
+    if bad == "float16":
+        q, k, v = (t.half() for t in (q, k, v))
+    elif bad == "non_contiguous":
+        v = v.transpose(2, 3).contiguous().transpose(2, 3)
+    elif bad == "mask_shape":
+        mask = torch.zeros(1, 23)
+    elif bad == "mask_dtype":
+        mask = torch.zeros(1, 24, dtype=torch.float64)
+    elif bad == "shape_mismatch":
+        k = k[:, :, :20].contiguous()
+    with pytest.raises(error):
+        torch.ops.sparkdl_tpu_torch.flash_attention(q, k, v, mask)
+
+
+@pytest.mark.parametrize("mask_grad", [False, True])
+def test_gradients_on_the_cpu_are_the_plain_versions(mask_grad):
+    """On CPU tensors the operator differentiates like the plain version
+    it runs (bit for bit: the backward recomputes it)."""
+    B, H, L, Dh = 2, 2, 40, 32
+    base = [torch.from_numpy(t) for t in _qkv(7, B, H, L, Dh)]
+    mask = torch.from_numpy(_key_mask(B, L, [40, 17])) * 0 + torch.from_numpy(
+        np.random.default_rng(8).normal(size=(B, L)).astype(np.float32)
+    )
+    w = torch.from_numpy(np.random.default_rng(9).normal(size=(B, H, L, Dh)).astype(np.float32))
+    grads = []
+    for fn in (flash_attention, flash_attention_reference):
+        q, k, v = (t.clone().requires_grad_(True) for t in base)
+        m = mask.clone().requires_grad_(mask_grad)
+        with warnings.catch_warnings():
+            # PyTorch's deprecated fallback for an operator with no autograd
+            # formula warns, and loses the gradient once it is removed
+            warnings.simplefilter("error")
+            (fn(q, k, v, m) * w).sum().backward()
+        grads.append([t.grad for t in (q, k, v, m)])
+    for got, want in zip(*grads):
+        if want is None:
+            assert got is None
+        else:
+            assert got is not None and got.abs().sum() > 0
+            torch.testing.assert_close(got, want, atol=0, rtol=0)

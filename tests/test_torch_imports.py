@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``sparkdl_tpu_torch`` and not
-``chip_smoke.py`` imports jax, flax, keras, tensorflow, h5py, pyarrow or the JAX
-package, and an entry point left at its default device refuses to run
+``chip_smoke.py`` (nor the fixture writers it imports, nor
+``tools/torch_text_ab.py``) imports jax, flax, keras, tensorflow, h5py, pyarrow, orbax,
+tensorstore, zstandard, ml_dtypes or the JAX package, and an entry point left at its default device refuses to run
 without CUDA."""
 
 import ast
@@ -17,11 +18,13 @@ import sparkdl_tpu_torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.join(REPO, "sparkdl_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "keras", "tensorflow", "h5py", "pyarrow",
-             "sparkdl_tpu")
+             "tensorstore", "zstandard", "ml_dtypes", "sparkdl_tpu")
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    # chip_smoke.py and what it imports or runs from outside the package
+    files = [os.path.join(REPO, p) for p in ("chip_smoke.py", "tests/fixtures/orbax_writer.py",
+                                             "tests/fixtures/tf_graph_writer.py", "tools/torch_text_ab.py")]
     for dirpath, _, names in os.walk(PKG_DIR):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return files
@@ -50,7 +53,8 @@ def test_no_port_file_imports_jax_flax_or_the_jax_package():
                      "estimators/image_file_estimator.py", "serving/generation.py",
                      "runtime/locksmith.py", "runtime/heartbeat.py", "resilience/faults.py",
                      "resilience/supervisor.py", "resilience/__main__.py", "obs/timeseries.py",
-                     "obs/fleet.py", "serving/gateway.py", "serving/canary_loader.py"):
+                     "obs/fleet.py", "serving/gateway.py", "serving/canary_loader.py",
+                     "utils/zstd.py", "graph/orbax_ckpt.py"):
         assert required.replace("/", os.sep) in rel, required
     offenders = {
         (os.path.relpath(path, REPO), root)
@@ -119,6 +123,9 @@ def test_importing_every_port_module_loads_no_jax():
         "sparkdl_tpu_torch.obs.export",
         "sparkdl_tpu_torch.serving.gateway",
         "sparkdl_tpu_torch.serving.canary_loader",
+        # the rest of model ingestion
+        "sparkdl_tpu_torch.utils.zstd",
+        "sparkdl_tpu_torch.graph.orbax_ckpt",
     ):
         assert name in modules, name
     code = (

@@ -184,11 +184,38 @@ def _refused(path):
         DataFrame.readParquet(path).collect()
 
 
-@pytest.mark.parametrize("codec", ["zstd", "lz4", "brotli"])
+@pytest.mark.parametrize("codec", ["lz4", "brotli"])
 def test_other_codecs_are_refused(codec, tmp_path):
     path = str(tmp_path / f"{codec}.parquet")
     pq.write_table(pa.table({"v": [1, 2, 3]}), path, compression=codec)
     _refused(path)
+
+
+@pytest.mark.parametrize("use_dictionary", [True, False])
+def test_zstd_pages_read_equal_to_pyarrow(use_dictionary, tmp_path):
+    """ZSTD pages (pyarrow's level, several row groups, with and without
+    dictionary pages) read through the port's zstd decoder, equal to
+    ``pq.read_table``; writing ZSTD stays refused."""
+    rng = np.random.default_rng(11)
+    n = 3000
+    table = pa.table({
+        "v": pa.array(rng.integers(0, 50, n), pa.int64()),
+        "x": pa.array(rng.normal(size=n).astype(np.float32)),
+        "s": pa.array([f"row-{i % 37}" for i in range(n)]),
+        "n": pa.array([None if i % 5 == 0 else float(i) for i in range(n)], pa.float64()),
+    })
+    path = str(tmp_path / "zstd.parquet")
+    pq.write_table(table, path, compression="zstd", row_group_size=700, use_dictionary=use_dictionary)
+    meta = pq.ParquetFile(path).metadata
+    assert meta.num_row_groups == 5
+    assert {meta.row_group(0).column(i).compression for i in range(4)} == {"ZSTD"}
+    got = DataFrame.readParquet(path, 3).collectColumns()
+    want = pq.read_table(path).to_pydict()
+    assert set(got) == set(want)
+    for c in want:
+        assert _norm(got[c]) == _norm(want[c]), c
+    with pytest.raises(NotImplementedError, match=ITEM):
+        snappy.compress(snappy.ZSTD, b"abc")
 
 
 @pytest.mark.parametrize("encoding", ["DELTA_BINARY_PACKED", "BYTE_STREAM_SPLIT"])

@@ -623,3 +623,56 @@ def test_jax_params_load_into_the_port_module_bit_for_bit():
         load_translated_params(module, {})
     with pytest.raises(ValueError, match="shape"):
         load_translated_params(module, {k: np.zeros(3, np.float32) for k in own})
+
+
+# -- bfloat16 constants --------------------------------------------------------
+
+BF = tf.bfloat16
+_B_RNG = np.random.default_rng(77)
+W_BF = (_B_RNG.normal(size=(8, 6)) * 0.3).astype(np.float32)
+K_BF = (_B_RNG.normal(size=(3, 3, 3, 4)) * 0.3).astype(np.float32)
+B6, B4 = _B_RNG.normal(size=(6,)).astype(np.float32), _B_RNG.normal(size=(4,)).astype(np.float32)
+B_BIG = _B_RNG.normal(size=(20,)).astype(np.float32)  # lifted: 16 elements or more
+BF16_CASES = {
+    "MatMul": (lambda x: raw.MatMul(a=x, b=tf.constant(W_BF, dtype=BF)), (4, 8)),
+    "MatMul-BiasAdd": (lambda x: raw.BiasAdd(value=raw.MatMul(a=x, b=tf.constant(W_BF, dtype=BF)),
+                                             bias=tf.constant(B6, dtype=BF)), (4, 8)),
+    "Conv2D": (lambda x: raw.Conv2D(input=x, filter=tf.constant(K_BF, dtype=BF), strides=[1, 1, 1, 1],
+                                    padding="SAME"), (2, 5, 5, 3)),
+    "BiasAdd": (lambda x: raw.BiasAdd(value=x, bias=tf.constant(B4, dtype=BF)), (2, 3, 3, 4)),
+    "AddV2": (lambda x: raw.AddV2(x=x, y=tf.constant(B4, dtype=BF)), (3, 4)),
+    "AddV2-lifted": (lambda x: raw.AddV2(x=x, y=tf.constant(B_BIG, dtype=BF)), (3, 20)),
+    "Cast-on-the-host": (lambda x: raw.AddV2(x=x, y=raw.Cast(x=tf.constant(B4), DstT=BF)), (3, 4)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BF16_CASES))
+def test_bfloat16_constants_stay_bfloat16_as_in_the_jax_translator(name):
+    """A DT_BFLOAT16 constant, host value or lifted weight, stays bfloat16:
+    a bf16 graph's result is bf16, as the JAX translator's is, and equal
+    to it within one bf16 step of its largest magnitude (both sides round
+    the same f32 accumulation to bf16; the port's f32 sums run in another
+    order)."""
+    import jax.numpy as jnp
+
+    fn, shape = BF16_CASES[name]
+    cf = tf.function(fn, input_signature=[tf.TensorSpec(shape, BF, name="x")]).get_concrete_function()
+    gd, ins, outs = cf.graph.as_graph_def(), [t.name for t in cf.inputs], [t.name for t in cf.outputs]
+    x = np.random.default_rng(5).normal(size=shape).astype(np.float32)
+    jax_fn, jax_params = jax_tf_import.translate_graph_def(gd, ins, outs)
+    want = jax_fn(jax_params, jnp.asarray(x, jnp.bfloat16))
+    module, port_fn = _port(gd, ins, outs)
+    got = port_fn(module, torch.from_numpy(x).to(torch.bfloat16))
+    assert str(want.dtype) == "bfloat16" and got.dtype == torch.bfloat16
+    want32 = np.asarray(want, np.float32)
+    step = 2.0 ** -7 * float(np.abs(want32).max())
+    np.testing.assert_allclose(got.float().numpy(), want32, rtol=0, atol=step)
+    # the port lifts a bf16 weight into a bf16 buffer; the JAX translator
+    # keeps it a graph constant (its lift test is numpy's float kind)
+    consts = {n.name: tf.make_ndarray(n.attr["value"].tensor) for n in gd.node if n.op == "Const"}
+    assert set(module.tf_names) == ({"Const"} if name in ("MatMul", "MatMul-BiasAdd", "Conv2D", "AddV2-lifted")
+                                    else set())
+    for tf_name, w in module.tf_state_dict().items():
+        assert w.dtype == torch.bfloat16 and tf_name not in jax_params
+        np.testing.assert_array_equal(w.float().numpy(), consts[tf_name].astype(np.float32))
+    load_translated_params(module, {k: np.asarray(v) for k, v in jax_params.items()})
