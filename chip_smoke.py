@@ -384,7 +384,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     ``/v1/memory`` equal to residency's charges; one direct int8 call on
     a [4, 512] batch raises ``max_memory_allocated`` by less than half the
     f32 parameter bytes (no whole-model f32 copy), with 12 flash launches
-    by the wrapper's count and the profiler's. Prints rows/s of the direct
+    by the wrapper's count and the profiler's (over ``counted_profile``,
+    as phases 11 and 17 count theirs). Prints rows/s of the direct
     int8 and f32 builds on a [32, 128] batch and the int8 rows'
     row-relative error against f32 (random weights at bert-base width: not
     gated). (b) ``POST /admin/profile {"seconds": 2}`` while 4 threads send
@@ -472,12 +473,42 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     12 f32 flash launches. Before (a), the registered op's host cost per
     warm call against the bare ctypes launch, in interleaved rounds. About
     70 s.
+23. stages saved by the JAX package, and the row-expression dialect over
+    model scores. (a) ``tests/fixtures/jax_stages/resnet50_lr`` (a
+    ``PipelineModel`` of ``DeepImageFeaturizer(modelName="ResNet50")`` and
+    a ``LogisticRegressionModel`` with ``w [2048, 2]``, saved by the JAX
+    package; the card's machine has no JAX) loaded with
+    ``persistence.load(path, device="cuda")``, its featurizer's
+    ``weightsFile`` set to phase 6's seeded flax ``.npz`` and f32, over
+    1024 synthetic 224x224 structs at batch 32: its rows equal to the
+    port's own ``PipelineModel`` built with the same weights, ``w`` and
+    ``b`` (max |diff| 0; one pipeline per partition, so both see the same
+    batches), ``w``/``b`` bit-equal to the fixture's ``model.npz``,
+    images/s beside phase 6's f32 rate; then ``keras_cnn/`` (a
+    ``KerasImageFileTransformer`` whose model the JAX package embedded as
+    ``model.keras``) over a few PNGs, equal to the port's transformer over
+    ``tests/fixtures/keras_cnn.keras``. (b) ``TextEmbedder`` over
+    ``get_model("bert-base")`` f32 (768 wide, 12 layers, seeded weights),
+    maxLength 512, phase 4's synthetic texts (256), then one query through
+    ``select``/``withColumn``/``where`` with Columns (``when``/
+    ``otherwise``, ``cast``, ``coalesce`` over null tags, ``concat_ws``,
+    ``round``/``sqrt``, ``aggregate`` and ``transform`` over the
+    embedding array, ``eqNullSafe``, ``rlike``, ``isin``) and the same
+    query through ``spark.sql`` (CASE, CAST, ``||``, IS DISTINCT FROM,
+    RLIKE, IN): the two surfaces' rows equal, every numeric cell within
+    1e-6 relative of numpy over the collected embeddings, exactly 12
+    flash launches per bert-base dispatch. (c) Phase 13's MobileNetV2
+    image UDF inside ``CASE WHEN label = 'a' THEN udf(image) END`` and
+    inside ``coalesce(udf(image), array(-1.0))`` over 256 images and a
+    null one: rows equal to the bare UDF's (relative 1e-5),
+    ``sql.udf.batches`` printed. No builtin that reads the clock, the
+    time zone, the locale or the user runs here. About 40 s.
 
 The line before the last is the ``kernels`` JSON record (the f32 and the
 bf16 kernel at bert-base L=512, launches from each dtype's main-path run,
 ``launches_phase20``, phase 20(a)'s flood, and ``launches_phase22``,
 phase 22(a)'s loaded program (bf16) and 22(c)'s and 22(e)'s orbax models
-(f32)); the
+(f32), and ``launches_phase23``, phase 23(b)'s bert-base pass (f32)); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -486,6 +517,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import os
 import shutil
 import statistics
@@ -496,7 +528,7 @@ import time
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from dataclasses import replace
 
 import numpy as np
@@ -531,7 +563,9 @@ from sparkdl_tpu_torch.models import get_image_model, get_model
 from sparkdl_tpu_torch.models.convert import bert_params_to_flax, cnn_params_to_flax
 from sparkdl_tpu_torch.models.keras_weights import load_keras_weights
 from sparkdl_tpu_torch.models.layers import init_cnn_params
-from sparkdl_tpu_torch.models.registry import NamedTextModel, _bert_text_builder, register_model, save_flax_weights
+from sparkdl_tpu_torch.models.registry import (
+    BERT_CONFIGS, NamedTextModel, _bert_text_builder, register_model, save_flax_weights,
+)
 from sparkdl_tpu_torch.models.resnet import ResNet50
 from sparkdl_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -745,6 +779,32 @@ ORBAX_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "f
 ORBAX_ROW_TOL = 1e-5
 TF_BF16_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures", "tf_bf16")
 BF16_STEP = 2.0 ** -7
+# phase 23: stages saved by the JAX package, and row expressions over scores
+JAX_STAGES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures", "jax_stages")
+X_IMAGES = 1024
+X_TEXT_MODEL = "bert-base"
+X_TEXTS = 256
+X_MAX_LENGTH = 512
+X_UDF_IMAGES = 256
+X_UDF_REL = 1e-5
+X_NUMPY_REL = 1e-6
+X_KERAS_PNGS = 6
+X_SQL = """
+SELECT id,
+  CASE WHEN aggregate(emb, 0.0, (acc, x) -> acc + x) / 768 > 0 THEN 'pos' ELSE 'neg' END AS sign,
+  CAST(id AS STRING) || ':' || coalesce(tag, 'none') AS key,
+  concat_ws('-', tag, CAST(id AS STRING)) AS label,
+  round(sqrt(aggregate(emb, 0.0, (acc, x) -> acc + x * x)), 6) AS norm6,
+  aggregate(emb, 0.0, (acc, x) -> acc + x) / 768 AS mean,
+  element_at(transform(emb, x -> x * 2.0), 1) AS first2,
+  CAST(id AS DOUBLE) / 3 AS third
+FROM bert_scores
+WHERE tag IS DISTINCT FROM 't3' AND text RLIKE '^w[0-9]' AND id % 4 IN (0, 1, 3)
+ORDER BY id
+"""
+#: phase 6's images/s by (model, dtype), its shared-feeder arm
+IMAGE_RATES: dict = {}
+
 DISPATCH_CALLS = 2000
 DISPATCH_ROUNDS = 5
 
@@ -863,6 +923,14 @@ WATERFALL_SLACK_S = 1e-3
 OBS_PATHS = ("/metrics", "/snapshot", "/series", "/slo", "/healthz")
 
 
+# a window whose kernel launches are counted (phases 11, 17 and 20) opens on
+# warm-up kernels and a quiet margin and closes on another margin: in a
+# process minutes old, torch.profiler loses a window's first kernel records
+# (12 of 40 in each plain window of tools/torch_profiler_window_probe.py)
+PROFILE_WARM_KERNELS, PROFILE_WARM_GAP_S = 64, 0.002
+PROFILE_SETTLE_S = 1.0
+
+
 class PhaseError(RuntimeError):
     pass
 
@@ -904,6 +972,27 @@ def device_kernels(prof) -> dict:
         sec, n = out.get(ev.key, (0.0, 0))
         out[ev.key] = (sec + ev.self_device_time_total / 1e6, n + 1)
     return out
+
+
+@contextmanager
+def counted_profile():
+    """torch.profiler over the CUDA activity, for a window whose kernel
+    launches are counted: the window opens on PROFILE_WARM_KERNELS finished
+    warm-up kernels and a PROFILE_SETTLE_S margin, and closes on a finished
+    device and another margin, so that no kernel of the body is among the
+    records whose timestamps the profiler gets wrong."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        warm = torch.zeros(1, device="cuda")
+        for _ in range(PROFILE_WARM_KERNELS):
+            warm.add_(1)
+            time.sleep(PROFILE_WARM_GAP_S)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_SETTLE_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_SETTLE_S)
 
 
 def device_ms(fn, iters: int, names=None):
@@ -1319,6 +1408,8 @@ def phase_transfer_learning(model: str, seed: int, structs, labels, device_name:
                       f"{model} {dtype_name}: row {i} has no {spec.feature_dim}-d vector")
                 check(bool(np.isfinite(f).all()), f"{model} {dtype_name}: row {i} is not finite")
             arms[arm] = np.stack(rows)
+            if arm == "shared feeder":
+                IMAGE_RATES[(model, dtype_name)] = n_images / dt
             timers = metrics.snapshot()["timers"]
             print(
                 f"image path {model} {spec.height}x{spec.width} {dtype_name} on {device_name}, {arm}: "
@@ -1667,8 +1758,6 @@ def _flash_kernel_counts(prof) -> dict:
 def phase_serving(seed: int, device_name: str) -> dict:
     """Phase 11: the online serving path on the card. Returns the warm
     passes' requests/s (``text_rps``, ``image_rps``)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from sparkdl_tpu_torch.serving import Router, ServingClient, ServingServer
     from sparkdl_tpu_torch.serving.__main__ import serving_env_defaults
 
@@ -1714,7 +1803,7 @@ def phase_serving(seed: int, device_name: str) -> dict:
         metrics.reset()
         flash_attention.launches = 0
         flash_attention.launches_by_dtype = dict.fromkeys(flash_attention.launches_by_dtype, 0)
-        with profile(activities=[ProfilerActivity.CUDA]) if name == "warm" else nullcontext() as prof:
+        with counted_profile() if name == "warm" else nullcontext() as prof:
             t0 = time.perf_counter()
             with ThreadPoolExecutor(SERVE_CLIENT_THREADS) as pool:
                 replies = list(pool.map(lambda r: _post(base, text_body(*r)), texts))
@@ -3141,7 +3230,6 @@ def phase_control_plane(seed: int, device_name: str) -> None:
     utilization and memory ledgers under a flood, (b) KV churn and an OOM
     record, (c) the SLO engine, (d) the canary, (e) out-of-vocabulary ids,
     then every byte back after the router closes."""
-    from torch.profiler import ProfilerActivity, profile
 
     from sparkdl_tpu_torch.serving import Router, ServingClient, ServingServer
     from sparkdl_tpu_torch.serving.__main__ import serving_env_defaults
@@ -3164,8 +3252,10 @@ def phase_control_plane(seed: int, device_name: str) -> None:
     # clears the cuBLAS workspaces between two of its routers) left none,
     # and no router of this phase may add one, the warm-up router's first
     # evicts included
-    leaks0 = (mem_ledger.memory_status() or {}).get("leak_events", 0)
-    check(leaks0 == 0, f"control plane: {leaks0} leak records from the earlier phases' routers: "
+    status0 = mem_ledger.memory_status() or {}
+    leaks0 = status0.get("leak_events", 0)
+    check(leaks0 == 0, f"control plane: {leaks0} leak records from the earlier phases' routers "
+                       f"({status0.get('leaked_bytes')} B in all): "
                        f"{[e for e in mem_ledger.get_ledger().events_tail(mem_ledger.mem_ring_capacity()) if e['op'] == 'leak']}")
     # the baseline: after a warm-up dispatch of each model (the launch
     # thread's cuBLAS workspace exists) and with nothing resident
@@ -3194,10 +3284,10 @@ def phase_control_plane(seed: int, device_name: str) -> None:
           f"{time.perf_counter() - t0:.2f} s, baseline memory_allocated {baseline} B")
 
     # (a) the flood: text over HTTP and images through the client, at once
-    utilization.reset()
     flash_attention.launches_by_dtype = dict.fromkeys(flash_attention.launches_by_dtype, 0)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with counted_profile() as prof:
         with ThreadPoolExecutor(SERVE_CLIENT_THREADS) as pool:
+            utilization.reset()
             t_start = time.monotonic()
             text_f, image_f = [], []
             for i, (ids, cls) in enumerate(texts):  # two text requests, then an image one
@@ -4127,7 +4217,6 @@ def phase_int8_obs(seed: int, device_name: str, dump_dir: str, drops_dir: str) -
     /admin/profile during a flood, (c) the flight recorder on an SLO trip
     and phase 17's dumps, (d) phase 19's rank drops merged and the pull
     exporter. Returns the f32 flash launches of (a)'s flood."""
-    from torch.profiler import ProfilerActivity, profile
 
     from sparkdl_tpu_torch.graph.precision import quantize_module
     from sparkdl_tpu_torch.models.registry import param_bytes
@@ -4238,9 +4327,8 @@ def phase_int8_obs(seed: int, device_name: str, dump_dir: str, drops_dir: str) -
             before = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             flash_attention.launches_by_dtype = dict.fromkeys(flash_attention.launches_by_dtype, 0)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with counted_profile() as prof:
                 mf(ids)
-                torch.cuda.synchronize()
             peaks[rung] = (torch.cuda.max_memory_allocated() - before, flash_attention.launches_by_dtype[torch.float32],
                            _flash_kernel_counts(prof)[torch.float32])
         peak, by_wrapper, by_profiler = peaks[INT8]
@@ -4810,6 +4898,274 @@ def phase_export_ingest(seed: int, device_name: str, tmp: str, device="cuda") ->
     return launches
 
 
+def _jax_lr_pipeline(weights: str, device) -> tuple:
+    """Phase 23(a)'s stage saved by the JAX package, loaded and bound to
+    ``weights`` in f32; and the port's own PipelineModel with the same
+    weights, ``w`` and ``b``."""
+    from sparkdl_tpu_torch.estimators.logistic_regression import LogisticRegressionModel
+
+    loaded = persistence.load(os.path.join(JAX_STAGES, "resnet50_lr"), device=device)
+    check(type(loaded) is PipelineModel and [type(st).__name__ for st in loaded.stages]
+          == ["DeepImageFeaturizer", "LogisticRegressionModel"],
+          f"jax stages (23a): loaded {type(loaded).__name__} of {[type(st).__name__ for st in getattr(loaded, 'stages', [])]}")
+    featurizer, head = loaded.stages
+    featurizer._set(weightsFile=weights, computeDtype="float32", batchSize=IMAGE_BATCH)
+    with np.load(os.path.join(JAX_STAGES, "resnet50_lr", "stages", "1_LogisticRegressionModel_fixture",
+                              "model.npz")) as z:
+        w, b = z["w"], z["b"]
+    own = PipelineModel([
+        _featurizer("ResNet50", "float32", weights, device=device),
+        LogisticRegressionModel(w=w, b=b, featuresCol="features", predictionCol="prediction",
+                                probabilityCol="probability", device=device),
+    ])
+    return loaded, own, head, w, b
+
+
+def _pipeline_rows(stage, df) -> tuple:
+    """One pass: ((prediction, probability, features) per row, seconds)."""
+    t0 = time.perf_counter()
+    rows = stage.transform(df).collect()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return [(r["prediction"], r["probability"], r["features"]) for r in rows], dt
+
+
+def _max_row_diff(a, b) -> float:
+    worst = 0.0
+    for (pa, qa, fa), (pb, qb, fb) in zip(a, b):
+        check(pa == pb, f"jax stages (23a): predictions differ ({pa} vs {pb})")
+        worst = max(worst, float(np.abs(np.asarray(qa) - np.asarray(qb)).max()),
+                    float(np.abs(np.asarray(fa) - np.asarray(fb)).max()))
+    return worst
+
+
+def _expression_columns(scored):
+    """Phase 23(b)'s query on the Column surface (``X_SQL`` on the text one)."""
+    from sparkdl_tpu_torch import functions as sf
+
+    total = sf.aggregate("emb", sf.lit(0.0), lambda acc, x: acc + x)
+    squares = sf.aggregate("emb", sf.lit(0.0), lambda acc, x: acc + x * x)
+    mean = total / 768
+    id_s = sf.col("id").cast("string")
+    return (
+        scored
+        .withColumn("tag2", sf.coalesce(sf.col("tag"), sf.lit("none")))
+        .where(~sf.col("tag").eqNullSafe("t3") & sf.col("text").rlike("^w[0-9]")
+               & (sf.col("id") % 4).isin(0, 1, 3))
+        .select(
+            "id",
+            sf.when(mean > 0, "pos").otherwise("neg").alias("sign"),
+            sf.concat(id_s, sf.lit(":"), sf.col("tag2")).alias("key"),
+            sf.concat_ws("-", sf.col("tag"), id_s).alias("label"),
+            sf.round(sf.sqrt(squares), 6).alias("norm6"),
+            mean.alias("mean"),
+            sf.element_at(sf.transform("emb", lambda x: x * 2.0), 1).alias("first2"),
+            (sf.col("id").cast("double") / 3).alias("third"),
+        )
+        .orderBy("id")
+    )
+
+
+def _expected_expression_rows(ids, tags, texts, embs) -> list:
+    """Phase 23(b)'s rows computed in numpy from the collected embeddings."""
+    import re as _re
+
+    out = []
+    for i, tag, text, e in zip(ids, tags, texts, embs):
+        if tag == "t3" or not _re.search("^w[0-9]", text) or i % 4 not in (0, 1, 3):
+            continue
+        e64 = np.asarray(e, np.float64)
+        mean = float(e64.sum()) / 768
+        out.append({
+            "id": i, "sign": "pos" if mean > 0 else "neg",
+            "key": f"{i}:{tag if tag is not None else 'none'}",
+            "label": f"{tag}-{i}" if tag is not None else f"{i}",
+            # round() is HALF_UP to 6 places, as Spark's
+            "norm6": math.floor(float(np.sqrt((e64 * e64).sum())) * 1e6 + 0.5) / 1e6, "mean": mean,
+            "first2": 2.0 * float(e64[0]), "third": i / 3,
+        })
+    return out
+
+
+def phase_jax_stages_expressions(seed: int, device_name: str, tmp: str, device="cuda") -> int:
+    """Phase 23: stages saved by the JAX package, and row expressions over
+    bert-base scores and inside a model UDF (``device="cpu"``: a rehearsal,
+    with the sizes cut by the caller). Returns 23(b)'s flash launches."""
+    from PIL import Image
+
+    from sparkdl_tpu_torch.sql import dropTempTable
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    card = f"{device_name} ({_smi()})" if on_card else device_name
+    # (a) the JAX-saved ResNet50 + LR pipeline at full width, f32
+    t0 = time.perf_counter()
+    weights = os.path.join(tmp, "ResNet50.npz")
+    _write_seeded_weights("ResNet50", seed, weights)
+    structs, _ = _colour_structs(seed, X_IMAGES, 224)
+    print(f"jax stages (23a): seeded ResNet50 weights and {len(structs)} 224x224 structs in "
+          f"{time.perf_counter() - t0:.2f} s (host)")
+    loaded, own, head, w, b = _jax_lr_pipeline(weights, device)
+    check(np.array_equal(head.w.cpu().numpy(), w) and np.array_equal(head.b.cpu().numpy(), b)
+          and head.w.device.type == device.type,
+          "jax stages (23a): the loaded w/b are not the fixture's model.npz bit for bit")
+    df = DataFrame.fromColumns({"image": structs}, numPartitions=IMAGE_PARTITIONS)
+    warm = DataFrame.fromColumns({"image": structs[:64]}, numPartitions=1)
+    for stage in (loaded, own):
+        _pipeline_rows(stage, warm)  # model build, cuDNN and allocator warm-up: not counted
+    loaded_rows, loaded_dt = _pipeline_rows(loaded, df)
+    os.environ["SPARKDL_SHARED_FEEDER"] = "0"  # the same batches on both sides
+    try:
+        loaded_own_batches, _ = _pipeline_rows(loaded, df)
+        own_rows, own_dt = _pipeline_rows(own, df)
+    finally:
+        os.environ.pop("SPARKDL_SHARED_FEEDER")
+    check(len(loaded_rows) == len(structs) and all(
+        r[2] is not None and r[2].shape == (2048,) and bool(np.isfinite(r[2]).all())
+        and r[1] is not None and bool(np.isfinite(np.asarray(r[1])).all()) for r in loaded_rows),
+        "jax stages (23a): a row without finite features or probabilities")
+    diff = _max_row_diff(loaded_own_batches, own_rows)
+    check(diff == 0.0, f"jax stages (23a): the JAX-saved pipeline's rows differ from the port's own by {diff:.3e}")
+    shared_diff = _max_row_diff(loaded_rows, own_rows)
+    check(shared_diff <= IMAGE_F32_REL * max(float(np.abs(np.stack([r[2] for r in own_rows])).max()), 1.0),
+          f"jax stages (23a): the shared feeder's rows differ from the per-partition rows by {shared_diff:.3e}")
+    phase6 = IMAGE_RATES.get(("ResNet50", "float32"))
+    print(f"jax stages (23a) on {card}: JAX-saved PipelineModel(DeepImageFeaturizer ResNet50 f32 -> "
+          f"LogisticRegressionModel [2048, 2]) over {len(structs)} images: {loaded_dt:.3f} s = "
+          f"{len(structs) / loaded_dt:.1f} images/s (phase 6's f32 featurizer alone in this run: "
+          f"{'not run' if phase6 is None else f'{phase6:.1f} images/s'}); the port's own pipeline, one "
+          f"pipeline per partition: {own_dt:.3f} s = {len(structs) / own_dt:.1f} images/s; rows vs the "
+          f"port's own max |diff| {diff:.1e} (limit 0), shared feeder vs per partition {shared_diff:.3e}; "
+          f"w/b bit-equal to model.npz")
+    del loaded, own, structs, df
+    # the JAX-saved Keras stage against the port's own over the same .keras file
+    rng = np.random.default_rng(seed + 23)
+    uris = []
+    for i in range(X_KERAS_PNGS):
+        path = os.path.join(tmp, f"cnn_{i}.png")
+        Image.fromarray(rng.integers(0, 256, size=(16 + 3 * i, 20, 3), dtype=np.uint8), "RGB").save(path)
+        uris.append(path)
+    uris.append(None)
+    kdf = DataFrame.fromColumns({"uri": uris}, numPartitions=2)
+    kstage = persistence.load(os.path.join(JAX_STAGES, "keras_cnn"), device=device)
+    check(type(kstage) is KerasImageFileTransformer, f"jax stages (23a): keras_cnn loaded as {type(kstage).__name__}")
+    kown = KerasImageFileTransformer(
+        inputCol="uri", outputCol="scores", modelFile=os.path.join(FIXTURES, f"{FIXTURE_MODEL}.keras"),
+        batchSize=kstage.getOrDefault("batchSize"), preprocessing=kstage.getOrDefault("preprocessing"),
+        device=device,
+    )
+    k_rows = [r["scores"] for r in kstage.transform(kdf).collect()]
+    k_own = [r["scores"] for r in kown.transform(kdf).collect()]
+    check(k_rows[-1] is None and k_own[-1] is None, "jax stages (23a): the None URI did not give a null row")
+    k_diff = max(float(np.abs(np.asarray(a) - np.asarray(c)).max()) for a, c in zip(k_rows[:-1], k_own[:-1]))
+    check(k_diff == 0.0, f"jax stages (23a): keras_cnn rows differ from the port's own by {k_diff:.3e}")
+    print(f"jax stages (23a): JAX-saved KerasImageFileTransformer (embedded model.keras) over {X_KERAS_PNGS} PNGs "
+          f"and a None URI: equal to the port's over keras_cnn.keras (max |diff| {k_diff:.1e})")
+    # (b) row expressions over bert-base scores; the flash kernel runs
+    spec = get_model(X_TEXT_MODEL)
+    layers = BERT_CONFIGS[spec.size].num_layers
+    mf = spec.model_function(dtype=torch.float32, seed=seed, device=device)
+    texts = _texts(seed, X_TEXTS)
+    tags = [None if i % 17 == 0 else f"t{i % 5}" for i in range(len(texts))]
+    table = DataFrame.fromColumns({"id": list(range(len(texts))), "text": texts, "tag": tags}, numPartitions=4)
+    embed = TextEmbedder(inputCol="text", outputCol="emb", modelFunction=mf, maxLength=X_MAX_LENGTH, batchSize=32)
+    embed.transform(table.limit(32)).collect()  # cuBLAS and allocator warm-up: not counted
+    sync()
+    metrics.reset()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    scored = embed.transform(table).cache()
+    sync()
+    embed_s = time.perf_counter() - t0
+    launches, batches = flash_attention.launches, _dispatches()
+    check(batches > 0 and launches == (layers * batches if on_card else 0),
+          f"expressions (23b): {launches} flash launches for {batches} bert-base dispatches "
+          f"(expected {layers} per dispatch)")
+    base = scored.collectColumns()
+    embs = base["emb"]
+    width = BERT_CONFIGS[spec.size].hidden_size
+    check(all(e is not None and e.shape == (width,) and bool(np.isfinite(e).all()) for e in embs),
+          f"expressions (23b): a row without a finite {width}-d embedding")
+    scored.createOrReplaceTempView("bert_scores")
+    spark = SparkSession.builder.appName("chip_smoke").getOrCreate()
+    t0 = time.perf_counter()
+    col_rows = [dict(r) for r in _expression_columns(scored).collect()]
+    col_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sql_rows = [dict(r) for r in spark.sql(X_SQL).collect()]
+    sql_s = time.perf_counter() - t0
+    check(col_rows == sql_rows, "expressions (23b): the Column and SQL surfaces' rows differ")
+    expected = _expected_expression_rows(base["id"], base["tag"], base["text"], embs)
+    check(len(col_rows) == len(expected) > 0,
+          f"expressions (23b): {len(col_rows)} rows, numpy keeps {len(expected)}")
+    worst = 0.0
+    for got, want in zip(col_rows, expected):
+        check(set(got) == set(want), f"expressions (23b): columns {sorted(got)}")
+        for k, v in want.items():
+            if isinstance(v, str) or k == "id":
+                check(got[k] == v, f"expressions (23b): row {want['id']} {k} = {got[k]!r}, numpy {v!r}")
+                continue
+            rel = abs(got[k] - v) / max(abs(v), np.finfo(np.float64).tiny)
+            worst = max(worst, rel)
+            check(rel <= X_NUMPY_REL, f"expressions (23b): row {want['id']} {k} = {got[k]!r}, numpy {v!r}")
+    dropTempTable("bert_scores")
+    print(f"expressions (23b) on {card}: TextEmbedder {X_TEXT_MODEL} f32 over {len(texts)} texts in "
+          f"{embed_s:.3f} s = {len(texts) / embed_s:.1f} rows/s, {batches} dispatches, {launches} flash launches "
+          f"({layers} per dispatch); the query kept {len(col_rows)} rows: Column surface {col_s:.3f} s, "
+          f"spark.sql {sql_s:.3f} s (host), rows equal; worst numeric cell vs numpy relative {worst:.2e} "
+          f"(limit {X_NUMPY_REL})")
+    del mf, scored
+    shutdown_feeders()
+    # (c) a model UDF inside CASE and coalesce
+    mspec = get_image_model(SQL_MODEL)
+    ustructs, _ = _colour_structs(seed + 23, X_UDF_IMAGES, mspec.height)
+    ustructs.append(None)
+    labels = [("a", "b")[i % 3 == 0] for i in range(len(ustructs))]
+    DataFrame.fromColumns({"image": ustructs, "label": labels}, numPartitions=4).createOrReplaceTempView("images23")
+    udf_catalog.registerKerasImageUDF("mnv2_23", SQL_MODEL, batch_size=SQL_BATCH, device=device)
+    try:
+        queries = {
+            "bare": "SELECT mnv2_23(image) AS p FROM images23",
+            "case": "SELECT CASE WHEN label = 'a' THEN mnv2_23(image) END AS p FROM images23",
+            "coalesce": "SELECT coalesce(mnv2_23(image), array(-1.0)) AS p FROM images23",
+        }
+        spark.sql(queries["bare"]).limit(8).collect()  # warm-up: not counted
+        got, batches_by = {}, {}
+        for name, q in queries.items():
+            metrics.reset()
+            t0 = time.perf_counter()
+            got[name] = [r["p"] for r in spark.sql(q).collect()]
+            sync()
+            batches_by[name] = (int(metrics.counter("sql.udf.batches")), int(metrics.counter("sql.udf.batch_rows")),
+                                time.perf_counter() - t0)
+    finally:
+        udf_catalog.unregister("mnv2_23")
+    bare = got["bare"]
+    check(bare[-1] is None and all(p is not None and np.isfinite(p).all() for p in bare[:-1]),
+          "expressions (23c): the bare UDF's rows")
+    ref = np.stack(bare[:-1])
+    for name in ("case", "coalesce"):
+        rows = got[name]
+        check(len(rows) == len(bare), f"expressions (23c) {name}: {len(rows)} rows")
+        if name == "case":
+            check(all(rows[i] is None for i, lab in enumerate(labels) if lab != "a"),
+                  "expressions (23c) case: a value where no WHEN holds")
+            keep = [i for i, lab in enumerate(labels[:-1]) if lab == "a"]
+        else:
+            check(list(rows[-1]) == [-1.0], f"expressions (23c) coalesce: the null image gave {rows[-1]!r}")
+            keep = list(range(len(bare) - 1))
+        err = _relative_error(np.stack([np.asarray(rows[i], np.float32) for i in keep]), ref[keep])
+        check(err <= X_UDF_REL, f"expressions (23c) {name}: rows off the bare UDF's by {err:.3e}")
+        print(f"expressions (23c) {name}: {len(keep)} rows vs the bare UDF relative error {err:.3e} "
+              f"(limit {X_UDF_REL}); sql.udf.batches {batches_by[name][0]}, batch_rows {batches_by[name][1]}, "
+              f"{batches_by[name][2]:.3f} s")
+    print(f"expressions (23c) bare: sql.udf.batches {batches_by['bare'][0]}, batch_rows {batches_by['bare'][1]}, "
+          f"{batches_by['bare'][2]:.3f} s")
+    shutdown_feeders()
+    return launches
+
+
 def _flat_tree(tree, prefix=()):
     for key, sub in tree.items():
         if isinstance(sub, dict):
@@ -4892,6 +5248,11 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase22 = phase_export_ingest(args.seed, device_name, tmp)
     done("phase 22")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase23 = phase_jax_stages_expressions(args.seed, device_name, tmp)
+    done("phase 23")
+    records[torch.float32]["launches_phase23"] = phase23
+    records[torch.bfloat16]["launches_phase23"] = 0
     records[torch.bfloat16]["launches_phase20"] = 0
     for dtype, n in phase22.items():
         records[dtype]["launches_phase22"] = n
@@ -4902,6 +5263,7 @@ def main(argv=None) -> int:
     print("flash launches in phase 21(a) (the translated ResNet50 GraphDef): 0")
     print(f"flash launches in phase 22: bf16 {phase22[torch.bfloat16]} (22a's loaded program, in its process), "
           f"f32 {phase22[torch.float32]} (22c's and 22e's orbax models)")
+    print(f"flash launches in phase 23(b) (bert-base f32 under the expressions): {phase23}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[torch.float32], records[torch.bfloat16]]}))
     print(json.dumps({

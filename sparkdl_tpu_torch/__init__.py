@@ -25,8 +25,15 @@ What it covers today:
   (``parallel/``), the evaluators and stage persistence;
 - SQL scoring: a model registered as a UDF
   (:func:`~sparkdl_tpu_torch.udf.registerKerasImageUDF`) and called from
-  :func:`~sparkdl_tpu_torch.sql.sql` over a temp view, with projection
-  and predicate pushdown (``sql.py``, ``session.py``);
+  :func:`~sparkdl_tpu_torch.sql.sql` over a temp view, inside the JAX
+  dialect's row expressions (CASE, CAST, ``||``, the row builtins,
+  higher-order functions over lambdas), with projection and predicate
+  pushdown (``sql.py``, ``sql_builtins.py``, ``session.py``); the same
+  expressions as Columns (``functions`` as ``F``: ``col``, ``lit``,
+  ``when``, ``expr``, the builtins, ``udf``) in ``DataFrame.select``,
+  ``withColumn``, ``filter`` and ``orderBy`` (``dataframe/column.py``);
+- stages saved by the JAX package load here
+  (``persistence.load`` maps their ``sparkdl_tpu`` class paths);
 - model selection: ``CrossValidator`` and ``TrainValidationSplit`` over
   ``Estimator.fitMultiple`` (``tuning.py``);
 - Keras models, translated into torch without keras
@@ -98,6 +105,13 @@ _EXPORTS = {
     "registerModelUDF": "sparkdl_tpu_torch.udf",
     "makeGraphUDF": "sparkdl_tpu_torch.udf",
     "SQLContext": "sparkdl_tpu_torch.sql",
+    # column expressions (from sparkdl_tpu_torch import functions as F)
+    "Column": "sparkdl_tpu_torch.dataframe.column",
+    "col": "sparkdl_tpu_torch.functions",
+    "lit": "sparkdl_tpu_torch.functions",
+    "when": "sparkdl_tpu_torch.functions",
+    "functions": "sparkdl_tpu_torch",
+    "F": "sparkdl_tpu_torch",
     "registerDataFrameAsTable": "sparkdl_tpu_torch.sql",
     "Evaluator": "sparkdl_tpu_torch.evaluation",
     "MulticlassClassificationEvaluator": "sparkdl_tpu_torch.evaluation",
@@ -119,6 +133,9 @@ def __getattr__(name):
     if name not in _EXPORTS:
         raise AttributeError(f"module 'sparkdl_tpu_torch' has no attribute {name!r}")
     from importlib import import_module
+
+    if name in ("functions", "F"):
+        return import_module("sparkdl_tpu_torch.functions")
 
     # a submodule (imageIO) is imported as one
     module = import_module(_EXPORTS[name])

@@ -1,0 +1,1532 @@
+"""Column construction functions, the ``pyspark.sql.functions``
+analogue: the port's copy of the JAX package's ``functions.py``, its
+row-expression half.
+
+    from sparkdl_tpu_torch import functions as F
+    df.filter(F.col("x") > 3).select((F.col("v") * 2).alias("d"))
+
+Every function returns a :class:`~sparkdl_tpu_torch.dataframe.column.Column`
+over the SQL layer's expression nodes, so the builtins here are exactly
+the SQL dialect's (same names, same null semantics, one evaluator):
+``col``/``lit``/``when``/``expr``, the string, math, trigonometry, codec,
+date, array, map and JSON builtins, the higher-order ``transform``,
+``filter``, ``exists``, ``forall``, ``aggregate``, ``zip_with`` and the
+map forms over Python lambdas, and :func:`udf`, a Python function in the
+process-global UDF catalog.
+
+The relational half raises :class:`~sparkdl_tpu_torch.sql.UnsupportedSQL`
+naming ROADMAP Queue A item 8 when called: the aggregates (``F.sum``,
+``F.count``, ...), the window functions (``F.row_number``, ``F.lag``,
+``F.window``, ...), the generators (``F.explode``, ``F.stack``,
+``F.json_tuple``), the partition-seeded ``F.rand``/``F.randn``/
+``F.monotonically_increasing_id``, ``F.broadcast``, and ``F.pandas_udf``,
+which also needs pandas, absent from the card's machine.
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import Any, Callable
+
+from sparkdl_tpu_torch import sql as _sql
+from sparkdl_tpu_torch.dataframe.column import Column, _operand, _pred_of
+
+__all__ = [
+    "expr", "size", "array", "sort_array", "array_distinct",
+    "array_max", "array_min", "array_contains", "element_at", "concat_ws",
+    "col", "column", "lit", "when", "coalesce",
+    "upper", "lower", "length", "trim", "ltrim",
+    "rtrim", "initcap", "reverse", "repeat", "instr",
+    "lpad", "rpad", "split", "regexp_extract", "regexp_replace",
+    "abs", "sqrt", "exp", "log", "log10",
+    "log2", "pow", "signum", "isnan", "floor",
+    "ceil", "round", "concat", "substring", "greatest",
+    "least", "to_date", "to_timestamp", "year", "month",
+    "dayofmonth", "dayofweek", "hour", "minute", "second",
+    "date_add", "date_sub", "datediff", "date_format", "current_date",
+    "current_timestamp", "add_months", "months_between", "trunc", "last_day",
+    "next_day", "quarter", "weekofyear", "dayofyear", "unix_timestamp",
+    "from_unixtime", "timestamp_seconds", "udf", "struct", "translate",
+    "format_string", "printf", "bround", "hash", "asc",
+    "desc", "nanvl", "to_json", "from_json", "get_json_object",
+    "map_keys", "map_values", "sin", "cos", "tan",
+    "asin", "acos", "atan", "atan2", "sinh",
+    "cosh", "tanh", "degrees", "radians", "expm1",
+    "log1p", "cbrt", "rint", "hypot", "factorial",
+    "bin", "conv", "shiftleft", "shiftright", "shiftrightunsigned",
+    "shiftLeft", "shiftRight", "shiftRightUnsigned", "md5", "sha1",
+    "sha2", "crc32", "hex", "unhex", "base64",
+    "unbase64", "locate", "levenshtein", "soundex", "isnull",
+    "slice", "flatten", "sequence", "arrays_zip", "array_union",
+    "array_intersect", "array_except", "array_position", "array_remove", "array_repeat",
+    "array_join", "create_map", "map_from_arrays", "map_concat", "map_entries",
+    "map_contains_key", "date_trunc", "transform", "filter", "exists",
+    "forall", "aggregate", "reduce", "zip_with", "map_filter",
+    "transform_keys", "transform_values", "map_zip_with", "format_number", "substring_index",
+    "overlay", "left", "right", "bit_length", "octet_length",
+    "char_length", "character_length", "ascii", "chr", "char",
+    "btrim", "elt", "find_in_set", "make_date", "startswith",
+    "endswith", "contains", "ilike", "try_add", "try_subtract",
+    "try_multiply", "try_divide", "ifnull", "nvl", "nullif",
+    "nvl2", "asc_nulls_first", "asc_nulls_last", "desc_nulls_first", "desc_nulls_last",
+    "regexp_count", "regexp_instr", "regexp_like", "regexp", "regexp_substr",
+    "split_part", "to_char", "to_varchar", "to_number", "try_to_number",
+    "array_append", "array_prepend", "array_insert", "array_compact", "array_size",
+    "get", "map_from_entries", "named_struct", "url_encode", "url_decode",
+    "equal_null", "ln", "negative", "positive", "power",
+    "sign", "sec", "csc", "cot", "e",
+    "pi", "typeof", "weekday", "unix_date", "date_from_unix_date",
+    "unix_seconds", "extract", "current_timezone", "current_user", "user",
+    "version", "date_diff", "dateadd", "to_unix_timestamp", "try_element_at",
+    "timestampadd", "timestampdiff", "make_timestamp", "date_part", "datepart",
+]
+
+
+def expr(text: str) -> Column:
+    """Parse a SQL-dialect expression string into a Column
+    (pyspark F.expr): ``F.expr("price * qty")``,
+    ``F.expr("upper(s) AS u")``
+    (the alias is honored), and PREDICATES for filter position —
+    ``df.filter(F.expr("v > 1 AND s LIKE 'a%'"))``."""
+    item = None
+    try:
+        parser = _sql._Parser(_sql._tokenize(text))
+        candidate = parser.select_item()
+        if parser.peek()[0] == "eof":
+            item = candidate
+    except ValueError:
+        pass
+    if item is not None:
+        if item.expr == "*" or isinstance(item.expr, _sql.QualifiedStar):
+            raise ValueError(
+                "F.expr('*') is not an expression; use select"
+            )
+        return Column(item.expr, item.alias)
+    # not a value expression — parse as a predicate (the common
+    # pyspark filter idiom); errors here are the authoritative ones
+    parser = _sql._Parser(_sql._tokenize(text))
+    pred = parser.or_pred()
+    if parser.peek()[0] != "eof":
+        raise ValueError(f"Trailing tokens in expression {text!r}")
+    return Column(pred)
+
+
+def col(name: str) -> Column:
+    """A reference to a column by name (resolved against the frame the
+    expression is eventually applied to)."""
+    if not isinstance(name, str):
+        raise TypeError(f"col() takes a column name, got {type(name).__name__}")
+    return Column(_sql.Col(name))
+
+
+column = col  # pyspark alias
+
+
+def lit(value: Any) -> Column:
+    """A literal value (None is SQL NULL)."""
+    if isinstance(value, Column):
+        return value
+    return Column(_sql.Lit(value))
+
+
+def when(condition: Column, value: Any) -> Column:
+    """Start a CASE WHEN chain: F.when(c, v).when(c2, v2).otherwise(d).
+    Without .otherwise(), unmatched rows are null (Spark)."""
+    return Column(
+        _sql.Case([(_pred_of(condition), _operand(value))], None)
+    )
+
+
+def _builtin(fn_name: str, *args: Any) -> Column:
+    # pyspark's ColumnOrName convention: a bare string names a COLUMN
+    # (F.upper("name") reads column name); true string literals are
+    # wrapped with lit() by the wrappers whose parameters are literal-
+    # typed in pyspark's own signatures (patterns, formats, pads)
+    ops = [
+        _sql.Col(a) if isinstance(a, str) else _operand(a) for a in args
+    ]
+    return Column(_sql.Call(fn_name, ops[0], False, ops))
+
+
+def coalesce(*cols: Any) -> Column:
+    if len(cols) < 2:
+        raise ValueError("coalesce needs at least two arguments")
+    return _builtin("coalesce", *cols)
+
+
+def upper(c: Any) -> Column:
+    return _builtin("upper", c)
+
+
+def lower(c: Any) -> Column:
+    return _builtin("lower", c)
+
+
+def length(c: Any) -> Column:
+    return _builtin("length", c)
+
+
+def trim(c: Any) -> Column:
+    return _builtin("trim", c)
+
+
+def abs(c: Any) -> Column:  # noqa: A001 — mirrors pyspark's name
+    return _builtin("abs", c)
+
+
+def sqrt(c: Any) -> Column:
+    return _builtin("sqrt", c)
+
+
+def floor(c: Any) -> Column:
+    return _builtin("floor", c)
+
+
+def ceil(c: Any) -> Column:
+    return _builtin("ceil", c)
+
+
+def round(c: Any, scale: int = 0) -> Column:  # noqa: A001
+    return _builtin("round", c, scale)
+
+
+def concat(*cols: Any) -> Column:
+    if not cols:
+        raise ValueError("concat needs at least one argument")
+    return _builtin("concat", *cols)
+
+
+def substring(c: Any, pos: int, length_: int) -> Column:
+    """1-based start position, Spark's substring semantics."""
+    return _builtin("substring", c, pos, length_)
+
+
+def ltrim(c: Any) -> Column:
+    return _builtin("ltrim", c)
+
+
+def rtrim(c: Any) -> Column:
+    return _builtin("rtrim", c)
+
+
+def initcap(c: Any) -> Column:
+    return _builtin("initcap", c)
+
+
+def reverse(c: Any) -> Column:
+    return _builtin("reverse", c)
+
+
+def repeat(c: Any, n: int) -> Column:
+    return _builtin("repeat", c, n)
+
+
+def instr(c: Any, substr: str) -> Column:
+    """1-based position of the first occurrence; 0 when absent."""
+    return _builtin("instr", c, lit(str(substr)))
+
+
+def lpad(c: Any, length_: int, pad: str) -> Column:
+    return _builtin("lpad", c, length_, lit(str(pad)))
+
+
+def rpad(c: Any, length_: int, pad: str) -> Column:
+    return _builtin("rpad", c, length_, lit(str(pad)))
+
+
+def split(c: Any, pattern: str, limit: int = -1) -> Column:
+    """Regex split to a list cell (Spark split)."""
+    return _builtin("split", c, lit(str(pattern)), limit)
+
+
+def regexp_extract(c: Any, pattern: str, idx: int) -> Column:
+    """'' when the pattern does not match (Spark)."""
+    return _builtin("regexp_extract", c, lit(str(pattern)), idx)
+
+
+def regexp_replace(c: Any, pattern: str, replacement: str) -> Column:
+    return _builtin("regexp_replace", c, lit(str(pattern)), lit(str(replacement)))
+
+
+def exp(c: Any) -> Column:
+    return _builtin("exp", c)
+
+
+def log(c: Any) -> Column:
+    """Natural log; null on non-positive input (Spark)."""
+    return _builtin("log", c)
+
+
+def log10(c: Any) -> Column:
+    return _builtin("log10", c)
+
+
+def log2(c: Any) -> Column:
+    return _builtin("log2", c)
+
+
+def pow(c: Any, p: Any) -> Column:  # noqa: A001
+    return _builtin("pow", c, p)
+
+
+def isnan(c: Any) -> Column:
+    """True for float NaN cells; FALSE (not null) for null (Spark)."""
+    return _builtin("isnan", c)
+
+
+def signum(c: Any) -> Column:
+    return _builtin("signum", c)
+
+
+def concat_ws(sep: str, *cols: Any) -> Column:
+    """Join with a separator, SKIPPING nulls (Spark); list cells
+    flatten into the joined pieces."""
+    if not cols:
+        raise ValueError("concat_ws needs at least one column")
+    return _builtin("concat_ws", lit(sep), *cols)
+
+
+def array(*cols: Any) -> Column:
+    """Build a list cell from columns/literals; nulls stay elements."""
+    if not cols:
+        raise ValueError("array needs at least one argument")
+    return _builtin("array", *cols)
+
+
+def sort_array(c: Any, asc: bool = True) -> Column:
+    """Sort a list cell (nulls first asc, last desc — Spark)."""
+    return _builtin("sort_array", c, asc)
+
+
+def array_distinct(c: Any) -> Column:
+    return _builtin("array_distinct", c)
+
+
+def array_max(c: Any) -> Column:
+    return _builtin("array_max", c)
+
+
+def array_min(c: Any) -> Column:
+    return _builtin("array_min", c)
+
+
+def size(c: Any) -> Column:
+    """Element count of a list/dict cell; null cell -> null."""
+    return _builtin("size", c)
+
+
+def array_contains(c: Any, value: Any) -> Column:
+    return _builtin("array_contains", c, value if isinstance(value, Column) else lit(value))
+
+
+def element_at(c: Any, key: Any) -> Column:
+    """1-based list access (negative from the end) / dict key lookup;
+    out of bounds -> null (Spark non-ANSI)."""
+    return _builtin("element_at", c, key if isinstance(key, Column) else lit(key))
+
+
+def to_date(c: Any, fmt: str = "yyyy-MM-dd") -> Column:
+    """Parse to a date (Java-pattern subset); unparseable -> null."""
+    return _builtin("to_date", c, lit(str(fmt)))
+
+
+def to_timestamp(c: Any, fmt: str = "yyyy-MM-dd HH:mm:ss") -> Column:
+    return _builtin("to_timestamp", c, lit(str(fmt)))
+
+
+def year(c: Any) -> Column:
+    return _builtin("year", c)
+
+
+def month(c: Any) -> Column:
+    return _builtin("month", c)
+
+
+def dayofmonth(c: Any) -> Column:
+    return _builtin("dayofmonth", c)
+
+
+def dayofweek(c: Any) -> Column:
+    """1 = Sunday .. 7 = Saturday (Spark)."""
+    return _builtin("dayofweek", c)
+
+
+def hour(c: Any) -> Column:
+    return _builtin("hour", c)
+
+
+def minute(c: Any) -> Column:
+    return _builtin("minute", c)
+
+
+def second(c: Any) -> Column:
+    return _builtin("second", c)
+
+
+def date_add(c: Any, days: int) -> Column:
+    return _builtin("date_add", c, days)
+
+
+def date_sub(c: Any, days: int) -> Column:
+    return _builtin("date_sub", c, days)
+
+
+def datediff(end: Any, start: Any) -> Column:
+    """Days from start to end (Spark argument order)."""
+    return _builtin("datediff", end, start)
+
+
+def date_format(c: Any, fmt: str) -> Column:
+    return _builtin("date_format", c, lit(str(fmt)))
+
+
+def add_months(c: Any, months: Any) -> Column:
+    """Month arithmetic with end-of-month clamping (Spark); ``months``
+    may be an int or a Column."""
+    if not isinstance(months, Column):
+        months = int(months)
+    return _builtin("add_months", c, months)
+
+
+def months_between(end: Any, start: Any, roundOff: bool = True) -> Column:
+    """Whole months plus a 31-day-month day fraction (Spark)."""
+    return _builtin("months_between", end, start, bool(roundOff))
+
+
+def trunc(c: Any, format: str) -> Column:  # noqa: A002 — pyspark name
+    """Floor a date to year/quarter/month/week; unsupported unit ->
+    null (Spark)."""
+    return _builtin("trunc", c, lit(str(format)))
+
+
+def last_day(c: Any) -> Column:
+    return _builtin("last_day", c)
+
+
+def next_day(c: Any, dayOfWeek: str) -> Column:
+    """First date after the value falling on the named weekday
+    ('Mon'..'Sun'); invalid name -> null (Spark)."""
+    return _builtin("next_day", c, lit(str(dayOfWeek)))
+
+
+def quarter(c: Any) -> Column:
+    return _builtin("quarter", c)
+
+
+def weekofyear(c: Any) -> Column:
+    """ISO week number (Spark)."""
+    return _builtin("weekofyear", c)
+
+
+def dayofyear(c: Any) -> Column:
+    return _builtin("dayofyear", c)
+
+
+def unix_timestamp(
+    c: Any = None, format: str = "yyyy-MM-dd HH:mm:ss"  # noqa: A002
+) -> Column:
+    """Seconds since the epoch; no argument means 'now' at row
+    evaluation time."""
+    if c is None:
+        return Column(_sql.Call("unix_timestamp", None, False, []))
+    return _builtin("unix_timestamp", c, lit(str(format)))
+
+
+def from_unixtime(c: Any, format: str = "yyyy-MM-dd HH:mm:ss") -> Column:  # noqa: A002
+    return _builtin("from_unixtime", c, lit(str(format)))
+
+
+def timestamp_seconds(c: Any) -> Column:
+    """Epoch seconds -> timestamp cell."""
+    return _builtin("timestamp_seconds", c)
+
+
+def current_date() -> Column:
+    """Today's date, evaluated at EXECUTION time (a cached plan must
+    not pin the day it was built)."""
+    return Column(_sql.Call("current_date", None, False, []))
+
+
+def current_timestamp() -> Column:
+    return Column(_sql.Call("current_timestamp", None, False, []))
+
+
+def greatest(*cols: Any) -> Column:
+    """Row-wise maximum, SKIPPING nulls (null only when all are)."""
+    if len(cols) < 2:
+        raise ValueError("greatest needs at least two arguments")
+    return _builtin("greatest", *cols)
+
+
+def least(*cols: Any) -> Column:
+    """Row-wise minimum, SKIPPING nulls (null only when all are)."""
+    if len(cols) < 2:
+        raise ValueError("least needs at least two arguments")
+    return _builtin("least", *cols)
+
+
+# -- misc builtins ------------------------------------------------------
+
+
+def translate(c: Any, matching: str, replace: str) -> Column:
+    """Per-character mapping (Spark ``translate``): chars of
+    ``matching`` beyond ``len(replace)`` are deleted."""
+    return _builtin("translate", c, _lit_arg(matching), _lit_arg(replace))
+
+
+def format_string(fmt: str, *cols: Any) -> Column:
+    """printf-style formatting (Spark ``format_string``). A null
+    argument nulls the result (Spark renders 'null' — documented
+    divergence of this engine's central null propagation)."""
+    return _builtin("format_string", _lit_arg(fmt), *cols)
+
+
+printf = format_string  # Spark's alias
+
+
+def bround(c: Any, scale: int = 0) -> Column:
+    """HALF_EVEN (banker's) rounding; ``round`` is HALF_UP."""
+    return _builtin("bround", c, _lit_arg(int(scale)))
+
+
+def hash(c: Any, *cols: Any) -> Column:  # noqa: A001 — pyspark name
+    """Deterministic signed-int32 hash of the argument tuple. Stable
+    across processes and runs; NOT Spark's murmur3 constants (use it
+    for bucketing/partitioning, not for cross-engine comparison)."""
+    return _builtin("hash", c, *cols)
+
+
+def struct(*cols: Any) -> Column:
+    """Combine columns into one dict cell (Spark ``struct``): field
+    names come from plain column references / aliases, else colN."""
+    if not cols:
+        raise ValueError("struct needs at least one column")
+    parts: list = []
+    for i, c in enumerate(cols):
+        if isinstance(c, str):
+            name, expr = c, _sql.Col(c)
+        elif isinstance(c, Column):
+            plain = c._plain_name()
+            name = c._alias or plain or f"col{i + 1}"
+            expr = _operand(c)
+        else:
+            name, expr = f"col{i + 1}", _sql.Lit(c)
+        parts.extend([_sql.Lit(name), expr])
+    return Column(_sql.Call("named_struct", parts[0], False, parts))
+
+
+def _lit_arg(v: Any):
+    return v if isinstance(v, Column) else Column(_sql.Lit(v))
+
+
+def asc(c: Any) -> Column:
+    """Ascending sort key (pyspark F.asc): ``df.orderBy(F.asc("v"))``;
+    nulls first, like every ascending sort here."""
+    return (col(c) if isinstance(c, str) else c).asc()
+
+
+def desc(c: Any) -> Column:
+    """Descending sort key (nulls last)."""
+    return (col(c) if isinstance(c, str) else c).desc()
+
+
+def asc_nulls_first(c: Any) -> Column:
+    return (col(c) if isinstance(c, str) else c).asc_nulls_first()
+
+
+def asc_nulls_last(c: Any) -> Column:
+    """Ascending with nulls LAST (overrides Spark's asc default)."""
+    return (col(c) if isinstance(c, str) else c).asc_nulls_last()
+
+
+def desc_nulls_first(c: Any) -> Column:
+    """Descending with nulls FIRST (overrides Spark's desc default)."""
+    return (col(c) if isinstance(c, str) else c).desc_nulls_first()
+
+
+def desc_nulls_last(c: Any) -> Column:
+    return (col(c) if isinstance(c, str) else c).desc_nulls_last()
+
+
+def nanvl(a: Any, b: Any) -> Column:
+    """``b`` where ``a`` is float NaN, else ``a`` (Spark nanvl);
+    null propagates as usual."""
+    return _builtin("nanvl", a, b)
+
+
+def to_json(c: Any) -> Column:
+    """Serialize a struct/array cell to a JSON string."""
+    return _builtin("to_json", c)
+
+
+def from_json(c: Any, schema: Any = None) -> Column:
+    """Parse a JSON string cell (unparseable -> null, Spark's
+    PERMISSIVE mode); ``schema`` is accepted for source compatibility
+    and ignored — cells are dynamically typed."""
+    del schema
+    return _builtin("from_json", c)
+
+
+def get_json_object(c: Any, path: str) -> Column:
+    """Extract from a JSON string by a ``$.a.b[0]`` path; scalars come
+    back as strings, containers as JSON text, misses as null."""
+    return _builtin("get_json_object", c, lit(str(path)))
+
+
+def map_keys(c: Any) -> Column:
+    """Keys of a dict cell as a list."""
+    return _builtin("map_keys", c)
+
+
+def map_values(c: Any) -> Column:
+    """Values of a dict cell as a list."""
+    return _builtin("map_values", c)
+
+
+# -- trigonometry / numeric (round-5 batch; Java Math semantics:
+# domain misses are NaN, overflow is Infinity) --------------------------
+
+
+def sin(c: Any) -> Column:
+    return _builtin("sin", c)
+
+
+def cos(c: Any) -> Column:
+    return _builtin("cos", c)
+
+
+def tan(c: Any) -> Column:
+    return _builtin("tan", c)
+
+
+def asin(c: Any) -> Column:
+    """NaN outside [-1, 1] (Java Math)."""
+    return _builtin("asin", c)
+
+
+def acos(c: Any) -> Column:
+    return _builtin("acos", c)
+
+
+def atan(c: Any) -> Column:
+    return _builtin("atan", c)
+
+
+def atan2(y: Any, x: Any) -> Column:
+    return _builtin("atan2", y, x)
+
+
+def sinh(c: Any) -> Column:
+    return _builtin("sinh", c)
+
+
+def cosh(c: Any) -> Column:
+    return _builtin("cosh", c)
+
+
+def tanh(c: Any) -> Column:
+    return _builtin("tanh", c)
+
+
+def degrees(c: Any) -> Column:
+    return _builtin("degrees", c)
+
+
+def radians(c: Any) -> Column:
+    return _builtin("radians", c)
+
+
+def expm1(c: Any) -> Column:
+    return _builtin("expm1", c)
+
+
+def log1p(c: Any) -> Column:
+    """null at or below -1, matching F.log's null on non-positive."""
+    return _builtin("log1p", c)
+
+
+def cbrt(c: Any) -> Column:
+    """Signed cube root (cbrt(-8) = -2)."""
+    return _builtin("cbrt", c)
+
+
+def rint(c: Any) -> Column:
+    """Round half to EVEN, as a float (Java Math.rint)."""
+    return _builtin("rint", c)
+
+
+def hypot(a: Any, b: Any) -> Column:
+    return _builtin("hypot", a, b)
+
+
+def factorial(c: Any) -> Column:
+    """n! for 0 <= n <= 20; null outside (Spark's long-safe range)."""
+    return _builtin("factorial", c)
+
+
+def bin(c: Any) -> Column:  # noqa: A001 — pyspark name
+    """Binary text of a long; negatives as 64-bit two's complement."""
+    return _builtin("bin", c)
+
+
+def conv(c: Any, fromBase: int, toBase: int) -> Column:
+    """Re-base an integer string (Spark conv); bases 2..36."""
+    return _builtin("conv", c, _lit_arg(int(fromBase)), _lit_arg(int(toBase)))
+
+
+def shiftleft(c: Any, n: int) -> Column:
+    """64-bit (Java long) left shift with two's-complement wrap."""
+    return _builtin("shiftleft", c, _lit_arg(int(n)))
+
+
+shiftLeft = shiftleft  # pyspark's pre-3.2 spelling
+
+
+def shiftright(c: Any, n: int) -> Column:
+    """Arithmetic (sign-extending) 64-bit right shift."""
+    return _builtin("shiftright", c, _lit_arg(int(n)))
+
+
+shiftRight = shiftright
+
+
+def shiftrightunsigned(c: Any, n: int) -> Column:
+    """Logical (zero-filling) 64-bit right shift."""
+    return _builtin("shiftrightunsigned", c, _lit_arg(int(n)))
+
+
+shiftRightUnsigned = shiftrightunsigned
+
+
+# -- digests / codecs ---------------------------------------------------
+
+
+def md5(c: Any) -> Column:
+    """Hex MD5 of the cell's bytes (strings hash their utf-8)."""
+    return _builtin("md5", c)
+
+
+def sha1(c: Any) -> Column:
+    return _builtin("sha1", c)
+
+
+def sha2(c: Any, numBits: int = 256) -> Column:
+    """sha2(c, 224/256/384/512); 0 means 256; other widths -> null."""
+    return _builtin("sha2", c, _lit_arg(int(numBits)))
+
+
+def crc32(c: Any) -> Column:
+    return _builtin("crc32", c)
+
+
+def hex(c: Any) -> Column:  # noqa: A001 — pyspark name
+    """Ints as unsigned 64-bit uppercase hex; strings as byte hex."""
+    return _builtin("hex", c)
+
+
+def unhex(c: Any) -> Column:
+    """Hex text -> bytes cell; odd length gets a leading zero."""
+    return _builtin("unhex", c)
+
+
+def base64(c: Any) -> Column:
+    return _builtin("base64", c)
+
+
+def unbase64(c: Any) -> Column:
+    return _builtin("unbase64", c)
+
+
+# -- string search / distance -------------------------------------------
+
+
+def locate(substr: str, c: Any, pos: int = 1) -> Column:
+    """1-based position of substr at or after pos; 0 when absent.
+    NOTE pyspark's argument order: the needle comes FIRST."""
+    return _builtin("locate", lit(str(substr)), c, _lit_arg(int(pos)))
+
+
+def levenshtein(l: Any, r: Any) -> Column:  # noqa: E741 — pyspark names
+    return _builtin("levenshtein", l, r)
+
+
+def soundex(c: Any) -> Column:
+    """American Soundex code (letter + 3 digits)."""
+    return _builtin("soundex", c)
+
+
+def isnull(c: Any) -> Column:
+    """Boolean null test usable in select position (pyspark F.isnull);
+    equivalent to Column.isNull()."""
+    return (col(c) if isinstance(c, str) else c).isNull()
+
+
+# -- array surgery (round-5 batch 2) ------------------------------------
+
+
+def slice(c: Any, start: Any, length: Any) -> Column:  # noqa: A001
+    """1-based subarray of ``length`` elements; negative start counts
+    from the end (Spark slice)."""
+    return _builtin("slice", c, start, length)
+
+
+def flatten(c: Any) -> Column:
+    """Remove ONE level of array nesting; a null nested array nulls
+    the result (Spark)."""
+    return _builtin("flatten", c)
+
+
+def sequence(start: Any, stop: Any, step: Any = None) -> Column:
+    """Inclusive integer range cell; default step walks toward stop."""
+    if step is None:
+        return _builtin("sequence", start, stop)
+    return _builtin("sequence", start, stop, step)
+
+
+def arrays_zip(*cols: Any) -> Column:
+    """Element-wise zip to struct cells keyed '0', '1', ... (Spark
+    keys by source column name — value-level divergence, documented);
+    shorter arrays pad with null."""
+    if not cols:
+        raise ValueError("arrays_zip needs at least one column")
+    return _builtin("arrays_zip", *cols)
+
+
+def array_union(a: Any, b: Any) -> Column:
+    """Deduplicated concatenation, first-occurrence order."""
+    return _builtin("array_union", a, b)
+
+
+def array_intersect(a: Any, b: Any) -> Column:
+    return _builtin("array_intersect", a, b)
+
+
+def array_except(a: Any, b: Any) -> Column:
+    """Elements of a not in b, deduplicated, order preserved."""
+    return _builtin("array_except", a, b)
+
+
+def array_position(c: Any, value: Any) -> Column:
+    """1-based first index of value; 0 when absent (Spark)."""
+    return _builtin("array_position", c, _lit_arg(value))
+
+
+def array_remove(c: Any, value: Any) -> Column:
+    return _builtin("array_remove", c, _lit_arg(value))
+
+
+def array_repeat(value: Any, count: Any) -> Column:
+    """count copies of value as a list cell (value may be null)."""
+    return _builtin("array_repeat", _lit_arg(value), count)
+
+
+def array_join(c: Any, delimiter: str, null_replacement: str = None) -> Column:
+    """Join elements with the delimiter, SKIPPING nulls unless a
+    replacement is given (Spark)."""
+    if null_replacement is None:
+        return _builtin("array_join", c, lit(str(delimiter)))
+    return _builtin(
+        "array_join", c, lit(str(delimiter)), lit(str(null_replacement))
+    )
+
+
+# -- map constructors / surgery -----------------------------------------
+
+
+def create_map(*cols: Any) -> Column:
+    """Alternating key/value arguments -> dict cell (Spark create_map);
+    null keys null the map, null values are data."""
+    if not cols or len(cols) % 2:
+        raise ValueError(
+            "create_map needs an even, non-zero number of arguments "
+            "(alternating keys and values)"
+        )
+    return _builtin("create_map", *cols)
+
+
+def map_from_arrays(keys: Any, values: Any) -> Column:
+    """Two equal-length list cells -> dict cell."""
+    return _builtin("map_from_arrays", keys, values)
+
+
+def map_concat(*cols: Any) -> Column:
+    """Merge dict cells; later maps win duplicate keys (Spark)."""
+    if not cols:
+        raise ValueError("map_concat needs at least one column")
+    return _builtin("map_concat", *cols)
+
+
+def map_entries(c: Any) -> Column:
+    """Dict cell -> list of {'key': k, 'value': v} structs."""
+    return _builtin("map_entries", c)
+
+
+def map_contains_key(c: Any, key: Any) -> Column:
+    return _builtin("map_contains_key", c, _lit_arg(key))
+
+
+def date_trunc(format: str, timestamp: Any) -> Column:  # noqa: A002
+    """Floor a timestamp to the named unit — note the argument order
+    is reversed vs trunc(date, unit), exactly as in pyspark."""
+    return _builtin("date_trunc", lit(str(format)), timestamp)
+
+
+# -- round-5 batch 5: string/misc scalars -------------------------------
+
+
+def format_number(c: Any, d: int) -> Column:
+    """Comma-grouped text with d decimals (HALF_UP)."""
+    return _builtin("format_number", c, _lit_arg(int(d)))
+
+
+def substring_index(c: Any, delim: str, count: int) -> Column:
+    """Text before the count-th delimiter (negative: from the right)."""
+    return _builtin(
+        "substring_index", c, lit(str(delim)), _lit_arg(int(count))
+    )
+
+
+def overlay(src: Any, replace: Any, pos: Any, len: Any = -1) -> Column:  # noqa: A002
+    """Replace ``len`` chars at 1-based pos with ``replace`` (pyspark
+    overlay); len defaults to the replacement's length."""
+    return _builtin("overlay", src, replace, pos, len)
+
+
+def left(c: Any, n: Any) -> Column:
+    """Leftmost n characters ('' when n <= 0, Spark)."""
+    return _builtin("left", c, n)
+
+
+def right(c: Any, n: Any) -> Column:
+    return _builtin("right", c, n)
+
+
+def bit_length(c: Any) -> Column:
+    """Bits of the utf-8 encoding (8x octet_length)."""
+    return _builtin("bit_length", c)
+
+
+def octet_length(c: Any) -> Column:
+    return _builtin("octet_length", c)
+
+
+def char_length(c: Any) -> Column:
+    return _builtin("char_length", c)
+
+
+character_length = char_length
+
+
+def ascii(c: Any) -> Column:  # noqa: A001 — pyspark name
+    """Codepoint of the first character; 0 for ''."""
+    return _builtin("ascii", c)
+
+
+def chr(n: Any) -> Column:  # noqa: A001 — pyspark name
+    """Character for codepoint n % 256; '' for negative (Spark)."""
+    return _builtin("chr", n)
+
+
+char = chr  # Spark alias
+
+
+def btrim(c: Any, trim: str = None) -> Column:  # noqa: A002
+    """Strip the given characters from both ends (default whitespace)."""
+    if trim is None:
+        return _builtin("btrim", c)
+    return _builtin("btrim", c, lit(str(trim)))
+
+
+def elt(n: Any, *cols: Any) -> Column:
+    """1-based pick among the arguments; out of range -> null."""
+    if not cols:
+        raise ValueError("elt needs at least one choice argument")
+    return _builtin("elt", n, *cols)
+
+
+def find_in_set(c: Any, str_array: str) -> Column:
+    """1-based index of the value in a comma-separated list; 0 when
+    absent or when the value contains a comma (Spark)."""
+    return _builtin("find_in_set", c, _lit_arg(str_array))
+
+
+def make_date(year: Any, month: Any, day: Any) -> Column:
+    """Date from components; invalid -> null (Spark non-ANSI)."""
+    return _builtin("make_date", year, month, day)
+
+
+def startswith(c: Any, prefix: Any) -> Column:
+    """Boolean prefix test (usable bare in filter position)."""
+    return _builtin("startswith", c, prefix)
+
+
+def endswith(c: Any, suffix: Any) -> Column:
+    return _builtin("endswith", c, suffix)
+
+
+def contains(c: Any, other: Any) -> Column:
+    return _builtin("contains", c, other)
+
+
+def ilike(c: Any, pattern: str) -> Column:
+    """Case-insensitive LIKE as a function (Column.ilike exists too)."""
+    return (col(c) if isinstance(c, str) else c).ilike(pattern)
+
+
+def try_element_at(c: Any, extraction: Any) -> Column:
+    """element_at's try_ spelling — identical here (out-of-bounds is
+    already null in this non-ANSI dialect)."""
+    return element_at(c, extraction)
+
+
+def try_add(a: Any, b: Any) -> Column:
+    """Addition that yields null instead of any error (Spark try_add)."""
+    return _builtin("try_add", a, b)
+
+
+def try_subtract(a: Any, b: Any) -> Column:
+    return _builtin("try_subtract", a, b)
+
+
+def try_multiply(a: Any, b: Any) -> Column:
+    return _builtin("try_multiply", a, b)
+
+
+def try_divide(a: Any, b: Any) -> Column:
+    """Division with null on divide-by-zero (Spark try_divide)."""
+    return _builtin("try_divide", a, b)
+
+
+def ifnull(a: Any, b: Any) -> Column:
+    """b when a is null (two-argument coalesce)."""
+    return _builtin("ifnull", a, b)
+
+
+nvl = ifnull  # Spark alias
+
+
+def nullif(a: Any, b: Any) -> Column:
+    """null when a equals b, else a."""
+    return _builtin("nullif", a, b)
+
+
+def nvl2(a: Any, b: Any, c: Any) -> Column:
+    """b when a is NOT null, else c."""
+    return _builtin("nvl2", a, b, c)
+
+
+# -- Spark 3.4/3.5 names (round-5 batch 6) ------------------------------
+
+
+def regexp_count(c: Any, pattern: Any) -> Column:
+    """Number of regex matches in the string (0 when none)."""
+    return _builtin("regexp_count", c, _lit_arg(pattern))
+
+
+def regexp_instr(c: Any, pattern: Any) -> Column:
+    """1-based position of the first regex match; 0 when absent."""
+    return _builtin("regexp_instr", c, _lit_arg(pattern))
+
+
+def regexp_like(c: Any, pattern: Any) -> Column:
+    """Boolean partial regex match (RLIKE as a function; bare-usable
+    in filter position)."""
+    return _builtin("regexp_like", c, _lit_arg(pattern))
+
+
+regexp = regexp_like  # Spark alias
+
+
+def regexp_substr(c: Any, pattern: Any) -> Column:
+    """First regex match text, or null."""
+    return _builtin("regexp_substr", c, _lit_arg(pattern))
+
+
+def split_part(c: Any, delimiter: Any, partNum: Any) -> Column:
+    """1-based literal-delimiter part; negative from the end; out of
+    range -> '' (Spark split_part)."""
+    return _builtin("split_part", c, _lit_arg(delimiter), partNum)
+
+
+def to_char(c: Any, format: Any) -> Column:  # noqa: A002
+    """Approximate Spark to_char numeric formatting (decimals from
+    the D/. tail, grouping when G/, appears)."""
+    return _builtin("to_char", c, _lit_arg(format))
+
+
+to_varchar = to_char
+
+
+def to_number(c: Any, format: Any = None) -> Column:  # noqa: A002
+    """Parse formatted number text (grouping/currency stripped);
+    unparseable -> null."""
+    if format is None:
+        return _builtin("to_number", c)
+    return _builtin("to_number", c, _lit_arg(format))
+
+
+try_to_number = to_number
+
+
+def array_append(c: Any, value: Any) -> Column:
+    return _builtin("array_append", c, _lit_arg(value))
+
+
+def array_prepend(c: Any, value: Any) -> Column:
+    return _builtin("array_prepend", c, _lit_arg(value))
+
+
+def array_insert(c: Any, pos: Any, value: Any) -> Column:
+    """1-based insert (negative from the end); past-the-end pads with
+    nulls (Spark 3.4)."""
+    return _builtin("array_insert", c, pos, _lit_arg(value))
+
+
+def array_compact(c: Any) -> Column:
+    """Drop null elements."""
+    return _builtin("array_compact", c)
+
+
+def array_size(c: Any) -> Column:
+    return _builtin("array_size", c)
+
+
+def get(c: Any, index: Any) -> Column:
+    """0-based list access; out of bounds -> null (Spark get)."""
+    return _builtin("get", c, index)
+
+
+def map_from_entries(c: Any) -> Column:
+    """List of {'key','value'} structs (or [k, v] pairs) -> dict."""
+    return _builtin("map_from_entries", c)
+
+
+def named_struct(*cols: Any) -> Column:
+    """Alternating name/value arguments -> struct cell (the SQL
+    builtin's F spelling; F.struct infers names instead)."""
+    if not cols or len(cols) % 2:
+        raise ValueError(
+            "named_struct needs alternating name, value arguments"
+        )
+    return _builtin("named_struct", *cols)
+
+
+def url_encode(c: Any) -> Column:
+    return _builtin("url_encode", c)
+
+
+def url_decode(c: Any) -> Column:
+    return _builtin("url_decode", c)
+
+
+def equal_null(a: Any, b: Any) -> Column:
+    """Null-safe equality as a function (the <=> operator): never
+    null — null vs null is True."""
+    return _builtin("equal_null", a, b)
+
+
+def ln(c: Any) -> Column:
+    """Natural log (alias of F.log); null on non-positive."""
+    return _builtin("ln", c)
+
+
+def negative(c: Any) -> Column:
+    return _builtin("negative", c)
+
+
+def positive(c: Any) -> Column:
+    return _builtin("positive", c)
+
+
+def power(c: Any, p: Any) -> Column:
+    return _builtin("power", c, p)
+
+
+def sign(c: Any) -> Column:
+    return _builtin("sign", c)
+
+
+def sec(c: Any) -> Column:
+    return _builtin("sec", c)
+
+
+def csc(c: Any) -> Column:
+    return _builtin("csc", c)
+
+
+def cot(c: Any) -> Column:
+    return _builtin("cot", c)
+
+
+def e() -> Column:
+    return Column(_sql.Call("e", None, False, []))
+
+
+def pi() -> Column:
+    return Column(_sql.Call("pi", None, False, []))
+
+
+def typeof(c: Any) -> Column:
+    """Spark-vocabulary type name of each cell ('void' for null)."""
+    return _builtin("typeof", c)
+
+
+def weekday(c: Any) -> Column:
+    """0 = Monday .. 6 = Sunday (vs dayofweek's 1 = Sunday)."""
+    return _builtin("weekday", c)
+
+
+def unix_date(c: Any) -> Column:
+    """Days since 1970-01-01."""
+    return _builtin("unix_date", c)
+
+
+def date_from_unix_date(c: Any) -> Column:
+    return _builtin("date_from_unix_date", c)
+
+
+def unix_seconds(c: Any) -> Column:
+    return _builtin("unix_seconds", c)
+
+
+def extract(field: str, source: Any) -> Column:
+    """EXTRACT(field FROM source)'s function form: F.extract('year',
+    d) — same field vocabulary as the SQL grammar."""
+    fn = _sql._EXTRACT_FIELDS.get(str(field).lower())
+    if fn is None:
+        raise ValueError(
+            f"Unsupported extract field {field!r}; supported: "
+            f"{sorted(_sql._EXTRACT_FIELDS)}"
+        )
+    return _builtin(fn, source)
+
+
+def current_timezone() -> Column:
+    return Column(_sql.Call("current_timezone", None, False, []))
+
+
+def current_user() -> Column:
+    return Column(_sql.Call("current_user", None, False, []))
+
+
+user = current_user
+
+
+def version() -> Column:
+    return Column(_sql.Call("version", None, False, []))
+
+
+# pyspark 3.4+ date aliases
+def date_diff(end: Any, start: Any) -> Column:
+    return _builtin("datediff", end, start)
+
+
+def dateadd(c: Any, days: Any) -> Column:
+    return _builtin("date_add", c, days)
+
+
+def to_unix_timestamp(
+    c: Any, format: str = "yyyy-MM-dd HH:mm:ss"  # noqa: A002
+) -> Column:
+    return _builtin("unix_timestamp", c, lit(str(format)))
+
+
+def timestampadd(unit: str, quantity: Any, ts: Any) -> Column:
+    """ts + quantity units (calendar-aware for YEAR/QUARTER/MONTH)."""
+    return _builtin("timestampadd", lit(str(unit)), quantity, ts)
+
+
+def timestampdiff(unit: str, start: Any, end: Any) -> Column:
+    """WHOLE units from start to end (Spark timestampdiff)."""
+    return _builtin("timestampdiff", lit(str(unit)), start, end)
+
+
+def make_timestamp(years: Any, months: Any, days: Any, hours: Any,
+                   mins: Any, secs: Any) -> Column:
+    """Timestamp from components; invalid -> null (non-ANSI)."""
+    return _builtin(
+        "make_timestamp", years, months, days, hours, mins, secs
+    )
+
+
+def date_part(field: Any, source: Any) -> Column:
+    """EXTRACT's function form: F.date_part('year', d); unknown
+    fields yield null (the SQL grammar form raises instead)."""
+    return _builtin("date_part", _lit_arg(field), source)
+
+
+datepart = date_part
+
+
+# -- higher-order collection functions ----------------------------------
+# pyspark idiom: the lambda receives Column placeholders and returns a
+# Column; the resulting expression tree becomes the SQL layer's Lambda
+# node, so F.transform(c, f) and SQL transform(c, x -> ...) are the
+# same engine. Lambda bodies are builtin-only (no catalog UDFs inside).
+
+
+def _lambda_node(f: Callable) -> "_sql.Lambda":
+    import inspect
+
+    names = list(inspect.signature(f).parameters)
+    if not 1 <= len(names) <= 3:
+        raise ValueError(
+            "higher-order lambdas take 1..3 parameters, got "
+            f"{len(names)}"
+        )
+    # reserved placeholder names cannot collide with frame columns;
+    # nested lambdas shadow outward like Spark's scoping
+    params = [f"__hof_{n}" for n in names]
+    out = f(*[Column(_sql.Col(p)) for p in params])
+    body = out._expr if isinstance(out, Column) else _sql.Lit(out)
+    # builtin-only bodies fail HERE with a named error, not as a
+    # partition-task crash at collect (catalog UDFs can't run
+    # per-element)
+    _sql._validate_lambda_body(body)
+    return _sql.Lambda(params, body)
+
+
+def _hof(fn: str, *args: Any) -> Column:
+    ops = [
+        a
+        if isinstance(a, _sql.Lambda)
+        else (_sql.Col(a) if isinstance(a, str) else _operand(a))
+        for a in args
+    ]
+    return Column(_sql.Call(fn, ops[0], False, ops))
+
+
+def transform(c: Any, f: Callable) -> Column:
+    """Map a lambda over a list cell (pyspark F.transform); a
+    two-parameter lambda also receives the 0-based index."""
+    return _hof("transform", c, _lambda_node(f))
+
+
+def filter(c: Any, f: Callable) -> Column:  # noqa: A001 — pyspark name
+    """Keep list elements where the lambda is true; unknown (null)
+    drops the element, like WHERE."""
+    return _hof("filter", c, _lambda_node(f))
+
+
+def exists(c: Any, f: Callable) -> Column:
+    """True if any element satisfies the lambda; three-valued over
+    null elements (Spark)."""
+    return _hof("exists", c, _lambda_node(f))
+
+
+def forall(c: Any, f: Callable) -> Column:
+    """True if every element satisfies the lambda."""
+    return _hof("forall", c, _lambda_node(f))
+
+
+def aggregate(
+    c: Any, initialValue: Any, merge: Callable, finish: Callable = None
+) -> Column:
+    """Fold a list cell: acc = merge(acc, x) over elements, then
+    optionally finish(acc) (pyspark F.aggregate)."""
+    init = (
+        initialValue
+        if isinstance(initialValue, Column)
+        else lit(initialValue)
+    )
+    args = [c, init, _lambda_node(merge)]
+    if finish is not None:
+        args.append(_lambda_node(finish))
+    return _hof("aggregate", *args)
+
+
+reduce = aggregate  # pyspark 3.4 alias
+
+
+def zip_with(left: Any, right: Any, f: Callable) -> Column:
+    """Element-wise combine two list cells; the shorter side pads
+    with null (Spark)."""
+    return _hof("zip_with", left, right, _lambda_node(f))
+
+
+def map_filter(c: Any, f: Callable) -> Column:
+    """Keep dict entries where f(key, value) is true."""
+    return _hof("map_filter", c, _lambda_node(f))
+
+
+def transform_keys(c: Any, f: Callable) -> Column:
+    """Rewrite dict keys via f(key, value); a null new key nulls the
+    map (Spark raises — this dialect's non-ANSI posture)."""
+    return _hof("transform_keys", c, _lambda_node(f))
+
+
+def transform_values(c: Any, f: Callable) -> Column:
+    """Rewrite dict values via f(key, value)."""
+    return _hof("transform_values", c, _lambda_node(f))
+
+
+def map_zip_with(m1: Any, m2: Any, f: Callable) -> Column:
+    """Merge two dict cells by key via f(key, v1, v2); missing keys
+    see null."""
+    return _hof("map_zip_with", m1, m2, _lambda_node(f))
+
+
+# -- general-purpose Python UDFs ----------------------------------------
+
+_udf_seq = itertools.count()
+
+
+def _register_callable_udf(fn, prefix, doc, single, multi):
+    """The plumbing of F.udf: register per-batch
+    implementations in the process-global catalog, return a Column-
+    producing call wrapper whose lifetime governs the entries."""
+    import weakref
+
+    from sparkdl_tpu_torch import udf as _catalog
+
+    base = f"{prefix}_{next(_udf_seq)}_{getattr(fn, '__name__', 'fn')}"
+    _catalog.register(base, single, doc)
+    multi_name = base + "__multi"
+    _catalog.register(multi_name, multi, doc)
+
+    def call(*cols: Any) -> Column:
+        if not cols:
+            raise TypeError(
+                f"UDF {getattr(fn, '__name__', 'fn')!r} needs at "
+                "least one Column argument"
+            )
+        ops = [
+            _operand(col(c) if isinstance(c, str) else c) for c in cols
+        ]
+        if len(ops) == 1:
+            node = _sql.Call(base, ops[0], False, [ops[0]])
+        else:
+            # pack args into one list cell; the __multi entry unpacks
+            # per row (nulls stay elements, as pyspark passes None
+            # into the Python function)
+            arr = _sql.Call("array", ops[0], False, ops)
+            node = _sql.Call(multi_name, arr, False, [arr])
+        # the expression holds the wrapper alive (inline idiom:
+        # df.select(F.udf(f)(c)) drops the wrapper immediately, but
+        # the Call node must keep resolving in the catalog)
+        node._udf_ref = call
+        return Column(node)
+
+    call.__name__ = getattr(fn, "__name__", "udf")
+    # the catalog entries live as long as the wrapper OR any
+    # expression built from it: a per-batch `F.udf(lambda ...)`
+    # pattern must not grow the process-global catalog without bound
+    weakref.finalize(call, _catalog.unregister, base)
+    weakref.finalize(call, _catalog.unregister, multi_name)
+    return call
+
+
+def udf(f: Callable[[Any], Any] = None, returnType: Any = None):
+    """Wrap a Python function as a Column-producing UDF (pyspark
+    ``F.udf``): ``plus_one = F.udf(lambda x: x + 1); df.select(
+    plus_one(F.col("v")))``. Works as a decorator too. The function is
+    registered in the process-global catalog and runs batched per
+    partition like every catalog UDF; cells pass through as-is
+    (``None`` included — guard in the function, as in vanilla Python
+    pyspark UDFs).
+
+    ``returnType`` is accepted for pyspark source compatibility and
+    ignored: this engine's columns are dynamically typed.
+
+    Multi-argument UDFs pack their inputs through the array builtin
+    (null arguments pass through as None, like pyspark), so
+    ``F.udf(lambda a, b: a + b)(df.x, df.y)`` works directly."""
+
+    def build(fn: Callable[..., Any]):
+        return _register_callable_udf(
+            fn,
+            prefix="__pyudf",
+            doc=f"F.udf({getattr(fn, '__name__', 'fn')})",
+            single=lambda cells: [fn(v) for v in cells],
+            multi=lambda cells: [fn(*c) for c in cells],
+        )
+
+    # @udf, @udf("string"), @udf(returnType=IntegerType()), udf(fn, T):
+    # any non-callable first argument is a return type (ignored — the
+    # engine's columns are dynamically typed), not the function
+    if f is None or not callable(f):
+        return build
+    return build(f)
+
+
+# -- the relational half: refused by name -----------------------------------
+
+_RELATIONAL = {
+    "count": "aggregates",
+    "countDistinct": "aggregates",
+    "sum": "aggregates",
+    "avg": "aggregates",
+    "mean": "aggregates",
+    "min": "aggregates",
+    "max": "aggregates",
+    "collect_list": "aggregates",
+    "collect_set": "aggregates",
+    "first": "aggregates",
+    "last": "aggregates",
+    "median": "aggregates",
+    "stddev": "aggregates",
+    "variance": "aggregates",
+    "stddev_samp": "aggregates",
+    "var_samp": "aggregates",
+    "stddev_pop": "aggregates",
+    "var_pop": "aggregates",
+    "skewness": "aggregates",
+    "kurtosis": "aggregates",
+    "sumDistinct": "aggregates",
+    "sum_distinct": "aggregates",
+    "approx_count_distinct": "aggregates",
+    "approxCountDistinct": "aggregates",
+    "percentile_approx": "aggregates",
+    "percentile": "aggregates",
+    "corr": "aggregates",
+    "covar_pop": "aggregates",
+    "covar_samp": "aggregates",
+    "bool_and": "aggregates",
+    "every": "aggregates",
+    "bool_or": "aggregates",
+    "count_if": "aggregates",
+    "any_value": "aggregates",
+    "mode": "aggregates",
+    "count_distinct": "aggregates",
+    "array_agg": "aggregates",
+    "row_number": "window functions",
+    "rank": "window functions",
+    "dense_rank": "window functions",
+    "percent_rank": "window functions",
+    "cume_dist": "window functions",
+    "ntile": "window functions",
+    "lag": "window functions",
+    "lead": "window functions",
+    "first_value": "window functions",
+    "last_value": "window functions",
+    "nth_value": "window functions",
+    "window": "window functions",
+    "explode": "generators",
+    "explode_outer": "generators",
+    "posexplode": "generators",
+    "posexplode_outer": "generators",
+    "stack": "generators",
+    "json_tuple": "generators",
+    "monotonically_increasing_id": "partition-seeded generators",
+    "rand": "partition-seeded generators",
+    "randn": "partition-seeded generators",
+    "spark_partition_id": "partition-seeded generators",
+    "input_file_name": "partition-seeded generators",
+    "broadcast": "joins",
+    "pandas_udf": "vectorized UDFs over pandas",
+}
+
+
+def __getattr__(name: str):
+    """``F.sum``, ``F.row_number``, ``F.explode``, ... exist and raise
+    UnsupportedSQL when called, naming what waits for ROADMAP Queue A
+    item 8."""
+    what = _RELATIONAL.get(name)
+    if what is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+    def refused(*_args, **_kwargs):
+        raise _sql.UnsupportedSQL(f"F.{name} ({what})")
+
+    refused.__name__ = name
+    return refused

@@ -6,8 +6,12 @@ params), subclass hooks ``_save_extra(path)`` / ``_load_extra(path, meta)``
 for what is not JSON (weights as ``.npz``, nested stages), and
 :func:`load`, which dispatches on the recorded class path, so
 ``sparkdl_tpu_torch.persistence.load(path)`` round-trips any stage of this
-package. Class paths resolve inside ``sparkdl_tpu_torch`` only: a stage
-saved by the JAX package is refused, not loaded. ``load(path, device)``
+package. A stage saved by the JAX package loads too: its
+``sparkdl_tpu.<module>.<Class>`` class paths, nested ones included, map by
+name to ``sparkdl_tpu_torch.<module>.<Class>`` (nothing of ``sparkdl_tpu``
+is imported), and each stage's ``_load_extra`` reads the JAX package's
+payloads. A JAX class with no counterpart here, and any other class
+path, is refused. ``load(path, device)``
 puts the tensors of a stage that holds any (a fitted model) on ``device``,
 ``cuda`` by default. Training-state checkpoints are the estimator's job
 (``torch.save`` in ``estimators/data_parallel_estimator.py``).
@@ -37,12 +41,39 @@ def _class_path(obj: Any) -> str:
     return f"{type(obj).__module__}.{type(obj).__name__}"
 
 
+_PORT = "sparkdl_tpu_torch"
+_JAX = "sparkdl_tpu"
+
+
+def _in_package(module: str, package: str) -> bool:
+    return module == package or module.startswith(package + ".")
+
+
 def _locate(class_path: str):
+    """The class a saved stage names: a port class as it is, a JAX class
+    as the port class of the same module path and name."""
     module, _, name = class_path.rpartition(".")
-    if module != "sparkdl_tpu_torch" and not module.startswith("sparkdl_tpu_torch."):
+    if _in_package(module, _JAX):
+        port_module = _PORT + module[len(_JAX):]
+        try:
+            cls = getattr(importlib.import_module(port_module), name, None)
+        except ModuleNotFoundError as e:
+            # only the port module itself being absent is a missing
+            # counterpart; a module that fails to import raises as it is
+            if e.name is None or not _in_package(port_module, e.name):
+                raise
+            cls = None
+        if cls is None:
+            raise ValueError(
+                f"Refusing to load class {class_path!r}: the JAX package's "
+                f"{name} has no counterpart {port_module}.{name} in the port"
+            )
+        return cls
+    if not _in_package(module, _PORT):
         raise ValueError(
             f"Refusing to load class {class_path!r}: persistence only "
-            f"instantiates sparkdl_tpu_torch classes"
+            f"instantiates sparkdl_tpu_torch classes and the JAX package's "
+            f"sparkdl_tpu classes"
         )
     return getattr(importlib.import_module(module), name)
 

@@ -20,6 +20,9 @@ paths:
   BMP, ...), or every file where the bridge is off or not built, is
   decoded by PIL (``image.pil_decodes`` counts them).
 
+A stage saved by the JAX package embeds its ``model=`` as a ``.keras``
+archive, which loads through the port's own reader (``graph/keras_file.py``).
+
 A None, missing or undecodable URI gives a null row. ``device`` is a
 keyword of the constructor: ``cuda`` by default (raising when there is
 none), ``"cpu"`` for the CPU.
@@ -65,6 +68,8 @@ from sparkdl_tpu_torch.utils.metrics import metrics
 #: the files a saved stage keeps an in-memory ``model=`` in
 MODEL_CONFIG_FILE = "keras_config.json"
 MODEL_WEIGHTS_FILE = "keras_weights.npz"
+#: the embedded model of a stage saved by the JAX package (``model.save``)
+JAX_MODEL_FILE = "model.keras"
 
 
 def _read_blob(uri: Optional[str]) -> Optional[bytes]:
@@ -197,6 +202,12 @@ class KerasImageFileTransformer(
         self.__dict__.pop("_mf_cache", None)
         self.__dict__.pop("_device_fn_cache", None)
         if not (meta.get("extra") or {}).get("embeddedModel"):
+            return
+        if os.path.exists(os.path.join(path, JAX_MODEL_FILE)):
+            # saved by the JAX package: keras's own model.save archive
+            from sparkdl_tpu_torch.graph.keras_file import read_keras_file
+
+            self._model_obj = read_keras_file(os.path.join(path, JAX_MODEL_FILE))
             return
         with open(os.path.join(path, MODEL_CONFIG_FILE)) as f:
             config = json.load(f)

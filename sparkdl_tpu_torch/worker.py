@@ -22,7 +22,7 @@ upstream system: one worker process per GPU, gang-started with a rank.
 Job spec (JSON file), the JAX package's::
 
     {
-      "stage_path":    "<dir written by sparkdl_tpu_torch.persistence.save_stage>",
+      "stage_path":    "<dir written by save_stage of either package>",
       "input_parquet": "<input dataframe>",
       "num_partitions": 16,
       "output_dir":    "<dir for part-*.arrow>",
@@ -35,10 +35,9 @@ Param (``TextEmbedder``) cannot persist its model, in either package, so
 the worker builds it from code importable on its host, as a train job
 builds its model, with ``device=`` the worker's device (for example
 ``sparkdl_tpu_torch.models.registry:build_model_function`` over a
-``weights_file``). The JAX worker does not read it, and a stage saved by
-the JAX package (``sparkdl_tpu.*`` class paths) does not load here
-(``persistence._locate``), so one job file does not yet run under both
-workers (ROADMAP Queue A item 12).
+``weights_file``). The JAX worker does not read it. A stage saved by the
+JAX package loads here (``persistence._locate`` maps its class paths), so
+one job file without ``model`` runs under both workers.
 
 Resilience, as in the JAX package: ``_STARTED.<rank>`` and
 ``_SUCCESS.<rank>`` JSON markers (``resumed`` and ``generation`` in the

@@ -20,6 +20,7 @@ persistence, against the JAX package's, on the CPU.
 """
 
 import functools
+import json
 
 import jax
 import jax.numpy as jnp
@@ -189,7 +190,17 @@ def test_stage_save_and_load_round_trip(tmp_path):
         DataParallelEstimator.load(str(tmp_path / "lr"))
     with pytest.raises(FileExistsError):
         lr.save(str(tmp_path / "lr"))
+    # a JAX class path maps to the port's class of the same name; any
+    # other package, and a JAX class the port lacks, is refused by name
     meta = persistence.read_metadata(str(tmp_path / "lr"))
     meta["class"] = "sparkdl_tpu.estimators.LogisticRegressionModel"
+    assert persistence._locate(meta["class"]) is LogisticRegressionModel
+    with open(str(tmp_path / "lr" / "metadata.json"), "w") as f:
+        json.dump(meta, f)
+    jax_named = persistence.load(str(tmp_path / "lr"), device="cpu")
+    assert type(jax_named) is LogisticRegressionModel
+    np.testing.assert_array_equal(jax_named.w.numpy(), np.ones((3, 2), np.float32))
     with pytest.raises(ValueError, match="only instantiates sparkdl_tpu_torch"):
-        persistence._locate(meta["class"])
+        persistence._locate("sklearn.linear_model.LogisticRegression")
+    with pytest.raises(ValueError, match="sparkdl_tpu.estimators.NoSuchModel"):
+        persistence._locate("sparkdl_tpu.estimators.NoSuchModel")

@@ -8,11 +8,14 @@ and a None URI) in two partitions, at relative 1e-5.
   the bridge on and off, and the count of PIL decodes;
 - the custom ``imageLoader`` path;
 - persistence: a ``model=`` stage and a ``modelFile=`` stage round-trip
-  through the port's stage directory, and a JAX stage is refused;
+  through the port's stage directory, a stage saved by the JAX package
+  loads and scores as the JAX stage does, and a foreign class is refused;
 - the device fn is built once per configuration; the default device is
   cuda and the transform raises without one; the fused path refuses a
   model without (H, W, 3) geometry.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -26,6 +29,7 @@ from sparkdl_tpu_torch import persistence
 from sparkdl_tpu_torch.dataframe import DataFrame
 from sparkdl_tpu_torch.transformers import KerasImageFileTransformer
 from sparkdl_tpu_torch.utils.metrics import metrics
+from jax_bridge import ensure_built as ensure_jax_bridge
 from test_torch_keras_graph import randomize
 
 L = keras.layers
@@ -96,12 +100,15 @@ def _both(uris, monkeypatch, bridge, **kw):
 @pytest.mark.parametrize("bridge", ["on", "off"])
 @pytest.mark.parametrize("preprocessing", ["tf", "caffe", "torch", "none"])
 def test_fused_path_against_the_jax_package(model, uris, monkeypatch, bridge, preprocessing):
+    # the JAX bridge built under a lock: a build that lost a race between
+    # test processes must not turn the expectation off
+    jax_bridge_on = ensure_jax_bridge(monkeypatch)
     ours, theirs = _both(uris, monkeypatch, bridge, model=model, batchSize=2, preprocessing=preprocessing)
     assert [r is None for r in ours] == [False] * N_DECODABLE + [True] * 3
     _assert_rows_close(ours, theirs)
     # with the bridge only the GIF goes through PIL (where the JAX package's
     # bridge builds, the port's must too: same source, same toolchain)
-    on = bridge == "on" and jax_native.available()
+    on = bridge == "on" and jax_bridge_on
     assert metrics.counter("image.pil_decodes") == (1 if on else N_DECODABLE)
 
 
@@ -154,9 +161,22 @@ def test_persistence_round_trip(model, uris, tmp_path, source):
         assert (a is None and b is None) or np.array_equal(a, b)
 
 
-def test_a_jax_stage_is_refused(model, tmp_path):
-    JaxKerasImageFileTransformer(inputCol="uri", outputCol="out", model=model).save(str(tmp_path / "jax"))
-    with pytest.raises(ValueError, match="Refusing to load class"):
+def test_a_jax_stage_loads_and_a_foreign_one_is_refused(model, uris, tmp_path):
+    jax_stage = JaxKerasImageFileTransformer(inputCol="uri", outputCol="out", model=model, batchSize=2,
+                                             preprocessing="caffe")
+    jax_stage.save(str(tmp_path / "jax"))
+    loaded = persistence.load(str(tmp_path / "jax"), device="cpu")
+    assert type(loaded) is KerasImageFileTransformer and loaded.uid == jax_stage.uid
+    assert loaded.getOrDefault("preprocessing") == "caffe"
+    ours = _rows(loaded.transform(DataFrame.fromColumns({"uri": uris}, numPartitions=2)))
+    theirs = _rows(jax_stage.transform(JaxDataFrame.fromColumns({"uri": uris}, numPartitions=2)))
+    assert [r is None for r in ours] == [False] * N_DECODABLE + [True] * 3
+    _assert_rows_close(ours, theirs)
+    meta = persistence.read_metadata(str(tmp_path / "jax"))
+    meta["class"] = "keras.Model"
+    with open(str(tmp_path / "jax" / "metadata.json"), "w") as f:
+        json.dump(meta, f)
+    with pytest.raises(ValueError, match="Refusing to load class 'keras.Model'"):
         persistence.load(str(tmp_path / "jax"), device="cpu")
 
 

@@ -14,12 +14,13 @@ from sparkdl_tpu.image import imageIO as jax_imageIO
 from sparkdl_tpu.runtime import native as jax_native
 from sparkdl_tpu_torch.image import imageIO
 from sparkdl_tpu_torch.runtime import native
+from jax_bridge import ensure_built as ensure_jax_bridge
 
 
 
 @pytest.fixture(autouse=True)
-def jax_bridge():
-    if not jax_native.available():
+def jax_bridge(monkeypatch):
+    if not ensure_jax_bridge(monkeypatch):
         pytest.skip("the JAX package's bridge is not built")
 
 

@@ -10,8 +10,10 @@ package's ``sql.py`` on the CPU.
   shown never to be touched (the JAX package's own proofs, with its
   counters), and a probe UDF shows that WHERE's metadata conjuncts and
   LIMIT run before any UDF scores a row.
-- Every construct outside the subset raises ValueError naming it and
-  ROADMAP Queue A item 8.
+- The row-expression constructs this subset once refused (builtins,
+  CASE, CAST, ``||``, UDF calls inside them) equal the JAX package's;
+  every relational construct raises ValueError naming it and ROADMAP
+  Queue A item 8.
 """
 
 import numpy as np
@@ -69,14 +71,24 @@ UNSUPPORTED = {
     "scalar subquery": "SELECT (SELECT 1) FROM t",
     "exists": "SELECT label FROM t WHERE EXISTS (SELECT label FROM t)",
     "lateral view": "SELECT label FROM t LATERAL VIEW explode(vec) e AS x",
+    "offset": "SELECT label FROM t LIMIT 2 OFFSET 1",
+    "having": "SELECT label FROM t HAVING n > 1",
+    "window function without over": "SELECT row_number() FROM t",
+    "generator": "SELECT explode(vec) FROM t",
+    "count distinct": "SELECT count(DISTINCT label) FROM t",
+}
+
+#: constructs this table once refused, which now run as the JAX package
+#: runs them (the row-expression half of the dialect)
+EXPRESSIONS = {
     "row builtin": "SELECT upper(label) FROM t",
     "builtin in where": "SELECT label FROM t WHERE length(label) > 1",
-    "multi-argument call": "SELECT sum_vec(vec, n) FROM t",
     "case": "SELECT CASE WHEN n > 0 THEN 1 END FROM t",
     "cast": "SELECT CAST(n AS double) FROM t",
     "concat": "SELECT label || 'x' FROM t",
-    "offset": "SELECT label FROM t LIMIT 2 OFFSET 1",
-    "having": "SELECT label FROM t HAVING n > 1",
+    "udf in case": "SELECT CASE WHEN n > 0 THEN sum_vec(vec) ELSE sum_vec(sum_vec(vec)) END AS s FROM t",
+    "udf in coalesce": "SELECT coalesce(sum_vec(vec), array(-1.0)) AS s, n FROM t WHERE n IS NOT NULL",
+    "udf over builtin": "SELECT sum_vec(transform(vec, x -> x * 2)) AS s FROM t WHERE label RLIKE '[12]$'",
 }
 
 
@@ -322,6 +334,18 @@ def test_context_tables_and_module_default():
         sqlmod.dropTempTable("torch_sql_view")
     with pytest.raises(KeyError):
         sqlmod.sql("SELECT a FROM torch_sql_view")
+
+
+@pytest.mark.parametrize("query", list(EXPRESSIONS.values()), ids=list(EXPRESSIONS))
+def test_expression_constructs_equal_the_jax_package(contexts, query, monkeypatch):
+    test_rows_equal_the_jax_package_in_both_arms(contexts, query, monkeypatch)
+
+
+def test_a_udf_takes_one_argument(contexts):
+    ours, ref = contexts
+    for ctx in (ours, ref):
+        with pytest.raises(ValueError, match="takes exactly one argument"):
+            ctx.sql("SELECT sum_vec(vec, n) FROM t").collect()
 
 
 @pytest.mark.parametrize("query", list(UNSUPPORTED.values()), ids=list(UNSUPPORTED))

@@ -132,6 +132,27 @@ def test_gathers_cross_packages_for_logistic_regression(lr_job):
     assert list(a["pred"]) == list(b["pred"])
 
 
+def test_one_job_file_runs_under_both_workers(lr_job):
+    """One job file over the stage saved by the JAX package: the port's
+    worker loads it (class paths mapped), and both workers publish the
+    same rows."""
+    path = str(lr_job["dir"] / "job_both.json")
+    with open(path, "w") as f:
+        json.dump({**lr_job["job"], "stage_path": str(lr_job["dir"] / "jax_stage")}, f)
+    with open(path) as f:
+        job = json.load(f)
+    ours = {**job, "output_dir": str(lr_job["dir"] / "out_both_port")}
+    ref = {**job, "output_dir": str(lr_job["dir"] / "out_both_jax")}
+    for r in (0, 1):
+        run_worker(ours, r, 2, distributed=False, device="cpu")
+        jax_run_worker(ref, r, 2, distributed=False)
+    _check(lr_job, ours["output_dir"])
+    a = gather_results(ours["output_dir"], 2).collectColumns()
+    b = jax_gather_results(ref["output_dir"], 2).collectColumns()
+    assert list(a["pred"]) == list(b["pred"])
+    np.testing.assert_array_equal(np.stack(a["features"]), np.stack(b["features"]))
+
+
 def test_bert_tiny_text_gang_matches_the_jax_transform(tmp_path):
     import jax.numpy as jnp
 
