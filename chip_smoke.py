@@ -503,13 +503,41 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     null one: rows equal to the bare UDF's (relative 1e-5),
     ``sql.udf.batches`` printed. No builtin that reads the clock, the
     time zone, the locale or the user runs here. About 40 s.
+24. the relational core of the SQL/DataFrame surface. (a)
+    ``TextEmbedder`` over ``get_model("bert-base")`` f32 (768 wide, 12
+    layers, seeded weights), maxLength 512, 256 of phase 4's texts with a
+    seeded ``topic`` (five values and NULLs) and ``source``; a score per
+    row computed from the embedding (the sum of its first 16 squares, in
+    float64); a ``topics`` table with a key the texts lack and without one
+    they have. Fifteen queries through ``spark.sql`` (over a CTE) and
+    through the DataFrame/Column API: GROUP BY topic with ``count(*)``,
+    ``avg``, ``min``, ``max``, ``stddev``, ``percentile_approx``,
+    ``count(DISTINCT source)`` and ``FILTER (WHERE score > (SELECT
+    avg(score) ...))``, HAVING and ORDER BY an aggregate; ROLLUP(topic,
+    source); INNER, LEFT and FULL OUTER JOIN to ``topics``; a self-join
+    under aliases; a scalar subquery, ``IN (SELECT ...)`` and EXISTS;
+    UNION ALL, UNION, INTERSECT and EXCEPT of a top and a bottom slice;
+    SELECT DISTINCT; LIMIT ... OFFSET. The two surfaces' rows equal, every
+    aggregate within 1e-6 relative of numpy over the collected
+    embeddings, join and set-operation row counts equal to numpy's,
+    exactly 12 flash launches per bert-base dispatch; host seconds per
+    query and surface, rows in and out. (b) Phase 13's MobileNetV2 UDF
+    (batches of up to 32) over 256 images and a null one: ``GROUP BY label``
+    with ``avg(element_at(udf(image), 1))``, the UDF's output joined to a
+    labels table, and an ``IN (SELECT ...)`` filtering on the UDF's
+    score: aggregates and scores within 1e-5 relative of the bare UDF
+    query's rows, ``sql.udf.batches`` beside the bare query's, every query
+    batched (at least ceil(rows / 32) batches, fewer than rows). About 20 s.
 
 The line before the last is the ``kernels`` JSON record (the f32 and the
 bf16 kernel at bert-base L=512, launches from each dtype's main-path run,
 ``launches_phase20``, phase 20(a)'s flood, and ``launches_phase22``,
 phase 22(a)'s loaded program (bf16) and 22(c)'s and 22(e)'s orbax models
-(f32), and ``launches_phase23``, phase 23(b)'s bert-base pass (f32)); the
-last line is ``{"ok": true, "device": {...}}``.
+(f32), ``launches_phase23``, phase 23(b)'s bert-base pass (f32), and
+``launches_phase24``, phase 24(a)'s (f32)); the last line is ``{"ok":
+true, "device": {...}}``. Phase 17's first check names each leak record
+(model, bytes) from an events log (``SPARKDL_OBS_JSONL``) armed before
+phase 11, which does not roll over as the ledger's ring does.
 """
 
 from __future__ import annotations
@@ -804,6 +832,15 @@ ORDER BY id
 """
 #: phase 6's images/s by (model, dtype), its shared-feeder arm
 IMAGE_RATES: dict = {}
+
+# phase 24: the relational core over bert-base scores and a model UDF
+R_TEXT_MODEL = "bert-base"
+R_TEXTS = 256
+R_MAX_LENGTH = 512
+R_NUMPY_REL = 1e-6
+R_UDF_IMAGES = 256
+R_UDF_BATCH = 32
+R_UDF_REL = 1e-5
 
 DISPATCH_CALLS = 2000
 DISPATCH_ROUNDS = 5
@@ -3225,11 +3262,13 @@ def _small_vocab_builder(size: str, vocab: int, offset: int = 2):
     return build
 
 
-def phase_control_plane(seed: int, device_name: str) -> None:
+def phase_control_plane(seed: int, device_name: str, leak_log: str = None) -> None:
     """Phase 17: the serving control plane on the card: (a) the
     utilization and memory ledgers under a flood, (b) KV churn and an OOM
     record, (c) the SLO engine, (d) the canary, (e) out-of-vocabulary ids,
-    then every byte back after the router closes."""
+    then every byte back after the router closes. ``leak_log``: the
+    events log armed before phase 11, which names the earlier phases'
+    leak records (the ledger's event ring rolls over in a whole run)."""
 
     from sparkdl_tpu_torch.serving import Router, ServingClient, ServingServer
     from sparkdl_tpu_torch.serving.__main__ import serving_env_defaults
@@ -3254,8 +3293,11 @@ def phase_control_plane(seed: int, device_name: str) -> None:
     # evicts included
     status0 = mem_ledger.memory_status() or {}
     leaks0 = status0.get("leak_events", 0)
+    named = ([(e["model"], e["leaked_bytes"], e["tolerance_bytes"]) for e in _events(leak_log, "mem_leak")]
+             if leak_log else "no events log armed")
     check(leaks0 == 0, f"control plane: {leaks0} leak records from the earlier phases' routers "
-                       f"({status0.get('leaked_bytes')} B in all): "
+                       f"({status0.get('leaked_bytes')} B in all); (model, bytes, tolerance) from the "
+                       f"events log: {named}; the ledger ring's tail: "
                        f"{[e for e in mem_ledger.get_ledger().events_tail(mem_ledger.mem_ring_capacity()) if e['op'] == 'leak']}")
     # the baseline: after a warm-up dispatch of each model (the launch
     # thread's cuBLAS workspace exists) and with nothing resident
@@ -5166,6 +5208,299 @@ def phase_jax_stages_expressions(seed: int, device_name: str, tmp: str, device="
     return launches
 
 
+def _relational_queries(sf, scored, topics):
+    """Phase 24(a)'s queries: name -> (SQL over the ``scored`` CTE, the same
+    computation on the Column surface)."""
+    mean = scored.agg(sf.avg("score").alias("m")).first()["m"]
+    pct = scored.agg(sf.percentile_approx("score", 0.4).alias("p40"),
+                     sf.percentile_approx("score", 0.6).alias("p60")).first()
+    top = scored.filter(sf.col("score") >= pct["p40"]).select("id")
+    bottom = scored.filter(sf.col("score") <= pct["p60"]).select("id")
+    hi = "SELECT id FROM scored WHERE score >= (SELECT percentile_approx(score, 0.4) FROM scored)"
+    lo = "SELECT id FROM scored WHERE score <= (SELECT percentile_approx(score, 0.6) FROM scored)"
+    has_t9 = topics.filter(sf.col("topic") == "t9").count() > 0
+    return {
+        "group": (
+            "SELECT topic, count(*) AS n, avg(score) AS mean, min(score) AS lo, max(score) AS hi, "
+            "stddev(score) AS sd, percentile_approx(score, 0.5) AS med, count(DISTINCT source) AS sources, "
+            "count(*) FILTER (WHERE score > (SELECT avg(score) FROM scored)) AS high "
+            "FROM scored GROUP BY topic HAVING count(*) > 10 ORDER BY mean DESC",
+            lambda: scored.groupBy("topic").agg(
+                sf.count("*").alias("n"), sf.avg("score").alias("mean"), sf.min("score").alias("lo"),
+                sf.max("score").alias("hi"), sf.stddev("score").alias("sd"),
+                sf.percentile_approx("score", 0.5).alias("med"), sf.countDistinct("source").alias("sources"),
+                sf.count(sf.when(sf.col("score") > mean, 1)).alias("high"),
+            ).filter(sf.col("n") > 10).orderBy(sf.col("mean").desc()),
+        ),
+        "rollup": (
+            "SELECT topic, source, count(*) AS n, avg(score) AS mean FROM scored GROUP BY ROLLUP(topic, source)",
+            lambda: scored.rollup("topic", "source").agg(sf.count("*").alias("n"), sf.avg("score").alias("mean")),
+        ),
+        "inner join": (
+            "SELECT s.id, s.topic, t.name FROM scored s JOIN topics t ON s.topic = t.topic",
+            lambda: scored.join(topics, "topic").select("id", "topic", "name"),
+        ),
+        "left join": (
+            "SELECT s.id, s.topic, t.name FROM scored s LEFT JOIN topics t ON s.topic = t.topic",
+            lambda: scored.join(topics, "topic", "left").select("id", "topic", "name"),
+        ),
+        "full join": (
+            "SELECT s.id, s.topic, t.name FROM scored s FULL OUTER JOIN topics t ON s.topic = t.topic",
+            lambda: scored.join(topics, "topic", "outer").select("id", "topic", "name"),
+        ),
+        "self join": (
+            "SELECT a.id AS i, b.id AS j FROM scored a JOIN scored b ON a.source = b.source WHERE a.id < b.id",
+            lambda: scored.alias("a").join(scored.alias("b"), "source")
+            .filter(sf.col("a.id") < sf.col("b.id")).select(sf.col("a.id").alias("i"), sf.col("b.id").alias("j")),
+        ),
+        "scalar subquery": (
+            "SELECT id, score FROM scored WHERE score > (SELECT avg(score) FROM scored) ORDER BY id",
+            lambda: scored.filter(sf.col("score") > mean).select("id", "score").orderBy("id"),
+        ),
+        "in subquery": (
+            "SELECT id FROM scored WHERE topic IN (SELECT topic FROM topics WHERE name <> 'two')",
+            lambda: scored.join(topics.filter(sf.col("name") != "two").select("topic"), "topic", "left_semi")
+            .select("id"),
+        ),
+        "exists": (
+            "SELECT count(*) AS n FROM scored WHERE EXISTS (SELECT topic FROM topics WHERE topic = 't9')",
+            lambda: (scored if has_t9 else scored.limit(0)).agg(sf.count("*").alias("n")),
+        ),
+        "union all": (f"{hi} UNION ALL {lo}", lambda: top.unionAll(bottom)),
+        "union": (f"{hi} UNION {lo}", lambda: top.union(bottom).distinct()),
+        "intersect": (f"{hi} INTERSECT {lo}", lambda: top.intersect(bottom)),
+        "except": (f"{hi} EXCEPT {lo}", lambda: top.subtract(bottom)),
+        "distinct": ("SELECT DISTINCT source, topic FROM scored", lambda: scored.select("source", "topic").distinct()),
+        "limit offset": (
+            "SELECT id, score FROM scored ORDER BY score DESC LIMIT 10 OFFSET 5",
+            lambda: scored.orderBy(sf.col("score").desc()).limit(15).offset(5).select("id", "score"),
+        ),
+    }
+
+
+def _discrete_percentile(values, p: float) -> float:
+    """``percentile_approx``'s element: the sorted values' ceil(p*n)-th."""
+    s = sorted(values)
+    return s[max(0, min(len(s) - 1, math.ceil(p * len(s)) - 1))]
+
+
+def _check_relational_rows(name: str, rows: list, ids, topics, sources, scores, dim: dict) -> float:
+    """Phase 24(a)'s rows against numpy over the collected embeddings' scores;
+    returns the worst relative error of an aggregate cell."""
+    n = len(ids)
+    mean = float(np.mean(scores))
+    worst = 0.0
+
+    def close(got, want, what):
+        nonlocal worst
+        rel = abs(got - want) / max(abs(want), np.finfo(np.float64).tiny)
+        worst = max(worst, rel)
+        check(rel <= R_NUMPY_REL, f"relational (24a) {name}: {what} = {got!r}, numpy {want!r}")
+
+    def count(want):
+        check(len(rows) == want, f"relational (24a) {name}: {len(rows)} rows, numpy {want}")
+
+    by_topic: dict = {}
+    for i in range(n):
+        by_topic.setdefault(topics[i], []).append(i)
+    if name == "group":
+        want = []
+        for t, idx in by_topic.items():
+            v = scores[idx]
+            if len(idx) > 10:
+                want.append((t, idx, v))
+        want.sort(key=lambda w: -float(np.mean(w[2])))
+        count(len(want))
+        for r, (t, idx, v) in zip(rows, want):
+            check(r["topic"] == t and r["n"] == len(idx), f"relational (24a) group: {r['topic']}/{r['n']}")
+            close(r["mean"], float(np.mean(v)), f"avg over {t}")
+            close(r["lo"], float(v.min()), f"min over {t}")
+            close(r["hi"], float(v.max()), f"max over {t}")
+            close(r["sd"], float(np.std(v, ddof=1)), f"stddev over {t}")
+            close(r["med"], float(_discrete_percentile(v, 0.5)), f"percentile_approx over {t}")
+            check(r["sources"] == len({sources[i] for i in idx}), f"relational (24a) group: sources of {t}")
+            check(r["high"] == int((v > mean).sum()), f"relational (24a) group: FILTER count of {t}")
+    elif name == "rollup":
+        pairs = {(topics[i], sources[i]) for i in range(n)}
+        count(len(pairs) + len(by_topic) + 1)
+        total = rows[-1]
+        check(total["topic"] is None and total["source"] is None and total["n"] == n,
+              f"relational (24a) rollup: the grand total row {total}")
+        close(total["mean"], mean, "the grand total's avg")
+    elif name == "inner join":
+        count(sum(1 for t in topics if t is not None and t in dim))
+    elif name == "left join":
+        count(n)
+    elif name == "full join":
+        count(n + sum(1 for t in dim if t not in by_topic))
+    elif name == "self join":
+        count(sum(len(v) * (len(v) - 1) // 2 for v in _group_sizes(sources)))
+    elif name == "scalar subquery":
+        count(int((scores > mean).sum()))
+        for r in rows:
+            close(r["score"], float(scores[r["id"]]), f"score of row {r['id']}")
+    elif name == "in subquery":
+        count(sum(1 for t in topics if t is not None and t in dim and dim[t] != "two"))
+    elif name == "exists":
+        check(rows == [{"n": n if "t9" in dim else 0}], f"relational (24a) exists: {rows}")
+    elif name in ("union all", "union", "intersect", "except"):
+        top = set(np.flatnonzero(scores >= _discrete_percentile(scores, 0.4)).tolist())
+        bottom = set(np.flatnonzero(scores <= _discrete_percentile(scores, 0.6)).tolist())
+        want = {"union all": len(top) + len(bottom), "union": len(top | bottom),
+                "intersect": len(top & bottom), "except": len(top - bottom)}[name]
+        count(want)
+    elif name == "distinct":
+        count(len({(sources[i], topics[i]) for i in range(n)}))
+    elif name == "limit offset":
+        order = np.argsort(-scores, kind="stable")[5:15]
+        check([r["id"] for r in rows] == [int(ids[i]) for i in order], "relational (24a) limit offset: ids")
+    return worst
+
+
+def _group_sizes(keys) -> list:
+    sizes: dict = {}
+    for k in keys:
+        sizes.setdefault(k, []).append(k)
+    return list(sizes.values())
+
+
+def phase_relational(seed: int, device_name: str, device="cuda") -> int:
+    """Phase 24: the relational core over bert-base scores and inside a
+    model UDF (``device="cpu"``: a rehearsal, with the sizes cut by the
+    caller). Returns 24(a)'s flash launches."""
+    from sparkdl_tpu_torch import functions as sf
+    from sparkdl_tpu_torch.sql import dropTempTable
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    card = f"{device_name} ({_smi()})" if on_card else device_name
+    spark = SparkSession.builder.appName("chip_smoke").getOrCreate()
+    # (a) relational analytics over bert-base scores
+    spec = get_model(R_TEXT_MODEL)
+    layers = BERT_CONFIGS[spec.size].num_layers
+    mf = spec.model_function(dtype=torch.float32, seed=seed, device=device)
+    texts = _texts(seed, R_TEXTS)
+    rng = np.random.default_rng(seed + 24)
+    topics = [None if rng.random() < 0.08 else f"t{int(rng.integers(0, 5))}" for _ in texts]
+    sources = [("news", "wiki", "forum", "mail", "chat", "code")[int(rng.integers(0, 6))] for _ in texts]
+    table = DataFrame.fromColumns({"id": list(range(len(texts))), "text": texts, "topic": topics,
+                                   "source": sources}, numPartitions=4)
+    dim = {"t0": "zero", "t1": "one", "t2": "two", "t3": "three", "t9": "nine"}  # no t4; t9 has no text
+    topic_df = DataFrame.fromColumns({"topic": list(dim), "name": list(dim.values())}, numPartitions=2)
+    embed = TextEmbedder(inputCol="text", outputCol="emb", modelFunction=mf, maxLength=R_MAX_LENGTH, batchSize=32)
+    embed.transform(table.limit(32)).collect()  # cuBLAS and allocator warm-up: not counted
+    sync()
+    metrics.reset()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    bert = embed.transform(table).cache()
+    sync()
+    embed_s = time.perf_counter() - t0
+    launches, batches = flash_attention.launches, _dispatches()
+    check(batches > 0 and launches == (layers * batches if on_card else 0),
+          f"relational (24a): {launches} flash launches for {batches} bert-base dispatches "
+          f"(expected {layers} per dispatch)")
+    base = bert.collectColumns()
+    width = BERT_CONFIGS[spec.size].hidden_size
+    check(all(e is not None and e.shape == (width,) and bool(np.isfinite(e).all()) for e in base["emb"]),
+          f"relational (24a): a row without a finite {width}-d embedding")
+    # the score in float64, in the SQL's order: sum of the first 16 squares
+    scores = np.array([sum(float(x) * float(x) for x in e[:16]) for e in base["emb"]])
+    bert.createOrReplaceTempView("bert24")
+    topic_df.createOrReplaceTempView("topics")
+    scored = bert.select("id", "topic", "source", sf.aggregate(
+        sf.slice("emb", 1, 16), sf.lit(0.0).cast("double"),
+        lambda a, x: a + x.cast("double") * x.cast("double")).alias("score"))
+    cte = ("WITH scored AS (SELECT id, topic, source, aggregate(slice(emb, 1, 16), CAST(0 AS DOUBLE), "
+           "(a, x) -> a + CAST(x AS DOUBLE) * CAST(x AS DOUBLE)) AS score FROM bert24) ")
+    worst, lines = 0.0, []
+    for name, (text, build) in _relational_queries(sf, scored, topic_df).items():
+        t0 = time.perf_counter()
+        sql_rows = [dict(r) for r in spark.sql(cte + text).collect()]
+        sql_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        col_rows = [dict(r) for r in build().collect()]
+        col_s = time.perf_counter() - t0
+        check(sql_rows == col_rows, f"relational (24a) {name}: the SQL and Column surfaces' rows differ")
+        worst = max(worst, _check_relational_rows(name, sql_rows, base["id"], base["topic"], base["source"],
+                                                  scores, dim))
+        lines.append(f"{name} {len(sql_rows)} rows (sql {sql_s:.3f} s, columns {col_s:.3f} s)")
+    dropTempTable("bert24")
+    dropTempTable("topics")
+    print(f"relational (24a) on {card}: TextEmbedder {R_TEXT_MODEL} f32 over {len(texts)} texts in "
+          f"{embed_s:.3f} s = {len(texts) / embed_s:.1f} rows/s, {batches} dispatches, {launches} flash launches "
+          f"({layers} per dispatch); {len(texts)} scored rows in, {len(dim)} topics; per query rows out and host "
+          f"seconds per surface: {'; '.join(lines)}; both surfaces equal, worst aggregate vs numpy relative "
+          f"{worst:.2e} (limit {R_NUMPY_REL})")
+    del mf, bert, scored
+    shutdown_feeders()
+    # (b) the config[2] UDF inside relational queries
+    mspec = get_image_model(SQL_MODEL)
+    ustructs, _ = _colour_structs(seed + 24, R_UDF_IMAGES, mspec.height)
+    ustructs.append(None)
+    labels = [("a", "b", "c")[i % 3] for i in range(len(ustructs))]
+    DataFrame.fromColumns({"id": list(range(len(ustructs))), "image": ustructs, "label": labels},
+                          numPartitions=4).createOrReplaceTempView("images24")
+    DataFrame.fromColumns({"label": ["a", "b", "z"], "name": ["ay", "bee", "zed"]}).createOrReplaceTempView(
+        "labels24")
+    udf_catalog.registerKerasImageUDF("mnv2_24", SQL_MODEL, batch_size=R_UDF_BATCH, device=device)
+    try:
+        queries = {
+            "bare": "SELECT id, label, mnv2_24(image) AS p FROM images24",
+            "group": "SELECT label, count(*) AS n, avg(element_at(mnv2_24(image), 1)) AS a FROM images24 "
+                     "GROUP BY label",
+            "join": "SELECT s.id, s.p, l.name FROM (SELECT id, label, element_at(mnv2_24(image), 1) AS p "
+                    "FROM images24) s JOIN labels24 l ON s.label = l.label",
+            "in": "SELECT id FROM images24 WHERE id IN (SELECT id FROM images24 "
+                  "WHERE element_at(mnv2_24(image), 1) > {cut})",
+        }
+        spark.sql(queries["bare"]).limit(8).collect()  # warm-up: not counted
+        got, counts = {}, {}
+        for name, q in queries.items():
+            if name == "in":
+                q = q.format(cut=repr(float(np.median(first))))
+            metrics.reset()
+            t0 = time.perf_counter()
+            got[name] = [dict(r) for r in spark.sql(q).collect()]
+            sync()
+            counts[name] = (int(metrics.counter("sql.udf.batches")), int(metrics.counter("sql.udf.batch_rows")),
+                            time.perf_counter() - t0)
+            if name == "bare":
+                bare = got["bare"]
+                check(bare[-1]["p"] is None and all(r["p"] is not None and np.isfinite(r["p"]).all()
+                                                   for r in bare[:-1]), "relational (24b): the bare UDF's rows")
+                first = np.array([float(r["p"][0]) for r in bare[:-1]])
+    finally:
+        udf_catalog.unregister("mnv2_24")
+        dropTempTable("images24")
+        dropTempTable("labels24")
+    for name, (b, rows_in, _s) in counts.items():
+        check(b > 0 and b >= math.ceil(rows_in / R_UDF_BATCH) and b < rows_in,
+              f"relational (24b) {name}: {b} UDF batches for {rows_in} rows (batches of up to {R_UDF_BATCH})")
+    worst = 0.0
+    for r in got["group"]:
+        idx = [i for i, lab in enumerate(labels[:-1]) if lab == r["label"]]
+        check(r["n"] == len(idx) + (labels[-1] == r["label"]), f"relational (24b) group: count of {r['label']}")
+        want = float(np.mean(first[idx]))
+        worst = max(worst, abs(r["a"] - want) / abs(want))
+    check(worst <= R_UDF_REL, f"relational (24b) group: avg off the bare UDF's rows by {worst:.3e}")
+    joined = got["join"]
+    want_ids = [i for i, lab in enumerate(labels) if lab in ("a", "b")]
+    check([r["id"] for r in joined] == want_ids, "relational (24b) join: ids")
+    jerr = max(abs(r["p"] - first[r["id"]]) / max(abs(first[r["id"]]), 1e-30) for r in joined if r["p"] is not None)
+    check(jerr <= R_UDF_REL, f"relational (24b) join: UDF scores off the bare UDF's by {jerr:.3e}")
+    cut = float(np.median(first))
+    check([r["id"] for r in got["in"]] == [int(i) for i in np.flatnonzero(first > cut)],
+          "relational (24b) in: ids")
+    print(f"relational (24b) on {card}: {SQL_MODEL} UDF over {R_UDF_IMAGES} images and a null one, batches of up "
+          f"to {R_UDF_BATCH}; GROUP BY label avg within {worst:.2e} of the bare UDF's rows (limit {R_UDF_REL}), "
+          f"join {len(joined)} rows within {jerr:.2e}, IN subquery {len(got['in'])} ids; sql.udf.batches / "
+          f"batch_rows / host s: " + ", ".join(f"{k} {b} / {n} / {s:.3f}" for k, (b, n, s) in counts.items()))
+    shutdown_feeders()
+    return launches
+
+
 def _flat_tree(tree, prefix=()):
     for key, sub in tree.items():
         if isinstance(sub, dict):
@@ -5211,6 +5546,10 @@ def main(argv=None) -> int:
             done(f"phase 10 {model}")
         phase_predictor(PREDICTOR_MODEL, args.seed, tmp)
     done("phase 10")
+    # every leak record from phase 11 on lands in an events log that does
+    # not roll over; phase 17 names them from it (and unsets the variable)
+    leak_log = os.path.join(tempfile.mkdtemp(prefix="sparkdl_leaks_"), "events.jsonl")
+    os.environ["SPARKDL_OBS_JSONL"] = leak_log
     phase11 = phase_serving(args.seed, device_name)
     done("phase 11")
     with tempfile.TemporaryDirectory() as tmp:
@@ -5232,7 +5571,7 @@ def main(argv=None) -> int:
     drops_dir = tempfile.mkdtemp(prefix="sparkdl_drops_")
     os.environ["SPARKDL_OBS_DUMP_DIR"] = dump_dir
     try:
-        phase_control_plane(args.seed, device_name)
+        phase_control_plane(args.seed, device_name, leak_log)
     finally:
         os.environ.pop("SPARKDL_OBS_DUMP_DIR")
     done("phase 17")
@@ -5253,6 +5592,10 @@ def main(argv=None) -> int:
     done("phase 23")
     records[torch.float32]["launches_phase23"] = phase23
     records[torch.bfloat16]["launches_phase23"] = 0
+    phase24 = phase_relational(args.seed, device_name)
+    done("phase 24")
+    records[torch.float32]["launches_phase24"] = phase24
+    records[torch.bfloat16]["launches_phase24"] = 0
     records[torch.bfloat16]["launches_phase20"] = 0
     for dtype, n in phase22.items():
         records[dtype]["launches_phase22"] = n
@@ -5264,6 +5607,7 @@ def main(argv=None) -> int:
     print(f"flash launches in phase 22: bf16 {phase22[torch.bfloat16]} (22a's loaded program, in its process), "
           f"f32 {phase22[torch.float32]} (22c's and 22e's orbax models)")
     print(f"flash launches in phase 23(b) (bert-base f32 under the expressions): {phase23}")
+    print(f"flash launches in phase 24(a) (bert-base f32 under the relational queries): {phase24}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[torch.float32], records[torch.bfloat16]]}))
     print(json.dumps({

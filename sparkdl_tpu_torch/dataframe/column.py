@@ -2,7 +2,7 @@
 * 2).alias("d")``.
 
 The port's copy of the JAX package's ``dataframe/column.py``, its
-row-expression half. A Column wraps the SQL layer's expression nodes
+row-expression and aggregate half. A Column wraps the SQL layer's expression nodes
 (``sparkdl_tpu_torch.sql``'s Col/Lit/Arith/Call/Case/Predicate: one
 representation and one evaluator for both surfaces) and compiles down to
 the row-callables the DataFrame takes, so ``df.filter(F.col("x") > 3)``
@@ -17,6 +17,8 @@ Semantics follow Spark:
   pyspark, because they cannot be overloaded soundly);
 - arithmetic propagates null; ``/ 0`` and ``% 0`` yield null;
 - ``withColumn`` of a condition produces a True/False/None column.
+- an aggregate Column (``F.sum("v")``) works only inside
+  ``groupBy(...).agg(...)`` / ``df.agg(...)``; row-wise positions refuse it.
 
 Columns are frame-agnostic expression trees: names resolve when the
 expression meets a DataFrame, exactly like SQL text. ``Column.over``
@@ -163,8 +165,23 @@ class Column:
 
     # -- evaluation bridges (what DataFrame consumes) -------------------
 
+    def _reject_aggregates(self) -> None:
+        expr = self._expr
+        has_agg = (
+            _sql._pred_contains_aggregate(expr)
+            if self._is_pred()
+            else _sql._contains_aggregate(expr)
+        )
+        if has_agg:
+            raise TypeError(
+                f"Aggregate Column {self._output_name()!r} only works "
+                "in groupBy().agg(...) / df.agg(...), not in row-wise "
+                "positions (select/withColumn/filter)"
+            )
+
     def _row_fn(self) -> Callable[[Any], Any]:
         """row -> value; conditions produce True/False/None cells."""
+        self._reject_aggregates()
         if self._has_catalog_call():
             raise TypeError(
                 f"Column {self._output_name()!r} calls a UDF, which "
@@ -178,6 +195,7 @@ class Column:
 
     def _filter_fn(self) -> Callable[[Any], bool]:
         """row -> keep?; three-valued collapse (only True keeps)."""
+        self._reject_aggregates()
         if self._has_catalog_call():
             raise TypeError(
                 "A UDF call cannot evaluate row-wise inside filter; "

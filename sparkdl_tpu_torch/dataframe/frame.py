@@ -1,7 +1,9 @@
 """A minimal partitioned DataFrame.
 
 The part of the JAX package's DataFrame that the text, image, training,
-SQL and model-selection slices drive: a frame is a list of partitions
+SQL and model-selection slices drive, with its relational methods
+(grouping and the streaming aggregate engine, joins, set operations,
+``distinct``, ``offset``): a frame is a list of partitions
 (each a ``{column: list}`` dict) plus a lazy plan of partition-wise ops.
 Actions run the plan over the partitions through the default executor
 (``runtime/executor.py``): several at once, results in partition order,
@@ -24,6 +26,7 @@ package's ``TensorColumn`` is; indexing it gives row views.
 from __future__ import annotations
 
 import copy
+import math
 from collections.abc import Mapping
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -150,6 +153,42 @@ def _take(values: list, indices: Sequence[int]) -> list:
     return [values[i] for i in indices]
 
 
+def _guard_collect(df: "DataFrame", action: str) -> None:
+    """Fail fast before a relational action that collects to the host
+    (join, set operation, distinct) reads a source frame of more rows
+    than ``SPARKDL_DRIVER_COLLECT_MAX_ROWS`` (0: no guard). A planned
+    frame passes: its post-plan size is unknowable from metadata."""
+    from sparkdl_tpu_torch.runtime import knobs
+
+    limit = knobs.get_int("SPARKDL_DRIVER_COLLECT_MAX_ROWS")
+    if not limit or df._ops:
+        return
+    rows = sum(df.partitionRowCounts())
+    if rows > limit:
+        raise ValueError(
+            f"{action} collects to the host and this frame has "
+            f"{rows:,} source rows "
+            f"(> SPARKDL_DRIVER_COLLECT_MAX_ROWS={limit:,}). At this scale "
+            "use the streaming surfaces instead: filter/select/withColumn "
+            "+ iterPartitions/writeParquet stay bounded, and groupBy/SQL "
+            "aggregation streams partition-wise. Set "
+            "SPARKDL_DRIVER_COLLECT_MAX_ROWS=0 to disable this guard."
+        )
+
+
+def _cell_key(v):
+    """Hashable key for an arbitrary cell value: tensors hash by
+    shape/dtype/bytes, image structs and lists recursively. Shared by
+    distinct() and groupBy() so tensor/struct key columns work in both."""
+    if isinstance(v, np.ndarray):
+        return (v.shape, v.dtype.str, v.tobytes())
+    if isinstance(v, dict):  # image structs and friends
+        return tuple((k, _cell_key(v[k])) for k in sorted(v))
+    if isinstance(v, (list, tuple)):
+        return tuple(_cell_key(x) for x in v)
+    return v
+
+
 def _run_plan(ops, columns: List[str], part: Partition) -> Partition:
     for op in ops:
         part = op(part)
@@ -176,6 +215,23 @@ class DataFrame:
         self._source: List[Partition] = list(partitions)
         self._columns: List[str] = list(columns)
         self._ops: List[Callable[[Partition], Partition]] = list(ops or [])
+
+    # correlation name from .alias(); read only by the join paths, and
+    # deliberately NOT propagated through transformations — alias right
+    # before joining, like the idiom it exists for
+    _alias_name: Optional[str] = None
+
+    def alias(self, name: str) -> "DataFrame":
+        """Attach a correlation name for joins (pyspark ``alias``):
+        ``df.alias("x").join(df.alias("y"), on="k")``. On a
+        name-colliding join of two aliased frames, colliding non-key
+        columns surface qualified as ``<alias>.<col>``, the SQL layer's
+        self-join spelling."""
+        if not name or not isinstance(name, str):
+            raise ValueError(f"alias needs a non-empty name, got {name!r}")
+        out = DataFrame(self._source, self._columns, list(self._ops))
+        out._alias_name = name
+        return out
 
     @staticmethod
     def fromColumns(
@@ -824,6 +880,515 @@ class DataFrame:
         right = [{c: p[c] for c in self._columns} for p in other._execute()]
         return DataFrame(left + right, self._columns)
 
+    def unionAll(self, other: "DataFrame") -> "DataFrame":
+        """Alias of :meth:`union` (pyspark keeps both; neither dedups)."""
+        return self.union(other)
+
+    def unionByName(
+        self, other: "DataFrame", allowMissingColumns: bool = False
+    ) -> "DataFrame":
+        """Union matching columns by name (Spark ``unionByName``); with
+        ``allowMissingColumns`` either side's absent columns fill with
+        nulls instead of erroring."""
+        mine, theirs = set(self._columns), set(other._columns)
+        if mine != theirs and not allowMissingColumns:
+            raise ValueError(
+                f"unionByName requires the same column names: "
+                f"{sorted(mine ^ theirs)} differ (pass "
+                "allowMissingColumns=True to null-fill)"
+            )
+        all_cols = list(self._columns) + [c for c in other._columns if c not in mine]
+
+        def widen(df: "DataFrame") -> "DataFrame":
+            for c in all_cols:
+                if c not in df.columns:
+                    df = df.withColumn(c, lambda r: None)
+            return df.select(*all_cols)
+
+        return widen(self).union(widen(other))
+
+    def intersect(self, other: "DataFrame") -> "DataFrame":
+        """Distinct rows present in both frames (Spark ``intersect``)."""
+        return self._set_op(other, keep_present=True)
+
+    def subtract(self, other: "DataFrame") -> "DataFrame":
+        """Distinct rows of this frame not in ``other`` (Spark
+        ``subtract`` / SQL EXCEPT)."""
+        return self._set_op(other, keep_present=False)
+
+    def exceptAll(self, other: "DataFrame") -> "DataFrame":
+        """Multiset difference (Spark ``exceptAll``): each left row
+        survives max(left_count - right_count, 0) times, in left order."""
+        return self._multiset_op(other, keep_matched=False)
+
+    def intersectAll(self, other: "DataFrame") -> "DataFrame":
+        """Multiset intersection (Spark ``intersectAll``): each row
+        survives min(left_count, right_count) times."""
+        return self._multiset_op(other, keep_matched=True)
+
+    def _set_op_prologue(self, other: "DataFrame", what: str):
+        """Shared validation + collection for the set/multiset ops:
+        returns (cols, mine, n_mine, theirs, n_theirs)."""
+        if set(self._columns) != set(other._columns):
+            raise ValueError(
+                f"set operation requires matching columns: "
+                f"{self._columns} vs {other._columns}"
+            )
+        _guard_collect(self, what)
+        _guard_collect(other, what)
+        cols = self._columns
+        mine = self.collectColumns()
+        theirs = other.collectColumns()
+        n_mine = len(mine[cols[0]]) if cols else 0
+        n_theirs = len(theirs[cols[0]]) if cols else 0
+        return cols, mine, n_mine, theirs, n_theirs
+
+    def _multiset_op(self, other: "DataFrame", keep_matched: bool) -> "DataFrame":
+        from collections import Counter
+
+        cols, mine, n, theirs, n_other = self._set_op_prologue(other, "exceptAll/intersectAll")
+        budget = Counter(tuple(_cell_key(theirs[c][i]) for c in cols) for i in range(n_other))
+        keep: List[int] = []
+        for i in range(n):
+            k = tuple(_cell_key(mine[c][i]) for c in cols)
+            matched = budget[k] > 0
+            if matched:
+                budget[k] -= 1
+            if matched == keep_matched:
+                keep.append(i)
+        return DataFrame.fromColumns(
+            {c: _take(mine[c], keep) for c in cols}, numPartitions=max(1, self.numPartitions)
+        )
+
+    def _set_op(self, other: "DataFrame", keep_present: bool) -> "DataFrame":
+        cols, mine, n, theirs, n_other = self._set_op_prologue(other, "intersect/subtract")
+        other_keys = {tuple(_cell_key(theirs[c][i]) for c in cols) for i in range(n_other)}
+        seen = set()
+        keep: List[int] = []
+        for i in range(n):
+            k = tuple(_cell_key(mine[c][i]) for c in cols)
+            if k in seen:
+                continue
+            seen.add(k)
+            if (k in other_keys) == keep_present:
+                keep.append(i)
+        return DataFrame.fromColumns(
+            {c: _take(mine[c], keep) for c in cols}, numPartitions=max(1, self.numPartitions)
+        )
+
+    def distinct(self) -> "DataFrame":
+        """Deduplicate rows, first occurrence wins (tensor cells compare
+        by shape, dtype and bytes)."""
+        return self._drop_duplicates(self._columns, "distinct")
+
+    def _drop_duplicates(self, key_cols, action: str) -> "DataFrame":
+        _guard_collect(self, action)
+        merged = self.collectColumns()
+        cols = self._columns
+        n = len(merged[cols[0]]) if cols else 0
+        seen = set()
+        keep: List[int] = []
+        for i in range(n):
+            k = tuple(_cell_key(merged[c][i]) for c in key_cols)
+            if k not in seen:
+                seen.add(k)
+                keep.append(i)
+        return DataFrame.fromColumns(
+            {c: _take(merged[c], keep) for c in cols}, numPartitions=max(1, self.numPartitions)
+        )
+
+    def dropDuplicates(self, subset: Optional[List[str]] = None) -> "DataFrame":
+        """Deduplicate rows, optionally keying on a column subset; first
+        occurrence wins (Spark ``dropDuplicates``)."""
+        if subset is None:
+            return self.distinct()
+        for c in subset:
+            if c not in self._columns:
+                raise KeyError(f"Unknown column {c!r} in dropDuplicates")
+        return self._drop_duplicates(list(subset), "dropDuplicates")
+
+    drop_duplicates = dropDuplicates  # pyspark offers both spellings
+
+    def offset(self, n: int) -> "DataFrame":
+        """Skip the first ``n`` rows (pyspark 3.4 ``offset``), streaming
+        partitions; the partitions that remain are the new frame's."""
+        if n < 0:
+            raise ValueError(f"offset must be non-negative, got {n}")
+        if n == 0:
+            return self
+        out_parts: List[Partition] = []
+        remaining = n
+        for part in self.iterPartitions():
+            rows = _part_num_rows(part)
+            if remaining >= rows:
+                remaining -= rows
+                continue
+            if remaining:
+                part = {c: _take(part[c], list(range(remaining, rows))) for c in part}
+                remaining = 0
+            out_parts.append(part)
+        if not out_parts:
+            return DataFrame([], self._columns)
+        return DataFrame(out_parts, self._columns)
+
+    # -- grouping ------------------------------------------------------------------
+
+    def _grouping_keys(self, cols, what: str):
+        """Resolve groupBy/rollup/cube keys: names stay names; expression
+        Columns (``F.window(...)``, ``F.col("v") % 2``) materialize under
+        their output name first (Spark groups by the expression)."""
+        from sparkdl_tpu_torch.dataframe.column import Column
+
+        df = self
+        names: List[str] = []
+        for c in cols:
+            if isinstance(c, str):
+                if c not in df._columns:
+                    raise KeyError(f"Unknown column {c!r} in {what}")
+                names.append(c)
+                continue
+            if not isinstance(c, Column):
+                raise TypeError(f"{what} keys are names or Columns, got {type(c).__name__}")
+            plain = c._plain_name()
+            if plain is not None and c._alias in (None, plain):
+                if plain not in df._columns:
+                    raise KeyError(f"Unknown column {plain!r} in {what}")
+                names.append(plain)
+                continue
+            name = c._output_name()
+            if name in df._columns:
+                # materializing the key would shadow the existing column:
+                # aggregates over that name would read the key
+                raise ValueError(
+                    f"{what} expression key {name!r} collides with an "
+                    "existing column; alias the key to a fresh name"
+                )
+            df = df.withColumn(name, c)
+            names.append(name)
+        return df, names
+
+    def groupBy(self, *cols) -> "GroupedData":
+        """Group rows by key columns or expression Columns (Spark
+        ``groupBy``); see :class:`GroupedData`."""
+        df, names = self._grouping_keys(cols, "groupBy")
+        return GroupedData(df, names)
+
+    groupby = groupBy  # pyspark offers both spellings
+
+    def rollup(self, *cols) -> "GroupedData":
+        """Hierarchical subtotals (Spark ``rollup``): aggregates over
+        (k1..kn), (k1..kn-1), ..., (), keys outside a set null."""
+        df, names = self._grouping_keys(cols, "rollup")
+        return GroupedData(df, names, mode="rollup")
+
+    def cube(self, *cols) -> "GroupedData":
+        """All grouping-set combinations of the keys (Spark ``cube``)."""
+        df, names = self._grouping_keys(cols, "cube")
+        return GroupedData(df, names, mode="cube")
+
+    def groupingSets(self, groupingSets, *cols) -> "GroupedData":
+        """Explicit grouping sets (pyspark 3.4 ``groupingSets``):
+        ``df.groupingSets([["a", "b"], ["a"], []], "a", "b")``; keys absent
+        from a set emit null."""
+        df, names = self._grouping_keys(cols, "groupingSets")
+        if not names:
+            raise ValueError("groupingSets needs at least one key column")
+        from sparkdl_tpu_torch.dataframe.column import Column
+
+        def member_name(m) -> str:
+            if isinstance(m, Column):
+                # `m not in names` would force Column.__eq__ into bool
+                plain = m._plain_name()
+                if plain is None:
+                    raise ValueError(
+                        "groupingSets members must be plain column "
+                        "references (expressions go in the key list)"
+                    )
+                return plain
+            return m
+
+        sets: List[Tuple[str, ...]] = []
+        for gs in groupingSets:
+            members = [member_name(m) for m in ([gs] if isinstance(gs, (str, Column)) else list(gs))]
+            bad = [m for m in members if m not in names]
+            if bad:
+                raise ValueError(f"groupingSets members {bad} are not among the key columns {names}")
+            sets.append(tuple(members))
+        if not sets:
+            raise ValueError("groupingSets needs at least one set")
+        return GroupedData(df, names, mode="sets", explicit_sets=sets)
+
+    def agg(self, *exprs) -> "DataFrame":
+        """Global aggregation without grouping (Spark ``df.agg``): one
+        row."""
+        return GroupedData(self, []).agg(*exprs)
+
+    # -- joins -----------------------------------------------------------------------
+
+    def _qualify_overlap(self, other: "DataFrame", overlap: set):
+        """When both frames carry distinct .alias() names, resolve a
+        column collision by renaming each colliding column to
+        ``<alias>.<col>`` on its side (the SQL layer's self-join
+        spelling); None when aliases cannot disambiguate."""
+        la, ra = self._alias_name, other._alias_name
+        if not la or not ra or la == ra:
+            return None
+        targets = [(f"{la}.{c}", f"{ra}.{c}") for c in sorted(overlap)]
+        if any(lt in self._columns or rt in other._columns for lt, rt in targets):
+            return None  # a qualified name is taken: the ambiguity error
+        left2, right2 = self, other
+        for c, (lt, rt) in zip(sorted(overlap), targets):
+            left2 = left2.withColumnRenamed(c, lt)
+            right2 = right2.withColumnRenamed(c, rt)
+        return left2, right2
+
+    def crossJoin(self, other: "DataFrame") -> "DataFrame":
+        """Cartesian product (Spark ``crossJoin``); column names must not
+        collide, unless both frames are aliased, which qualifies them."""
+        overlap = set(self._columns) & set(other._columns)
+        if overlap:
+            qualified = self._qualify_overlap(other, overlap)
+            if qualified is not None:
+                left2, right2 = qualified
+                return left2.crossJoin(right2)
+            raise ValueError(
+                f"crossJoin column name collision: {sorted(overlap)}; "
+                "rename with withColumnRenamed first, or alias both "
+                "frames (df.alias('x'))"
+            )
+        _guard_collect(self, "crossJoin")
+        _guard_collect(other, "crossJoin")
+        left = self.collectColumns()
+        right = other.collectColumns()
+        ln = len(left[self._columns[0]]) if self._columns else 0
+        rn = len(right[other._columns[0]]) if other._columns else 0
+        out: Dict[str, list] = {}
+        for c in self._columns:
+            out[c] = [left[c][i] for i in range(ln) for _ in range(rn)]
+        for c in other._columns:
+            out[c] = [right[c][j] for _ in range(ln) for j in range(rn)]
+        return DataFrame.fromColumns(out, numPartitions=max(1, self.numPartitions))
+
+    def _join_on_columns(self, conds: list, other: "DataFrame", how: str) -> "DataFrame":
+        """Equi-join from Column conditions: each must be
+        F.col('a') == F.col('b') (or a bare F.col('k') meaning a same-named
+        key); '&'-combined conditions expand. Differing key names rename
+        the right key onto the left's, so the output keeps one merged key
+        column under the left name (the SQL JOIN rule)."""
+        from sparkdl_tpu_torch import sql as _sql
+        from sparkdl_tpu_torch.dataframe.column import Column
+
+        pairs: List[Tuple[str, str]] = []
+
+        def add_pred(node) -> None:
+            if isinstance(node, _sql.BoolOp) and node.op == "and":
+                for p in node.parts:
+                    add_pred(p)
+                return
+            if (
+                isinstance(node, _sql.Predicate)
+                and node.op == "="
+                and isinstance(node.col, _sql.Col)
+                and isinstance(node.value, _sql.Col)
+            ):
+                pairs.append((node.col.name, node.value.name))
+                return
+            raise ValueError(
+                "join(on=Column) takes equality conditions between "
+                "column references — F.col('a') == F.col('b'), several "
+                "combined with & — not arbitrary predicates"
+            )
+
+        for c in conds:
+            if isinstance(c, str):
+                pairs.append((c, c))
+                continue
+            if not isinstance(c, Column):
+                raise TypeError(f"join key must be a name or Column, got {type(c).__name__}")
+            if c._is_pred():
+                add_pred(c._expr)
+                continue
+            plain = c._plain_name()
+            if plain is None:
+                raise ValueError(
+                    "A non-condition join Column must be a bare column "
+                    "reference (same-named key on both sides)"
+                )
+            pairs.append((plain, plain))
+
+        right = other
+        keys: List[str] = []
+        for ln, rn in pairs:
+            if ln not in self._columns and rn in self._columns:
+                ln, rn = rn, ln  # condition written right == left
+            if ln not in self._columns:
+                raise KeyError(f"Join key {ln!r} not found on the left side")
+            if rn not in other._columns:
+                raise KeyError(f"Join key {rn!r} not found on the right side")
+            if ln != rn:
+                if ln in right._columns:
+                    raise ValueError(
+                        f"Cannot join on {ln!r} == {rn!r}: the right "
+                        f"side also has a column named {ln!r}; rename "
+                        "it with withColumnRenamed first"
+                    )
+                right = right.withColumnRenamed(rn, ln)
+            keys.append(ln)
+        return self.join(right, on=keys, how=how)
+
+    def _semi_join(self, other: "DataFrame", keys: List[str], anti: bool) -> "DataFrame":
+        """LEFT SEMI / LEFT ANTI join: keep left rows with at least one
+        key match (semi) or none (anti); the output holds the left
+        columns only. Null keys never match, so null-keyed left rows drop
+        under semi and survive under anti, like Spark."""
+        for k in keys:
+            if k not in self._columns or k not in other._columns:
+                raise KeyError(f"Join key {k!r} missing from a side")
+        _guard_collect(self, "join")
+        _guard_collect(other, "join")
+        left = self.collectColumns()
+        right = other.select(*keys).collectColumns()
+        n_left = len(left[self._columns[0]]) if self._columns else 0
+        n_right = len(right[keys[0]]) if keys else 0
+        rkeys = [right[k] for k in keys]
+        # null-keyed right tuples may enter the set: a left tuple with
+        # any null is excluded below, so they never match
+        table = {tuple(_cell_key(col[j]) for col in rkeys) for j in range(n_right)}
+        lkeys = [left[k] for k in keys]
+        keep: List[int] = []
+        for i in range(n_left):
+            raw = [col[i] for col in lkeys]
+            matched = not any(v is None for v in raw) and tuple(_cell_key(v) for v in raw) in table
+            if matched != anti:
+                keep.append(i)
+        return DataFrame.fromColumns(
+            {c: _take(left[c], keep) for c in self._columns}, numPartitions=max(1, self.numPartitions)
+        )
+
+    def join(self, other: "DataFrame", on, how: str = "inner") -> "DataFrame":
+        """Equi-join on key column(s) (Spark ``join``): ``how`` is
+        'inner', 'left', 'right', 'outer'/'full', 'left_semi' or
+        'left_anti' (and their aliases). Null keys never match. Non-key
+        column names must not collide, unless both frames are aliased.
+
+        A join collects both sides to the host. Output
+        order: left rows in order, each followed by its matches in right
+        order; unmatched left rows (left/outer) in place; then, for a
+        full outer join, the unmatched right rows in right order.
+
+        ``on`` may also be Column equality conditions
+        (``on=F.col("a") == F.col("b")``, several combined with ``&`` or
+        passed as a list)."""
+        if not isinstance(on, str):
+            cand = list(on) if isinstance(on, (list, tuple)) else [on]
+            if any(not isinstance(x, str) for x in cand):
+                return self._join_on_columns(cand, other, how)
+        keys = [on] if isinstance(on, str) else list(on)
+        if not keys:
+            raise ValueError("join needs at least one key column")
+        aliases = {
+            "left_outer": "left", "leftouter": "left",
+            "right_outer": "right", "rightouter": "right",
+            "full_outer": "outer", "fullouter": "outer", "full": "outer",
+            "cross": "cross",
+            "semi": "left_semi", "leftsemi": "left_semi",
+            "anti": "left_anti", "leftanti": "left_anti",
+        }
+        how = aliases.get(how, how)
+        if how == "cross":
+            raise ValueError("Use crossJoin() for cross joins")
+        if how in ("left_semi", "left_anti"):
+            return self._semi_join(other, keys, anti=how == "left_anti")
+        overlap_pre = set(self._columns) & set(other._columns) - set(keys)
+        if overlap_pre:
+            # before the right-join swap: qualification renames columns,
+            # and the swap's reordering select must see the final names
+            qualified = self._qualify_overlap(other, overlap_pre)
+            if qualified is not None:
+                left2, right2 = qualified
+                return left2.join(right2, on=keys, how=how)
+        if how == "right":
+            # a left join with the sides swapped, columns reordered back
+            # to (left cols, right non-key cols)
+            swapped = other.join(self, on=keys, how="left")
+            order = list(self._columns) + [c for c in other._columns if c not in keys]
+            return swapped.select(*order)
+        if how not in ("inner", "left", "outer"):
+            raise ValueError(f"Unsupported join type {how!r}")
+        for k in keys:
+            if k not in self._columns or k not in other._columns:
+                raise KeyError(f"Join key {k!r} missing from a side")
+        overlap = set(self._columns) & set(other._columns) - set(keys)
+        if overlap:
+            raise ValueError(
+                f"Ambiguous non-key columns on both sides: "
+                f"{sorted(overlap)}; rename with withColumnRenamed "
+                "first, or alias both frames (df.alias('x'))"
+            )
+
+        _guard_collect(self, "join")
+        _guard_collect(other, "join")
+        left = self.collectColumns()
+        right = other.collectColumns()
+        n_left = len(left[self._columns[0]]) if self._columns else 0
+        n_right = len(right[other._columns[0]]) if other._columns else 0
+
+        # hash the right side on the key tuple (None keys never match)
+        table: Dict[Tuple, List[int]] = {}
+        rkeys = [right[k] for k in keys]
+        for j in range(n_right):
+            kt = tuple(col[j] for col in rkeys)
+            if any(v is None for v in kt):
+                continue
+            table.setdefault(kt, []).append(j)
+
+        lkeys = [left[k] for k in keys]
+        li: List[Optional[int]] = []
+        ri: List[Optional[int]] = []
+        matched_right: set = set()
+        for i in range(n_left):
+            kt = tuple(col[i] for col in lkeys)
+            matches = table.get(kt, []) if not any(v is None for v in kt) else []
+            if matches:
+                for j in matches:
+                    li.append(i)
+                    ri.append(j)
+                    matched_right.add(j)
+            elif how in ("left", "outer"):
+                li.append(i)
+                ri.append(None)
+        if how == "outer":
+            # right rows nobody matched (null-keyed ones included) append
+            # with a null left side, in right-side order
+            for j in range(n_right):
+                if j not in matched_right:
+                    li.append(None)
+                    ri.append(j)
+
+        right_cols = [c for c in other._columns if c not in keys]
+        out: Dict[str, Any] = {}
+        if any(i is None for i in li):
+            rkeys_by_col = {k: right[k] for k in keys}
+            for c in self._columns:
+                col = left[c]
+                if c in rkeys_by_col:
+                    # key columns surface the right key for right-only
+                    # rows (one merged key column, Spark's using-join)
+                    out[c] = [rkeys_by_col[c][j] if i is None else col[i] for i, j in zip(li, ri)]
+                else:
+                    out[c] = [None if i is None else col[i] for i in li]
+        else:
+            for c in self._columns:
+                out[c] = _take(left[c], li)
+        if any(j is None for j in ri):
+            for c in right_cols:
+                col = right[c]
+                out[c] = [None if j is None else col[j] for j in ri]
+        else:
+            for c in right_cols:
+                out[c] = _take(right[c], ri)
+        return DataFrame.fromColumns(out, numPartitions=max(1, self.numPartitions))
+
     def cache(self) -> "DataFrame":
         """Run the plan now; a frame over the materialized partitions."""
         return DataFrame(self._execute(), self._columns)
@@ -948,8 +1513,744 @@ class DataFrame:
             return sum(_part_num_rows(p) for p in self._source)
         return sum(_part_num_rows(p) for p in self._execute())
 
+    def _refused(self, name: str):
+        from sparkdl_tpu_torch.sql import UnsupportedSQL
+
+        raise UnsupportedSQL(f"DataFrame.{name} (the frame's statistics methods)")
+
+    def describe(self, *cols):
+        self._refused("describe")
+
+    def summary(self, *stats):
+        self._refused("summary")
+
+    def crosstab(self, col1, col2):
+        self._refused("crosstab")
+
+    def approxQuantile(self, col, probabilities, relativeError=0.0):
+        self._refused("approxQuantile")
+
+    def freqItems(self, cols, support=0.01):
+        self._refused("freqItems")
+
+    def sampleBy(self, col, fractions, seed=None):
+        self._refused("sampleBy")
+
+    def corr(self, col1, col2):
+        self._refused("corr")
+
+    def cov(self, col1, col2):
+        self._refused("cov")
+
     def __repr__(self) -> str:
         return (
             f"DataFrame(columns={self._columns}, "
             f"partitions={len(self._source)}, pending_ops={len(self._ops)})"
         )
+
+
+# -- the aggregate engine ----------------------------------------------------
+
+
+
+
+# aliases normalize before dispatch: Spark's _samp spellings ARE the
+# defaults, and approx_count_distinct runs exact here (rsd accepted and
+# ignored — the host-scale engine has no need for HyperLogLog)
+_AGG_ALIASES = {
+    "stddev_samp": "stddev",
+    "var_samp": "variance",
+    "approx_count_distinct": "count_distinct",
+    "every": "bool_and",
+    "any_value": "first",
+}
+
+
+def _agg_spec_key(fn: str, params) -> str:
+    """Encode call-level parameters into the spec's fn string
+    ('percentile:[0.5]') — the (fn, col) spec tuple is the only channel
+    the streaming engine sees. Paired with :func:`_agg_params`; both
+    the SQL planner and GroupedData._agg_columns encode through here."""
+    if params is None:
+        return fn
+    import json
+
+    return fn + ":" + json.dumps(params)
+
+
+def _agg_base_fn(fn: str) -> str:
+    """The base name of a (possibly parameterized) spec key — CHEAP,
+    for the per-row update path (no JSON decode)."""
+    return fn.split(":", 1)[0] if ":" in fn else fn
+
+
+def _agg_params(fn: str):
+    """Decode a spec key into (base_fn, params); only the finalization
+    path needs the decoded parameters."""
+    if ":" in fn:
+        import json
+
+        base, blob = fn.split(":", 1)
+        return base, json.loads(blob)
+    return fn, None
+
+
+def _agg_init(fn: str):
+    fn = _agg_base_fn(fn)
+    fn = _AGG_ALIASES.get(fn, fn)
+    if fn in ("stddev_pop", "var_pop"):
+        return (0, 0.0, 0.0)  # Welford, population finalization
+    if fn in ("skewness", "kurtosis"):
+        return (0, 0.0, 0.0, 0.0, 0.0)  # (n, mean, M2, M3, M4)
+    if fn == "sum_distinct":
+        return set()
+    if fn in ("percentile", "percentile_approx"):
+        return []  # exact: holds the group's values, like median
+    if fn in ("corr", "covar_pop", "covar_samp"):
+        # online co-moments over packed [x, y] cells:
+        # (n, mean_x, mean_y, C_xy, M2_x, M2_y)
+        return (0, 0.0, 0.0, 0.0, 0.0, 0.0)
+    if fn in ("bool_and", "bool_or"):
+        return None  # null when no non-null inputs (Spark)
+    if fn == "mode":
+        return {}  # value -> [count, first_seen_index, value]
+    if fn == "count":
+        return 0
+    if fn == "count_distinct":
+        return set()  # cell keys seen; memory O(distinct values)
+    if fn == "avg":
+        return (None, 0)  # (running sum, non-null count)
+    if fn in ("stddev", "variance"):
+        return (0, 0.0, 0.0)  # Welford: (n, mean, M2)
+    if fn in ("sum", "min", "max"):
+        return None
+    if fn == "collect_list":
+        return []  # memory O(values) per group, documented
+    if fn == "median":
+        return []  # exact median: holds the group's values
+    if fn == "collect_set":
+        return ([], set())  # (first-occurrence order, seen cell keys)
+    if fn in ("first", "last"):
+        return (False, None)  # (seen a non-null, value)
+    raise ValueError(
+        f"Unknown aggregate {fn!r}; see sql._AGGREGATES for the "
+        "supported set"
+    )
+
+
+def _agg_update(fn: str, acc, v, star: bool):
+    fn = _agg_base_fn(fn)  # no JSON decode on the per-row hot path
+    fn = _AGG_ALIASES.get(fn, fn)
+    if fn == "count":
+        return acc + (1 if star or v is not None else 0)
+    if v is None:  # SUM/AVG/MIN/MAX/COUNT(DISTINCT) skip nulls
+        return acc
+    if fn in ("stddev_pop", "var_pop"):
+        n, mean, m2 = acc
+        n += 1
+        d = v - mean
+        mean += d / n
+        m2 += d * (v - mean)
+        return (n, mean, m2)
+    if fn in ("skewness", "kurtosis"):
+        # one-pass central moments (Pebay's update), numerically stable
+        n1, mean, m2, m3, m4 = acc
+        n = n1 + 1
+        d = v - mean
+        dn = d / n
+        dn2 = dn * dn
+        t1 = d * dn * n1
+        mean += dn
+        m4 += t1 * dn2 * (n * n - 3 * n + 3) + 6 * dn2 * m2 - 4 * dn * m3
+        m3 += t1 * dn * (n - 2) - 3 * dn * m2
+        m2 += t1
+        return (n, mean, m2, m3, m4)
+    if fn == "sum_distinct":
+        acc.add(v)
+        return acc
+    if fn in ("percentile", "percentile_approx"):
+        acc.append(v)
+        return acc
+    if fn in ("corr", "covar_pop", "covar_samp"):
+        # v is a packed [x, y] cell; a null in EITHER slot skips the
+        # pair (Spark drops incomplete observations)
+        if not isinstance(v, (list, tuple)) or len(v) != 2:
+            return acc
+        x, y = v
+        if x is None or y is None:
+            return acc
+        n, mx, my, cxy, m2x, m2y = acc
+        n += 1
+        dx = x - mx
+        mx += dx / n
+        # UPDATED mean_x against the PREVIOUS mean_y — the standard
+        # online co-moment update; using the stale dx here inflates C
+        cxy += (x - mx) * (y - my)
+        dy = y - my
+        my += dy / n
+        m2x += dx * (x - mx)
+        m2y += dy * (y - my)
+        return (n, mx, my, cxy, m2x, m2y)
+    if fn in ("bool_and", "bool_or"):
+        b = bool(v)
+        if acc is None:
+            return b
+        return (acc and b) if fn == "bool_and" else (acc or b)
+    if fn == "mode":
+        key = _cell_key(v)
+        ent = acc.get(key)
+        if ent is None:
+            acc[key] = [1, len(acc), v]
+        else:
+            ent[0] += 1
+        return acc
+    if fn == "count_distinct":
+        acc.add(_cell_key(v))
+        return acc
+    if fn == "sum":
+        return v if acc is None else acc + v
+    if fn == "avg":
+        s, c = acc
+        return (v if s is None else s + v, c + 1)
+    if fn in ("stddev", "variance"):
+        n, mean, m2 = acc
+        n += 1
+        d = v - mean
+        mean += d / n
+        m2 += d * (v - mean)
+        return (n, mean, m2)  # Welford: numerically stable streaming
+    if fn == "min":
+        return v if acc is None or v < acc else acc
+    if fn == "max":
+        return v if acc is None or v > acc else acc
+    if fn in ("collect_list", "median"):
+        acc.append(v)
+        return acc
+    if fn == "collect_set":
+        order, seen = acc
+        key = _cell_key(v)
+        if key not in seen:
+            seen.add(key)
+            order.append(v)
+        return acc
+    if fn == "first":
+        return acc if acc[0] else (True, v)
+    if fn == "last":
+        return (True, v)
+    raise ValueError(
+        f"Unknown aggregate {fn!r}; see sql._AGGREGATES for the "
+        "supported set"
+    )
+
+
+def _percentile_of(s, p: float, discrete: bool):
+    """p in [0, 1] over SORTED s: continuous linear interpolation
+    (Spark percentile) or the actual element at ceil(p*n)-1 (Spark
+    percentile_approx with exact accuracy)."""
+    n = len(s)
+    if discrete:
+        idx = max(0, min(n - 1, math.ceil(p * n) - 1))
+        return s[idx]
+    pos = p * (n - 1)
+    lo = int(math.floor(pos))
+    hi = int(math.ceil(pos))
+    if lo == hi:
+        return s[lo]
+    frac = pos - lo
+    return s[lo] * (1 - frac) + s[hi] * frac
+
+
+def _agg_final(fn: str, acc):
+    fn, params = _agg_params(fn)
+    fn = _AGG_ALIASES.get(fn, fn)
+    if fn in ("stddev_pop", "var_pop"):
+        n, _, m2 = acc
+        if n < 1:
+            return None
+        var = m2 / n
+        return math.sqrt(var) if fn == "stddev_pop" else var
+    if fn in ("skewness", "kurtosis"):
+        n, _, m2, m3, m4 = acc
+        if n < 1:
+            return None
+        if m2 == 0:
+            return float("nan")  # zero variance (Spark divides by it)
+        if fn == "skewness":
+            return math.sqrt(n) * m3 / m2 ** 1.5
+        return n * m4 / (m2 * m2) - 3.0  # excess kurtosis (Spark)
+    if fn == "sum_distinct":
+        return sum(acc) if acc else None
+    if fn in ("percentile", "percentile_approx"):
+        if not acc:
+            return None
+        s = sorted(acc)
+        discrete = fn == "percentile_approx"
+        pcts = params[0] if params else 0.5
+        if isinstance(pcts, list):
+            return [_percentile_of(s, float(p), discrete) for p in pcts]
+        return _percentile_of(s, float(pcts), discrete)
+    if fn in ("corr", "covar_pop", "covar_samp"):
+        n, _, _, cxy, m2x, m2y = acc
+        if fn == "covar_pop":
+            return None if n < 1 else cxy / n
+        if fn == "covar_samp":
+            return None if n < 2 else cxy / (n - 1)
+        if n < 1:
+            return None
+        den = math.sqrt(m2x * m2y)
+        return float("nan") if den == 0 else cxy / den
+    if fn in ("bool_and", "bool_or"):
+        return acc
+    if fn == "mode":
+        if not acc:
+            return None
+        # highest count wins; ties break on first occurrence (Spark
+        # leaves tie order undefined)
+        return min(acc.values(), key=lambda e: (-e[0], e[1]))[2]
+    if fn == "avg":
+        s, c = acc
+        return None if c == 0 else s / c
+    if fn in ("stddev", "variance"):
+        # sample statistics (Spark's stddev = stddev_samp); fewer than
+        # two non-null values -> null
+        n, _, m2 = acc
+        if n < 2:
+            return None
+        var = m2 / (n - 1)
+        return math.sqrt(var) if fn == "stddev" else var
+    if fn == "count_distinct":
+        return len(acc)
+    if fn == "collect_list":
+        # COPY: running-frame windows snapshot per row while the same
+        # accumulator keeps growing — the live list must not leak out
+        return list(acc)
+    if fn == "median":
+        if not acc:
+            return None
+        if any(
+            isinstance(x, bool) or not isinstance(x, (int, float))
+            for x in acc
+        ):
+            # a clear error on ANY group shape — not a data-dependent
+            # crash only when a group happens to have an even count
+            raise ValueError(
+                "median requires numeric values (Spark rejects "
+                "non-numeric median at analysis time)"
+            )
+        s = sorted(acc)
+        n = len(s)
+        mid = n // 2
+        # Spark median = percentile(0.5): midpoint interpolation
+        return s[mid] if n % 2 else (s[mid - 1] + s[mid]) / 2
+    if fn == "collect_set":
+        return list(acc[0])  # first-occurrence order (Spark: undefined)
+    if fn in ("first", "last"):
+        return acc[1]
+    return acc
+
+
+def streaming_group_agg(
+    df: "DataFrame",
+    keys: Sequence[str],
+    specs: Sequence[Tuple[str, Optional[str]]],
+):
+    """Grouped aggregation streamed partition-at-a-time: memory is
+    O(groups), never O(rows) — the scale path for GROUP BY over
+    ImageNet-sized frames (shared by ``GroupedData.agg`` and the SQL
+    layer). ``specs`` is ``[(fn, col)]`` with ``col=None`` for COUNT(*).
+    Exception: ``count_distinct`` holds a per-group set of distinct
+    cell keys — memory O(distinct values), worst case O(rows) on a
+    mostly-unique column.
+
+    Returns ``(key_rows, agg_columns)``: the original key-value tuples in
+    first-appearance order, and one value list per spec. Null semantics
+    match :func:`aggregate_values` exactly; group identity uses
+    :func:`_cell_key`, so tensor/struct keys group by content."""
+    keys = list(keys)
+    needed = sorted(set(keys) | {c for _, c in specs if c is not None})
+    if not needed and not df._ops:
+        # pure COUNT(*) on an op-free frame: a row count needs no column
+        # data at all — answer from metadata (parquet footers / column
+        # lengths), zero decode
+        total = sum(df.partitionRowCounts())
+        return [()], [[total] for _ in specs]
+    proj = df.select(*needed) if needed else df
+    groups: Dict[Tuple, list] = {}  # cell-key tuple -> [orig_keys, accs]
+    order: List[Tuple] = []
+    for part in proj.iterPartitions():
+        m = _part_num_rows(part)
+        keycols = [part[k] for k in keys]
+        speccols = [
+            part[c] if c is not None else None for _, c in specs
+        ]
+        for i in range(m):
+            kt_orig = tuple(col[i] for col in keycols)
+            kt = tuple(_cell_key(v) for v in kt_orig)
+            g = groups.get(kt)
+            if g is None:
+                g = groups[kt] = [
+                    kt_orig, [_agg_init(fn) for fn, _ in specs]
+                ]
+                order.append(kt)
+            accs = g[1]
+            for j, (fn, c) in enumerate(specs):
+                v = None if speccols[j] is None else speccols[j][i]
+                accs[j] = _agg_update(fn, accs[j], v, star=c is None)
+    if not keys and not groups:
+        # global aggregate over zero rows still yields ONE row (Spark's
+        # one-row global-aggregate semantics)
+        groups[()] = [(), [_agg_init(fn) for fn, _ in specs]]
+        order.append(())
+    key_rows = [groups[kt][0] for kt in order]
+    agg_columns = [
+        [_agg_final(fn, groups[kt][1][j]) for kt in order]
+        for j, (fn, _) in enumerate(specs)
+    ]
+    return key_rows, agg_columns
+
+
+def aggregate_values(fn: str, values) -> Any:
+    """One SQL-style aggregate over raw values: COUNT counts non-nulls;
+    SUM/AVG/MIN/MAX skip nulls and return null for empty/all-null input.
+    Thin wrapper over the streaming accumulators, so the one-shot and
+    streamed paths cannot drift."""
+    acc = _agg_init(fn)
+    for v in values:
+        acc = _agg_update(fn, acc, v, star=False)
+    return _agg_final(fn, acc)
+
+
+
+class GroupedData:
+    """Result of :meth:`DataFrame.groupBy` — pyspark's dict-form ``agg``.
+
+    ``agg({"score": "avg", "*": "count"})`` yields one row per group
+    with columns named ``avg(score)`` / ``count(*)`` after the group
+    keys. Null is a valid group key; aggregate null semantics follow
+    :func:`aggregate_values`. Unlike orderBy/join, aggregation STREAMS
+    partition-at-a-time over only the referenced columns — memory is
+    O(groups), so it works at any row count.
+    """
+
+    def __init__(
+        self, df: DataFrame, keys: List[str], mode: str = "groupby",
+        explicit_sets: Optional[List[Tuple[str, ...]]] = None,
+    ):
+        self._df = df
+        self._keys = keys
+        self._mode = mode  # 'groupby' | 'rollup' | 'cube' | 'sets'
+        self._explicit_sets = explicit_sets
+
+    def _grouping_sets(self) -> List[Tuple[str, ...]]:
+        """The key subsets this grouping mode aggregates over, FULL set
+        first (it defines the output schema for the union)."""
+        keys = tuple(self._keys)
+        if self._mode == "rollup":
+            return [keys[:i] for i in range(len(keys), -1, -1)]
+        if self._mode == "cube":
+            import itertools as _it
+
+            sets: List[Tuple[str, ...]] = []
+            for r in range(len(keys), -1, -1):
+                sets.extend(_it.combinations(keys, r))
+            return sets
+        if self._mode == "sets":
+            return list(self._explicit_sets or [])
+        return [keys]
+
+    def agg(self, *exprs) -> DataFrame:
+        """Two pyspark forms: the dict form
+        (``agg({"score": "avg", "*": "count"})``) and the Column form
+        (``agg(F.sum("v").alias("s"), F.countDistinct("k"))``, aggregate
+        args may be expressions — ``F.sum(F.col("p") * F.col("q"))``).
+
+        Under rollup/cube, the aggregation runs once per grouping set
+        (each a streamed groupBy) and unions the results with
+        null-filled key columns on subtotal rows, like SQL GROUP BY
+        ROLLUP/CUBE."""
+        if self._mode != "groupby":
+            frames: List[DataFrame] = []
+            out_cols: Optional[List[str]] = None
+            for s in self._grouping_sets():
+                part = GroupedData(self._df, list(s)).agg(*exprs)
+                if out_cols is None:  # full-key frame defines the schema
+                    out_cols = list(self._keys) + [
+                        c for c in part.columns if c not in self._keys
+                    ]
+                for k in self._keys:
+                    if k not in part.columns:
+                        part = part.withColumn(k, lambda r: None)
+                frames.append(part.select(*out_cols))
+            df = frames[0]
+            for f in frames[1:]:
+                df = df.unionAll(f)
+            return df
+        if len(exprs) == 1 and isinstance(exprs[0], dict):
+            return self._agg_dict(exprs[0])
+        if not exprs:
+            raise ValueError("agg needs at least one aggregate")
+        return self._agg_columns(list(exprs))
+
+    def _agg_columns(self, exprs: list) -> DataFrame:
+        from sparkdl_tpu_torch import sql as _sql
+        from sparkdl_tpu_torch.dataframe.column import Column
+
+        df = self._df
+        specs: List[Tuple[str, Optional[str]]] = []
+        names: List[str] = []
+        for c in exprs:
+            if not isinstance(c, Column):
+                raise TypeError(
+                    "agg() takes aggregate Columns (F.sum, F.count, ...)"
+                    f" or one dict, got {type(c).__name__}"
+                )
+            e = c._expr
+            if not (
+                isinstance(e, _sql.Call)
+                and e.fn.lower() in _sql._AGGREGATES
+            ):
+                raise ValueError(
+                    f"agg() Columns must be single aggregate calls; got "
+                    f"{c._output_name()!r}"
+                )
+            fn = e.fn.lower()
+            if e.distinct:
+                fn = "sum_distinct" if fn == "sum" else "count_distinct"
+            fn = _agg_spec_key(fn, getattr(e, "_params", None))
+            if e.arg == "*":
+                if fn != "count":
+                    raise ValueError(f"{fn}(*) is not valid; only count(*)")
+                col = None
+            elif isinstance(e.arg, _sql.Col):
+                col = e.arg.name
+                if col not in df.columns:
+                    raise KeyError(f"Unknown column {col!r} in agg")
+            else:
+                # aggregate over an expression: validate column refs
+                # eagerly (a typo must fail at plan time, not as a
+                # retried partition task) and materialize the arg under
+                # the SQL planner's collision-proof helper name
+                _sql._check_expr_columns(e.arg, df.columns)
+                col = f"__sql_aggarg_{_sql._expr_name(e.arg)}"
+                if col not in df.columns:
+                    df = _sql._apply_expr(df, e.arg, col)
+            specs.append((fn, col))
+            names.append(c._alias or _sql._expr_name(e))
+        dups = {n for n in names if names.count(n) > 1}
+        if dups:
+            raise ValueError(
+                f"Duplicate aggregate output name(s) {sorted(dups)}; "
+                "disambiguate with .alias()"
+            )
+        key_rows, agg_cols = streaming_group_agg(df, self._keys, specs)
+        out: Dict[str, List[Any]] = {
+            k: [kr[j] for kr in key_rows]
+            for j, k in enumerate(self._keys)
+        }
+        for name, vals in zip(names, agg_cols):
+            if name in out:
+                raise ValueError(f"Duplicate aggregate column {name!r}")
+            out[name] = vals
+        return DataFrame.fromColumns(out)
+
+    def _agg_dict(self, exprs: Dict[str, str]) -> DataFrame:
+        if not exprs:
+            raise ValueError("agg needs at least one column: fn entry")
+        from sparkdl_tpu_torch import sql as _sql
+
+        for col, fn in exprs.items():
+            if (
+                fn.lower() not in _sql._AGGREGATES
+                and fn.lower() != "count_distinct"
+            ) or fn.lower() in (
+                # parameterized/two-column forms need the Column API
+                "percentile", "percentile_approx", "corr", "covar_pop",
+                "covar_samp",
+            ):
+                raise ValueError(f"Unknown aggregate {fn!r} for {col!r}")
+            if col != "*" and col not in self._df.columns:
+                raise KeyError(f"Unknown column {col!r} in agg")
+            if col == "*" and fn.lower() != "count":
+                raise ValueError(f"{fn}(*) is not valid; only count(*)")
+
+        specs = [
+            (fn.lower(), None if col == "*" else col)
+            for col, fn in exprs.items()
+        ]
+        key_rows, agg_cols = streaming_group_agg(
+            self._df, self._keys, specs
+        )
+        out: Dict[str, List[Any]] = {
+            k: [kr[j] for kr in key_rows]
+            for j, k in enumerate(self._keys)
+        }
+        for (fn, col), vals in zip(specs, agg_cols):
+            name = f"{fn}(*)" if col is None else f"{fn}({col})"
+            if name in out:
+                raise ValueError(f"Duplicate aggregate column {name!r}")
+            out[name] = vals
+        return DataFrame.fromColumns(out)
+
+    def pivot(
+        self, pivot_col: str, values: Optional[List[Any]] = None
+    ) -> "PivotedGroupedData":
+        """Pivot a column's values into output columns (pyspark
+        ``groupBy(...).pivot(col[, values]).agg(...)``). ``values``
+        fixes the output columns; omitted, distinct observed values are
+        discovered (and sorted) from the data like pyspark does."""
+        if pivot_col not in self._df.columns:
+            raise KeyError(f"Unknown column {pivot_col!r} in pivot")
+        if pivot_col in self._keys:
+            raise ValueError(
+                f"pivot column {pivot_col!r} is already a group key"
+            )
+        return PivotedGroupedData(
+            self._df, self._keys, pivot_col,
+            list(values) if values is not None else None,
+        )
+
+    def applyInPandas(self, func, schema) -> DataFrame:
+        """Grouped-map pandas transforms wait for ROADMAP Queue A item 8."""
+        from sparkdl_tpu_torch.sql import UnsupportedSQL
+
+        raise UnsupportedSQL("GroupedData.applyInPandas (vectorized UDFs over pandas)")
+
+    def cogroup(self, other: "GroupedData"):
+        """Co-grouped pandas transforms wait for ROADMAP Queue A item 8."""
+        from sparkdl_tpu_torch.sql import UnsupportedSQL
+
+        raise UnsupportedSQL("GroupedData.cogroup (vectorized UDFs over pandas)")
+
+    def count(self) -> DataFrame:
+        """Group sizes as a ``count`` column (pyspark ``groupBy().count()``)."""
+        return self.agg({"*": "count"}).withColumnRenamed("count(*)", "count")
+
+    def avg(self, *cols: str) -> DataFrame:
+        return self.agg({c: "avg" for c in cols})
+
+    mean = avg  # pyspark alias
+
+    def sum(self, *cols: str) -> DataFrame:
+        return self.agg({c: "sum" for c in cols})
+
+    def min(self, *cols: str) -> DataFrame:
+        return self.agg({c: "min" for c in cols})
+
+    def max(self, *cols: str) -> DataFrame:
+        return self.agg({c: "max" for c in cols})
+
+
+
+_NO_VALUE = object()  # pivot sentinel: row's value not in configured set
+
+
+class PivotedGroupedData:
+    """``groupBy(keys).pivot(col)`` intermediate: aggregation runs the
+    same streamed engine with the pivot column as an extra group key,
+    then reshapes on the host (memory O(groups x values)). Column naming
+    follows pyspark: just the pivot value for a single aggregate,
+    ``<value>_<agg(col)>`` for several; combinations absent from the
+    data come back null."""
+
+    def __init__(
+        self,
+        df: DataFrame,
+        keys: List[str],
+        pivot_col: str,
+        values: Optional[List[Any]],
+    ):
+        self._df = df
+        self._keys = keys
+        self._pivot = pivot_col
+        self._values = values
+
+    def agg(self, *exprs) -> DataFrame:
+        """Both GroupedData.agg forms work here: the dict form and
+        aggregate Columns (pivot("k").agg(F.sum("v").alias("s")))."""
+        inner = GroupedData(
+            self._df, self._keys + [self._pivot]
+        ).agg(*exprs)
+        # aggregate output names come FROM the inner frame (everything
+        # after the group keys + pivot column), so pivot can never drift
+        # from GroupedData.agg's naming scheme
+        agg_names = [
+            c
+            for c in inner.columns
+            if c not in self._keys and c != self._pivot
+        ]
+        rows = inner.collect()
+        if self._values is not None:
+            values = self._values
+        else:
+            seen = {r[self._pivot] for r in rows}
+            # discovered values sort like pyspark; None (a valid group
+            # key) orders last
+            values = sorted(
+                (v for v in seen if v is not None),
+                key=lambda v: (str(type(v)), v),
+            ) + ([None] if None in seen else [])
+        single = len(agg_names) == 1
+
+        def canonical(v):
+            """The configured value this row's pivot cell matches, by
+            VALUE equality (1 matches 1.0) but never across bool/int
+            (True must not match 1) — row matching and column naming
+            must use the same representative or cells silently drop."""
+            for cv in values:
+                if v is None or cv is None:
+                    if v is None and cv is None:
+                        return cv
+                    continue
+                if isinstance(cv, bool) != isinstance(v, bool):
+                    continue
+                if cv == v:
+                    return cv
+            return _NO_VALUE
+
+        def out_name(v, agg_name):
+            base = "null" if v is None else str(v)
+            return base if single else f"{base}_{agg_name}"
+
+        cells: Dict[tuple, Dict[str, Any]] = {}
+        key_order: List[tuple] = []
+        for r in rows:
+            k = tuple(_cell_key(r[key]) for key in self._keys)
+            if k not in cells:
+                cells[k] = {key: r[key] for key in self._keys}
+                key_order.append(k)
+            cv = canonical(r[self._pivot])
+            if cv is _NO_VALUE:
+                continue  # excluded pivot value
+            for agg_name in agg_names:
+                cells[k][out_name(cv, agg_name)] = r[agg_name]
+        out: Dict[str, List[Any]] = {
+            key: [cells[k][key] for k in key_order] for key in self._keys
+        }
+        for v in values:
+            for agg_name in agg_names:
+                name = out_name(v, agg_name)
+                if name in out:
+                    raise ValueError(
+                        f"Duplicate pivot output column {name!r}"
+                    )
+                out[name] = [
+                    cells[k].get(name) for k in key_order
+                ]
+        return DataFrame.fromColumns(out)
+
+    def count(self) -> DataFrame:
+        return self.agg({"*": "count"})
+
+    def avg(self, *cols: str) -> DataFrame:
+        return self.agg({c: "avg" for c in cols})
+
+    mean = avg  # pyspark alias
+
+    def sum(self, *cols: str) -> DataFrame:
+        return self.agg({c: "sum" for c in cols})
+
+    def min(self, *cols: str) -> DataFrame:
+        return self.agg({c: "min" for c in cols})
+
+    def max(self, *cols: str) -> DataFrame:
+        return self.agg({c: "max" for c in cols})

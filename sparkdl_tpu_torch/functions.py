@@ -1,6 +1,6 @@
 """Column construction functions, the ``pyspark.sql.functions``
 analogue: the port's copy of the JAX package's ``functions.py``, its
-row-expression half.
+row-expression and aggregate half.
 
     from sparkdl_tpu_torch import functions as F
     df.filter(F.col("x") > 3).select((F.col("v") * 2).alias("d"))
@@ -14,13 +14,19 @@ date, array, map and JSON builtins, the higher-order ``transform``,
 map forms over Python lambdas, and :func:`udf`, a Python function in the
 process-global UDF catalog.
 
-The relational half raises :class:`~sparkdl_tpu_torch.sql.UnsupportedSQL`
-naming ROADMAP Queue A item 8 when called: the aggregates (``F.sum``,
-``F.count``, ...), the window functions (``F.row_number``, ``F.lag``,
-``F.window``, ...), the generators (``F.explode``, ``F.stack``,
-``F.json_tuple``), the partition-seeded ``F.rand``/``F.randn``/
-``F.monotonically_increasing_id``, ``F.broadcast``, and ``F.pandas_udf``,
-which also needs pandas, absent from the card's machine.
+The aggregates (``F.count``, ``F.sum``, ``F.avg``, ``F.stddev``,
+``F.percentile_approx``, ``F.countDistinct``, ``F.collect_list``, ``F.corr``,
+``F.count_if``, ``F.mode``, ...) build the aggregate Columns that
+``groupBy(...).agg(...)`` and ``df.agg(...)`` take; ``F.window`` is the
+time-window group key and ``F.broadcast`` a join hint, accepted and
+ignored.
+
+The rest raises :class:`~sparkdl_tpu_torch.sql.UnsupportedSQL` naming
+ROADMAP Queue A item 8 when called: the window functions
+(``F.row_number``, ``F.lag``, ...), the generators (``F.explode``,
+``F.stack``, ``F.json_tuple``), the partition-seeded ``F.rand``/``F.randn``/
+``F.monotonically_increasing_id``, and ``F.pandas_udf``, which also needs
+pandas, absent from the card's machine.
 """
 
 from __future__ import annotations
@@ -79,6 +85,13 @@ __all__ = [
     "unix_seconds", "extract", "current_timezone", "current_user", "user",
     "version", "date_diff", "dateadd", "to_unix_timestamp", "try_element_at",
     "timestampadd", "timestampdiff", "make_timestamp", "date_part", "datepart",
+    "count", "countDistinct", "count_distinct", "sum", "avg", "mean", "min", "max",
+    "collect_list", "array_agg", "collect_set", "first", "last", "median",
+    "stddev", "variance", "stddev_samp", "var_samp", "stddev_pop", "var_pop",
+    "skewness", "kurtosis", "sumDistinct", "sum_distinct", "approx_count_distinct",
+    "approxCountDistinct", "percentile_approx", "percentile", "corr", "covar_pop",
+    "covar_samp", "bool_and", "every", "bool_or", "count_if", "any_value", "mode",
+    "broadcast", "window",
 ]
 
 
@@ -1449,46 +1462,300 @@ def udf(f: Callable[[Any], Any] = None, returnType: Any = None):
     return build(f)
 
 
-# -- the relational half: refused by name -----------------------------------
+# -- aggregate constructors (groupBy().agg(...) / df.agg(...)) ----------
+# Like pyspark, sum/min/max/abs/round deliberately shadow Python
+# builtins inside this module — import it as `F`, not star-import.
+
+
+def _agg(fn: str, c: Any, distinct: bool = False) -> Column:
+    if isinstance(c, str):
+        if c == "*":
+            if fn != "count":
+                raise ValueError(f"{fn}('*') is not valid; only count")
+            return Column(_sql.Call("count", "*"))
+        arg = _sql.Col(c)
+    else:
+        arg = _operand(c)
+    return Column(_sql.Call(fn, arg, distinct, [arg]))
+
+
+def count(c: Any = "*") -> Column:
+    return _agg("count", c)
+
+
+def countDistinct(c: Any) -> Column:
+    return _agg("count", c, distinct=True)
+
+
+def sum(c: Any) -> Column:  # noqa: A001
+    return _agg("sum", c)
+
+
+def avg(c: Any) -> Column:
+    return _agg("avg", c)
+
+
+mean = avg  # pyspark alias
+
+
+def min(c: Any) -> Column:  # noqa: A001
+    return _agg("min", c)
+
+
+def max(c: Any) -> Column:  # noqa: A001
+    return _agg("max", c)
+
+
+def collect_list(c: Any) -> Column:
+    """All non-null values of the group as a list cell (explode's
+    inverse); memory O(values) per group."""
+    return _agg("collect_list", c)
+
+
+def collect_set(c: Any) -> Column:
+    """Distinct non-null values of the group, first-occurrence order
+    (Spark leaves the order undefined)."""
+    return _agg("collect_set", c)
+
+
+def first(c: Any, ignorenulls: bool = True) -> Column:
+    """First non-null value in stream order (Spark's first is equally
+    order-nondeterministic). Only ignore-nulls semantics exist here —
+    the streaming engine skips nulls by design."""
+    if not ignorenulls:
+        raise ValueError(
+            "first(ignorenulls=False) is not supported: the streaming "
+            "aggregate engine skips nulls; sort + limit(1) instead"
+        )
+    return _agg("first", c)
+
+
+def last(c: Any, ignorenulls: bool = True) -> Column:
+    """Last non-null value in stream order."""
+    if not ignorenulls:
+        raise ValueError(
+            "last(ignorenulls=False) is not supported: the streaming "
+            "aggregate engine skips nulls"
+        )
+    return _agg("last", c)
+
+
+def median(c: Any) -> Column:
+    """Exact median (Spark 3.4 median = percentile(0.5), midpoint
+    interpolation for even counts); holds the group's values in memory
+    like collect_list."""
+    return _agg("median", c)
+
+
+def stddev(c: Any) -> Column:
+    return _agg("stddev", c)
+
+
+def variance(c: Any) -> Column:
+    return _agg("variance", c)
+
+
+stddev_samp = stddev  # Spark's default IS the sample statistic
+var_samp = variance
+
+
+def stddev_pop(c: Any) -> Column:
+    """Population standard deviation (divide by n)."""
+    return _agg("stddev_pop", c)
+
+
+def var_pop(c: Any) -> Column:
+    return _agg("var_pop", c)
+
+
+def skewness(c: Any) -> Column:
+    """Population skewness g1 (NaN on zero variance, Spark)."""
+    return _agg("skewness", c)
+
+
+def kurtosis(c: Any) -> Column:
+    """Excess kurtosis g2 (normal = 0.0, Spark)."""
+    return _agg("kurtosis", c)
+
+
+def sumDistinct(c: Any) -> Column:
+    """Sum over distinct non-null values (pyspark sumDistinct /
+    sum_distinct)."""
+    return _agg("sum", c, distinct=True)
+
+
+sum_distinct = sumDistinct  # pyspark 3.2+ spelling
+
+
+def approx_count_distinct(c: Any, rsd: float = None) -> Column:
+    """Distinct count. Computed EXACTLY here (``rsd`` accepted and
+    ignored) — the host-scale engine has no need for HyperLogLog."""
+    del rsd
+    return _agg("approx_count_distinct", c)
+
+
+approxCountDistinct = approx_count_distinct  # pre-3.1 spelling
+
+
+def percentile_approx(c: Any, percentage: Any, accuracy: int = None) -> Column:
+    """Group percentile(s): a float in [0, 1] or a list of them (list
+    in, list out). Returns an actual group element (Spark's discrete
+    percentile_approx), computed exactly; ``accuracy`` is accepted and
+    ignored."""
+    del accuracy
+    return _percentile_col("percentile_approx", c, percentage)
+
+
+def percentile(c: Any, percentage: Any) -> Column:
+    """Continuous (interpolating) percentile, Spark's percentile()."""
+    return _percentile_col("percentile", c, percentage)
+
+
+def _percentile_col(fn: str, c: Any, percentage: Any) -> Column:
+    if isinstance(percentage, (list, tuple)):
+        pct = [float(p) for p in percentage]
+        bad = [p for p in pct if not 0 <= p <= 1]
+    else:
+        pct = float(percentage)
+        bad = [] if 0 <= pct <= 1 else [pct]
+    if bad:
+        raise ValueError(
+            f"{fn} percentage must be in [0, 1], got {bad[0]}"
+        )
+    col_ = _sql.Col(c) if isinstance(c, str) else _operand(c)
+    node = _sql.Call(fn, col_, False, [col_])
+    node._params = [pct]
+    return Column(node)
+
+
+def _pair_agg(fn: str, a: Any, b: Any) -> Column:
+    # two-column aggregates pack their pair into one array(x, y) cell;
+    # the accumulator drops observations with a null in either slot
+    ops = [
+        _sql.Col(x) if isinstance(x, str) else _operand(x) for x in (a, b)
+    ]
+    packed = _sql.Call("array", ops[0], False, ops)
+    return Column(_sql.Call(fn, packed, False, [packed]))
+
+
+def corr(a: Any, b: Any) -> Column:
+    """Pearson correlation as a GROUP aggregate (pyspark F.corr);
+    NaN when either side has zero variance."""
+    return _pair_agg("corr", a, b)
+
+
+def covar_pop(a: Any, b: Any) -> Column:
+    return _pair_agg("covar_pop", a, b)
+
+
+def covar_samp(a: Any, b: Any) -> Column:
+    return _pair_agg("covar_samp", a, b)
+
+
+def _bool_agg_arg(c: Any) -> Any:
+    """bool_and/bool_or accept predicate Columns (F.col('v') > 1):
+    wrap as CASE so the engine sees True/False/null cells."""
+    c2 = col(c) if isinstance(c, str) else c
+    if isinstance(c2, Column) and c2._is_pred():
+        p = c2._expr
+        return Column(_sql.Case(
+            [(p, _sql.Lit(True)), (_sql.NotOp(p), _sql.Lit(False))], None
+        ))
+    return c2
+
+
+def bool_and(c: Any) -> Column:
+    """True when every non-null value/condition is true; null on no
+    inputs. Takes a boolean column or a predicate Column."""
+    return _agg("bool_and", _bool_agg_arg(c))
+
+
+every = bool_and  # Spark alias
+
+
+def bool_or(c: Any) -> Column:
+    return _agg("bool_or", _bool_agg_arg(c))
+
+
+def count_if(c: Any) -> Column:
+    """Count rows where the condition is true (Spark count_if)."""
+    c2 = col(c) if isinstance(c, str) else c
+    p = (
+        c2._expr
+        if isinstance(c2, Column) and c2._is_pred()
+        else _sql.Predicate(_operand(c2), "=", True)
+    )
+    arg = _sql.Case([(p, _sql.Lit(1))], None)
+    return Column(_sql.Call("count", arg, False, [arg]))
+
+
+def any_value(c: Any, ignoreNulls: bool = True) -> Column:
+    """An arbitrary non-null value of the group (first seen here)."""
+    if not ignoreNulls:
+        raise ValueError(
+            "any_value(ignoreNulls=False) is not supported: the "
+            "streaming aggregate engine skips nulls"
+        )
+    return _agg("any_value", c)
+
+
+def mode(c: Any) -> Column:
+    """Most frequent non-null value; ties break on first occurrence
+    (Spark leaves tie order undefined)."""
+    return _agg("mode", c)
+
+
+# -- window functions (bind with .over(Window.partitionBy(...))) --------
+# Each returns an UNBOUND window node; Column.over fills the spec in.
+# Aggregates (sum/avg/...) need no constructor here — any aggregate
+# Column takes .over directly, like pyspark.
+
+count_distinct = countDistinct
+array_agg = collect_list
+
+
+def broadcast(df):
+    """pyspark's broadcast-join hint: accepted and ignored (one join
+    strategy here); returns the frame unchanged."""
+    return df
+
+
+def window(timeColumn: Any, windowDuration: str,
+           slideDuration: str = None, startTime: str = None) -> Column:
+    """Tumbling time-window bucketing (pyspark F.window):
+    ``df.groupBy(F.window("ts", "10 minutes")).agg(...)``: each row's
+    timestamp floors into a {'start', 'end'} struct key. Sliding windows
+    (slideDuration != windowDuration) refuse: each row would belong to
+    several windows. Durations parse '<n> <seconds|minutes|hours|days|
+    weeks|milliseconds>' and are validated here, not inside a partition
+    task."""
+    from sparkdl_tpu_torch.sql_builtins import _parse_duration_s
+
+    if _parse_duration_s(windowDuration) <= 0:
+        raise ValueError(f"window duration must be positive: {windowDuration!r}")
+    args = [timeColumn, lit(str(windowDuration))]
+    if slideDuration is not None:
+        if _parse_duration_s(slideDuration) != _parse_duration_s(windowDuration):
+            raise ValueError(
+                "sliding windows (slideDuration != windowDuration) are "
+                "not supported: each row would belong to several "
+                "windows; use a tumbling window"
+            )
+        args.append(lit(str(slideDuration)))
+        if startTime is not None:
+            _parse_duration_s(startTime)
+            args.append(lit(str(startTime)))
+    elif startTime is not None:
+        # the builtin's 3rd positional is the slide; pass it equal to the
+        # duration so startTime lands in the 4th slot
+        _parse_duration_s(startTime)
+        args.extend([lit(str(windowDuration)), lit(str(startTime))])
+    return _builtin("window", *args).alias("window")
+
+
+# -- the rest of the JAX surface: refused by name ----------------------------
 
 _RELATIONAL = {
-    "count": "aggregates",
-    "countDistinct": "aggregates",
-    "sum": "aggregates",
-    "avg": "aggregates",
-    "mean": "aggregates",
-    "min": "aggregates",
-    "max": "aggregates",
-    "collect_list": "aggregates",
-    "collect_set": "aggregates",
-    "first": "aggregates",
-    "last": "aggregates",
-    "median": "aggregates",
-    "stddev": "aggregates",
-    "variance": "aggregates",
-    "stddev_samp": "aggregates",
-    "var_samp": "aggregates",
-    "stddev_pop": "aggregates",
-    "var_pop": "aggregates",
-    "skewness": "aggregates",
-    "kurtosis": "aggregates",
-    "sumDistinct": "aggregates",
-    "sum_distinct": "aggregates",
-    "approx_count_distinct": "aggregates",
-    "approxCountDistinct": "aggregates",
-    "percentile_approx": "aggregates",
-    "percentile": "aggregates",
-    "corr": "aggregates",
-    "covar_pop": "aggregates",
-    "covar_samp": "aggregates",
-    "bool_and": "aggregates",
-    "every": "aggregates",
-    "bool_or": "aggregates",
-    "count_if": "aggregates",
-    "any_value": "aggregates",
-    "mode": "aggregates",
-    "count_distinct": "aggregates",
-    "array_agg": "aggregates",
     "row_number": "window functions",
     "rank": "window functions",
     "dense_rank": "window functions",
@@ -1500,7 +1767,6 @@ _RELATIONAL = {
     "first_value": "window functions",
     "last_value": "window functions",
     "nth_value": "window functions",
-    "window": "window functions",
     "explode": "generators",
     "explode_outer": "generators",
     "posexplode": "generators",
@@ -1512,7 +1778,6 @@ _RELATIONAL = {
     "randn": "partition-seeded generators",
     "spark_partition_id": "partition-seeded generators",
     "input_file_name": "partition-seeded generators",
-    "broadcast": "joins",
     "pandas_udf": "vectorized UDFs over pandas",
 }
 

@@ -109,6 +109,34 @@ def ground_truth_bytes() -> Tuple[Optional[int], Optional[str]]:
     return int(total), "memory_allocated"
 
 
+def allocated_block_bytes(module) -> Optional[int]:
+    """The bytes of the CUDA caching allocator's blocks behind ``module``'s
+    parameters and buffers, each block once, read from the allocator's
+    snapshot: what ``memory_allocated`` falls by when the module is freed
+    (a block is the request rounded up). Unlike a reading before and after
+    the load, no other thread's allocation or free during the load enters
+    it. None when the module holds no CUDA tensor or a storage is not at
+    the start of an allocator block."""
+    import itertools
+
+    import torch
+
+    starts = {
+        t.untyped_storage().data_ptr()
+        for t in itertools.chain(module.parameters(), module.buffers())
+        if t.is_cuda
+    }
+    if not starts:
+        return None
+    sizes = {
+        b["address"]: b["size"]
+        for seg in torch.cuda.memory._snapshot()["segments"]
+        for b in seg["blocks"]
+        if b["state"] == "active_allocated" and b["address"] in starts
+    }
+    return sum(sizes.values()) if len(sizes) == len(starts) else None
+
+
 def is_oom_error(err: BaseException) -> bool:
     """Whether ``err`` is an allocation failure worth forensics:
     ``torch.cuda.OutOfMemoryError``, ``MemoryError``, or an error whose text

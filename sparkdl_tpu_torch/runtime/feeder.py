@@ -901,6 +901,19 @@ class DeviceFeeder:
                 return False
         return not (self._staged or self._pending_results())
 
+    def retire_if_idle(self) -> bool:
+        """Close admission if the feeder is idle, in the same critical
+        section as the check, so a producer either opened its handle first
+        (not idle) or finds the feeder closed and opens another: a stream
+        is never failed by a cap eviction under it."""
+        with self._lock:
+            if self._open or self._fill or not self._q.empty():
+                return False
+            if self._staged or self._pending_results():
+                return False
+            self._closed = True
+        return True
+
     def close(self, timeout: float = 5.0) -> None:
         with self._lock:
             self._closed = True
@@ -953,7 +966,7 @@ def get_feeder(device_fn, dispatch_rows, row_shape, dtype, prefetch) -> DeviceFe
                 if len(_feeders) <= cap:
                     break
                 cand = _feeders[k]
-                if cand is not f and cand.idle():
+                if cand is not f and cand.retire_if_idle():
                     evicted.append(_feeders.pop(k))
     if evicted:
         metrics.inc("feeder.evicted", len(evicted))

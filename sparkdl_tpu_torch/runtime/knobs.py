@@ -39,6 +39,9 @@ _KNOBS: Dict[str, Tuple[str, Optional[str]]] = {
     # dispatch through the shared feeder, projection and predicate
     # pushdown); 0/off: the row-path planner, the A/B arm
     "SPARKDL_SQL_VECTORIZE": ("flag", "1"),
+    # dataframe/frame.py: fail-fast row cap for the relational actions
+    # that collect to the host (join, set operations, distinct); 0: none
+    "SPARKDL_DRIVER_COLLECT_MAX_ROWS": ("int", "5000000"),
     # runtime/native.py: set, the C++ image bridge is not used (PIL
     # decodes; read at every call)
     "SPARKDL_TPU_NO_NATIVE": ("flag", None),

@@ -394,10 +394,20 @@ class ResidencyManager:
                 # a generator (prefill/decode over its own encoder) has no
                 # device fn: the generation engine drives it
                 nbytes = mf.param_bytes if generate else param_bytes(mf)
-                truth1, _ = mem_mod.ground_truth()
-                measured = None
-                if truth0 is not None and truth1 is not None and truth1 > truth0:
-                    measured = int(truth1 - truth0)
+                # the allocator's blocks behind the module: a difference of
+                # two readings would also take in what the feeders and the
+                # last request's tensors allocate or free meanwhile, and
+                # every later leak check would carry that error
+                module = getattr(mf, "module", None)
+                measured = (
+                    mem_mod.allocated_block_bytes(module)
+                    if truth0 is not None and module is not None
+                    else None
+                )
+                if measured is None:
+                    truth1, _ = mem_mod.ground_truth()
+                    if truth0 is not None and truth1 is not None and truth1 > truth0:
+                        measured = int(truth1 - truth0)
                 # the charge is what the allocator holds for the module (its
                 # own bytes without a probe): evicts more if the estimate
                 # fell short, and replaces its reservation

@@ -297,8 +297,8 @@ def test_what_stays_refused(frames):
     ours, _ = frames
     with pytest.raises(UnsupportedSQL, match="ROADMAP Queue A item 8"):
         F.col("n").over(None)
-    for name in ("sum", "count", "row_number", "lag", "explode", "stack", "json_tuple", "rand",
-                 "monotonically_increasing_id", "window", "pandas_udf", "broadcast", "collect_list"):
+    for name in ("row_number", "lag", "explode", "stack", "json_tuple", "rand",
+                 "monotonically_increasing_id", "pandas_udf"):
         with pytest.raises(UnsupportedSQL, match=f"F.{name} .*ROADMAP Queue A item 8"):
             getattr(F, name)("n")
     with pytest.raises(AttributeError):
@@ -309,3 +309,20 @@ def test_what_stays_refused(frames):
         ours.filter(F.col("n") + 1)
     with pytest.raises(TypeError, match="Column is not iterable"):
         list(F.col("arr"))
+
+
+#: names ``test_what_stays_refused`` once refused: now the JAX package's
+MOVED = {
+    "sum": lambda f, df: df.groupBy("tag").agg(f.sum("n").alias("s")),
+    "count": lambda f, df: df.groupBy("tag").agg(f.count("x").alias("c"), f.count("*").alias("rows")),
+    "collect_list": lambda f, df: df.agg(f.collect_list("s").alias("ss")),
+    "broadcast": lambda f, df: df.join(f.broadcast(df.select("id", f.col("n").alias("n2"))), "id"),
+    "window": lambda f, df: df.withColumn("t", f.to_timestamp("ts")).groupBy(
+        f.window("t", "1 day")).agg(f.count("*").alias("c")),
+}
+
+
+@pytest.mark.parametrize("name", list(MOVED))
+def test_aggregates_broadcast_and_window_equal_the_jax_package(frames, name):
+    ours, ref = frames
+    assert_same_outcome(lambda: rows(MOVED[name](F, ours)), lambda: rows(MOVED[name](JF, ref)))

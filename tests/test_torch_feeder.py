@@ -200,6 +200,40 @@ def test_lru_cap_closes_the_oldest_idle_feeder(mod, monkeypatch):
     f1.finish(h)
 
 
+def test_a_cap_eviction_never_fails_a_stream_opened_under_it(monkeypatch):
+    """The idle check and the close are one step: a producer that looked
+    its feeder up before an eviction either holds it busy or finds it
+    closed and is handed a fresh one (``run_shared``'s open retries), so
+    no open handle is failed with "DeviceFeeder closed"."""
+    monkeypatch.setenv("SPARKDL_MAX_FEEDERS", "1")
+    fn = _port_fn(_weights())
+    f1 = feeder.get_feeder(fn, 1, (ROW,), np.float32, 2)
+    h = f1.open_handle([None])
+    assert not f1.retire_if_idle() and not f1._closed
+    f1.finish(h)
+    deadline = time.monotonic() + 5.0  # the owner takes the end marker
+    while not f1.idle() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert f1.retire_if_idle() and f1._closed
+    with pytest.raises(RuntimeError, match="DeviceFeeder is closed"):
+        f1.open_handle([None])
+    f1.close()
+    f2 = feeder.get_feeder(fn, 2, (ROW,), np.float32, 2)
+    assert feeder.get_feeder(fn, 1, (ROW,), np.float32, 2) is not f1
+    assert f2._closed  # the cap of 1 retired it for the new stream
+    rows = [np.full(ROW, 1.0, np.float32)] * 3
+    out = feeder.run_shared(fn, rows, lambda c: (np.stack(c), np.ones(len(c), bool)), 2)
+    assert len(out) == 3 and all(o is not None for o in out)
+
+
+def test_allocated_block_bytes_needs_cuda_tensors():
+    """The load charge reads the allocator's blocks only for a module on
+    a CUDA device; off it the residency keeps its own measurement."""
+    from sparkdl_tpu_torch.obs import memory
+
+    assert memory.allocated_block_bytes(torch.nn.Linear(4, 4)) is None
+
+
 @pytest.mark.parametrize("mod", [feeder, jax_feeder], ids=["torch", "jax"])
 def test_device_fn_error_reaches_every_open_handle(mod, monkeypatch):
     monkeypatch.setenv("SPARKDL_DEVICE_STAGE", "0")

@@ -13,6 +13,7 @@ the case list to the module's ``__all__``, so a new export needs a case.
 """
 
 import datetime
+import pathlib
 
 import pytest
 
@@ -273,12 +274,27 @@ def test_the_host_reading_builtins_have_their_types(frames):
     assert row["v"] == sparkdl_tpu_torch.__version__
 
 
+#: the aggregates, ``broadcast`` and ``window``: their cases are in
+#: tests/test_torch_dataframe_relational.py
+RELATIONAL_EXPORTS = {
+    "count", "countDistinct", "count_distinct", "sum", "avg", "mean", "min", "max",
+    "collect_list", "array_agg", "collect_set", "first", "last", "median",
+    "stddev", "variance", "stddev_samp", "var_samp", "stddev_pop", "var_pop",
+    "skewness", "kurtosis", "sumDistinct", "sum_distinct", "approx_count_distinct",
+    "approxCountDistinct", "percentile_approx", "percentile", "corr", "covar_pop",
+    "covar_samp", "bool_and", "every", "bool_or", "count_if", "any_value", "mode",
+    "broadcast", "window",
+}
+
+
 def test_every_export_has_a_case():
-    covered = {c.split("(")[0] for c in CASES} | set(SORT_MARKERS) | {
+    covered = {c.split("(")[0] for c in CASES} | set(SORT_MARKERS) | RELATIONAL_EXPORTS | {
         "col", "column", "lit", "expr", "when", "udf", "current_date", "current_timestamp",
         "current_timezone", "version", "current_user", "user", "flatten",
     }
     assert set(F.__all__) - covered == set()
-    # and the export list is the JAX module's, less the relational half
+    relational = (pathlib.Path(__file__).parent / "test_torch_dataframe_relational.py").read_text()
+    assert {n for n in RELATIONAL_EXPORTS if f"F.{n}(" not in relational} == set()
+    # and the export list is the JAX module's, less what is still refused
     assert set(F.__all__) <= set(JF.__all__)
     assert set(JF.__all__) - set(F.__all__) == set(F._RELATIONAL)

@@ -11,9 +11,11 @@ package's ``sql.py`` on the CPU.
   counters), and a probe UDF shows that WHERE's metadata conjuncts and
   LIMIT run before any UDF scores a row.
 - The row-expression constructs this subset once refused (builtins,
-  CASE, CAST, ``||``, UDF calls inside them) equal the JAX package's;
-  every relational construct raises ValueError naming it and ROADMAP
-  Queue A item 8.
+  CASE, CAST, ``||``, UDF calls inside them) and the relational ones
+  (joins, GROUP BY and aggregates, WITH, set operations, DISTINCT,
+  subqueries, OFFSET, HAVING) equal the JAX package's; windows,
+  generators and LATERAL VIEW raise ValueError naming the construct and
+  ROADMAP Queue A item 8.
 """
 
 import numpy as np
@@ -57,12 +59,20 @@ PARITY_QUERIES = [
 ]
 
 UNSUPPORTED = {
+    "window": "SELECT sum_vec(vec) OVER (PARTITION BY label) FROM t",
+    "lateral view": "SELECT label FROM t LATERAL VIEW explode(vec) e AS x",
+    "window function without over": "SELECT row_number() FROM t",
+    "generator": "SELECT explode(vec) FROM t",
+}
+
+#: constructs this table once refused, which now run as the JAX package
+#: runs them (the relational core), or fail as it fails
+RELATIONAL = {
     "join": "SELECT a.label FROM t a JOIN t b ON a.label = b.label",
     "comma join": "SELECT label FROM t, t",
     "group by": "SELECT label FROM t GROUP BY label",
     "aggregate": "SELECT count(*) FROM t",
     "named aggregate": "SELECT max(n) FROM t",
-    "window": "SELECT sum_vec(vec) OVER (PARTITION BY label) FROM t",
     "with": "WITH u AS (SELECT label FROM t) SELECT label FROM u",
     "union": "SELECT label FROM t UNION SELECT label FROM t",
     "distinct": "SELECT DISTINCT label FROM t",
@@ -70,11 +80,8 @@ UNSUPPORTED = {
     "in subquery": "SELECT label FROM t WHERE label IN (SELECT label FROM t)",
     "scalar subquery": "SELECT (SELECT 1) FROM t",
     "exists": "SELECT label FROM t WHERE EXISTS (SELECT label FROM t)",
-    "lateral view": "SELECT label FROM t LATERAL VIEW explode(vec) e AS x",
     "offset": "SELECT label FROM t LIMIT 2 OFFSET 1",
     "having": "SELECT label FROM t HAVING n > 1",
-    "window function without over": "SELECT row_number() FROM t",
-    "generator": "SELECT explode(vec) FROM t",
     "count distinct": "SELECT count(DISTINCT label) FROM t",
 }
 
@@ -346,6 +353,23 @@ def test_a_udf_takes_one_argument(contexts):
     for ctx in (ours, ref):
         with pytest.raises(ValueError, match="takes exactly one argument"):
             ctx.sql("SELECT sum_vec(vec, n) FROM t").collect()
+
+
+def _outcome(run):
+    """``("rows", [...])``, or ``("error", (class, message))``."""
+    try:
+        return "rows", _rows_as_data(run().collect())
+    except Exception as e:  # noqa: BLE001 — compared by the caller
+        return "error", (type(e).__name__, str(e))
+
+
+@pytest.mark.parametrize("query", list(RELATIONAL.values()), ids=list(RELATIONAL))
+def test_relational_constructs_equal_the_jax_package(contexts, query, monkeypatch):
+    """Rows equal in both arms, or the same error as the JAX package's."""
+    ours, ref = contexts
+    for arm in ("1", "0"):
+        monkeypatch.setenv("SPARKDL_SQL_VECTORIZE", arm)
+        assert _outcome(lambda: ours.sql(query)) == _outcome(lambda: ref.sql(query))
 
 
 @pytest.mark.parametrize("query", list(UNSUPPORTED.values()), ids=list(UNSUPPORTED))

@@ -15,8 +15,9 @@
   ``tests/test_sql_pushdown.py``: a column read only inside a CASE
   branch, a lambda body or a builtin's argument is kept by the pruned
   scan, and a conjunct with a builtin filters before a UDF scores a row.
-- The relational half still raises ``UnsupportedSQL`` naming ROADMAP
-  Queue A item 8, each construct by name.
+- The relational constructs this file once listed as refused equal the
+  JAX package's; windows, generators and LATERAL VIEW still raise
+  ``UnsupportedSQL`` naming ROADMAP Queue A item 8, each by name.
 """
 
 import math
@@ -400,9 +401,6 @@ RELATIONAL = {
     "aggregate in case": "SELECT CASE WHEN max(n) > 1 THEN 1 END FROM t",
     "count distinct": "SELECT count(DISTINCT tag) FROM t",
     "count_if": "SELECT count_if(n > 1) FROM t",
-    "window": "SELECT upper(s) OVER (PARTITION BY tag) FROM t",
-    "ranking": "SELECT row_number() OVER (ORDER BY id) FROM t",
-    "lag": "SELECT lag(n) FROM t",
     "with": "WITH u AS (SELECT id FROM t) SELECT id FROM u",
     "union": "SELECT id FROM t UNION SELECT id FROM t",
     "intersect": "SELECT id FROM t INTERSECT SELECT id FROM t",
@@ -414,15 +412,30 @@ RELATIONAL = {
     "scalar subquery": "SELECT (SELECT 1) FROM t",
     "exists": "SELECT id FROM t WHERE EXISTS (SELECT id FROM t)",
     "not exists": "SELECT id FROM t WHERE NOT EXISTS (SELECT id FROM t)",
+    "offset": "SELECT id FROM t LIMIT 2 OFFSET 1",
+}
+
+#: windows, generators and LATERAL VIEW: still refused
+STILL_REFUSED = {
+    "window": "SELECT upper(s) OVER (PARTITION BY tag) FROM t",
+    "ranking": "SELECT row_number() OVER (ORDER BY id) FROM t",
+    "lag": "SELECT lag(n) FROM t",
     "lateral view": "SELECT id FROM t LATERAL VIEW explode(arr) e AS v",
     "explode": "SELECT explode(arr) FROM t",
     "stack": "SELECT stack(2, n, m) FROM t",
     "json_tuple": "SELECT json_tuple(js, 'a') FROM t",
-    "offset": "SELECT id FROM t LIMIT 2 OFFSET 1",
 }
 
 
 @pytest.mark.parametrize("query", list(RELATIONAL.values()), ids=list(RELATIONAL))
+def test_relational_constructs_equal_the_jax_package(contexts, query):
+    """Once refused here, now the relational core: the JAX package's rows,
+    or its error."""
+    ours, ref = contexts
+    assert_same_outcome(lambda: rows(ours.sql(query)), lambda: rows(ref.sql(query)))
+
+
+@pytest.mark.parametrize("query", list(STILL_REFUSED.values()), ids=list(STILL_REFUSED))
 def test_relational_constructs_still_name_item_8(contexts, query):
     ours, _ = contexts
     with pytest.raises(UnsupportedSQL, match="ROADMAP Queue A item 8"):
