@@ -528,13 +528,50 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     score: aggregates and scores within 1e-5 relative of the bare UDF
     query's rows, ``sql.udf.batches`` beside the bare query's, every query
     batched (at least ceil(rows / 32) batches, fewer than rows). About 20 s.
+25. windows and generators of the SQL/DataFrame surface. (a)
+    ``TextEmbedder`` over ``get_model("bert-base")`` f32, maxLength 512,
+    phase 24's 256 texts on 4 partitions with its seeded ``topic`` and
+    ``source``, its score (the sum of the first 16 squares of the
+    embedding, in float64) and its ``topics`` table, plus a list column
+    with NULL and empty cells; the same bert-base registered as the catalog
+    UDF ``bert25`` (text in, tokenized and padded to 512, batches of 32).
+    Fifteen queries through ``spark.sql`` (over a CTE) and through the
+    Column API (``Window.partitionBy(...).orderBy(...)``,
+    ``F.*().over(w)``): top-3 per topic by ``row_number()``; ``rank``,
+    ``dense_rank``, ``percent_rank``, ``cume_dist`` and ``ntile(4)`` by
+    source over ``round(score, 2)`` (ties on purpose); ``lag``/``lead`` by
+    1 and 2 with defaults; ``first_value``/``last_value``/``nth_value``
+    under the default frame and the whole partition; a running ``avg`` over
+    ``ROWS BETWEEN 2 PRECEDING AND CURRENT ROW``; ``count``/``avg`` over
+    ``RANGE BETWEEN 10 PRECEDING AND 10 FOLLOWING`` of id; ``score -
+    avg(score) OVER (PARTITION BY topic)``; a window over the join to
+    ``topics`` (``sql.pushdown.pruned_cols`` printed); ``rank() OVER
+    (PARTITION BY topic ORDER BY <score of bert25(text)> DESC)``, the model
+    running on the card inside the window's materialization;
+    ``explode(split(text, ' '))`` grouped by word per topic, top 10, and
+    its exploded row count; ``LATERAL VIEW OUTER posexplode`` chained with a
+    second LATERAL VIEW, with ``e.*``; ``stack(2, ...)``; ``json_tuple`` over
+    ``to_json(named_struct(id, topic, score))``. The two surfaces' rows
+    equal; ranks, offsets, values, exploded rows and JSON cells equal to a
+    Python computation over the collected scores (ties broken by id),
+    window aggregates within 1e-6 relative of numpy, the engine's scores
+    within 1e-12 of numpy's float64 sum, the UDF's scores within 1e-4 of
+    the TextEmbedder's; the UDF batched (at least ceil(rows / 32) batches,
+    fewer than rows, ``sql.udf.batches``) and exactly 12 flash launches per
+    bert-base dispatch; host seconds per query and surface, rows in and
+    out. (b) On the Column API: ``rand(7)``, ``randn(7)``,
+    ``monotonically_increasing_id()`` and ``spark_partition_id()`` over the
+    4-partition frame, equal to numpy's ``default_rng(SeedSequence([7,
+    index]))`` draws per partition and to a second run. Host code but for
+    bert-base. About 20 s.
 
 The line before the last is the ``kernels`` JSON record (the f32 and the
 bf16 kernel at bert-base L=512, launches from each dtype's main-path run,
 ``launches_phase20``, phase 20(a)'s flood, and ``launches_phase22``,
 phase 22(a)'s loaded program (bf16) and 22(c)'s and 22(e)'s orbax models
 (f32), ``launches_phase23``, phase 23(b)'s bert-base pass (f32), and
-``launches_phase24``, phase 24(a)'s (f32)); the last line is ``{"ok":
+``launches_phase24``, phase 24(a)'s (f32), and ``launches_phase25``, phase
+25(a)'s TextEmbedder and UDF dispatches (f32)); the last line is ``{"ok":
 true, "device": {...}}``. Phase 17's first check names each leak record
 (model, bytes) from an events log (``SPARKDL_OBS_JSONL``) armed before
 phase 11, which does not roll over as the ledger's ring does.
@@ -841,6 +878,15 @@ R_NUMPY_REL = 1e-6
 R_UDF_IMAGES = 256
 R_UDF_BATCH = 32
 R_UDF_REL = 1e-5
+
+# phase 25: windows and generators over bert-base scores and a model UDF
+W_TEXT_MODEL = "bert-base"
+W_TEXTS = 256
+W_MAX_LENGTH = 512
+W_UDF_BATCH = 32
+W_UDF_REL = 1e-4
+W_NUMPY_REL = 1e-6
+W_SEED = 7
 
 DISPATCH_CALLS = 2000
 DISPATCH_ROUNDS = 5
@@ -1238,6 +1284,7 @@ def phase_main_path(seed: int, n_texts: int, device_name: str) -> dict:
         flash_attention.launches = 0
         flash, dt, batches, tokens = _embed(flash_mf, df)
         launches = flash_attention.launches
+        evicted = int(metrics.counter("feeder.evicted"))
         check(batches > 0, f"{tag}: no batch dispatched")
         check(
             launches == BERT_BASE_LAYERS * batches,
@@ -1265,7 +1312,7 @@ def phase_main_path(seed: int, n_texts: int, device_name: str) -> dict:
         check(err <= atol, f"{tag}: flash vs dense embeddings differ by {err} > {atol}")
         print(
             f"main path bert-base {tag} on {device_name}: {len(texts)} rows, "
-            f"{batches} batches, {launches} flash launches, {tokens} real tokens; "
+            f"{batches} batches (feeder.evicted {evicted}), {launches} flash launches, {tokens} real tokens; "
             f"flash {dt:.3f} s = {len(texts) / dt:.1f} rows/s, {tokens / dt:.0f} tokens/s; "
             f"dense {dense_dt:.3f} s = {len(texts) / dense_dt:.1f} rows/s; "
             f"max |flash - dense| {err:.3e} (atol {atol}); SPARKDL_SHARED_FEEDER=0 (one pipeline "
@@ -5501,6 +5548,412 @@ def phase_relational(seed: int, device_name: str, device="cuda") -> int:
     return launches
 
 
+def _window_queries(sf, Window, scored, topic_df, texts_df, score_of_udf: str):
+    """Phase 25(a)'s queries: name -> (SQL after the ``scored`` CTE, the same
+    computation on the Column surface)."""
+    by_topic_id = Window.partitionBy("topic").orderBy("id")
+    by_source_id = Window.partitionBy("source").orderBy("id")
+    whole = by_topic_id.rowsBetween(Window.unboundedPreceding, Window.unboundedFollowing)
+    by_s2 = Window.partitionBy("source").orderBy(sf.round("score", 2))
+    return {
+        "top3": (
+            ", ranked AS (SELECT id, topic, score, row_number() OVER (PARTITION BY topic ORDER BY score DESC, id) "
+            "AS r FROM scored) SELECT id, topic, score, r FROM ranked WHERE r <= 3",
+            lambda: scored.withColumn("r", sf.row_number().over(
+                Window.partitionBy("topic").orderBy(sf.col("score").desc(), "id")))
+            .filter(sf.col("r") <= 3).select("id", "topic", "score", "r"),
+        ),
+        "ranks": (
+            " SELECT id, source, round(score, 2) AS s2, "
+            "rank() OVER (PARTITION BY source ORDER BY round(score, 2)) AS rk, "
+            "dense_rank() OVER (PARTITION BY source ORDER BY round(score, 2)) AS dr, "
+            "percent_rank() OVER (PARTITION BY source ORDER BY round(score, 2)) AS pr, "
+            "cume_dist() OVER (PARTITION BY source ORDER BY round(score, 2)) AS cd, "
+            "ntile(4) OVER (PARTITION BY source ORDER BY round(score, 2)) AS nt FROM scored",
+            lambda: scored.select(
+                "id", "source", sf.round("score", 2).alias("s2"), sf.rank().over(by_s2).alias("rk"),
+                sf.dense_rank().over(by_s2).alias("dr"), sf.percent_rank().over(by_s2).alias("pr"),
+                sf.cume_dist().over(by_s2).alias("cd"), sf.ntile(4).over(by_s2).alias("nt")),
+        ),
+        "offsets": (
+            " SELECT id, lag(id) OVER (ORDER BY id) AS p1, lead(id) OVER (ORDER BY id) AS n1, "
+            "lag(score, 2, -1.0) OVER (PARTITION BY source ORDER BY id) AS p2, "
+            "lead(topic, 2, 'none') OVER (PARTITION BY source ORDER BY id) AS n2 FROM scored",
+            lambda: scored.select(
+                "id", sf.lag("id").over(Window.orderBy("id")).alias("p1"),
+                sf.lead("id").over(Window.orderBy("id")).alias("n1"),
+                sf.lag("score", 2, -1.0).over(by_source_id).alias("p2"),
+                sf.lead("topic", 2, "none").over(by_source_id).alias("n2")),
+        ),
+        "values": (
+            " SELECT id, topic, first_value(score) OVER (PARTITION BY topic ORDER BY id) AS f, "
+            "last_value(score) OVER (PARTITION BY topic ORDER BY id) AS l, "
+            "nth_value(score, 2) OVER (PARTITION BY topic ORDER BY id) AS n, "
+            "first_value(score) OVER (PARTITION BY topic ORDER BY id ROWS BETWEEN UNBOUNDED PRECEDING AND "
+            "UNBOUNDED FOLLOWING) AS fw, "
+            "last_value(score) OVER (PARTITION BY topic ORDER BY id ROWS BETWEEN UNBOUNDED PRECEDING AND "
+            "UNBOUNDED FOLLOWING) AS lw, "
+            "nth_value(score, 2) OVER (PARTITION BY topic ORDER BY id ROWS BETWEEN UNBOUNDED PRECEDING AND "
+            "UNBOUNDED FOLLOWING) AS nw FROM scored",
+            lambda: scored.select(
+                "id", "topic", sf.first_value("score").over(by_topic_id).alias("f"),
+                sf.last_value("score").over(by_topic_id).alias("l"),
+                sf.nth_value("score", 2).over(by_topic_id).alias("n"),
+                sf.first_value("score").over(whole).alias("fw"), sf.last_value("score").over(whole).alias("lw"),
+                sf.nth_value("score", 2).over(whole).alias("nw")),
+        ),
+        "running avg": (
+            " SELECT id, source, avg(score) OVER (PARTITION BY source ORDER BY id ROWS BETWEEN 2 PRECEDING AND "
+            "CURRENT ROW) AS run FROM scored",
+            lambda: scored.select("id", "source", sf.avg("score").over(by_source_id.rowsBetween(-2, 0)).alias("run")),
+        ),
+        "range": (
+            " SELECT id, topic, count(*) OVER (PARTITION BY topic ORDER BY id RANGE BETWEEN 10 PRECEDING AND "
+            "10 FOLLOWING) AS c, avg(score) OVER (PARTITION BY topic ORDER BY id RANGE BETWEEN 10 PRECEDING AND "
+            "10 FOLLOWING) AS a FROM scored",
+            lambda: scored.select(
+                "id", "topic", sf.count("*").over(by_topic_id.rangeBetween(-10, 10)).alias("c"),
+                sf.avg("score").over(by_topic_id.rangeBetween(-10, 10)).alias("a")),
+        ),
+        "deviation": (
+            " SELECT id, topic, score - avg(score) OVER (PARTITION BY topic) AS dev FROM scored",
+            lambda: scored.select(
+                "id", "topic", (sf.col("score") - sf.avg("score").over(Window.partitionBy("topic"))).alias("dev")),
+        ),
+        "join": (
+            " SELECT s.id, t.name, rank() OVER (PARTITION BY t.name ORDER BY s.score DESC) AS r "
+            "FROM scored s JOIN topics25 t ON s.topic = t.topic",
+            lambda: scored.join(topic_df, "topic").select(
+                "id", "name", sf.rank().over(Window.partitionBy("name").orderBy(sf.col("score").desc())).alias("r")),
+        ),
+        "udf rank": (
+            f" SELECT id, topic, rank() OVER (PARTITION BY topic ORDER BY {score_of_udf} DESC) AS r FROM texts25",
+            lambda: texts_df.select("id", "topic", sf.rank().over(
+                Window.partitionBy("topic").orderBy(sf.expr(score_of_udf).desc())).alias("r")),
+        ),
+        "words": (
+            " , w AS (SELECT topic, explode(split(text, ' ')) AS word FROM texts25) "
+            "SELECT topic, word, count(*) AS n FROM w GROUP BY topic, word ORDER BY n DESC, topic, word LIMIT 10",
+            lambda: texts_df.select("topic", sf.explode(sf.split("text", " ")).alias("word"))
+            .groupBy("topic", "word").agg(sf.count("*").alias("n"))
+            .orderBy(sf.col("n").desc(), "topic", "word").limit(10),
+        ),
+        "exploded": (
+            " SELECT explode(split(text, ' ')) AS word FROM texts25",
+            lambda: texts_df.select(sf.explode(sf.split("text", " ")).alias("word")),
+        ),
+        "lateral": (
+            " SELECT id, e.*, v FROM texts25 LATERAL VIEW OUTER posexplode(parts) e AS pos, part "
+            "LATERAL VIEW explode(array(pos, length(part))) f AS v",
+            lambda: texts_df.select("id", sf.posexplode_outer("parts").alias("pos", "part"))
+            .select("id", "pos", "part", sf.explode(sf.array("pos", sf.length("part"))).alias("v")),
+        ),
+        "stack": (
+            " SELECT id, stack(2, 'topic', topic, 'source', source) FROM texts25",
+            lambda: texts_df.select("id", sf.stack(2, sf.lit("topic"), "topic", sf.lit("source"), "source")),
+        ),
+        "json_tuple": (
+            " SELECT id, json_tuple(to_json(named_struct('id', id, 'topic', topic, 'score', score)), "
+            "'id', 'topic', 'score') FROM scored",
+            lambda: scored.select("id", sf.json_tuple(sf.to_json(sf.named_struct(
+                sf.lit("id"), "id", sf.lit("topic"), "topic", sf.lit("score"), "score")), "id", "topic", "score")),
+        ),
+    }
+
+
+def _check_window_rows(name: str, rows: list, base: dict, scores, udf_scores, dim: dict) -> float:
+    """Phase 25(a)'s rows against a numpy/Python computation over the
+    collected scores (ties broken by id): ranks, offsets and values exactly,
+    window aggregates within ``W_NUMPY_REL``. Returns the worst relative
+    error of an aggregate."""
+    ids, topics, sources, texts, parts = (base[k] for k in ("id", "topic", "source", "text", "parts"))
+    n = len(ids)
+    worst = 0.0
+
+    def close(got, want, what):
+        nonlocal worst
+        rel = abs(got - want) / max(abs(want), np.finfo(np.float64).tiny)
+        worst = max(worst, rel)
+        check(rel <= W_NUMPY_REL, f"windows (25a) {name}: {what} = {got!r}, numpy {want!r}")
+
+    def groups(keys):
+        out: dict = {}
+        for i in range(n):
+            out.setdefault(keys[i], []).append(i)
+        return out
+
+    def count(want):
+        check(len(rows) == want, f"windows (25a) {name}: {len(rows)} rows, expected {want}")
+
+    if name == "top3":
+        want = {}
+        for idx in groups(topics).values():
+            for r, i in enumerate(sorted(idx, key=lambda i: (-scores[i], ids[i]))[:3]):
+                want[ids[i]] = r + 1
+        count(len(want))
+        check({r["id"]: r["r"] for r in rows} == want and [r["id"] for r in rows] == sorted(want),
+              "windows (25a) top3: row numbers or row order")
+    elif name == "ranks":
+        count(n)
+        s2 = {r["id"]: r["s2"] for r in rows}
+        check(all(abs(s2[ids[i]] - scores[i]) <= 0.005 + 1e-9 for i in range(n)), "windows (25a) ranks: round")
+        got = {r["id"]: r for r in rows}
+        for idx in groups(sources).values():
+            m = len(idx)
+            keys = [s2[ids[i]] for i in idx]
+            order = sorted(range(m), key=lambda j: (keys[j], ids[idx[j]]))
+            base_size, extra = divmod(m, 4)
+            bounds, start = [], 0
+            for b in range(4):
+                size = base_size + (1 if b < extra else 0)
+                bounds.append((start, start + size))
+                start += size
+            for pos, j in enumerate(order):
+                r = got[ids[idx[j]]]
+                rank = 1 + sum(1 for k in keys if k < keys[j])
+                dense = 1 + len({k for k in keys if k < keys[j]})
+                tile = next(b + 1 for b, (lo, hi) in enumerate(bounds) if lo <= pos < hi)
+                check((r["rk"], r["dr"], r["nt"]) == (rank, dense, tile),
+                      f"windows (25a) ranks: row {r['id']} rank/dense_rank/ntile {(r['rk'], r['dr'], r['nt'])}, "
+                      f"expected {(rank, dense, tile)}")
+                check(r["pr"] == ((rank - 1) / (m - 1) if m > 1 else 0.0)
+                      and r["cd"] == sum(1 for k in keys if k <= keys[j]) / m,
+                      f"windows (25a) ranks: row {r['id']} percent_rank/cume_dist")
+    elif name == "offsets":
+        count(n)
+        by_src = groups(sources)
+        pos_in = {i: (src, p) for src, idx in by_src.items() for p, i in enumerate(idx)}
+        for r in rows:
+            i = r["id"]
+            src, p = pos_in[i]
+            idx = by_src[src]
+            want = (i - 1 if i > 0 else None, i + 1 if i < n - 1 else None,
+                    float(scores[idx[p - 2]]) if p >= 2 else -1.0,
+                    topics[idx[p + 2]] if p + 2 < len(idx) else "none")
+            got = (r["p1"], r["n1"], r["p2"], r["n2"])
+            check(got == want, f"windows (25a) offsets: row {i} {got}, expected {want}")
+    elif name == "values":
+        count(n)
+        by_t = groups(topics)
+        for r in rows:
+            idx = by_t[r["topic"]]
+            p = idx.index(r["id"])
+            want = (scores[idx[0]], scores[r["id"]], scores[idx[1]] if p >= 1 else None,
+                    scores[idx[0]], scores[idx[-1]], scores[idx[1]] if len(idx) > 1 else None)
+            check((r["f"], r["l"], r["n"], r["fw"], r["lw"], r["nw"]) == tuple(
+                None if w is None else float(w) for w in want), f"windows (25a) values: row {r['id']}")
+    elif name == "running avg":
+        count(n)
+        by_src = groups(sources)
+        for r in rows:
+            idx = by_src[r["source"]]
+            p = idx.index(r["id"])
+            close(r["run"], float(np.mean(scores[idx[max(0, p - 2):p + 1]])), f"running avg of row {r['id']}")
+    elif name == "range":
+        count(n)
+        by_t = groups(topics)
+        for r in rows:
+            frame = [j for j in by_t[r["topic"]] if abs(ids[j] - r["id"]) <= 10]
+            check(r["c"] == len(frame), f"windows (25a) range: count of row {r['id']}")
+            close(r["a"], float(np.mean(scores[frame])), f"range avg of row {r['id']}")
+    elif name == "deviation":
+        count(n)
+        by_t = groups(topics)
+        for r in rows:
+            close(r["dev"] + float(np.mean(scores[by_t[r["topic"]]])), float(scores[r["id"]]),
+                  f"score - avg(score) of row {r['id']}")
+    elif name == "join":
+        kept = [i for i in range(n) if topics[i] in dim]
+        count(len(kept))
+        for r in rows:
+            peers = [j for j in kept if dim[topics[j]] == r["name"]]
+            check(r["r"] == 1 + sum(1 for j in peers if scores[j] > scores[r["id"]]),
+                  f"windows (25a) join: rank of row {r['id']}")
+    elif name == "udf rank":
+        count(n)
+        by_t = groups(topics)
+        for r in rows:
+            peers = by_t[r["topic"]]
+            check(r["r"] == 1 + sum(1 for j in peers if udf_scores[j] > udf_scores[r["id"]]),
+                  f"windows (25a) udf rank: rank of row {r['id']}")
+    elif name == "words":
+        from collections import Counter
+
+        counts = Counter((topics[i], w) for i in range(n) for w in texts[i].split(" "))
+        want = sorted(counts.items(), key=lambda kv: (-kv[1], kv[0][0] is not None, kv[0][0] or "", kv[0][1]))[:10]
+        check([(r["topic"], r["word"], r["n"]) for r in rows] == [(t, w, c) for (t, w), c in want],
+              "windows (25a) words: the top 10")
+    elif name == "exploded":
+        count(sum(len(t.split(" ")) for t in texts))
+    elif name == "lateral":
+        want = []
+        for i in range(n):
+            cells = list(enumerate(parts[i])) if parts[i] else [(None, None)]
+            for p, part in cells:
+                for v in (p, None if part is None else len(part)):
+                    want.append((ids[i], p, part, v))
+        count(len(want))
+        check([(r["id"], r["pos"], r["part"], r["v"]) for r in rows] == want, "windows (25a) lateral: rows")
+    elif name == "stack":
+        count(2 * n)
+        want = [t for i in range(n) for t in ((ids[i], "topic", topics[i]), (ids[i], "source", sources[i]))]
+        check([(r["id"], r["col0"], r["col1"]) for r in rows] == want, "windows (25a) stack: rows")
+    elif name == "json_tuple":
+        count(n)
+        for r, i in zip(rows, range(n)):
+            check((r["id"], r["c0"], r["c1"]) == (ids[i], str(ids[i]), topics[i]), f"windows (25a) json_tuple: row {i}")
+            close(float(r["c2"]), float(scores[i]), f"json_tuple score of row {i}")
+    return worst
+
+
+def _udf_to_batch(tok, max_len: int):
+    """A text UDF's host stage: every row tokenized and padded to
+    ``max_len`` (one batch geometry for every dispatch)."""
+
+    def to_batch(chunk):
+        ids = np.zeros((len(chunk), max_len), np.int32)
+        mask = np.zeros((len(chunk),), bool)
+        for i, text in enumerate(chunk):
+            if text is not None:
+                words = tok(text)[:max_len]
+                ids[i, :len(words)] = words
+                mask[i] = True
+        return ids, mask
+
+    return to_batch
+
+
+def phase_windows(seed: int, device_name: str, device="cuda") -> int:
+    """Phase 25: windows and generators over bert-base scores, a model UDF
+    inside a window (``device="cpu"``: a rehearsal, with the sizes cut by
+    the caller). Returns the flash launches of its bert-base dispatches."""
+    from sparkdl_tpu_torch import functions as sf
+    from sparkdl_tpu_torch.dataframe import Window
+    from sparkdl_tpu_torch.sql import dropTempTable
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    card = f"{device_name} ({_smi()})" if on_card else device_name
+    spark = SparkSession.builder.appName("chip_smoke").getOrCreate()
+    spec = get_model(W_TEXT_MODEL)
+    layers = BERT_CONFIGS[spec.size].num_layers
+    mf = spec.model_function(dtype=torch.float32, seed=seed, device=device)
+    texts = _texts(seed, W_TEXTS)
+    rng = np.random.default_rng(seed + 24)  # phase 24's topics and sources
+    topics = [None if rng.random() < 0.08 else f"t{int(rng.integers(0, 5))}" for _ in texts]
+    sources = [("news", "wiki", "forum", "mail", "chat", "code")[int(rng.integers(0, 6))] for _ in texts]
+    parts = [None if i % 9 == 0 else ([] if i % 9 == 1 else t.split(" ")[: 1 + i % 4]) for i, t in enumerate(texts)]
+    cols = {"id": list(range(len(texts))), "text": texts, "topic": topics, "source": sources, "parts": parts}
+    table = DataFrame.fromColumns(cols, numPartitions=4)
+    dim = {"t0": "zero", "t1": "one", "t2": "two", "t3": "three", "t9": "nine"}
+    topic_df = DataFrame.fromColumns({"topic": list(dim), "name": list(dim.values())}, numPartitions=2)
+    embed = TextEmbedder(inputCol="text", outputCol="emb", modelFunction=mf, maxLength=W_MAX_LENGTH, batchSize=32)
+    embed.transform(table.limit(32)).collect()  # cuBLAS and allocator warm-up: not counted
+    sync()
+    metrics.reset()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    bert = embed.transform(table).cache()
+    sync()
+    embed_s = time.perf_counter() - t0
+    launches, batches = flash_attention.launches, _dispatches()
+    check(batches > 0 and launches == (layers * batches if on_card else 0),
+          f"windows (25a): {launches} flash launches for {batches} bert-base dispatches (expected {layers} each)")
+    base = bert.collectColumns()
+    width = BERT_CONFIGS[spec.size].hidden_size
+    check(all(e is not None and e.shape == (width,) and bool(np.isfinite(e).all()) for e in base["emb"]),
+          f"windows (25a): a row without a finite {width}-d embedding")
+    scores = np.array([sum(float(x) * float(x) for x in e[:16]) for e in base["emb"]])
+    bert.createOrReplaceTempView("bert25")
+    table.createOrReplaceTempView("texts25")
+    topic_df.createOrReplaceTempView("topics25")
+    udf_catalog.registerModelUDF("bert25", mf, to_batch=_udf_to_batch(embed._tokenizer(), W_MAX_LENGTH),
+                                 batch_size=W_UDF_BATCH, device=device)
+    score_sql = "aggregate(slice({}, 1, 16), CAST(0 AS DOUBLE), (a, x) -> a + CAST(x AS DOUBLE) * CAST(x AS DOUBLE))"
+    scored = bert.select("id", "topic", "source", sf.expr(score_sql.format("emb")).alias("score"))
+    # the scores as the engine computed them: ranks, offsets and values are
+    # held to these exactly, and these to numpy's float64 sum
+    collected = np.array([r["score"] for r in scored.collect()])
+    score_rel = float(np.max(np.abs(collected - scores) / np.abs(scores)))
+    check(score_rel <= 1e-12, f"windows (25a): the SQL scores off numpy's by {score_rel:.3e}")
+    cte = f"WITH scored AS (SELECT id, topic, source, {score_sql.format('emb')} AS score FROM bert25)"
+    worst, lines, udf_counts = 0.0, [], {}
+    try:
+        # the UDF alone: its scores, against which the window's ranks are held
+        metrics.reset()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        bare = spark.sql(f"SELECT id, {score_sql.format('bert25(text)')} AS s FROM texts25").collect()
+        sync()
+        udf_counts["bare"] = (int(metrics.counter("sql.udf.batches")), flash_attention.launches,
+                              time.perf_counter() - t0)
+        udf_scores = np.array([r["s"] for r in bare])
+        udf_rel = float(np.max(np.abs(udf_scores - scores) / np.abs(scores)))
+        check(udf_rel <= W_UDF_REL, f"windows (25a): the bert25 UDF's scores off the TextEmbedder's by {udf_rel:.3e}")
+        for name, (text, build) in _window_queries(sf, Window, scored, topic_df, table,
+                                                   score_sql.format("bert25(text)")).items():
+            got = {}
+            for surface, run in (("sql", lambda: spark.sql(cte + text)), ("columns", build)):
+                metrics.reset()
+                flash_attention.launches = 0
+                t0 = time.perf_counter()
+                got[surface] = [dict(r) for r in run().collect()]
+                sync()
+                seconds = time.perf_counter() - t0
+                if name == "udf rank":
+                    udf_counts[surface] = (int(metrics.counter("sql.udf.batches")), flash_attention.launches, seconds)
+                if name == "join" and surface == "sql":
+                    pruned = int(metrics.counter("sql.pushdown.pruned_cols"))
+                got[surface + "_s"] = seconds
+            check(got["sql"] == got["columns"], f"windows (25a) {name}: the SQL and Column surfaces' rows differ")
+            worst = max(worst, _check_window_rows(name, got["sql"], base, collected, udf_scores, dim))
+            rows_in = len(texts) if name not in ("join",) else len(texts) + len(dim)
+            lines.append(f"{name} {rows_in} -> {len(got['sql'])} rows (sql {got['sql_s']:.3f} s, "
+                         f"columns {got['columns_s']:.3f} s)")
+    finally:
+        udf_catalog.unregister("bert25")
+        for view in ("bert25", "texts25", "topics25"):
+            dropTempTable(view)
+    n = len(texts)
+    for surface, (b, flashes, _s) in udf_counts.items():
+        check(math.ceil(n / W_UDF_BATCH) <= b < n,
+              f"windows (25a) udf {surface}: {b} UDF batches for {n} rows (batches of up to {W_UDF_BATCH})")
+        check(flashes == (layers * b if on_card else 0),
+              f"windows (25a) udf {surface}: {flashes} flash launches for {b} bert-base dispatches")
+    launches += sum(f for _b, f, _s in udf_counts.values())
+    # (b) partition-seeded columns on the Column surface
+    t0 = time.perf_counter()
+    seeded = bert.select("id", sf.rand(W_SEED).alias("u"), sf.randn(W_SEED).alias("z"),
+                         sf.monotonically_increasing_id().alias("mid"), sf.spark_partition_id().alias("pid"))
+    first = [dict(r) for r in seeded.collect()]
+    seeded_s = time.perf_counter() - t0
+    check(first == [dict(r) for r in seeded.collect()], "windows (25b): a second run drew other values")
+    want = {"u": [], "z": [], "mid": [], "pid": []}
+    for index, rows_n in enumerate(bert.partitionRowCounts()):
+        draws = np.random.default_rng(np.random.SeedSequence([W_SEED, index]))
+        want["u"] += draws.random(rows_n).tolist()
+        want["z"] += np.random.default_rng(np.random.SeedSequence([W_SEED, index])).standard_normal(rows_n).tolist()
+        want["mid"] += [(index << 33) + j for j in range(rows_n)]
+        want["pid"] += [index] * rows_n
+    for key, values in want.items():
+        check([r[key] for r in first] == values, f"windows (25b): {key} differs from numpy's per-partition draws")
+    print(f"windows (25a) on {card}: TextEmbedder {W_TEXT_MODEL} f32 over {n} texts in {embed_s:.3f} s, "
+          f"{batches} dispatches, {layers} flash launches each; the bert25 UDF (batches of {W_UDF_BATCH} at "
+          f"L={W_MAX_LENGTH}) within {udf_rel:.2e} of the TextEmbedder's scores (limit {W_UDF_REL}); "
+          f"sql.udf.batches / flash launches / host s: "
+          + ", ".join(f"{k} {b} / {f} / {s:.3f}" for k, (b, f, s) in udf_counts.items())
+          + f"; join sql.pushdown.pruned_cols {pruned}; per query rows in -> out and host seconds per surface: "
+          f"{'; '.join(lines)}; both surfaces equal, ranks, offsets and values equal to Python's, worst window "
+          f"aggregate vs numpy relative {worst:.2e} (limit {W_NUMPY_REL})")
+    print(f"windows (25b) on {card}: rand/randn({W_SEED}), monotonically_increasing_id, spark_partition_id over "
+          f"{bert.numPartitions} partitions ({n} rows) in {seeded_s:.3f} s: equal to numpy's "
+          f"default_rng(SeedSequence([{W_SEED}, index])) per partition and to a second run")
+    del mf, bert, scored
+    shutdown_feeders()
+    return launches
+
+
 def _flat_tree(tree, prefix=()):
     for key, sub in tree.items():
         if isinstance(sub, dict):
@@ -5596,6 +6049,10 @@ def main(argv=None) -> int:
     done("phase 24")
     records[torch.float32]["launches_phase24"] = phase24
     records[torch.bfloat16]["launches_phase24"] = 0
+    phase25 = phase_windows(args.seed, device_name)
+    done("phase 25")
+    records[torch.float32]["launches_phase25"] = phase25
+    records[torch.bfloat16]["launches_phase25"] = 0
     records[torch.bfloat16]["launches_phase20"] = 0
     for dtype, n in phase22.items():
         records[dtype]["launches_phase22"] = n
@@ -5608,6 +6065,7 @@ def main(argv=None) -> int:
           f"f32 {phase22[torch.float32]} (22c's and 22e's orbax models)")
     print(f"flash launches in phase 23(b) (bert-base f32 under the expressions): {phase23}")
     print(f"flash launches in phase 24(a) (bert-base f32 under the relational queries): {phase24}")
+    print(f"flash launches in phase 25(a) (bert-base f32 under the windows, TextEmbedder and UDF): {phase25}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[torch.float32], records[torch.bfloat16]]}))
     print(json.dumps({

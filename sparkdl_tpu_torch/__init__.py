@@ -32,6 +32,10 @@ What it covers today:
   expressions as Columns (``functions`` as ``F``: ``col``, ``lit``,
   ``when``, ``expr``, the builtins, ``udf``) in ``DataFrame.select``,
   ``withColumn``, ``filter`` and ``orderBy`` (``dataframe/column.py``);
+  the relational core (joins, GROUP BY, set operations, CTEs,
+  subqueries), windows (``OVER``, ``Window``/``WindowSpec``,
+  ``Column.over``), the generators and LATERAL VIEW, and the
+  partition-seeded ``rand``/``randn``/ids;
 - stages saved by the JAX package load here
   (``persistence.load`` maps their ``sparkdl_tpu`` class paths);
 - model selection: ``CrossValidator`` and ``TrainValidationSplit`` over
@@ -110,6 +114,8 @@ _EXPORTS = {
     "col": "sparkdl_tpu_torch.functions",
     "lit": "sparkdl_tpu_torch.functions",
     "when": "sparkdl_tpu_torch.functions",
+    "Window": "sparkdl_tpu_torch.dataframe.window",
+    "WindowSpec": "sparkdl_tpu_torch.dataframe.window",
     "functions": "sparkdl_tpu_torch",
     "F": "sparkdl_tpu_torch",
     "registerDataFrameAsTable": "sparkdl_tpu_torch.sql",

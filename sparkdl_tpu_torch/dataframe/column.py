@@ -22,8 +22,10 @@ Semantics follow Spark:
 
 Columns are frame-agnostic expression trees: names resolve when the
 expression meets a DataFrame, exactly like SQL text. ``Column.over``
-raises :class:`~sparkdl_tpu_torch.sql.UnsupportedSQL`: window functions
-wait for ROADMAP Queue A item 8.
+binds a window function or an aggregate to a ``WindowSpec`` (the SQL
+layer's Window node); the generators (``ExplodeNode``, ``StackNode``,
+``JsonTupleNode``) and the partition-seeded ``NondetNode`` are markers that
+only ``DataFrame.select``/``withColumn`` understand.
 """
 
 from __future__ import annotations
@@ -37,9 +39,75 @@ __all__ = ["Column"]
 _PRED_TYPES = (_sql.Predicate, _sql.BoolOp, _sql.NotOp)
 
 
+class ExplodeNode:
+    """Marker for the generator F.explode/explode_outer/posexplode: one
+    output row per element of a list cell. Only DataFrame.select
+    understands it — generators change row counts, so they cannot ride
+    the row-wise evaluator like ordinary expressions."""
+
+    def __init__(self, inner: Any, outer: bool, with_pos: bool = False):
+        self.inner = inner  # the list-producing expression
+        self.outer = outer  # keep empty/null rows with a null element
+        self.with_pos = with_pos  # posexplode: emit (pos, col)
+
+
+class StackNode:
+    """Marker for the generator F.stack(n, e1..ek): n output rows per
+    input row, ceil(k/n) columns (col0..col{w-1}); the trailing row
+    pads with nulls when n does not divide k (Spark). Top-level
+    select item only, like every generator."""
+
+    def __init__(self, n: int, args: list):
+        if int(n) < 1:
+            raise ValueError(f"stack row count must be >= 1, got {n}")
+        self.n = int(n)
+        self.args = list(args)  # expression trees
+        if not self.args:
+            raise ValueError("stack needs at least one value argument")
+        self.width = -(-len(self.args) // self.n)  # ceil
+
+
+class JsonTupleNode:
+    """Marker for F.json_tuple(js, f1..fk): k output columns
+    (c0..c{k-1}) extracted from TOP-LEVEL JSON fields — row count
+    unchanged, but multi-output, so it rides the generator select
+    path. Rendering matches get_json_object (scalars as strings,
+    containers as JSON text, misses/bad JSON as null)."""
+
+    def __init__(self, src, fields: list):
+        self.src = src  # the JSON-string expression
+        self.fields = [str(f) for f in fields]
+        if not self.fields:
+            raise ValueError("json_tuple needs at least one field")
+
+
+class NondetNode:
+    """Marker for partition-seeded generators
+    (F.monotonically_increasing_id / F.rand / F.randn): their values
+    need the PARTITION INDEX (uniqueness / seed determinism), which only
+    the frame's indexed-op path has — so they work as top-level
+    select/withColumn items, not inside other expressions."""
+
+    def __init__(self, kind: str, seed: Optional[int] = None):
+        self.kind = kind  # 'mono_id' | 'rand' | 'randn'
+        self.seed = seed
+
+
 def _operand(v: Any):
     """A Column's expression, or a literal wrapped as one."""
     if isinstance(v, Column):
+        if isinstance(v._expr, (ExplodeNode, StackNode, JsonTupleNode)):
+            raise TypeError(
+                "generators (explode/stack/json_tuple) produce multiple "
+                "rows/columns and only work as TOP-LEVEL select items, "
+                "not inside another expression"
+            )
+        if isinstance(v._expr, NondetNode):
+            raise TypeError(
+                f"{v._expr.kind} is partition-seeded and only works as "
+                "a TOP-LEVEL select/withColumn item; compute it into a "
+                "column first, then combine"
+            )
         if v._is_pred():
             raise TypeError(
                 "A boolean condition cannot be used as a value here; "
@@ -94,9 +162,28 @@ class Column:
 
     # -- naming ---------------------------------------------------------
 
-    def alias(self, name: str) -> "Column":
-        """Output name."""
-        return Column(self._expr, name)
+    def alias(self, *names: str) -> "Column":
+        """Output name. Multi-output generators take one name per
+        output column: posexplode two, stack its width, json_tuple one
+        per field."""
+        e = self._expr
+        multi = None
+        if isinstance(e, ExplodeNode) and e.with_pos:
+            multi = 2
+        elif isinstance(e, StackNode):
+            multi = e.width
+        elif isinstance(e, JsonTupleNode):
+            multi = len(e.fields)
+        if multi is not None and multi > 1:
+            if len(names) != multi:
+                raise ValueError(
+                    f"this generator produces {multi} columns; alias "
+                    f"all of them (.alias({', '.join(repr(chr(97 + i)) for i in range(multi))}))"
+                )
+            return Column(e, tuple(names))
+        if len(names) != 1:
+            raise ValueError("alias() takes one name here")
+        return Column(e, names[0])
 
     name = alias  # pyspark offers both spellings
 
@@ -144,8 +231,22 @@ class Column:
         return (
             _sql._pred_contains_catalog_call(self._expr)
             if self._is_pred()
-            else _sql._contains_catalog_call(self._expr)
+            else not isinstance(self._expr, ExplodeNode)
+            and _sql._contains_catalog_call(self._expr)
         )
+
+    def _has_window(self) -> bool:
+        """Any Window node in the tree — such Columns only work as
+        select/withColumn items (the frame routes them through the SQL
+        window engine)."""
+        if isinstance(self._expr, ExplodeNode):
+            return False
+        it = (
+            _sql._iter_pred_windows(self._expr)
+            if self._is_pred()
+            else _sql._iter_windows(self._expr)
+        )
+        return next(it, None) is not None
 
     def _plain_name(self) -> Optional[str]:
         """The bare column name when this is an unadorned reference."""
@@ -156,6 +257,10 @@ class Column:
     def _output_name(self) -> str:
         if self._alias is not None:
             return self._alias
+        if isinstance(self._expr, ExplodeNode):
+            return "col"  # pyspark's default explode output name
+        if isinstance(self._expr, NondetNode):
+            return self._expr.kind
         if self._is_pred():
             return _sql._pred_name(self._expr)
         return _sql._expr_name(self._expr)
@@ -164,6 +269,21 @@ class Column:
         return f"Column<{self._output_name()!r}>"
 
     # -- evaluation bridges (what DataFrame consumes) -------------------
+
+    def _reject_window(self, where: str) -> None:
+        if self._has_window():
+            if isinstance(self._expr, _sql.Window) and not (
+                self._expr.partition_by or self._expr.order_by
+            ):
+                raise TypeError(
+                    f"Window function {self._expr.fn}() needs a window: "
+                    "call .over(Window.partitionBy(...).orderBy(...))"
+                )
+            raise TypeError(
+                f"Window Column {self._output_name()!r} cannot be used "
+                f"in {where}; window expressions only work as "
+                "select()/withColumn() items"
+            )
 
     def _reject_aggregates(self) -> None:
         expr = self._expr
@@ -181,6 +301,17 @@ class Column:
 
     def _row_fn(self) -> Callable[[Any], Any]:
         """row -> value; conditions produce True/False/None cells."""
+        if isinstance(self._expr, ExplodeNode):
+            raise TypeError(
+                "explode() produces multiple rows and only works as a "
+                "select item (df.select(..., F.explode(c).alias(...)))"
+            )
+        if isinstance(self._expr, NondetNode):
+            raise TypeError(
+                f"{self._expr.kind} needs the partition index and only "
+                "works as a top-level select/withColumn item"
+            )
+        self._reject_window("this position")
         self._reject_aggregates()
         if self._has_catalog_call():
             raise TypeError(
@@ -195,6 +326,10 @@ class Column:
 
     def _filter_fn(self) -> Callable[[Any], bool]:
         """row -> keep?; three-valued collapse (only True keeps)."""
+        self._reject_window(
+            "filter (compute it with withColumn first, then filter on "
+            "the result, as in Spark)"
+        )
         self._reject_aggregates()
         if self._has_catalog_call():
             raise TypeError(
@@ -473,8 +608,90 @@ class Column:
     # -- windowing ------------------------------------------------------
 
     def over(self, window) -> "Column":
-        """pyspark ``Column.over``: window functions are refused."""
-        raise _sql.UnsupportedSQL("Column.over (window functions)")
+        """Bind a window function or aggregate to a window spec
+        (pyspark ``Column.over``): ``F.row_number().over(Window
+        .partitionBy("k").orderBy("v"))``, ``F.sum("v").over(w)``.
+        Compiles to the SQL layer's Window node — identical semantics
+        to ``... OVER (PARTITION BY ...)`` in sql() text."""
+        from sparkdl_tpu_torch.dataframe.window import WindowSpec
+
+        if not isinstance(window, WindowSpec):
+            raise TypeError(
+                f".over() takes a WindowSpec (Window.partitionBy(...)"
+                f".orderBy(...)), got {type(window).__name__}"
+            )
+        e = self._expr
+        if isinstance(e, _sql.Window):
+            if e.partition_by or e.order_by:
+                raise TypeError(
+                    f"{e.fn}() is already bound to a window; build a "
+                    "fresh function Column for each .over()"
+                )
+            win = _sql.Window(
+                e.fn,
+                e.arg,
+                list(window._partition_by),
+                list(window._order_by),
+                e.offset,
+                e.default,
+                window._frame,
+                window._frame_kind,
+            )
+        elif isinstance(e, _sql.Call) and e.fn in _sql._AGGREGATES:
+            if e.distinct:
+                raise ValueError(
+                    f"DISTINCT aggregates ({e.fn}) are not supported "
+                    "over windows"
+                )
+            if getattr(e, "_params", None) is not None:
+                # the Window node has no parameter channel; silently
+                # computing the 0.5 default would be worse than
+                # refusing (mirrors sql.py window_spec's guard)
+                raise ValueError(
+                    f"{e.fn}() is not supported as a window function; "
+                    "compute it per group with groupBy().agg() instead"
+                )
+            arg = e.arg
+            if arg == "*":
+                arg = None  # count(*) over the window
+            elif isinstance(arg, _sql.Col):
+                arg = arg.name
+            win = _sql.Window(
+                e.fn,
+                arg,
+                list(window._partition_by),
+                list(window._order_by),
+                frame=window._frame,
+                frame_kind=window._frame_kind,
+            )
+        else:
+            raise TypeError(
+                f"Column {self._output_name()!r} is not a window "
+                "function or aggregate; .over() applies to "
+                "F.row_number()/rank()/lag()/... and aggregates like "
+                "F.sum(col)"
+            )
+        if _sql._window_needs_order(win.fn) and not win.order_by:
+            raise ValueError(
+                f"{win.fn}() requires an ordered window: add "
+                ".orderBy(...) to the Window spec"
+            )
+        if win.frame is not None and (
+            win.fn in _sql._RANKING_FNS
+            or win.fn in _sql._OFFSET_FNS
+            or win.fn == "ntile"
+        ):
+            raise ValueError(
+                f"{win.fn}() takes no window frame; drop "
+                "rowsBetween/rangeBetween from the spec"
+            )
+        if win.frame_kind == "range" and win.frame is not None:
+            if len(win.order_by) != 1:
+                raise ValueError(
+                    "rangeBetween with value offsets requires exactly "
+                    "one orderBy key (Spark's rule)"
+                )
+        return Column(win, self._alias)
 
     # -- casting / conditionals -----------------------------------------
 

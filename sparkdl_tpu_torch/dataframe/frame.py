@@ -3,8 +3,10 @@
 The part of the JAX package's DataFrame that the text, image, training,
 SQL and model-selection slices drive, with its relational methods
 (grouping and the streaming aggregate engine, joins, set operations,
-``distinct``, ``offset``): a frame is a list of partitions
-(each a ``{column: list}`` dict) plus a lazy plan of partition-wise ops.
+``distinct``, ``offset``), its windows and generators: a frame is a list
+of partitions (each a ``{column: list}`` dict) plus a lazy plan of
+partition-wise ops, some of which (``rand``, ``monotonically_increasing_id``)
+also take the source partition's index.
 Actions run the plan over the partitions through the default executor
 (``runtime/executor.py``): several at once, results in partition order,
 with bounded retry. :meth:`DataFrame.iterPartitions` runs them one at a
@@ -189,9 +191,33 @@ def _cell_key(v):
     return v
 
 
-def _run_plan(ops, columns: List[str], part: Partition) -> Partition:
+def _gen_nondet(node, index: int, n: int) -> list:
+    """Values for one partition of a partition-seeded generator
+    (Column API NondetNode): pyspark's monotonically_increasing_id
+    layout (partition index << 33 + row offset), and seed+partition
+    deterministic uniform/normal draws for rand/randn."""
+    if node.kind == "mono_id":
+        return [(index << 33) + j for j in range(n)]
+    if node.kind == "spark_partition_id":
+        return [index] * n
+    # mask: SeedSequence rejects negative entropy, and hash-derived
+    # seeds are frequently negative
+    seed = (0 if node.seed is None else int(node.seed)) & (2 ** 64 - 1)
+    rng = np.random.default_rng(np.random.SeedSequence([seed, index]))
+    if node.kind == "rand":
+        return [float(v) for v in rng.random(n)]
+    if node.kind == "randn":
+        return [float(v) for v in rng.standard_normal(n)]
+    raise ValueError(f"Unknown generator kind {node.kind!r}")
+
+
+def _run_plan(ops, columns: List[str], part: Partition, index: int = 0) -> Partition:
+    """Run the pending op chain over one partition and project to
+    ``columns``, the one execution body of every action. Ops marked
+    ``_indexed`` also receive the source partition's index (the
+    partition-seeded ids and draws need it)."""
     for op in ops:
-        part = op(part)
+        part = op(part, index) if getattr(op, "_indexed", False) else op(part)
     return {c: part[c] for c in columns}
 
 
@@ -211,10 +237,15 @@ class DataFrame:
         partitions: Sequence[Partition],
         columns: Sequence[str],
         ops: Optional[List[Callable[[Partition], Partition]]] = None,
+        first_index: int = 0,
     ):
         self._source: List[Partition] = list(partitions)
         self._columns: List[str] = list(columns)
         self._ops: List[Callable[[Partition], Partition]] = list(ops or [])
+        # the index of the first source partition within the frame it was
+        # cut from (the batch worker's one-partition frames): indexed ops
+        # see first_index + i
+        self._first_index = first_index
 
     # correlation name from .alias(); read only by the join paths, and
     # deliberately NOT propagated through transformations — alias right
@@ -229,7 +260,7 @@ class DataFrame:
         self-join spelling."""
         if not name or not isinstance(name, str):
             raise ValueError(f"alias needs a non-empty name, got {name!r}")
-        out = DataFrame(self._source, self._columns, list(self._ops))
+        out = DataFrame(self._source, self._columns, list(self._ops), self._first_index)
         out._alias_name = name
         return out
 
@@ -337,7 +368,7 @@ class DataFrame:
     def _with_op(
         self, op: Callable[[Partition], Partition], columns: List[str]
     ) -> "DataFrame":
-        return DataFrame(self._source, columns, self._ops + [op])
+        return DataFrame(self._source, columns, self._ops + [op], self._first_index)
 
     def __getattr__(self, name: str):
         """pyspark's attribute column access: ``df.x`` is a Column
@@ -366,6 +397,50 @@ class DataFrame:
             return self.select(*key)
         raise TypeError(f"DataFrame indices are column names or lists, got {type(key).__name__}")
 
+    def _apply_window_cols(self, cols: list) -> Tuple["DataFrame", list]:
+        """Column-API windows (``F.row_number().over(Window...)``):
+        compute every window-bearing Column through the SQL window
+        engine (ONE engine for sql() text and .over — semantics cannot
+        drift), widening the frame with hidden ``__win``/operand
+        columns and rewriting those Columns to plain references. The
+        caller's final projection drops the hidden columns. Returns
+        (frame, cols) unchanged when nothing carries a window."""
+        from sparkdl_tpu_torch import sql as _sql
+        from sparkdl_tpu_torch.dataframe.column import Column
+
+        items: list = []
+        positions: list = []
+        for i, c in enumerate(cols):
+            if not (isinstance(c, Column) and c._has_window()):
+                continue
+            if c._is_pred():
+                raise TypeError(
+                    f"Window condition {c._output_name()!r} is not "
+                    "supported directly; compute the window value with "
+                    "withColumn first and compare that, or wrap the "
+                    "comparison in F.when(...)"
+                )
+            # deepcopy: the engine materializes operand expressions IN
+            # PLACE on the Window nodes; user-held Columns stay pure so
+            # re-using one against another frame re-resolves cleanly
+            expr = copy.deepcopy(c._expr)
+            for w in _sql._iter_windows(expr):
+                if _sql._window_needs_order(w.fn) and not w.order_by:
+                    raise TypeError(
+                        f"Window function {w.fn}() needs a bound, "
+                        "ordered window: call .over(Window"
+                        ".partitionBy(...).orderBy(...))"
+                    )
+            items.append(_sql.SelectItem(expr, c._output_name()))
+            positions.append(i)
+        if not items:
+            return self, list(cols)
+        df = _sql.SQLContext._apply_window_items(self, items)
+        out = list(cols)
+        for item, i in zip(items, positions):
+            out[i] = Column(item.expr, item.alias)
+        return df, out
+
     def select(self, *cols) -> "DataFrame":
         """Project by name, or by Column expression
         (``df.select("a", (F.col("v") * 2).alias("d"))``); a single list
@@ -375,7 +450,35 @@ class DataFrame:
         if len(cols) == 1 and isinstance(cols[0], (list, tuple)):
             cols = tuple(cols[0])
         if any(not isinstance(c, str) for c in cols):
-            from sparkdl_tpu_torch.dataframe.column import Column
+            from sparkdl_tpu_torch.dataframe.column import (
+                Column,
+                ExplodeNode,
+                JsonTupleNode,
+                StackNode,
+            )
+
+            n_explodes = sum(
+                1
+                for c in cols
+                if isinstance(c, Column)
+                and isinstance(c._expr, (ExplodeNode, StackNode, JsonTupleNode))
+            )
+            if n_explodes > 1:
+                raise ValueError(
+                    "Only one generator (explode/stack/json_tuple) is "
+                    "allowed per select"
+                )
+            if n_explodes:
+                if any(isinstance(c, Column) and c._has_window() for c in cols):
+                    raise ValueError(
+                        "A generator (explode) and a window function "
+                        "cannot share one select; split into two selects"
+                    )
+                return self._select_with_explode(list(cols))
+
+            base, wcols = self._apply_window_cols(list(cols))
+            if base is not self:
+                return base.select(*wcols)
 
             df = self
             names: List[str] = []
@@ -408,6 +511,172 @@ class DataFrame:
 
         return self._with_op(op, wanted)
 
+    def _select_with_explode(self, cols: list) -> "DataFrame":
+        """select with ONE generator item (F.explode/explode_outer/
+        posexplode/stack/json_tuple): every non-generator item resolves
+        against the input frame as in plain select; each input row then
+        emits the generator's rows (a tuple of output cells per row),
+        with plain items repeated alongside. Lazy — a per-partition op
+        like every projection."""
+        from sparkdl_tpu_torch import sql_builtins as _sqlmod
+        from sparkdl_tpu_torch.dataframe.column import (
+            Column,
+            ExplodeNode,
+            JsonTupleNode,
+            StackNode,
+        )
+
+        df = self
+        # (src cols, output names, kind): kind 'plain' carries the
+        # source cell; generator kinds emit tuples via gen_rows below
+        items: List[Tuple[List[str], List[str], str]] = []
+        outer = False
+        gen_node = None
+        for i, c in enumerate(cols):
+            if isinstance(c, str):
+                if c not in self._columns:
+                    raise KeyError(f"No such column {c!r}")
+                items.append(([c], [c], "plain"))
+                continue
+            if not isinstance(c, Column):
+                raise TypeError(
+                    "select() takes column names or Columns, got "
+                    f"{type(c).__name__}"
+                )
+            if isinstance(c._expr, ExplodeNode):
+                tmp = f"__exp_{i}"
+                df = df.withColumn(tmp, Column(c._expr.inner))
+                node = gen_node = c._expr
+                if node.with_pos:
+                    if isinstance(c._alias, tuple):
+                        fnames = list(c._alias)
+                    elif c._alias is not None:
+                        raise ValueError(
+                            "posexplode produces two columns; alias "
+                            "both: .alias('pos', 'col')"
+                        )
+                    else:
+                        fnames = ["pos", "col"]
+                    items.append(([tmp], fnames, "posex"))
+                else:
+                    items.append(([tmp], [c._output_name()], "ex"))
+                outer = node.outer
+                continue
+            if isinstance(c._expr, StackNode):
+                node = gen_node = c._expr
+                srcs = []
+                for j, arg in enumerate(node.args):
+                    tmp = f"__stk_{i}_{j}"
+                    df = df.withColumn(tmp, Column(arg))
+                    srcs.append(tmp)
+                if isinstance(c._alias, tuple):
+                    fnames = list(c._alias)
+                elif c._alias is not None:
+                    fnames = [c._alias]  # width-1 stack, single alias
+                else:
+                    fnames = [f"col{j}" for j in range(node.width)]
+                if len(fnames) != node.width:
+                    raise ValueError(
+                        f"stack produces {node.width} columns; got "
+                        f"{len(fnames)} alias name(s)"
+                    )
+                items.append((srcs, fnames, "stack"))
+                continue
+            if isinstance(c._expr, JsonTupleNode):
+                node = gen_node = c._expr
+                tmp = f"__jt_{i}"
+                df = df.withColumn(tmp, Column(node.src))
+                if isinstance(c._alias, tuple):
+                    fnames = list(c._alias)
+                elif c._alias is not None:
+                    fnames = [c._alias]
+                else:
+                    fnames = [f"c{j}" for j in range(len(node.fields))]
+                if len(fnames) != len(node.fields):
+                    raise ValueError(
+                        f"json_tuple produces {len(node.fields)} "
+                        f"columns; got {len(fnames)} alias name(s)"
+                    )
+                items.append(([tmp], fnames, "jt"))
+                continue
+            plain = c._plain_name()
+            if plain is not None and c._alias in (None, plain):
+                items.append(([plain], [plain], "plain"))
+                continue
+            tmp = f"__sel_{i}"
+            df = df.withColumn(tmp, c)
+            items.append(([tmp], [c._output_name()], "plain"))
+        finals = [f for _, fs, _ in items for f in fs]
+        dups = {f for f in finals if finals.count(f) > 1}
+        if dups:
+            raise ValueError(
+                f"Duplicate output column(s) in select: {sorted(dups)}"
+            )
+        gen_srcs, gen_fs, gen_kind = next(
+            (s, fs, k) for s, fs, k in items if k != "plain"
+        )
+
+        def gen_rows(part, i) -> Optional[List[tuple]]:
+            """The generator's output tuples for input row i; None
+            drops the row (non-outer explode of null/empty)."""
+            if gen_kind in ("ex", "posex"):
+                arr = part[gen_srcs[0]][i]
+                if isinstance(arr, np.ndarray):
+                    # tensor-block rows explode too (a uniform-length
+                    # list column may be stored columnar)
+                    arr = list(arr)
+                if arr is None or (
+                    isinstance(arr, (list, tuple)) and len(arr) == 0
+                ):
+                    if not outer:
+                        return None  # explode drops null/empty rows
+                    return [(None, None)] if gen_kind == "posex" else [
+                        (None,)
+                    ]
+                if not isinstance(arr, (list, tuple)):
+                    raise TypeError(
+                        f"explode needs list cells; column "
+                        f"{gen_srcs[0]!r} holds {type(arr).__name__}"
+                    )
+                if gen_kind == "posex":
+                    return list(enumerate(arr))
+                return [(e,) for e in arr]
+            if gen_kind == "stack":
+                vals = [part[s][i] for s in gen_srcs]
+                w = gen_node.width
+                rows = []
+                for r in range(gen_node.n):
+                    rows.append(tuple(
+                        vals[r * w + j] if r * w + j < len(vals) else None
+                        for j in range(w)
+                    ))
+                return rows
+            # json_tuple: one output row, k LITERAL top-level key
+            # lookups off a single json.loads (Spark: 'a.b' is the
+            # literal key, never a path)
+            js = part[gen_srcs[0]][i]
+            if js is None:
+                return [(None,) * len(gen_node.fields)]
+            return [_sqlmod._json_tuple_row(js, gen_node.fields)]
+
+        def op(part: Partition) -> Partition:
+            n = _part_num_rows(part)
+            out: Dict[str, list] = {f: [] for f in finals}
+            for i in range(n):
+                rows = gen_rows(part, i)
+                if rows is None:
+                    continue
+                for tup in rows:
+                    for srcs, fs, kind in items:
+                        if kind == "plain":
+                            out[fs[0]].append(part[srcs[0]][i])
+                        else:
+                            for f, v in zip(fs, tup):
+                                out[f].append(v)
+            return out
+
+        return df._with_op(op, finals)
+
     def drop(self, *cols: str) -> "DataFrame":
         keep = [c for c in self._columns if c not in cols]
         return self.select(*keep)
@@ -416,12 +685,40 @@ class DataFrame:
         """Row-wise column: ``fn`` is a row-callable, which gets each row
         as a :class:`Row`, or a Column expression; a condition Column
         gives a True/False/None cell per row. A Column that calls a
-        catalog UDF dispatches it batched through the SQL layer."""
+        catalog UDF dispatches it batched through the SQL layer, a window
+        Column through the SQL window engine, and a partition-seeded one
+        (``F.rand``, ...) with the source partition's index."""
+        cols = self._columns + ([name] if name not in self._columns else [])
         if not callable(fn):
-            from sparkdl_tpu_torch.dataframe.column import Column
+            from sparkdl_tpu_torch.dataframe.column import (
+                Column,
+                ExplodeNode,
+                JsonTupleNode,
+                NondetNode,
+                StackNode,
+            )
 
             if not isinstance(fn, Column):
                 raise TypeError(f"withColumn() takes a row-callable or a Column, got {type(fn).__name__}")
+            if isinstance(fn._expr, (ExplodeNode, StackNode, JsonTupleNode)):
+                raise TypeError(
+                    "generators (explode/stack/json_tuple) change the "
+                    "row/column shape and only work as select items, "
+                    "not withColumn"
+                )
+            if isinstance(fn._expr, NondetNode):
+                node = fn._expr
+
+                def nop(part: Partition, index: int) -> Partition:
+                    out = dict(part)
+                    out[name] = _gen_nondet(node, index, _part_num_rows(part))
+                    return out
+
+                nop._indexed = True
+                return self._with_op(nop, cols)
+            if fn._has_window():
+                base, (c2,) = self._apply_window_cols([fn])
+                return base.withColumn(name, c2).select(*cols)  # drops the hidden window columns
             if fn._has_catalog_call():
                 if fn._is_pred():
                     raise TypeError(
@@ -430,8 +727,7 @@ class DataFrame:
                     )
                 from sparkdl_tpu_torch import sql as _sql
 
-                out = _sql._apply_expr(self, fn._expr, name)
-                return out.select(*(self._columns + ([name] if name not in self._columns else [])))
+                return _sql._apply_expr(self, fn._expr, name).select(*cols)
             fn = fn._row_fn()
 
         def op(part: Partition) -> Partition:
@@ -440,7 +736,6 @@ class DataFrame:
             out[name] = [fn(Row({c: part[c][i] for c in part})) for i in range(n)]
             return out
 
-        cols = self._columns + ([name] if name not in self._columns else [])
         return self._with_op(op, cols)
 
     def filter(self, fn) -> "DataFrame":
@@ -675,8 +970,8 @@ class DataFrame:
     def selectExpr(self, *exprs: str) -> "DataFrame":
         """Project SQL expression strings (Spark ``selectExpr``):
         ``df.selectExpr("price * qty AS total", "label")``, in the SQL
-        layer's expression grammar, catalog UDFs included. Every item reads
-        the input frame; ``"*"`` passes every column through."""
+        layer's expression grammar, catalog UDFs and windows included. Every
+        item reads the input frame; ``"*"`` passes every column through."""
         from sparkdl_tpu_torch import sql as _sql
 
         df = self
@@ -692,6 +987,11 @@ class DataFrame:
             if item.expr == "*" or isinstance(item.expr, _sql.QualifiedStar):
                 raise ValueError(f"selectExpr takes '*' alone, not {text!r}")
             parsed.append((item, item.alias or _sql._expr_name(item.expr)))
+        witems = [item for item, _ in parsed if item is not None and _sql._contains_window(item.expr)]
+        if witems:
+            # one window engine run for every window item, as in sql():
+            # the items are rewritten in place to plain references
+            df = _sql.SQLContext._apply_window_items(df, witems)
         items: List[Tuple[str, str]] = []
         for i, (item, name) in enumerate(parsed):
             if item is None:
@@ -1458,9 +1758,9 @@ class DataFrame:
     def _execute(self) -> List[Partition]:
         from sparkdl_tpu_torch.runtime.executor import default_executor
 
-        ops, cols = self._ops, self._columns
+        ops, cols, first = self._ops, self._columns, self._first_index
         return default_executor().map_partitions(
-            lambda _i, part: _run_plan(ops, cols, part),
+            lambda i, part: _run_plan(ops, cols, part, first + i),
             self._source,
             count_rows=_part_num_rows,
         )
@@ -1483,7 +1783,7 @@ class DataFrame:
             src = self._source[i]
             for _attempt in range(max_failures):
                 try:
-                    result = _run_plan(self._ops, self._columns, src)
+                    result = _run_plan(self._ops, self._columns, src, self._first_index + i)
                     break
                 except Exception as e:  # noqa: BLE001 — retried, then raised
                     last_err = e

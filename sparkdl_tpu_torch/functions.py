@@ -1,6 +1,5 @@
 """Column construction functions, the ``pyspark.sql.functions``
-analogue: the port's copy of the JAX package's ``functions.py``, its
-row-expression and aggregate half.
+analogue: the port's copy of the JAX package's ``functions.py``.
 
     from sparkdl_tpu_torch import functions as F
     df.filter(F.col("x") > 3).select((F.col("v") * 2).alias("d"))
@@ -21,12 +20,17 @@ The aggregates (``F.count``, ``F.sum``, ``F.avg``, ``F.stddev``,
 time-window group key and ``F.broadcast`` a join hint, accepted and
 ignored.
 
-The rest raises :class:`~sparkdl_tpu_torch.sql.UnsupportedSQL` naming
-ROADMAP Queue A item 8 when called: the window functions
-(``F.row_number``, ``F.lag``, ...), the generators (``F.explode``,
-``F.stack``, ``F.json_tuple``), the partition-seeded ``F.rand``/``F.randn``/
-``F.monotonically_increasing_id``, and ``F.pandas_udf``, which also needs
-pandas, absent from the card's machine.
+The window functions (``F.row_number``, ``F.rank``, ``F.lag``,
+``F.nth_value``, ...) build unbound Window nodes that ``Column.over`` binds
+to a :class:`~sparkdl_tpu_torch.dataframe.window.WindowSpec`; the
+generators (``F.explode``, ``F.posexplode``, ``F.stack``,
+``F.json_tuple``) are top-level select items; ``F.rand``/``F.randn``/
+``F.monotonically_increasing_id``/``F.spark_partition_id`` are seeded by the
+partition index, as in the JAX package.
+
+``F.pandas_udf`` raises :class:`~sparkdl_tpu_torch.sql.UnsupportedSQL`
+naming ROADMAP Queue A item 8 when called: it needs pandas, absent from
+the card's machine.
 """
 
 from __future__ import annotations
@@ -92,6 +96,11 @@ __all__ = [
     "approxCountDistinct", "percentile_approx", "percentile", "corr", "covar_pop",
     "covar_samp", "bool_and", "every", "bool_or", "count_if", "any_value", "mode",
     "broadcast", "window",
+    "row_number", "rank", "dense_rank", "percent_rank", "cume_dist", "ntile",
+    "lag", "lead", "first_value", "last_value", "nth_value",
+    "explode", "explode_outer", "posexplode", "posexplode_outer", "stack",
+    "json_tuple", "monotonically_increasing_id", "rand", "randn",
+    "spark_partition_id", "input_file_name",
 ]
 
 
@@ -1753,39 +1762,223 @@ def window(timeColumn: Any, windowDuration: str,
     return _builtin("window", *args).alias("window")
 
 
+# -- window functions ----------------------------------------------------
+# Each returns an UNBOUND window node; Column.over fills the spec in.
+# Aggregates (sum/avg/...) need no constructor here — any aggregate
+# Column takes .over directly, like pyspark.
+
+
+def _winarg(c: Any):
+    """A window function's argument: name string or expression tree
+    (the engine materializes expressions to hidden columns)."""
+    if isinstance(c, str):
+        return c
+    if isinstance(c, Column):
+        plain = c._plain_name()
+        return plain if plain is not None else _operand(c)
+    return _sql.Lit(c)
+
+
+def _ranking(fn: str) -> Column:
+    return Column(_sql.Window(fn, None, [], []))
+
+
+def row_number() -> Column:
+    """1-based row position within the ordered window partition."""
+    return _ranking("row_number")
+
+
+def rank() -> Column:
+    """Rank with gaps (ties share a rank; the next rank skips)."""
+    return _ranking("rank")
+
+
+def dense_rank() -> Column:
+    """Rank without gaps."""
+    return _ranking("dense_rank")
+
+
+def percent_rank() -> Column:
+    """(rank - 1) / (partition rows - 1); 0.0 for a single row."""
+    return _ranking("percent_rank")
+
+
+def cume_dist() -> Column:
+    """Fraction of partition rows at or before the current row's peers."""
+    return _ranking("cume_dist")
+
+
+def ntile(n: int) -> Column:
+    """Bucket number 1..n over the ordered partition (larger buckets
+    first when uneven, SQL semantics)."""
+    if int(n) < 1:
+        raise ValueError(f"ntile bucket count must be >= 1, got {n}")
+    return Column(_sql.Window("ntile", None, [], [], offset=int(n)))
+
+
+def lag(c: Any, offset: int = 1, default: Any = None) -> Column:
+    """Value ``offset`` rows BEFORE the current row in the ordered
+    partition; ``default`` past the partition edge."""
+    return Column(
+        _sql.Window("lag", _winarg(c), [], [], offset=int(offset),
+                    default=default)
+    )
+
+
+def lead(c: Any, offset: int = 1, default: Any = None) -> Column:
+    """Value ``offset`` rows AFTER the current row."""
+    return Column(
+        _sql.Window("lead", _winarg(c), [], [], offset=int(offset),
+                    default=default)
+    )
+
+
+def first_value(c: Any) -> Column:
+    """First value of the window frame."""
+    return Column(_sql.Window("first_value", _winarg(c), [], []))
+
+
+def last_value(c: Any) -> Column:
+    """Last value of the window frame (default frame: the current
+    row's last PEER, Spark semantics)."""
+    return Column(_sql.Window("last_value", _winarg(c), [], []))
+
+
+def nth_value(c: Any, n: int) -> Column:
+    """The frame's n-th value (1-based); null while the frame spans
+    fewer than n rows."""
+    if int(n) < 1:
+        raise ValueError(f"nth_value position must be >= 1, got {n}")
+    return Column(_sql.Window("nth_value", _winarg(c), [], [], offset=int(n)))
+
+# -- generators ----------------------------------------------------------
+
+
+def explode(c: Any) -> Column:
+    """One output row per element of a list cell (pyspark F.explode):
+    rows whose cell is null or empty are DROPPED. Select-item position
+    only, at most one generator per select; default output name 'col'.
+    A plain string names a COLUMN (pyspark's idiom) — a string literal
+    could never be valid generator input."""
+    from sparkdl_tpu_torch.dataframe.column import ExplodeNode
+
+    if isinstance(c, str):
+        c = col(c)
+    return Column(ExplodeNode(_operand(c), outer=False), None)
+
+
+def explode_outer(c: Any) -> Column:
+    """Like :func:`explode` but null/empty cells KEEP their row with a
+    null element."""
+    from sparkdl_tpu_torch.dataframe.column import ExplodeNode
+
+    if isinstance(c, str):
+        c = col(c)
+    return Column(ExplodeNode(_operand(c), outer=True), None)
+
+
+def posexplode(c: Any) -> Column:
+    """explode with the element's 0-based position: two output columns,
+    default names (pos, col); rename with .alias('p', 'c')."""
+    from sparkdl_tpu_torch.dataframe.column import ExplodeNode
+
+    if isinstance(c, str):
+        c = col(c)
+    return Column(ExplodeNode(_operand(c), outer=False, with_pos=True), None)
+
+
+def posexplode_outer(c: Any) -> Column:
+    from sparkdl_tpu_torch.dataframe.column import ExplodeNode
+
+    if isinstance(c, str):
+        c = col(c)
+    return Column(ExplodeNode(_operand(c), outer=True, with_pos=True), None)
+
+
+def stack(n: Any, *cols: Any) -> Column:
+    """Spark's stack generator: n output ROWS per input row, the
+    arguments laid out row-major into ceil(k/n) columns (col0..colW;
+    rename with .alias(...)); the last row pads with nulls. Top-level
+    select item only. The row count must be a literal."""
+    from sparkdl_tpu_torch.dataframe.column import StackNode
+
+    if isinstance(n, Column):
+        if not isinstance(n._expr, _sql.Lit):
+            raise ValueError(
+                "stack's row count must be a literal (F.lit(2))"
+            )
+        n = n._expr.value
+    args = [
+        _sql.Col(c) if isinstance(c, str) else _operand(c) for c in cols
+    ]
+    return Column(StackNode(int(n), args), None)
+
+
+def json_tuple(c: Any, *fields: str) -> Column:
+    """Extract TOP-LEVEL fields from a JSON string into one column per
+    field (c0..c{k-1}; rename with .alias(...)) — row count unchanged.
+    Rendering matches get_json_object: scalars as strings, containers
+    as JSON text, misses/bad JSON as null (Spark json_tuple)."""
+    from sparkdl_tpu_torch.dataframe.column import JsonTupleNode
+
+    src = _sql.Col(c) if isinstance(c, str) else _operand(c)
+    return Column(JsonTupleNode(src, list(fields)), None)
+
+# -- partition-seeded generators ----------------------------------------
+
+
+def monotonically_increasing_id() -> Column:
+    """Unique, monotonically increasing int64 per row (pyspark layout:
+    partition index << 33 + row position — unique and increasing, not
+    consecutive). Top-level select/withColumn item only."""
+    from sparkdl_tpu_torch.dataframe.column import NondetNode
+
+    return Column(NondetNode("mono_id"))
+
+
+def rand(seed: Any = None) -> Column:
+    """Uniform [0, 1) draw per row, deterministic for a given seed and
+    partitioning (seed defaults to 0 here — pass one explicitly for
+    clarity). Top-level select/withColumn item only."""
+    from sparkdl_tpu_torch.dataframe.column import NondetNode
+
+    return Column(NondetNode("rand", seed))
+
+
+def randn(seed: Any = None) -> Column:
+    """Standard-normal draw per row; see :func:`rand`."""
+    from sparkdl_tpu_torch.dataframe.column import NondetNode
+
+    return Column(NondetNode("randn", seed))
+
+
+def spark_partition_id() -> Column:
+    """The 0-based partition index of each row (pyspark
+    spark_partition_id). Top-level select/withColumn item only."""
+    from sparkdl_tpu_torch.dataframe.column import NondetNode
+
+    return Column(NondetNode("spark_partition_id"))
+
+
+def input_file_name() -> Column:
+    """pyspark input_file_name. This engine's frames carry no
+    file-source lineage, so this is always '' — exactly what pyspark
+    returns whenever the source is not a file scan. Frames built by
+    readImages/filesToDF keep the path in their 'filePath'/'origin'
+    column instead."""
+    return Column(_sql.Lit(""))
+
+
 # -- the rest of the JAX surface: refused by name ----------------------------
 
 _RELATIONAL = {
-    "row_number": "window functions",
-    "rank": "window functions",
-    "dense_rank": "window functions",
-    "percent_rank": "window functions",
-    "cume_dist": "window functions",
-    "ntile": "window functions",
-    "lag": "window functions",
-    "lead": "window functions",
-    "first_value": "window functions",
-    "last_value": "window functions",
-    "nth_value": "window functions",
-    "explode": "generators",
-    "explode_outer": "generators",
-    "posexplode": "generators",
-    "posexplode_outer": "generators",
-    "stack": "generators",
-    "json_tuple": "generators",
-    "monotonically_increasing_id": "partition-seeded generators",
-    "rand": "partition-seeded generators",
-    "randn": "partition-seeded generators",
-    "spark_partition_id": "partition-seeded generators",
-    "input_file_name": "partition-seeded generators",
     "pandas_udf": "vectorized UDFs over pandas",
 }
 
 
 def __getattr__(name: str):
-    """``F.sum``, ``F.row_number``, ``F.explode``, ... exist and raise
-    UnsupportedSQL when called, naming what waits for ROADMAP Queue A
-    item 8."""
+    """``F.pandas_udf`` exists and raises UnsupportedSQL when called,
+    naming what waits for ROADMAP Queue A item 8."""
     what = _RELATIONAL.get(name)
     if what is None:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -53,7 +53,7 @@ from sparkdl_tpu_torch.obs import memory as mem_mod
 from sparkdl_tpu_torch.obs import span
 from sparkdl_tpu_torch.runtime import knobs, locksmith
 from sparkdl_tpu_torch.runtime.device import compute_stream, launcher
-from sparkdl_tpu_torch.serving.request import DeadlineExceeded, Request
+from sparkdl_tpu_torch.serving.request import Closed, DeadlineExceeded, Request
 from sparkdl_tpu_torch.utils.metrics import metrics
 
 
@@ -160,7 +160,7 @@ class GenStream:
                     f"{self._failed}"
                 ) from self._failed
             if self._stop:
-                raise RuntimeError("generation stream is closed")
+                raise Closed("generation stream is closed")
             self._pending.append(req)
             self._cv.notify()
 
@@ -261,7 +261,7 @@ class GenStream:
             for seq in list(active.values()):
                 self._retire(seq, active, error=e)
         finally:
-            shutdown = RuntimeError("serving shut down")
+            shutdown = Closed("serving shut down")
             for seq in list(active.values()):
                 self._retire(seq, active, error=shutdown, count_failure=False)
             with self._cv:
@@ -427,7 +427,7 @@ class GenerationEngine:
         key = (str(req.model).lower(), req.precision or "f32")
         with self._lock:
             if self._closed:
-                raise RuntimeError("generation engine is closed")
+                raise Closed("generation engine is closed")
             stream = self._streams.get(key)
             if stream is not None and stream._failed is not None:
                 # a failed load is not sticky: the next admission retries

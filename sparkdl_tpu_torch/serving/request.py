@@ -94,6 +94,13 @@ class Draining(RuntimeError):
     :class:`AdmissionRejected` is 429)."""
 
 
+class Closed(Draining):
+    """The router is closed or closing: the request was refused, or
+    failed before it ran. Answered as a draining worker answers (503 with
+    ``Retry-After``), so a gateway re-dispatches it to another worker; the
+    JAX package answers 500 here."""
+
+
 def aging_s() -> float:
     """Seconds of queue age that promote a request one class level
     (``SPARKDL_SERVE_AGING_S``, default 5; <=0 disables aging)."""
@@ -369,7 +376,7 @@ class AdmissionQueue:
         admitted."""
         with self._cv:
             if self._closed:
-                raise RuntimeError("AdmissionQueue is closed")
+                raise Closed("AdmissionQueue is closed")
             if self._draining:
                 metrics.inc("serve.draining_rejects")
                 raise Draining(
@@ -527,7 +534,7 @@ class AdmissionQueue:
             self._rows = 0
             metrics.gauge("serve.queue_depth", 0)
             self._cv.notify_all()
-        err = exc if exc is not None else RuntimeError("serving shut down")
+        err = exc if exc is not None else Closed("serving shut down")
         for req in drained:
             req.set_error(err, count_failure=exc is not None)
 
@@ -535,6 +542,7 @@ class AdmissionQueue:
 __all__ = [
     "AdmissionQueue",
     "AdmissionRejected",
+    "Closed",
     "DeadlineExceeded",
     "Draining",
     "PRIORITY_CLASSES",

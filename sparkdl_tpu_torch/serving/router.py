@@ -27,7 +27,10 @@ Graceful drain (:meth:`Router.drain`): admission closes
 (:class:`~sparkdl_tpu_torch.serving.request.Draining`, HTTP 503 with
 ``Retry-After``) while everything already admitted completes; once queue
 and in-flight groups quiesce, resident models unload and their feeder
-streams close.
+streams close. A closed router answers the same way
+(:class:`~sparkdl_tpu_torch.serving.request.Closed`, a ``Draining``): a
+request it refused or failed before it ran is 503, which a gateway
+re-dispatches; the JAX package answers 500 there.
 
 Generation (``mode="generate"``): one prompt per request, screened at
 admission (:func:`_validate_generate`), its KV-cache bytes reserved
@@ -95,6 +98,7 @@ from sparkdl_tpu_torch.serving.request import (
     PRIORITY_CLASSES,
     AdmissionQueue,
     AdmissionRejected,
+    Closed,
     DeadlineExceeded,
     Request,
     recent_p95_s,
@@ -377,7 +381,7 @@ class Router:
     def start(self) -> "Router":
         with self._lock:
             if self._closed:
-                raise RuntimeError("Router is closed")
+                raise Closed("Router is closed")
             if self._started:
                 return self
             self._started = True
@@ -747,7 +751,7 @@ class Router:
     @staticmethod
     def _fail_group(group: List[Request]) -> None:
         for r in group:
-            r.set_error(RuntimeError("serving shut down"), count_failure=False)
+            r.set_error(Closed("serving shut down"), count_failure=False)
 
     def _serve_group_slot(self, group: List[Request]) -> None:
         try:

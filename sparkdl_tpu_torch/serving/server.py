@@ -77,6 +77,7 @@ from sparkdl_tpu_torch.runtime import knobs
 from sparkdl_tpu_torch.serving.request import (
     PRIORITY_CLASSES,
     AdmissionRejected,
+    Closed,
     DeadlineExceeded,
     Draining,
 )
@@ -476,8 +477,9 @@ class _Handler(BaseHTTPRequestHandler):
             outputs = req.result(
                 timeout=knobs.get_float("SPARKDL_SERVE_HTTP_TIMEOUT_S")
             )
-        except Draining as e:
-            _reply(503, {"error": str(e), "status": "draining"},
+        except Draining as e:  # a closed router too: re-dispatchable
+            status = "closed" if isinstance(e, Closed) else "draining"
+            _reply(503, {"error": str(e), "status": status},
                    headers={"Retry-After": retry_after_s()})
             return
         except AdmissionRejected as e:

@@ -11,7 +11,8 @@ same order; the grammar is:
         [FROM table-ref [, table-ref] ...
             [[INNER | LEFT [OUTER] | RIGHT [OUTER] | FULL [OUTER]
               | LEFT SEMI | LEFT ANTI] JOIN table-ref ON a.k = b.k
-             | CROSS JOIN table-ref] ...]
+             | CROSS JOIN table-ref] ...
+            [LATERAL VIEW [OUTER] gen(expr) alias [AS col, ...]] ...]
         [WHERE pred]
         [GROUP BY expr | alias | ordinal, ... | ROLLUP(col, ...)
          | CUBE(col, ...) | GROUPING SETS ((col, ...), ...)]
@@ -21,6 +22,8 @@ same order; the grammar is:
         [UNION [ALL] | EXCEPT | MINUS | INTERSECT query] ...
     table-ref := table [[AS] alias] | (query) [AS] alias
     item := * | alias.* | expr [[AS] alias]
+          | explode[_outer](expr) | stack(n, expr, ...) | json_tuple(expr, 'k', ...)
+    gen  := explode | explode_outer | posexplode | posexplode_outer
     key  := column | select-item ordinal | expr (aggregates too, when
             the query groups)
     expr := column | `quoted column` | literal (number, 'string', NULL,
@@ -31,6 +34,13 @@ same order; the grammar is:
           | - expr | (expr) | CASE WHEN pred THEN expr ... [ELSE expr] END
           | CASE expr WHEN expr THEN expr ... [ELSE expr] END
           | hof(expr, x -> body | (x, y) -> body, ...)
+          | win(...) OVER ([PARTITION BY expr, ...] [ORDER BY key, ...]
+                [ROWS | RANGE BETWEEN bound AND bound])
+    win  := row_number | rank | dense_rank | percent_rank | cume_dist
+          | ntile(n) | lag/lead(expr[, n[, default]]) | first_value
+          | last_value | nth_value(expr, n) | an aggregate
+    bound := UNBOUNDED PRECEDING | n PRECEDING | CURRENT ROW
+           | n FOLLOWING | UNBOUNDED FOLLOWING
     pred := expr (= != <> < <= > >= <=>) expr | expr IS [NOT] NULL
           | expr IS [NOT] DISTINCT FROM expr
           | expr [NOT] IN (expr, ... | query) | [NOT] EXISTS (query)
@@ -55,15 +65,23 @@ never match, arithmetic over NULL is NULL, ``x / 0`` and ``x % 0`` are
 NULL, ``%`` takes the dividend's sign, CAST is non-ANSI (null when
 unconvertible).
 
-Windows (OVER and the ranking, offset and value window functions), the
-generators (explode, stack, json_tuple, ...) and LATERAL VIEW raise
-:class:`UnsupportedSQL`, a ValueError naming the construct and ROADMAP
-Queue A item 8, where they wait.
+Windows run on the host over the collected frame (the collect guard
+``SPARKDL_DRIVER_COLLECT_MAX_ROWS`` applies), in select items only: with an
+ORDER BY an aggregate takes Spark's running RANGE frame, without one the
+whole partition; ROWS frames are physical, RANGE frames take one ORDER BY
+key; nulls sort first ascending and ties are peers. A generator is a
+top-level select item, one per select and never beside a window; LATERAL
+VIEW expands the FROM frame before WHERE, left to right.
+:class:`UnsupportedSQL` (a ValueError naming ROADMAP Queue A item 8) is
+what the rest of the port raises for the JAX dialect's pandas surfaces
+and the frame's statistics methods.
 
 The optimizer arm (``SPARKDL_SQL_VECTORIZE``, default on): a scan, and
 each input of a join, keeps only the columns the query reads, lambda
-bodies, CASE branches and ON keys included (``sql.pushdown.pruned_cols``;
-the JAX package prunes no join input); WHERE's top-level
+bodies, CASE branches, ON keys, LATERAL VIEW arguments and a join's
+window operands included (``sql.pushdown.pruned_cols``; the JAX package
+prunes no join input, and a single-table scan under a window is not
+pruned, as in the JAX package); WHERE's top-level
 conjuncts without a UDF call filter first, over only the columns they
 read (``sql.pushdown.skipped_rows``), so no UDF scores a row they drop;
 model UDFs dispatch batched through the shared feeder
@@ -80,7 +98,7 @@ import math
 import re
 import threading
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as _np
 
@@ -114,9 +132,8 @@ class UnsupportedSQL(ValueError):
 
     def __init__(self, construct: str):
         super().__init__(
-            f"{construct}: not in the port's SQL dialect (windows, "
-            f"generators and LATERAL VIEW are still to come); it waits "
-            f"for {_ITEM8}"
+            f"{construct}: not in the port's SQL dialect; it waits for "
+            f"{_ITEM8}"
         )
 
 
@@ -151,6 +168,25 @@ _KEYWORDS = {
     "rows", "range", "unbounded", "preceding", "following", "current",
     "row", "exists", "with",
 }
+# OFFSET is CONTEXTUAL (like Spark's non-reserved treatment): only the
+# ident 'offset' followed by a number in clause-tail position is the
+# clause, so columns named offset stay usable without backticks.
+
+# Window functions: pure-ranking fns plus the aggregates, computed over
+# a PARTITION BY group (whole-partition frame; no ROWS BETWEEN).
+_RANKING_FNS = {
+    "row_number", "rank", "dense_rank", "percent_rank", "cume_dist",
+}
+_VALUE_FNS = {"first_value", "last_value", "nth_value"}
+_OFFSET_FNS = {"lag", "lead"}
+
+
+def _window_needs_order(fn: str) -> bool:
+    """Window functions whose result is meaningless without an ORDER BY
+    (every non-aggregate window fn) — one rule for Column.over and the
+    frame-side validation, next to the sets it reads."""
+    return fn in _RANKING_FNS or fn in _OFFSET_FNS or fn in _VALUE_FNS \
+        or fn == "ntile"
 
 # Reserved aggregate function names (shadow any same-named UDF, as in
 # Spark where builtins win over registered functions). first/last use
@@ -172,14 +208,10 @@ _PARAM_AGGS = {"percentile", "percentile_approx"}
 # two-column aggregates: the parser packs both args into one
 # array(x, y) cell argument; the accumulator consumes pairs
 _PAIR_AGGS = {"corr", "covar_pop", "covar_samp"}
-# the rest of the JAX dialect, refused where it is called
-_WINDOW_FNS = {
-    "row_number", "rank", "dense_rank", "percent_rank", "cume_dist",
-    "first_value", "last_value", "nth_value", "lag", "lead", "ntile",
-}
-_GENERATOR_FNS = {
-    "explode", "explode_outer", "posexplode", "posexplode_outer",
-    "stack", "json_tuple", "inline", "inline_outer",
+# order-sensitive aggregates must see rows in frame order — they are
+# excluded from the reversed suffix-frame streaming optimization
+_ORDER_SENSITIVE_AGGS = {
+    "first", "last", "collect_list", "collect_set", "any_value", "mode",
 }
 
 
@@ -315,6 +347,49 @@ class Case:
     default: Optional["Expr"] = None
 
 
+@dataclass
+class Window:
+    """fn() OVER (PARTITION BY ... [ORDER BY ...] [ROWS BETWEEN ...]):
+    ranking functions need an ORDER BY; aggregate functions default to
+    the whole partition (no ORDER BY) or Spark's running RANGE frame
+    (with ORDER BY), unless an explicit ROWS frame is given.
+    Select-item position only.
+
+    arg / partition_by entries / order_by keys are column-name strings
+    after the materialization pre-pass; expressions (sum(v * q) OVER
+    (PARTITION BY upper(g))) are parsed as Expr nodes and materialized
+    to hidden columns before computation."""
+
+    fn: str  # ranking | aggregate | lag/lead
+    arg: Any  # argument column name | Expr (None for ranking/count(*))
+    partition_by: List[Any]
+    order_by: List[Tuple[Any, bool]]
+    offset: int = 1  # lag/lead row offset
+    default: Any = None  # lag/lead value past the partition edge
+    # explicit frame: (lo, hi) offsets relative to the current row,
+    # None = unbounded on that side; None overall = default framing.
+    # frame_kind 'rows' = physical row offsets; 'range' = ORDER-BY-value
+    # offsets (requires exactly one order key; peers by value distance)
+    frame: Optional[Tuple[Optional[Any], Optional[Any]]] = None
+    frame_kind: str = "rows"
+
+    def map_operands(self, fn: Callable[[Any], Any]) -> "Window":
+        """Rebuild with ``fn`` applied to every column/expression operand
+        (arg, PARTITION BY entries, ORDER BY keys) — the one place the
+        walkers (alias stripping, join resolution, subquery resolution)
+        share, so a new Window field only needs threading here."""
+        return Window(
+            self.fn,
+            fn(self.arg) if self.arg is not None else None,
+            [fn(c) for c in self.partition_by],
+            [(fn(c), a) for c, a in self.order_by],
+            self.offset,
+            self.default,
+            self.frame,
+            self.frame_kind,
+        )
+
+
 Expr = Any  # Col | Call | Lit | Arith | Case
 
 
@@ -402,6 +477,9 @@ class Query:
     offset: Optional[int] = None  # LIMIT n OFFSET m / bare OFFSET m
     group_mode: Optional[str] = None  # ROLLUP | CUBE | SETS
     grouping_sets: Optional[List[List[str]]] = None  # explicit SETS
+    # LATERAL VIEW [OUTER] explode(...) alias AS c[, c2] entries:
+    # (fn, arg_expr, outer, view_alias, col_names|None)
+    lateral_views: Optional[List[Tuple]] = None
 
 
 @dataclass
@@ -630,8 +708,37 @@ class _Parser:
             if jn is None:
                 break
             joins.append(jn)
-        if self._at_lateral_view():
-            raise UnsupportedSQL("LATERAL VIEW")
+        lateral_views: List[Tuple] = []
+        while self._at_lateral_view():
+            self.next()
+            self.next()
+            lv_outer = False
+            if self.peek() == ("kw", "outer"):
+                self.next()
+                lv_outer = True
+            k, fname = self.next()
+            if k != "ident" or fname.lower() not in (
+                "explode", "explode_outer", "posexplode",
+                "posexplode_outer",
+            ):
+                raise ValueError(
+                    "LATERAL VIEW supports explode/explode_outer/"
+                    f"posexplode(_outer), got {fname!r}"
+                )
+            self.expect("punct", "(")
+            lv_arg = self.add_expr()
+            self.expect("punct", ")")
+            lv_alias = self.expect("ident")  # required, like Hive
+            lv_cols = None
+            if self.peek() == ("kw", "as"):
+                self.next()
+                lv_cols = [self.expect("ident")]
+                while self.peek() == ("punct", ","):
+                    self.next()
+                    lv_cols.append(self.expect("ident"))
+            lateral_views.append(
+                (fname.lower(), lv_arg, lv_outer, lv_alias, lv_cols)
+            )
         where = None
         order: List[Tuple[str, bool]] = []
         limit = None
@@ -728,6 +835,7 @@ class _Parser:
             items, distinct, table, joins, where, group, having, order,
             limit, table_alias=table_alias, offset=offset,
             group_mode=group_mode, grouping_sets=grouping_sets,
+            lateral_views=lateral_views or None,
         )
 
     def join_clause(self) -> Optional[Join]:
@@ -838,6 +946,249 @@ class _Parser:
             alias = self.next()[1]  # bare alias: SELECT f(x) emb
         return SelectItem(expr, alias)
 
+    @staticmethod
+    def _win_operand(e, what: str, allow_lit: bool = False):
+        """A window operand (PARTITION BY / ORDER BY key, function
+        argument): plain columns collapse to their name string (the
+        common fast path); other expressions stay nodes and are
+        materialized to hidden columns before the window computation."""
+        if isinstance(e, Col):
+            return e.name
+        if isinstance(e, Lit) and not allow_lit:
+            raise ValueError(
+                f"window {what} must be a column or expression, not a "
+                "literal"
+            )
+        if _contains_window(e):
+            raise ValueError(f"window {what} cannot nest window functions")
+        if _contains_aggregate(e):
+            raise ValueError(f"window {what} cannot contain aggregates")
+        return e
+
+    def frame_bound(self, side: str, value_offsets: bool = False):
+        """One bound of ROWS/RANGE BETWEEN, as an offset relative to the
+        current row (None = unbounded on that side). ROWS offsets are
+        row counts (ints); RANGE offsets (``value_offsets``) are
+        ORDER-BY-value distances and may be fractional."""
+        k, v = self.peek()
+        if (k, v) == ("kw", "unbounded"):
+            self.next()
+            kw = self.next()[1]
+            if side == "lo" and kw != "preceding":
+                raise ValueError(
+                    "the lower frame bound must be UNBOUNDED PRECEDING, "
+                    "n PRECEDING/FOLLOWING, or CURRENT ROW"
+                )
+            if side == "hi" and kw != "following":
+                raise ValueError(
+                    "the upper frame bound must be UNBOUNDED FOLLOWING, "
+                    "n PRECEDING/FOLLOWING, or CURRENT ROW"
+                )
+            return None
+        if (k, v) == ("kw", "current"):
+            self.next()
+            self.expect("kw", "row")
+            return 0
+        neg = False
+        if (k, v) == ("arith", "-"):
+            self.next()
+            neg = True
+        raw = self.expect("num")
+        n = float(raw) if value_offsets and "." in str(raw) else int(raw)
+        if neg:
+            raise ValueError("frame offsets must be non-negative")
+        kw = self.next()
+        if kw not in (("kw", "preceding"), ("kw", "following")):
+            raise ValueError(
+                f"Expected PRECEDING or FOLLOWING, got {kw[1]!r}"
+            )
+        return -n if kw[1] == "preceding" else n
+
+    def window_spec(self, call) -> Window:
+        if not isinstance(call, Call):
+            raise ValueError("OVER must follow a function call")
+        if getattr(call, "_params", None) is not None:
+            # the Window node has no parameter channel; silently
+            # defaulting the percentage would be worse than refusing
+            raise ValueError(
+                f"{call.fn.upper()} is not supported as a window "
+                "function; compute it per group in a derived table"
+            )
+        if call.distinct:
+            # the Window node has no distinct channel either
+            raise ValueError(
+                "DISTINCT aggregates are not supported as window "
+                "functions"
+            )
+        self.expect("kw", "over")
+        self.expect("punct", "(")
+        partition: List[Any] = []
+        if self.peek() == ("kw", "partition"):
+            self.next()
+            self.expect("kw", "by")
+            while True:
+                partition.append(
+                    self._win_operand(self.add_expr(), "PARTITION BY key")
+                )
+                if self.peek() != ("punct", ","):
+                    break
+                self.next()
+        order: List[Tuple[Any, bool]] = []
+        if self.peek() == ("kw", "order"):
+            self.next()
+            self.expect("kw", "by")
+            while True:
+                key, asc = self.order_item()
+                if not isinstance(key, str):
+                    key = self._win_operand(key, "ORDER BY key")
+                order.append((key, asc))
+                if self.peek() != ("punct", ","):
+                    break
+                self.next()
+        frame = None
+        frame_kind = "rows"
+        if self.peek() == ("kw", "range"):
+            self.next()
+            self.expect("kw", "between")
+            lo = self.frame_bound("lo", value_offsets=True)
+            self.expect("kw", "and")
+            hi = self.frame_bound("hi", value_offsets=True)
+            if lo is not None and hi is not None and lo > hi:
+                raise ValueError(
+                    "the lower frame bound cannot be beyond the upper"
+                )
+            if (lo, hi) == (None, 0):
+                pass  # exactly the default ordered frame (Spark's)
+            elif (lo, hi) == (None, None):
+                frame = (None, None)  # whole partition: rows-equivalent
+            else:
+                # VALUE offsets: need exactly one ORDER BY key to
+                # measure distance against (Spark's rule)
+                if len(order) != 1:
+                    raise ValueError(
+                        "RANGE frames with value offsets require "
+                        "exactly one ORDER BY key"
+                    )
+                frame = (lo, hi)
+                frame_kind = "range"
+        elif self.peek() == ("kw", "rows"):
+            self.next()
+            self.expect("kw", "between")
+            lo = self.frame_bound("lo")
+            self.expect("kw", "and")
+            hi = self.frame_bound("hi")
+            if lo is not None and hi is not None and lo > hi:
+                raise ValueError(
+                    "the lower frame bound cannot be beyond the upper"
+                )
+            frame = (lo, hi)
+        self.expect("punct", ")")
+        fn = call.fn.lower()
+        offset, default = 1, None
+        if fn in _RANKING_FNS:
+            if call.all_args():
+                raise ValueError(f"{fn}() takes no arguments")
+            if not order:
+                raise ValueError(
+                    f"{fn}() requires ORDER BY in its window"
+                )
+            arg = None
+        elif fn == "ntile":
+            args = call.all_args()
+            if (
+                len(args) != 1
+                or not isinstance(args[0], Lit)
+                or not isinstance(args[0].value, int)
+                or args[0].value < 1
+            ):
+                raise ValueError(
+                    "ntile(n) needs one positive integer literal"
+                )
+            if not order:
+                raise ValueError("ntile() requires ORDER BY in its window")
+            arg = None
+            offset = args[0].value  # bucket count rides the offset slot
+        elif fn in _VALUE_FNS:
+            args = call.all_args()
+            if fn == "nth_value":
+                if len(args) != 2:
+                    raise ValueError(
+                        "nth_value(expr, n) takes exactly two arguments"
+                    )
+                if (
+                    not isinstance(args[1], Lit)
+                    or not isinstance(args[1].value, int)
+                    or args[1].value < 1
+                ):
+                    raise ValueError(
+                        "nth_value n must be a positive integer literal"
+                    )
+                offset = args[1].value  # n rides the offset slot
+            elif len(args) != 1:
+                raise ValueError(
+                    f"{fn}(expr) takes exactly one argument"
+                )
+            if not order:
+                raise ValueError(
+                    f"{fn}() requires ORDER BY in its window"
+                )
+            arg = self._win_operand(args[0], "argument", allow_lit=True)
+        elif fn in _OFFSET_FNS:
+            args = call.all_args()
+            if not 1 <= len(args) <= 3:
+                raise ValueError(
+                    f"{fn}(expr[, offset[, default]]) takes one to "
+                    "three arguments"
+                )
+            if not order:
+                raise ValueError(
+                    f"{fn}() requires ORDER BY in its window"
+                )
+            arg = self._win_operand(args[0], "argument")
+            if len(args) >= 2:
+                if not isinstance(args[1], Lit) or not isinstance(
+                    args[1].value, int
+                ):
+                    raise ValueError(f"{fn}() offset must be an integer")
+                offset = args[1].value
+            if len(args) == 3:
+                if not isinstance(args[2], Lit):
+                    raise ValueError(f"{fn}() default must be a literal")
+                default = args[2].value
+        elif fn in _AGGREGATES:
+            if call.distinct:
+                raise ValueError(
+                    "DISTINCT is not supported in window aggregates"
+                )
+            if call.arg == "*":
+                if fn != "count":
+                    raise ValueError(f"{fn.upper()}(*) is not valid SQL")
+                arg = None
+            else:
+                arg = self._win_operand(
+                    call.arg, "aggregate argument", allow_lit=True
+                )
+        else:
+            raise ValueError(
+                f"Unknown window function {call.fn!r}; supported: "
+                f"{sorted(_RANKING_FNS | _VALUE_FNS | {'ntile'})}, "
+                f"{sorted(_OFFSET_FNS)}, and {sorted(_AGGREGATES)}"
+            )
+        if frame is not None:
+            if fn not in _AGGREGATES and fn not in _VALUE_FNS:
+                raise ValueError(
+                    f"ROWS/RANGE BETWEEN is not supported with {fn}()"
+                )
+            if not order:
+                raise ValueError(
+                    "ROWS/RANGE BETWEEN requires ORDER BY in its window"
+                )
+        return Window(
+            fn, arg, partition, order, offset, default, frame, frame_kind
+        )
+
+    # -- arithmetic expression grammar (precedence: unary - > * / % > + -)
+
     def _bool_agg_arg(self, counting: bool) -> Expr:
         """bool_and/bool_or/every/count_if argument: a predicate
         (v > 1) or a boolean-valued expression. Predicates wrap in a
@@ -852,8 +1203,6 @@ class _Parser:
                 if not counting:
                     return e  # boolean-valued column/expression
                 p = Predicate(e, "=", True)
-        except UnsupportedSQL:
-            raise
         except ValueError:
             pass
         if p is None:
@@ -904,8 +1253,6 @@ class _Parser:
             candidate = self.add_expr()
             if self.peek() in (("punct", ","), ("punct", ")")):
                 body = candidate
-        except UnsupportedSQL:
-            raise
         except ValueError:
             pass
         if body is None:
@@ -1098,16 +1445,14 @@ class _Parser:
                 arg = self.add_expr(top)
                 self.expect("punct", ")")
                 return Call(fn_e, arg, False, [arg])
-            if val.lower() in _WINDOW_FNS:
-                raise UnsupportedSQL(f"the window function {val}() (OVER)")
-            if val.lower() in _GENERATOR_FNS:
-                raise UnsupportedSQL(f"the generator {val}()")
             if self.peek() == ("punct", ")"):
-                # zero-argument call: a zero-arg builtin
+                # zero-argument call: a window ranking function
+                # (row_number() OVER ...) or a zero-arg builtin
                 # (current_date())
                 self.next()
+                call = Call(val, None, False, [])
                 if self.peek() == ("kw", "over"):
-                    raise UnsupportedSQL("window functions (OVER)")
+                    return self.window_spec(call)
                 fn0 = val.lower()
                 if fn0 in _BUILTIN_FNS and _BUILTIN_FNS[fn0][0] == 0:
                     return Call(fn0, None, False, [])
@@ -1127,7 +1472,7 @@ class _Parser:
                 # non-count star aggregates are rejected at planning
                 call = self._maybe_agg_filter(Call(val.lower(), "*"))
                 if self.peek() == ("kw", "over"):
-                    raise UnsupportedSQL("window functions (OVER)")
+                    return self.window_spec(call)
                 return call
             distinct = False
             if self.peek() == ("kw", "distinct"):
@@ -1146,7 +1491,7 @@ class _Parser:
                 fn_b = "count" if val.lower() == "count_if" else val.lower()
                 call = self._maybe_agg_filter(Call(fn_b, arg, False, [arg]))
                 if self.peek() == ("kw", "over"):
-                    raise UnsupportedSQL("window functions (OVER)")
+                    return self.window_spec(call)
                 return call
             if val.lower() in _HIGHER_ORDER_FNS:
                 # arguments may be lambdas: x -> expr | (x, y) -> expr
@@ -1201,7 +1546,7 @@ class _Parser:
                 packed = Call("array", args[0], False, args)
                 call = self._maybe_agg_filter(Call(fn, packed, False, [packed]))
                 if self.peek() == ("kw", "over"):
-                    raise UnsupportedSQL("window functions (OVER)")
+                    return self.window_spec(call)
                 return call
             if fn in _PARAM_AGGS:
                 if not 2 <= len(args) <= 3:
@@ -1240,7 +1585,7 @@ class _Parser:
                 call._params = [pct_v]
                 call = self._maybe_agg_filter(call)
                 if self.peek() == ("kw", "over"):
-                    raise UnsupportedSQL("window functions (OVER)")
+                    return self.window_spec(call)
                 return call
             if fn in _AGGREGATES and len(args) > 1:
                 raise ValueError(
@@ -1270,7 +1615,7 @@ class _Parser:
             if self.peek() == ("kw", "over"):
                 # window binds at the CALL, so it composes with
                 # arithmetic: v * 100 / sum(v) OVER (PARTITION BY g)
-                raise UnsupportedSQL("window functions (OVER)")
+                return self.window_spec(call)
             return call
         return Col(val)
 
@@ -1339,8 +1684,6 @@ class _Parser:
                 ):
                     raise ValueError("parenthesized expression")
                 return inner
-            except UnsupportedSQL:
-                raise
             except ValueError:
                 self.i = save
         return self.predicate(having, allow_agg)
@@ -1578,6 +1921,11 @@ def _reject_udf_calls(e: Expr, allow_agg: bool = False) -> None:
     columns (``_materialize_pred_calls``) at execution, so
     ``WHERE my_udf(x) > 0`` works like Spark."""
     if isinstance(e, Call):
+        if e.fn.lower() in _GENERATOR_FNS:
+            raise ValueError(
+                f"{e.fn.lower()}() is a generator and only works as a "
+                "TOP-LEVEL select item, not in WHERE/conditions"
+            )
         if e.fn.lower() in _AGGREGATES:
             if not allow_agg:
                 raise ValueError(
@@ -1595,6 +1943,14 @@ def _reject_udf_calls(e: Expr, allow_agg: bool = False) -> None:
             if a != "*":
                 _reject_udf_calls(a, allow_agg)
         return
+    if isinstance(e, Window):
+        if allow_agg:
+            return  # select-item CASE conditions may compare windows
+        raise ValueError(
+            "Window functions are not allowed in WHERE/HAVING; compute "
+            "them in a derived table and filter on the alias outside "
+            "(the top-N-per-group pattern)"
+        )
     if isinstance(e, Arith):
         _reject_udf_calls(e.left, allow_agg)
         if e.right is not None:
@@ -1776,6 +2132,10 @@ def _validate_lambda_body(body) -> None:
     lambda-body restriction: catalog UDFs, aggregates, windows, and
     subqueries must fail HERE with a named error, not as an opaque
     partition-task crash at execution."""
+    if isinstance(body, Window):
+        raise ValueError(
+            "Window functions are not allowed inside lambda bodies"
+        )
     if isinstance(body, Subquery):
         raise ValueError("Subqueries are not allowed inside lambda bodies")
     if isinstance(body, Lambda):
@@ -1990,24 +2350,65 @@ def _eval_hof(e: Call, row):
     raise ValueError(f"Unhandled higher-order function {fn!r}")
 
 
+def _iter_windows(e: Expr):
+    """Yield every Window node in an expression tree, INCLUDING those in
+    CASE conditions (one traversal shared by detection and planning)."""
+    if isinstance(e, Window):
+        yield e
+    elif isinstance(e, Arith):
+        yield from _iter_windows(e.left)
+        if e.right is not None:
+            yield from _iter_windows(e.right)
+    elif isinstance(e, Case):
+        for p, x in e.branches:
+            yield from _iter_pred_windows(p)
+            yield from _iter_windows(x)
+        if e.default is not None:
+            yield from _iter_windows(e.default)
+    elif isinstance(e, Call) and e.arg != "*":
+        for a in e.all_args():
+            yield from _iter_windows(a)
+
+
+def _iter_pred_windows(node):
+    if isinstance(node, NotOp):
+        yield from _iter_pred_windows(node.part)
+        return
+    if isinstance(node, BoolOp):
+        for p in node.parts:
+            yield from _iter_pred_windows(p)
+        return
+    if not isinstance(node.col, str):
+        yield from _iter_windows(node.col)
+    for v in _pred_value_exprs(node.value):
+        yield from _iter_windows(v)
+
+
 def _pred_value_exprs(value):
     """Every expression node inside a Predicate's value slot: a single
     operand, BETWEEN's (lo, hi) tuple, or an IN list with expression
-    elements (DynItems) — one walker shared by the catalog-UDF and
-    aggregate detectors so none forgets a slot."""
-    if isinstance(value, (Col, Lit, Arith, Case, Call)):
+    elements (DynItems) — one walker shared by the window / catalog-UDF
+    / aggregate detectors so none forgets a slot."""
+    if isinstance(value, (Col, Lit, Arith, Case, Call, Window)):
         yield value
     elif isinstance(value, tuple) or isinstance(value, DynItems):
         for v in value:
-            if isinstance(v, (Col, Lit, Arith, Case, Call)):
+            if isinstance(v, (Col, Lit, Arith, Case, Call, Window)):
                 yield v
+
+
+def _contains_window(e: Expr) -> bool:
+    return next(_iter_windows(e), None) is not None
 
 
 def _contains_catalog_call(e: Expr) -> bool:
     """Any catalog-UDF call (non-builtin, non-aggregate Call) in the
     tree: such calls dispatch partition-vectorized through
     ``_apply_expr``, never through the row-wise evaluator — the Column
-    API uses this to pick the right application path."""
+    API uses this to pick the right application path. Window nodes are
+    deliberately not descended: their operand expressions materialize
+    through _apply_expr inside the window engine, which handles
+    catalog calls itself."""
     return next(_iter_catalog_calls(e), None) is not None
 
 
@@ -2050,6 +2451,55 @@ def _iter_pred_catalog_calls(node):
 
 def _pred_contains_catalog_call(node) -> bool:
     return next(_iter_pred_catalog_calls(node), None) is not None
+
+
+_GENERATOR_FNS = ("explode", "explode_outer", "stack", "json_tuple")
+
+# EXTRACT(FIELD FROM expr) -> the equivalent date-part builtin
+_EXTRACT_FIELDS = {
+    "year": "year", "yearofweek": "year", "quarter": "quarter",
+    "month": "month", "mon": "month", "week": "weekofyear",
+    "day": "dayofmonth", "dd": "dayofmonth",
+    "dayofweek": "dayofweek", "dow": "dayofweek",
+    "doy": "dayofyear", "hour": "hour", "minute": "minute",
+    "second": "second",
+}
+
+
+def _contains_generator(e: Expr) -> bool:
+    """A generator call anywhere in the tree (explode produces rows,
+    so it can only be a TOP-LEVEL select item)."""
+    if isinstance(e, Call):
+        if e.fn.lower() in _GENERATOR_FNS:
+            return True
+        return e.arg != "*" and any(
+            _contains_generator(a) for a in e.all_args()
+        )
+    if isinstance(e, Arith):
+        return _contains_generator(e.left) or (
+            e.right is not None and _contains_generator(e.right)
+        )
+    if isinstance(e, Case):
+        return any(
+            _contains_generator(x) for _, x in e.branches
+        ) or (e.default is not None and _contains_generator(e.default))
+    return False
+
+
+def _peer_runs(idxs, w, sort_key):
+    """Yield (lo, hi) ranges of ORDER-BY peers (equal sort keys) within
+    a window partition's sorted index list — the granularity of Spark's
+    default RANGE frame."""
+    keys = [
+        tuple(sort_key(i, c) for c, _ in w.order_by) for i in idxs
+    ]
+    lo = 0
+    while lo < len(idxs):
+        hi = lo
+        while hi + 1 < len(idxs) and keys[hi + 1] == keys[lo]:
+            hi += 1
+        yield lo, hi
+        lo = hi + 1
 
 
 def _eval_pred3(node, row) -> Optional[bool]:
@@ -2194,6 +2644,51 @@ def _expr_name(e: Expr) -> str:
         if e.default is not None:
             parts.append(f"ELSE {_expr_name(e.default)}")
         return "CASE " + " ".join(parts) + " END"
+    if isinstance(e, Window):
+        def opname(c):
+            return c if isinstance(c, str) else _expr_name(c)
+
+        if e.fn in _RANKING_FNS:
+            inner = ""
+        elif e.fn == "ntile":
+            inner = str(e.offset)
+        elif e.fn in _OFFSET_FNS or e.fn == "nth_value":
+            inner = f"{opname(e.arg)}, {e.offset}"
+            if e.default is not None:
+                inner += f", {e.default!r}"
+        else:
+            inner = opname(e.arg) if e.arg is not None else "*"
+        spec = []
+        if e.partition_by:
+            spec.append(
+                "PARTITION BY " + ", ".join(opname(c) for c in e.partition_by)
+            )
+        if e.order_by:
+            spec.append(
+                "ORDER BY "
+                + ", ".join(
+                    opname(c) + ("" if a else " DESC")
+                    for c, a in e.order_by
+                )
+            )
+        if e.frame is not None:
+            def bound(v, side):
+                if v is None:
+                    return (
+                        "UNBOUNDED PRECEDING"
+                        if side == "lo"
+                        else "UNBOUNDED FOLLOWING"
+                    )
+                if v == 0:
+                    return "CURRENT ROW"
+                return f"{-v} PRECEDING" if v < 0 else f"{v} FOLLOWING"
+
+            spec.append(
+                f"{e.frame_kind.upper()} BETWEEN "
+                f"{bound(e.frame[0], 'lo')} AND "
+                f"{bound(e.frame[1], 'hi')}"
+            )
+        return f"{e.fn}({inner}) OVER ({' '.join(spec)})"
     if isinstance(e, Lambda):
         body = (
             _pred_name(e.body)
@@ -2410,14 +2905,23 @@ def _materialize_pred_calls(node, df: DataFrame, acc: List[str]):
 def _expr_columns(e, out: set) -> bool:
     """Collect every source-column name an expression tree can read into
     ``out``. Returns False when the tree holds a node the walker cannot
-    bound (windows, subqueries, unknown kinds) — the pushdown pass then
-    skips its optimization rather than guess. Lambda parameters shadow
+    bound (subqueries, unknown kinds) — the pushdown pass then skips its
+    optimization rather than guess. A window reads its argument, its
+    PARTITION BY and its ORDER BY operands. Lambda parameters shadow
     frame columns (Spark scoping), so a HOF body contributes its free
     names only."""
     if e is None or e == "*" or isinstance(e, Lit):
         return True
     if isinstance(e, Col):
         out.add(e.name)
+        return True
+    if isinstance(e, Window):
+        operands = [e.arg, *e.partition_by, *(c for c, _ in e.order_by)]
+        for c in operands:
+            if isinstance(c, str):
+                out.add(c)
+            elif not _expr_columns(c, out):
+                return False
         return True
     if isinstance(e, Arith):
         return _expr_columns(e.left, out) and (
@@ -2465,30 +2969,38 @@ def _pred_columns(node, out: set) -> bool:
     elif not _expr_columns(node.col, out):
         return False
     value = node.value
-    if isinstance(value, (Col, Lit, Arith, Case, Call)):
+    if isinstance(value, (Col, Lit, Arith, Case, Call, Window)):
         return _expr_columns(value, out)
     if isinstance(value, tuple) or isinstance(value, DynItems):
         return all(
             _expr_columns(v, out)
             for v in value
-            if isinstance(v, (Col, Lit, Arith, Case, Call))
+            if isinstance(v, (Col, Lit, Arith, Case, Call, Window))
         )
     return True  # plain literal / literal IN-list / None
 
 
-def _query_referenced_columns(q: "Query") -> Optional[set]:
-    """The full set of source columns a (star-free, join-free) query can
-    read — select items, WHERE, GROUP BY (incl. grouping sets), HAVING,
-    ORDER BY — or None when any expression defeats static analysis and
-    scan pruning must be skipped. ORDER BY string keys may name select
+def _query_referenced_columns(q: "Query", windows: bool = False) -> Optional[set]:
+    """The full set of source columns a star-free query can read — select
+    items, LATERAL VIEW arguments, WHERE, GROUP BY (incl. grouping sets),
+    HAVING, ORDER BY — or None when any expression defeats static analysis
+    and scan pruning must be skipped. ORDER BY string keys may name select
     aliases rather than source columns; they are included as-is (the
     caller prunes by intersection with the frame's real columns, so an
-    alias name is harmless)."""
+    alias name is harmless). A window item declines, as in the JAX package
+    (the window engine's collect guard then reads the unpruned scan),
+    unless ``windows``: a join input counts the window's argument,
+    PARTITION BY and ORDER BY operands."""
     cols: set = set()
     for it in q.items:
         if it.expr == "*" or isinstance(it.expr, QualifiedStar):
             return None
+        if not windows and _contains_window(it.expr):
+            return None
         if not _expr_columns(it.expr, cols):
+            return None
+    for _fn, arg, *_rest in q.lateral_views or []:
+        if not _expr_columns(arg, cols):
             return None
     if q.where is not None and not _pred_columns(q.where, cols):
         return None
@@ -2827,6 +3339,14 @@ class SQLContext:
                     "Scalar subquery returned more than one row"
                 )
             return Lit(rows[0][sub_df.columns[0]] if rows else None)
+        if isinstance(e, Window):
+            # scalar subqueries inside window operands:
+            # sum(v + (SELECT min(v) FROM t)) OVER (...)
+            return e.map_operands(
+                lambda c: c
+                if isinstance(c, str)
+                else self._resolve_expr_subqueries(c)
+            )
         if isinstance(e, Case):
             return Case(
                 [
@@ -2862,7 +3382,8 @@ class SQLContext:
         """Normalize ORDER BY keys in place: ordinals (ORDER BY 1)
         become the referenced select item's OUTPUT name (Spark
         semantics); expressions stay expression nodes for the execution
-        paths to materialize."""
+        paths to materialize; window functions are rejected (compute in
+        a derived table, like the top-N-per-group idiom)."""
         out: List[Tuple[Any, bool]] = []
         for c, a in q.order:
             if isinstance(c, Lit):
@@ -2880,8 +3401,20 @@ class SQLContext:
                     raise ValueError(
                         "ORDER BY ordinal cannot reference a * item"
                     )
+                if (
+                    isinstance(it.expr, Call)
+                    and it.expr.fn.lower() in _GENERATOR_FNS
+                ):
+                    # an unaliased explode item's output is named 'col'
+                    out.append((it.alias or "col", a))
+                    continue
                 out.append((it.alias or _expr_name(it.expr), a))
                 continue
+            if not isinstance(c, str) and _contains_window(c):
+                raise ValueError(
+                    "Window functions are not allowed in ORDER BY; "
+                    "compute them in a derived table and sort outside"
+                )
             out.append((c, a))
         q.order = out
 
@@ -2896,7 +3429,10 @@ class SQLContext:
         calls += [c for g in q.group for c in _iter_catalog_calls(g)]
         calls += [c for k, _ in q.order if not isinstance(k, str) for c in _iter_catalog_calls(k)]
         registered = udf_catalog.list_udfs()
-        unknown = sorted({c.fn for c in calls if c.fn not in registered})
+        unknown = sorted({
+            c.fn for c in calls
+            if c.fn not in registered and c.fn.lower() not in _GENERATOR_FNS
+        })
         if unknown:
             raise ValueError(
                 f"Unknown function(s) {unknown}: neither a builtin nor a registered UDF "
@@ -2964,8 +3500,46 @@ class SQLContext:
             # under an alias the ORIGINAL name is not addressable (Spark)
             self._strip_alias(q, q.table_alias or q.table)
 
+        if q.lateral_views:
+            # LATERAL VIEW explode(arr) e AS x: expand the FROM frame
+            # BEFORE WHERE/GROUP BY so the generated columns are plain
+            # columns everywhere downstream (Hive semantics); chained
+            # views compound left to right
+            from sparkdl_tpu_torch.dataframe.column import Column as _LC
+            from sparkdl_tpu_torch.dataframe.column import ExplodeNode as _LEx
+
+            for j in range(len(q.lateral_views)):
+                # re-read per iteration: _strip_alias REASSIGNS
+                # q.lateral_views, and a later view's arg may qualify
+                # an earlier view's alias (explode(a.pr))
+                fname, arg, lv_outer, lv_alias, lv_cols = (
+                    q.lateral_views[j]
+                )
+                iname = f"__sql_lv_{j}"
+                df = _apply_expr(df, arg, iname)
+                with_pos = fname.startswith("posexplode")
+                outer2 = lv_outer or fname.endswith("_outer")
+                need = 2 if with_pos else 1
+                if lv_cols is None:
+                    lv_cols = ["pos", "col"] if with_pos else ["col"]
+                elif len(lv_cols) != need:
+                    raise ValueError(
+                        f"LATERAL VIEW {fname} produces {need} "
+                        f"column(s); got {len(lv_cols)} AS name(s)"
+                    )
+                node = _LEx(Col(iname), outer2, with_pos)
+                keep = [c for c in df.columns if c != iname]
+                out_alias = (
+                    tuple(lv_cols) if with_pos else lv_cols[0]
+                )
+                df = df.select(*keep, _LC(node, out_alias))
+                # view-alias-qualified refs (e.x) read the plain
+                # generated columns
+                self._strip_alias(q, lv_alias)
+
         # SELECT t.* resolves against the FROM table/alias (single-table
-        # queries; join provenance after key-merging is ambiguous)
+        # queries; join provenance after key-merging is ambiguous);
+        # e.* over a lateral view alias expands to its generated columns
         if any(isinstance(it.expr, QualifiedStar) for it in q.items):
             if q.joins:
                 raise ValueError(
@@ -2977,15 +3551,33 @@ class SQLContext:
                 valid = {q.table_alias or q.table}
             elif getattr(q.table, "subquery_alias", None):
                 valid = {q.table.subquery_alias}
+            lv_stars = {}
+            for fname, _, _, lv_alias, lv_cols in q.lateral_views or []:
+                if lv_cols is None:
+                    lv_cols = (
+                        ["pos", "col"]
+                        if fname.startswith("posexplode")
+                        else ["col"]
+                    )
+                lv_stars[lv_alias] = lv_cols
+            expanded_items: List[SelectItem] = []
             for it in q.items:
                 if isinstance(it.expr, QualifiedStar):
                     qual = it.expr.qualifier
+                    if qual in lv_stars:
+                        expanded_items.extend(
+                            SelectItem(Col(c), c) for c in lv_stars[qual]
+                        )
+                        continue
                     if qual not in valid:
                         raise ValueError(
                             f"Unknown qualifier {qual!r} for qualified "
-                            f"star; FROM binds {sorted(valid)}"
+                            f"star; FROM binds "
+                            f"{sorted(valid | set(lv_stars))}"
                         )
                     it.expr = "*"
+                expanded_items.append(it)
+            q.items = expanded_items
 
         self._check_functions(q)
 
@@ -3034,6 +3626,13 @@ class SQLContext:
             if tmp:
                 df = df.drop(*tmp)
 
+        if q.having is not None and next(
+            _iter_pred_windows(q.having), None
+        ):
+            raise ValueError(
+                "Window functions are not allowed in HAVING; compute "
+                "them in a derived table and filter outside"
+            )
         if q.having is not None and _pred_contains_catalog_call(q.having):
             # distinguish a real registered UDF (unsupported position,
             # pointed advice) from a typo'd function name
@@ -3051,8 +3650,39 @@ class SQLContext:
                 "derived table and filter outside"
             )
 
-        # SELECT *, expr (Spark allows the mix): the star expands to the
-        # current source columns
+        # generators BEFORE windows: the row expansion must not run over
+        # pre-explosion window values, and a nested generator needs its
+        # pointed error rather than a UDF-lookup failure
+        gen_items = [
+            it
+            for it in q.items
+            if isinstance(it.expr, Call)
+            and it.expr.fn.lower() in _GENERATOR_FNS
+        ]
+        if any(
+            it.expr != "*"
+            and it not in gen_items
+            and _contains_generator(it.expr)
+            for it in q.items
+        ):
+            raise ValueError(
+                "explode() produces multiple rows and only works as a "
+                "TOP-LEVEL select item (SELECT explode(arr) AS t ...)"
+            )
+        if gen_items:
+            if any(
+                it.expr != "*" and _contains_window(it.expr)
+                for it in q.items
+            ):
+                raise ValueError(
+                    "explode() cannot be combined with window functions "
+                    "in one query level; explode in a derived table first"
+                )
+            return self._run_explode_select(df, q, gen_items)
+
+        # SELECT *, expr (Spark allows the mix): expand the star to the
+        # CURRENT source columns now — before window application widens
+        # the frame with hidden __win/operand columns
         if len(q.items) > 1 and any(it.expr == "*" for it in q.items):
             expanded: List[SelectItem] = []
             for it in q.items:
@@ -3063,6 +3693,18 @@ class SQLContext:
                 else:
                     expanded.append(it)
             q.items = expanded
+
+        if any(
+            it.expr != "*" and _contains_window(it.expr)
+            for it in q.items
+        ):
+            if q.group:
+                raise ValueError(
+                    "Window functions cannot be combined with GROUP BY "
+                    "in one query level; aggregate in a derived table "
+                    "first"
+                )
+            df = self._apply_window_items(df, q.items)
 
         for it in q.items:
             if (
@@ -3179,6 +3821,576 @@ class SQLContext:
             out = out.drop(*carry)
         return out.limit(q.limit) if q.limit is not None else out
 
+    def _run_explode_select(
+        self, df: DataFrame, q: Query, gen_items: List[SelectItem]
+    ) -> DataFrame:
+        """SELECT explode(arr) [AS t] (Spark's generator-in-select):
+        every select item materializes SQL-side (UDF calls batched via
+        _apply_expr), then the row expansion rides the DataFrame
+        Column machinery (_select_with_explode). ORDER BY/LIMIT apply
+        AFTER the expansion, on output names."""
+        from sparkdl_tpu_torch.dataframe.column import Column as _C
+        from sparkdl_tpu_torch.dataframe.column import ExplodeNode as _Ex
+
+        if len(gen_items) > 1:
+            raise ValueError(
+                "Only one generator (explode) is allowed per select"
+            )
+        if q.group or q.having is not None:
+            raise ValueError(
+                "explode() cannot be combined with GROUP BY/HAVING in "
+                "one query level; explode in a derived table first"
+            )
+        if any(
+            it.expr != "*" and _contains_aggregate(it.expr)
+            for it in q.items
+        ):
+            raise ValueError(
+                "explode() cannot be combined with aggregates in one "
+                "query level; explode in a derived table first"
+            )
+        sel_cols: List[Any] = []
+        for it in q.items:
+            e = it.expr
+            if e == "*":
+                raise ValueError(
+                    "SELECT * cannot be combined with explode(); name "
+                    "the columns"
+                )
+            if (
+                isinstance(e, Call)
+                and e.fn.lower() in ("explode", "explode_outer")
+            ):
+                if len(e.all_args()) != 1:
+                    raise ValueError(
+                        f"{e.fn.lower()}(expr) takes exactly one argument"
+                    )
+                iname = f"__sql_exp_{id(it)}"
+                df = _apply_expr(df, e.all_args()[0], iname)
+                sel_cols.append(
+                    _C(
+                        _Ex(Col(iname), e.fn.lower() == "explode_outer"),
+                        it.alias,
+                    )
+                )
+            elif isinstance(e, Call) and e.fn.lower() == "stack":
+                from sparkdl_tpu_torch.dataframe.column import (
+                    StackNode as _Stk,
+                )
+
+                args = e.all_args()
+                if len(args) < 2 or not isinstance(args[0], Lit):
+                    raise ValueError(
+                        "stack(n, expr, ...) needs a literal row count "
+                        "and at least one value"
+                    )
+                tmps = []
+                for j, a in enumerate(args[1:]):
+                    t = f"__sql_stk_{id(it)}_{j}"
+                    df = _apply_expr(df, a, t)
+                    tmps.append(t)
+                node = _Stk(int(args[0].value), [Col(t) for t in tmps])
+                if it.alias is not None and node.width > 1:
+                    raise ValueError(
+                        f"stack produces {node.width} columns; a single "
+                        "alias cannot name them (the outputs are "
+                        "col0..colN — rename in an outer select)"
+                    )
+                sel_cols.append(_C(node, it.alias))
+            elif isinstance(e, Call) and e.fn.lower() == "json_tuple":
+                from sparkdl_tpu_torch.dataframe.column import (
+                    JsonTupleNode as _Jt,
+                )
+
+                args = e.all_args()
+                if len(args) < 2 or not all(
+                    isinstance(a, Lit) and isinstance(a.value, str)
+                    for a in args[1:]
+                ):
+                    raise ValueError(
+                        "json_tuple(json, 'field', ...) needs string-"
+                        "literal field names"
+                    )
+                t = f"__sql_jt_{id(it)}"
+                df = _apply_expr(df, args[0], t)
+                node = _Jt(Col(t), [a.value for a in args[1:]])
+                if it.alias is not None and len(node.fields) > 1:
+                    raise ValueError(
+                        f"json_tuple produces {len(node.fields)} "
+                        "columns; a single alias cannot name them"
+                    )
+                sel_cols.append(_C(node, it.alias))
+            elif isinstance(e, Col) and it.alias in (None, e.name):
+                sel_cols.append(e.name)
+            else:
+                name = it.alias or _expr_name(e)
+                df = _apply_expr(df, e, name)
+                sel_cols.append(name)
+        out = df.select(*sel_cols)
+        if q.distinct:
+            out = out.distinct()
+        if q.order:
+            names, asc = [], []
+            for c, a in q.order:
+                name = c if isinstance(c, str) else _expr_name(c)
+                if name not in out.columns:
+                    raise KeyError(
+                        f"ORDER BY {name!r} on an exploded select must "
+                        f"name an output column; available: {out.columns}"
+                    )
+                names.append(name)
+                asc.append(a)
+            out = out.orderBy(*names, ascending=asc)
+        return out.limit(q.limit) if q.limit is not None else out
+
+    @staticmethod
+    def _apply_window_items(df: DataFrame, items: List[SelectItem]) -> DataFrame:
+        """Compute each window-function item into a column (driver-side,
+        like orderBy/join — guarded by the same collect limit), keyed to
+        the frame's current row order, then rewrite the item to a plain
+        column reference (items are rewritten IN PLACE). Frame = the
+        whole partition (no ROWS BETWEEN); null ordering matches
+        DataFrame.orderBy (Spark's nulls-first ascending).
+
+        Deliberately self-free (a staticmethod): the Column API's
+        ``.over(Window...)`` path (dataframe/frame.py) routes through the
+        same engine with synthetic SelectItems, so SQL text and
+        ``F.row_number().over(...)`` cannot drift apart."""
+        from sparkdl_tpu_torch.dataframe.frame import (
+            _agg_final,
+            _agg_init,
+            _agg_update,
+            _cell_key,
+            _guard_collect,
+        )
+        from sparkdl_tpu_torch.dataframe.frame import (
+            aggregate_values as _agg_values,
+        )
+
+        windows: List[Window] = []
+        for it in items:
+            if it.expr != "*":
+                windows.extend(_iter_windows(it.expr))
+
+        # materialize expression operands (sum(v * q) OVER (PARTITION BY
+        # upper(g) ORDER BY v + r)) as hidden columns, so the window
+        # computation below only ever sees column names; UDF calls in
+        # operands run batched through the catalog like any select
+        # expression. The hidden columns ride the rebuilt frame and are
+        # dropped by the final projection.
+        def _matname(expr) -> str:
+            nonlocal df
+            name = _expr_name(expr)
+            if name not in df.columns:
+                df = _apply_expr(df, expr, name)
+            return name
+
+        for w in windows:
+            if w.arg is not None and not isinstance(w.arg, str):
+                w.arg = _matname(w.arg)
+            w.partition_by = [
+                c if isinstance(c, str) else _matname(c)
+                for c in w.partition_by
+            ]
+            w.order_by = [
+                (c if isinstance(c, str) else _matname(c), a)
+                for c, a in w.order_by
+            ]
+
+        _guard_collect(df, "window function")
+        # columnar access: untouched columns (tensor blocks included)
+        # pass through whole; only key/arg columns are indexed per row
+        merged = df.collectColumns()
+        n = len(merged[df.columns[0]]) if df.columns else 0
+        new_cols: Dict[str, List[Any]] = {}
+        win_name: Dict[int, str] = {}
+
+        spec_names: Dict[tuple, str] = {}
+        for w in windows:
+            # identical specs share one computed column (the
+            # percent-of-group idiom repeats sum(v) OVER (...) verbatim)
+            spec = (
+                w.fn, w.arg, tuple(w.partition_by), tuple(w.order_by),
+                # repr: lag/lead defaults may be unhashable (list cells)
+                w.offset, repr(w.default), w.frame, w.frame_kind,
+            )
+            if spec in spec_names:
+                win_name[id(w)] = spec_names[spec]
+                continue
+            for c in (
+                list(w.partition_by)
+                + [c for c, _ in w.order_by]
+                + ([w.arg] if w.arg else [])
+            ):
+                if c not in df.columns:
+                    raise KeyError(f"Unknown column {c!r} in window")
+            groups: Dict[tuple, List[int]] = {}
+            order_seen: List[tuple] = []
+            part_cols = [merged[c] for c in w.partition_by]
+            for i in range(n):
+                k = tuple(_cell_key(col[i]) for col in part_cols)
+                if k not in groups:
+                    groups[k] = []
+                    order_seen.append(k)
+                groups[k].append(i)
+
+            def sort_key(i, col, null_rank=0):
+                # default rank 0 serves the PEER-equality callers
+                # (_peer_runs), where only same-vs-different matters
+                v = merged[col][i]
+                return (null_rank, 0) if v is None else (1, v)
+
+            vals: List[Any] = [None] * n
+            for k in order_seen:
+                idxs = list(groups[k])
+                if w.order_by:
+                    for col, asc in list(w.order_by)[::-1]:
+                        # honor NULLS FIRST/LAST (order_item's SortDir);
+                        # defaults are Spark's (first asc, last desc) —
+                        # same rank algebra as DataFrame.orderBy
+                        asc_b = bool(asc)
+                        nf = getattr(asc, "nulls_first", None)
+                        if nf is None:
+                            nf = asc_b
+                        nr = (0 if nf else 2) if asc_b else (2 if nf else 0)
+                        idxs.sort(
+                            key=lambda i, c=col, r=nr: sort_key(i, c, r),
+                            reverse=not asc_b,
+                        )
+                if w.frame is not None and w.frame_kind == "range":
+                    # VALUE-offset frame over the single ORDER BY key
+                    # (parser-validated): the frame holds rows whose key
+                    # lies within [cur - preceding, cur + following]
+                    # measured AGAINST the sort direction. Null keys sit
+                    # in one contiguous run and frame only each other
+                    # (value distance to null is unknown — Spark).
+                    # Linear scan per row: driver-side like the rest of
+                    # the window engine; fine at collect-guarded sizes.
+                    lo, hi = w.frame
+                    key_name = w.order_by[0][0]
+                    asc = w.order_by[0][1]
+                    key_col = merged[key_name]
+                    arg_col = None if w.arg is None else merged[w.arg]
+                    m = len(idxs)
+                    keys = [key_col[i] for i in idxs]
+                    probe = next(
+                        (x for x in keys if x is not None), None
+                    )
+                    if probe is not None and (
+                        isinstance(probe, bool)
+                        or not isinstance(probe, (int, float))
+                    ):
+                        raise ValueError(
+                            "RANGE frames with value offsets need a "
+                            "NUMERIC ORDER BY key; column "
+                            f"{key_name!r} holds "
+                            f"{type(probe).__name__} values"
+                        )
+                    sign = 1 if asc else -1
+                    for pos, i in enumerate(idxs):
+                        kv = keys[pos]
+                        if kv is None:
+                            sel = [
+                                j for j in range(m) if keys[j] is None
+                            ]
+                        else:
+                            b1 = None if lo is None else kv + sign * lo
+                            b2 = None if hi is None else kv + sign * hi
+                            vlo, vhi = (b1, b2) if asc else (b2, b1)
+                            sel = [
+                                j
+                                for j in range(m)
+                                if keys[j] is not None
+                                and (vlo is None or keys[j] >= vlo)
+                                and (vhi is None or keys[j] <= vhi)
+                            ]
+                        if w.fn == "first_value":
+                            vals[i] = (
+                                arg_col[idxs[sel[0]]] if sel else None
+                            )
+                        elif w.fn == "last_value":
+                            vals[i] = (
+                                arg_col[idxs[sel[-1]]] if sel else None
+                            )
+                        elif w.fn == "nth_value":
+                            vals[i] = (
+                                arg_col[idxs[sel[w.offset - 1]]]
+                                if len(sel) >= w.offset
+                                else None
+                            )
+                        elif w.arg is None:  # count(*)
+                            vals[i] = len(sel)
+                        else:
+                            vals[i] = _agg_values(
+                                w.fn, [arg_col[idxs[j]] for j in sel]
+                            )
+                elif w.frame is not None:
+                    # explicit ROWS frame: PHYSICAL row offsets in the
+                    # sorted partition (no peer expansion — that is the
+                    # difference from the default RANGE frame)
+                    lo, hi = w.frame
+                    arg_col = None if w.arg is None else merged[w.arg]
+                    m = len(idxs)
+
+                    def upd(acc, j):
+                        return _agg_update(
+                            w.fn,
+                            acc,
+                            None if arg_col is None else arg_col[j],
+                            star=w.arg is None,
+                        )
+
+                    if w.fn in _AGGREGATES and lo is None:
+                        # running frame (UNBOUNDED PRECEDING .. hi):
+                        # stream once, advancing the cutoff — O(n), not
+                        # O(n^2) re-aggregation per row
+                        acc = _agg_init(w.fn)
+                        ptr = 0
+                        for pos, i in enumerate(idxs):
+                            cut = (
+                                m
+                                if hi is None
+                                else min(m, max(0, pos + hi + 1))
+                            )
+                            while ptr < cut:
+                                acc = upd(acc, idxs[ptr])
+                                ptr += 1
+                            vals[i] = _agg_final(w.fn, acc)
+                    elif (
+                        w.fn in _AGGREGATES
+                        and hi is None
+                        and w.fn not in _ORDER_SENSITIVE_AGGS
+                    ):
+                        # suffix frame (lo .. UNBOUNDED FOLLOWING):
+                        # stream from the end — only for COMMUTATIVE
+                        # aggregates (first/last/collect_* would see the
+                        # rows reversed; they take the per-row path)
+                        acc = _agg_init(w.fn)
+                        ptr = m - 1
+                        for pos in range(m - 1, -1, -1):
+                            start = max(0, pos + lo)
+                            while ptr >= start:
+                                acc = upd(acc, idxs[ptr])
+                                ptr -= 1
+                            vals[idxs[pos]] = _agg_final(w.fn, acc)
+                    else:
+                        # bounded frame / first_value / last_value:
+                        # O(frame width) per row
+                        for pos, i in enumerate(idxs):
+                            a0 = 0 if lo is None else max(0, pos + lo)
+                            a1 = (
+                                m
+                                if hi is None
+                                else min(m, max(0, pos + hi + 1))
+                            )
+                            if a1 <= a0:
+                                vals[i] = 0 if (
+                                    w.fn == "count" or w.arg is None
+                                ) and w.fn not in _VALUE_FNS else None
+                            elif w.fn == "first_value":
+                                vals[i] = arg_col[idxs[a0]]
+                            elif w.fn == "last_value":
+                                vals[i] = arg_col[idxs[a1 - 1]]
+                            elif w.fn == "nth_value":
+                                vals[i] = (
+                                    arg_col[idxs[a0 + w.offset - 1]]
+                                    if a1 - a0 >= w.offset
+                                    else None
+                                )
+                            elif w.arg is None:  # count(*)
+                                vals[i] = a1 - a0
+                            else:
+                                vals[i] = _agg_values(
+                                    w.fn,
+                                    [
+                                        arg_col[idxs[j]]
+                                        for j in range(a0, a1)
+                                    ],
+                                )
+                elif w.fn == "ntile":
+                    # Spark/SQL ntile: larger buckets first when uneven
+                    base, extra = divmod(len(idxs), w.offset)
+                    bounds = []
+                    acc2 = 0
+                    for b in range(w.offset):
+                        acc2 += base + (1 if b < extra else 0)
+                        bounds.append(acc2)
+                    b = 0
+                    for pos, i in enumerate(idxs, 1):
+                        while pos > bounds[b]:
+                            b += 1
+                        vals[i] = b + 1
+                elif w.fn in _VALUE_FNS:
+                    arg_col = merged[w.arg]
+                    if w.fn == "first_value":
+                        v = arg_col[idxs[0]]
+                        for i in idxs:
+                            vals[i] = v
+                    elif w.fn == "nth_value":
+                        # default running frame: the nth row exists only
+                        # once the frame (up to the current peer group)
+                        # spans n rows (Spark: null before that)
+                        n_th = w.offset
+                        for lo, hi in _peer_runs(idxs, w, sort_key):
+                            v = (
+                                arg_col[idxs[n_th - 1]]
+                                if hi + 1 >= n_th
+                                else None
+                            )
+                            for t in range(lo, hi + 1):
+                                vals[idxs[t]] = v
+                    else:
+                        # Spark's default frame (UNBOUNDED PRECEDING ..
+                        # CURRENT ROW): last_value = the last PEER of
+                        # the current row's ORDER BY group
+                        for lo, hi in _peer_runs(idxs, w, sort_key):
+                            v = arg_col[idxs[hi]]
+                            for t in range(lo, hi + 1):
+                                vals[idxs[t]] = v
+                elif w.fn in _OFFSET_FNS:
+                    arg_col = merged[w.arg]
+                    step = -w.offset if w.fn == "lag" else w.offset
+                    for pos, i in enumerate(idxs):
+                        src = pos + step
+                        vals[i] = (
+                            arg_col[idxs[src]]
+                            if 0 <= src < len(idxs)
+                            else w.default
+                        )
+                elif w.fn == "row_number":
+                    for pos, i in enumerate(idxs, 1):
+                        vals[i] = pos
+                elif w.fn in ("rank", "dense_rank", "percent_rank"):
+                    m = len(idxs)
+                    prev = object()
+                    rank = dense = 0
+                    for pos, i in enumerate(idxs, 1):
+                        key = tuple(
+                            sort_key(i, c) for c, _ in w.order_by
+                        )
+                        if key != prev:
+                            dense += 1
+                            rank = pos
+                            prev = key
+                        if w.fn == "rank":
+                            vals[i] = rank
+                        elif w.fn == "dense_rank":
+                            vals[i] = dense
+                        else:  # percent_rank = (rank-1)/(n-1), 0 if n=1
+                            vals[i] = (
+                                0.0 if m == 1 else (rank - 1) / (m - 1)
+                            )
+                elif w.fn == "cume_dist":
+                    # fraction of rows <= the current row's peers
+                    m = len(idxs)
+                    for lo, hi in _peer_runs(idxs, w, sort_key):
+                        v = (hi + 1) / m
+                        for t in range(lo, hi + 1):
+                            vals[idxs[t]] = v
+                elif w.order_by:
+                    # aggregate WITH ORDER BY: Spark's default running
+                    # frame (UNBOUNDED PRECEDING .. CURRENT ROW, peers
+                    # included) — the running-total idiom
+                    acc = _agg_init(w.fn)
+                    arg_col = None if w.arg is None else merged[w.arg]
+                    for lo, hi in _peer_runs(idxs, w, sort_key):
+                        for t in range(lo, hi + 1):
+                            i = idxs[t]
+                            acc = _agg_update(
+                                w.fn,
+                                acc,
+                                None if arg_col is None else arg_col[i],
+                                star=w.arg is None,
+                            )
+                        v = _agg_final(w.fn, acc)
+                        for t in range(lo, hi + 1):
+                            vals[idxs[t]] = v
+                else:  # aggregate without ORDER BY: whole partition
+                    if w.arg is None:  # count(*)
+                        v = len(idxs)
+                    else:
+                        arg_col = merged[w.arg]
+                        v = _agg_values(
+                            w.fn, [arg_col[i] for i in idxs]
+                        )
+                    for i in idxs:
+                        vals[i] = v
+            name = f"__win_{len(new_cols)}"
+            new_cols[name] = vals
+            win_name[id(w)] = name
+            spec_names[spec] = name
+
+        def rewrite(e):
+            if isinstance(e, Window):
+                return Col(win_name[id(e)])
+            if isinstance(e, Arith):
+                return Arith(
+                    e.op,
+                    rewrite(e.left),
+                    rewrite(e.right) if e.right is not None else None,
+                )
+            if isinstance(e, Case):
+                return Case(
+                    [
+                        (rewrite_pred(p), rewrite(x))
+                        for p, x in e.branches
+                    ],
+                    rewrite(e.default) if e.default is not None else None,
+                )
+            if isinstance(e, Call) and e.arg != "*":
+                new_args = [rewrite(a) for a in e.all_args()]
+                if not new_args:
+                    return e  # zero-arg builtin (current_date())
+                return _rebuild_call(e, new_args)
+            return e
+
+        def rewrite_pred(node):
+            if isinstance(node, NotOp):
+                return NotOp(rewrite_pred(node.part))
+            if isinstance(node, BoolOp):
+                return BoolOp(
+                    node.op, [rewrite_pred(p) for p in node.parts]
+                )
+            col = (
+                node.col
+                if isinstance(node.col, str)
+                else rewrite(node.col)
+            )
+            value = node.value
+            if isinstance(value, (Col, Lit, Arith, Case, Call, Window)):
+                value = rewrite(value)
+            elif isinstance(value, tuple):  # BETWEEN bounds
+                value = tuple(
+                    rewrite(v)
+                    if isinstance(
+                        v, (Col, Lit, Arith, Case, Call, Window)
+                    )
+                    else v
+                    for v in value
+                )
+            elif isinstance(value, DynItems):
+                value = DynItems(
+                    rewrite(v)
+                    if isinstance(
+                        v, (Col, Lit, Arith, Case, Call, Window)
+                    )
+                    else v
+                    for v in value
+                )
+            return Predicate(col, node.op, value)
+
+        for it in items:
+            if it.expr != "*" and _contains_window(it.expr):
+                # default output name reflects the ORIGINAL expression
+                it.alias = it.alias or _expr_name(it.expr)
+                it.expr = rewrite(it.expr)
+
+        rebuilt = {c: merged[c] for c in df.columns}
+        rebuilt.update(new_cols)
+        return DataFrame.fromColumns(
+            rebuilt, numPartitions=max(1, df.numPartitions)
+        )
+
     def _strip_alias(self, q: Query, alias: str) -> None:
         """Strip ``alias.`` qualifiers from every reference in a
         single-table query over an aliased derived table (the JOIN path
@@ -3208,6 +4420,10 @@ class SQLContext:
                 return Case(
                     [(res_pred(p), res_expr(x)) for p, x in e.branches],
                     res_expr(e.default) if e.default is not None else None,
+                )
+            if isinstance(e, Window):
+                return e.map_operands(
+                    lambda c: res(c) if isinstance(c, str) else res_expr(c)
                 )
             return e
 
@@ -3245,6 +4461,13 @@ class SQLContext:
             (res(c) if isinstance(c, str) else res_expr(c), a)
             for c, a in q.order
         ]
+        if q.lateral_views:
+            # LATERAL VIEW args may reference the aliased table
+            # (explode(s.tags) under FROM t s)
+            q.lateral_views = [
+                (fn, res_expr(arg), o, a, c)
+                for fn, arg, o, a, c in q.lateral_views
+            ]
 
     def _apply_joins(self, df: DataFrame, q: Query) -> DataFrame:
         """Execute the JOIN chain left-to-right (Spark's associativity)
@@ -3276,7 +4499,7 @@ class SQLContext:
         # name keeps every side's column of that name, so which names
         # collide (and stay qualified) is what the unpruned join has.
         needed = (
-            _query_referenced_columns(q)
+            _query_referenced_columns(q, windows=True)
             if udf_catalog.sql_vectorize_enabled()
             else None
         )
@@ -3450,6 +4673,12 @@ class SQLContext:
                     if e.default is not None
                     else None,
                 )
+            if isinstance(e, Window):
+                return e.map_operands(
+                    lambda c: resolve(c)
+                    if isinstance(c, str)
+                    else resolve_expr(c)
+                )
             return e
 
         def resolve_pred(node):
@@ -3490,6 +4719,13 @@ class SQLContext:
             (resolve(c) if isinstance(c, str) else resolve_expr(c), a)
             for c, a in q.order
         ]
+        if q.lateral_views:
+            # a table-qualified lateral arg under a JOIN
+            # (explode(t.tags)) resolves through the same rename map
+            q.lateral_views = [
+                (fn, resolve_expr(arg), o, a, c)
+                for fn, arg, o, a, c in q.lateral_views
+            ]
         return df
 
     def _aggregate_grouping_sets(
@@ -3662,7 +4898,9 @@ class SQLContext:
                 # column claims the name, matching Spark's precedence
                 for it in q.items:
                     if it.alias == g.name and it.expr != "*":
-                        if _contains_aggregate(it.expr):
+                        if _contains_aggregate(it.expr) or _contains_window(
+                            it.expr
+                        ):
                             raise ValueError(
                                 f"GROUP BY alias {g.name!r} must reference "
                                 "a non-aggregate select item"
@@ -3672,7 +4910,7 @@ class SQLContext:
             if isinstance(g, Col):
                 group_names.append(g.name)
                 continue
-            if _contains_aggregate(g):
+            if _contains_aggregate(g) or _contains_window(g):
                 raise ValueError(
                     "GROUP BY expressions cannot contain aggregates or "
                     f"window functions: {_expr_name(g)}"

@@ -101,18 +101,20 @@ def _read_owned_partitions(path: str, num_partitions: int, owned,
             pending[gi].append({c: group[c][lo - b0:hi - b0] for c in names})
         for gi in sorted(pending):
             if spans[gi][1] <= b1 and pending[gi]:
-                yield gi, _one_partition(pending.pop(gi), names, pf)
+                yield gi, _one_partition(pending.pop(gi), names, pf, gi)
     # zero-row partitions (an empty span) still owe an output slot
     for gi in sorted(pending):
         if not pending[gi]:
-            yield gi, _one_partition([], names, pf)
+            yield gi, _one_partition([], names, pf, gi)
 
 
-def _one_partition(pieces, names, pf) -> DataFrame:
+def _one_partition(pieces, names, pf, gi: int) -> DataFrame:
+    """Partition ``gi`` as a one-partition frame that keeps its global
+    index, so partition-seeded columns match a single-process run."""
     from sparkdl_tpu_torch.dataframe.parquet import _concat
 
     cols = {c: _concat([p[c] for p in pieces], pf._by_name[c]) for c in names}
-    return DataFrame([cols], names)
+    return DataFrame([cols], names, first_index=gi)
 
 
 def _resolve_device(device):

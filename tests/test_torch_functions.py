@@ -286,15 +286,28 @@ RELATIONAL_EXPORTS = {
     "broadcast", "window",
 }
 
+#: the window functions and the generators: their cases are in
+#: tests/test_torch_sql_windows.py and tests/test_torch_generators.py
+WINDOW_AND_GENERATOR_EXPORTS = {
+    "row_number", "rank", "dense_rank", "percent_rank", "cume_dist", "ntile",
+    "lag", "lead", "first_value", "last_value", "nth_value",
+    "explode", "explode_outer", "posexplode", "posexplode_outer", "stack",
+    "json_tuple", "monotonically_increasing_id", "rand", "randn",
+    "spark_partition_id", "input_file_name",
+}
+
 
 def test_every_export_has_a_case():
-    covered = {c.split("(")[0] for c in CASES} | set(SORT_MARKERS) | RELATIONAL_EXPORTS | {
+    covered = {c.split("(")[0] for c in CASES} | set(SORT_MARKERS) | RELATIONAL_EXPORTS | WINDOW_AND_GENERATOR_EXPORTS | {
         "col", "column", "lit", "expr", "when", "udf", "current_date", "current_timestamp",
         "current_timezone", "version", "current_user", "user", "flatten",
     }
     assert set(F.__all__) - covered == set()
     relational = (pathlib.Path(__file__).parent / "test_torch_dataframe_relational.py").read_text()
     assert {n for n in RELATIONAL_EXPORTS if f"F.{n}(" not in relational} == set()
+    here = pathlib.Path(__file__).parent
+    windows = (here / "test_torch_sql_windows.py").read_text() + (here / "test_torch_generators.py").read_text()
+    assert {n for n in WINDOW_AND_GENERATOR_EXPORTS if f"f.{n}(" not in windows} == set()
     # and the export list is the JAX module's, less what is still refused
     assert set(F.__all__) <= set(JF.__all__)
     assert set(JF.__all__) - set(F.__all__) == set(F._RELATIONAL)

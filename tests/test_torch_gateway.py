@@ -485,3 +485,81 @@ def test_worker_argv_passes_device_seed_and_loader(tmp_path):
 
 def test_stop_without_start_is_noop(tmp_path):
     gateway.ServingGateway(num_workers=1, gang_dir=str(tmp_path)).stop()
+
+
+def test_a_closed_router_is_redispatched(tmp_path):
+    """Two real workers (port routers behind port HTTP servers); one
+    worker's router closes after the gateway saw it healthy. The request
+    routed there is answered 503 with ``Retry-After``, as a draining
+    worker answers, so the gateway re-dispatches it and the client gets
+    200 from the other worker: one retry for the two requests, wherever
+    the round-robin cursor starts. A real model failure stays 500."""
+    import numpy as np
+    import torch
+
+    from sparkdl_tpu_torch.graph.function import ModelFunction
+    from sparkdl_tpu_torch.serving import Router, ServingServer
+    from sparkdl_tpu_torch.utils.metrics import metrics
+
+    class Linear(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            w = np.random.default_rng(0).normal(size=(4, 3)).astype(np.float32)
+            self.w = torch.nn.Parameter(torch.from_numpy(w))
+
+    def loader(name, mode):
+        def fn(m, x):
+            if name == "broken":
+                raise RuntimeError("device failure")
+            return x @ m.w
+
+        return ModelFunction(fn, Linear(), torch.device("cpu"), name=name, input_shape=(4,))
+
+    servers = [ServingServer(Router(loader=loader, device="cpu"), port=0) for _ in range(2)]
+    gw = gateway.ServingGateway(num_workers=2, gang_dir=str(tmp_path))
+    try:
+        gw._on_generation(0, [])
+        for rank, server in enumerate(servers):
+            with open(gateway.port_file(str(tmp_path), rank), "w") as f:
+                json.dump({"rank": rank, "port": server.port, "pid": 1, "generation": 0}, f)
+        gw._poll_health_once()
+        assert [s for _, s, _ in _states(gw)] == ["ready", "ready"]
+        servers[0].router.close()
+        body = json.dumps({"model": "m", "inputs": [[1.0, 2.0, 3.0, 4.0]]}).encode()
+        before = metrics.counter("gateway.retries")
+        answers = [gw.forward("/v1/predict", body) for _ in range(2)]
+        assert [code for code, _, _ in answers] == [200, 200]
+        assert metrics.counter("gateway.retries") - before == 1
+        assert [len(json.loads(p)["outputs"][0]) for _, p, _ in answers] == [3, 3]
+        code, payload, _ = gw.forward("/v1/predict", json.dumps(
+            {"model": "broken", "inputs": [[1.0, 2.0, 3.0, 4.0]]}).encode(), rank=1)
+        assert code == 500 and "device failure" in json.loads(payload)["error"]
+    finally:
+        gw.stop()
+        for server in servers:
+            server.stop(close_router=True)
+
+
+def test_a_closed_router_refuses_as_a_draining_one():
+    """A closed router, started or not, refuses a submit with ``Closed``, a
+    ``Draining`` (503 with ``Retry-After`` at the HTTP layer), where the
+    JAX package raises a plain RuntimeError (500)."""
+    import numpy as np
+    import torch
+
+    from sparkdl_tpu_torch.graph.function import ModelFunction
+    from sparkdl_tpu_torch.serving import Router
+    from sparkdl_tpu_torch.serving.request import Closed, Draining
+
+    def loader(name, mode):
+        return ModelFunction(lambda m, x: x * 2, torch.nn.Module(), torch.device("cpu"), name=name,
+                             input_shape=(4,))
+
+    x = np.ones((1, 4), np.float32)
+    started, never = Router(loader=loader, device="cpu"), Router(loader=loader, device="cpu")
+    assert np.array_equal(started.submit("m", x).result(timeout=60), x * 2)
+    for router in (started, never):
+        router.close()
+        with pytest.raises(Closed) as info:
+            router.submit("m", x)
+        assert isinstance(info.value, Draining)

@@ -16,8 +16,8 @@
   branch, a lambda body or a builtin's argument is kept by the pruned
   scan, and a conjunct with a builtin filters before a UDF scores a row.
 - The relational constructs this file once listed as refused equal the
-  JAX package's; windows, generators and LATERAL VIEW still raise
-  ``UnsupportedSQL`` naming ROADMAP Queue A item 8, each by name.
+  JAX package's, and so do the windows, generators and LATERAL VIEW it
+  refused after them.
 """
 
 import math
@@ -36,8 +36,9 @@ from sparkdl_tpu_torch import functions as F
 from sparkdl_tpu_torch import udf as udf_catalog
 from sparkdl_tpu_torch.dataframe import DataFrame
 from sparkdl_tpu_torch.graph.function import ModelFunction
-from sparkdl_tpu_torch.sql import SQLContext, UnsupportedSQL
+from sparkdl_tpu_torch.sql import SQLContext
 from sparkdl_tpu_torch.utils.metrics import metrics
+from test_torch_sql_windows import unknown_as_one
 
 NAN = float("nan")
 
@@ -416,6 +417,8 @@ RELATIONAL = {
 }
 
 #: windows, generators and LATERAL VIEW: still refused
+#: windows and generators, refused here until they were ported: now the
+#: JAX package's rows, or its failure
 STILL_REFUSED = {
     "window": "SELECT upper(s) OVER (PARTITION BY tag) FROM t",
     "ranking": "SELECT row_number() OVER (ORDER BY id) FROM t",
@@ -437,9 +440,20 @@ def test_relational_constructs_equal_the_jax_package(contexts, query):
 
 @pytest.mark.parametrize("query", list(STILL_REFUSED.values()), ids=list(STILL_REFUSED))
 def test_relational_constructs_still_name_item_8(contexts, query):
-    ours, _ = contexts
-    with pytest.raises(UnsupportedSQL, match="ROADMAP Queue A item 8"):
-        ours.sql(query).collect()
+    """These raised UnsupportedSQL naming ROADMAP Queue A item 8 (the test
+    keeps its name): now each gives the JAX package's rows, or fails as it
+    fails, and none waits for item 8."""
+    ours, ref = contexts
+
+    def run(ctx):
+        try:
+            return "rows", rows(ctx.sql(query))
+        except Exception as e:  # noqa: BLE001 — compared below
+            return unknown_as_one(("error", _failure(e)))
+
+    got = run(ours)
+    assert got == run(ref)
+    assert "ROADMAP Queue A item 8" not in str(got)
 
 
 def test_unknown_functions_and_bad_arity_raise(contexts):

@@ -40,8 +40,9 @@ from sparkdl_tpu.utils.metrics import metrics as jax_metrics
 from sparkdl_tpu_torch import udf as udf_catalog
 from sparkdl_tpu_torch.dataframe import DataFrame
 from sparkdl_tpu_torch.graph.function import ModelFunction
-from sparkdl_tpu_torch.sql import SQLContext, UnsupportedSQL
+from sparkdl_tpu_torch.sql import SQLContext
 from sparkdl_tpu_torch.utils.metrics import metrics
+from test_torch_sql_windows import unknown_as_one
 
 NAN = float("nan")
 
@@ -280,6 +281,8 @@ def test_refused_queries_fail_as_the_jax_package_fails(contexts, query, monkeypa
 
 
 #: what stays refused: windows, generators and LATERAL VIEW
+#: windows and generators, refused here until they were ported: now the
+#: JAX package's rows, or its failure
 STILL_REFUSED = {
     "window": "SELECT k, sum(n) OVER (PARTITION BY k) FROM t",
     "ranking": "SELECT row_number() OVER (ORDER BY id) FROM t",
@@ -291,11 +294,18 @@ STILL_REFUSED = {
 }
 
 
+
 @pytest.mark.parametrize("query", list(STILL_REFUSED.values()), ids=list(STILL_REFUSED))
-def test_windows_and_generators_still_name_item_8(contexts, query):
-    ours, _ = contexts
-    with pytest.raises(UnsupportedSQL, match="ROADMAP Queue A item 8"):
-        ours.sql(query).collect()
+def test_windows_and_generators_still_name_item_8(contexts, query, monkeypatch):
+    """These raised UnsupportedSQL naming ROADMAP Queue A item 8 (the test
+    keeps its name): now each gives the JAX package's rows, or fails as it
+    fails, in both arms, and none waits for item 8."""
+    ours, ref = contexts
+    for arm in ("1", "0"):
+        monkeypatch.setenv("SPARKDL_SQL_VECTORIZE", arm)
+        got = unknown_as_one(outcome(lambda: ours.sql(query)))
+        assert got == unknown_as_one(outcome(lambda: ref.sql(query)))
+        assert "ROADMAP Queue A item 8" not in str(got)
 
 
 def test_join_output_names_and_nulls(contexts):
