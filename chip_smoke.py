@@ -564,14 +564,51 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     4-partition frame, equal to numpy's ``default_rng(SeedSequence([7,
     index]))`` draws per partition and to a second run. Host code but for
     bert-base. About 20 s.
+26. the frame's statistics, NA, partitioning and file methods and the
+    session's readers, writers, catalog and conf. (a) Phase 24's 256 texts
+    with its seeded ``topic`` and ``source`` written with
+    ``df.write.mode("overwrite").csv(path, header=True)`` and read back
+    with ``spark.read.option("header", "true").csv`` on 4 partitions: the
+    rows equal the written ones (ints as ints, NULL topics as None); then
+    ``TextEmbedder`` over ``get_model("bert-base")`` f32, maxLength 512,
+    on the frame read back, exactly 12 flash launches per dispatch, and
+    phase 25's score (the sum of the first 16 squares of the embedding)
+    with ``e0``, the embedding's first feature. (b) ``describe``,
+    ``summary`` (the default statistics and ``10%``/``90%``),
+    ``approxQuantile``, ``corr`` and ``cov`` of score and ``e0`` against
+    numpy over the collected columns (summary and quantiles exactly, the
+    moments within 1e-9 relative); ``crosstab(topic, source)`` and
+    ``freqItems`` against a Python count; ``sample(0.3, 11)`` and
+    ``sampleBy(topic, ..., 11)`` against numpy's draws (one stream in
+    partition order, and ``default_rng(SeedSequence([11, index]))`` per
+    partition); each ``df.stat`` call equal to its frame method. (c)
+    ``dropna``, ``fillna``, ``na.replace`` and ``melt`` against Python over
+    the rows; ``repartition(3)``, ``coalesce(2)`` and
+    ``repartitionByRange(4, "score")`` keep the multiset of rows (the
+    ranges in order), a seeded ``rand`` column equal through ``coalesce``,
+    and no model dispatch from a lazy ``coalesce`` or one over the cached
+    frame. (d) The scores and embeddings written with ``df.write`` as JSON
+    lines and as Parquet (a second write in the default mode refused) and
+    read back with ``spark.read.json``/``parquet``: rows equal, the float32
+    embeddings bit-equal; ``createGlobalTempView("scores26")``, a ``GROUP
+    BY topic`` on ``global_temp.scores26`` equal to the DataFrame surface's
+    and to numpy; ``spark.catalog`` ``listTables("global_temp")``,
+    ``listColumns``, ``tableExists``, then ``dropGlobalTempView``;
+    ``spark.range(256)`` joined on ``id`` keeps 256 rows; ``spark.conf``
+    set, then get. (e) bert-base as the catalog UDF ``bert26`` (padded to
+    512, batches of 32) over the frame read back from JSON: its scores
+    within 1e-4 of (a)'s, 12 flash launches per UDF batch. Prints host
+    seconds per group, rows in and out and the bytes of each file. Host
+    code but for bert-base. About 15 s.
 
 The line before the last is the ``kernels`` JSON record (the f32 and the
 bf16 kernel at bert-base L=512, launches from each dtype's main-path run,
 ``launches_phase20``, phase 20(a)'s flood, and ``launches_phase22``,
 phase 22(a)'s loaded program (bf16) and 22(c)'s and 22(e)'s orbax models
 (f32), ``launches_phase23``, phase 23(b)'s bert-base pass (f32), and
-``launches_phase24``, phase 24(a)'s (f32), and ``launches_phase25``, phase
-25(a)'s TextEmbedder and UDF dispatches (f32)); the last line is ``{"ok":
+``launches_phase24``, phase 24(a)'s (f32), ``launches_phase25``, phase
+25(a)'s TextEmbedder and UDF dispatches (f32), and ``launches_phase26``,
+phase 26(a)'s and 26(e)'s (f32)); the last line is ``{"ok":
 true, "device": {...}}``. Phase 17's first check names each leak record
 (model, bytes) from an events log (``SPARKDL_OBS_JSONL``) armed before
 phase 11, which does not roll over as the ledger's ring does.
@@ -887,6 +924,14 @@ W_UDF_BATCH = 32
 W_UDF_REL = 1e-4
 W_NUMPY_REL = 1e-6
 W_SEED = 7
+# phase 26: the frame's statistics, NA, partitioning and files, the session
+F_TEXT_MODEL = "bert-base"
+F_TEXTS = 256
+F_MAX_LENGTH = 512
+F_UDF_BATCH = 32
+F_UDF_REL = 1e-4  # the UDF's scores (every row padded to 512) against the TextEmbedder's
+F_NUMPY_REL = 1e-9  # describe, corr, cov and group means against numpy: summation order only
+F_SEED = 11
 
 DISPATCH_CALLS = 2000
 DISPATCH_ROUNDS = 5
@@ -5954,6 +5999,279 @@ def phase_windows(seed: int, device_name: str, device="cuda") -> int:
     return launches
 
 
+def _partition_draws(counts, draw) -> list:
+    """Row indices (in frame order) that a partition-seeded draw keeps:
+    ``draw(index, n)`` gives each partition's kept row offsets."""
+    kept, start = [], 0
+    for index, n in enumerate(counts):
+        kept += [start + j for j in draw(index, n)]
+        start += n
+    return kept
+
+
+def phase_frame_io(seed: int, device_name: str, tmp: str, device="cuda") -> int:
+    """Phase 26: the frame's statistics, NA, partitioning and file methods
+    and the session's readers, writers, catalog and conf around bert-base
+    scores (``device="cpu"``: a rehearsal, with the sizes cut by the
+    caller). Returns the flash launches of its bert-base dispatches."""
+    from collections import Counter
+
+    from sparkdl_tpu_torch import functions as sf
+    from sparkdl_tpu_torch.sql import dropTempTable
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    card = f"{device_name} ({_smi()})" if on_card else device_name
+    spark = SparkSession.builder.appName("chip_smoke").getOrCreate()
+    spec = get_model(F_TEXT_MODEL)
+    layers = BERT_CONFIGS[spec.size].num_layers
+    width = BERT_CONFIGS[spec.size].hidden_size
+    mf = spec.model_function(dtype=torch.float32, seed=seed, device=device)
+    texts = _texts(seed, F_TEXTS)
+    n = len(texts)
+    rng = np.random.default_rng(seed + 24)  # phase 24's topics and sources
+    topics = [None if rng.random() < 0.08 else f"t{int(rng.integers(0, 5))}" for _ in texts]
+    sources = [("news", "wiki", "forum", "mail", "chat", "code")[int(rng.integers(0, 6))] for _ in texts]
+    table = DataFrame.fromColumns({"id": list(range(n)), "text": texts, "topic": topics, "source": sources},
+                                  numPartitions=4)
+    seconds, sizes = {}, {}
+    # (a) CSV in, then embed
+    t0 = time.perf_counter()
+    csv_path = os.path.join(tmp, "texts26.csv")
+    table.write.mode("overwrite").csv(csv_path, header=True)
+    back = spark.read.option("header", "true").option("numPartitions", 4).csv(csv_path)
+    written = [dict(r) for r in table.collect()]
+    check(back.columns == table.columns and [dict(r) for r in back.collect()] == written,
+          "frame io (26a): the CSV rows read back differ from the written ones")
+    check(all(type(r["id"]) is int for r in back.collect()), "frame io (26a): an id came back as no int")
+    sizes["csv"] = os.path.getsize(csv_path)
+    seconds["a: csv"] = time.perf_counter() - t0
+    embed = TextEmbedder(inputCol="text", outputCol="emb", modelFunction=mf, maxLength=F_MAX_LENGTH, batchSize=32)
+    embed.transform(back.limit(32)).collect()  # cuBLAS and allocator warm-up: not counted
+    sync()
+    metrics.reset()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    bert = embed.transform(back).cache()
+    sync()
+    seconds["a: embed"] = time.perf_counter() - t0
+    launches, batches = flash_attention.launches, _dispatches()
+    check(batches > 0 and launches == (layers * batches if on_card else 0),
+          f"frame io (26a): {launches} flash launches for {batches} bert-base dispatches (expected {layers} each)")
+    base = bert.collectColumns()
+    check(all(e is not None and e.shape == (width,) and bool(np.isfinite(e).all()) for e in base["emb"]),
+          f"frame io (26a): a row without a finite {width}-d embedding")
+    scores = np.array([sum(float(x) * float(x) for x in e[:16]) for e in base["emb"]])
+    e0 = np.array([float(e[0]) for e in base["emb"]])
+    score_sql = "aggregate(slice({}, 1, 16), CAST(0 AS DOUBLE), (a, x) -> a + CAST(x AS DOUBLE) * CAST(x AS DOUBLE))"
+    scored = bert.select("id", "text", "topic", "source", "emb", sf.expr(score_sql.format("emb")).alias("score"),
+                         sf.expr("CAST(element_at(emb, 1) AS DOUBLE)").alias("e0")).cache()
+    st = scored.select("id", "topic", "source", "score", "e0").cache()
+    cols = st.collectColumns()
+    check(cols["id"] == list(range(n)) and float(np.max(np.abs(np.array(cols["score"]) - scores) / scores)) <= 1e-12
+          and cols["e0"] == e0.tolist(), "frame io (26a): the scores differ from numpy's")
+    # the scores as the engine computed them: what is exact below is held
+    # to these, and these to numpy's float64 sum
+    scores = np.array(cols["score"])
+    counts = st.partitionRowCounts()
+    # (b) statistics, held to numpy and Python over the collected columns
+    t0 = time.perf_counter()
+    worst = 0.0
+
+    def close(got, want, what: str, scale: float = None) -> None:
+        nonlocal worst
+        err = abs(got - want) / (scale if scale is not None else abs(want))
+        worst = max(worst, err)
+        check(err <= F_NUMPY_REL, f"frame io (26b) {what}: {got!r} against numpy's {want!r} ({err:.3e})")
+
+    numeric = {"id": np.arange(n, dtype=float), "score": scores, "e0": e0}
+    described = {r["summary"]: r for r in st.describe().collect()}
+    check(list(described) == ["count", "mean", "stddev", "min", "max"] and
+          st.describe().columns == ["summary", "id", "score", "e0"], "frame io (26b) describe: its layout")
+    for c, v in numeric.items():
+        check(described["count"][c] == n and described["min"][c] == v.min() and described["max"][c] == v.max(),
+              f"frame io (26b) describe {c}: count, min or max")
+        close(described["mean"][c], float(np.mean(v)), f"describe mean of {c}", float(np.std(v)))
+        close(described["stddev"][c], float(np.std(v, ddof=1)), f"describe stddev of {c}")
+    stats = ["count", "mean", "stddev", "min", "10%", "25%", "50%", "75%", "90%", "max"]
+    for r in st.summary(*stats).collect():
+        for c, v in numeric.items():
+            s = r["summary"]
+            want = {"count": n, "mean": float(v.mean()), "stddev": float(v.std(ddof=1)), "min": float(v.min()),
+                    "max": float(v.max())}.get(s)
+            if want is None:
+                want = float(np.percentile(v, float(s[:-1])))
+            check(r[c] == want, f"frame io (26b) summary {s} of {c}: {r[c]!r} against numpy's {want!r}")
+    probs = [0.1, 0.5, 0.9]
+    ranked = sorted(scores)
+    want_q = [float(ranked[min(n - 1, max(0, math.ceil(p * n) - 1))]) for p in probs]
+    check(st.approxQuantile("score", probs, 0.0) == want_q, "frame io (26b) approxQuantile: not the exact ranks")
+    check(st.approxQuantile(["score", "id"], probs, 0.1)[1] == [float(math.ceil(p * n) - 1) for p in probs],
+          "frame io (26b) approxQuantile: the list form")
+    corr, cov = st.corr("score", "e0"), st.cov("score", "e0")
+    close(corr, float(np.corrcoef(scores, e0)[0, 1]), "corr(score, e0)", 1.0)
+    close(cov, float(np.cov(scores, e0, ddof=1)[0, 1]), "cov(score, e0)", float(np.std(scores) * np.std(e0)))
+    pairs = Counter((str(t), s) for t, s in zip(topics, sources))
+    xt = st.crosstab("topic", "source")
+    want_cols = ["topic_source"] + sorted({s for s in sources})
+    check(xt.columns == want_cols and [dict(r) for r in xt.collect()] == [
+        {"topic_source": t, **{s: pairs.get((t, s), 0) for s in want_cols[1:]}} for t in sorted({str(t) for t in topics})
+    ], "frame io (26b) crosstab: not Python's count")
+    freq = st.freqItems(["topic", "source"], 0.1).collect()[0]
+    for c, vals in (("topic", topics), ("source", sources)):
+        tally = Counter(v for v in vals if v is not None)
+        want = [v for v in dict.fromkeys(v for v in vals if v is not None) if tally[v] > 0.1 * n]
+        check(freq[f"{c}_freqItems"] == want, f"frame io (26b) freqItems {c}: not Python's count")
+    sampled = [r["id"] for r in st.sample(0.3, F_SEED).collect()]
+    draws = np.random.default_rng(F_SEED)
+    bounds = np.cumsum([0.3, 0.7])
+    check(sampled == _partition_draws(counts, lambda i, m: np.flatnonzero(
+        np.minimum(np.searchsorted(bounds, draws.random(m), side="left"), 1) == 0).tolist()),
+        "frame io (26b) sample: not numpy's draws")
+    fractions = {"t0": 0.5, "t1": 0.2, "t3": 1.0}
+    strata = [r["id"] for r in st.sampleBy("topic", fractions, F_SEED).collect()]
+    starts = np.cumsum([0] + counts)
+    check(strata == _partition_draws(counts, lambda i, m: [
+        j for j, u in enumerate(np.random.default_rng(np.random.SeedSequence([F_SEED, i])).random(m))
+        if fractions.get(topics[starts[i] + j], 0.0) > u]), "frame io (26b) sampleBy: not numpy's per-partition draws")
+    check(st.stat.corr("score", "e0") == corr and st.stat.cov("score", "e0") == cov
+          and st.stat.approxQuantile("score", probs, 0.0) == want_q
+          and st.stat.crosstab("topic", "source").collect() == xt.collect()
+          and st.stat.freqItems(["topic", "source"], 0.1).collect()[0] == freq
+          and [r["id"] for r in st.stat.sampleBy("topic", fractions, F_SEED).collect()] == strata,
+          "frame io (26b): a df.stat call differs from its frame method")
+    seconds["b: statistics"] = time.perf_counter() - t0
+    # (c) NA handling, unpivot and partitioning
+    t0 = time.perf_counter()
+    rows = [dict(r) for r in st.collect()]
+    check([r["id"] for r in st.dropna(subset=["topic"]).collect()] == [r["id"] for r in rows if r["topic"]]
+          and st.dropna().count() == st.dropna(thresh=5).count() == sum(t is not None for t in topics)
+          and st.na.drop(how="all", subset=["topic"]).count() == sum(t is not None for t in topics),
+          "frame io (26c) dropna: not Python's rows")
+    check([r["topic"] for r in st.fillna("none", subset=["topic"]).collect()] == [t or "none" for t in topics]
+          and [r["topic"] for r in st.na.fill({"topic": "tx"}).collect()] == [t or "tx" for t in topics],
+          "frame io (26c) fillna: not Python's rows")
+    renamed = {"t0": "zero", "t1": "one"}
+    check([r["topic"] for r in st.na.replace(list(renamed), list(renamed.values()), ["topic"]).collect()]
+          == [renamed.get(t, t) for t in topics], "frame io (26c) na.replace: not Python's rows")
+    melted = [dict(r) for r in st.melt("id", ["topic", "source"], "var", "val").collect()]
+    check(melted == [{"id": r["id"], "var": v, "val": r[v]} for r in rows for v in ("topic", "source")],
+          "frame io (26c) melt: not Python's rows")
+    key = lambda r: r["id"]  # noqa: E731 — ids are unique
+    for name, frame, parts in (("repartition(3)", st.repartition(3), 3), ("coalesce(2)", st.coalesce(2), 2),
+                               ("repartitionByRange(4, score)", st.repartitionByRange(4, "score"), 4)):
+        got = [dict(r) for r in frame.collect()]
+        check(frame.numPartitions == parts and sorted(got, key=key) == rows,
+              f"frame io (26c) {name}: the multiset of rows changed")
+    ranged = [[r["score"] for r in DataFrame([p], st.columns).collect()] for p in
+              st.repartitionByRange(4, "score")._source]
+    check(all(max(a) <= min(b) for a, b in zip(ranged, ranged[1:])), "frame io (26c) repartitionByRange: ranges overlap")
+    seeded = st.select("id", sf.rand(F_SEED).alias("u"))
+    check(seeded.coalesce(2).collect() == seeded.collect(),
+          "frame io (26c) coalesce: a seeded column drew other values (the children's own indices)")
+    metrics.reset()
+    flash_attention.launches = 0
+    lazy = embed.transform(back).coalesce(2)
+    coalesced = bert.coalesce(2).select("id", "emb").collect()
+    check(_dispatches() == 0 and flash_attention.launches == 0 and lazy.numPartitions == 2,
+          f"frame io (26c) coalesce: {_dispatches()} model dispatches ({flash_attention.launches} flash launches) "
+          "for a lazy coalesce and one over the cached frame")
+    check(all(np.array_equal(r["emb"], e) for r, e in zip(coalesced, base["emb"])),
+          "frame io (26c) coalesce: the embeddings changed")
+    seconds["c: frame methods"] = time.perf_counter() - t0
+    # (d) JSON and Parquet out and back, the catalog, range and conf
+    t0 = time.perf_counter()
+    out = scored.select("id", "text", "topic", "source", "score", "emb")
+    json_path, pq_path = os.path.join(tmp, "scores26.json"), os.path.join(tmp, "scores26.parquet")
+    out.write.mode("overwrite").json(json_path)
+    out.write.parquet(pq_path)
+    try:
+        out.write.parquet(pq_path)
+        check(False, "frame io (26d): the writer's default mode overwrote a file")
+    except FileExistsError:
+        pass
+    sizes["json"], sizes["parquet"] = os.path.getsize(json_path), os.path.getsize(pq_path)
+    json_back = spark.read.option("numPartitions", 4).json(json_path)
+    pq_back = spark.read.parquet(pq_path)
+    for fmt, frame in (("json", json_back), ("parquet", pq_back)):
+        got = frame.collectColumns()
+        check(frame.columns == out.columns and [int(i) for i in got["id"]] == list(range(n))
+              and list(got["topic"]) == topics and list(got["text"]) == texts
+              and [float(s) for s in got["score"]] == cols["score"],
+              f"frame io (26d) {fmt}: the rows read back differ from the written ones")
+        check(all(np.asarray(a, np.float32).tobytes() == b.astype(np.float32).tobytes()
+                  for a, b in zip(got["emb"], base["emb"])), f"frame io (26d) {fmt}: the embeddings are not bit-equal")
+    pq_back.createGlobalTempView("scores26")
+    try:
+        pq_back.createGlobalTempView("scores26")
+        check(False, "frame io (26d): createGlobalTempView replaced a view")
+    except ValueError:
+        pass
+    via_sql = [dict(r) for r in spark.sql(
+        "SELECT topic, count(*) AS n, avg(score) AS a, max(score) AS m FROM global_temp.scores26 "
+        "GROUP BY topic ORDER BY topic").collect()]
+    via_cols = [dict(r) for r in pq_back.groupBy("topic").agg(
+        sf.count("*").alias("n"), sf.avg("score").alias("a"), sf.max("score").alias("m")).orderBy("topic").collect()]
+    check(via_sql == via_cols, "frame io (26d): the global_temp query and the DataFrame surface differ")
+    for r in via_sql:
+        mine = scores[[i for i, t in enumerate(topics) if t == r["topic"]]]
+        check(r["n"] == len(mine) and r["m"] == mine.max(), f"frame io (26d) group {r['topic']}: count or max")
+        close(r["a"], float(mine.mean()), f"group {r['topic']} avg")
+    catalog = spark.catalog
+    check(("scores26", "global_temp") in [(t.name, t.database) for t in catalog.listTables("global_temp")]
+          and [c.name for c in catalog.listColumns("scores26", "global_temp")] == out.columns
+          and catalog.tableExists("scores26", "global_temp") and catalog.tableExists("global_temp.scores26"),
+          "frame io (26d): the catalog does not show global_temp.scores26")
+    check(catalog.dropGlobalTempView("scores26") and not catalog.tableExists("scores26", "global_temp"),
+          "frame io (26d): global_temp.scores26 outlived dropGlobalTempView")
+    joined = spark.range(n).join(pq_back.select("id", "score"), "id")
+    check(joined.count() == n and sorted(int(r["id"]) for r in joined.collect()) == list(range(n)),
+          f"frame io (26d): spark.range({n}) joined on id did not keep {n} rows")
+    spark.conf.set("spark.sql.shuffle.partitions", "4")
+    check(spark.conf.get("spark.sql.shuffle.partitions") == "4" and spark.conf.get("missing.key", "d") == "d",
+          "frame io (26d): spark.conf set, then get")
+    spark.conf.unset("spark.sql.shuffle.partitions")
+    seconds["d: files and catalog"] = time.perf_counter() - t0
+    # (e) bert-base as a catalog UDF over the frame read back from JSON
+    udf_catalog.registerModelUDF("bert26", mf, to_batch=_udf_to_batch(embed._tokenizer(), F_MAX_LENGTH),
+                                 batch_size=F_UDF_BATCH, device=device)
+    json_back.createOrReplaceTempView("back26")
+    try:
+        metrics.reset()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        udf_rows = spark.sql(f"SELECT id, {score_sql.format('bert26(text)')} AS s FROM back26").collect()
+        sync()
+        seconds["e: bert26"] = time.perf_counter() - t0
+        udf_batches, udf_launches = int(metrics.counter("sql.udf.batches")), flash_attention.launches
+    finally:
+        udf_catalog.unregister("bert26")
+        dropTempTable("back26")
+    check([int(r["id"]) for r in udf_rows] == list(range(n)), "frame io (26e): the UDF's rows")
+    udf_rel = float(np.max(np.abs(np.array([r["s"] for r in udf_rows]) - scores) / scores))
+    check(udf_rel <= F_UDF_REL, f"frame io (26e): the bert26 UDF's scores off (a)'s by {udf_rel:.3e}")
+    check(math.ceil(n / F_UDF_BATCH) <= udf_batches < n,
+          f"frame io (26e): {udf_batches} UDF batches for {n} rows (batches of up to {F_UDF_BATCH})")
+    check(udf_launches == (layers * udf_batches if on_card else 0),
+          f"frame io (26e): {udf_launches} flash launches for {udf_batches} bert-base dispatches")
+    print(f"frame io (26) on {card}: {F_TEXT_MODEL} f32 over {n} texts read back from CSV ({n} rows in, "
+          f"{len(written)} out, ints as ints, {topics.count(None)} NULL topics), {batches} TextEmbedder dispatches, "
+          f"{launches} flash launches ({layers} per dispatch); statistics, NA, melt and partitioning over "
+          f"{n} scored rows equal to numpy and Python (worst relative {worst:.2e}, limit {F_NUMPY_REL}; summary "
+          f"and quantiles exact); sample(0.3) {len(sampled)} rows, sampleBy {len(strata)}, melt {len(melted)}, "
+          f"crosstab {len(xt.collect())} x {len(want_cols) - 1}; files (bytes): "
+          + ", ".join(f"{k} {v}" for k, v in sizes.items())
+          + f"; JSON and Parquet rows and float32 embeddings bit-equal; global_temp.scores26 GROUP BY topic "
+          f"{len(via_sql)} rows on both surfaces; spark.range({n}) join {n} rows; the bert26 UDF over the JSON "
+          f"frame: {udf_batches} batches of up to {F_UDF_BATCH} at L={F_MAX_LENGTH}, {udf_launches} flash "
+          f"launches, within {udf_rel:.2e} of (a)'s scores (limit {F_UDF_REL}); host seconds: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
+    del mf, bert, scored, st
+    shutdown_feeders()
+    return launches + udf_launches
+
+
 def _flat_tree(tree, prefix=()):
     for key, sub in tree.items():
         if isinstance(sub, dict):
@@ -6053,6 +6371,11 @@ def main(argv=None) -> int:
     done("phase 25")
     records[torch.float32]["launches_phase25"] = phase25
     records[torch.bfloat16]["launches_phase25"] = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        phase26 = phase_frame_io(args.seed, device_name, tmp)
+    done("phase 26")
+    records[torch.float32]["launches_phase26"] = phase26
+    records[torch.bfloat16]["launches_phase26"] = 0
     records[torch.bfloat16]["launches_phase20"] = 0
     for dtype, n in phase22.items():
         records[dtype]["launches_phase22"] = n
@@ -6066,6 +6389,7 @@ def main(argv=None) -> int:
     print(f"flash launches in phase 23(b) (bert-base f32 under the expressions): {phase23}")
     print(f"flash launches in phase 24(a) (bert-base f32 under the relational queries): {phase24}")
     print(f"flash launches in phase 25(a) (bert-base f32 under the windows, TextEmbedder and UDF): {phase25}")
+    print(f"flash launches in phase 26 (bert-base f32, 26(a)'s TextEmbedder and 26(e)'s UDF): {phase26}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[torch.float32], records[torch.bfloat16]]}))
     print(json.dumps({

@@ -3,26 +3,36 @@
 The part of the JAX package's DataFrame that the text, image, training,
 SQL and model-selection slices drive, with its relational methods
 (grouping and the streaming aggregate engine, joins, set operations,
-``distinct``, ``offset``), its windows and generators: a frame is a list
-of partitions (each a ``{column: list}`` dict) plus a lazy plan of
-partition-wise ops, some of which (``rand``, ``monotonically_increasing_id``)
-also take the source partition's index.
+``distinct``, ``offset``), its windows and generators, its statistics
+(``describe``, ``summary``, ``corr``, ``cov``, ``approxQuantile``,
+``crosstab``, ``freqItems``, ``sample``, ``sampleBy``, ``df.stat``), NA
+handling (``dropna``, ``fillna``, ``replace``, ``df.na``), partitioning
+(``repartition``, ``repartitionByRange``, a lazy ``coalesce``,
+``sortWithinPartitions``, ``melt``) and views: a frame is a list of
+partitions (each a ``{column: list}`` dict) plus a lazy plan of
+partition-wise ops, some of which (``rand``, ``monotonically_increasing_id``,
+``sampleBy``) also take the source partition's index.
 Actions run the plan over the partitions through the default executor
 (``runtime/executor.py``): several at once, results in partition order,
 with bounded retry. :meth:`DataFrame.iterPartitions` runs them one at a
 time instead, keeping one in memory (the streamed trainer's feed, and
 :meth:`DataFrame.limit`, which stops at the partition that fills it).
 
-Files: :meth:`DataFrame.readParquet`, :meth:`DataFrame.scanParquet`
+Files: CSV and JSON lines through the stdlib (:meth:`DataFrame.writeCSV`,
+:meth:`DataFrame.readCSV`, :meth:`DataFrame.writeJSON`,
+:meth:`DataFrame.readJSON`, and ``df.write``/``spark.read`` over them in
+``session.py``), :meth:`DataFrame.readParquet`, :meth:`DataFrame.scanParquet`
 (lazy partitions over row spans, reading only the footer up front),
 :meth:`DataFrame.writeParquet` (streamed, one row group per partition) and
 :meth:`DataFrame.fromArrowFiles` (lazy, one partition per Arrow IPC
 file), over the port's own readers and writers (``dataframe/parquet.py``,
 ``dataframe/arrow_ipc.py``): the port never imports ``pyarrow``, so the
-JAX package's ``fromArrow``/``toArrow``, which take and return ``pyarrow``
-Tables, have no counterpart. A tensor column read from a file is one
-contiguous numpy block ``(rows, *shape)`` in its partition, as the JAX
-package's ``TensorColumn`` is; indexing it gives row views.
+JAX package's ``fromArrow``/``toArrow``/``toArrowBatches``/``mapInArrow``,
+which take and return ``pyarrow`` Tables, have no counterpart, and the
+pandas ones (``toPandas``, ``mapInPandas``) wait for ROADMAP Queue A
+item 8. A tensor column read from a file is one contiguous numpy block
+``(rows, *shape)`` in its partition, as the JAX package's
+``TensorColumn`` is; indexing it gives row views.
 """
 
 from __future__ import annotations
@@ -191,6 +201,70 @@ def _cell_key(v):
     return v
 
 
+def _split_ddl_fields(s: str) -> List[str]:
+    """Split a DDL schema string on top-level commas only, so that
+    parameterized and nested types (``map<string,int>``,
+    ``decimal(10,2)``, ``array<struct<...>>``) stay with their field."""
+    parts: List[str] = []
+    depth = 0
+    cur: List[str] = []
+    for ch in s:
+        if ch in "<(":
+            depth += 1
+        elif ch in ">)":
+            depth -= 1
+        if ch == "," and depth == 0:
+            parts.append("".join(cur))
+            cur = []
+        else:
+            cur.append(ch)
+    parts.append("".join(cur))
+    return parts
+
+
+def _schema_names(schema) -> List[str]:
+    """Column names from a pyspark-style schema: a list or tuple of names,
+    or a DDL string (``"id long, name string"``) whose type words,
+    parameterized and nested ones too, are accepted and ignored (the
+    frame is dynamically typed)."""
+    if isinstance(schema, (list, tuple)):
+        names = [str(c) for c in schema]
+    elif isinstance(schema, str):
+        import re
+
+        # a name ends at whitespace or a colon: "a int", "a: int", "a:int"
+        names = [
+            re.split(r"[:\s]", piece.strip(), maxsplit=1)[0]
+            for piece in _split_ddl_fields(schema)
+            if piece.strip()
+        ]
+    else:
+        raise TypeError(
+            "schema must be a list of column names or a DDL string "
+            f"('id long, name string'), got {type(schema).__name__}"
+        )
+    if not names:
+        raise ValueError("schema declares no columns")
+    dups = {n for n in names if names.count(n) > 1}
+    if dups:
+        raise ValueError(f"Duplicate schema columns: {sorted(dups)}")
+    return names
+
+
+def _json_cell(v):
+    """The JSON form of a cell: numpy scalars and arrays unwrap, through
+    list, tuple and dict cells too (embeddings hold numpy floats)."""
+    if isinstance(v, np.generic):
+        return v.item()
+    if isinstance(v, np.ndarray):
+        return v.tolist()
+    if isinstance(v, (list, tuple)):
+        return [_json_cell(x) for x in v]
+    if isinstance(v, dict):
+        return {k: _json_cell(x) for k, x in v.items()}
+    return v
+
+
 def _gen_nondet(node, index: int, n: int) -> list:
     """Values for one partition of a partition-seeded generator
     (Column API NondetNode): pyspark's monotonically_increasing_id
@@ -221,6 +295,45 @@ def _run_plan(ops, columns: List[str], part: Partition, index: int = 0) -> Parti
     return {c: part[c] for c in columns}
 
 
+class _CoalescedPartition(Mapping):
+    """Several source partitions presented as one, the parent frame's
+    pending ops run over each child, with the child's own index, at the
+    first access: the lazy half of :meth:`DataFrame.coalesce`. File-backed
+    children release as they are read; :meth:`release` drops the merge."""
+
+    def __init__(self, children, ops, cols, base_index: int = 0):
+        self._children = list(children)
+        self._child_ops = list(ops)
+        self._cols = list(cols)
+        self._base_index = base_index  # the first child's index in the parent
+        self._data: Optional[Dict[str, list]] = None
+
+    def _ensure(self) -> None:
+        if self._data is not None:
+            return
+        merged: Dict[str, list] = {c: [] for c in self._cols}
+        for off, child in enumerate(self._children):
+            cur = _run_plan(self._child_ops, self._cols, child, self._base_index + off)
+            for c in self._cols:
+                merged[c].extend(list(cur[c]))
+            if isinstance(child, LazyPartition):
+                child.release()
+        self._data = merged
+
+    def __getitem__(self, key):
+        self._ensure()
+        return self._data[key]
+
+    def __iter__(self):
+        return iter(self._cols)
+
+    def __len__(self) -> int:
+        return len(self._cols)
+
+    def release(self) -> None:
+        self._data = None
+
+
 class Row(dict):
     """A result row; attribute access mirrors pyspark Row ergonomics."""
 
@@ -229,6 +342,23 @@ class Row(dict):
             return self[name]
         except KeyError as e:
             raise AttributeError(name) from e
+
+    def asDict(self, recursive: bool = False) -> dict:
+        """A plain dict copy (pyspark ``Row.asDict``); ``recursive`` also
+        converts Rows nested in the cells, inside lists and dicts too."""
+        if not recursive:
+            return dict(self)
+
+        def conv(v):
+            if isinstance(v, Row):
+                return v.asDict(True)
+            if isinstance(v, list):
+                return [conv(x) for x in v]
+            if isinstance(v, dict):
+                return {k: conv(x) for k, x in v.items()}
+            return v
+
+        return {k: conv(v) for k, v in self.items()}
 
 
 class DataFrame:
@@ -264,6 +394,21 @@ class DataFrame:
         out._alias_name = name
         return out
 
+    def colRegex(self, colName: str) -> list:
+        """The columns whose name fully matches the regex (pyspark
+        ``colRegex``, backticks optional), as Columns for ``select``:
+        ``df.select(df.colRegex("`^v.*`"))``."""
+        import re
+
+        from sparkdl_tpu_torch import sql as _sql
+        from sparkdl_tpu_torch.dataframe.column import Column
+
+        pat = colName.strip()
+        if pat.startswith("`") and pat.endswith("`"):
+            pat = pat[1:-1]
+        rx = re.compile(pat)
+        return [Column(_sql.Col(c)) for c in self._columns if rx.fullmatch(c)]
+
     @staticmethod
     def fromColumns(
         columns: Dict[str, Sequence[Any]], numPartitions: int = 1
@@ -280,6 +425,14 @@ class DataFrame:
             for start, end in partition_row_spans(n, numPartitions)
         ]
         return DataFrame(parts, names)
+
+    @staticmethod
+    def fromRows(rows: Sequence[Dict[str, Any]], numPartitions: int = 1) -> "DataFrame":
+        """Rows as dicts; the first row's keys are the columns."""
+        if not rows:
+            return DataFrame([], [])
+        names = list(rows[0])
+        return DataFrame.fromColumns({c: [r[c] for r in rows] for c in names}, numPartitions)
 
     @staticmethod
     def readParquet(path: str, numPartitions: int = 1) -> "DataFrame":
@@ -798,6 +951,117 @@ class DataFrame:
 
         return self._with_op(op, self._columns)
 
+    def dropna(
+        self,
+        how: str = "any",
+        thresh: Optional[int] = None,
+        subset: Optional[Sequence[str]] = None,
+    ) -> "DataFrame":
+        """Drop rows with nulls (pyspark ``dropna``) among ``subset`` (all
+        columns by default): ``how='any'`` drops a row with any null,
+        ``'all'`` one whose cells there are all null; ``thresh=k`` keeps
+        the rows with at least k non-nulls, whatever ``how`` says. The
+        older ``dropna([cols])`` and ``dropna('col')`` forms still work."""
+        if isinstance(how, (list, tuple)):
+            subset, how = how, "any"
+        elif isinstance(how, str) and how not in ("any", "all"):
+            if how in self._columns:
+                # a column named any or all takes pyspark's meaning
+                subset, how = [how], "any"
+            else:
+                raise ValueError(
+                    f"dropna how must be 'any' or 'all' (or a column "
+                    f"name for the legacy positional form), got {how!r}"
+                )
+        if isinstance(subset, str):
+            subset = [subset]
+        cols = list(subset) if subset is not None else list(self._columns)
+        missing = [c for c in cols if c not in self._columns]
+        if missing:
+            raise KeyError(f"dropna: no such column(s) {missing}")
+        if thresh is not None:
+            k = int(thresh)
+            return self.filter(lambda r: sum(r[c] is not None for c in cols) >= k)
+        if how == "any":
+            return self.filter(lambda r: all(r[c] is not None for c in cols))
+        if how == "all":
+            return self.filter(lambda r: any(r[c] is not None for c in cols))
+        raise ValueError(f"dropna how must be 'any' or 'all', got {how!r}")
+
+    def fillna(self, value, subset: Optional[Sequence[str]] = None) -> "DataFrame":
+        """Replace nulls (pyspark ``fillna``) with a scalar, in ``subset``
+        (all columns by default), or per column from a dict (``subset``
+        then ignored, as in pyspark). Unlike Spark, a scalar fills a
+        column whatever its cells' type: there is no schema to scope it.
+        Lazy."""
+        if isinstance(value, dict):
+            fills = dict(value)
+        else:
+            if isinstance(subset, str):
+                subset = [subset]
+            cols = list(subset) if subset is not None else list(self._columns)
+            fills = {c: value for c in cols}
+        missing = [c for c in fills if c not in self._columns]
+        if missing:
+            raise KeyError(f"fillna: no such column(s) {missing}")
+
+        def fill(part: Partition) -> Partition:
+            out = dict(part)
+            for c, v in fills.items():
+                cells = part[c]
+                if any(x is None for x in cells):
+                    out[c] = [v if x is None else x for x in cells]
+            return out
+
+        return self._with_op(fill, self._columns)
+
+    @property
+    def na(self) -> "_NAFunctions":
+        """pyspark's ``df.na``: ``drop``, ``fill`` and ``replace``."""
+        return _NAFunctions(self)
+
+    def replace(self, to_replace, value=None, subset=None) -> "DataFrame":
+        """Replace cell values (pyspark ``replace``): a scalar by a
+        scalar, a list by a list (pairwise), or by an ``{old: new}`` dict.
+        Nulls stay (that is :meth:`fillna`'s work)."""
+        if isinstance(to_replace, dict):
+            if value is not None:
+                raise ValueError("value must be omitted when to_replace is a dict")
+            pairs = list(to_replace.items())
+        elif isinstance(to_replace, (list, tuple)):
+            if not isinstance(value, (list, tuple)) or len(value) != len(to_replace):
+                raise ValueError("list to_replace needs a value list of equal length")
+            pairs = list(zip(to_replace, value))
+        else:
+            if value is None:
+                # a forgotten value must not null the cells out
+                raise ValueError(
+                    "value argument is required for scalar/list "
+                    "to_replace (use fillna/dropna for nulls)"
+                )
+            pairs = [(to_replace, value)]
+        # keyed by (is bool, value): False == 0 and hash(False) == hash(0),
+        # so a plain dict would let replace(0, x) rewrite boolean cells
+        mapping = {(isinstance(old, bool), old): new for old, new in pairs}
+        cols = list(subset) if subset else list(self._columns)
+        for c in cols:
+            if c not in self._columns:
+                raise KeyError(f"Unknown column {c!r} in replace")
+        col_set = set(cols)
+
+        def swap(v):
+            if v is None:
+                return None
+            try:
+                return mapping.get((isinstance(v, bool), v), v)
+            except TypeError:  # an unhashable cell (arrays, structs) stays
+                return v
+
+        def op(part: Partition) -> Partition:
+            return {c: ([swap(v) for v in part[c]] if c in col_set else part[c]) for c in part}
+
+        return self._with_op(op, list(self._columns))
+
     def limit(self, n: int) -> "DataFrame":
         """The first ``n`` rows in partition-then-row order, as one
         partition. Runs the plan now, partition by partition, and stops
@@ -1118,11 +1382,7 @@ class DataFrame:
             return []
         from collections import deque
 
-        window: deque = deque(maxlen=num)
-        for part in self.iterPartitions():
-            for i in range(_part_num_rows(part)):
-                window.append(Row({c: part[c][i] for c in self._columns}))
-        return list(window)
+        return list(deque(self.toLocalIterator(), maxlen=num))
 
     def isEmpty(self) -> bool:
         """Whether the frame has no rows; stops at the first row."""
@@ -1700,6 +1960,32 @@ class DataFrame:
 
         _sql.registerDataFrameAsTable(self, name)
 
+    def createTempView(self, name: str) -> None:
+        """:meth:`createOrReplaceTempView` that refuses to replace a view
+        (pyspark); the check and the registration are one step under the
+        context's lock."""
+        from sparkdl_tpu_torch import sql as _sql
+
+        if not _sql._default._register_if_absent(self, name):
+            raise ValueError(f"Temp view {name!r} already exists; use createOrReplaceTempView to overwrite")
+
+    def createGlobalTempView(self, name: str) -> None:
+        """Register under the ``global_temp`` database (pyspark
+        ``createGlobalTempView``): ``SELECT ... FROM global_temp.<name>``.
+        One process is the one global scope."""
+        from sparkdl_tpu_torch import sql as _sql
+
+        if not _sql._default._register_if_absent(self, f"global_temp.{name}"):
+            raise ValueError(
+                f"Global temp view {name!r} already exists; use "
+                "createOrReplaceGlobalTempView to overwrite"
+            )
+
+    def createOrReplaceGlobalTempView(self, name: str) -> None:
+        from sparkdl_tpu_torch import sql as _sql
+
+        _sql.registerDataFrameAsTable(self, f"global_temp.{name}")
+
     def mapPartitions(
         self, fn: Callable[[Partition], Partition], columns: List[str]
     ) -> "DataFrame":
@@ -1813,40 +2099,711 @@ class DataFrame:
             return sum(_part_num_rows(p) for p in self._source)
         return sum(_part_num_rows(p) for p in self._execute())
 
-    def _refused(self, name: str):
+    # -- statistics ------------------------------------------------------------
+
+    def _co_moments(self, col1: str, col2: str, action: str):
+        """One streamed pass over the (col1, col2) pairs: null pairs skip,
+        and the sums are shifted by the first pair (corr and cov do not
+        move under a shift; the plain sum of squares cancels
+        catastrophically on data with a large mean). Returns (n, sx, sy,
+        sxx, syy, sxy)."""
+        for c in (col1, col2):
+            if c not in self._columns:
+                raise KeyError(f"Unknown column {c!r} in {action}")
+        sx = sy = sxx = syy = sxy = 0.0
+        n = 0
+        ox = oy = None
+        for part in self.iterPartitions():
+            a, b = part[col1], part[col2]
+            for i in range(_part_num_rows(part)):
+                x, y = a[i], b[i]
+                if x is None or y is None:
+                    continue
+                if ox is None:
+                    ox, oy = x, y
+                dx, dy = x - ox, y - oy
+                n += 1
+                sx += dx
+                sy += dy
+                sxx += dx * dx
+                syy += dy * dy
+                sxy += dx * dy
+        return n, sx, sy, sxx, syy, sxy
+
+    def corr(self, col1: str, col2: str) -> Optional[float]:
+        """Pearson correlation of two numeric columns (pyspark ``corr``),
+        in one streamed pass; null pairs skip; fewer than two pairs or no
+        variance gives None."""
+        n, sx, sy, sxx, syy, sxy = self._co_moments(col1, col2, "corr")
+        if n < 2:
+            return None
+        vx = sxx - sx * sx / n
+        vy = syy - sy * sy / n
+        if vx <= 0 or vy <= 0:
+            return None
+        return (sxy - sx * sy / n) / math.sqrt(vx * vy)
+
+    def cov(self, col1: str, col2: str) -> Optional[float]:
+        """Sample covariance of two numeric columns (pyspark ``cov``),
+        streamed; null pairs skip; fewer than two pairs gives None."""
+        n, sx, sy, _, _, sxy = self._co_moments(col1, col2, "cov")
+        if n < 2:
+            return None
+        return (sxy - sx * sy / n) / (n - 1)
+
+    @property
+    def stat(self) -> "DataFrameStatFunctions":
+        """pyspark's ``df.stat``: approxQuantile, corr, cov, crosstab,
+        freqItems, sampleBy."""
+        return DataFrameStatFunctions(self)
+
+    def approxQuantile(self, col, probabilities, relativeError: float = 0.0):
+        """Quantiles of numeric columns as data points (pyspark
+        ``approxQuantile``), computed exactly whatever ``relativeError``
+        asks: the element of rank ``ceil(p * n) - 1`` of the sorted
+        non-null values. An all-null column gives []; a list of columns a
+        list of results."""
+        probs = list(probabilities)
+        for p in probs:
+            if not 0.0 <= float(p) <= 1.0:
+                raise ValueError(f"probability {p} outside [0, 1]")
+        if float(relativeError) < 0:
+            raise ValueError("relativeError must be >= 0")
+        cols = [col] if isinstance(col, str) else list(col)
+        for c in cols:
+            if c not in self._columns:
+                raise KeyError(f"No such column {c!r}")
+        _guard_collect(self, "approxQuantile")
+        merged = self.select(*cols).collectColumns()
+        out = []
+        for c in cols:
+            vals = sorted(v for v in merged[c] if v is not None)
+            if not vals:
+                out.append([])
+                continue
+            n = len(vals)
+            out.append([float(vals[min(n - 1, max(0, math.ceil(float(p) * n) - 1))]) for p in probs])
+        return out[0] if isinstance(col, str) else out
+
+    def crosstab(self, col1: str, col2: str) -> "DataFrame":
+        """Pairwise counts (pyspark ``crosstab``): a row per distinct
+        ``col1`` value, a count column per distinct ``col2`` value (as
+        strings, sorted), the first column named ``<col1>_<col2>``."""
+        for c in (col1, col2):
+            if c not in self._columns:
+                raise KeyError(f"No such column {c!r}")
+        _guard_collect(self, "crosstab")
+        merged = self.select(col1, col2).collectColumns()
+        counts: Dict[Tuple[str, str], int] = {}
+        for a, b in zip(merged[col1], merged[col2]):
+            k = (str(a), str(b))
+            counts[k] = counts.get(k, 0) + 1
+        rows = sorted({a for a, _ in counts})
+        col_vals = sorted({b for _, b in counts})
+        label = f"{col1}_{col2}"
+        if label in col_vals:
+            # a value named like the label column would replace it
+            raise ValueError(
+                f"crosstab: a {col2!r} value equals the label column "
+                f"name {label!r}; rename a column first"
+            )
+        out: Dict[str, list] = {label: rows}
+        for b in col_vals:
+            out[b] = [counts.get((a, b), 0) for a in rows]
+        return DataFrame.fromColumns(out, numPartitions=max(1, self.numPartitions))
+
+    def freqItems(self, cols, support: float = 0.01) -> "DataFrame":
+        """The values of each column that occur in more than ``support``
+        of the rows, as one row of list cells named ``<col>_freqItems``
+        (pyspark ``freqItems``, computed exactly). Nulls never count."""
+        if not 0.0 < float(support) <= 1.0:
+            raise ValueError(f"support must be in (0, 1], got {support}")
+        cols = list(cols)
+        for c in cols:
+            if c not in self._columns:
+                raise KeyError(f"No such column {c!r}")
+        _guard_collect(self, "freqItems")
+        merged = self.select(*cols).collectColumns()
+        n = len(merged[cols[0]]) if cols else 0
+        out: Dict[str, list] = {}
+        for c in cols:
+            counts: Dict[Any, int] = {}
+            order: List[Any] = []
+            for v in merged[c]:
+                if v is None:
+                    continue
+                k = _cell_key(v)
+                if k not in counts:
+                    order.append((k, v))
+                counts[k] = counts.get(k, 0) + 1
+            out[f"{c}_freqItems"] = [[v for k, v in order if counts[k] > support * n]]
+        return DataFrame.fromColumns(out, numPartitions=1)
+
+    def sampleBy(self, col: str, fractions: Dict[Any, float], seed: Any = None) -> "DataFrame":
+        """Stratified sample without replacement (pyspark ``sampleBy``):
+        a row stays with its stratum's fraction (an absent stratum keeps
+        nothing). Lazy; each partition draws from
+        ``SeedSequence([seed, partition index])``."""
+        if col not in self._columns:
+            raise KeyError(f"No such column {col!r}")
+        fr = {}
+        for k, f in fractions.items():
+            f = float(f)
+            if not 0.0 <= f <= 1.0:
+                raise ValueError(f"fraction for stratum {k!r} outside [0, 1]: {f}")
+            fr[k] = f
+        base_seed = (0 if seed is None else int(seed)) & (2 ** 64 - 1)
+
+        def op(part: Partition, index: int) -> Partition:
+            n = _part_num_rows(part)
+            u = np.random.default_rng(np.random.SeedSequence([base_seed, index])).random(n)
+            keys = part[col]
+            keep = [i for i in range(n) if fr.get(keys[i], 0.0) > u[i]]
+            return {c: _take(part[c], keep) for c in part}
+
+        op._indexed = True
+        return self._with_op(op, self._columns)
+
+    def sample(self, *args, **kwargs) -> "DataFrame":
+        """Each row kept with probability ``fraction`` (pyspark
+        ``sample``), the rows :meth:`randomSplit` puts in its first
+        bucket for the seed. Takes ``sample(fraction, seed=0)`` and
+        ``sample(withReplacement, fraction[, seed])``; sampling with
+        replacement raises."""
+        params = list(args)
+        with_replacement = kwargs.pop("withReplacement", None)
+        if params and isinstance(params[0], bool):
+            with_replacement = params.pop(0)
+        if with_replacement:
+            raise NotImplementedError("sample(withReplacement=True) is not supported")
+        fraction = kwargs.pop("fraction", None)
+        if fraction is None:
+            if not params:
+                raise TypeError("sample() missing 'fraction'")
+            fraction = params.pop(0)
+        if "seed" in kwargs:
+            seed = kwargs.pop("seed")
+        else:
+            seed = params.pop(0) if params else 0
+        if params or kwargs:
+            raise TypeError(f"sample() got unexpected arguments: {params or kwargs}")
+        if isinstance(fraction, bool) or not 0.0 <= float(fraction) <= 1.0:
+            raise ValueError(f"fraction must be in [0, 1]: {fraction!r}")
+        fraction = float(fraction)
+        kept, _ = self.randomSplit([fraction, 1.0 - fraction], seed=int(seed))
+        return kept
+
+    def summary(self, *stats: str) -> "DataFrame":
+        """Extended describe (pyspark ``summary``) over the numeric
+        columns: count, mean, stddev (ddof 1), min, 25%, 50%, 75%, max by
+        default, or the statistics named, any ``N%`` among them
+        (``np.percentile``, linear interpolation). Runs the plan once."""
+        import numbers
+
+        wanted_stats = list(stats) or ["count", "mean", "stddev", "min", "25%", "50%", "75%", "max"]
+        known = {"count", "mean", "stddev", "min", "max"}
+        for s in wanted_stats:  # before any execution
+            if s not in known and not s.endswith("%"):
+                raise ValueError(f"Unknown summary statistic {s!r}")
+        merged = self.collectColumns()
+
+        def is_num(v):
+            return isinstance(v, numbers.Number) and not isinstance(v, bool)
+
+        num_cols = [
+            c
+            for c in self._columns
+            if (vals := [v for v in merged[c] if v is not None]) and all(is_num(v) for v in vals)
+        ]
+        out: Dict[str, List[Any]] = {"summary": wanted_stats}
+        for c in num_cols:
+            vals = np.asarray([v for v in merged[c] if v is not None], dtype=float)
+            n = int(vals.size)
+            col_out: List[Any] = []
+            for s in wanted_stats:
+                if s.endswith("%"):
+                    col_out.append(float(np.percentile(vals, float(s[:-1]))) if n else None)
+                elif s == "count":
+                    col_out.append(n)
+                elif s == "mean":
+                    col_out.append(float(vals.mean()) if n else None)
+                elif s == "stddev":
+                    col_out.append(float(vals.std(ddof=1)) if n > 1 else None)
+                elif s == "min":
+                    col_out.append(float(vals.min()) if n else None)
+                else:  # max
+                    col_out.append(float(vals.max()) if n else None)
+            out[c] = col_out
+        return DataFrame.fromColumns(out)
+
+    def describe(self, *cols: str) -> "DataFrame":
+        """count, mean, stddev (ddof 1), min and max (pyspark
+        ``describe``) of every numeric column, numpy scalars included, or
+        of the columns named: a named non-numeric column gets count, min
+        and max, its mean and stddev null."""
+        import numbers
+
+        merged = self.collectColumns()
+
+        def is_num(v):
+            return isinstance(v, numbers.Number) and not isinstance(v, bool)
+
+        def all_numeric(c):
+            vals = [v for v in merged[c] if v is not None]
+            return bool(vals) and all(is_num(v) for v in vals)
+
+        wanted = list(cols) if cols else [c for c in self._columns if all_numeric(c)]
+        for c in wanted:
+            if c not in self._columns:
+                raise KeyError(f"Unknown column {c!r} in describe")
+        out: Dict[str, List[Any]] = {"summary": ["count", "mean", "stddev", "min", "max"]}
+        for c in wanted:
+            vals = merged[c]
+            cnt = aggregate_values("count", vals)
+            mean = aggregate_values("avg", vals) if all_numeric(c) else None
+            std = None
+            if mean is not None and cnt > 1:
+                std = math.sqrt(sum((v - mean) ** 2 for v in vals if v is not None) / (cnt - 1))
+            try:
+                lo = aggregate_values("min", vals)
+                hi = aggregate_values("max", vals)
+            except TypeError:  # cells that do not order
+                lo = hi = None
+            out[c] = [cnt, mean, std, lo, hi]
+        return DataFrame.fromColumns(out)
+
+    # -- partitioning ------------------------------------------------------------
+
+    def repartition(self, numPartitions: int) -> "DataFrame":
+        """Collect and split again into ``numPartitions`` balanced
+        partitions (there is no shuffle)."""
+        return DataFrame.fromColumns(self.collectColumns(), numPartitions)
+
+    def repartitionByRange(self, numPartitions, *cols) -> "DataFrame":
+        """Range partitioning (pyspark ``repartitionByRange``): sort by the
+        keys (names or ``asc()``/``desc()`` Columns; ascending, nulls
+        first by default) and cut the sorted rows into ``numPartitions``
+        contiguous ranges. ``repartitionByRange("v")`` keeps the partition
+        count. A global sort, on the host like :meth:`orderBy`."""
+        if not isinstance(numPartitions, int) or isinstance(numPartitions, bool):
+            cols = (numPartitions,) + cols
+            numPartitions = self.numPartitions
+        if numPartitions < 1:
+            raise ValueError("repartitionByRange needs >= 1 partition")
+        if not cols:
+            raise ValueError("repartitionByRange needs at least one key column")
+        return DataFrame.fromColumns(self.orderBy(*cols).collectColumns(), numPartitions)
+
+    def coalesce(self, numPartitions: int) -> "DataFrame":
+        """Fewer partitions (pyspark ``coalesce``), never more. Lazy,
+        unlike :meth:`repartition`: contiguous source partitions merge
+        into one whose pending ops run at its first access."""
+        if numPartitions < 1:
+            raise ValueError("coalesce needs at least one partition")
+        n = self.numPartitions
+        if numPartitions >= n:
+            return self
+        base, extra = divmod(n, numPartitions)
+        parts = []
+        idx = 0
+        for b in range(numPartitions):
+            size = base + (1 if b < extra else 0)
+            parts.append(_CoalescedPartition(
+                self._source[idx: idx + size], self._ops, self._columns, self._first_index + idx))
+            idx += size
+        return DataFrame(parts, self._columns)
+
+    def sortWithinPartitions(self, *cols, ascending: Any = True) -> "DataFrame":
+        """Sort each partition on its own (pyspark
+        ``sortWithinPartitions``), lazily, with :meth:`orderBy`'s keys and
+        null placement (first ascending, last descending). Keys are names
+        or plain ``asc()``/``desc()`` Columns."""
+        if not cols:
+            raise ValueError("sortWithinPartitions needs a column")
+        from sparkdl_tpu_torch.dataframe.column import Column
+
+        asc_in = list(ascending) if isinstance(ascending, (list, tuple)) else [ascending] * len(cols)
+        if len(asc_in) != len(cols):
+            raise ValueError(f"ascending has {len(asc_in)} entries for {len(cols)} columns")
+        keys: List[Tuple[str, bool, int]] = []
+        for c, a in zip(cols, asc_in):
+            if isinstance(c, Column):
+                if c._sort is not None:
+                    a = c._sort
+                    if c._sort_nulls is not None:
+                        from sparkdl_tpu_torch import sql as _sql
+
+                        a = _sql.SortDir(c._sort, c._sort_nulls)
+                plain = c._plain_name()
+                if plain is None:
+                    raise TypeError(
+                        "sortWithinPartitions keys must be plain columns; "
+                        "compute expressions with withColumn first"
+                    )
+                c = plain
+            if c not in self._columns:
+                raise KeyError(f"No such column {c!r}")
+            asc_b = bool(a)
+            nf = getattr(a, "nulls_first", None)
+            if nf is None:
+                nf = asc_b
+            rank = (0 if nf else 2) if asc_b else (2 if nf else 0)
+            keys.append((c, asc_b, rank))
+
+        def op(part: Partition) -> Partition:
+            order = list(range(_part_num_rows(part)))
+            for name, asc, rank in reversed(keys):  # stable, last key first
+                col = part[name]
+                order.sort(key=lambda i, c=col, r=rank: (r, 0) if c[i] is None else (1, c[i]), reverse=not asc)
+            return {c: _take(part[c], order) for c in part}
+
+        return self._with_op(op, self._columns)
+
+    def melt(
+        self,
+        ids: Sequence[str],
+        values: Optional[Sequence[str]] = None,
+        variableColumnName: str = "variable",
+        valueColumnName: str = "value",
+    ) -> "DataFrame":
+        """Unpivot (pyspark ``melt``/``unpivot``): the id columns repeat
+        and each value column (every non-id column by default) becomes one
+        output row of (variable, value). Lazy, partition by partition."""
+        if isinstance(ids, str):
+            ids = [ids]
+        ids = list(ids)
+        for c in ids:
+            if c not in self._columns:
+                raise KeyError(f"Unknown id column {c!r} in melt")
+        if values is None:
+            values = [c for c in self._columns if c not in ids]
+        else:
+            values = [values] if isinstance(values, str) else list(values)
+            for c in values:
+                if c not in self._columns:
+                    raise KeyError(f"Unknown value column {c!r} in melt")
+        if not values:
+            raise ValueError("melt needs at least one value column")
+        out_cols = ids + [variableColumnName, valueColumnName]
+        dups = {c for c in out_cols if out_cols.count(c) > 1}
+        if dups:
+            raise ValueError(
+                f"melt output column collision: {sorted(dups)}; pick "
+                "different variable/value names"
+            )
+
+        def op(part: Partition) -> Partition:
+            out: Dict[str, list] = {c: [] for c in out_cols}
+            for i in range(_part_num_rows(part)):
+                for vcol in values:
+                    for idc in ids:
+                        out[idc].append(part[idc][i])
+                    out[variableColumnName].append(vcol)
+                    out[valueColumnName].append(part[vcol][i])
+            return out
+
+        return self._with_op(op, out_cols)
+
+    unpivot = melt
+
+    # -- actions and the plan ------------------------------------------------------
+
+    def toLocalIterator(self) -> Iterator[Row]:
+        """Rows in frame order, one partition in memory at a time (pyspark
+        ``toLocalIterator``)."""
+        for part in self.iterPartitions():
+            for i in range(_part_num_rows(part)):
+                yield Row({c: part[c][i] for c in self._columns})
+
+    def foreachPartition(self, fn: Callable[[Partition], None]) -> None:
+        """``fn`` over each partition's result, streamed (pyspark
+        ``foreachPartition``)."""
+        for part in self.iterPartitions():
+            fn(part)
+
+    def foreach(self, fn: Callable[[Row], Any]) -> None:
+        """``fn`` over every row for its side effects (pyspark
+        ``foreach``), a partition at a time."""
+
+        def per_part(part):
+            for i in range(_part_num_rows(part)):
+                fn(Row({c: part[c][i] for c in part}))
+
+        self.foreachPartition(per_part)
+
+    def toJSON(self) -> List[str]:
+        """One JSON document per row (pyspark ``toJSON``, collected: there
+        is no RDD to return); a cell JSON cannot hold is written as its
+        ``str``."""
+        import json
+
+        return [json.dumps(r.asDict(), default=str) for r in self.collect()]
+
+    def explain(self, extended: Any = None, mode: Optional[str] = None) -> None:
+        """Print the pending plan (pyspark ``explain``): the columns, the
+        source partition count and each queued partition op."""
+        del extended, mode
+        lines = [
+            f"DataFrame[{', '.join(self._columns)}]",
+            f"  partitions: {self.numPartitions}",
+            f"  pending ops: {len(self._ops)}",
+        ]
+        for i, op in enumerate(self._ops):
+            lines.append(f"    [{i}] {getattr(op, '__qualname__', repr(op))}")
+        print("\n".join(lines))
+
+    def hint(self, name: str, *parameters) -> "DataFrame":
+        """Accepted and ignored: there is one join strategy (a hash join
+        on the host), so a hint has nothing to steer."""
+        return self
+
+    def persist(self, storageLevel: Any = None) -> "DataFrame":
+        """:meth:`cache` whatever the level: there is one tier, host
+        memory."""
+        del storageLevel
+        return self.cache()
+
+    def unpersist(self, blocking: bool = False) -> "DataFrame":
+        """Returns the frame: materialized partitions are freed with it."""
+        del blocking
+        return self
+
+    def checkpoint(self, eager: bool = True) -> "DataFrame":
+        """Cut the pending plan by materializing now (pyspark
+        ``checkpoint``); lazy or eager, the same."""
+        del eager
+        return self.cache()
+
+    localCheckpoint = checkpoint
+
+    def isLocal(self) -> bool:
+        """True: every action runs in this process."""
+        return True
+
+    @property
+    def isStreaming(self) -> bool:
+        """False: there is no streaming engine."""
+        return False
+
+    @property
+    def sparkSession(self):
+        """The process's active session, created on demand (pyspark
+        ``df.sparkSession``)."""
+        from sparkdl_tpu_torch.session import SparkSession
+
+        return SparkSession.builder.getOrCreate()
+
+    def inputFiles(self) -> List[str]:
+        """The files behind a lazy scan's partitions
+        (:meth:`scanParquet`, :meth:`fromArrowFiles`); [] for a frame in
+        memory."""
+        out: List[str] = []
+        for p in self._source:
+            path = getattr(p, "_path", None)
+            if path is not None:
+                out.append(str(path))
+        return out
+
+    def to(self, schema) -> "DataFrame":
+        """Conform to a schema's column list (pyspark ``to``): the
+        schema's order, a null column for each name the frame lacks;
+        types are accepted and ignored."""
+        names = _schema_names(schema)
+        df = self
+        for c in names:
+            if c not in df._columns:
+                df = df.withColumn(c, lambda r: None)
+        return df.select(*names)
+
+    def withMetadata(self, columnName: str, metadata: dict) -> "DataFrame":
+        """Checked and dropped: nothing here reads column metadata."""
+        if columnName not in self._columns:
+            raise KeyError(f"No such column {columnName!r}")
+        if not isinstance(metadata, dict):
+            raise TypeError("metadata must be a dict")
+        return self
+
+    def sameSemantics(self, other: "DataFrame") -> bool:
+        """True for the same frame, or one over the same partition objects
+        with the same ops (by identity) and columns. Never a false
+        positive; false negatives are allowed, as in pyspark."""
+        if self is other:
+            return True
+        return (
+            isinstance(other, DataFrame)
+            and len(self._source) == len(other._source)
+            and all(a is b for a, b in zip(self._source, other._source))
+            and len(self._ops) == len(other._ops)
+            and all(a is b for a, b in zip(self._ops, other._ops))
+            and self._columns == other._columns
+        )
+
+    def semanticHash(self) -> int:
+        return hash((tuple(map(id, self._source)), tuple(map(id, self._ops)), tuple(self._columns)))
+
+    # -- line files ------------------------------------------------------------------
+
+    def writeCSV(self, path: str, header: bool = True) -> None:
+        """Streamed CSV (one partition in memory); a null is an empty
+        field. Scalar columns only: tensor and list cells belong in
+        Parquet."""
+        import csv
+
+        with open(path, "w", newline="") as f:
+            w = csv.writer(f)
+            if header:
+                w.writerow(self._columns)
+            for part in self.iterPartitions():
+                for i in range(_part_num_rows(part)):
+                    w.writerow(["" if part[c][i] is None else part[c][i] for c in self._columns])
+
+    @staticmethod
+    def readCSV(
+        path: str, header: bool = True, inferSchema: bool = True, numPartitions: int = 1
+    ) -> "DataFrame":
+        """A CSV file: an empty field is null; with ``inferSchema`` a cell
+        is an int, else a float, else a string, numbers read strictly (no
+        ``_``, no surrounding whitespace). Without a header the columns
+        are ``_c0``, ``_c1``, ..."""
+        import csv
+
+        def conv(s: str):
+            if s == "":
+                return None
+            if not inferSchema:
+                return s
+            # int() and float() take underscores and whitespace, which
+            # would turn an id-like string into a number ('12_34' -> 1234)
+            if s != s.strip() or "_" in s:
+                return s
+            try:
+                return int(s)
+            except ValueError:
+                pass
+            try:
+                return float(s)
+            except ValueError:
+                return s
+
+        with open(path, newline="") as f:
+            rows = [r for r in csv.reader(f) if r]  # blank lines skip
+        if not rows:
+            return DataFrame([], [])
+        if header:
+            names, data = list(rows[0]), rows[1:]
+            dups = {n for n in names if names.count(n) > 1}
+            if dups:
+                raise ValueError(
+                    f"readCSV: duplicate header column(s) {sorted(dups)}; "
+                    "the frame requires unique names"
+                )
+        else:
+            names = [f"_c{i}" for i in range(len(rows[0]))]
+            data = rows
+        cols = {name: [conv(r[i]) if i < len(r) else None for r in data] for i, name in enumerate(names)}
+        return DataFrame.fromColumns(cols, numPartitions=numPartitions)
+
+    def writeJSON(self, path: str) -> None:
+        """Streamed JSON lines, one object per row: a null is JSON null,
+        list, dict and numpy cells are written natively."""
+        import json
+
+        with open(path, "w") as f:
+            for part in self.iterPartitions():
+                for i in range(_part_num_rows(part)):
+                    f.write(json.dumps({c: _json_cell(part[c][i]) for c in self._columns}))
+                    f.write("\n")
+
+    @staticmethod
+    def readJSON(path: str, numPartitions: int = 1) -> "DataFrame":
+        """JSON lines: the columns are the union of the keys, in the order
+        first seen; a missing key is null."""
+        import json
+
+        records = []
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if line:
+                    records.append(json.loads(line))
+        if not records:
+            return DataFrame([], [])
+        names: List[str] = []
+        for r in records:
+            for k in r:
+                if k not in names:
+                    names.append(k)
+        return DataFrame.fromColumns({c: [r.get(c) for r in records] for c in names}, numPartitions=numPartitions)
+
+    @property
+    def write(self):
+        """pyspark's writer: ``df.write.mode(...).parquet/csv/json/text``."""
+        from sparkdl_tpu_torch.session import DataFrameWriter
+
+        return DataFrameWriter(self)
+
+    def toPandas(self):
+        """pandas frames wait for ROADMAP Queue A item 8."""
         from sparkdl_tpu_torch.sql import UnsupportedSQL
 
-        raise UnsupportedSQL(f"DataFrame.{name} (the frame's statistics methods)")
+        raise UnsupportedSQL("DataFrame.toPandas")
 
-    def describe(self, *cols):
-        self._refused("describe")
+    def mapInPandas(self, func, schema) -> "DataFrame":
+        """pandas transforms wait for ROADMAP Queue A item 8."""
+        from sparkdl_tpu_torch.sql import UnsupportedSQL
 
-    def summary(self, *stats):
-        self._refused("summary")
-
-    def crosstab(self, col1, col2):
-        self._refused("crosstab")
-
-    def approxQuantile(self, col, probabilities, relativeError=0.0):
-        self._refused("approxQuantile")
-
-    def freqItems(self, cols, support=0.01):
-        self._refused("freqItems")
-
-    def sampleBy(self, col, fractions, seed=None):
-        self._refused("sampleBy")
-
-    def corr(self, col1, col2):
-        self._refused("corr")
-
-    def cov(self, col1, col2):
-        self._refused("cov")
+        raise UnsupportedSQL("DataFrame.mapInPandas")
 
     def __repr__(self) -> str:
         return (
             f"DataFrame(columns={self._columns}, "
             f"partitions={len(self._source)}, pending_ops={len(self._ops)})"
         )
+
+
+class _NAFunctions:
+    """pyspark's ``DataFrameNaFunctions``, the ``df.na`` accessor."""
+
+    def __init__(self, df: DataFrame):
+        self._df = df
+
+    def drop(
+        self, how: str = "any", thresh: Optional[int] = None, subset: Optional[Sequence[str]] = None
+    ) -> DataFrame:
+        return self._df.dropna(how=how, thresh=thresh, subset=subset)
+
+    def fill(self, value, subset: Optional[Sequence[str]] = None) -> DataFrame:
+        return self._df.fillna(value, subset=subset)
+
+    def replace(self, to_replace, value=None, subset=None) -> DataFrame:
+        return self._df.replace(to_replace, value, subset)
+
+
+class DataFrameStatFunctions:
+    """pyspark's ``df.stat``, over the frame's own statistics methods."""
+
+    def __init__(self, df: DataFrame):
+        self._df = df
+
+    def approxQuantile(self, col, probabilities, relativeError=0.0):
+        return self._df.approxQuantile(col, probabilities, relativeError)
+
+    def corr(self, col1: str, col2: str, method: str = "pearson"):
+        if method != "pearson":
+            raise ValueError(f"Only pearson correlation is supported (pyspark likewise), got {method!r}")
+        return self._df.corr(col1, col2)
+
+    def cov(self, col1: str, col2: str):
+        return self._df.cov(col1, col2)
+
+    def crosstab(self, col1: str, col2: str) -> DataFrame:
+        return self._df.crosstab(col1, col2)
+
+    def freqItems(self, cols, support: float = 0.01) -> DataFrame:
+        return self._df.freqItems(cols, support)
+
+    def sampleBy(self, col, fractions, seed=None) -> DataFrame:
+        return self._df.sampleBy(col, fractions, seed)
 
 
 # -- the aggregate engine ----------------------------------------------------

@@ -1,27 +1,153 @@
 """``SparkSession``: the entry point that scoring scripts start from.
 
-Port of the part of the JAX package's ``session.py`` that SQL scoring
-uses: ``SparkSession.builder...getOrCreate()`` (one process-wide
-session; builder options are recorded and have no engine effect),
-``createDataFrame``, ``sql`` and ``table`` over the default SQL context,
-``spark.udf.register`` for row-wise Python UDFs, and ``stop``. The
-readers, writers and ``spark.catalog`` wait for ROADMAP Queue A item 8.
+Port of the JAX package's ``session.py``: ``SparkSession.builder...
+getOrCreate()`` (one process-wide session; builder options are recorded
+and have no engine effect), ``createDataFrame`` (rows with a list of names
+or a DDL string as the schema), ``sql``/``table`` over the default SQL
+context, ``spark.udf.register`` for row-wise Python UDFs, ``spark.read``
+and ``df.write`` (Parquet on the port's own reader and writer, CSV, JSON
+lines and text), ``spark.range``, ``spark.catalog`` over the registered
+views, ``spark.conf`` and ``stop``. A pandas frame in ``createDataFrame``
+waits for ROADMAP Queue A item 8.
 
     spark = SparkSession.builder.appName("scoring").getOrCreate()
     registerKerasImageUDF("mnv2", "MobileNetV2")
-    images.createOrReplaceTempView("images")
-    spark.sql("SELECT mnv2(image) AS probs FROM images").collect()
+    spark.read.parquet("images.parquet").createOrReplaceTempView("images")
+    spark.sql("SELECT mnv2(image) AS probs FROM images").write.parquet("probs.parquet")
 """
 
 from __future__ import annotations
 
 import inspect
+import os
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 from sparkdl_tpu_torch.dataframe import DataFrame
 
-__all__ = ["SparkSession"]
+__all__ = ["SparkSession", "DataFrameReader", "DataFrameWriter"]
+
+
+class DataFrameReader:
+    """``spark.read``: the format readers over the DataFrame's
+    constructors. ``csv`` defaults to ``header=False``, as pyspark does;
+    ``option("header", "true")`` or ``csv(path, header=True)`` opt in."""
+
+    def __init__(self, options: Optional[Dict[str, Any]] = None):
+        self._options: Dict[str, Any] = dict(options or {})
+        self._format = "parquet"  # what load() reads
+
+    def option(self, key: str, value: Any) -> "DataFrameReader":
+        self._options[key.lower()] = value
+        return self
+
+    def options(self, **opts: Any) -> "DataFrameReader":
+        for k, v in opts.items():
+            self.option(k, v)
+        return self
+
+    def _num_partitions(self) -> int:
+        return int(self._options.get("numpartitions", self._options.get("num_partitions", 1)))
+
+    def parquet(self, path: str) -> DataFrame:
+        return DataFrame.readParquet(path, numPartitions=self._num_partitions())
+
+    def csv(self, path: str, header: Optional[bool] = None, **_: Any) -> DataFrame:
+        if header is None:
+            opt = self._options.get("header", False)
+            header = str(opt).lower() in ("true", "1") or opt is True
+        return DataFrame.readCSV(path, header=header, numPartitions=self._num_partitions())
+
+    def json(self, path: str) -> DataFrame:
+        return DataFrame.readJSON(path, numPartitions=self._num_partitions())
+
+    def text(self, path: str) -> DataFrame:
+        """One row per line in a ``value`` column (pyspark
+        ``spark.read.text``): lines end at \\n only (a trailing \\r is
+        stripped), so a U+2028 stays inside its row, as in Spark."""
+        with open(path, "r", encoding="utf-8", newline="") as fh:
+            raw = fh.read()
+        lines = raw.split("\n")
+        if lines and lines[-1] == "":
+            lines.pop()  # the trailing newline, not an empty last row
+        lines = [ln[:-1] if ln.endswith("\r") else ln for ln in lines]
+        return DataFrame.fromColumns({"value": lines}, numPartitions=self._num_partitions())
+
+    def format(self, source: str) -> "DataFrameReader":
+        """``read.format("parquet").load(path)``. The format has an
+        attribute of its own: an option named 'format' changes nothing."""
+        src = source.lower()
+        if src not in ("parquet", "csv", "json", "text"):
+            raise ValueError(f"Unsupported read format {source!r}; supported: parquet, csv, json, text")
+        self._format = src
+        return self
+
+    def load(self, path: str) -> DataFrame:
+        return getattr(self, self._format)(path)
+
+
+class DataFrameWriter:
+    """``df.write``. ``mode`` takes 'overwrite' and 'error(ifexists)', and
+    the default is pyspark's errorifexists: existing output is never
+    overwritten unless asked."""
+
+    def __init__(self, df: DataFrame, mode: str = "errorifexists"):
+        self._df = df
+        self._mode = mode
+        self._format = "parquet"  # what save() writes
+
+    def mode(self, saveMode: str) -> "DataFrameWriter":
+        saveMode = saveMode.lower()
+        if saveMode not in ("overwrite", "error", "errorifexists"):
+            raise ValueError(
+                f"Unsupported save mode {saveMode!r}; this engine "
+                "writes whole files (overwrite / errorifexists)"
+            )
+        # changes the writer and returns it, as pyspark's does:
+        # `w = df.write; w.mode("overwrite"); w.parquet(p)` works
+        self._mode = saveMode
+        return self
+
+    def _check(self, path: str) -> None:
+        if self._mode in ("error", "errorifexists") and os.path.exists(path):
+            raise FileExistsError(f"Path {path!r} already exists (mode=errorifexists)")
+
+    def parquet(self, path: str) -> None:
+        self._check(path)
+        self._df.writeParquet(path)
+
+    def csv(self, path: str, header: bool = False, **_: Any) -> None:
+        # header=False, pyspark's default and the reader's, so that a
+        # write and a read with no options round-trip (DataFrame.writeCSV
+        # keeps header=True)
+        self._check(path)
+        self._df.writeCSV(path, header=header)
+
+    def json(self, path: str) -> None:
+        self._check(path)
+        self._df.writeJSON(path)
+
+    def text(self, path: str) -> None:
+        """One line per row of the frame's single column (pyspark
+        ``df.write.text``)."""
+        cols = self._df.columns
+        if len(cols) != 1:
+            raise ValueError(f"write.text requires exactly one column, got {cols}")
+        self._check(path)
+        with open(path, "w", encoding="utf-8") as fh:
+            for r in self._df.toLocalIterator():
+                v = r[cols[0]]
+                fh.write(("" if v is None else str(v)) + "\n")
+
+    def format(self, source: str) -> "DataFrameWriter":
+        src = source.lower()
+        if src not in ("parquet", "csv", "json", "text"):
+            raise ValueError(f"Unsupported write format {source!r}; supported: parquet, csv, json, text")
+        self._format = src
+        return self
+
+    def save(self, path: str) -> None:
+        getattr(self, self._format)(path)
 
 
 class _UdfRegistrar:
@@ -76,6 +202,9 @@ class _Builder:
         self._conf.update(kw)
         return self
 
+    def enableHiveSupport(self) -> "_Builder":
+        return self  # accepted; there is no Hive here
+
     def getOrCreate(self) -> "SparkSession":
         return SparkSession._get_or_create(dict(self._conf))
 
@@ -93,7 +222,7 @@ class SparkSession:
     builder = _BuilderAccessor()
 
     def __init__(self, conf: Dict[str, Any]):
-        self.conf = dict(conf)
+        self.conf = RuntimeConf(conf)
         self.udf = _UdfRegistrar()
 
     @classmethod
@@ -109,9 +238,18 @@ class SparkSession:
     def getActiveSession(cls) -> Optional["SparkSession"]:
         return cls._active
 
+    @property
+    def read(self) -> DataFrameReader:
+        return DataFrameReader()
+
     def createDataFrame(self, data, schema=None) -> DataFrame:
         """A list of dicts (the union of their keys), a list of tuples with
-        a list of column names as ``schema``, or a column dict."""
+        a list of column names or a DDL string (``"id long, name
+        string"``, types ignored) as ``schema``, or a column dict."""
+        if type(data).__module__.split(".")[0] == "pandas":
+            from sparkdl_tpu_torch.sql import UnsupportedSQL
+
+            raise UnsupportedSQL("createDataFrame from a pandas frame")
         if isinstance(data, dict):
             return DataFrame.fromColumns(data)
         rows = list(data)
@@ -132,15 +270,9 @@ class SparkSession:
                 "createDataFrame from tuples needs column names: "
                 "createDataFrame(rows, ['a', 'b'])"
             )
-        if not isinstance(schema, (list, tuple)):
-            raise TypeError(
-                "schema must be a list of column names (DDL strings wait "
-                "for ROADMAP Queue A item 8)"
-            )
-        names = [str(c) for c in schema]
-        dups = {n for n in names if names.count(n) > 1}
-        if dups:
-            raise ValueError(f"Duplicate schema columns: {sorted(dups)}")
+        from sparkdl_tpu_torch.dataframe.frame import _schema_names
+
+        names = _schema_names(schema)
         return DataFrame.fromColumns(
             {name: [row[i] for row in rows] for i, name in enumerate(names)}
         )
@@ -155,6 +287,173 @@ class SparkSession:
 
         return _sql._default.table(name)
 
+    def range(
+        self, start: int, end: Optional[int] = None, step: int = 1, numPartitions: Optional[int] = None
+    ) -> DataFrame:
+        """pyspark ``spark.range``: one int64 ``id`` column over [start,
+        end) by ``step``; ``range(n)`` is ``range(0, n)``. The column is a
+        numpy array, not boxed ints."""
+        import numpy as np
+
+        if end is None:
+            start, end = 0, start
+        vals = np.arange(int(start), int(end), int(step), dtype=np.int64)
+        return DataFrame.fromColumns({"id": vals}, numPartitions=numPartitions or 1)
+
+    @property
+    def catalog(self) -> "_Catalog":
+        return _Catalog()
+
+    def newSession(self) -> "SparkSession":
+        """The views and UDFs are the process's, so a new session is the
+        same engine under a copy of the conf."""
+        return SparkSession(dict(self.conf))
+
+    @property
+    def sparkContext(self):
+        raise AttributeError(
+            "There is no SparkContext/RDD layer in sparkdl_tpu_torch: the "
+            "DataFrame is the bottom of the stack. Partition-level "
+            "access: df.foreachPartition / df.toLocalIterator / "
+            "DataFrame.fromColumns(..., numPartitions=N)"
+        )
+
     def stop(self) -> None:
         with SparkSession._lock:
             SparkSession._active = None
+
+    @property
+    def version(self) -> str:
+        import sparkdl_tpu_torch
+
+        return sparkdl_tpu_torch.__version__
+
+
+class CatalogDatabase(NamedTuple):
+    """The fields of pyspark's ``Database`` that scripts read."""
+
+    name: str
+    catalog: str = "spark_catalog"
+    description: str = ""
+    locationUri: str = ""
+
+
+class CatalogColumn(NamedTuple):
+    """The fields of pyspark's catalog ``Column`` that scripts read."""
+
+    name: str
+    description: str = ""
+    dataType: str = ""
+    nullable: bool = True
+    isPartition: bool = False
+    isBucket: bool = False
+
+
+class CatalogTable(NamedTuple):
+    """The fields of pyspark's ``Table`` that scripts read
+    (``[t.name for t in spark.catalog.listTables()]``)."""
+
+    name: str
+    database: str
+    tableType: str = "TEMPORARY"
+    isTemporary: bool = True
+
+
+_NO_DEFAULT = object()
+
+
+class RuntimeConf(dict):
+    """``spark.conf`` (pyspark's RuntimeConfig ``get``/``set``/``unset``)
+    as a dict: a missing key without a default raises, as in pyspark, so
+    a script's ``except`` fallback still runs."""
+
+    def get(self, key: str, default: Any = _NO_DEFAULT) -> Any:  # type: ignore[override]
+        if default is _NO_DEFAULT:
+            if key not in self:
+                raise KeyError(f"No such config key: {key!r} (pass a default to get a fallback instead)")
+            return self[key]
+        return dict.get(self, key, default)
+
+    def set(self, key: str, value: Any) -> None:
+        self[key] = value
+
+    def unset(self, key: str) -> None:
+        self.pop(key, None)
+
+    def isModifiable(self, key: str) -> bool:
+        return True  # no key is locked by the engine
+
+
+class AnalysisException(Exception):
+    """Stands for pyspark's ``AnalysisException``: a catalog lookup that
+    misses raises it."""
+
+
+class _Catalog:
+    """``spark.catalog`` over the default SQL context's views. A view
+    registered as ``global_temp.<name>`` is in the ``global_temp``
+    database, every other in ``default``."""
+
+    @staticmethod
+    def _candidates(tableName: str, dbName: Optional[str]):
+        """The registered names that (tableName, dbName) may mean: the one
+        rule of tableExists and listColumns."""
+        out = {tableName}
+        if dbName is not None:
+            out.add(f"{dbName}.{tableName}")
+            if dbName == "default":
+                out.add(tableName)
+        if tableName.startswith("default."):
+            out.add(tableName[len("default."):])
+        return out
+
+    def _resolve(self, tableName: str, dbName: Optional[str]):
+        from sparkdl_tpu_torch import sql as _sql
+
+        hits = self._candidates(tableName, dbName) & set(_sql._default.tables())
+        return next(iter(hits)) if hits else None
+
+    def listTables(self, dbName: Optional[str] = None):
+        from sparkdl_tpu_torch import sql as _sql
+
+        out = []
+        for full in _sql._default.tables():
+            db, _, name = full.rpartition(".")
+            db = db or "default"
+            if dbName is not None and db != dbName:
+                continue
+            out.append(CatalogTable(name=name, database=db))
+        return out
+
+    def tableExists(self, tableName: str, dbName: Optional[str] = None) -> bool:
+        """pyspark's one- and two-argument forms; ``default.t`` is the
+        view registered as ``t``, as listTables shows it."""
+        return self._resolve(tableName, dbName) is not None
+
+    def listColumns(self, tableName: str, dbName: Optional[str] = None):
+        """The columns of a view, by tableExists' rule, as named tuples
+        (``[c.name for c in ...]``); a miss raises
+        :class:`AnalysisException`, as in pyspark."""
+        from sparkdl_tpu_torch import sql as _sql
+
+        resolved = self._resolve(tableName, dbName)
+        if resolved is None:
+            raise AnalysisException(
+                f"Table or view not found: {tableName}" + (f" (database {dbName})" if dbName else "")
+            )
+        return [CatalogColumn(name=c) for c in _sql._default.table(resolved).columns]
+
+    def dropTempView(self, viewName: str) -> bool:
+        from sparkdl_tpu_torch import sql as _sql
+
+        # one step under the context's lock: no check-then-drop race
+        return _sql._default.dropTempTable(viewName)
+
+    def dropGlobalTempView(self, viewName: str) -> bool:
+        return self.dropTempView(f"global_temp.{viewName}")
+
+    def currentDatabase(self) -> str:
+        return "default"
+
+    def listDatabases(self):
+        return [CatalogDatabase(name="default"), CatalogDatabase(name="global_temp")]

@@ -73,8 +73,9 @@ key; nulls sort first ascending and ties are peers. A generator is a
 top-level select item, one per select and never beside a window; LATERAL
 VIEW expands the FROM frame before WHERE, left to right.
 :class:`UnsupportedSQL` (a ValueError naming ROADMAP Queue A item 8) is
-what the rest of the port raises for the JAX dialect's pandas surfaces
-and the frame's statistics methods.
+what the rest of the port raises for the JAX dialect's pandas surfaces.
+A view registered by ``createGlobalTempView`` is the table
+``global_temp.<name>``: an identifier may hold dots.
 
 The optimizer arm (``SPARKDL_SQL_VECTORIZE``, default on): a scan, and
 each input of a join, keeps only the columns the query reads, lambda

@@ -20,8 +20,8 @@ Rows compare exactly (NaN equal to NaN) and in order: the JAX package
 fixes every order here (groups in first-appearance order, joins left-major,
 set operations in first-occurrence order), except a discovered pivot's
 columns, which both sort. A call the JAX package refuses, the port refuses
-with the same error. What stays refused (the statistics methods, the
-pandas surfaces) raises ``UnsupportedSQL`` naming ROADMAP Queue A item 8.
+with the same error. What stays refused (the pandas surfaces) raises
+``UnsupportedSQL`` naming ROADMAP Queue A item 8.
 """
 
 import datetime
@@ -362,25 +362,31 @@ def test_sql_and_column_surfaces_agree(sides, text, build):
 
 
 def test_what_stays_refused_on_the_frame(sides):
-    """The statistics methods and the pandas surfaces still name ROADMAP
-    Queue A item 8. ``Column.over``, ``F.row_number``, ``F.explode`` and
-    ``F.rand``, refused here until they were ported, now give the JAX
-    package's rows or fail as it fails."""
-    ours, _ = sides
+    """The pandas surfaces still name ROADMAP Queue A item 8. The
+    statistics methods, refused here until they were ported (the test keeps
+    its name), and ``Column.over``, ``F.row_number``, ``F.explode`` and
+    ``F.rand`` now give the JAX package's rows or values (corr and cov
+    within 1e-12 relative), or fail as it fails."""
+    ours, ref = sides
     for call in (
-        lambda: ours.t.describe(), lambda: ours.t.summary(), lambda: ours.t.crosstab("k", "s"),
-        lambda: ours.t.approxQuantile("n", [0.5]), lambda: ours.t.freqItems(["k"]),
-        lambda: ours.t.sampleBy("k", {"a": 0.5}), lambda: ours.t.corr("n", "v"), lambda: ours.t.cov("n", "v"),
         lambda: ours.t.groupBy("k").applyInPandas(lambda p: p, "k string"),
         lambda: ours.t.groupBy("k").cogroup(ours.t.groupBy("k")),
         lambda: F.pandas_udf(lambda x: x),
+        lambda: ours.t.toPandas(),
     ):
         with pytest.raises(UnsupportedSQL, match="ROADMAP Queue A item 8"):
             call()
     for build in (
+        lambda s: s.t.describe(), lambda s: s.t.summary(), lambda s: s.t.crosstab("k", "s"),
+        lambda s: s.t.freqItems(["k"]), lambda s: s.t.sampleBy("k", {"a": 0.5}, 3),
         lambda s: s.t.select("k", s.F.col("n").over(None)),
         lambda s: s.t.withColumn("r", s.F.row_number()),
         lambda s: s.t.select("k", s.F.explode(s.F.array("n", "n"))),
         lambda s: s.t.withColumn("u", s.F.rand()),
     ):
         same(sides, build)
+    assert ours.t.approxQuantile("n", [0.5]) == ref.t.approxQuantile("n", [0.5])
+    for method in ("corr", "cov"):
+        for pair in (("n", "v"), ("n", "g"), ("id", "n")):
+            got, want = getattr(ours.t, method)(*pair), getattr(ref.t, method)(*pair)
+            assert got == pytest.approx(want, rel=1e-12, nan_ok=True), (method, pair)

@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``sparkdl_tpu_torch`` and not
 ``chip_smoke.py`` (nor the fixture writers it imports, nor
-``tools/torch_text_ab.py``) imports jax, flax, keras, tensorflow, h5py, pyarrow, orbax,
-tensorstore, zstandard, ml_dtypes or the JAX package, and an entry point left at its default device refuses to run
-without CUDA."""
+``tools/torch_text_ab.py``) imports jax, flax, keras, tensorflow, h5py, pyarrow, pandas, orbax,
+tensorstore, zstandard, ml_dtypes or the JAX package, the frame's and the session's file, statistics and
+catalog paths load neither pandas nor pyarrow when they run, and an entry point left at its default device
+refuses to run without CUDA."""
 
 import ast
 import os
@@ -17,7 +18,7 @@ import sparkdl_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.join(REPO, "sparkdl_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "keras", "tensorflow", "h5py", "pyarrow",
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "keras", "tensorflow", "h5py", "pyarrow", "pandas",
              "tensorstore", "zstandard", "ml_dtypes", "sparkdl_tpu")
 
 
@@ -148,6 +149,48 @@ def test_importing_every_port_module_loads_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_the_frame_and_session_paths_load_no_pandas_or_pyarrow(tmp_path):
+    """Every reader and writer, the statistics, NA, partitioning and
+    catalog paths run in a fresh process; neither pandas nor pyarrow (nor
+    any other forbidden module) is loaded after."""
+    code = f"""
+import sys
+import numpy as np
+from sparkdl_tpu_torch.session import SparkSession
+from sparkdl_tpu_torch import functions as F
+spark = SparkSession.builder.enableHiveSupport().getOrCreate()
+df = spark.createDataFrame([(i, "k%d" % (i % 3), float(i) / 3, None if i % 4 else "x") for i in range(12)],
+                           "id long, k string, v double, s string")
+df = df.withColumn("emb", lambda r: np.full(3, r["v"], np.float32))
+for fmt in ("parquet", "json"):
+    df.write.mode("overwrite").format(fmt).save(r"{tmp_path}/t." + fmt)
+    back = spark.read.format(fmt).load(r"{tmp_path}/t." + fmt)
+df.drop("emb").write.csv(r"{tmp_path}/t.csv", header=True)
+back = spark.read.option("header", "true").csv(r"{tmp_path}/t.csv")
+back.select("k").write.text(r"{tmp_path}/t.txt")
+spark.read.text(r"{tmp_path}/t.txt").collect()
+df.describe().collect(); df.summary("10%").collect(); df.corr("id", "v"); df.cov("id", "v")
+df.approxQuantile("v", [0.5]); df.crosstab("k", "s").collect(); df.freqItems(["k"]).collect()
+df.sample(0.5, 1).collect(); df.stat.sampleBy("k", {{"k0": 0.5}}, 1).collect()
+df.dropna().collect(); df.na.fill("y").collect(); df.na.replace("k0", "z", ["k"]).collect()
+df.melt("id", ["k"]).collect(); df.repartition(2).coalesce(1).collect()
+df.repartitionByRange(2, "v").sortWithinPartitions(F.col("v").desc()).collect()
+df.toJSON(); list(df.toLocalIterator()); df.foreach(lambda r: None)
+df.createGlobalTempView("g"); spark.sql("SELECT k, count(*) AS n FROM global_temp.g GROUP BY k").collect()
+spark.catalog.listTables("global_temp"); spark.catalog.listColumns("g", "global_temp")
+spark.catalog.dropGlobalTempView("g"); spark.range(5).join(df, "id").collect()
+spark.conf.set("a", "b"); spark.conf.get("a")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
+assert not bad, bad
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path), env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
 
 
 def test_package_exports_resolve():
