@@ -600,6 +600,27 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     within 1e-4 of (a)'s, 12 flash launches per UDF batch. Prints host
     seconds per group, rows in and out and the bytes of each file. Host
     code but for bert-base. About 15 s.
+27. sequence parallelism, the periodic rank snapshot and pandas. (a) A
+    ``Heartbeat`` (beat 0.2 s, ``SPARKDL_OBS_SNAP_S=1``) around 4.5 s of
+    bert-base f32 ``TextEmbedder`` passes over 64 texts: the
+    writes of ``obs.rank.0.json`` (each write recorded with the file's
+    mtime) number 4 to 8, the forced exit drop included, and ``python -m
+    sparkdl_tpu_torch.obs merge`` gives rank 0's lane. (b) Without pandas
+    (the card's machine): prints that item 8.1 is held on the CPU only,
+    applying an ``F.pandas_udf`` raises ModuleNotFoundError naming pandas,
+    and ``createDataFrame`` from a list and ``toDF`` run; with pandas,
+    ``pandas_udf``, ``applyInPandas`` and ``toPandas`` over (a)'s scores
+    equal numpy. (c) ``bert_model_function_sequence_parallel`` over an
+    ``{"sp": 1}`` mesh at L=512, B=32, f32 and bf16: ring, and Ulysses
+    over the flash kernel (12 launches per call), each within f32 1e-3 /
+    bf16 3e-2 of the dense build on the same seeded weights, ms per call
+    by CUDA events; ``ulysses_attention_sharded``
+    with the flash inner at B=32 H=12 L=512 Dh=64 with a fully masked row
+    (which comes out 0), against ``flash_attention_reference`` (f32 1e-4,
+    bf16 3e-2), one launch per call counted and recorded by torch.profiler
+    inside ``counted_profile``; ``TextEmbedder`` over the ring model and
+    phase 4's 512 texts: no bucketing, ceil(rows / 32) batches per
+    partition, rows equal to the direct calls (1e-4), rows/s. About 40 s.
 
 The line before the last is the ``kernels`` JSON record (the f32 and the
 bf16 kernel at bert-base L=512, launches from each dtype's main-path run,
@@ -607,8 +628,10 @@ bf16 kernel at bert-base L=512, launches from each dtype's main-path run,
 phase 22(a)'s loaded program (bf16) and 22(c)'s and 22(e)'s orbax models
 (f32), ``launches_phase23``, phase 23(b)'s bert-base pass (f32), and
 ``launches_phase24``, phase 24(a)'s (f32), ``launches_phase25``, phase
-25(a)'s TextEmbedder and UDF dispatches (f32), and ``launches_phase26``,
-phase 26(a)'s and 26(e)'s (f32)); the last line is ``{"ok":
+25(a)'s TextEmbedder and UDF dispatches (f32), ``launches_phase26``,
+phase 26(a)'s and 26(e)'s (f32), and ``launches_phase27``, phase 27(a)'s
+TextEmbedder (f32) and 27(c)'s Ulysses models over the flash kernel (f32
+and bf16)); the last line is ``{"ok":
 true, "device": {...}}``. Phase 17's first check names each leak record
 (model, bytes) from an events log (``SPARKDL_OBS_JSONL``) armed before
 phase 11, which does not roll over as the ledger's ring does.
@@ -932,6 +955,17 @@ F_UDF_BATCH = 32
 F_UDF_REL = 1e-4  # the UDF's scores (every row padded to 512) against the TextEmbedder's
 F_NUMPY_REL = 1e-9  # describe, corr, cov and group means against numpy: summation order only
 F_SEED = 11
+# phase 27: the periodic rank snapshot, the pandas surfaces, sequence parallelism
+S_TEXT_MODEL = "bert-base"
+S_MAX_LENGTH = 512
+S_BATCH = 32
+S_TEXTS = 512  # phase 4's texts
+S_SNAP_S = 1.0  # SPARKDL_OBS_SNAP_S under the heartbeat
+S_BEAT_S = 0.2
+S_BEAT_RUN_S = 4.5  # embed passes under the heartbeat until this much has passed
+S_BEAT_TEXTS = 64
+S_DROPS = (4, 8)  # the drops that run makes, the forced exit drop included
+S_ITERS = 5
 
 DISPATCH_CALLS = 2000
 DISPATCH_ROUNDS = 5
@@ -6272,6 +6306,250 @@ def phase_frame_io(seed: int, device_name: str, tmp: str, device="cuda") -> int:
     return launches + udf_launches
 
 
+def _pandas_version() -> str | None:
+    """The installed pandas' version, or None without pandas; loads none."""
+    import importlib.metadata
+    import importlib.util
+
+    return importlib.metadata.version("pandas") if importlib.util.find_spec("pandas") else None
+
+
+def phase_sequence_parallel(seed: int, device_name: str, tmp: str, device="cuda") -> int:
+    """Phase 27: the periodic rank snapshot under a heartbeat, the pandas
+    surfaces (or their absence), and sequence-parallel bert-base with ring
+    and Ulysses attention over an ``sp`` mesh axis of one process
+    (``device="cpu"``: a rehearsal, with the sizes cut by the caller).
+    Returns the flash launches of its model dispatches, by dtype."""
+    from sparkdl_tpu_torch import functions as sf
+    from sparkdl_tpu_torch.models import bert_model_function_sequence_parallel
+    from sparkdl_tpu_torch.obs import aggregate
+    from sparkdl_tpu_torch.obs.aggregate import load_rank_snapshots
+    from sparkdl_tpu_torch.ops import ulysses_attention_sharded
+    from sparkdl_tpu_torch.ops.flash_attention import make_flash_attention_fn
+    from sparkdl_tpu_torch.runtime.heartbeat import Heartbeat
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    card = f"{device_name} ({_smi()})" if on_card else device_name
+    spec = get_model(S_TEXT_MODEL)
+    config = BERT_CONFIGS[spec.size]
+    layers, width = config.num_layers, config.hidden_size
+    texts = _texts(seed, S_TEXTS)
+    df = DataFrame.fromColumns({"text": texts}, numPartitions=4)
+    launches = {torch.float32: 0, torch.bfloat16: 0}
+    # (a) the periodic, time-gated rank snapshot beside a heartbeat
+    mf = spec.model_function(dtype=torch.float32, seed=seed, device=device)
+    embed = TextEmbedder(inputCol="text", outputCol="emb", modelFunction=mf, maxLength=S_MAX_LENGTH,
+                         batchSize=S_BATCH)
+    few = DataFrame.fromColumns({"text": texts[:S_BEAT_TEXTS]}, numPartitions=2)
+    embed.transform(few).collect()  # warm-up, not counted
+    sync()
+    hb_dir = os.path.join(tmp, "hb27")
+    prev = os.environ.get("SPARKDL_OBS_SNAP_S")
+    os.environ["SPARKDL_OBS_SNAP_S"] = str(S_SNAP_S)
+    # every write of a rank's drop, by its path and the file's mtime after it
+    writes = []
+    write = aggregate.write_rank_snapshot
+
+    def recorded(directory, rank, snap=None):
+        path = write(directory, rank, snap)
+        writes.append((path, os.stat(path).st_mtime_ns))
+        return path
+
+    aggregate.write_rank_snapshot = recorded
+    flash_attention.launches = 0
+    passes = 0
+    try:
+        t0 = time.perf_counter()
+        with Heartbeat(hb_dir, 0, interval=S_BEAT_S) as hb:
+            while time.perf_counter() - t0 < S_BEAT_RUN_S:
+                rows = embed.transform(few).collect()
+                sync()
+                passes += 1
+        beat_s = time.perf_counter() - t0
+    finally:
+        aggregate.write_rank_snapshot = write
+        if prev is None:
+            os.environ.pop("SPARKDL_OBS_SNAP_S")
+        else:
+            os.environ["SPARKDL_OBS_SNAP_S"] = prev
+    check(all(r.emb is not None and r.emb.shape == (width,) for r in rows), "snapshot (27a): a row without an embedding")
+    launches[torch.float32] += flash_attention.launches
+    drops = len(writes)
+    check({p for p, _ in writes} == {os.path.join(hb_dir, "obs.rank.0.json")}
+          and [t for _, t in writes] == sorted(t for _, t in writes),
+          f"snapshot (27a): the drops went to {sorted({p for p, _ in writes})}, or their mtimes went back")
+    check(S_DROPS[0] <= drops <= S_DROPS[1],
+          f"snapshot (27a): {drops} writes of obs.rank.0.json in {beat_s:.2f} s under "
+          f"SPARKDL_OBS_SNAP_S={S_SNAP_S} and a {S_BEAT_S} s beat (expected {S_DROPS[0]} to {S_DROPS[1]})")
+    snaps = load_rank_snapshots(hb_dir)
+    check(list(snaps) == [0] and snaps[0]["rank"] == 0, f"snapshot (27a): the drops read back are {list(snaps)}")
+    merged = os.path.join(tmp, "merged27.json")
+    rc, _, err = _obs_cli("merge", hb_dir, "--out", merged)
+    check(rc == 0, f"snapshot (27a): python -m sparkdl_tpu_torch.obs merge exited {rc}: {err[-2000:]}")
+    with open(merged) as f:
+        events = json.load(f)["traceEvents"]
+    lanes = {e["pid"] for e in events if e.get("ph") == "X"}
+    labels = [e["args"]["name"] for e in events if e.get("name") == "process_name"]
+    check(lanes == {0} and len(labels) == 1, f"snapshot (27a): merged lanes {lanes}, labels {labels}")
+    print(f"snapshot (27a) on {card}: {passes} TextEmbedder passes over {S_BEAT_TEXTS} texts in {beat_s:.2f} s under "
+          f"a Heartbeat (beat {S_BEAT_S} s, {hb._beats} beats, SPARKDL_OBS_SNAP_S={S_SNAP_S}): {drops} "
+          f"obs.rank.0.json drops (limits {S_DROPS[0]}-{S_DROPS[1]}, the forced exit drop included); obs merge: "
+          f"{len(events)} Chrome events, lane {sorted(lanes)} ({labels[0]})")
+    # (b) the pandas surfaces
+    pandas_version = _pandas_version()
+    scores = np.array([sum(float(x) * float(x) for x in r.emb[:16]) for r in rows])
+    frame = DataFrame.fromColumns({"id": list(range(len(rows))), "g": [i % 3 for i in range(len(rows))],
+                                   "score": scores.tolist()}, numPartitions=2)
+    if pandas_version is None:
+        print("pandas: absent on this machine; item 8.1 held on the CPU only")
+        udf = sf.pandas_udf(lambda c: c * 2)
+        try:
+            udf("score")
+            check(False, "pandas (27b): a pandas UDF applied without pandas raised nothing")
+        except ModuleNotFoundError as e:
+            check("pandas" in str(e), f"pandas (27b): the ModuleNotFoundError names no pandas: {e}")
+        spark = SparkSession.builder.appName("chip_smoke").getOrCreate()
+        made = spark.createDataFrame([(1, "a"), (2, None)], ["id", "s"]).toDF("i", "t")
+        check([dict(r) for r in made.collect()] == [{"i": 1, "t": "a"}, {"i": 2, "t": None}],
+              "pandas (27b): createDataFrame from a list and toDF")
+        print("pandas (27b): F.pandas_udf builds; applying it raises ModuleNotFoundError naming pandas; "
+              "createDataFrame from a list and toDF give their rows")
+    else:
+        doubled = frame.select(sf.pandas_udf(lambda c: c * 2)("score").alias("d")).collect()
+        check([r["d"] for r in doubled] == (scores * 2).tolist(), "pandas (27b): pandas_udf against numpy")
+        means = frame.groupBy("g").applyInPandas(
+            lambda pdf: pdf.head(1)[["g"]].assign(m=pdf["score"].mean()), "g, m").collect()
+        for r in means:
+            mine = scores[[i for i in range(len(scores)) if i % 3 == r["g"]]]
+            check(abs(r["m"] - mine.mean()) <= 1e-12 * abs(mine.mean()), f"pandas (27b): group {r['g']}'s mean")
+        pdf = frame.toPandas()
+        check(pdf["score"].tolist() == scores.tolist() and str(pdf["id"].dtype) == "int64",
+              "pandas (27b): toPandas against numpy")
+        print(f"pandas (27b): present (pandas {pandas_version}); pandas_udf, applyInPandas ({len(means)} groups) "
+              f"and toPandas over {len(scores)} bert scores equal to numpy")
+    del mf, embed
+    shutdown_feeders()
+    # (c) sequence-parallel bert-base on an sp axis of one process
+    mesh = make_mesh({"sp": 1})
+    tok = HashingTokenizer(vocab_size=spec.vocab_size)
+    ids_np, _ = _udf_to_batch(tok, S_MAX_LENGTH)(texts[:S_BATCH])
+    ids = torch.from_numpy(ids_np).to(device)
+    attn = (ids != 0).to(torch.int32)
+    errs, times, dense_times = {}, {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype)[6:]
+        dense_mf = _bert_text_builder(spec.size, attention="dense")(
+            spec, mode="embed", dtype=dtype, seed=seed, params=None, device=device)
+        dense = dense_mf((ids, attn)).float()
+        sync()
+        dense_times[tag] = _call_ms(lambda: dense_mf((ids, attn)), on_card)
+        del dense_mf
+        for strategy, inner in (("ring", None), ("ulysses+flash", make_flash_attention_fn())):
+            sp_mf = bert_model_function_sequence_parallel(
+                spec.size, mesh=mesh, strategy=strategy.split("+")[0], dtype=dtype, seed=seed,
+                max_length=S_MAX_LENGTH, device=device, inner=inner)
+            check(sp_mf.single_stream and sp_mf.name == f"bert_{spec.size}[embed,{strategy.split('+')[0]}/spx1]",
+                  f"sequence parallel (27c): {sp_mf.name}")
+            flash_attention.launches = 0
+            out = sp_mf((ids, attn)).float()
+            sync()
+            times[strategy, tag] = _call_ms(lambda: sp_mf((ids, attn)), on_card)
+            calls = 1 + 2 + S_ITERS  # the checked call, time_ms's warm-up and its timed calls
+            want = layers * calls if (inner is not None and on_card) else 0
+            check(flash_attention.launches == want,
+                  f"sequence parallel (27c) {strategy} {tag}: {flash_attention.launches} flash launches "
+                  f"for {calls} calls (expected {want})")
+            launches[dtype] += flash_attention.launches
+            check(tuple(out.shape) == (S_BATCH, width) and bool(torch.isfinite(out).all()),
+                  f"sequence parallel (27c) {strategy} {tag}: not a finite [{S_BATCH}, {width}] output")
+            err = float((out - dense).abs().max())
+            errs[strategy, tag] = err
+            check(err <= DENSE_ATOL[dtype], f"sequence parallel (27c) {strategy} {tag}: max |sp - dense| {err:.3e} "
+                  f"> {DENSE_ATOL[dtype]}")
+            del sp_mf
+        if on_card:
+            torch.cuda.empty_cache()
+    # the attention alone: Ulysses over the flash kernel against its plain version
+    inner = make_flash_attention_fn()
+    att = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype)[6:]
+        q, k, v, mask = _attention_inputs(S_BATCH, config.num_heads, S_MAX_LENGTH, width // config.num_heads,
+                                          dtype, seed, fully_masked_row=True) if on_card else \
+            _cpu_attention_inputs(S_BATCH, config.num_heads, S_MAX_LENGTH, width // config.num_heads, dtype, seed)
+        ref = flash_attention_reference(q, k, v, mask).float()
+        calls = 3
+        flash_attention.launches = 0
+        with (counted_profile() if on_card else nullcontext()) as prof:
+            for _ in range(calls):
+                got = ulysses_attention_sharded(q, k, v, mask[:, None, None, :], mesh, dtype=dtype, inner=inner)
+        counted = flash_attention.launches
+        recorded = _flash_kernel_counts(prof)[dtype] if on_card else 0
+        check(counted == (calls if on_card else 0) and recorded == counted,
+              f"ulysses (27c) {tag}: {counted} flash launches counted, {recorded} recorded by the profiler "
+              f"for {calls} calls (expected 1 each)")
+        err = float((got.float() - ref).abs().max())
+        check(err <= ATOL[dtype] and not got[0].any(),
+              f"ulysses (27c) {tag}: max |ulysses(flash) - reference| {err:.3e} > {ATOL[dtype]}, or the fully "
+              "masked row is not 0")
+        att[tag] = (err, counted, recorded)
+    # TextEmbedder over the ring model: equal to its direct calls, never bucketed
+    ring = bert_model_function_sequence_parallel(spec.size, mesh=mesh, strategy="ring", dtype=torch.float32,
+                                                 seed=seed, max_length=S_MAX_LENGTH, device=device)
+    emb = TextEmbedder(inputCol="text", outputCol="emb", modelFunction=ring, maxLength=S_MAX_LENGTH,
+                       batchSize=S_BATCH)
+    check(emb._device_fn().single_stream, "sequence parallel (27c): the TextEmbedder's device fn is not single_stream")
+    metrics.reset()
+    t0 = time.perf_counter()
+    got = [r.emb for r in emb.transform(df).collect()]
+    sync()
+    embed_s = time.perf_counter() - t0
+    counters = metrics.snapshot()["counters"]
+    bucketed = {k: v for k, v in counters.items() if k.startswith("text.bucket_rows") or k == "text.tokens"}
+    batches = _dispatches()
+    check(not bucketed and batches == sum(math.ceil(c / S_BATCH) for c in df.partitionRowCounts()),
+          f"sequence parallel (27c): the TextEmbedder bucketed ({bucketed}) or dispatched {batches} batches")
+    direct = ring((ids, attn)).float().cpu().numpy()
+    embed_err = max(float(np.abs(got[i] - direct[i]).max()) for i in range(S_BATCH))
+    check(embed_err <= ATOL[torch.float32],
+          f"sequence parallel (27c): TextEmbedder rows off the direct calls by {embed_err:.3e}")
+    del ring, emb
+    shutdown_feeders()
+    print(f"sequence parallel (27c) on {card}: {S_TEXT_MODEL} over an sp axis of 1 at L={S_MAX_LENGTH}, "
+          f"B={S_BATCH}, against the dense build on the same seeded weights: "
+          + "; ".join(f"{st} {tag} max |sp - dense| {errs[st, tag]:.3e} (atol {DENSE_ATOL[d]}), "
+                      f"{_fmt(times[st, tag])} ms per call" for d in (torch.float32, torch.bfloat16)
+                      for tag in [str(d)[6:]] for st in ("ring", "ulysses+flash"))
+          + "; dense " + ", ".join(f"{tag} {_fmt(ms)} ms per call" for tag, ms in dense_times.items())
+          + "; ulysses_attention_sharded(inner=flash) at B={} H={} L={} Dh={} with a fully masked row: ".format(
+              S_BATCH, config.num_heads, S_MAX_LENGTH, width // config.num_heads)
+          + ", ".join(f"{tag} max |err| {e:.3e} vs flash_attention_reference, {c} launches counted, {r} "
+                      f"recorded for 3 calls" for tag, (e, c, r) in att.items())
+          + f"; TextEmbedder over the ring model: {len(texts)} texts, {batches} batches at {S_MAX_LENGTH} (no "
+          f"bucketing), {embed_s:.3f} s = {len(texts) / embed_s:.1f} rows/s, rows within {embed_err:.3e} of the "
+          f"direct calls")
+    return launches
+
+
+def _call_ms(fn, on_card: bool):
+    """ms per call by CUDA events over S_ITERS calls (after two warm-up
+    calls); None on the CPU."""
+    return time_ms(fn, S_ITERS) if on_card else None
+
+
+def _cpu_attention_inputs(B, H, L, Dh, dtype, seed):
+    """Inputs like ``_attention_inputs``' on the CPU (the rehearsal): row 0
+    fully masked, the others keeping their first half."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, H, L, Dh)).astype(np.float32)).to(dtype) for _ in range(3))
+    mask = torch.zeros(B, L)
+    mask[0] = MASK_MIN
+    mask[1:, L // 2:] = MASK_MIN
+    return q, k, v, mask
+
+
 def _flat_tree(tree, prefix=()):
     for key, sub in tree.items():
         if isinstance(sub, dict):
@@ -6376,6 +6654,11 @@ def main(argv=None) -> int:
     done("phase 26")
     records[torch.float32]["launches_phase26"] = phase26
     records[torch.bfloat16]["launches_phase26"] = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        phase27 = phase_sequence_parallel(args.seed, device_name, tmp)
+    done("phase 27")
+    for dtype, n in phase27.items():
+        records[dtype]["launches_phase27"] = n
     records[torch.bfloat16]["launches_phase20"] = 0
     for dtype, n in phase22.items():
         records[dtype]["launches_phase22"] = n
@@ -6390,6 +6673,8 @@ def main(argv=None) -> int:
     print(f"flash launches in phase 24(a) (bert-base f32 under the relational queries): {phase24}")
     print(f"flash launches in phase 25(a) (bert-base f32 under the windows, TextEmbedder and UDF): {phase25}")
     print(f"flash launches in phase 26 (bert-base f32, 26(a)'s TextEmbedder and 26(e)'s UDF): {phase26}")
+    print(f"flash launches in phase 27 (bert-base, 27(a)'s TextEmbedder f32 and 27(c)'s Ulysses models over the "
+          f"flash kernel): f32 {phase27[torch.float32]}, bf16 {phase27[torch.bfloat16]}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[torch.float32], records[torch.bfloat16]]}))
     print(json.dumps({

@@ -28,9 +28,14 @@ Files: CSV and JSON lines through the stdlib (:meth:`DataFrame.writeCSV`,
 file), over the port's own readers and writers (``dataframe/parquet.py``,
 ``dataframe/arrow_ipc.py``): the port never imports ``pyarrow``, so the
 JAX package's ``fromArrow``/``toArrow``/``toArrowBatches``/``mapInArrow``,
-which take and return ``pyarrow`` Tables, have no counterpart, and the
-pandas ones (``toPandas``, ``mapInPandas``) wait for ROADMAP Queue A
-item 8. A tensor column read from a file is one contiguous numpy block
+which take and return ``pyarrow`` Tables, have no counterpart.
+
+pandas: :meth:`DataFrame.toPandas`, :meth:`DataFrame.mapInPandas`,
+:meth:`GroupedData.applyInPandas` and ``cogroup(...).applyInPandas``
+import pandas inside the call, never at import, so every other path runs
+where pandas is not installed. ``toPandas`` builds the frame itself with
+the dtypes the JAX package's ``toArrow().to_pandas()`` gives (see
+:func:`_pandas_series`). A tensor column read from a file is one contiguous numpy block
 ``(rows, *shape)`` in its partition, as the JAX package's
 ``TensorColumn`` is; indexing it gives row views.
 """
@@ -201,6 +206,154 @@ def _cell_key(v):
     return v
 
 
+def _pandas_cells(series) -> list:
+    """A pandas column back to frame cells: a scalar NaN, NaT or NA becomes
+    None (a numeric pandas column holds a null as NaN); containers (lists,
+    arrays, dicts) pass through."""
+    import pandas as pd
+
+    out = []
+    for v in series:
+        if not isinstance(v, (list, tuple, dict, np.ndarray)) and pd.isna(v):
+            out.append(None)
+        else:
+            out.append(v)
+    return out
+
+
+def _cell_kind(v) -> str:
+    if isinstance(v, (bool, np.bool_)):
+        return "bool"
+    if isinstance(v, (int, np.integer)):
+        return "int"
+    if isinstance(v, (float, np.floating)):
+        return "float"
+    if isinstance(v, str):
+        return "str"
+    if isinstance(v, bytes):
+        return "bytes"
+    import datetime
+
+    if isinstance(v, datetime.datetime):
+        return "ts"
+    if isinstance(v, datetime.date):
+        return "date"
+    if isinstance(v, (list, tuple)) or (isinstance(v, np.ndarray) and v.ndim >= 1):
+        return "list"
+    if isinstance(v, dict):
+        return "struct"
+    return "object"
+
+
+def _arrow_kind(values) -> tuple:
+    """The type Arrow would infer for a column of cells (``pa.array``, as
+    the JAX package's ``toArrow`` builds it): ``("null",)``, ``("bool",)``,
+    ``("int", dtype)``, ``("float", dtype)``, ``("str",)``, ``("bytes",)``,
+    ``("ts",)``, ``("date",)``, ``("list", inner)``, ``("struct", [(key,
+    kind), ...])``, or ``("object",)`` for a mix Arrow refuses. A numeric
+    column of numpy scalars of one dtype keeps it; python numbers are int64
+    or float64, and ints beside floats are float64."""
+    cells = [v for v in values if v is not None]
+    if not cells:
+        return ("null",)
+    kinds = {_cell_kind(v) for v in cells}
+    if len(kinds) == 1 and kinds <= {"bool", "str", "bytes", "ts", "date"}:
+        return (kinds.pop(),)
+    if kinds <= {"int", "float"}:
+        kind = "int" if kinds == {"int"} else "float"
+        dtypes = {v.dtype for v in cells if isinstance(v, np.generic)}
+        if len(dtypes) == 1 and all(isinstance(v, np.generic) for v in cells):
+            return (kind, dtypes.pop())
+        return (kind, np.dtype(np.int64 if kind == "int" else np.float64))
+    if kinds == {"list"}:
+        elems = [x for v in cells for x in (v.tolist() if isinstance(v, np.ndarray) else v)]
+        return ("list", _arrow_kind(elems))
+    if kinds == {"struct"}:
+        keys: List[Any] = []
+        for d in cells:
+            keys.extend(k for k in d if k not in keys)
+        return ("struct", [(k, _arrow_kind([d.get(k) for d in cells])) for k in keys])
+    return ("object",)
+
+
+def _pandas_value(v, kind: tuple):
+    """One cell inside a list or struct as Arrow's ``to_pandas`` gives it:
+    a list as a numpy array, a struct as a dict of every field, a numpy
+    scalar as a python one."""
+    if v is None:
+        return None
+    if kind[0] == "list":
+        return _numpy_list(v.tolist() if isinstance(v, np.ndarray) else v, kind[1])
+    if kind[0] == "struct":
+        return {k: _pandas_value(v.get(k), sub) for k, sub in kind[1]}
+    return v.item() if isinstance(v, np.generic) else v
+
+
+def _numpy_list(elems, kind: tuple) -> np.ndarray:
+    """A list cell as the numpy array Arrow's ``to_pandas`` gives: ints with
+    a null become float64 with NaN, bools with a null and every
+    non-numeric kind an object array."""
+    has_null = any(e is None for e in elems)
+    if kind[0] == "float" or (kind[0] == "int" and has_null):
+        dtype = kind[1] if kind[0] == "float" else np.float64
+        return np.array([np.nan if e is None else e for e in elems], dtype=dtype)
+    if kind[0] == "int" or (kind[0] == "bool" and not has_null):
+        return np.array(elems, dtype=kind[1] if kind[0] == "int" else bool)
+    out = np.empty(len(elems), dtype=object)
+    for i, e in enumerate(elems):
+        out[i] = _pandas_value(e, kind)
+    return out
+
+
+def _pandas_series(values, pd):
+    """One collected column as the pandas Series that the JAX package's
+    ``toArrow().to_pandas()`` gives for it:
+
+    - a column of numeric numpy arrays of one shape and dtype (the JAX
+      package's ``TensorColumn``) is a tensor column: each row an array of
+      that dtype, flattened (Arrow's fixed-shape tensor), or the scalars
+      themselves when the rows are 0-d;
+    - ints are int64 (a column of numpy scalars keeps their dtype), and
+      float64 with NaN when one is null; floats are float64 (or their
+      numpy dtype) with NaN;
+    - bools are bool, and objects with None when one is null;
+    - strings are pandas' default string dtype; timestamps datetime64;
+      bytes and dates objects;
+    - list cells are numpy arrays of the column's element type; struct
+      (dict) cells are dicts of every field seen;
+    - a column of nothing but nulls, or of a mix Arrow refuses, holds its
+      cells as objects."""
+    vals = list(values)
+    n = len(vals)
+    if vals and all(isinstance(v, np.ndarray) and v.dtype.kind in "fiub" for v in vals):
+        shape, dtype = vals[0].shape, vals[0].dtype
+        if all(v.shape == shape and v.dtype == dtype for v in vals):
+            block = np.stack(vals)
+            if block.ndim == 1:
+                return pd.Series(block)
+            rows = np.empty(n, dtype=object)
+            for i in range(n):
+                rows[i] = np.ascontiguousarray(block[i]).reshape(-1)
+            return pd.Series(rows, dtype=object)
+    kind = _arrow_kind(vals)
+    has_null = any(v is None for v in vals)
+    if kind[0] in ("int", "float"):
+        if kind[0] == "int" and not has_null:
+            return pd.Series(np.array(vals, dtype=kind[1]))
+        dtype = kind[1] if kind[0] == "float" else np.float64
+        return pd.Series(np.array([np.nan if v is None else v for v in vals], dtype=dtype))
+    if kind[0] == "bool":
+        if not has_null:
+            return pd.Series(np.array(vals, dtype=bool))
+        return pd.Series([None if v is None else bool(v) for v in vals], dtype=object)
+    if kind[0] in ("str", "ts"):
+        return pd.Series(vals)
+    cells = np.empty(n, dtype=object)
+    for i, v in enumerate(vals):
+        cells[i] = _pandas_value(v, kind) if kind[0] in ("list", "struct") else v
+    return pd.Series(cells, dtype=object)
+
+
 def _split_ddl_fields(s: str) -> List[str]:
     """Split a DDL schema string on top-level commas only, so that
     parameterized and nested types (``map<string,int>``,
@@ -293,6 +446,16 @@ def _run_plan(ops, columns: List[str], part: Partition, index: int = 0) -> Parti
     for op in ops:
         part = op(part, index) if getattr(op, "_indexed", False) else op(part)
     return {c: part[c] for c in columns}
+
+
+def _serial_plan(ops, source) -> bool:
+    """Whether a plan holds an op marked ``_serial``
+    (``withColumnPartition(..., serial=True)``), also inside a coalesced
+    partition's pending ops."""
+    return any(getattr(op, "_serial", False) for op in ops) or any(
+        isinstance(p, _CoalescedPartition) and _serial_plan(p._child_ops, ())
+        for p in source
+    )
 
 
 class _CoalescedPartition(Mapping):
@@ -2019,11 +2182,15 @@ class DataFrame:
         return [DataFrame(ps, self._columns) for ps in out_parts]
 
     def withColumnPartition(
-        self, name: str, fn: Callable[[Partition], Dict[str, list]]
+        self, name: str, fn: Callable[[Partition], Dict[str, list]],
+        serial: bool = False,
     ) -> "DataFrame":
         """Partition-wise column producer: ``fn`` sees the whole partition
         column-dict and returns ``{name: values}``, one value per row —
-        the batched path every model transformer uses."""
+        the batched path every model transformer uses. ``serial``: every
+        action over the result runs its partitions one at a time, in index
+        order (a ``single_stream`` model, whose collectives pair each batch
+        with the other processes' batch of the same place in that order)."""
 
         def op(part: Partition) -> Partition:
             out = dict(part)
@@ -2038,6 +2205,7 @@ class DataFrame:
                 out[k] = list(v)
             return out
 
+        op._serial = serial
         cols = self._columns + ([name] if name not in self._columns else [])
         return self._with_op(op, cols)
 
@@ -2049,6 +2217,7 @@ class DataFrame:
             lambda i, part: _run_plan(ops, cols, part, first + i),
             self._source,
             count_rows=_part_num_rows,
+            sequential=_serial_plan(ops, self._source),
         )
 
     def iterPartitions(
@@ -2743,16 +2912,48 @@ class DataFrame:
         return DataFrameWriter(self)
 
     def toPandas(self):
-        """pandas frames wait for ROADMAP Queue A item 8."""
-        from sparkdl_tpu_torch.sql import UnsupportedSQL
+        """The whole frame as a pandas DataFrame, with the dtypes the JAX
+        package's ``toArrow().to_pandas()`` gives (:func:`_pandas_series`);
+        the port builds it without pyarrow."""
+        import pandas as pd
 
-        raise UnsupportedSQL("DataFrame.toPandas")
+        cols = self.collectColumns()
+        return pd.DataFrame({c: _pandas_series(cols[c], pd) for c in self._columns})
 
     def mapInPandas(self, func, schema) -> "DataFrame":
-        """pandas transforms wait for ROADMAP Queue A item 8."""
-        from sparkdl_tpu_torch.sql import UnsupportedSQL
+        """A per-partition pandas transform (pyspark ``mapInPandas``):
+        ``func`` receives an iterator of pandas DataFrames (one per
+        partition here) and yields DataFrames; the row count may change.
+        ``schema`` declares the output columns: a list, or a DDL string
+        whose types are accepted and ignored. Lazy and partition-local."""
+        out_cols = _schema_names(schema)
 
-        raise UnsupportedSQL("DataFrame.mapInPandas")
+        def op(part: Partition) -> Partition:
+            import pandas as pd
+
+            pdf = pd.DataFrame({c: list(part[c]) for c in part})
+            frames = list(func(iter([pdf])))
+            for f in frames:
+                if not isinstance(f, pd.DataFrame):
+                    raise TypeError(
+                        "mapInPandas function must yield pandas DataFrames, "
+                        f"got {type(f).__name__}"
+                    )
+                # each yielded frame is checked: concat's column union would
+                # fill a frame that lacks a declared column with NaN whenever
+                # a sibling frame has it
+                missing = [c for c in out_cols if c not in f.columns]
+                if missing:
+                    raise ValueError(
+                        f"mapInPandas output is missing declared columns {missing}; "
+                        f"got {list(f.columns)}"
+                    )
+            if not frames:
+                return {c: [] for c in out_cols}
+            out = pd.concat(frames, ignore_index=True)
+            return {c: _pandas_cells(out[c]) for c in out_cols}
+
+        return self._with_op(op, list(out_cols))
 
     def __repr__(self) -> str:
         return (
@@ -3367,16 +3568,46 @@ class GroupedData:
         )
 
     def applyInPandas(self, func, schema) -> DataFrame:
-        """Grouped-map pandas transforms wait for ROADMAP Queue A item 8."""
-        from sparkdl_tpu_torch.sql import UnsupportedSQL
+        """A grouped-map pandas transform (pyspark ``applyInPandas``):
+        ``func`` receives each group as one pandas DataFrame (keys
+        included), or ``(key, pdf)`` when it takes two positional
+        parameters, and returns a DataFrame; the outputs concatenate in
+        first-occurrence group order. ``schema`` declares the output
+        columns (a list or a DDL string, types ignored). The whole frame is
+        collected to the host (collect-guarded), like a join."""
+        if self._mode != "groupby":
+            raise ValueError("applyInPandas works on groupBy(), not rollup/cube")
+        if not self._keys:
+            raise ValueError("applyInPandas needs grouping keys")
+        import pandas as pd
 
-        raise UnsupportedSQL("GroupedData.applyInPandas (vectorized UDFs over pandas)")
+        out_cols = _schema_names(schema)
+        wants_key = _sniff_pos_arity(func, default=1) >= 2
+        df = self._df
+        merged, groups, order, raw_keys = _collect_groups(df, self._keys, "applyInPandas")
+        frames = []
+        for kt in order:
+            idxs = groups[kt]
+            pdf = pd.DataFrame({c: [merged[c][i] for i in idxs] for c in df.columns})
+            out = func(raw_keys[kt], pdf) if wants_key else func(pdf)
+            frames.append(_validated_pandas_frame(out, out_cols, "applyInPandas"))
+        return _assemble_pandas_output(frames, out_cols, df.numPartitions)
 
-    def cogroup(self, other: "GroupedData"):
-        """Co-grouped pandas transforms wait for ROADMAP Queue A item 8."""
-        from sparkdl_tpu_torch.sql import UnsupportedSQL
-
-        raise UnsupportedSQL("GroupedData.cogroup (vectorized UDFs over pandas)")
+    def cogroup(self, other: "GroupedData") -> "CoGroupedData":
+        """Pair two grouped frames by key for a joint pandas transform
+        (pyspark ``groupBy(...).cogroup(other.groupBy(...))``); the two key
+        lists must be of one length (the names may differ: keys pair by
+        position, as in pyspark)."""
+        if not isinstance(other, GroupedData):
+            raise TypeError(f"cogroup takes a GroupedData, got {type(other).__name__}")
+        if self._mode != "groupby" or other._mode != "groupby":
+            raise ValueError("cogroup works on groupBy(), not rollup/cube")
+        if len(self._keys) != len(other._keys) or not self._keys:
+            raise ValueError(
+                "cogroup needs the same number of (non-zero) grouping keys on "
+                f"both sides; got {self._keys} vs {other._keys}"
+            )
+        return CoGroupedData(self, other)
 
     def count(self) -> DataFrame:
         """Group sizes as a ``count`` column (pyspark ``groupBy().count()``)."""
@@ -3396,6 +3627,104 @@ class GroupedData:
     def max(self, *cols: str) -> DataFrame:
         return self.agg({c: "max" for c in cols})
 
+
+
+def _sniff_pos_arity(func, default: int) -> int:
+    """The positional-parameter count of a pandas transform: pyspark
+    dispatches ``func(pdf)`` against ``func(key, pdf)`` (and the cogroup
+    pair forms) on it; a callable whose signature cannot be read gets
+    ``default``."""
+    import inspect
+
+    try:
+        return len([
+            p
+            for p in inspect.signature(func).parameters.values()
+            if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)
+        ])
+    except (TypeError, ValueError):
+        return default
+
+
+def _collect_groups(df: "DataFrame", keys, what: str):
+    """Host-side grouping shared by applyInPandas and cogroup: collect
+    (guarded), bucket row indexes by ``_cell_key`` tuples, and keep the
+    first-occurrence order and the raw key values."""
+    _guard_collect(df, what)
+    merged = df.collectColumns()
+    n = len(merged[df.columns[0]]) if df.columns else 0
+    groups: Dict[Tuple, List[int]] = {}
+    order: List[Tuple] = []
+    raw: Dict[Tuple, Tuple] = {}
+    key_cols = [merged[k] for k in keys]
+    for i in range(n):
+        kt = tuple(_cell_key(col[i]) for col in key_cols)
+        if kt not in groups:
+            groups[kt] = []
+            order.append(kt)
+            raw[kt] = tuple(col[i] for col in key_cols)
+        groups[kt].append(i)
+    return merged, groups, order, raw
+
+
+def _validated_pandas_frame(out, out_cols, what: str):
+    import pandas as pd
+
+    if not isinstance(out, pd.DataFrame):
+        raise TypeError(f"{what} function must return a pandas DataFrame, got {type(out).__name__}")
+    missing = [c for c in out_cols if c not in out.columns]
+    if missing:
+        raise ValueError(f"{what} output is missing declared columns {missing}; got {list(out.columns)}")
+    return out[out_cols]
+
+
+def _assemble_pandas_output(frames, out_cols, numPartitions: int) -> DataFrame:
+    import pandas as pd
+
+    if not frames:
+        return DataFrame.fromColumns({c: [] for c in out_cols})
+    cat = pd.concat(frames, ignore_index=True)
+    return DataFrame.fromColumns(
+        {c: _pandas_cells(cat[c]) for c in out_cols}, numPartitions=max(1, numPartitions)
+    )
+
+
+class CoGroupedData:
+    """``a.groupBy(k).cogroup(b.groupBy(k))`` (pyspark
+    ``PandasCogroupedOps``): each key present on either side makes one
+    ``func(left_pdf, right_pdf)`` call, or ``func(key, left_pdf,
+    right_pdf)``; the absent side arrives as an empty pandas DataFrame with
+    that side's columns. Host-side like applyInPandas (collect-guarded)."""
+
+    def __init__(self, left: GroupedData, right: GroupedData):
+        self._left = left
+        self._right = right
+
+    def applyInPandas(self, func, schema) -> DataFrame:
+        import pandas as pd
+
+        out_cols = _schema_names(schema)
+        wants_key = _sniff_pos_arity(func, default=2) >= 3
+        lm, lg, lo, lraw = _collect_groups(self._left._df, self._left._keys, "cogroup.applyInPandas")
+        rm, rg, ro, rraw = _collect_groups(self._right._df, self._right._keys, "cogroup.applyInPandas")
+        lcols = list(self._left._df.columns)
+        rcols = list(self._right._df.columns)
+        keys = list(lo) + [k for k in ro if k not in lg]
+
+        def pdf_of(merged, groups, cols, kt):
+            idxs = groups.get(kt, [])
+            return pd.DataFrame({c: [merged[c][i] for i in idxs] for c in cols})
+
+        frames = []
+        for kt in keys:
+            left_pdf = pdf_of(lm, lg, lcols, kt)
+            right_pdf = pdf_of(rm, rg, rcols, kt)
+            if wants_key:
+                out = func(lraw.get(kt, rraw.get(kt)), left_pdf, right_pdf)
+            else:
+                out = func(left_pdf, right_pdf)
+            frames.append(_validated_pandas_frame(out, out_cols, "cogroup.applyInPandas"))
+        return _assemble_pandas_output(frames, out_cols, self._left._df.numPartitions)
 
 
 _NO_VALUE = object()  # pivot sentinel: row's value not in configured set

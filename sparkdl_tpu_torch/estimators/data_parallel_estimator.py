@@ -410,6 +410,11 @@ class DataParallelEstimator(Estimator, HasInputCol, HasOutputCol, HasLabelCol, H
             torch.optim.Adam, lr=self.getOrDefault("stepSize")
         )
         mesh = make_mesh(self.getOrDefault("meshAxes") if self.isDefined("meshAxes") else None)
+        if any(name != "dp" and size > 1 for name, size in mesh.axes.items()):
+            raise NotImplementedError(
+                f"mesh axes {mesh.axes}: the trainer shards batches over 'dp' only; "
+                "sequence-parallel training waits for ROADMAP Queue A item 7"
+            )
         n_dev = mesh.size
         rank = mesh.rank
         multiproc = n_dev > 1

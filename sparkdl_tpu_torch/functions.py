@@ -28,9 +28,10 @@ generators (``F.explode``, ``F.posexplode``, ``F.stack``,
 ``F.monotonically_increasing_id``/``F.spark_partition_id`` are seeded by the
 partition index, as in the JAX package.
 
-``F.pandas_udf`` raises :class:`~sparkdl_tpu_torch.sql.UnsupportedSQL`
-naming ROADMAP Queue A item 8 when called: it needs pandas, absent from
-the card's machine.
+``F.pandas_udf`` is the SCALAR vectorized UDF: its function receives one
+pandas Series per argument. pandas is imported when the UDF is applied,
+never at import, so the rest of this module runs where pandas is not
+installed; there, applying a pandas UDF raises ModuleNotFoundError.
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ __all__ = [
     "date_add", "date_sub", "datediff", "date_format", "current_date",
     "current_timestamp", "add_months", "months_between", "trunc", "last_day",
     "next_day", "quarter", "weekofyear", "dayofyear", "unix_timestamp",
-    "from_unixtime", "timestamp_seconds", "udf", "struct", "translate",
+    "from_unixtime", "timestamp_seconds", "udf", "pandas_udf", "struct", "translate",
     "format_string", "printf", "bround", "hash", "asc",
     "desc", "nanvl", "to_json", "from_json", "get_json_object",
     "map_keys", "map_values", "sin", "cos", "tan",
@@ -1438,6 +1439,51 @@ def _register_callable_udf(fn, prefix, doc, single, multi):
     return call
 
 
+def pandas_udf(f: Callable = None, returnType: Any = None, functionType: Any = None):
+    """A vectorized UDF (pyspark ``pandas_udf``, the SCALAR flavor): the
+    function receives pandas Series, one per argument column, a whole
+    partition batch at a time, and returns a Series (or any list-like) of
+    the same length. ``returnType`` and ``functionType`` are accepted for
+    pyspark source compatibility and ignored. Works as a decorator too.
+    pandas is imported where the UDF is applied to a column: without it
+    that raises ModuleNotFoundError."""
+    del returnType, functionType
+
+    def build(fn: Callable[..., Any]):
+        def single(cells):
+            import pandas as pd
+
+            return list(fn(pd.Series(list(cells), dtype=object)))
+
+        def multi(cells):
+            if not cells:  # an emptied partition must not call fn()
+                return []
+            import pandas as pd
+
+            series = [pd.Series(list(s), dtype=object) for s in zip(*cells)]
+            return list(fn(*series))
+
+        udf_call = _register_callable_udf(
+            fn,
+            prefix="__pdudf",
+            doc=f"F.pandas_udf({getattr(fn, '__name__', 'fn')})",
+            single=single,
+            multi=multi,
+        )
+
+        def call(*cols: Any) -> Column:
+            import pandas  # noqa: F401 -- fail where the expression is built, not mid-query
+
+            return udf_call(*cols)
+
+        call.__name__ = udf_call.__name__
+        return call
+
+    if f is None or not callable(f):
+        return build
+    return build(f)
+
+
 def udf(f: Callable[[Any], Any] = None, returnType: Any = None):
     """Wrap a Python function as a Column-producing UDF (pyspark
     ``F.udf``): ``plus_one = F.udf(lambda x: x + 1); df.select(
@@ -1967,24 +2013,3 @@ def input_file_name() -> Column:
     readImages/filesToDF keep the path in their 'filePath'/'origin'
     column instead."""
     return Column(_sql.Lit(""))
-
-
-# -- the rest of the JAX surface: refused by name ----------------------------
-
-_RELATIONAL = {
-    "pandas_udf": "vectorized UDFs over pandas",
-}
-
-
-def __getattr__(name: str):
-    """``F.pandas_udf`` exists and raises UnsupportedSQL when called,
-    naming what waits for ROADMAP Queue A item 8."""
-    what = _RELATIONAL.get(name)
-    if what is None:
-        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-    def refused(*_args, **_kwargs):
-        raise _sql.UnsupportedSQL(f"F.{name} ({what})")
-
-    refused.__name__ = name
-    return refused

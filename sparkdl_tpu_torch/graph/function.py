@@ -73,6 +73,10 @@ class ModelFunction:
         params: float32 master values of the module's floating tensors
             where they hold more than the module stores (a module built in
             bf16: :meth:`from_module`), else None (read from the module).
+        single_stream: a batch runs on a whole mesh axis at one fixed
+            sequence length (the sequence-parallel BERT), so the text path
+            neither buckets it by length nor shares a feeder across
+            partitions.
     """
 
     fn: Callable[[nn.Module, Any], torch.Tensor]
@@ -85,6 +89,7 @@ class ModelFunction:
     precision: Optional[str] = None
     takes_nhwc: bool = False
     params: Optional[Dict[str, torch.Tensor]] = None
+    single_stream: bool = False
 
     def __call__(self, x):
         with torch.inference_mode():
@@ -138,6 +143,7 @@ class ModelFunction:
             input_dtype=self.input_dtype, precision=self.precision,
             takes_nhwc=self.takes_nhwc,
             params={n: v.detach().clone() for n, v in params.items()},
+            single_stream=self.single_stream,
         )
 
     @staticmethod
@@ -322,6 +328,7 @@ class ModelFunction:
             input_dtype=self.input_dtype,
             precision=self.precision or g_mf.precision,
             takes_nhwc=self.takes_nhwc,
+            single_stream=self.single_stream or g_mf.single_stream,
         )
 
     def before(self, pre: Union["ModelFunction", Callable]) -> "ModelFunction":

@@ -1,5 +1,6 @@
 """Models and the named-model registry."""
 
+from sparkdl_tpu_torch.models.bert import bert_model_function_sequence_parallel
 from sparkdl_tpu_torch.models.registry import (
     NamedImageModel,
     NamedTextModel,
@@ -14,6 +15,7 @@ from sparkdl_tpu_torch.models.registry import (
 __all__ = [
     "NamedImageModel",
     "NamedTextModel",
+    "bert_model_function_sequence_parallel",
     "get_image_model",
     "get_model",
     "param_bytes",

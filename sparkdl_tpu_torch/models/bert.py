@@ -20,6 +20,9 @@ numerics:
 
 Attention is pluggable: :func:`dense_attention` (the plain path) or the
 flash kernel from ``ops/flash_attention.py`` (``make_flash_attention_fn``).
+:func:`bert_model_function_sequence_parallel` shards the sequence over a
+mesh axis, with ring or Ulysses attention (``ops/ring_attention.py``,
+``ops/ulysses.py``), for sequences past one device.
 
 :class:`BertGenerator` runs prefill and cached single-token decode over an
 encoder's modules (the serving generate path), as the JAX package's
@@ -274,6 +277,118 @@ def init_bert_params(module: BertEncoder, generator: torch.Generator) -> None:
             if isinstance(mod, nn.LayerNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
+
+
+def bert_model_function_sequence_parallel(
+    size: str = "base",
+    mesh=None,
+    axis: str = "sp",
+    strategy: str = "ring",
+    dtype: torch.dtype = torch.float32,
+    seed: int = 0,
+    params=None,
+    max_length: int = 128,
+    device=None,
+    inner: Optional[Callable] = None,
+):
+    """Sequence-parallel BERT embedder: the ``(ids, mask) -> [B, D]``
+    pooled-embedding contract of the registry's text models, with the
+    sequence sharded over the mesh ``axis`` (``parallel/mesh.py``; default:
+    every process on ``axis``), the long-context path wherever a
+    ModelFunction goes (TextEmbedder, the UDF registry).
+
+    ``strategy``: 'ring' (K/V blocks passed around the axis; any head
+    count) or 'ulysses' (all-to-all head swap; heads % axis size == 0;
+    ``inner`` is its attention over the head-sharded layout, dense by
+    default as in the JAX package, ``make_flash_attention_fn()`` for the
+    flash kernel). Each process embeds its ``max_length / n`` tokens at
+    position offset ``rank * max_length / n`` and the masked mean pools
+    with two all-reduce sums over the axis, so every process returns the
+    same rows. Weights are the registry's: ``params`` (the JAX package's
+    flax tree) or drawn from ``seed``, as ``get_model(...).model_function``
+    draws them; the attention holds none. ``device``: ``cuda`` by default
+    (raises when there is none); pass ``"cpu"`` for the CPU.
+
+    The function carries ``single_stream = True``: a batch runs on the
+    whole axis at exactly ``max_length``, so it is neither bucketed by
+    length nor spread over devices (``transformers/execution.py``), and
+    its ``TextEmbedder``, ``ModelTransformer`` or catalog-UDF column runs
+    the frame's partitions one at a time in index order
+    (``DataFrame.withColumnPartition(..., serial=True)``), so that each
+    rank's k-th batch meets every other rank's k-th batch."""
+    import torch.distributed as dist
+
+    from sparkdl_tpu_torch.graph.function import ModelFunction
+    from sparkdl_tpu_torch.models.registry import _bert_encoder
+    from sparkdl_tpu_torch.parallel.mesh import make_mesh
+    from sparkdl_tpu_torch.runtime.device import resolve_device
+
+    device = resolve_device(device)
+    if mesh is None:
+        mesh = make_mesh({axis: -1})
+    n = mesh.axis_size(axis)
+    if max_length % n:
+        raise ValueError(f"max_length {max_length} must be divisible by the {axis!r} axis size ({n})")
+    if strategy == "ring":
+        if inner is not None:
+            raise ValueError("inner is the Ulysses strategy's attention; ring attention takes none")
+        from sparkdl_tpu_torch.ops.ring_attention import make_ring_attention
+
+        attention_fn = make_ring_attention(axis, mesh)
+    elif strategy == "ulysses":
+        from sparkdl_tpu_torch.ops.ulysses import make_ulysses_attention
+
+        attention_fn = make_ulysses_attention(axis, inner=inner, mesh=mesh)
+    else:
+        raise ValueError(f"Unknown strategy {strategy!r}; expected 'ring' or 'ulysses'")
+    if size not in ("base", "tiny"):
+        raise ValueError(f"Unknown BERT size {size!r}; supported: base, tiny")
+    config = replace(BERT_CONFIGS[size], dtype=dtype)
+    if max_length > config.max_position_embeddings:
+        raise ValueError(
+            f"max_length {max_length} exceeds the model's learned position table "
+            f"({config.max_position_embeddings}); sequence parallelism shards compute, "
+            "not the position vocabulary"
+        )
+    if strategy == "ulysses" and config.num_heads % n:
+        raise ValueError(
+            f"ulysses needs heads ({config.num_heads}) divisible by the {axis!r} axis ({n}); "
+            "use strategy='ring'"
+        )
+    module = _bert_encoder(config, attention_fn, seed, params, device)
+    group = mesh.axis_group(axis)
+    lc = max_length // n
+    offset = mesh.axis_index(axis) * lc
+
+    def fn(mod, x):
+        ids, mask = x if isinstance(x, (tuple, list)) else (x, None)
+        if mask is None:
+            mask = torch.ones_like(ids)
+        if ids.shape[1] != max_length:
+            raise ValueError(
+                f"sequence length {ids.shape[1]} != max_length {max_length} "
+                "the mesh sharding was built for"
+            )
+        ids_sh = ids[:, offset : offset + lc]
+        mask_sh = mask[:, offset : offset + lc]
+        positions = torch.arange(offset, offset + lc, device=ids.device)[None]
+        additive = (1.0 - mask_sh[:, None, None, :].float()) * torch.finfo(torch.float32).min
+        h = mod.embeddings(ids_sh, position_ids=positions)
+        for layer in mod.layers:
+            h = layer(h, additive)
+        m = mask_sh[..., None].float()
+        total = (h.float() * m).sum(dim=1)
+        count = m.sum(dim=1)
+        if group is not None:
+            dist.all_reduce(total, group=group)
+            dist.all_reduce(count, group=group)
+        return total / torch.clamp(count, min=1.0)
+
+    mf = ModelFunction(
+        fn, module, device, name=f"bert_{size}[embed,{strategy}/{axis}x{n}]",
+        vocab_size=config.vocab_size, single_stream=True,
+    )
+    return mf
 
 
 # -- autoregressive generation ------------------------------------------------

@@ -4,8 +4,10 @@ trace, merged metrics and stragglers.
 The port of the JAX package's ``obs/aggregate.py``:
 
 - a gang rank drops ``obs.rank.<r>.json`` (its obs snapshot,
-  ``obs/export.snapshot``) beside its heartbeat file on the way out
-  (:func:`write_rank_snapshot`; the batch worker's ``_obs_services``);
+  ``obs/export.snapshot``) beside its heartbeat file: periodically from
+  the heartbeat writer (:func:`maybe_write_rank_snapshot`, at most once
+  per ``SPARKDL_OBS_SNAP_S``, default 30 s), forced when the heartbeat
+  ends, and on the way out of the batch worker (``_obs_services``);
 - ``python -m sparkdl_tpu_torch.obs merge <dir>`` fuses the drops into
   one Chrome trace with a lane per rank (``pid`` = rank), each request's
   trace records as slices on a "requests" track and flow arrows joining
@@ -19,9 +21,7 @@ The port of the JAX package's ``obs/aggregate.py``:
   gauges keep the worst last value and the max envelope.
 
 The files keep the JAX package's name and keys, so either package's
-reader reads the other's drops. The periodic, time-gated drop
-(``maybe_write_rank_snapshot``, ``SPARKDL_OBS_SNAP_S``) is not ported
-(ROADMAP Queue A item 8).
+reader reads the other's drops.
 """
 
 from __future__ import annotations
@@ -29,6 +29,8 @@ from __future__ import annotations
 import json
 import os
 import re
+import threading
+import time
 from collections import defaultdict
 from statistics import median
 from typing import Dict, List, Optional
@@ -55,6 +57,13 @@ def straggler_factor() -> float:
         return 1.5
 
 
+def snap_interval_s() -> float:
+    try:
+        return knobs.get_float("SPARKDL_OBS_SNAP_S")
+    except ValueError:  # malformed: the knob's declared default
+        return float(knobs._default("SPARKDL_OBS_SNAP_S"))
+
+
 def rank_snapshot_path(directory: str, rank: int) -> str:
     return os.path.join(directory, f"obs.rank.{int(rank)}.json")
 
@@ -68,6 +77,32 @@ def write_rank_snapshot(directory: str, rank: int, snap: Optional[dict] = None) 
     else:
         snap.setdefault("rank", int(rank))
     return export.write_snapshot(rank_snapshot_path(directory, rank), snap)
+
+
+_last_drop: Dict[tuple, float] = {}
+_drop_lock = threading.Lock()
+
+
+def maybe_write_rank_snapshot(directory: str, rank: int, force: bool = False) -> Optional[str]:
+    """The time-gated periodic drop: at most one per ``SPARKDL_OBS_SNAP_S``
+    per (dir, rank), the first call always writes, and ``force`` writes on
+    an exit path. An interval of 0 or less turns the periodic drops off.
+    Never raises: this runs on the heartbeat path, and a full disk must not
+    stop the beat."""
+    try:
+        interval = snap_interval_s()
+        if interval <= 0 and not force:
+            return None
+        key = (os.path.abspath(directory), int(rank))
+        now = time.monotonic()
+        with _drop_lock:
+            last = _last_drop.get(key)
+            if not force and last is not None and now - last < interval:
+                return None
+            _last_drop[key] = now
+        return write_rank_snapshot(directory, rank)
+    except Exception:
+        return None
 
 
 def load_rank_snapshots(directory: str) -> Dict[int, dict]:

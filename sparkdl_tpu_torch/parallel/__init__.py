@@ -1,6 +1,8 @@
-"""Data parallelism over a ``torch.distributed`` process group: the mesh,
-the process group, and the train steps. Tensor, pipeline and expert
-parallelism are not ported."""
+"""Parallelism over a ``torch.distributed`` process group: the mesh (its
+``dp`` and ``sp`` axes), the process group, and the data-parallel train
+steps. Sequence parallelism runs through ``ops/ring_attention.py`` and
+``ops/ulysses.py`` over the mesh's ``sp`` axis. Tensor, pipeline and
+expert parallelism wait for ROADMAP Queue A item 7."""
 
 from sparkdl_tpu_torch.parallel import distributed
 from sparkdl_tpu_torch.parallel.data_parallel import (

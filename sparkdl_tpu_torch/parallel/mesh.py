@@ -1,40 +1,106 @@
-"""The data-parallel mesh over the process group, and batch padding.
+"""The mesh over the process group, and batch padding.
 
-The port of the part of the JAX package's ``parallel/mesh.py`` that data
-parallelism uses. In the JAX package a mesh is a named grid of devices
-and XLA inserts the collectives; here one process drives one GPU, so the
-``dp`` axis is the process group (``torch.distributed``) and its size the
-world size. Tensor, pipeline and expert axes are not ported.
+The port of the JAX package's ``parallel/mesh.py``. In the JAX package a
+mesh is a named grid of devices and XLA inserts the collectives; here one
+process drives one GPU, so a mesh is a named grid of the processes of a
+``torch.distributed`` group. ``dp`` (data parallelism) and ``sp``
+(sequence parallelism, ``ops/ring_attention.py`` and ``ops/ulysses.py``)
+are its axes, alone or together, in the JAX package's major-to-minor rank
+order: under ``{"dp": a, "sp": b}`` rank ``r`` sits at ``dp = r // b``,
+``sp = r % b``. Each axis of more than one process and fewer than all has
+its own subgroup (``dist.new_group``). Tensor, pipeline and expert axes
+are not ported (ROADMAP Queue A item 7).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+import itertools
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch.distributed as dist
 
+#: the axes the port runs
+AXES = ("dp", "sp")
+
 
 @dataclass(frozen=True)
 class Mesh:
-    """``axes`` (``{"dp": world size}``), this process's ``rank``, and the
-    process group the collectives run on (None: one process, no group)."""
+    """``axes`` (name -> size, major to minor), this process's ``rank`` in
+    ``group``, the process group of the whole mesh (None: one process, no
+    group), and each axis's group (``axis_groups``; None for an axis of
+    one process)."""
 
     axes: Dict[str, int]
     rank: int = 0
     group: Any = None
+    axis_groups: Dict[str, Any] = field(default_factory=dict)
 
     @property
     def size(self) -> int:
         return int(np.prod(list(self.axes.values())))
 
+    def _check_axis(self, name: str) -> None:
+        if name not in self.axes:
+            raise ValueError(f"mesh has no axis {name!r}; its axes are {list(self.axes)}")
+
+    def axis_size(self, name: str) -> int:
+        self._check_axis(name)
+        return int(self.axes[name])
+
+    def axis_index(self, name: str) -> int:
+        """This process's coordinate along ``name`` (``jax.lax.axis_index``)."""
+        self._check_axis(name)
+        return _coords(self.rank, list(self.axes.values()))[list(self.axes).index(name)]
+
+    def axis_group(self, name: str) -> Any:
+        """The process group of this process's fiber along ``name``: the
+        processes that differ from it in that coordinate only. None for an
+        axis of one process."""
+        self._check_axis(name)
+        return self.axis_groups.get(name)
+
+
+def _coords(rank: int, sizes: List[int]) -> Tuple[int, ...]:
+    """Major-to-minor coordinates of ``rank`` in a grid of ``sizes``."""
+    return tuple(int(c) for c in np.unravel_index(rank, sizes)) if sizes else ()
+
+
+def _axis_groups(names: List[str], sizes: List[int], rank: int, group: Any) -> Dict[str, Any]:
+    """One subgroup per fiber of each axis of more than one process and
+    fewer than all. ``dist.new_group`` is collective: every process makes
+    every group, in the same order, and keeps the one it belongs to."""
+    world = int(np.prod(sizes))
+    members = dist.get_process_group_ranks(group)  # group rank -> global rank
+    out: Dict[str, Any] = {}
+    for a, name in enumerate(names):
+        if sizes[a] == 1:
+            continue
+        if sizes[a] == world:
+            out[name] = group
+            continue
+        others = [range(s) for i, s in enumerate(sizes) if i != a]
+        for rest in itertools.product(*others):
+            ranks = []
+            for k in range(sizes[a]):
+                coord = list(rest)
+                coord.insert(a, k)
+                ranks.append(members[int(np.ravel_multi_index(coord, sizes))])
+            sub = dist.new_group(ranks)
+            if members[rank] in ranks:
+                out[name] = sub
+    return out
+
 
 def make_mesh(axes: Optional[Dict[str, int]] = None, group: Any = None) -> Mesh:
-    """The ``dp`` mesh over the process group (the default group when one
-    is initialized, else a single process). ``axes`` maps axis name ->
-    size; ``-1`` means "every process"; the sizes must multiply to the
-    world size, as the JAX package's must to the device count."""
+    """The mesh over the process group (the default group when one is
+    initialized, else a single process). ``axes`` maps ``dp`` and ``sp`` to
+    their sizes, major to minor (default: every process on ``dp``); ``-1``
+    for at most one axis means "the remaining processes"; the sizes must
+    multiply to the world size, as the JAX package's must to the device
+    count. On one process, with no group, any of ``dp`` and ``sp`` of size
+    1 is a valid mesh."""
     if dist.is_initialized():
         world = dist.get_world_size(group)
         rank = dist.get_rank(group)
@@ -44,17 +110,26 @@ def make_mesh(axes: Optional[Dict[str, int]] = None, group: Any = None) -> Mesh:
     if axes is None:
         axes = {"dp": world}
     names = list(axes)
-    if names != ["dp"]:
+    refused = [n for n in names if n not in AXES]
+    if refused:
         raise NotImplementedError(
-            f"mesh axes {names}: the port runs the 'dp' axis only; tensor, "
-            "pipeline and expert parallelism are not ported yet"
+            f"mesh axes {refused}: the port runs the 'dp' and 'sp' axes only; "
+            "tensor, pipeline and expert parallelism wait for ROADMAP Queue A item 7"
         )
-    size = int(axes["dp"])
-    if size == -1:
-        size = world
-    if size != world:
-        raise ValueError(f"Mesh axes {{'dp': {size}}} need {size} processes, have {world}")
-    return Mesh({"dp": size}, rank=rank, group=group)
+    sizes = [int(axes[n]) for n in names]
+    if sizes.count(-1) > 1:
+        raise ValueError("At most one axis may be -1")
+    if -1 in sizes:
+        known = int(np.prod([s for s in sizes if s != -1])) or 1
+        if world % known:
+            raise ValueError(f"Cannot infer -1 axis: {world} processes not divisible by {known}")
+        sizes[sizes.index(-1)] = world // known
+    if any(s < 1 for s in sizes) or int(np.prod(sizes)) != world:
+        raise ValueError(
+            f"Mesh axes {dict(zip(names, sizes))} need {int(np.prod(sizes))} processes, have {world}"
+        )
+    groups = _axis_groups(names, sizes, rank, group) if group is not None else {}
+    return Mesh(dict(zip(names, sizes)), rank=rank, group=group, axis_groups=groups)
 
 
 def pad_batch_to_multiple(

@@ -140,12 +140,16 @@ class Executor:
         fn: Callable[[int, Any], Any],
         partitions: Sequence[Any],
         count_rows: Optional[Callable[[Any], int]] = None,
+        sequential: bool = False,
     ) -> List[Any]:
-        """Run ``fn(index, partition)`` over all partitions; ordered results."""
+        """Run ``fn(index, partition)`` over all partitions; ordered results.
+        ``sequential``: run them one after another in index order, on this
+        thread (a plan whose model pairs its batches with other processes'
+        by order: ``DataFrame.withColumnPartition(..., serial=True)``)."""
         metrics = TaskMetrics(num_partitions=len(partitions))
         t0 = time.perf_counter()
         results: List[Any] = [None] * len(partitions)
-        sequential = len(partitions) <= 1 or self.max_workers == 1
+        sequential = sequential or len(partitions) <= 1 or self.max_workers == 1
         concurrency = 1 if sequential else min(self.max_workers, len(partitions))
 
         def run_one(i: int, part: Any) -> Any:

@@ -9,7 +9,10 @@ must notice that it went quiet. The data plane is files:
   payload: pid, beat count, wall time, ``done``, the gang ``generation``
   and a compact obs status (the rank's open spans and top counters,
   ``obs/spans.compact_status``), so a reader sees what a rank was doing
-  when it went quiet;
+  when it went quiet, and drops its full obs snapshot as
+  ``<dir>/obs.rank.<rank>.json`` at most once per ``SPARKDL_OBS_SNAP_S``
+  (default 30 s; ``obs/aggregate.maybe_write_rank_snapshot``) for the
+  cross-rank merge and straggler tools;
 - the supervisor (``resilience/supervisor.py``) polls :func:`stale_ranks`,
   and an operator runs the CLI: ``python -m
   sparkdl_tpu_torch.runtime.heartbeat --dir D --num-ranks N
@@ -22,8 +25,7 @@ its final ``obs.rank.<r>.json`` beside the beat, and the CLI's ``--obs``
 adds the cross-rank stage comparison of those drops
 (``stage_divergence``, ``obs/aggregate.straggler_summary``). The files
 keep the JAX package's names and format, so either package's reader
-judges the other's writers. Not ported: the periodic snapshot beside the
-beat (ROADMAP Queue A item 8).
+judges the other's writers.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ import os
 import threading
 import time
 from typing import List, Optional
+
+from sparkdl_tpu_torch.obs.aggregate import maybe_write_rank_snapshot
 
 
 def _hb_path(directory: str, rank: int) -> str:
@@ -89,6 +93,11 @@ class Heartbeat:
             )
         os.replace(tmp, path)
         self._beats += 1
+        # the periodic full-snapshot drop beside the beat (time-gated;
+        # `done` forces a final one; it never raises), so a wedged rank's
+        # last ring buffer is on disk before anything has to attach to a
+        # dead process
+        maybe_write_rank_snapshot(self.directory, self.rank, force=done)
 
     def _run(self) -> None:
         while not self._stop.is_set():
@@ -116,11 +125,10 @@ class Heartbeat:
             # snapshot are written; a broken obs layer must never mask
             # the worker's own exception
             try:
-                from sparkdl_tpu_torch.obs.aggregate import write_rank_snapshot
                 from sparkdl_tpu_torch.obs.export import dump_on_failure
 
                 dump_on_failure(f"gang_rank{self.rank}_{exc_type.__name__}")
-                write_rank_snapshot(self.directory, self.rank)
+                maybe_write_rank_snapshot(self.directory, self.rank, force=True)
             except Exception:
                 pass
         if exc_type is None:

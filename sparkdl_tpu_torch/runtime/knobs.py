@@ -132,8 +132,11 @@ _KNOBS: Dict[str, Tuple[str, Optional[str]]] = {
     "SPARKDL_OBS_JSONL": ("str", None),
     "SPARKDL_OBS_RANK": ("int", None),
     "SPARKDL_OBS_DUMP_DIR": ("str", None),
-    # obs/aggregate.py: the straggler test (slowest vs median p95 factor,
-    # and the absolute gap also required)
+    # obs/aggregate.py: the least seconds between a rank's periodic
+    # snapshot drops (0: off; exit drops are still forced), and the
+    # straggler test (slowest vs median p95 factor, and the absolute gap
+    # also required)
+    "SPARKDL_OBS_SNAP_S": ("float", "30"),
     "SPARKDL_OBS_STRAGGLER_X": ("float", "1.5"),
     "SPARKDL_OBS_STRAGGLER_MIN_S": ("float", "0.1"),
     # obs/serve.py: the pull exporter's port (rank r binds port + r;

@@ -7,8 +7,8 @@ or a DDL string as the schema), ``sql``/``table`` over the default SQL
 context, ``spark.udf.register`` for row-wise Python UDFs, ``spark.read``
 and ``df.write`` (Parquet on the port's own reader and writer, CSV, JSON
 lines and text), ``spark.range``, ``spark.catalog`` over the registered
-views, ``spark.conf`` and ``stop``. A pandas frame in ``createDataFrame``
-waits for ROADMAP Queue A item 8.
+views, ``spark.conf`` and ``stop``. ``createDataFrame`` also takes a pandas
+DataFrame, spotted by its type's module, so no other input imports pandas.
 
     spark = SparkSession.builder.appName("scoring").getOrCreate()
     registerKerasImageUDF("mnv2", "MobileNetV2")
@@ -245,11 +245,13 @@ class SparkSession:
     def createDataFrame(self, data, schema=None) -> DataFrame:
         """A list of dicts (the union of their keys), a list of tuples with
         a list of column names or a DDL string (``"id long, name
-        string"``, types ignored) as ``schema``, or a column dict."""
+        string"``, types ignored) as ``schema``, a column dict, or a pandas
+        DataFrame (its columns' cells as they are)."""
         if type(data).__module__.split(".")[0] == "pandas":
-            from sparkdl_tpu_torch.sql import UnsupportedSQL
+            import pandas as pd
 
-            raise UnsupportedSQL("createDataFrame from a pandas frame")
+            if isinstance(data, pd.DataFrame):
+                return DataFrame.fromColumns({c: list(data[c]) for c in data.columns})
         if isinstance(data, dict):
             return DataFrame.fromColumns(data)
         rows = list(data)

@@ -72,8 +72,9 @@ whole partition; ROWS frames are physical, RANGE frames take one ORDER BY
 key; nulls sort first ascending and ties are peers. A generator is a
 top-level select item, one per select and never beside a window; LATERAL
 VIEW expands the FROM frame before WHERE, left to right.
-:class:`UnsupportedSQL` (a ValueError naming ROADMAP Queue A item 8) is
-what the rest of the port raises for the JAX dialect's pandas surfaces.
+:class:`UnsupportedSQL` (a ValueError naming ROADMAP Queue A item 8)
+stays exported for code that catches it; since the pandas surfaces were
+ported, nothing raises it.
 A view registered by ``createGlobalTempView`` is the table
 ``global_temp.<name>``: an identifier may hold dots.
 
@@ -129,7 +130,10 @@ _ITEM8 = "ROADMAP Queue A item 8"
 
 
 class UnsupportedSQL(ValueError):
-    """A construct of the JAX package's dialect that the port lacks."""
+    """A construct of the JAX package's dialect that the port lacks. Kept
+    for user code that catches it: the port now has every construct it
+    once refused (the pandas surfaces were the last), so nothing raises
+    it."""
 
     def __init__(self, construct: str):
         super().__init__(

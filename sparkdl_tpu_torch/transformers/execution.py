@@ -76,7 +76,9 @@ def model_device_fn(model_function):
     the CPU), ``stage_put`` (the transfer half, ``runtime/transfer.py``),
     ``launcher`` (the device's :class:`~sparkdl_tpu_torch.runtime.device.Launcher`,
     on whose thread the feeder issues every call; None on the CPU),
-    ``n_devices = batch_multiplier = 1`` and ``single_stream = False``.
+    ``n_devices = batch_multiplier = 1`` and ``single_stream``, carried
+    from the ModelFunction (a sequence-parallel model runs each batch on
+    its whole mesh axis: no length bucketing, no shared feeder).
     """
     mf = model_function
     device = torch.device(mf.device if mf.device is not None else "cpu")
@@ -124,7 +126,7 @@ def model_device_fn(model_function):
     fn.launcher = launcher(device) if on_cuda else None
     fn.n_devices = 1
     fn.batch_multiplier = 1
-    fn.single_stream = False
+    fn.single_stream = bool(getattr(mf, "single_stream", False))
     return fn
 
 

@@ -102,7 +102,9 @@ class ModelTransformer(
             )
             return {out_col: outputs}
 
-        return dataset.withColumnPartition(out_col, run_partition)
+        return dataset.withColumnPartition(
+            out_col, run_partition, serial=device_fn.single_stream
+        )
 
 
 class KerasTransformer(ModelTransformer):

@@ -135,7 +135,9 @@ class TextEmbedder(
         tok = self._tokenizer()
         batch_size = self.getBatchSize()
 
-        if bucketing_enabled():
+        if bucketing_enabled() and not getattr(device_fn, "single_stream", False):
+            # single_stream fns keep the fixed geometry: their sequence
+            # sharding was built for exactly max_len
 
             def run_partition_bucketed(part):
                 return {
@@ -168,4 +170,6 @@ class TextEmbedder(
             )
             return {out_col: outputs}
 
-        return dataset.withColumnPartition(out_col, run_partition)
+        return dataset.withColumnPartition(
+            out_col, run_partition, serial=device_fn.single_stream
+        )

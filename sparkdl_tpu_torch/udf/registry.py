@@ -44,6 +44,9 @@ class RegisteredUDF:
     #: the same contract, dispatched through ``run_batched_shared``; None
     #: for plain Python UDFs, which always run ``partition_fn``
     batch_fn: Optional[Callable[[list], list]] = None
+    #: the model is ``single_stream``: its column runs the partitions one
+    #: at a time, in index order (``DataFrame.withColumnPartition``)
+    single_stream: bool = False
 
     @property
     def vectorized(self) -> bool:
@@ -86,9 +89,10 @@ def register(
     partition_fn: Callable[[list], list],
     doc: str = "",
     batch_fn: Optional[Callable[[list], list]] = None,
+    single_stream: bool = False,
 ) -> None:
     with _lock:
-        _registry[name] = RegisteredUDF(name, partition_fn, doc, batch_fn)
+        _registry[name] = RegisteredUDF(name, partition_fn, doc, batch_fn, single_stream)
 
 
 def unregister(name: str) -> None:
@@ -125,7 +129,7 @@ def apply_udf(
     def op(part):
         return {outputCol: fn(part[inputCol])}
 
-    return dataset.withColumnPartition(outputCol, op)
+    return dataset.withColumnPartition(outputCol, op, serial=udf.single_stream)
 
 
 #: ``callUDF(name, df, ...)``, as spark.sql's callUDF reads
@@ -153,7 +157,10 @@ def _register_model(udfName, device_fn, to_batch, batch_size, doc) -> None:
             cells, to_batch=to_batch, device_fn=counted, batch_size=batch_size
         )
 
-    register(udfName, partition_fn, doc=doc, batch_fn=batch_fn)
+    register(
+        udfName, partition_fn, doc=doc, batch_fn=batch_fn,
+        single_stream=device_fn.single_stream,
+    )
 
 
 def _on_device(model_function, device) -> torch.device:

@@ -295,9 +295,9 @@ def test_python_udf_equals_the_jax_package(frames):
 
 
 def test_what_stays_refused(frames):
-    """``F.pandas_udf`` alone still raises UnsupportedSQL naming ROADMAP
-    Queue A item 8. ``Column.over`` and the window, generator and
-    partition-seeded functions it refused until they were ported (the test
+    """Nothing of the Column API is refused any more. ``F.pandas_udf``,
+    ``Column.over`` and the window, generator and partition-seeded
+    functions it refused until they were ported (the test
     keeps its name) now build what the JAX package's build, or fail as
     they fail."""
     ours, _ = frames
@@ -312,8 +312,14 @@ def test_what_stays_refused(frames):
     for name in ("row_number", "lag", "explode", "stack", "json_tuple", "rand",
                  "monotonically_increasing_id"):
         assert built(lambda: getattr(F, name)("n")) == built(lambda: getattr(JF, name)("n")), name
-    with pytest.raises(UnsupportedSQL, match="F.pandas_udf .*ROADMAP Queue A item 8"):
-        F.pandas_udf("n")
+    # F.pandas_udf, refused here until it was ported: a non-callable first
+    # argument makes the decorator form in both packages, and the UDF over
+    # the frame gives the JAX package's rows
+    assert built(lambda: F.pandas_udf("n")) == built(lambda: JF.pandas_udf("n"))
+    _, ref = frames
+    twice = lambda pd_mod: pd_mod.pandas_udf(lambda s: s.map(lambda v: None if v is None else 2 * v))  # noqa: E731
+    assert rows(ours.select("id", twice(F)("n").alias("d"))) == rows(ref.select("id", twice(JF)("n").alias("d")))
+    assert issubclass(UnsupportedSQL, ValueError)  # still exported for code that catches it
     with pytest.raises(AttributeError):
         F.no_such_function
     with pytest.raises(TypeError, match="Cannot convert a Column to bool"):

@@ -20,8 +20,8 @@ Rows compare exactly (NaN equal to NaN) and in order: the JAX package
 fixes every order here (groups in first-appearance order, joins left-major,
 set operations in first-occurrence order), except a discovered pivot's
 columns, which both sort. A call the JAX package refuses, the port refuses
-with the same error. What stays refused (the pandas surfaces) raises
-``UnsupportedSQL`` naming ROADMAP Queue A item 8.
+with the same error. Nothing stays refused: the pandas surfaces give the
+JAX package's rows too.
 """
 
 import datetime
@@ -37,7 +37,7 @@ from sparkdl_tpu.sql import SQLContext as JaxSQLContext
 from sparkdl_tpu_torch import functions as F
 from sparkdl_tpu_torch.dataframe import DataFrame
 from sparkdl_tpu_torch.dataframe import frame as port_frame
-from sparkdl_tpu_torch.sql import SQLContext, UnsupportedSQL
+from sparkdl_tpu_torch.sql import SQLContext
 
 NAN = float("nan")
 
@@ -362,20 +362,23 @@ def test_sql_and_column_surfaces_agree(sides, text, build):
 
 
 def test_what_stays_refused_on_the_frame(sides):
-    """The pandas surfaces still name ROADMAP Queue A item 8. The
-    statistics methods, refused here until they were ported (the test keeps
-    its name), and ``Column.over``, ``F.row_number``, ``F.explode`` and
-    ``F.rand`` now give the JAX package's rows or values (corr and cov
-    within 1e-12 relative), or fail as it fails."""
+    """Nothing of the frame is refused any more. The pandas surfaces and
+    the statistics methods, refused here until they were ported (the test
+    keeps its name), and ``Column.over``, ``F.row_number``, ``F.explode``
+    and ``F.rand`` now give the JAX package's rows or values (corr and cov
+    within 1e-12 relative, ``toPandas`` through ``assert_frame_equal``), or
+    fail as it fails."""
+    import pandas as pd
+
     ours, ref = sides
-    for call in (
-        lambda: ours.t.groupBy("k").applyInPandas(lambda p: p, "k string"),
-        lambda: ours.t.groupBy("k").cogroup(ours.t.groupBy("k")),
-        lambda: F.pandas_udf(lambda x: x),
-        lambda: ours.t.toPandas(),
+    pd.testing.assert_frame_equal(ours.t.toPandas(), ref.t.toPandas())
+    for build in (
+        lambda s: s.t.groupBy("k").applyInPandas(lambda p: p.head(1)[["k"]], "k string"),
+        lambda s: s.t.groupBy("k").cogroup(s.t.groupBy("k")).applyInPandas(
+            lambda a, b: pd.DataFrame({"n": [len(a) + len(b)]}), "n long"),
+        lambda s: s.t.select("k", s.F.pandas_udf(lambda x: x.str.upper())("k").alias("u")),
     ):
-        with pytest.raises(UnsupportedSQL, match="ROADMAP Queue A item 8"):
-            call()
+        same(sides, build)
     for build in (
         lambda s: s.t.describe(), lambda s: s.t.summary(), lambda s: s.t.crosstab("k", "s"),
         lambda s: s.t.freqItems(["k"]), lambda s: s.t.sampleBy("k", {"a": 0.5}, 3),

@@ -358,10 +358,12 @@ def test_read_json_unions_the_keys(sides, tmp_path):
 
 
 def test_the_pandas_surfaces_stay_refused(sides):
-    from sparkdl_tpu_torch.sql import UnsupportedSQL
+    """Refused until they were ported (the test keeps its name): ``toPandas``
+    and ``mapInPandas`` now give the JAX package's frame and rows, nullable
+    ints, bools, strings and a tensor column included."""
+    import pandas as pd
 
-    ours, _ = sides
-    with pytest.raises(UnsupportedSQL, match="toPandas.*ROADMAP Queue A item 8"):
-        ours.df.toPandas()
-    with pytest.raises(UnsupportedSQL, match="mapInPandas.*ROADMAP Queue A item 8"):
-        ours.df.mapInPandas(lambda it: it, "id long")
+    ours, ref = sides
+    pd.testing.assert_frame_equal(ours.df.toPandas(), ref.df.toPandas())
+    same(sides, lambda s: s.df.mapInPandas(lambda it: it, "id long, i long, f double, s string, flag boolean, vec"))
+    same(sides, lambda s: s.df.mapInPandas(lambda it: (p[p["id"] % 2 == 0][["id", "s"]] for p in it), "id, s"))

@@ -1,9 +1,10 @@
 """The port stands alone: no module of ``sparkdl_tpu_torch`` and not
 ``chip_smoke.py`` (nor the fixture writers it imports, nor
 ``tools/torch_text_ab.py``) imports jax, flax, keras, tensorflow, h5py, pyarrow, pandas, orbax,
-tensorstore, zstandard, ml_dtypes or the JAX package, the frame's and the session's file, statistics and
-catalog paths load neither pandas nor pyarrow when they run, and an entry point left at its default device
-refuses to run without CUDA."""
+tensorstore, zstandard, ml_dtypes or the JAX package, save pandas inside the functions of the pandas
+surfaces (``functions.py``, ``dataframe/frame.py``, ``session.py``) and never at module level; the frame's
+and the session's file, statistics and catalog paths load neither pandas nor pyarrow when they run, and an
+entry point left at its default device refuses to run without CUDA."""
 
 import ast
 import os
@@ -31,15 +32,32 @@ def _port_files():
     return files
 
 
-def _imported_roots(path):
+#: the port files that may import pandas inside a function (the pandas
+#: surfaces), and never at module level
+PANDAS_LOCAL = {os.path.join("sparkdl_tpu_torch", p) for p in ("functions.py", "dataframe/frame.py", "session.py")}
+
+
+def _imports(path):
+    """(root module, inside a function) of every absolute import in ``path``."""
     with open(path) as f:
         tree = ast.parse(f.read(), path)
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            for alias in node.names:
-                yield alias.name.split(".")[0]
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module.split(".")[0]
+
+    def visit(node, local):
+        for child in ast.iter_child_nodes(node):
+            inner = local or isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda))
+            if isinstance(child, ast.Import):
+                for alias in child.names:
+                    yield alias.name.split(".")[0], inner
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                yield child.module.split(".")[0], inner
+            yield from visit(child, inner)
+
+    yield from visit(tree, False)
+
+
+def _imported_roots(path):
+    for root, _local in _imports(path):
+        yield root
 
 
 def test_no_port_file_imports_jax_flax_or_the_jax_package():
@@ -60,12 +78,28 @@ def test_no_port_file_imports_jax_flax_or_the_jax_package():
     offenders = {
         (os.path.relpath(path, REPO), root)
         for path in files
-        for root in _imported_roots(path)
+        for root, local in _imports(path)
         if root in FORBIDDEN
+        and not (root == "pandas" and local and os.path.relpath(path, REPO) in PANDAS_LOCAL)
     }
     assert not offenders
     # the check tells the JAX package from the port's own prefix
     assert "sparkdl_tpu_torch" not in FORBIDDEN
+
+
+def test_no_port_file_imports_pandas_at_module_level():
+    """pandas stands only inside the functions of the pandas surfaces: each
+    of those files imports it there, and no port file does at module
+    level, so importing the port needs no pandas."""
+    module_level = {
+        os.path.relpath(path, REPO)
+        for path in _port_files()
+        for root, local in _imports(path)
+        if root == "pandas" and not local
+    }
+    assert not module_level
+    for rel in PANDAS_LOCAL:
+        assert ("pandas", True) in set(_imports(os.path.join(REPO, rel))), rel
 
 
 def test_importing_every_port_module_loads_no_jax():

@@ -95,12 +95,14 @@ def test_create_data_frame_takes_ddl_schemas(sessions, name):
 
 
 def test_a_pandas_frame_stays_refused(sessions):
+    """Refused until it was ported (the test keeps its name): a pandas frame
+    in ``createDataFrame`` gives the JAX package's rows, and a pandas
+    Series still fails as it fails there."""
     import pandas as pd
 
-    ours, ref = sessions
-    with pytest.raises(UnsupportedSQL, match="pandas frame.*ROADMAP Queue A item 8"):
-        ours.createDataFrame(pd.DataFrame({"x": [1, 2]}))
-    assert ref.createDataFrame(pd.DataFrame({"x": [1, 2]})).count() == 2
+    same(sessions, lambda s: s.createDataFrame(pd.DataFrame({"x": [1, 2], "s": ["a", None], "f": [0.5, None]})))
+    same(sessions, lambda s: s.createDataFrame(pd.Series([1, 2])))
+    assert issubclass(UnsupportedSQL, ValueError)
 
 
 RANGES = [(4,), (2, 9, 3), (10,), (5, 0, -2), (0,), (3, 3)]

@@ -267,12 +267,19 @@ def test_refused_window_queries_fail_as_the_jax_package_fails(contexts, query, m
 
 
 def test_a_window_names_no_roadmap_item(contexts):
-    """OVER no longer waits for ROADMAP Queue A item 8; only pandas does."""
-    ours, _ = contexts
+    """OVER no longer waits for ROADMAP Queue A item 8, and neither does
+    pandas: a pandas UDF beside a window gives the JAX package's rows."""
+    ours, ref = contexts
     out = ours.sql("SELECT id, row_number() OVER (ORDER BY id) AS r FROM t")
     assert [r["r"] for r in out.collect()] == list(range(1, 15))
-    with pytest.raises(UnsupportedSQL, match="ROADMAP Queue A item 8"):
-        F.pandas_udf(lambda x: x)
+
+    def windowed(ctx, fmod, window):
+        plus = fmod.pandas_udf(lambda s: s.map(lambda v: None if v is None else v + 1))
+        return ctx.sql("SELECT id FROM t").select(
+            "id", plus("id").alias("p"), fmod.row_number().over(window.orderBy("id")).alias("r"))
+
+    assert rows(windowed(ours, F, Window)) == rows(windowed(ref, JF, JaxWindow))
+    assert issubclass(UnsupportedSQL, ValueError)
 
 
 def test_window_ties_and_frames_by_hand(contexts):
