@@ -621,6 +621,38 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     inside ``counted_profile``; ``TextEmbedder`` over the ring model and
     phase 4's 512 texts: no bucketing, ceil(rows / 32) batches per
     partition, rows equal to the direct calls (1e-4), rows/s. About 40 s.
+28. tensor, pipeline and expert parallelism and gradients through
+    sequence parallelism, each over a mesh axis of one process (one H100
+    is one rank: NCCL refuses two ranks on one GPU; world sizes 2 and 4 run
+    in the CPU tests over gloo). (a) ``tp_block_sharded`` over
+    ``{"tp": 1}`` and ``{"dp": 1, "tp": 1}`` (``dp_axis="dp"``):
+    bert-base's layer-0 FFN from ``--seed`` (768->3072->768, biases,
+    BERT's GELU), x [16384, 768], f32 and bf16, the output and the grads
+    of x, w1, w2, b1 and b2 within f32 1e-4 / bf16 3e-2 of the tensor's
+    max of the plain two products; ms per call forward and
+    forward+backward, the plain products' beside them. (b)
+    ``pipeline_apply`` over ``{"pp": 1}``, one stage of bert-base's 12
+    ``BertLayer``s over ``make_flash_attention_fn()``, no padding mask,
+    x [32, 512, 768], 4 microbatches, f32 and bf16: equal to the layers
+    called directly (f32 1e-4, bf16 3e-2), exactly 12 x 4 flash launches
+    per call counted and recorded by torch.profiler inside
+    ``counted_profile``; then ``backward()`` through the dense-attention
+    build of the same layers, f32, the stage parameters' and x's grads
+    within 1e-4 of the layers' own (relative to the largest); ms per
+    call. (c) ``moe_apply`` over ``{"ep": 1}``: 8 experts of bert-base
+    FFN width from ``--seed``, 8192 tokens of width 768, f32,
+    ``capacity_factor`` 2.0 (C = 2048) within 1e-4 (relative) of a
+    per-token oracle (each token through its routed expert times its
+    gate); ``capacity`` 256: every dropped token exactly 0, their count
+    printed, the kept ones on the oracle; ``backward()`` gives a finite,
+    non-zero router gradient; ms per call. (d)
+    ``bert_model_function_sequence_parallel`` (bert-base, f32, B=8,
+    L=512) over ``{"sp": 1}``, ring and Ulysses with the dense inner:
+    the gradients of every parameter of a weighted sum of the pooled
+    embeddings within 1e-4 (relative to the largest) of the dense build's
+    on the same seeded weights; the Ulysses-over-flash model's backward
+    raises (the kernel has no backward); ms per forward+backward. About
+    30 s.
 
 The line before the last is the ``kernels`` JSON record (the f32 and the
 bf16 kernel at bert-base L=512, launches from each dtype's main-path run,
@@ -629,9 +661,10 @@ phase 22(a)'s loaded program (bf16) and 22(c)'s and 22(e)'s orbax models
 (f32), ``launches_phase23``, phase 23(b)'s bert-base pass (f32), and
 ``launches_phase24``, phase 24(a)'s (f32), ``launches_phase25``, phase
 25(a)'s TextEmbedder and UDF dispatches (f32), ``launches_phase26``,
-phase 26(a)'s and 26(e)'s (f32), and ``launches_phase27``, phase 27(a)'s
+phase 26(a)'s and 26(e)'s (f32), ``launches_phase27``, phase 27(a)'s
 TextEmbedder (f32) and 27(c)'s Ulysses models over the flash kernel (f32
-and bf16)); the last line is ``{"ok":
+and bf16), and ``launches_phase28``, phase 28(b)'s pipeline calls (f32 and
+bf16)); the last line is ``{"ok":
 true, "device": {...}}``. Phase 17's first check names each leak record
 (model, bytes) from an events log (``SPARKDL_OBS_JSONL``) armed before
 phase 11, which does not roll over as the ledger's ring does.
@@ -689,7 +722,7 @@ from sparkdl_tpu_torch.models.convert import bert_params_to_flax, cnn_params_to_
 from sparkdl_tpu_torch.models.keras_weights import load_keras_weights
 from sparkdl_tpu_torch.models.layers import init_cnn_params
 from sparkdl_tpu_torch.models.registry import (
-    BERT_CONFIGS, NamedTextModel, _bert_text_builder, register_model, save_flax_weights,
+    BERT_CONFIGS, NamedTextModel, _bert_encoder, _bert_text_builder, register_model, save_flax_weights,
 )
 from sparkdl_tpu_torch.models.resnet import ResNet50
 from sparkdl_tpu_torch.ops.flash_attention import (
@@ -966,6 +999,19 @@ S_BEAT_RUN_S = 4.5  # embed passes under the heartbeat until this much has passe
 S_BEAT_TEXTS = 64
 S_DROPS = (4, 8)  # the drops that run makes, the forced exit drop included
 S_ITERS = 5
+# phase 28: tensor, pipeline and expert parallelism, gradients through sequence parallelism
+M_TEXT_MODEL = "bert-base"
+M_TP_ROWS = 16384  # B=32 x L=512 tokens through layer 0's FFN
+M_BATCH = 32
+M_MAX_LENGTH = 512
+M_MICRO = 4  # the pipeline's microbatches
+M_EXPERTS = 8
+M_EP_TOKENS = 8192
+M_EP_FACTOR = 2.0  # capacity_factor: C = 8192 / 8 * 2 = 2048
+M_EP_DROP_CAPACITY = 256
+M_SP_BATCH = 8
+M_INIT_STD = 0.02  # BERT's init, for the router and the experts
+M_REL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # of the reference tensor's max |value|
 
 DISPATCH_CALLS = 2000
 DISPATCH_ROUNDS = 5
@@ -6533,6 +6579,288 @@ def phase_sequence_parallel(seed: int, device_name: str, tmp: str, device="cuda"
     return launches
 
 
+class _LayerStack(torch.nn.Module):
+    """A pipeline stage: BERT layers in turn, without a padding mask."""
+
+    def __init__(self, layers):
+        super().__init__()
+        self.layers = layers
+
+    def forward(self, h):
+        for layer in self.layers:
+            h = layer(h, None)
+        return h
+
+
+def _rel(got, ref) -> float:
+    """max |got - ref| over max |ref|, over tensors or lists of tensors."""
+    pairs = list(zip(got, ref)) if isinstance(got, (list, tuple)) else [(got, ref)]
+    err = max(float((g.detach().float() - r.detach().float()).abs().max()) for g, r in pairs)
+    return err / max(max(float(r.detach().float().abs().max()) for _, r in pairs), 1e-30)
+
+
+def phase_model_parallel(seed: int, device_name: str, device="cuda") -> dict:
+    """Phase 28: tensor, pipeline and expert parallelism at bert-base width,
+    and gradients through sequence parallelism, over mesh axes of one
+    process (one H100 is one rank; ``device="cpu"``: a rehearsal, with the
+    sizes cut by the caller). Returns the flash launches of 28(b)'s
+    pipeline calls, by dtype."""
+    from torch.func import functional_call
+
+    from sparkdl_tpu_torch.models import bert_model_function_sequence_parallel
+    from sparkdl_tpu_torch.models.bert import dense_attention
+    from sparkdl_tpu_torch.ops.flash_attention import make_flash_attention_fn
+    from sparkdl_tpu_torch.parallel import moe_apply, pipeline_apply, stack_stage_params, tp_block_sharded
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    card = f"{device_name} ({_smi()})" if on_card else device_name
+    spec = get_model(M_TEXT_MODEL)
+    config = BERT_CONFIGS[spec.size]
+    width, layers = config.hidden_size, config.num_layers
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    def gelu(h):
+        return F.gelu(h, approximate="none")  # BERT's
+
+    dtypes = (torch.float32, torch.bfloat16)
+    launches = dict.fromkeys(dtypes, 0)
+    # (a) tensor parallelism: layer 0's FFN, 16384 tokens
+    enc = _bert_encoder(config, dense_attention, seed, None, device)
+    ffn = enc.layers[0]
+    weights = [t.detach() for t in (ffn.intermediate.weight.t(), ffn.mlp_output.weight.t(),
+                                    ffn.intermediate.bias, ffn.mlp_output.bias)]
+    del enc, ffn
+    x0, gy0 = randn(M_TP_ROWS, width), randn(M_TP_ROWS, width)
+    tp_lines = []
+    for dtype in dtypes:
+        tag = str(dtype)[6:]
+        w1, w2, b1, b2 = (t.to(dtype).contiguous() for t in weights)
+        x, gy = x0.to(dtype), gy0.to(dtype)
+
+        def plain(x_, w1_, w2_, b1_, b2_):
+            return gelu(x_ @ w1_ + b1_) @ w2_ + b2_
+
+        leaves = [t.clone().requires_grad_(True) for t in (x, w1, w2, b1, b2)]
+        ref = plain(*leaves)
+        ref_grads = torch.autograd.grad(ref, leaves, gy)
+        plain_ms = (_call_ms(lambda: plain(x, w1, w2, b1, b2), on_card),
+                    _call_ms(lambda: torch.autograd.grad(plain(*leaves), leaves, gy), on_card))
+        for name, axes, dp_axis in (("tp", {"tp": 1}, None), ("dp x tp", {"dp": 1, "tp": 1}, "dp")):
+            mesh = make_mesh(axes)
+
+            def block(x_, w1_, w2_, b1_, b2_):
+                return tp_block_sharded(x_, w1_, w2_, mesh, activation=gelu, b1=b1_, b2=b2_, dp_axis=dp_axis)
+
+            out = block(*leaves)
+            grads = torch.autograd.grad(out, leaves, gy)
+            sync()
+            errs = [_rel(out, ref)] + [_rel(g, r) for g, r in zip(grads, ref_grads)]
+            check(tuple(out.shape) == (M_TP_ROWS, width) and bool(torch.isfinite(out).all()),
+                  f"tensor parallel (28a) {name} {tag}: not a finite [{M_TP_ROWS}, {width}] output")
+            check(max(errs) <= M_REL[dtype],
+                  f"tensor parallel (28a) {name} {tag}: relative errors (out, dx, dw1, dw2, db1, db2) "
+                  f"{['%.3e' % e for e in errs]} against the plain products, limit {M_REL[dtype]}")
+            fwd = _call_ms(lambda: block(x, w1, w2, b1, b2), on_card)
+            both = _call_ms(lambda: torch.autograd.grad(block(*leaves), leaves, gy), on_card)
+            tp_lines.append(f"{name} {tag} worst relative error {max(errs):.3e} (limit {M_REL[dtype]}), "
+                            f"{_fmt(fwd)} ms forward, {_fmt(both)} ms forward+backward (plain products "
+                            f"{_fmt(plain_ms[0])} / {_fmt(plain_ms[1])})")
+        del leaves, ref, ref_grads, out, grads
+    print(f"tensor parallel (28a) on {card}: tp_block_sharded over {M_TEXT_MODEL} layer 0's FFN ({width}->"
+          f"{config.intermediate_size}->{width}, biases, GELU), x [{M_TP_ROWS}, {width}], output and the grads of x, "
+          f"w1, w2, b1, b2 against the plain two products: " + "; ".join(tp_lines))
+    del x0, gy0, weights
+    # (b) pipeline parallelism: the 12 layers as one stage, over the flash kernel
+    pp = make_mesh({"pp": 1})
+    x0 = randn(M_BATCH, M_MAX_LENGTH, width)
+    calls = 1 + 2 + S_ITERS  # the checked call, time_ms's warm-up and its timed calls
+    pp_lines = []
+    for dtype in dtypes:
+        tag = str(dtype)[6:]
+        stack = _LayerStack(_bert_encoder(replace(config, dtype=dtype), make_flash_attention_fn(), seed, None,
+                                          device).layers)
+        stacked = stack_stage_params([{n: p.detach() for n, p in stack.named_parameters()}])
+
+        def stage(params, h, stack=stack):
+            return functional_call(stack, params, (h,))
+
+        x = x0.to(dtype)
+        with torch.no_grad():
+            direct = stack(x).float()
+            sync()
+            flash_attention.launches = 0
+            with (counted_profile() if on_card else nullcontext()) as prof:
+                out = pipeline_apply(stage, stacked, x, pp, n_microbatches=M_MICRO)
+            sync()
+            counted = flash_attention.launches
+            recorded = _flash_kernel_counts(prof)[dtype] if on_card else 0
+            want = layers * M_MICRO if on_card else 0
+            check(counted == want and recorded == counted,
+                  f"pipeline (28b) {tag}: {counted} flash launches counted, {recorded} recorded by the profiler for "
+                  f"one call (expected {want}: {layers} layers x {M_MICRO} microbatches)")
+            err = float((out.float() - direct).abs().max())
+            check(tuple(out.shape) == tuple(x.shape) and bool(torch.isfinite(out).all()) and err <= ATOL[dtype],
+                  f"pipeline (28b) {tag}: max |pipeline - direct layers| {err:.3e} > {ATOL[dtype]}, or not finite")
+            ms = _call_ms(lambda: pipeline_apply(stage, stacked, x, pp, n_microbatches=M_MICRO), on_card)
+            total = flash_attention.launches  # the checked call's and the timed calls'
+            check(total == want * calls if on_card else total == 0,
+                  f"pipeline (28b) {tag}: {total} flash launches for {calls} calls (expected {want * calls})")
+            launches[dtype] += total
+            direct_ms = _call_ms(lambda: stack(x), on_card)
+        pp_lines.append(f"{tag} max |pipeline - direct| {err:.3e} (atol {ATOL[dtype]}), {counted} flash launches "
+                        f"counted and {recorded} recorded per call, {_fmt(ms)} ms per call (the layers called "
+                        f"directly {_fmt(direct_ms)})")
+        del stack, stacked, out, direct
+        if on_card:
+            torch.cuda.empty_cache()
+    # backward through the dense-attention build of the same layers, f32
+    stack = _LayerStack(_bert_encoder(config, dense_attention, seed, None, device).layers)
+    names = [n for n, _ in stack.named_parameters()]
+    stacked = {n: t.requires_grad_(True) for n, t in
+               stack_stage_params([{n: p.detach() for n, p in stack.named_parameters()}]).items()}
+
+    def dense_stage(params, h):
+        return functional_call(stack, params, (h,))
+
+    gy = randn(M_BATCH, M_MAX_LENGTH, width)
+    xg = x0.clone().requires_grad_(True)
+    leaves = [stacked[n] for n in names] + [xg]
+    got = torch.autograd.grad(pipeline_apply(dense_stage, stacked, xg, pp, n_microbatches=M_MICRO), leaves, gy)
+    ref_leaves = [p for _, p in stack.named_parameters()] + [x0.clone().requires_grad_(True)]
+    ref = torch.autograd.grad(stack(ref_leaves[-1]), ref_leaves, gy)
+    sync()
+    param_err, x_err = _rel([g[0] for g in got[:-1]], ref[:-1]), _rel(got[-1], ref[-1])
+    del got, ref
+    check(max(param_err, x_err) <= M_REL[torch.float32],
+          f"pipeline (28b) backward: relative errors {param_err:.3e} (every stage parameter) and {x_err:.3e} (x) "
+          f"against the layers' own gradients, limit {M_REL[torch.float32]}")
+    bwd_ms = _call_ms(lambda: torch.autograd.grad(
+        pipeline_apply(dense_stage, stacked, xg, pp, n_microbatches=M_MICRO), leaves, gy), on_card)
+    del stack, stacked, leaves, ref_leaves, xg, gy
+    if on_card:
+        torch.cuda.empty_cache()
+    print(f"pipeline (28b) on {card}: pipeline_apply over {{'pp': 1}}, one stage of {M_TEXT_MODEL}'s {layers} "
+          f"BertLayers over make_flash_attention_fn(), x [{M_BATCH}, {M_MAX_LENGTH}, {width}], {M_MICRO} "
+          f"microbatches, against the layers called directly: " + "; ".join(pp_lines)
+          + f"; backward through the dense-attention build, f32: relative errors {param_err:.3e} (stage parameters) "
+          f"and {x_err:.3e} (x), {_fmt(bwd_ms)} ms per forward+backward")
+    del x0
+    # (c) expert parallelism: 8 experts of bert-base FFN width, 8192 tokens
+    ep = make_mesh({"ep": 1})
+    d_ff, E, T = config.intermediate_size, M_EXPERTS, M_EP_TOKENS
+    router = randn(width, E, scale=M_INIT_STD)
+    experts = {"w1": randn(E, width, d_ff, scale=M_INIT_STD), "b1": randn(E, d_ff, scale=M_INIT_STD),
+               "w2": randn(E, d_ff, width, scale=M_INIT_STD), "b2": randn(E, width, scale=M_INIT_STD)}
+
+    def expert_fn(p, h):
+        return gelu(h @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+
+    x, gy = randn(T, width), randn(T, width)
+    capacity = max(1, math.ceil(T / E * M_EP_FACTOR))
+    with torch.no_grad():
+        probs = torch.softmax(x @ router, dim=-1)
+        chosen = probs.argmax(dim=-1)
+        counts = torch.bincount(chosen, minlength=E)
+        oracle = torch.zeros_like(x)
+        for e in range(E):
+            rows = chosen == e
+            oracle[rows] = probs[rows, e, None] * expert_fn({k: v[e] for k, v in experts.items()}, x[rows])
+        check(int(counts.max()) <= capacity, f"moe (28c): an expert got {int(counts.max())} tokens, past the "
+              f"capacity {capacity}, so the oracle without drops does not hold")
+        out = moe_apply(expert_fn, router, experts, x, ep, capacity_factor=M_EP_FACTOR)
+        sync()
+        err = _rel(out, oracle)
+        check(bool(torch.isfinite(out).all()) and err <= M_REL[torch.float32],
+              f"moe (28c): relative error {err:.3e} against the per-token oracle, limit {M_REL[torch.float32]}")
+        ms = _call_ms(lambda: moe_apply(expert_fn, router, experts, x, ep, capacity_factor=M_EP_FACTOR), on_card)
+        # capacity 256: each expert keeps its first 256 tokens in arrival order
+        small = moe_apply(expert_fn, router, experts, x, ep, capacity=M_EP_DROP_CAPACITY)
+        onehot = F.one_hot(chosen, E)
+        slot = ((torch.cumsum(onehot, dim=0) - 1) * onehot).sum(dim=-1)
+        dropped = slot >= M_EP_DROP_CAPACITY
+        n_dropped = int(dropped.sum())
+        check(n_dropped == T - int(torch.clamp(counts, max=M_EP_DROP_CAPACITY).sum()) and n_dropped > 0
+              and not bool(small[dropped].any()),
+              f"moe (28c): capacity {M_EP_DROP_CAPACITY}: {n_dropped} dropped tokens, not all exactly 0")
+        kept_err = _rel(small[~dropped], oracle[~dropped])
+        check(kept_err <= M_REL[torch.float32],
+              f"moe (28c): capacity {M_EP_DROP_CAPACITY}: the kept tokens off the oracle by {kept_err:.3e}")
+    router_leaf = router.clone().requires_grad_(True)
+    (g_router,) = torch.autograd.grad(moe_apply(expert_fn, router_leaf, experts, x, ep, capacity_factor=M_EP_FACTOR),
+                                      [router_leaf], gy)
+    check(bool(torch.isfinite(g_router).all()) and bool(g_router.abs().max() > 0),
+          "moe (28c): the router's gradient is not finite, or all 0")
+    both_ms = _call_ms(lambda: torch.autograd.grad(
+        moe_apply(expert_fn, router_leaf, experts, x, ep, capacity_factor=M_EP_FACTOR), [router_leaf], gy), on_card)
+    print(f"moe (28c) on {card}: moe_apply over {{'ep': 1}}, {E} experts of {M_TEXT_MODEL} FFN width ({width}->"
+          f"{d_ff}->{width}, GELU), {T} tokens, f32, capacity_factor {M_EP_FACTOR} (C = {capacity}): relative "
+          f"error {err:.3e} against the per-token oracle, tokens per expert {counts.tolist()}, {_fmt(ms)} ms per "
+          f"call, {_fmt(both_ms)} ms forward+backward (the router's grad max |g| {float(g_router.abs().max()):.3e}); "
+          f"capacity {M_EP_DROP_CAPACITY}: {n_dropped} tokens dropped, each exactly 0, the kept within "
+          f"{kept_err:.3e}")
+    del router, experts, x, gy, oracle, out, small, router_leaf, g_router
+    if on_card:
+        torch.cuda.empty_cache()
+    # (d) gradients through sequence-parallel bert-base
+    tok = HashingTokenizer(vocab_size=spec.vocab_size)
+    ids_np, _ = _udf_to_batch(tok, M_MAX_LENGTH)(_texts(seed, M_SP_BATCH))
+    ids = torch.from_numpy(ids_np).to(device)
+    attn = (ids != 0).to(torch.int32)
+    weight = torch.arange(M_SP_BATCH * width, dtype=torch.float32, device=device).reshape(M_SP_BATCH, width)
+    weight /= weight.numel()
+
+    def param_grads(mf):
+        named = {n: t.requires_grad_(True) for n, t in mf.named_params().items()}
+        out = mf.apply(named, (ids, attn))
+        return dict(zip(named, torch.autograd.grad((out * weight).sum(), list(named.values()))))
+
+    dense_mf = _bert_text_builder(spec.size, attention="dense")(
+        spec, mode="embed", dtype=torch.float32, seed=seed, params=None, device=device)
+    ref = param_grads(dense_mf)
+    sp = make_mesh({"sp": 1})
+    sp_lines = []
+    for strategy in ("ring", "ulysses"):
+        mf = bert_model_function_sequence_parallel(spec.size, mesh=sp, strategy=strategy, dtype=torch.float32,
+                                                   seed=seed, max_length=M_MAX_LENGTH, device=device)
+        got = param_grads(mf)
+        sync()
+        check(set(got) == set(ref), f"sequence parallel (28d) {strategy}: parameters {sorted(set(got) ^ set(ref))}")
+        err = _rel([got[n] for n in ref], list(ref.values()))
+        check(err <= M_REL[torch.float32],
+              f"sequence parallel (28d) {strategy}: parameter gradients off the dense build's by {err:.3e} "
+              f"relative, limit {M_REL[torch.float32]}")
+        ms = _call_ms(lambda: param_grads(mf), on_card)
+        sp_lines.append(f"{strategy} relative error {err:.3e}, {_fmt(ms)} ms forward+backward")
+        del mf, got
+    dense_ms = _call_ms(lambda: param_grads(dense_mf), on_card)
+    del dense_mf, ref
+    flash_mf = bert_model_function_sequence_parallel(spec.size, mesh=sp, strategy="ulysses", dtype=torch.float32,
+                                                     seed=seed, max_length=M_MAX_LENGTH, device=device,
+                                                     inner=make_flash_attention_fn())
+    raised = None
+    try:
+        param_grads(flash_mf)
+    except RuntimeError as e:  # the flash op's backward on CUDA
+        raised = str(e)
+    check((raised is not None and "no backward" in raised) if on_card else raised is None,
+          f"sequence parallel (28d): the Ulysses-over-flash model's backward on {device} raised {raised!r} "
+          "(expected: the kernel's 'no backward' on CUDA, the plain version's gradient on the CPU)")
+    del flash_mf
+    if on_card:
+        torch.cuda.empty_cache()
+    print(f"sequence parallel (28d) on {card}: {M_TEXT_MODEL} f32 B={M_SP_BATCH} L={M_MAX_LENGTH} over {{'sp': 1}}, "
+          f"the gradients of every parameter of a weighted sum of the pooled embeddings against the dense build's "
+          f"on the same seeded weights (limit {M_REL[torch.float32]}): " + "; ".join(sp_lines)
+          + f"; dense {_fmt(dense_ms)} ms forward+backward; the Ulysses-over-flash model's backward raised: "
+          f"{raised!r}")
+    return launches
+
+
 def _call_ms(fn, on_card: bool):
     """ms per call by CUDA events over S_ITERS calls (after two warm-up
     calls); None on the CPU."""
@@ -6659,6 +6987,10 @@ def main(argv=None) -> int:
     done("phase 27")
     for dtype, n in phase27.items():
         records[dtype]["launches_phase27"] = n
+    phase28 = phase_model_parallel(args.seed, device_name)
+    done("phase 28")
+    for dtype, n in phase28.items():
+        records[dtype]["launches_phase28"] = n
     records[torch.bfloat16]["launches_phase20"] = 0
     for dtype, n in phase22.items():
         records[dtype]["launches_phase22"] = n
@@ -6675,6 +7007,8 @@ def main(argv=None) -> int:
     print(f"flash launches in phase 26 (bert-base f32, 26(a)'s TextEmbedder and 26(e)'s UDF): {phase26}")
     print(f"flash launches in phase 27 (bert-base, 27(a)'s TextEmbedder f32 and 27(c)'s Ulysses models over the "
           f"flash kernel): f32 {phase27[torch.float32]}, bf16 {phase27[torch.bfloat16]}")
+    print(f"flash launches in phase 28 (28(b)'s pipeline over bert-base's 12 layers, {M_MICRO} microbatches a call): "
+          f"f32 {phase28[torch.float32]}, bf16 {phase28[torch.bfloat16]}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[torch.float32], records[torch.bfloat16]]}))
     print(json.dumps({

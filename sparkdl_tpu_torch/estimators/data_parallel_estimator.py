@@ -410,14 +410,13 @@ class DataParallelEstimator(Estimator, HasInputCol, HasOutputCol, HasLabelCol, H
             torch.optim.Adam, lr=self.getOrDefault("stepSize")
         )
         mesh = make_mesh(self.getOrDefault("meshAxes") if self.isDefined("meshAxes") else None)
-        if any(name != "dp" and size > 1 for name, size in mesh.axes.items()):
-            raise NotImplementedError(
-                f"mesh axes {mesh.axes}: the trainer shards batches over 'dp' only; "
-                "sequence-parallel training waits for ROADMAP Queue A item 7"
-            )
         n_dev = mesh.size
         rank = mesh.rank
         multiproc = n_dev > 1
+        # batches split over 'dp' (the step's axis, as the JAX estimator's
+        # step is built with axis="dp"); the processes of the other axes
+        # hold replicas of their dp shard
+        n_dp, dp_rank = mesh.axis_size("dp"), mesh.axis_index("dp")
         compute_dtype = (
             getattr(torch, self.getOrDefault("computeDtype"))
             if self.isDefined("computeDtype") else None
@@ -456,17 +455,17 @@ class DataParallelEstimator(Estimator, HasInputCol, HasOutputCol, HasLabelCol, H
         global_batch = max(self.getBatchSize(), pad_unit)
         if global_batch % pad_unit:
             global_batch += pad_unit - global_batch % pad_unit
-        per_rank_batch = global_batch // n_dev
+        per_rank_batch = global_batch // n_dp
         ckpt_every = self.getOrDefault("checkpointEvery")
         owned = (
-            distributed.partitions_for_host(dataset.numPartitions, rank, n_dev)
+            distributed.partitions_for_host(dataset.numPartitions, dp_rank, n_dp)
             if multiproc else list(range(dataset.numPartitions))
         )
         if streaming and multiproc:
             # lockstep step count = the heaviest rank's (every rank computes
             # it from the same metadata); lighter ranks pad masked steps
             rank_rows = [
-                sum(c for i, c in enumerate(part_counts) if i % n_dev == r) for r in range(n_dev)
+                sum(c for i, c in enumerate(part_counts) if i % n_dp == r) for r in range(n_dp)
             ]
             steps_per_epoch = max(-(-rr // per_rank_batch) for rr in rank_rows)
         else:
@@ -543,8 +542,8 @@ class DataParallelEstimator(Estimator, HasInputCol, HasOutputCol, HasLabelCol, H
                 for start in range(0, n, global_batch):
                     idx = order[start : start + global_batch]
                     (bx, by), mask = pad_batch_to_multiple((x[idx], y[idx]), pad_unit)
-                    local = bx.shape[0] // n_dev
-                    rows = slice(rank * local, (rank + 1) * local)
+                    local = bx.shape[0] // n_dp
+                    rows = slice(dp_rank * local, (dp_rank + 1) * local)
                     run_step(to_device(bx[rows], by[rows], mask[rows]))
             if not epoch_steps:
                 raise ValueError("No training data: every row was null or undecodable")

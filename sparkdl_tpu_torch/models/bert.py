@@ -247,12 +247,13 @@ class BertEncoder(nn.Module):
         attention_mask=None,
         token_type_ids=None,
         pooled: bool = False,
+        position_ids=None,
     ):
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
         additive = 1.0 - attention_mask[:, None, None, :].float()
         additive = additive * torch.finfo(torch.float32).min
-        x = self.embeddings(input_ids, token_type_ids)
+        x = self.embeddings(input_ids, token_type_ids, position_ids)
         for layer in self.layers:
             x = layer(x, additive)
         x = x.float()
@@ -304,9 +305,12 @@ def bert_model_function_sequence_parallel(
     flash kernel). Each process embeds its ``max_length / n`` tokens at
     position offset ``rank * max_length / n`` and the masked mean pools
     with two all-reduce sums over the axis, so every process returns the
-    same rows. Weights are the registry's: ``params`` (the JAX package's
-    flax tree) or drawn from ``seed``, as ``get_model(...).model_function``
-    draws them; the attention holds none. ``device``: ``cuda`` by default
+    same rows. Differentiable with the dense inner: the parameters enter
+    each process's shard through ``parallel/collectives.copy_to_axis``, so
+    ``backward()`` of a loss over the rows leaves every process with the
+    dense build's parameter gradients. Weights are the registry's:
+    ``params`` (the JAX package's flax tree) or drawn from ``seed``, as
+    ``get_model(...).model_function`` draws them; the attention holds none. ``device``: ``cuda`` by default
     (raises when there is none); pass ``"cpu"`` for the CPU.
 
     The function carries ``single_stream = True``: a batch runs on the
@@ -316,10 +320,11 @@ def bert_model_function_sequence_parallel(
     the frame's partitions one at a time in index order
     (``DataFrame.withColumnPartition(..., serial=True)``), so that each
     rank's k-th batch meets every other rank's k-th batch."""
-    import torch.distributed as dist
+    from torch.func import functional_call
 
     from sparkdl_tpu_torch.graph.function import ModelFunction
     from sparkdl_tpu_torch.models.registry import _bert_encoder
+    from sparkdl_tpu_torch.parallel.collectives import all_reduce_sum, copy_to_axis
     from sparkdl_tpu_torch.parallel.mesh import make_mesh
     from sparkdl_tpu_torch.runtime.device import resolve_device
 
@@ -356,7 +361,6 @@ def bert_model_function_sequence_parallel(
             "use strategy='ring'"
         )
     module = _bert_encoder(config, attention_fn, seed, params, device)
-    group = mesh.axis_group(axis)
     lc = max_length // n
     offset = mesh.axis_index(axis) * lc
 
@@ -371,17 +375,17 @@ def bert_model_function_sequence_parallel(
             )
         ids_sh = ids[:, offset : offset + lc]
         mask_sh = mask[:, offset : offset + lc]
-        positions = torch.arange(offset, offset + lc, device=ids.device)[None]
-        additive = (1.0 - mask_sh[:, None, None, :].float()) * torch.finfo(torch.float32).min
-        h = mod.embeddings(ids_sh, position_ids=positions)
-        for layer in mod.layers:
-            h = layer(h, additive)
+        shard = (ids_sh, mask_sh)
+        kwargs = {"position_ids": torch.arange(offset, offset + lc, device=ids.device)[None]}
+        if n > 1 and torch.is_grad_enabled():
+            # each process's parameter gradient covers its shard: sum them
+            names, tensors = zip(*mod.named_parameters())
+            h = functional_call(mod, dict(zip(names, copy_to_axis(tensors, mesh, axis))), shard, kwargs)
+        else:
+            h = mod(*shard, **kwargs)
         m = mask_sh[..., None].float()
-        total = (h.float() * m).sum(dim=1)
-        count = m.sum(dim=1)
-        if group is not None:
-            dist.all_reduce(total, group=group)
-            dist.all_reduce(count, group=group)
+        total = all_reduce_sum((h * m).sum(dim=1), mesh, axis)
+        count = all_reduce_sum(m.sum(dim=1), mesh, axis)
         return total / torch.clamp(count, min=1.0)
 
     mf = ModelFunction(

@@ -3,24 +3,28 @@
 The port of the JAX package's ``ops/ring_attention.py``. A sequence too
 long for one device is sharded over the mesh's ``sp`` axis
 (``parallel/mesh.py``): each process holds its Q/K/V chunk and walks the
-ring, handing its K/V block (and its key mask) to the next process with
-``dist.batch_isend_irecv`` where the JAX package ``ppermute``s it, and
-accumulates the softmax online (a running max, sum and output), so no
+ring, handing its K/V block (and its key mask) to the next process
+(``parallel/collectives.shift``) where the JAX package ``ppermute``s it,
+and accumulates the softmax online (a running max, sum and output), so no
 process holds the whole ``[L, L]`` score matrix or the whole K/V.
 
 Scores and the accumulator are f32 whatever the compute dtype; the result
-is cast back to ``dtype``. The block update is plain torch, as in the JAX
-package: the flash kernel (``ops/flash_attention.py``) returns neither the
-row max nor the row sum that merging its blocks would need.
+is cast back to ``dtype``. The block update is plain torch under autograd,
+as it is jnp under ``jax.grad`` in the JAX package, and each collective
+carries its adjoint (the shift sends the K/V gradients back around the
+ring), so ``backward()`` leaves every process with the dense gradient. The
+flash kernel (``ops/flash_attention.py``) returns neither the row max nor
+the row sum that merging its blocks would need.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, List
+from typing import Callable
 
 import torch
-import torch.distributed as dist
+
+from sparkdl_tpu_torch.parallel.collectives import gather_rows, shift, take_rows
 
 
 def _online_block_update(q, k_blk, v_blk, mask_blk, m, l, o, scale):
@@ -51,24 +55,6 @@ def _default_mesh(mesh, axis: str):
     return make_mesh({axis: -1})
 
 
-def _rotate(tensors: List[torch.Tensor], group, n: int, r: int) -> List[torch.Tensor]:
-    """Send each tensor to the axis's next process and receive the
-    previous one's: one step of the ring (the JAX package's ``ppermute``
-    over ``[(i, (i + 1) % n)]``)."""
-    dst = dist.get_global_rank(group, (r + 1) % n)
-    src = dist.get_global_rank(group, (r - 1) % n)
-    ops, received = [], []
-    for t in tensors:
-        t = t.contiguous()
-        buf = torch.empty_like(t)
-        ops.append(dist.P2POp(dist.isend, t, dst, group))
-        ops.append(dist.P2POp(dist.irecv, buf, src, group))
-        received.append(buf)
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return received
-
-
 def make_ring_attention(axis_name: str = "sp", mesh=None) -> Callable:
     """An attention fn with the ``dense_attention(q, k, v, mask, dtype)``
     signature over this process's sequence shard: q, k, v are ``[B, H,
@@ -79,8 +65,6 @@ def make_ring_attention(axis_name: str = "sp", mesh=None) -> Callable:
     def ring_attention(q, k, v, mask, dtype):
         msh = _default_mesh(mesh, axis_name)
         n = msh.axis_size(axis_name)
-        group = msh.axis_group(axis_name)
-        r = msh.axis_index(axis_name)
         scale = 1.0 / math.sqrt(q.shape[-1])
         qf = q.float()
         m = torch.full(q.shape[:-1], float("-inf"), dtype=torch.float32, device=q.device)
@@ -95,20 +79,10 @@ def make_ring_attention(axis_name: str = "sp", mesh=None) -> Callable:
         for step in range(n):
             m, l, o = _online_block_update(qf, k_blk, v_blk, mask_blk, m, l, o, scale)
             if step < n - 1:  # the JAX loop's last rotation returns the blocks home unread
-                k_blk, v_blk, mask_blk = _rotate([k_blk, v_blk, mask_blk], group, n, r)
+                k_blk, v_blk, mask_blk = shift([k_blk, v_blk, mask_blk], msh, axis_name)
         return (o / torch.clamp(l, min=1e-30)[..., None]).to(dtype)
 
     return ring_attention
-
-
-def _all_gather_cat(t: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
-    """The axis's shards of ``t`` concatenated along ``dim``, in axis
-    order (``jax.lax.all_gather(..., tiled=True)``)."""
-    if n == 1:
-        return t
-    parts = [torch.empty_like(t) for _ in range(n)]
-    dist.all_gather(parts, t.contiguous(), group=group)
-    return torch.cat(parts, dim=dim)
 
 
 def sharded_attention(attn, q, k, v, mask, mesh, axis: str, dtype=torch.float32):
@@ -118,7 +92,8 @@ def sharded_attention(attn, q, k, v, mask, mesh, axis: str, dtype=torch.float32)
     process runs ``attn`` (``make_ring_attention`` or
     ``make_ulysses_attention``) on its ``L/n`` shard and the shards are
     gathered along L, so every process returns what the JAX package's
-    ``shard_map`` wrapper returns."""
+    ``shard_map`` wrapper returns; ``backward()`` gives every process the
+    whole ``dq``, ``dk`` and ``dv``."""
     n = mesh.axis_size(axis)
     r = mesh.axis_index(axis)
     B, _, L, _ = q.shape
@@ -128,12 +103,9 @@ def sharded_attention(attn, q, k, v, mask, mesh, axis: str, dtype=torch.float32)
         mask = torch.zeros((B, 1, 1, L), dtype=torch.float32, device=q.device)
     mask = mask.reshape(B, 1, 1, L)
     lc = L // n
-    rows = slice(r * lc, (r + 1) * lc)
-    out = attn(
-        q[:, :, rows].contiguous(), k[:, :, rows].contiguous(), v[:, :, rows].contiguous(),
-        mask[..., rows].contiguous(), dtype,
-    )
-    return _all_gather_cat(out, mesh.axis_group(axis), n, dim=2)
+    q, k, v = (take_rows(t, mesh, axis, dim=2) for t in (q, k, v))
+    out = attn(q, k, v, mask[..., r * lc : (r + 1) * lc].contiguous(), dtype)
+    return gather_rows(out, mesh, axis, dim=2)
 
 
 def ring_attention_sharded(q, k, v, mask, mesh, axis: str = "sp", dtype=torch.float32):

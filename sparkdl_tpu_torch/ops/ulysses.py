@@ -12,10 +12,14 @@ head-sharded layouts (Jacobs et al., "DeepSpeed Ulysses", 2309.14509):
 Inside attention each process sees the whole sequence for its heads, so
 any inner attention runs unchanged, the flash kernel
 (``ops/flash_attention.make_flash_attention_fn``) included. The JAX
-package's ``all_to_all(tiled=True)`` becomes ``dist.all_to_all_single``,
-which splits and concatenates dim 0: a permute before and after puts the
-chunks in the JAX package's order. The price is that the head count must
-divide by the axis size.
+package's ``all_to_all(tiled=True)`` becomes
+``parallel/collectives.all_to_all`` (``all_to_all_single``, which splits
+and concatenates dim 0, and is its own adjoint): a permute before and
+after puts the chunks in the JAX package's order. The price is that the
+head count must divide by the axis size. With the default dense inner,
+``backward()`` gives every process the dense gradient; the flash kernel
+has no backward (the JAX kernel has no ``custom_vjp``), so a backward
+through it on CUDA raises.
 """
 
 from __future__ import annotations
@@ -23,39 +27,30 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
-import torch.distributed as dist
 
-from sparkdl_tpu_torch.ops.ring_attention import _all_gather_cat, _default_mesh, sharded_attention
-
-
-def _all_to_all(chunks: torch.Tensor, group) -> torch.Tensor:
-    """Chunk ``i`` of dim 0 goes to the axis's process ``i``; chunk ``i`` of
-    the result came from process ``i``."""
-    chunks = chunks.contiguous()
-    out = torch.empty_like(chunks)
-    dist.all_to_all_single(out, chunks, group=group)
-    return out
+from sparkdl_tpu_torch.ops.ring_attention import _default_mesh, sharded_attention
+from sparkdl_tpu_torch.parallel.collectives import all_to_all, gather_rows
 
 
-def _seq_to_heads(x: torch.Tensor, group, n: int) -> torch.Tensor:
+def _seq_to_heads(x: torch.Tensor, mesh, axis: str, n: int) -> torch.Tensor:
     """[B, H, L/n, Dh] -> [B, H/n, L, Dh]: head chunk ``j`` goes to process
     ``j``, and the sequence chunks come back in process order."""
     if n == 1:
         return x
     B, H, lc, dh = x.shape
     sent = x.reshape(B, n, H // n, lc, dh).permute(1, 0, 2, 3, 4)
-    got = _all_to_all(sent, group)  # [n (source), B, H/n, L/n, Dh]
+    got = all_to_all(sent, mesh, axis)  # [n (source), B, H/n, L/n, Dh]
     return got.permute(1, 2, 0, 3, 4).reshape(B, H // n, n * lc, dh)
 
 
-def _heads_to_seq(x: torch.Tensor, group, n: int) -> torch.Tensor:
+def _heads_to_seq(x: torch.Tensor, mesh, axis: str, n: int) -> torch.Tensor:
     """[B, H/n, L, Dh] -> [B, H, L/n, Dh]: sequence chunk ``j`` goes to
     process ``j``, and the head chunks come back in process order."""
     if n == 1:
         return x
     B, hn, L, dh = x.shape
     sent = x.reshape(B, hn, n, L // n, dh).permute(2, 0, 1, 3, 4)
-    got = _all_to_all(sent, group)  # [n (source), B, H/n, L/n, Dh]
+    got = all_to_all(sent, mesh, axis)  # [n (source), B, H/n, L/n, Dh]
     return got.permute(1, 0, 2, 3, 4).reshape(B, n * hn, L // n, dh)
 
 
@@ -82,11 +77,10 @@ def make_ulysses_attention(axis_name: str = "sp", inner: Optional[Callable] = No
             from sparkdl_tpu_torch.models.bert import dense_attention
 
             inner_fn = dense_attention
-        group = msh.axis_group(axis_name)
-        qh, kh, vh = (_seq_to_heads(t, group, n) for t in (q, k, v))
-        full_mask = _all_gather_cat(mask, group, n, dim=3) if mask is not None else None
+        qh, kh, vh = (_seq_to_heads(t, msh, axis_name, n) for t in (q, k, v))
+        full_mask = gather_rows(mask, msh, axis_name, dim=3) if mask is not None else None
         out = inner_fn(qh, kh, vh, full_mask, dtype)
-        return _heads_to_seq(out, group, n)
+        return _heads_to_seq(out, msh, axis_name, n)
 
     return ulysses_attention
 

@@ -3,11 +3,14 @@
 The port of the JAX package's ``parallel/data_parallel.py``. Each process
 drives one GPU and holds one shard of every global batch: it computes the
 loss and float32 gradients of its shard, the gradients (and the loss) are
-averaged over the ``dp`` axis by one ``all_reduce`` (the Horovod ring;
-the JAX package's ``pmean``), and every process applies the same
-optimizer update to its replicated parameters. The loss is a mean per
-shard, so the average of shard means equals the global mean only when
-every shard holds the same number of valid rows.
+averaged over the mesh's ``axis`` (``dp`` by default) by one
+``all_reduce`` (the Horovod ring; the JAX package's ``pmean``), and every
+process applies the same optimizer update to its replicated parameters.
+On a mesh of more axes the others hold replicas: under ``{"dp": 2, "tp":
+2}`` each gradient is averaged over the two processes of its ``dp``
+fiber only. The loss is a mean per shard, so the average of shard means
+equals the global mean only when every shard holds the same number of
+valid rows.
 
 Parameters are a ``{name: float32 tensor}`` dict
 (``ModelFunction.named_params``: parameters AND BatchNorm statistics, the
@@ -162,14 +165,16 @@ def _grad_buffer(leaves: List[torch.Tensor]) -> Tuple[torch.Tensor, List[torch.T
 def make_data_parallel_step(
     loss_fn: Callable[[Params, Any], torch.Tensor],
     mesh: Mesh,
+    axis: str = "dp",
     grad_accum_steps: int = 1,
     compute_dtype: Optional[torch.dtype] = None,
     microbatch_weight_fn: Optional[Callable[[Any], torch.Tensor]] = None,
 ):
     """The data-parallel train step: ``step_fn(state, batch) -> (state,
     {"loss", "grad_norm"})``, where ``batch`` is THIS process's shard (a
-    tuple of tensors on the device). The metrics are device tensors,
-    the same on every process."""
+    tuple of tensors on the device) of the batch split over ``axis``. The
+    metrics are device tensors, the same on every process."""
+    group, n_shards = mesh.axis_group(axis), mesh.axis_size(axis)
 
     def step_fn(state: TrainState, batch):
         leaves = list(state.params.values())
@@ -182,9 +187,9 @@ def make_data_parallel_step(
             for v, g in zip(views, grads):
                 v.copy_(g)
             flat[-1] = loss
-            if mesh.group is not None:
-                dist.all_reduce(flat, group=mesh.group)
-                flat /= mesh.size
+            if group is not None:
+                dist.all_reduce(flat, group=group)
+                flat /= n_shards
             loss = flat[-1]
             grad_norm = torch.linalg.vector_norm(flat[:-1])
             for p, v in zip(leaves, views):
@@ -250,26 +255,27 @@ def make_zero1_data_parallel_step(
     optimizer: OptimizerFactory,
     mesh: Mesh,
     params_template: Params,
+    axis: str = "dp",
     compute_dtype: Optional[torch.dtype] = None,
     grad_accum_steps: int = 1,
     microbatch_weight_fn: Optional[Callable[[Any], torch.Tensor]] = None,
     validate_elementwise: bool = True,
 ):
     """ZeRO-1 (Xu et al., arXiv:2004.13336): the parameters flattened to
-    one float32 vector padded to a multiple of the axis size; this process
-    keeps the optimizer state of its ``1/N`` slice only. Per step the
+    one float32 vector padded to a multiple of the size of ``axis``; this
+    process keeps the optimizer state of its ``1/N`` slice only. Per step the
     gradients are reduce-scattered (each process gets the mean of its
     slice), the slice is updated, and the slices are all-gathered back
     into the parameters. Returns ``(step_fn, init_fn)``; ``init_fn(params)``
     builds the :class:`TrainState`."""
     if validate_elementwise:
         _assert_elementwise_optimizer(optimizer)
-    n_shards = mesh.size
+    group, n_shards = mesh.axis_group(axis), mesh.axis_size(axis)
     sizes = [int(t.numel()) for t in params_template.values()]
     total = sum(sizes)
     padded = -(-total // n_shards) * n_shards
     shard_len = padded // n_shards
-    lo = mesh.rank * shard_len
+    lo = mesh.axis_index(axis) * shard_len
 
     def flatten(tensors) -> torch.Tensor:
         flat = torch.cat([t.reshape(-1).float() for t in tensors])
@@ -289,11 +295,11 @@ def make_zero1_data_parallel_step(
                 microbatch_weight_fn, compute_dtype,
             )
             gflat = flatten(grads)
-            if mesh.group is not None:
+            if group is not None:
                 gshard = torch.empty(shard_len, device=gflat.device)
-                dist.reduce_scatter_tensor(gshard, gflat, group=mesh.group)
+                dist.reduce_scatter_tensor(gshard, gflat, group=group)
                 gshard /= n_shards
-                dist.all_reduce(loss, group=mesh.group)
+                dist.all_reduce(loss, group=group)
                 loss = loss / n_shards
             else:
                 gshard = gflat
@@ -302,10 +308,10 @@ def make_zero1_data_parallel_step(
             state.optimizer.step()
             state.optimizer.zero_grad(set_to_none=True)
             new_shard = state.shard.detach()
-            if mesh.group is not None:
+            if group is not None:
                 new_flat = torch.empty(padded, device=new_shard.device)
-                dist.all_gather_into_tensor(new_flat, new_shard.contiguous(), group=mesh.group)
-                dist.all_reduce(norm_sq, group=mesh.group)
+                dist.all_gather_into_tensor(new_flat, new_shard.contiguous(), group=group)
+                dist.all_reduce(norm_sq, group=group)
             else:
                 new_flat = new_shard
             with torch.no_grad():
@@ -317,19 +323,22 @@ def make_zero1_data_parallel_step(
     return step_fn, init_fn
 
 
-def make_eval_step(metric_fn: Callable[[Params, Any], Dict[str, torch.Tensor]], mesh: Mesh):
+def make_eval_step(
+    metric_fn: Callable[[Params, Any], Dict[str, torch.Tensor]], mesh: Mesh, axis: str = "dp",
+):
     """``eval_fn(params, batch) -> {name: tensor}``: this shard's metrics
-    averaged over the axis, without autograd."""
+    averaged over ``axis``, without autograd."""
+    group, n_shards = mesh.axis_group(axis), mesh.axis_size(axis)
 
     def eval_fn(params: Params, batch):
         with torch.no_grad(), exact_float32():
             out = metric_fn(params, batch)
-            if mesh.group is None:
+            if group is None:
                 return out
             names = list(out)
             flat = torch.stack([torch.as_tensor(out[k], dtype=torch.float32) for k in names])
-            dist.all_reduce(flat, group=mesh.group)
-            flat /= mesh.size
+            dist.all_reduce(flat, group=group)
+            flat /= n_shards
             return {k: flat[i] for i, k in enumerate(names)}
 
     return eval_fn

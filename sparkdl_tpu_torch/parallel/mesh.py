@@ -3,13 +3,18 @@
 The port of the JAX package's ``parallel/mesh.py``. In the JAX package a
 mesh is a named grid of devices and XLA inserts the collectives; here one
 process drives one GPU, so a mesh is a named grid of the processes of a
-``torch.distributed`` group. ``dp`` (data parallelism) and ``sp``
-(sequence parallelism, ``ops/ring_attention.py`` and ``ops/ulysses.py``)
-are its axes, alone or together, in the JAX package's major-to-minor rank
-order: under ``{"dp": a, "sp": b}`` rank ``r`` sits at ``dp = r // b``,
-``sp = r % b``. Each axis of more than one process and fewer than all has
-its own subgroup (``dist.new_group``). Tensor, pipeline and expert axes
-are not ported (ROADMAP Queue A item 7).
+``torch.distributed`` group. Its axes take any names, as the JAX
+package's do; the port's parallel code reads ``dp`` (data parallelism,
+``parallel/data_parallel.py``), ``sp`` (sequence parallelism,
+``ops/ring_attention.py`` and ``ops/ulysses.py``), ``tp`` (tensor,
+``parallel/tensor_parallel.py``), ``pp`` (pipeline,
+``parallel/pipeline_parallel.py``) and ``ep`` (expert,
+``parallel/expert_parallel.py``), each under the name its caller passes.
+Ranks sit in the JAX package's major-to-minor order: under ``{"dp": a,
+"tp": b}`` rank ``r`` sits at ``dp = r // b``, ``tp = r % b``. Each axis
+of more than one process and fewer than all has its own subgroup
+(``dist.new_group``); ``parallel/collectives.py`` runs the differentiable
+collectives over them.
 """
 
 from __future__ import annotations
@@ -20,10 +25,6 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch.distributed as dist
-
-#: the axes the port runs
-AXES = ("dp", "sp")
-
 
 @dataclass(frozen=True)
 class Mesh:
@@ -95,12 +96,11 @@ def _axis_groups(names: List[str], sizes: List[int], rank: int, group: Any) -> D
 
 def make_mesh(axes: Optional[Dict[str, int]] = None, group: Any = None) -> Mesh:
     """The mesh over the process group (the default group when one is
-    initialized, else a single process). ``axes`` maps ``dp`` and ``sp`` to
-    their sizes, major to minor (default: every process on ``dp``); ``-1``
-    for at most one axis means "the remaining processes"; the sizes must
-    multiply to the world size, as the JAX package's must to the device
-    count. On one process, with no group, any of ``dp`` and ``sp`` of size
-    1 is a valid mesh."""
+    initialized, else a single process). ``axes`` maps axis names to their
+    sizes, major to minor (default: every process on ``dp``); ``-1`` for at
+    most one axis means "the remaining processes"; the sizes must multiply
+    to the world size, as the JAX package's must to the device count. On
+    one process, with no group, axes of size 1 make a valid mesh."""
     if dist.is_initialized():
         world = dist.get_world_size(group)
         rank = dist.get_rank(group)
@@ -110,12 +110,6 @@ def make_mesh(axes: Optional[Dict[str, int]] = None, group: Any = None) -> Mesh:
     if axes is None:
         axes = {"dp": world}
     names = list(axes)
-    refused = [n for n in names if n not in AXES]
-    if refused:
-        raise NotImplementedError(
-            f"mesh axes {refused}: the port runs the 'dp' and 'sp' axes only; "
-            "tensor, pipeline and expert parallelism wait for ROADMAP Queue A item 7"
-        )
     sizes = [int(axes[n]) for n in names]
     if sizes.count(-1) > 1:
         raise ValueError("At most one axis may be -1")

@@ -73,7 +73,9 @@ def test_no_port_file_imports_jax_flax_or_the_jax_package():
                      "runtime/locksmith.py", "runtime/heartbeat.py", "resilience/faults.py",
                      "resilience/supervisor.py", "resilience/__main__.py", "obs/timeseries.py",
                      "obs/fleet.py", "serving/gateway.py", "serving/canary_loader.py",
-                     "utils/zstd.py", "graph/orbax_ckpt.py"):
+                     "utils/zstd.py", "graph/orbax_ckpt.py", "parallel/collectives.py",
+                     "parallel/tensor_parallel.py", "parallel/pipeline_parallel.py",
+                     "parallel/expert_parallel.py"):
         assert required.replace("/", os.sep) in rel, required
     offenders = {
         (os.path.relpath(path, REPO), root)
@@ -128,6 +130,10 @@ def test_importing_every_port_module_loads_no_jax():
         "sparkdl_tpu_torch.parallel.mesh",
         "sparkdl_tpu_torch.parallel.distributed",
         "sparkdl_tpu_torch.parallel.data_parallel",
+        "sparkdl_tpu_torch.parallel.collectives",
+        "sparkdl_tpu_torch.parallel.tensor_parallel",
+        "sparkdl_tpu_torch.parallel.pipeline_parallel",
+        "sparkdl_tpu_torch.parallel.expert_parallel",
         "sparkdl_tpu_torch.estimators.data_parallel_estimator",
         "sparkdl_tpu_torch.evaluation",
         "sparkdl_tpu_torch.persistence",
@@ -235,6 +241,26 @@ def test_package_exports_resolve():
     assert sparkdl_tpu_torch.CrossValidator is tuning.CrossValidator
     with pytest.raises(AttributeError):
         sparkdl_tpu_torch.not_an_export
+
+
+def test_parallel_exports_match_the_jax_package():
+    """The port's ``parallel`` exports every name of the JAX package's
+    ``__all__`` (read from its source, not imported) but its sharding
+    helpers, which a process group has no use for, and adds its ``Mesh``."""
+    import sparkdl_tpu_torch.parallel as port_parallel
+
+    path = os.path.join(REPO, "sparkdl_tpu", "parallel", "__init__.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    jax_all = next(
+        ast.literal_eval(node.value) for node in tree.body
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "__all__" for t in node.targets)
+    )
+    shardings = {"batch_sharding", "replicated", "shard_batch"}
+    assert set(port_parallel.__all__) - {"Mesh"} == set(jax_all) - shardings
+    for name in ("pipeline_apply", "stack_stage_params", "shard_dense_params", "tp_block_sharded", "tp_mlp",
+                 "moe_apply", "switch_route"):
+        assert callable(getattr(port_parallel, name)), name
 
 
 def test_default_device_entry_point_raises_without_cuda(monkeypatch):

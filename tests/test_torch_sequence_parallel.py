@@ -382,11 +382,17 @@ def test_single_process_meshes(axes):
 
 
 @pytest.mark.parametrize("axis", ["tp", "pp", "ep"])
-def test_mesh_refuses_the_rest_of_item_7(axis):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 7"):
-        make_mesh({axis: 1})
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 7"):
-        make_mesh({"dp": 1, axis: 1})
+def test_mesh_takes_every_axis(axis):
+    """The tensor, pipeline and expert axes make a mesh of one process, alone
+    and beside ``dp``, in the order given, as the JAX package's
+    ``make_mesh`` takes any axis name."""
+    for axes in ({axis: 1}, {axis: -1}, {"dp": 1, axis: 1}, {axis: 1, "dp": -1}):
+        mesh = make_mesh(axes)
+        assert list(mesh.axes) == list(axes) and mesh.size == 1 and mesh.group is None
+        for name in mesh.axes:
+            assert (mesh.axis_size(name), mesh.axis_index(name), mesh.axis_group(name)) == (1, 0, None)
+    with pytest.raises(ValueError, match="need 2 processes, have 1"):
+        make_mesh({"dp": 1, axis: 2})
 
 
 def test_mesh_size_errors():
