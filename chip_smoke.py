@@ -653,6 +653,24 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     on the same seeded weights; the Ulysses-over-flash model's backward
     raises (the kernel has no backward); ms per forward+backward. About
     30 s.
+29. StableHLO without JAX (``graph/mlir_bytecode.py``, ``stablehlo.py``,
+    ``jax_exported.py``). (a) the committed keras-3 export of the 224x224
+    ResNet50 (``tests/fixtures/keras3_resnet50``: one ``XlaCallModule``),
+    its data shard rebuilt into a temp dir from the seeded weights its
+    ``shard.json`` names (every entry's CRC-32C read back), ingested by
+    ``ModelIngest.from_saved_model`` on the card and run through
+    ``TFImageTransformer`` over phase 21's 1024 images at batch 64 (f32):
+    images/s, NVML busy over the pass, zero flash launches, torch ops
+    dispatched per batch (torch.profiler's top-level ``aten::`` ops) and
+    the interpreter's ops per call; the rows within 1e-4 (relative) of
+    ``ModelIngest.from_keras`` on the same weights, whose images/s is
+    printed beside phase 21's translated GraphDef's. (b) the committed
+    JAX ``ModelFunction.export`` of bert-tiny
+    (``tests/fixtures/jax_bert_tiny``) through ``ModelFunction.load`` on
+    the card at two batch sizes: within 1e-5 of the JAX outputs stored
+    beside it and 1e-4 of the port's bert-tiny built from its
+    ``params.pkl``, ms per call of each by CUDA events; zero flash
+    launches from the loaded program. About 30 s.
 
 The line before the last is the ``kernels`` JSON record (the f32 and the
 bf16 kernel at bert-base L=512, launches from each dtype's main-path run,
@@ -1012,6 +1030,13 @@ M_EP_DROP_CAPACITY = 256
 M_SP_BATCH = 8
 M_INIT_STD = 0.02  # BERT's init, for the router and the experts
 M_REL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # of the reference tensor's max |value|
+
+# phase 29: StableHLO without JAX
+X_IMAGES = 1024
+X_BATCH = 64
+X_REL = 1e-4  # relative, against KerasModule on the same weights
+X_JAX_ATOL = 1e-5  # the loaded JAX program against the JAX outputs stored beside it
+X_PORT_REL = 1e-4  # against the port's own bert-tiny (its flash kernel) from params.pkl
 
 DISPATCH_CALLS = 2000
 DISPATCH_ROUNDS = 5
@@ -6886,6 +6911,153 @@ def _flat_tree(tree, prefix=()):
             yield prefix + (key,), sub
 
 
+def _top_level_ops(prof) -> int:
+    """Top-level ``aten::`` ops in a finished torch.profiler run: the torch
+    ops a forward dispatched."""
+    return sum(1 for e in prof.events() if e.name.startswith("aten::") and e.cpu_parent is None)
+
+
+def phase_stablehlo(seed: int, device_name: str, device="cuda") -> int:
+    """Phase 29: StableHLO without JAX: (a) a keras-3 ``XlaCallModule``
+    SavedModel of ResNet50 at full width, (b) a JAX ``ModelFunction.export``
+    artifact (``device="cpu"``: a rehearsal, with ``X_IMAGES`` cut by the
+    caller). Returns the flash launches of the phase's main path (0)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparkdl_tpu_torch.graph import tf_bundle
+    from sparkdl_tpu_torch.graph.function import StableHLOModule, piece
+
+    sys.path.insert(0, FIXTURES)
+    try:
+        from keras3_shard import shard_spec, write_saved_model
+    finally:
+        sys.path.remove(FIXTURES)
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    card = f"{device_name} ({_smi()})" if on_card else device_name
+    t_phase = time.perf_counter()
+    # (a) the keras-3 export, its shard rebuilt from the seeded weights
+    spec = shard_spec()
+    config = _resnet50_config()
+    weights = _seeded_keras_weights(config, spec["seed"])
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_saved_model(tmp, weights)
+        reader = tf_bundle.BundleReader(os.path.join(tmp, "variables", "variables"))
+        for key in reader.keys():
+            reader.get_tensor(key)  # raises on a CRC-32C mismatch
+        n_crc = len(reader.keys())
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mf = ModelIngest.from_saved_model(tmp, device=device)
+        sync()
+        ingest_s = time.perf_counter() - t0
+    check(mf.takes_nhwc and mf.device == device and mf.input_shape == (KERAS_SIDE, KERAS_SIDE, 3),
+          f"stablehlo: {mf.name} on {mf.device}, input {mf.input_shape}")
+    print(f"stablehlo (29a): keras-3 ResNet50 export's shard rebuilt ({spec['size']} bytes) and all {n_crc} "
+          f"CRC-32C checks passed in {write_s:.2f} s; ingested on {mf.device} in {ingest_s:.2f} s ({card})")
+    structs, _ = _colour_structs(seed, X_IMAGES, KERAS_SIDE)
+    df = DataFrame.fromColumns({"image": structs}, numPartitions=IMAGE_PARTITIONS)
+    warm = DataFrame.fromColumns({"image": structs[:X_BATCH]}, numPartitions=1)
+    kw = dict(inputCol="image", outputCol="out", outputMode="vector", preprocessing="caffe", batchSize=X_BATCH)
+    stage = TFImageTransformer(modelFunction=mf, **kw)
+    _featurize(stage, warm, "out")
+    flash_attention.launches = 0
+    flash_attention.launches_by_dtype = dict.fromkeys(flash_attention.launches_by_dtype, 0)
+    probe = utilization.NvmlBusyProbe(torch.cuda.current_device()) if on_card else None
+    try:
+        busy0 = probe() if on_card else 0.0
+        rows, dt = _featurize(stage, df, "out")
+        if on_card:
+            time.sleep(2 * probe.poll_s)  # NVML's last sample of the pass
+        busy = probe() - busy0 if on_card else float("nan")
+    finally:
+        if on_card:
+            probe.close()
+    launches = flash_attention.launches
+    for i, r in enumerate(rows):
+        check(r is not None and r.shape == (1000,) and bool(np.isfinite(r).all()),
+              f"stablehlo: row {i} is not a finite 1000-d vector")
+    card_rows = np.stack(rows)
+    check(launches == 0, f"stablehlo: the XlaCallModule program launched the flash kernel {launches} times")
+    # one batch under the profiler: the torch ops it dispatched
+    batch = image_structs_to_batch(structs[:X_BATCH], height=KERAS_SIDE, width=KERAS_SIDE, chw=False)[0]
+    x = torch.from_numpy(batch).to(device).float() - torch.from_numpy(CAFFE_MEAN_BGR).to(device)
+    mf(x)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        mf(x)
+        sync()
+    xcm_ops = _top_level_ops(prof)
+    from sparkdl_tpu_torch.graph import tf_import
+    programs = list(tf_import._XCM_CACHE.values())
+    interp_ops = programs[-1].ops_per_call if programs else -1
+    print(f"stablehlo (29a) TFImageTransformer over the XlaCallModule ResNet50 {KERAS_SIDE}x{KERAS_SIDE} float32 on "
+          f"{card}: {X_IMAGES} images, {IMAGE_PARTITIONS} partitions, batch {X_BATCH}, {dt:.3f} s = "
+          f"{X_IMAGES / dt:.1f} images/s; NVML busy {busy:.3f} s = share {busy / dt:.3f} of the pass; flash "
+          f"launches {launches}; {xcm_ops} torch ops dispatched per batch, {interp_ops} StableHLO ops per call")
+    # the same weights as a KerasModule, and phase 21's translated GraphDef
+    kspec = KerasModelSpec(config, weights)
+    keras_mf = ModelIngest.from_keras(kspec, device=device)
+    keras_stage = ImageModelTransformer(modelFunction=keras_mf, **kw)
+    _featurize(keras_stage, warm, "out")
+    keras_rows, keras_dt = _featurize(keras_stage, df, "out")
+    err = _relative_error(card_rows, np.stack(keras_rows))
+    raw, feed, fetch, _ = _tf_graph(seed)
+    gd_mf = TFInputGraph.from_graph_def(raw, [feed], [fetch], input_shape=(KERAS_SIDE, KERAS_SIDE, 3), device=device)
+    gd_stage = TFImageTransformer(modelFunction=gd_mf, **kw)
+    _featurize(gd_stage, warm, "out")
+    _, gd_dt = _featurize(gd_stage, df, "out")
+    gd_mf(x)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        gd_mf(x)
+        sync()
+    gd_ops = _top_level_ops(prof)
+    print(f"stablehlo (29a) against KerasModule on the same weights: relative error {err:.3e} (limit {X_REL}); "
+          f"KerasModule {X_IMAGES / keras_dt:.1f} images/s, phase 21's translated GraphDef {X_IMAGES / gd_dt:.1f} "
+          f"images/s ({gd_ops} torch ops per batch) on {card}; max |prob| {card_rows.max():.4f}")
+    check(err <= X_REL, f"stablehlo: XlaCallModule vs KerasModule relative error {err:.3e}")
+    del mf, keras_mf, gd_mf, stage, keras_stage, gd_stage, x
+    shutdown_feeders()
+    # (b) the JAX package's exported bert-tiny, loaded on the card
+    path = os.path.join(FIXTURES, "jax_bert_tiny")
+    t0 = time.perf_counter()
+    loaded = ModelFunction.load(path, device=device)
+    load_s = time.perf_counter() - t0
+    check(isinstance(loaded.module, StableHLOModule) and loaded.device == device,
+          f"stablehlo: {path} loaded as {type(loaded.module).__name__} on {loaded.device}")
+    io = np.load(os.path.join(path, "io.npz"))
+    port = piece(lambda ids: (ids, (ids != 0).to(torch.int32)), name="mask").and_then(
+        get_model("bert-tiny").model_function(params=loaded.raw_params, device=device))
+    flash_attention.launches = 0
+    outs = {}
+    for n in (len(io["ids"]), 2 * len(io["ids"]) + 1):
+        ids = np.concatenate([io["ids"]] * 3)[:n]
+        outs[n] = loaded(torch.from_numpy(ids).to(device)).float().cpu().numpy()
+    sync()
+    loaded_launches = flash_attention.launches
+    check(loaded_launches == 0, f"stablehlo: the loaded program launched the flash kernel {loaded_launches} times")
+    n0 = len(io["ids"])
+    jax_err = float(np.abs(outs[n0] - io["y"]).max())
+    big = max(outs)
+    ids_big = torch.from_numpy(np.concatenate([io["ids"]] * 3)[:big]).to(device)
+    port_y = port(ids_big).float().cpu().numpy()
+    port_err = _relative_error(outs[big], port_y)
+    ms = time_ms(lambda: loaded(ids_big), 20) if on_card else float("nan")
+    port_ms = time_ms(lambda: port(ids_big), 20) if on_card else float("nan")
+    print(f"stablehlo (29b) JAX export of bert-tiny loaded by ModelFunction.load on {card} in {load_s:.2f} s: "
+          f"batch {n0} against the JAX outputs max |diff| {jax_err:.3e} (limit {X_JAX_ATOL}); batch {big} against "
+          f"the port's bert-tiny from params.pkl relative {port_err:.3e} (limit {X_PORT_REL}); {ms:.3f} ms per "
+          f"call of {big} rows, the port's bert-tiny {port_ms:.3f} ms; {loaded.module.program.ops_per_call} "
+          f"StableHLO ops per call; flash launches 0")
+    check(jax_err <= X_JAX_ATOL, f"stablehlo: loaded program vs JAX outputs {jax_err:.3e}")
+    check(port_err <= X_PORT_REL, f"stablehlo: loaded program vs the port's bert-tiny {port_err:.3e}")
+    print(f"phase 29: {time.perf_counter() - t_phase:.1f} s in all on {card}")
+    return launches + loaded_launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6991,6 +7163,8 @@ def main(argv=None) -> int:
     done("phase 28")
     for dtype, n in phase28.items():
         records[dtype]["launches_phase28"] = n
+    phase29 = phase_stablehlo(args.seed, device_name)
+    done("phase 29")
     records[torch.bfloat16]["launches_phase20"] = 0
     for dtype, n in phase22.items():
         records[dtype]["launches_phase22"] = n
@@ -7009,6 +7183,7 @@ def main(argv=None) -> int:
           f"flash kernel): f32 {phase27[torch.float32]}, bf16 {phase27[torch.bfloat16]}")
     print(f"flash launches in phase 28 (28(b)'s pipeline over bert-base's 12 layers, {M_MICRO} microbatches a call): "
           f"f32 {phase28[torch.float32]}, bf16 {phase28[torch.bfloat16]}")
+    print(f"flash launches in phase 29 (the XlaCallModule ResNet50 and the loaded JAX program): {phase29}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[torch.float32], records[torch.bfloat16]]}))
     print(json.dumps({

@@ -250,17 +250,15 @@ class ModelFunction:
         by default (raises when there is none), ``"cpu"`` for the CPU; a
         program exported on another device is moved there, and an image
         program's weights on the card are ``channels_last``, as
-        :meth:`from_module` keeps them. A JAX package artifact (StableHLO)
-        is refused."""
+        :meth:`from_module` keeps them. A JAX package artifact
+        (``program.stablehlo`` and ``params.pkl``) runs on the port's
+        StableHLO interpreter: see :func:`_load_stablehlo`."""
         from sparkdl_tpu_torch.runtime.device import exact_float32, resolve_device
 
         program_file = os.path.join(path, "program.pt2")
         if not os.path.exists(program_file):
             if os.path.exists(os.path.join(path, "program.stablehlo")):
-                raise NotImplementedError(
-                    f"{path!r} holds a StableHLO artifact (the JAX package's export), "
-                    "which only JAX can run (ROADMAP Queue A item 13)"
-                )
+                return _load_stablehlo(path, resolve_device(device))
             raise FileNotFoundError(f"no exported program at {program_file!r}")
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
@@ -350,6 +348,64 @@ class _Apply(nn.Module):
 
     def forward(self, x):
         return self.fn(self.inner, x)
+
+
+class StableHLOModule(nn.Module):
+    """A JAX export's program (``graph/stablehlo.Program``) as a module:
+    its baked-in constants on the device are its buffers."""
+
+    def __init__(self, program):
+        super().__init__()
+        self.program = program
+        for i, t in enumerate(program.constants):
+            self.register_buffer(f"c{i}", t, persistent=False)
+
+    def forward(self, *args):
+        return self.program(*args)
+
+
+def _load_stablehlo(path: str, device: torch.device) -> ModelFunction:
+    """Load the JAX package's ``ModelFunction.export`` artifact without JAX:
+    ``program.stablehlo`` through ``graph/jax_exported.read_exported`` and
+    the StableHLO interpreter on ``device``, ``params.pkl`` through the
+    numpy-only unpickler (``raw_params``, ``input_shape``,
+    ``input_dtype`` and ``name``, as the JAX ``load`` fills them). An image
+    program takes NHWC rows, as the JAX function does; an input is cast to
+    the program's dtype."""
+    from sparkdl_tpu_torch.graph.jax_exported import read_exported, read_params
+    from sparkdl_tpu_torch.graph.mlir_bytecode import read_module
+    from sparkdl_tpu_torch.graph.stablehlo import Program
+
+    with open(os.path.join(path, "program.stablehlo"), "rb") as f:
+        exported = read_exported(f.read())
+    meta = read_params(os.path.join(path, "params.pkl"))
+    program = Program(read_module(exported.mlir_module_serialized), device)
+    kept = exported.module_kept_var_idx
+    if len(program.signature.inputs) != len(kept):
+        raise NotImplementedError(
+            f"{path!r}: main takes {len(program.signature.inputs)} arguments where the export keeps "
+            f"{len(kept)} (a platform index or token argument; ROADMAP Queue A item 13)")
+    avals = exported.in_avals
+    dtypes = [getattr(torch, a.dtype) for a in avals]
+    single = len(exported.out_avals) == 1
+
+    def fn(mod, x):
+        xs = list(x) if isinstance(x, (tuple, list)) else [x]
+        if len(xs) != len(avals):
+            raise ValueError(f"{path!r} takes {len(avals)} inputs, got {len(xs)}")
+        xs = [t if t.dtype == dt else t.to(dt) for t, dt in zip(xs, dtypes)]
+        ys = mod(*[xs[i] for i in kept])
+        return ys[0] if single else tuple(ys)
+
+    input_shape = tuple(meta["input_shape"]) if meta.get("input_shape") else None
+    mf = ModelFunction(
+        fn, StableHLOModule(program), device, name=meta.get("name", "loaded"),
+        input_shape=input_shape,
+        input_dtype=getattr(torch, meta["input_dtype"]) if meta.get("input_dtype") else None,
+        takes_nhwc=input_shape is not None and len(input_shape) == 3,
+    )
+    mf.raw_params = meta["params"]
+    return mf
 
 
 def _least_batch(program) -> int:

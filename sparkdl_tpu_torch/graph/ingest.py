@@ -253,7 +253,9 @@ class ModelIngest:
     @staticmethod
     def from_exported(path: str, device=None) -> ModelFunction:
         """Load a program directory written by :meth:`ModelFunction.export`
-        (the frozen-GraphDef analogue): :meth:`ModelFunction.load`."""
+        (the frozen-GraphDef analogue), or by the JAX package's
+        ``ModelFunction.export`` (``program.stablehlo``):
+        :meth:`ModelFunction.load`."""
         return ModelFunction.load(path, device=device)
 
     @staticmethod

@@ -51,13 +51,23 @@ device. Design, beside the JAX package's:
   has no bfloat16 here), and the translator narrows them back, a lifted
   weight into a bf16 buffer and a host value through a ``bf16`` mark that
   :func:`_from_host` reads.
-- ``XlaCallModule`` (StableHLO, which only JAX can run) is refused at
-  ingestion, naming ROADMAP Queue A item 13.
+- ``XlaCallModule`` (a keras-3 or jax2tf SavedModel holds its whole
+  model as one) runs its StableHLO module through the port's own reader
+  and interpreter (``graph/mlir_bytecode.py``, ``graph/stablehlo.py``),
+  where the JAX package builds a ``jax.export.Exported`` around it. Its
+  checks are the JAX package's: a ``main`` whose argument count is not the
+  node's input count (a multi-platform or token calling convention), or
+  an output shape that cannot be inferred, is refused, naming ROADMAP
+  Queue A item 13. Compiled programs are kept in an LRU of 16 keyed by the
+  module's digest, the argument shapes and dtypes (and the device).
 """
 
 from __future__ import annotations
 
 import functools
+import hashlib
+import threading
+from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -69,12 +79,7 @@ from sparkdl_tpu_torch.graph.tf_proto import DT_BFLOAT16, base_dtype, make_ndarr
 from sparkdl_tpu_torch.runtime.device import exact_float32
 
 #: ops translated nowhere, with why; each stays listed as refused
-REFUSED = {
-    "XlaCallModule": (
-        "XlaCallModule carries a StableHLO module, which only JAX can run "
-        "(ROADMAP Queue A item 13)"
-    ),
-}
+REFUSED: Dict[str, str] = {}
 
 
 class UnsupportedTFOpError(NotImplementedError):
@@ -91,8 +96,8 @@ class UnsupportedTFOpError(NotImplementedError):
             "sparkdl_tpu_torch.graph.tf_import.register_tf_op(op, handler) — "
             "handler(node, args) returns the op's output(s) as torch tensors "
             "(or host numpy arrays). "
-            f"Supported ops: {', '.join(sorted(_OP_TABLE))}. "
-            f"Refused: {', '.join(sorted(REFUSED))}"
+            f"Supported ops: {', '.join(sorted(_OP_TABLE))}."
+            + (f" Refused: {', '.join(sorted(REFUSED))}" if REFUSED else "")
         )
 
 
@@ -1258,6 +1263,70 @@ def _floor_div(a, b):
     return torch.div(a, b, rounding_mode="floor")
 
 
+def _xla_call_module(node, args):
+    """Run an embedded StableHLO module (keras-3 / jax2tf SavedModel
+    exports serialize the whole model as ONE ``XlaCallModule`` op) on the
+    port's interpreter. The program is compiled once per (module digest,
+    argument shapes, dtypes, device) and kept in an LRU of 16, as the JAX
+    package keeps its ``jax.export.Exported``; the module's own shape
+    assertions reject ragged uses."""
+    module_bytes = node.attr["module"].s
+    device = _device_of(args) or torch.device("cpu")
+    key = (
+        _digest(module_bytes),
+        tuple(tuple(np.shape(a)) for a in args),
+        tuple(str(a.dtype) for a in args),
+        str(device),
+    )
+    with _XCM_LOCK:
+        program = _XCM_CACHE.get(key)
+        if program is None:
+            # the plan does not depend on the shapes: a program of the same
+            # module on the same device serves a new batch size
+            program = next((p for k, p in _XCM_CACHE.items() if k[0] == key[0] and k[3] == key[3]), None)
+            if program is None:
+                program = _build_xcm_program(node, len(args), device)
+            _XCM_CACHE[key] = program
+            while len(_XCM_CACHE) > _XCM_CACHE_MAX:
+                _XCM_CACHE.pop(next(iter(_XCM_CACHE)))
+        else:
+            _XCM_CACHE.move_to_end(key)
+    return list(program(*[_tensor(a, device) for a in args]))
+
+
+_XCM_CACHE: "OrderedDict[Any, Any]" = OrderedDict()
+_XCM_CACHE_MAX = 16
+_XCM_LOCK = threading.Lock()
+
+
+@functools.lru_cache(maxsize=_XCM_CACHE_MAX)
+def _digest(module_bytes: bytes) -> str:
+    return hashlib.sha256(module_bytes).hexdigest()
+
+
+def _build_xcm_program(node, n_args: int, device: torch.device):
+    from sparkdl_tpu_torch.graph.mlir_bytecode import read_module
+    from sparkdl_tpu_torch.graph.stablehlo import Program
+
+    module = read_module(node.attr["module"].s)
+    main = module.funcs.get("main")
+    if main is None:
+        raise ValueError("XlaCallModule artifact has no @main function")
+    if len(main.type.inputs) != n_args:
+        raise UnsupportedTFOpError([
+            "XlaCallModule(multi-platform or token calling convention: "
+            f"main takes {len(main.type.inputs)} args, graph provides {n_args}; ROADMAP Queue A item 13)"
+        ])
+    uses_poly = any(t.dynamic for t in main.type.inputs)
+    for s in node.attr["Sout"].list.shape:
+        if s.unknown_rank or (any(d.size == -1 for d in s.dim) and not uses_poly):
+            raise UnsupportedTFOpError([
+                f"XlaCallModule(output shape not inferable: Sout={[d.size for d in s.dim]} with a static input "
+                "signature; ROADMAP Queue A item 13)"
+            ])
+    return Program(module, device)
+
+
 def _make_table() -> Dict[str, Callable]:
     t: Dict[str, Callable] = {
         # linear algebra
@@ -1384,6 +1453,8 @@ def _make_table() -> Dict[str, Callable]:
         "TopKV2": _top_k,
         "Cumsum": _cumop(torch.cumsum, identity=0),
         "Cumprod": _cumop(torch.cumprod, identity=1),
+        # embedded StableHLO (keras-3 / jax2tf exports)
+        "XlaCallModule": _xla_call_module,
     }
     return t
 

@@ -10,8 +10,9 @@ as ``test_torch_bert.py``) and at the bf16 rung (3e-2, as
 ``test_torch_rung.py``), ResNet50 features at 32x32 (relative 1e-4, as
 ``test_torch_int8.py``). Beside them: a symbolic batch taken at 2 then 8
 (and 1), a pinned ``batch_size``, ``raw_params``, a load in a fresh
-process, the int8 rung's round trip, and the refusal of a JAX-written
-artifact.
+process, the int8 rung's round trip, and a JAX-written artifact loaded
+on the port's StableHLO interpreter (one lowered for two platforms
+refused).
 """
 
 import dataclasses
@@ -223,8 +224,20 @@ def test_a_fresh_process_loads_and_runs_the_program(bert_params, tmp_path):
 
 
 def test_a_jax_artifact_is_refused_naming_its_roadmap_item(tmp_path):
+    """A JAX-written artifact (``program.stablehlo``) loads on the port's
+    StableHLO interpreter and matches the JAX ``load``; one lowered for two
+    platforms stays refused, naming ROADMAP Queue A item 13."""
     jax_mf = JaxModelFunction(lambda p, v: v * 2.0, None, input_shape=(3,), input_dtype=jnp.float32)
     jax_mf.export(str(tmp_path))
+    loaded = ModelIngest.from_exported(str(tmp_path), device="cpu")
+    x = np.arange(12, dtype=np.float32).reshape(4, 3)
+    np.testing.assert_array_equal(loaded(torch.from_numpy(x)).numpy(),
+                                  np.asarray(JaxModelFunction.load(str(tmp_path))(x)))
+    assert loaded.input_shape == (3,) and loaded.input_dtype == torch.float32 and loaded.raw_params is None
+    exp = jax.export.export(jax.jit(lambda v: v * 2.0), platforms=("cpu", "cuda"))(
+        jax.ShapeDtypeStruct((2, 3), jnp.float32))
+    with open(tmp_path / "program.stablehlo", "wb") as f:
+        f.write(exp.serialize())
     with pytest.raises(NotImplementedError, match="Queue A item 13"):
         ModelIngest.from_exported(str(tmp_path), device="cpu")
     with pytest.raises(FileNotFoundError):

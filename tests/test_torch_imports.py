@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``sparkdl_tpu_torch`` and not
 ``chip_smoke.py`` (nor the fixture writers it imports, nor
 ``tools/torch_text_ab.py``) imports jax, flax, keras, tensorflow, h5py, pyarrow, pandas, orbax,
-tensorstore, zstandard, ml_dtypes or the JAX package, save pandas inside the functions of the pandas
+tensorstore, zstandard, ml_dtypes, flatbuffers or the JAX package, save pandas inside the functions of the pandas
 surfaces (``functions.py``, ``dataframe/frame.py``, ``session.py``) and never at module level; the frame's
 and the session's file, statistics and catalog paths load neither pandas nor pyarrow when they run, and an
 entry point left at its default device refuses to run without CUDA."""
@@ -20,13 +20,14 @@ import sparkdl_tpu_torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.join(REPO, "sparkdl_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "keras", "tensorflow", "h5py", "pyarrow", "pandas",
-             "tensorstore", "zstandard", "ml_dtypes", "sparkdl_tpu")
+             "tensorstore", "zstandard", "ml_dtypes", "flatbuffers", "sparkdl_tpu")
 
 
 def _port_files():
     # chip_smoke.py and what it imports or runs from outside the package
     files = [os.path.join(REPO, p) for p in ("chip_smoke.py", "tests/fixtures/orbax_writer.py",
-                                             "tests/fixtures/tf_graph_writer.py", "tools/torch_text_ab.py")]
+                                             "tests/fixtures/tf_graph_writer.py", "tests/fixtures/keras3_shard.py",
+                                             "tools/torch_text_ab.py")]
     for dirpath, _, names in os.walk(PKG_DIR):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return files
@@ -75,7 +76,8 @@ def test_no_port_file_imports_jax_flax_or_the_jax_package():
                      "obs/fleet.py", "serving/gateway.py", "serving/canary_loader.py",
                      "utils/zstd.py", "graph/orbax_ckpt.py", "parallel/collectives.py",
                      "parallel/tensor_parallel.py", "parallel/pipeline_parallel.py",
-                     "parallel/expert_parallel.py"):
+                     "parallel/expert_parallel.py", "graph/mlir_bytecode.py", "graph/stablehlo.py",
+                     "graph/jax_exported.py"):
         assert required.replace("/", os.sep) in rel, required
     offenders = {
         (os.path.relpath(path, REPO), root)

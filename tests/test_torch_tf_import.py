@@ -295,11 +295,12 @@ def _assert_same(got, want):
 
 def test_the_cases_cover_every_op_of_the_jax_table():
     covered = {c.op for c in CASES}
+    # XlaCallModule is held in tests/test_torch_xla_call_module.py
     assert set(jax_tf_import._OP_TABLE) - covered == {"XlaCallModule"}
     assert len(jax_tf_import._OP_TABLE) == 115
-    # the port translates every op the JAX package does, but XlaCallModule,
-    # which it refuses; and it adds FloorMod
-    assert set(tf_import._OP_TABLE) == set(jax_tf_import._OP_TABLE) - {"XlaCallModule"} | {"FloorMod"}
+    # the port translates every op the JAX package does, XlaCallModule
+    # included (on its own StableHLO interpreter); and it adds FloorMod
+    assert set(tf_import._OP_TABLE) == set(jax_tf_import._OP_TABLE) | {"FloorMod"}
 
 
 @pytest.mark.parametrize("case", CASES, ids=[c.id for c in CASES])
@@ -468,7 +469,7 @@ def test_unsupported_op_fails_at_ingestion_naming_torch():
     text = str(err.value)
     assert "Unique" in text and "no torch translation" in text and "jax" not in text.lower()
     assert "sparkdl_tpu_torch.graph.tf_import.register_tf_op" in text
-    assert "Supported ops: Abs, Add, AddN" in text and "Refused: XlaCallModule" in text
+    assert "Supported ops: Abs, Add, AddN" in text and "XlaCallModule" in text and "Refused" not in text
     assert isinstance(err.value, NotImplementedError) and err.value.ops == ["Unique"]
 
 
@@ -483,18 +484,27 @@ def test_unsupported_op_in_a_branch_fails_at_ingestion():
 
 
 def test_xla_call_module_is_refused_naming_its_roadmap_item():
+    """XlaCallModule runs on the port's StableHLO interpreter; what it does
+    not run (here a TPU's Mosaic kernel, ``tpu_custom_call``) is refused at
+    the first call, naming ROADMAP Queue A item 13."""
+    from jax._src.lib import _jax
     from tensorflow.core.framework import graph_pb2
 
+    src = ("module { func.func public @main(%a: tensor<2xf32>) -> tensor<2xf32> {\n"
+           "%b = stablehlo.custom_call @tpu_custom_call(%a) {backend_config = \"\"} : (tensor<2xf32>) -> tensor<2xf32>\n"
+           "return %b : tensor<2xf32> } }")
     gd = graph_pb2.GraphDef()
     x = gd.node.add(name="x", op="Placeholder")
     x.attr["dtype"].type = 1
     call = gd.node.add(name="call", op="XlaCallModule", input=["x"])
-    call.attr["module"].s = b"not StableHLO"
-    with pytest.raises(UnsupportedTFOpError) as err:
-        translate_graph_def(tf_proto.parse("GraphDef", gd.SerializeToString()), ["x:0"], ["call:0"])
-    assert err.value.ops == ["XlaCallModule"]
-    assert "StableHLO" in str(err.value) and "ROADMAP Queue A item 13" in str(err.value)
-    assert "XlaCallModule" not in tf_import._OP_TABLE and "XlaCallModule" in tf_import.REFUSED
+    call.attr["module"].s = _jax.mlir.serialize_portable_artifact(src, "1.13.4")
+    call.attr["Tout"].list.type.append(1)
+    call.attr["Sout"].list.shape.add().dim.add().size = 2
+    mod, fn = translate_graph_def(tf_proto.parse("GraphDef", gd.SerializeToString()), ["x:0"], ["call:0"])
+    with pytest.raises(NotImplementedError) as err:
+        fn(mod, torch.ones(2))
+    assert "custom_call @tpu_custom_call" in str(err.value) and "ROADMAP Queue A item 13" in str(err.value)
+    assert "XlaCallModule" in tf_import._OP_TABLE and "XlaCallModule" not in tf_import.REFUSED
 
 
 def test_register_and_unregister_a_translation():
