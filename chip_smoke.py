@@ -671,6 +671,28 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     beside it and 1e-4 of the port's bert-tiny built from its
     ``params.pkl``, ms per call of each by CUDA events; zero flash
     launches from the loaded program. About 30 s.
+30. the rest of ``keras.applications`` through the Keras translator
+    (``graph/keras_graph.py``), at full width (224x224, 299x299 for
+    InceptionResNetV2) from the configs committed in
+    ``tests/fixtures/keras_apps/`` (no keras on the card's machine), under
+    ``_keras_app_weights`` (seeded, the BatchNorm statistics those of the
+    checked rows in a float64 pass on the host). (a) EfficientNetB0
+    (Rescaling and an adapted Normalization in the model) through
+    ``KerasImageFileTransformer(preprocessing="none")`` over phase 14's
+    kind of files (JPEGs, PNGs at 224x224 and resized, a corrupt file, a
+    missing path, None), batch 64, f32: images/s of a warm pass,
+    dispatches, null rows null, each row a probability vector. (b)
+    EfficientNetV2B0, MobileNetV3Large, ConvNeXtTiny, NASNetMobile and
+    InceptionResNetV2 by ``ModelIngest.from_keras`` on the card: each
+    family's translate time and warm images/s at batch 32. For (a) and
+    (b), the pooled features and logits (the classifier made linear) of
+    the rows stored beside the configs against Keras's stored outputs,
+    relative 1e-4. (c) a fine-tune of EfficientNetB0 with a 10-way head
+    through ``estimators/keras_fit.py`` on the card (adam, batch 16, 4
+    steps, its noise-shaped Dropouts drawing on the card): finite losses,
+    the SE convs, BatchNorm gammas and moving statistics and the head
+    changed, the Normalization's statistics not. Zero flash launches.
+    About 60 s.
 
 The line before the last is the ``kernels`` JSON record (the f32 and the
 bf16 kernel at bert-base L=512, launches from each dtype's main-path run,
@@ -682,7 +704,8 @@ phase 22(a)'s loaded program (bf16) and 22(c)'s and 22(e)'s orbax models
 phase 26(a)'s and 26(e)'s (f32), ``launches_phase27``, phase 27(a)'s
 TextEmbedder (f32) and 27(c)'s Ulysses models over the flash kernel (f32
 and bf16), and ``launches_phase28``, phase 28(b)'s pipeline calls (f32 and
-bf16)); the last line is ``{"ok":
+bf16), and ``launches_phase30``, phase 30's Keras applications (0)); the
+last line is ``{"ok":
 true, "device": {...}}``. Phase 17's first check names each leak record
 (model, bytes) from an events log (``SPARKDL_OBS_JSONL``) armed before
 phase 11, which does not roll over as the ledger's ring does.
@@ -692,6 +715,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import gzip
 import json
 import math
 import os
@@ -729,6 +753,7 @@ from sparkdl_tpu_torch.graph.keras_graph import (
     KerasModelSpec,
     KerasModule,
     collect_weights,
+    layer_module,
     spec_from_module,
     walk_layers,
 )
@@ -931,6 +956,34 @@ KERAS_PARTITIONS = 4
 KERAS_BATCH = 64
 KERAS_CPU_ROWS = 40
 KERAS_BN_GAMMA = (0.2, 0.4)  # keeps the seeded softmax off saturation
+KERAS_LN_GAMMA = (0.5, 1.5)
+KERAS_LAYER_SCALE = (0.1, 0.5)  # LayerScale's gamma, far from its 1e-6 init
+KERAS_NORM_MEAN = (0.4, 0.5)  # an adapted Normalization over [0, 1] pixels (EfficientNet's Rescaling(1/255))
+KERAS_NORM_VAR = (0.04, 0.07)
+KERAS_APPS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures", "keras_apps")
+#: phase 30's families: (default side, input range). The first four carry
+#: their preprocessing (Rescaling, Normalization) and take [0, 255] pixels;
+#: NASNet and InceptionResNetV2 take 'tf'-preprocessed [-1, 1]
+KERAS_APPS = {
+    "EfficientNetB0": (224, (0.0, 255.0)),
+    "EfficientNetV2B0": (224, (0.0, 255.0)),
+    "MobileNetV3Large": (224, (0.0, 255.0)),
+    "ConvNeXtTiny": (224, (0.0, 255.0)),
+    "NASNetMobile": (224, (-1.0, 1.0)),
+    "InceptionResNetV2": (299, (-1.0, 1.0)),
+}
+KERAS_APPS_SEED = 0  # the weights of the stored Keras outputs: _keras_app_weights(name, config, 0)
+KERAS_APPS_BN_GAMMA = (0.5, 1.5)
+KERAS_APPS_MIN_VAR = 1e-2  # a calibrated variance's floor ...
+KERAS_APPS_MIN_SPREAD = 0.1  # ... and its standard deviation's, as a share of |mean|
+KERAS_APPS_INPUT_SEED = 0
+KERAS_APPS_ROWS = 4  # rows of stored Keras outputs per family
+KERAS_APPS_REL = 1e-4  # the card against the stored Keras outputs, relative: test_torch_keras_graph's APP_REL
+KERAS_APPS_JPEGS = 256  # 30(a)'s JPEGs, beside phase 14's PNGs and null rows
+KERAS_APPS_BATCH = 32  # 30(b)'s batch
+KERAS_APPS_ITERS = 10  # 30(b)'s timed calls per family
+KERAS_APPS_FT_ROWS = 64  # 30(c): 4 steps of 16
+KERAS_APPS_FT_BATCH = 16
 KERAS_ARM_REL = 1e-6  # the shared feeder's rows against the partitions' own
 KERAS_LOADER_ATOL = 1e-5  # the fused path without the bridge against the numpy/PIL loader
 KERAS_HEAD = (64, 10)
@@ -2657,34 +2710,145 @@ def phase_sql(seed: int, device_name: str) -> None:
     shutdown_feeders()
 
 
-def _seeded_keras_weights(config: dict, seed: int) -> dict:
+def _seeded_keras_weights(config: dict, seed: int, bn_gamma=None) -> dict:
     """Weights for every layer of a Keras config, drawn from ``seed``:
-    conv kernels He-scaled, BatchNorm gamma in ``KERAS_BN_GAMMA`` and
-    positive variance, Dense Glorot-scaled; shapes from each layer's
-    ``build_config``."""
+    conv kernels He-scaled (a depthwise kernel by its window), BatchNorm
+    gamma in ``bn_gamma`` (``KERAS_BN_GAMMA``) and positive variance, Dense
+    Glorot-scaled, LayerNormalization gamma in ``KERAS_LN_GAMMA``,
+    LayerScale gamma in ``KERAS_LAYER_SCALE`` (not its 1e-6 init, under
+    which the residual branches would vanish), an adapted Normalization's
+    mean and positive variance in ``KERAS_NORM_MEAN`` and
+    ``KERAS_NORM_VAR``; shapes from each layer's ``build_config``. Any
+    other weighted class raises PhaseError."""
     rng = np.random.default_rng(seed)
     out = {}
+
+    def he(shape, fan_in):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(np.sqrt(2.0 / fan_in))
+
+    def bias(cfg, n):
+        return [rng.normal(0.0, 0.01, n).astype(np.float32)] if cfg.get("use_bias", True) else []
+
     for path, _, layer, _ in walk_layers(config):
         cfg, cls = layer["config"], layer["class_name"]
-        cin = int(layer["build_config"]["input_shape"][-1])
+        in_shape = layer["build_config"]["input_shape"]
+        cin = int(in_shape[-1])
         if cls == "Conv2D":
             kh, kw = cfg["kernel_size"]
-            shape = (kh, kw, cin, cfg["filters"])
-            w = [rng.standard_normal(shape, dtype=np.float32) * np.float32(np.sqrt(2.0 / (kh * kw * cin)))]
-            if cfg.get("use_bias", True):
-                w.append(rng.normal(0.0, 0.01, cfg["filters"]).astype(np.float32))
+            cin //= int(cfg.get("groups", 1))
+            w = [he((kh, kw, cin, cfg["filters"]), kh * kw * cin)] + bias(cfg, cfg["filters"])
+        elif cls == "DepthwiseConv2D":
+            kh, kw = cfg["kernel_size"]
+            mult = int(cfg.get("depth_multiplier", 1))
+            w = [he((kh, kw, cin, mult), kh * kw)] + bias(cfg, cin * mult)
+        elif cls == "SeparableConv2D":
+            kh, kw = cfg["kernel_size"]
+            mult = int(cfg.get("depth_multiplier", 1))
+            w = [he((kh, kw, cin, mult), kh * kw), he((1, 1, cin * mult, cfg["filters"]), cin * mult)]
+            w += bias(cfg, cfg["filters"])
         elif cls == "BatchNormalization":
-            w = [rng.uniform(*KERAS_BN_GAMMA, cin), rng.normal(0.0, 0.05, cin),
-                 rng.normal(0.0, 0.05, cin), rng.uniform(0.5, 1.5, cin)]
+            w = [rng.uniform(*(bn_gamma or KERAS_BN_GAMMA), cin)] if cfg.get("scale", True) else []
+            w += [rng.normal(0.0, 0.05, cin)] if cfg.get("center", True) else []
+            w += [rng.normal(0.0, 0.05, cin), rng.uniform(0.5, 1.5, cin)]
             w = [a.astype(np.float32) for a in w]
         elif cls == "Dense":
             units = cfg["units"]
             w = [(rng.standard_normal((cin, units)) * np.sqrt(2.0 / (cin + units))).astype(np.float32),
                  rng.normal(0.0, 0.01, units).astype(np.float32)]
+        elif cls == "LayerNormalization":
+            axes = cfg.get("axis", -1)
+            shape = tuple(int(in_shape[a]) for a in (axes if isinstance(axes, list) else [axes]))
+            w = [rng.uniform(*KERAS_LN_GAMMA, shape)] if cfg.get("scale", True) else []
+            w += [rng.normal(0.0, 0.05, shape)] if cfg.get("center", True) else []
+            w = [a.astype(np.float32) for a in w]
+        elif cls == "LayerScale":
+            w = [rng.uniform(*KERAS_LAYER_SCALE, int(cfg["projection_dim"])).astype(np.float32)]
+        elif cls == "Normalization":  # adapted: mean, variance, count
+            axes = cfg.get("axis", -1)
+            axes = [] if axes is None else (list(axes) if isinstance(axes, (list, tuple)) else [axes])
+            shape = tuple(int(in_shape[a]) for a in axes)
+            w = [rng.uniform(*KERAS_NORM_MEAN, shape).astype(np.float32),
+                 rng.uniform(*KERAS_NORM_VAR, shape).astype(np.float32), np.array(0, np.int32)]
         else:
             raise PhaseError(f"keras: no seeded weights for {cls}")
         out[path] = w
     return out
+
+
+def _keras_app_config(name: str) -> dict:
+    """A ``keras.applications`` family's committed config
+    (``tests/fixtures/keras_apps/<name>.json.gz``, written by
+    ``make_keras_apps_fixtures.py``)."""
+    with gzip.open(os.path.join(KERAS_APPS_DIR, f"{name}.json.gz"), "rt") as f:
+        return json.load(f)
+
+
+def _keras_app_heads(config: dict) -> dict:
+    """A copy of an application's config with two outputs: its last
+    GlobalAveragePooling2D (the pooled features) and its classifier made
+    linear (the logits). Under random weights the 1000-way softmax is near
+    uniform and would hide an error, so the check reads the logits."""
+    config = json.loads(json.dumps(config))
+    out_name = config["output_layers"][0]
+    for layer in config["layers"]:
+        if layer["name"] == out_name:
+            check(layer["class_name"] in ("Dense", "Activation"), f"keras apps: classifier {out_name!r} is a "
+                  f"{layer['class_name']}")
+            layer["config"]["activation"] = "linear"
+    pooled = [l["name"] for l in config["layers"] if l["class_name"] == "GlobalAveragePooling2D"][-1]
+    config["output_layers"] = [[pooled, 0, 0], [out_name, 0, 0]]
+    return config
+
+
+def _keras_app_inputs(name: str, n: int) -> np.ndarray:
+    """``n`` NHWC rows for a family at its default size, drawn from
+    ``KERAS_APPS_INPUT_SEED`` in its input range."""
+    side, (lo, hi) = KERAS_APPS[name]
+    rng = np.random.default_rng(KERAS_APPS_INPUT_SEED)
+    return rng.uniform(lo, hi, (n, side, side, 3)).astype(np.float32)
+
+
+def _keras_app_weights(name: str, config: dict, seed: int = KERAS_APPS_SEED) -> dict:
+    """Phase 30's weights of a family: :func:`_seeded_keras_weights` with
+    BatchNorm gamma in ``KERAS_APPS_BN_GAMMA``, then each BatchNorm's
+    moving mean and variance set to the statistics of its own input in a
+    float64 pass of the port on the CPU over the rows the check feeds the
+    family (:func:`_keras_app_inputs`; in layer order, each BatchNorm
+    after those before it), as float32; the standard deviation is floored
+    at ``KERAS_APPS_MIN_SPREAD`` of the mean's size and the variance at
+    ``KERAS_APPS_MIN_VAR``, so that a channel nearly constant over the
+    rows is not blown up into float32 cancellation. A machine's float64
+    sums round to the same float32 value but for a unit in the last place
+    now and then, far below any limit of the check. Random moving
+    statistics leave deep nets without shortcuts (EfficientNet,
+    MobileNetV3, NASNet) vanishing or exploding within a few blocks, where
+    every activation and gate sits in one regime (a sigmoid gate stuck at
+    0.5, or flipping between 0 and 1 on rounding) and a wrong layer would
+    pass unseen or a right one fail; statistics matched to the checked
+    rows keep each layer's output over them near gamma's scale."""
+    weights = _seeded_keras_weights(config, seed, bn_gamma=KERAS_APPS_BN_GAMMA)
+    module = KerasModule(config, KerasModelSpec(config, weights)).double().eval()
+
+    def calibrate(path):
+        def hook(mod, args):
+            t = args[0]
+            dims = [d for d in range(t.dim()) if d != 1]
+            mean = t.mean(dim=dims).numpy()
+            var = np.maximum(t.var(dim=dims, unbiased=False).numpy(),
+                             np.maximum(KERAS_APPS_MIN_VAR, (KERAS_APPS_MIN_SPREAD * mean) ** 2))
+            mean, var = mean.astype(np.float32), var.astype(np.float32)
+            mod.running_mean.copy_(torch.from_numpy(mean))
+            mod.running_var.copy_(torch.from_numpy(var))
+            weights[path][-2:] = [mean, var]
+        return hook
+
+    for path, _, layer, _ in walk_layers(config):
+        if layer["class_name"] == "BatchNormalization":
+            layer_module(module, path).register_forward_pre_hook(calibrate(path))
+    x = torch.from_numpy(_keras_app_inputs(name, KERAS_APPS_ROWS).astype(np.float64))
+    with torch.no_grad():
+        module(x.permute(0, 3, 1, 2))
+    return weights
 
 
 def _keras_head(seed: int) -> KerasModelSpec:
@@ -2702,16 +2866,16 @@ def _keras_head(seed: int) -> KerasModelSpec:
     return KerasModelSpec({"name": "head", "layers": layers}, weights)
 
 
-def _keras_files(seed: int, root: str):
-    """Phase 14's URIs in a seeded order: JPEGs of random pixels at
-    224x224 (quality 90, as bench.py writes them), PNGs at 224x224 and at
-    KERAS_PNG_RESIZED, a corrupt file, a missing path and None; and each
-    row's kind."""
+def _keras_files(seed: int, root: str, n_jpegs: int = KERAS_JPEGS):
+    """Phase 14's URIs in a seeded order: ``n_jpegs`` JPEGs of random
+    pixels at 224x224 (quality 90, as bench.py writes them), PNGs at
+    224x224 and at KERAS_PNG_RESIZED, a corrupt file, a missing path and
+    None; and each row's kind."""
     from PIL import Image
 
     rng = np.random.default_rng(seed + 140)
     entries = []
-    for i in range(KERAS_JPEGS):
+    for i in range(n_jpegs):
         path = os.path.join(root, f"img_{i}.jpg")
         Image.fromarray(rng.integers(0, 256, size=(KERAS_SIDE, KERAS_SIDE, 3), dtype=np.uint8)).save(
             path, quality=KERAS_JPEG_QUALITY)
@@ -7058,6 +7222,156 @@ def phase_stablehlo(seed: int, device_name: str, device="cuda") -> int:
     return launches + loaded_launches
 
 
+def _keras_app_check(name: str, config: dict, weights: dict, stored, device) -> tuple:
+    """A family's pooled features and logits on ``device`` for the rows
+    stored beside its config, against Keras's stored outputs: the two
+    relative errors, each checked against KERAS_APPS_REL."""
+    x = _keras_app_inputs(name, KERAS_APPS_ROWS)
+    check(float(x.astype(np.float64).sum()) == float(stored[f"{name}/x_sum"]),
+          f"keras apps: {name}'s rows are not the draw its stored outputs were made from")
+    mf = ModelIngest.from_keras(KerasModelSpec(_keras_app_heads(config), weights), device=device)
+    pooled, logits = (t.float().cpu().numpy() for t in mf(torch.from_numpy(x).permute(0, 3, 1, 2).to(device)))
+    errs = (_relative_error(pooled, stored[f"{name}/pooled"]), _relative_error(logits, stored[f"{name}/logits"]))
+    check(max(errs) <= KERAS_APPS_REL, f"keras apps: {name} pooled/logits relative error {errs} against Keras's "
+          f"stored outputs (limit {KERAS_APPS_REL})")
+    return errs
+
+
+def phase_keras_apps(seed: int, device_name: str, tmp: str, device="cuda") -> int:
+    """Phase 30: EfficientNet, EfficientNetV2, MobileNetV3, ConvNeXt,
+    NASNet and InceptionResNetV2 from their committed configs through the
+    Keras translator at full width (``device="cpu"``: a rehearsal, with
+    the counts cut by the caller). Returns the flash launches (0)."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    card = f"{device_name} ({_smi()})" if on_card else device_name
+    t_phase = time.perf_counter()
+    with np.load(os.path.join(KERAS_APPS_DIR, "outputs.npz")) as f:
+        stored = {k: f[k] for k in f.files}
+    apps = {}
+    for name in KERAS_APPS:
+        t0 = time.perf_counter()
+        config = _keras_app_config(name)
+        apps[name] = (config, _keras_app_weights(name, config))
+        print(f"keras apps: {name} config read and weights seeded (BatchNorm statistics from a float64 pass over "
+              f"{KERAS_APPS_ROWS} rows on the host) in {time.perf_counter() - t0:.2f} s")
+    flash_attention.launches = 0
+    # (a) EfficientNetB0 through KerasImageFileTransformer
+    name = "EfficientNetB0"
+    config, weights = apps[name]
+    spec = KerasModelSpec(config, weights)
+    root = os.path.join(tmp, "keras_apps_images")
+    os.makedirs(root)
+    uris, kinds = _keras_files(seed, root, KERAS_APPS_JPEGS)
+    n = len(uris)
+    shutdown_feeders()
+    df = DataFrame.fromColumns({"uri": uris}, numPartitions=KERAS_PARTITIONS)
+    t0 = time.perf_counter()
+    stage = KerasImageFileTransformer(inputCol="uri", outputCol="probs", model=spec, batchSize=KERAS_BATCH,
+                                      preprocessing="none", device=device)
+    stage._model_function()
+    sync()
+    translate_s = time.perf_counter() - t0
+    stage.transform(DataFrame.fromColumns({"uri": uris[:KERAS_BATCH]}, numPartitions=1)).collect()  # warm-up
+    sync()
+    metrics.reset()
+    t0 = time.perf_counter()
+    rows = [r["probs"] for r in stage.transform(df).collect()]
+    sync()
+    dt = time.perf_counter() - t0
+    dispatches = _dispatches()
+    valid = [i for i, k in enumerate(kinds) if k != "null"]
+    check(len(rows) == n, f"keras apps (a): {len(rows)} rows, not {n}")
+    for i, (p, kind) in enumerate(zip(rows, kinds)):
+        if kind == "null":
+            check(p is None, f"keras apps (a): row {i} ({uris[i]}) is not null")
+            continue
+        check(p is not None and p.shape == (1000,) and bool(np.isfinite(p).all())
+              and abs(float(p.astype(np.float64).sum()) - 1.0) <= SQL_SUM_ATOL,
+              f"keras apps (a): row {i} is not a probability vector")
+    errs = {name: _keras_app_check(name, config, weights, stored, device)}
+    print(f"keras apps (30a) {name} through KerasImageFileTransformer(preprocessing='none') on {card}: translated "
+          f"and put on {device} in {translate_s:.2f} s; {len(valid)} images ({KERAS_APPS_JPEGS} JPEGs, "
+          f"{2 * KERAS_PNGS} PNGs) and {n - len(valid)} null rows, {KERAS_PARTITIONS} partitions, batch "
+          f"{KERAS_BATCH}, f32 warm: {dt:.3f} s = {len(valid) / dt:.1f} images/s, {dispatches} dispatches; "
+          f"against Keras's stored outputs ({KERAS_APPS_ROWS} rows): pooled {errs[name][0]:.3e}, logits "
+          f"{errs[name][1]:.3e} (limit {KERAS_APPS_REL})")
+    del stage
+    shutdown_feeders()
+    # (b) the other families by ModelIngest.from_keras
+    for name in [k for k in KERAS_APPS if k != "EfficientNetB0"]:
+        config, weights = apps[name]
+        side, (lo, hi) = KERAS_APPS[name]
+        t0 = time.perf_counter()
+        mf = ModelIngest.from_keras(KerasModelSpec(config, weights), device=device)
+        sync()
+        translate_s = time.perf_counter() - t0
+        x = torch.from_numpy(np.random.default_rng(seed + 30).uniform(
+            lo, hi, (KERAS_APPS_BATCH, 3, side, side)).astype(np.float32)).to(device)
+        y = mf(x)
+        check(tuple(y.shape) == (KERAS_APPS_BATCH, 1000) and bool(torch.isfinite(y).all()),
+              f"keras apps: {name} gave {tuple(y.shape)}")
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(KERAS_APPS_ITERS):
+            mf(x)
+        sync()
+        rate = KERAS_APPS_ITERS * KERAS_APPS_BATCH / (time.perf_counter() - t0)
+        errs[name] = _keras_app_check(name, config, weights, stored, device)
+        print(f"keras apps (30b) {name} {side}x{side} on {card}: translated and put on {device} in "
+              f"{translate_s:.2f} s; warm {rate:.1f} images/s (f32, batch {KERAS_APPS_BATCH}, "
+              f"{KERAS_APPS_ITERS} calls); against Keras's stored outputs: pooled {errs[name][0]:.3e}, logits "
+              f"{errs[name][1]:.3e} (limit {KERAS_APPS_REL})")
+        del mf, x, y
+    if on_card:
+        torch.cuda.empty_cache()
+    # (c) fine-tuning EfficientNetB0 with a 10-way head
+    config, weights = apps["EfficientNetB0"]
+    config = json.loads(json.dumps(config))
+    head = config["output_layers"][0]
+    for layer in config["layers"]:
+        if layer["name"] == head:
+            layer["config"]["units"] = FT_CLASSES
+    weights = dict(weights)
+    rng = np.random.default_rng(seed + 300)
+    cin = weights[head][0].shape[0]
+    weights[head] = [(rng.standard_normal((cin, FT_CLASSES)) * np.sqrt(2.0 / (cin + FT_CLASSES))).astype(np.float32),
+                     np.zeros(FT_CLASSES, np.float32)]
+    spec = KerasModelSpec(config, weights)
+    labels = rng.integers(0, FT_CLASSES, KERAS_APPS_FT_ROWS)
+    palette = rng.integers(30, 226, size=(FT_CLASSES, 3))
+    noise = rng.integers(-NOISE, NOISE + 1, size=(KERAS_APPS_FT_ROWS, KERAS_SIDE, KERAS_SIDE, 3))
+    x = np.clip(palette[labels][:, None, None, :] + noise, 0, 255).astype(np.float32)
+    y = np.eye(FT_CLASSES, dtype=np.float32)[labels]
+    module = KerasModule(config, spec).to(device)
+    if on_card:
+        module = module.to(memory_format=torch.channels_last)
+    t0 = time.perf_counter()
+    hist = keras_fit.fit(module, x, y, optimizer="adam", loss="categorical_crossentropy",
+                         params={"epochs": 1, "batch_size": KERAS_APPS_FT_BATCH, "shuffle": False}, seed=seed)
+    sync()
+    fit_s = time.perf_counter() - t0
+    after = spec_from_module(module)._weights
+    check(all(np.isfinite(hist["loss"])), f"keras apps (c): losses {hist['loss']}")
+    moved = {path: [not np.array_equal(a, b) for a, b in zip(after[path], weights[path])]
+             for path in ("block1a_se_reduce", "block6d_se_expand", "stem_bn", "top_bn", head)}
+    check(all(all(m) for m in moved.values()), f"keras apps (c): weights that did not change: {moved}")
+    kept = [np.array_equal(a, b) for a, b in zip(after["normalization"][:2], weights["normalization"][:2])]
+    check(all(kept), "keras apps (c): the Normalization's statistics changed in training")
+    steps = hist["steps"][0]
+    print(f"keras apps (30c) EfficientNetB0 fine-tune with a {FT_CLASSES}-way head through keras_fit on {card}: "
+          f"{KERAS_APPS_FT_ROWS} images, {steps} steps of {KERAS_APPS_FT_BATCH} (adam, noise-shaped Dropouts "
+          f"drawing on {device}) in {fit_s:.2f} s ({1e3 * fit_s / steps:.1f} ms per step, the first step's "
+          f"set-up included); loss {hist['loss'][0]:.4f}; the SE convs, BatchNorm gammas and moving statistics "
+          f"and the head changed, the Normalization's statistics did not")
+    del module
+    launches = flash_attention.launches
+    check(launches == 0, f"keras apps: {launches} flash launches on a CNN path")
+    print(f"phase 30: {time.perf_counter() - t_phase:.1f} s in all on {card}; flash launches {launches}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7165,6 +7479,11 @@ def main(argv=None) -> int:
         records[dtype]["launches_phase28"] = n
     phase29 = phase_stablehlo(args.seed, device_name)
     done("phase 29")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase30 = phase_keras_apps(args.seed, device_name, tmp)
+    done("phase 30")
+    for dtype in records:
+        records[dtype]["launches_phase30"] = phase30
     records[torch.bfloat16]["launches_phase20"] = 0
     for dtype, n in phase22.items():
         records[dtype]["launches_phase22"] = n
@@ -7184,6 +7503,7 @@ def main(argv=None) -> int:
     print(f"flash launches in phase 28 (28(b)'s pipeline over bert-base's 12 layers, {M_MICRO} microbatches a call): "
           f"f32 {phase28[torch.float32]}, bf16 {phase28[torch.bfloat16]}")
     print(f"flash launches in phase 29 (the XlaCallModule ResNet50 and the loaded JAX program): {phase29}")
+    print(f"flash launches in phase 30 (the Keras applications): {phase30}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[torch.float32], records[torch.bfloat16]]}))
     print(json.dumps({

@@ -88,6 +88,12 @@ def _var_trainable(layer: dict) -> List[bool]:
     cfg = layer.get("config") or {}
     if layer["class_name"] == "BatchNormalization":
         return [True] * (cfg.get("scale", True) + cfg.get("center", True)) + [False, False]
+    if layer["class_name"] == "LayerNormalization":
+        return [True] * (cfg.get("scale", True) + cfg.get("center", True))
+    if layer["class_name"] == "LayerScale":
+        return [True]
+    if layer["class_name"] == "Normalization":  # mean, variance, count
+        return [False] * 3
     kernels = 2 if layer["class_name"] == "SeparableConv2D" else 1
     return [True] * (kernels + cfg.get("use_bias", True))
 

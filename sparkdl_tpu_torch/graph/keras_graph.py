@@ -28,11 +28,20 @@ an output row gives Keras's order. Every Keras axis argument is mapped
 onto that layout (``_torch_dim``). The forward runs under
 ``runtime/device.exact_float32``: float32 stays float32 on the card.
 
-The layer table (``_BUILDERS``) covers what ``keras.applications``'
-ResNet50, MobileNetV2, InceptionV3, Xception and VGG16/19 use, and the
-common head layers. Another layer class, a dtype policy other than
-float32, a ``channels_first`` layer or a model with more than one input
-raises NotImplementedError naming ROADMAP Queue A item 9.
+The layer table (``_BUILDERS``) covers what every ``keras.applications``
+family uses: ResNet50/101/152 and their V2, MobileNet, MobileNetV2 and
+MobileNetV3, InceptionV3, InceptionResNetV2, Xception, VGG16/19,
+DenseNet, NASNet, EfficientNet, EfficientNetV2 and ConvNeXt, and the
+common head layers. Two classes come from ``keras.applications``' own
+modules (ConvNeXt's ``LayerScale``, InceptionResNetV2's
+``CustomScaleLayer``). A Functional model may also hold op nodes: a
+``keras.src.ops.numpy`` ``Add``, ``Multiply``, ``Subtract``, ``Divide``
+or ``TrueDivide`` (``x + 3.0`` in a Keras model's code), whose arguments are tensors or
+Python numbers (``_OPS``). Another layer class or op, a dtype policy
+other than float32, a ``channels_first`` layer, a model with more than
+one input, ``Normalization(invert=True)`` or
+``LayerNormalization(rms_scaling=True)`` raises NotImplementedError
+naming ROADMAP Queue A item 9.
 
 :class:`KerasModelSpec` is a Keras model held as data (its config and its
 weights by layer path) that offers the same four members a Keras model
@@ -44,6 +53,8 @@ and what a saved stage loads back.
 from __future__ import annotations
 
 import functools
+import math
+import operator
 import re
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -98,8 +109,34 @@ def _torch_dim(axis: int, rank: int) -> int:
     return (0, 2, 3, 1)[axis] if rank == 4 else axis
 
 
+def _keras_shape(x: torch.Tensor) -> Tuple[int, ...]:
+    """The shape Keras sees (NHWC for rank 4)."""
+    return (x.shape[0], x.shape[2], x.shape[3], x.shape[1]) if x.dim() == 4 else tuple(x.shape)
+
+
+def _keras_broadcast(v: torch.Tensor, x: torch.Tensor, axes) -> torch.Tensor:
+    """A Keras weight over the Keras axes ``axes`` of ``x`` (in that order,
+    as Keras reshapes it to its broadcast shape) -> broadcastable against
+    ``x`` in the module's layout."""
+    shape = _keras_shape(x)
+    keep = {a % x.dim() for a in axes}
+    target = [n if d in keep else 1 for d, n in enumerate(shape)]
+    v = v.reshape(target) if v.numel() == math.prod(target) else torch.broadcast_to(v, target)
+    return v.permute(0, 3, 1, 2) if x.dim() == 4 else v
+
+
 def _keras_softmax(x: torch.Tensor) -> torch.Tensor:
     return torch.softmax(x, dim=_torch_dim(-1, x.dim()))
+
+
+def _hard_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """keras.activations.hard_sigmoid (jax.nn's): relu6(x + 3) / 6."""
+    return F.relu6(x + 3.0) / 6.0
+
+
+def _hard_silu(x: torch.Tensor) -> torch.Tensor:
+    """keras.activations.hard_silu, alias hard_swish: x * hard_sigmoid(x)."""
+    return x * _hard_sigmoid(x)
 
 
 #: the activations of keras.applications' models and of common heads
@@ -113,6 +150,9 @@ _ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "swish": F.silu,
     "silu": F.silu,
     "gelu": F.gelu,
+    "hard_sigmoid": _hard_sigmoid,
+    "hard_silu": _hard_silu,
+    "hard_swish": _hard_silu,
 }
 
 
@@ -274,12 +314,22 @@ class _Dropout(nn.Module):
     """Keras Dropout: in ``train()`` mode, each element kept with
     probability ``1 - rate`` and scaled by its inverse, the draws from
     ``generator`` (set by :meth:`KerasModule.seed_dropout`); the identity
-    otherwise, and at rate 0."""
+    otherwise, and at rate 0. ``noise_shape`` (Keras's, each entry None or
+    1) draws one keep-draw per entry of that shape (EfficientNet's
+    ``(None, 1, 1, 1)``: one per row) and broadcasts it."""
 
-    def __init__(self, rate: float):
+    def __init__(self, rate: float, noise_shape: Optional[tuple] = None):
         super().__init__()
-        self.rate = rate
+        self.rate, self.noise_shape = rate, noise_shape
         self.generator: Optional[torch.Generator] = None
+
+    def _draw_shape(self, x) -> Tuple[int, ...]:
+        if self.noise_shape is None:
+            return tuple(x.shape)
+        if len(self.noise_shape) != x.dim():
+            raise ValueError(f"Dropout noise_shape {self.noise_shape} against a rank-{x.dim()} input")
+        shape = [n if d is None else d for d, n in zip(self.noise_shape, _keras_shape(x))]
+        return (shape[0], shape[3], shape[1], shape[2]) if x.dim() == 4 else tuple(shape)
 
     def forward(self, x):
         if not self.training or self.rate <= 0:
@@ -287,7 +337,7 @@ class _Dropout(nn.Module):
         if self.generator is None:
             raise RuntimeError("a training Dropout needs its generator: call KerasModule.seed_dropout first")
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        mask = torch.rand(self._draw_shape(x), generator=self.generator, device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -382,6 +432,143 @@ class _ReLU(nn.Module):
 class _Add(nn.Module):
     def forward(self, xs):
         return functools.reduce(torch.add, xs)
+
+
+class _Multiply(nn.Module):
+    """Keras Multiply: the product of its inputs, broadcast (an SE gate
+    ``[B, C, 1, 1]`` times ``[B, C, H, W]``)."""
+
+    def forward(self, xs):
+        return functools.reduce(torch.mul, xs)
+
+
+class _OpNode(nn.Module):
+    """A ``keras.src.ops.numpy`` op node: ``fn`` over its positional
+    arguments, tensors and Python numbers."""
+
+    def __init__(self, fn):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, args):
+        return self.fn(*args)
+
+
+class _Rescale(nn.Module):
+    """Rescaling: ``x * scale + offset``, each a number or a list over the
+    last Keras axis (a buffer)."""
+
+    def __init__(self, scale, offset):
+        super().__init__()
+        for name, v in (("scale", scale), ("offset", offset)):
+            if isinstance(v, (list, tuple)):
+                self.register_buffer(name, torch.tensor(v, dtype=torch.float32))
+            else:
+                setattr(self, name, float(v))
+
+    def forward(self, x):
+        scale, offset = (v if isinstance(v, float) else _keras_broadcast(v, x, [-1])
+                         for v in (self.scale, self.offset))
+        return x * scale + offset
+
+
+class _Normalize(nn.Module):
+    """Normalization: ``(x - mean) / max(sqrt(variance), 1e-7)`` over the
+    kept Keras ``axes``; ``mean`` and ``variance`` are Keras's (over the
+    kept axes, or broadcast from the config's values), buffers that
+    training leaves alone. ``count``: an adapted layer's third weight, kept
+    to write back."""
+
+    def __init__(self, mean, variance, axes, count: Optional[np.ndarray] = None):
+        super().__init__()
+        self.axes, self.count = tuple(axes), count
+        self.register_buffer("mean", mean)
+        self.register_buffer("variance", variance)
+
+    def forward(self, x):
+        mean = _keras_broadcast(self.mean, x, self.axes)
+        std = torch.sqrt(_keras_broadcast(self.variance, x, self.axes))
+        return (x - mean) / torch.clamp_min(std, 1e-7)
+
+    def keras_weights(self) -> List[np.ndarray]:
+        return [_numpy(self.mean), _numpy(self.variance), np.array(self.count)]
+
+
+class _LayerNorm(nn.Module):
+    """LayerNormalization over the Keras ``axes``, in Keras's arithmetic:
+    the biased variance, ``x * inv + (beta - mean * inv)`` with ``inv =
+    gamma / sqrt(var + eps)``."""
+
+    def __init__(self, gamma, beta, axes, eps: float):
+        super().__init__()
+        self.weight, self.bias = _param(gamma), _param(beta)
+        self.axes, self.eps = tuple(axes), eps
+
+    def forward(self, x):
+        dims = sorted({_torch_dim(a, x.dim()) for a in self.axes})
+        mean = x.mean(dim=dims, keepdim=True)
+        var = x.var(dim=dims, unbiased=False, keepdim=True)
+        inv = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            inv = inv * _keras_broadcast(self.weight, x, self.axes)
+        shift = -mean * inv
+        if self.bias is not None:
+            shift = shift + _keras_broadcast(self.bias, x, self.axes)
+        return x * inv + shift
+
+    def keras_weights(self) -> List[np.ndarray]:
+        return [_numpy(t) for t in (self.weight, self.bias) if t is not None]
+
+
+class _LayerScale(nn.Module):
+    """ConvNeXt's LayerScale: ``x * gamma`` over the last Keras axis."""
+
+    def __init__(self, gamma):
+        super().__init__()
+        self.weight = _param(gamma)
+
+    def forward(self, x):
+        return x * _keras_broadcast(self.weight, x, [-1])
+
+    def keras_weights(self) -> List[np.ndarray]:
+        return [_numpy(self.weight)]
+
+
+class _CustomScale(nn.Module):
+    """InceptionResNetV2's CustomScaleLayer: ``inputs[0] + inputs[1] *
+    scale``."""
+
+    def __init__(self, scale: float):
+        super().__init__()
+        self.scale = scale
+
+    def forward(self, xs):
+        return xs[0] + xs[1] * self.scale
+
+
+class _Reshape(nn.Module):
+    """Reshape to Keras's ``target_shape`` (NHWC order): a rank-4 input is
+    taken back to NHWC first, and a rank-4 result goes back to NCHW."""
+
+    def __init__(self, target):
+        super().__init__()
+        self.target = tuple(int(d) for d in target)
+
+    def forward(self, x):
+        if x.dim() == 4:
+            x = x.permute(0, 2, 3, 1)
+        y = x.reshape(x.shape[0], *self.target)
+        return y.permute(0, 3, 1, 2) if y.dim() == 4 else y
+
+
+class _Crop(nn.Module):
+    def __init__(self, crops):
+        super().__init__()
+        self.crops = crops  # (top, bottom, left, right)
+
+    def forward(self, x):
+        top, bottom, left, right = self.crops
+        return x[:, :, top:x.shape[2] - bottom, left:x.shape[3] - right]
 
 
 class _Concat(nn.Module):
@@ -509,9 +696,57 @@ def _build_relu(cfg, source):
 
 
 def _build_dropout(cfg, source):
-    if cfg.get("noise_shape") is not None:
-        raise _unsupported(f"Dropout {cfg['name']!r} with a noise_shape")
-    return _Dropout(float(cfg.get("rate", 0.0)))
+    noise = cfg.get("noise_shape")
+    if noise is not None:
+        if any(d not in (None, 1) for d in noise):
+            raise _unsupported(f"Dropout {cfg['name']!r} with noise_shape {list(noise)}")
+        noise = tuple(noise)
+    return _Dropout(float(cfg.get("rate", 0.0)), noise)
+
+
+def _axes(cfg, default) -> list:
+    axis = cfg.get("axis", default)
+    return list(axis) if isinstance(axis, (list, tuple)) else ([] if axis is None else [int(axis)])
+
+
+def _build_rescaling(cfg, source):
+    return _Rescale(cfg.get("scale", 1.0), cfg.get("offset", 0.0))
+
+
+def _build_normalization(cfg, source):
+    if cfg.get("invert", False):
+        raise _unsupported(f"Normalization {cfg['name']!r} with invert=True")
+    axes = _axes(cfg, -1)
+    if cfg.get("mean") is None:  # adapted: mean, variance, count
+        arrays = source.get_layer(cfg["name"]).get_weights()
+        if len(arrays) != 3:
+            raise ValueError(f"Keras layer {cfg['name']!r} holds {len(arrays)} weight arrays, an adapted "
+                             "Normalization 3")
+        mean, var = (torch.from_numpy(np.array(a, dtype=np.float32)) for a in arrays[:2])
+        return _Normalize(mean, var, axes, count=np.asarray(arrays[2]))
+    mean, var = (torch.tensor(cfg[k], dtype=torch.float32) for k in ("mean", "variance"))
+    return _Normalize(mean, var, axes)
+
+
+def _build_layer_norm(cfg, source):
+    if cfg.get("rms_scaling", False):
+        raise _unsupported(f"LayerNormalization {cfg['name']!r} with rms_scaling=True")
+    scale, center = cfg.get("scale", True), cfg.get("center", True)
+    ws = _weights(source, cfg["name"], scale + center)
+    gamma = ws.pop(0) if scale else None
+    beta = ws.pop(0) if center else None
+    return _LayerNorm(gamma, beta, _axes(cfg, -1), float(cfg.get("epsilon", 1e-3)))
+
+
+def _build_cropping(cfg, source):
+    c = cfg.get("cropping", ((0, 0), (0, 0)))
+    if isinstance(c, int):
+        (top, bottom), (left, right) = (c, c), (c, c)
+    elif isinstance(c[0], int):
+        (top, bottom), (left, right) = (c[0], c[0]), (c[1], c[1])
+    else:
+        (top, bottom), (left, right) = c
+    return _Crop((int(top), int(bottom), int(left), int(right)))
 
 
 _BUILDERS: Dict[str, Callable[[dict, Any], nn.Module]] = {
@@ -532,10 +767,43 @@ _BUILDERS: Dict[str, Callable[[dict, Any], nn.Module]] = {
     "Dense": _build_dense,
     "Flatten": lambda cfg, source: _Flatten(),
     "Dropout": _build_dropout,
+    "Rescaling": _build_rescaling,
+    "Normalization": _build_normalization,
+    "Reshape": lambda cfg, source: _Reshape(cfg["target_shape"]),
+    "Multiply": lambda cfg, source: _Multiply(),
+    "LayerNormalization": _build_layer_norm,
+    "LayerScale": lambda cfg, source: _LayerScale(_weights(source, cfg["name"], 1)[0]),
+    "Cropping2D": _build_cropping,
+    "CustomScaleLayer": lambda cfg, source: _CustomScale(float(cfg["scale"])),
 }
 
 #: the Keras layer classes the translator builds (nested models aside)
 LAYER_CLASSES = tuple(sorted(_BUILDERS))
+
+#: classes that keras.applications defines in its own modules, by module:
+#: another module's class of the same name is not translated
+_APP_MODULES = {
+    "LayerScale": "keras.src.applications.convnext",
+    "CustomScaleLayer": "keras.src.applications.inception_resnet_v2",
+}
+
+#: a Functional model's op nodes: the module Keras records for them, and
+#: the ops translated
+_OP_MODULE = "keras.src.ops.numpy"
+_OPS = {"Add": operator.add, "Multiply": operator.mul, "Subtract": operator.sub, "Divide": operator.truediv,
+        "TrueDivide": operator.truediv}
+
+
+def _is_op_node(layer: dict) -> bool:
+    """A ``keras.src.ops.numpy`` op in a Functional config (``x + 3.0``),
+    not the ``keras.layers`` class of the same name: its ``module`` says
+    so, or, in a legacy ``.h5`` file's config, which drops ``module``, a
+    config holding nothing but the name (a layer's always holds its
+    ``trainable`` and ``dtype``)."""
+    module = layer.get("module")
+    if module is not None:
+        return module == _OP_MODULE
+    return layer["class_name"] in _OPS and set(layer.get("config") or {}) <= {"name"}
 
 
 def _build_layer(layer: dict, source, trainable: bool) -> nn.Module:
@@ -548,8 +816,15 @@ def _build_layer(layer: dict, source, trainable: bool) -> nn.Module:
     on = trainable and cfg.get("trainable", True)
     if class_name in MODEL_CLASSES:
         return KerasGraph(cfg, source.get_layer(cfg["name"]), trainable=on)
+    if _is_op_node(layer):
+        if class_name not in _OPS:
+            raise _unsupported(f"Keras op {class_name!r} (node {cfg.get('name')!r})")
+        return _OpNode(_OPS[class_name])
     if class_name not in _BUILDERS:
         raise _unsupported(f"Keras layer class {class_name!r} (layer {cfg.get('name')!r})")
+    module_name = layer.get("module")
+    if class_name in _APP_MODULES and module_name not in (None, _APP_MODULES[class_name]):
+        raise _unsupported(f"Keras layer class {class_name!r} of {module_name!r} (layer {cfg.get('name')!r})")
     _check_policy(class_name, cfg)
     module = _BUILDERS[class_name](cfg, source)
     module.requires_grad_(on)
@@ -571,6 +846,20 @@ def _refs(obj) -> Any:
     raise _unsupported(f"a layer call argument {obj!r}")
 
 
+def _op_args(args: list, name: str) -> list:
+    """An op node's positional arguments: each a Keras tensor's ref or a
+    Python number, passed through as it is."""
+    out = []
+    for a in args:
+        if isinstance(a, (int, float)) and not isinstance(a, bool):
+            out.append(a)
+        elif isinstance(a, dict) and a.get("class_name") == "__keras_tensor__":
+            out.append(_refs(a))
+        else:
+            raise _unsupported(f"an argument {a!r} of op {name!r} (neither a tensor nor a number)")
+    return out
+
+
 def _io_refs(spec) -> list:
     """``input_layers``/``output_layers`` of a Functional config -> a list
     of refs (a single ``[name, node, index]`` is one ref)."""
@@ -584,7 +873,9 @@ def _io_refs(spec) -> list:
 def _ref_keys(arg) -> List[Tuple[str, int]]:
     if isinstance(arg, tuple):
         return [arg[:2]]
-    return [k for a in arg for k in _ref_keys(a)]
+    if isinstance(arg, list):
+        return [k for a in arg for k in _ref_keys(a)]
+    return []  # an op node's number
 
 
 def _resolve(arg, values: dict):
@@ -595,7 +886,9 @@ def _resolve(arg, values: dict):
         if arg[2] != 0:
             raise ValueError(f"layer {arg[0]!r} has one output, not {arg[2] + 1}")
         return out
-    return [_resolve(a, values) for a in arg]
+    if isinstance(arg, list):
+        return [_resolve(a, values) for a in arg]
+    return arg
 
 
 def _module_key(name: str) -> str:
@@ -656,9 +949,15 @@ class KerasGraph(nn.Module):
                 if not isinstance(node, dict):
                     raise _unsupported(f"a Keras 2 config (layer {name!r})")
                 args = node.get("args") or []
+                kwargs = node.get("kwargs") or {}
+                if _is_op_node(layer):
+                    if kwargs:
+                        raise _unsupported(f"keyword arguments {sorted(kwargs)} of op {name!r}")
+                    pending.append((key, (name, n), _op_args(args, name)))
+                    continue
                 if len(args) != 1:
                     raise _unsupported(f"a call of {name!r} with {len(args)} positional arguments")
-                for v in (node.get("kwargs") or {}).values():
+                for v in kwargs.values():
                     if isinstance(v, dict) and v.get("class_name") == "__keras_tensor__":
                         raise _unsupported(f"a tensor keyword argument of {name!r}")
                 pending.append((key, (name, n), _refs(args[0])))
@@ -729,7 +1028,9 @@ class KerasModule(nn.Module):
                 m.generator = generator
 
 
-def _layer_module(module: KerasModule, path: str) -> nn.Module:
+def layer_module(module: KerasModule, path: str) -> nn.Module:
+    """The torch module of the layer at ``path`` (:func:`walk_layers`'
+    layer names joined by '/')."""
     node: nn.Module = module.graph
     for name in path.split("/"):
         node = node.mods[_module_key(name)]
@@ -741,7 +1042,7 @@ def spec_from_module(module: KerasModule) -> "KerasModelSpec":
     weights as a :class:`KerasModelSpec`: each weighted layer's arrays in
     Keras's layout and order, as ``get_weights()`` gives them."""
     weights = {
-        path: _layer_module(module, path).keras_weights()
+        path: layer_module(module, path).keras_weights()
         for path, _, _, _ in walk_layers(module.config)
     }
     return KerasModelSpec(module.config, weights)
@@ -764,8 +1065,9 @@ def walk_layers(config: dict, prefix: str = "", trainable: bool = True):
     ``object_path`` is where a ``.keras`` archive keeps the layer's
     variables (``layers/functional/layers/conv2d``: by class name and
     order within each model's layer list, from which Sequential models
-    leave their InputLayer out); ``trainable`` is False where the layer or
-    a model around it is frozen."""
+    leave their InputLayer out and Functional models their op nodes);
+    ``trainable`` is False where the layer or a model around it is
+    frozen."""
     yield from _walk(config, prefix, "", trainable)
 
 
@@ -774,7 +1076,7 @@ def _walk(config: dict, prefix: str, obj_prefix: str, trainable: bool):
     functional = is_functional(config)
     for layer in config.get("layers") or []:
         cls = layer["class_name"]
-        if cls == "InputLayer" and not functional:
+        if (cls == "InputLayer" and not functional) or _is_op_node(layer):
             continue
         snake = _snake(cls)
         used[snake] = used.get(snake, -1) + 1
@@ -784,11 +1086,14 @@ def _walk(config: dict, prefix: str, obj_prefix: str, trainable: bool):
         on = trainable and cfg.get("trainable", True)
         if cls in MODEL_CLASSES:
             yield from _walk(cfg, path + "/", obj_path + "/", on)
-        elif cls in _WEIGHTED:
+        elif cls in _WEIGHTED and not (cls == "Normalization" and cfg.get("mean") is not None):
             yield path, obj_path, layer, on
 
 
-_WEIGHTED = ("Conv2D", "DepthwiseConv2D", "SeparableConv2D", "BatchNormalization", "Dense")
+#: the classes that hold weights; a Normalization only when adapted (its
+#: mean and variance are weights, not config values)
+_WEIGHTED = ("Conv2D", "DepthwiseConv2D", "SeparableConv2D", "BatchNormalization", "Dense",
+             "LayerNormalization", "LayerScale", "Normalization")
 
 
 def collect_weights(model) -> Dict[str, List[np.ndarray]]:

@@ -12,19 +12,27 @@ phase 14 builds its model from) equals the installed keras's
 ``keras.applications.ResNet50(weights=None, input_shape=(224, 224, 3))``,
 and a ``KerasModelSpec`` over it with the real model's weights gives the
 real model's outputs through the port, and Keras's at relative 1e-4.
+
+The newer families (EfficientNet, MobileNetV3, ConvNeXt, NASNet,
+InceptionResNetV2, DenseNet, ResNetV2, MobileNet) are in
+``test_torch_keras_apps_*.py``, over the helpers at the end of this file.
 """
 
 import json
 import os
+import sys
 
 import keras
 import numpy as np
 import pytest
+import torch
 
 from sparkdl_tpu_torch.graph.keras_graph import KerasModelSpec, collect_weights
 from test_torch_keras_graph import APP_REL, inputs, port, randomize, rel
+from test_torch_keras_weights import fast_init
 
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "keras_resnet50_224_config.json")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 APPS = {
     "ResNet50": (32, 32, 3),
@@ -77,3 +85,44 @@ def test_the_stand_in_is_the_real_model(resnet50_224):
     ours = port(spec, x)
     np.testing.assert_array_equal(ours, port(resnet50_224, x))
     assert rel(ours, resnet50_224.predict(x, verbose=0)) <= APP_REL
+
+
+# -- the families of ``chip_smoke.py`` phase 30, under its seeded weights ----------------
+
+
+def chip_smoke():
+    """``chip_smoke.py`` (the repo root's), for its seeded weights."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+
+    return cs
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch on one thread for a module's tests: the depthwise and grouped
+    convolutions of these families (float64 ones above all) slow down by
+    two orders of magnitude when the test workers' thread pools outnumber
+    the cores, and one thread loses little alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def check_seeded_application(name, shape, lo=-1.0, hi=1.0):
+    """``keras.applications.<name>(weights=None)`` at ``shape`` with its
+    classifier linear and ``randomize``'s weights (an adapted
+    Normalization's variance positive, LayerScale's gamma in [0.1, 0.5]):
+    the port's logits against Keras's at APP_REL over two rows in [lo,
+    hi]; returns the model and the rows."""
+    with fast_init():
+        model = getattr(keras.applications, name)(weights=None, input_shape=shape, classifier_activation=None)
+    randomize(model, seed=7, bn_var=(0.5, 1.5))
+    x = inputs(shape, lo=lo, hi=hi)
+    ours, ref = port(model, x), model.predict(x, verbose=0)
+    assert ours.shape == ref.shape == (2, 1000)
+    assert np.abs(ref).max() > 0.05, (name, float(np.abs(ref).max()))  # the logits did not vanish
+    assert rel(ours, ref) <= APP_REL, (name, rel(ours, ref))
+    return model, x

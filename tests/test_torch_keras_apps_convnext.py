@@ -1,0 +1,23 @@
+"""ConvNeXtTiny (fixed Normalization, LayerNormalization, LayerScale, Dense
+on NHWC channels, grouped 7x7 convs, op-node residual adds, nested
+Sequential stems) and DenseNet121 (Concatenate chains, average pooling)
+from ``keras.applications`` (``weights=None``) at 32x32 under ``randomize``'s seeded weights, through the port's
+Keras-to-torch translator against Keras itself: the logits agree at
+relative 1e-4."""
+
+import pytest
+
+from test_torch_keras_apps import check_seeded_application, one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+APPS = {
+    "ConvNeXtTiny": ((32, 32, 3), (0.0, 255.0)),
+    "DenseNet121": ((32, 32, 3), (-1.0, 1.0)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(APPS))
+def test_application_against_keras(name):
+    shape, (lo, hi) = APPS[name]
+    check_seeded_application(name, shape, lo, hi)

@@ -12,18 +12,32 @@ the CPU (keras on its jax backend, as ``tests/conftest.py`` sets it).
 - nested models (a Functional model and a Sequential head inside a
   Sequential and a Functional model, a frozen one, a model called twice)
   and a model with two outputs;
-- the refusals: another layer class, a bfloat16 policy, two inputs,
-  ``channels_first``;
+- the layers of EfficientNet, MobileNetV3, ConvNeXt, NASNet and
+  InceptionResNetV2: Rescaling (a number and a list), Normalization
+  (adapted, its mean and variance weights, and fixed in its config),
+  Reshape across ranks (Keras's NHWC order against the module's NCHW),
+  Multiply with broadcasting, the op nodes ``keras.src.ops.numpy``
+  records for ``x + 3.0`` (the number on either side), hard_sigmoid and
+  hard_silu, LayerNormalization on ranks 2-4, ConvNeXt's LayerScale,
+  Cropping2D, InceptionResNetV2's CustomScaleLayer and Dropout with a
+  ``noise_shape``: relative 1e-5;
+- the refusals: another layer class (an LSTM), a bfloat16 policy, two
+  inputs, ``channels_first``, ``rms_scaling``, ``Normalization(invert)``,
+  an op node over a numpy array, an op outside the table, a noise shape
+  with a channel entry and a LayerScale from another module than
+  ConvNeXt's;
 - the refusals name the class and the ROADMAP item.
 
 The keras.applications models and the committed ResNet50 config are in
-``test_torch_keras_apps.py`` and ``test_torch_keras_apps_inception.py``.
+``test_torch_keras_apps*.py``.
 """
 
 import keras
 import numpy as np
 import pytest
 import torch
+from keras.src.applications.convnext import LayerScale
+from keras.src.applications.inception_resnet_v2 import CustomScaleLayer
 
 from sparkdl_tpu_torch.graph.ingest import ModelIngest
 from sparkdl_tpu_torch.graph.keras_graph import LAYER_CLASSES, KerasModelSpec, collect_weights
@@ -55,6 +69,16 @@ def randomize(model, seed=0, bn_var=(1e-3, 1.0)):
             if layer.scale:
                 new[0] = rng.uniform(0.5, 1.5, weights[0].shape)
             new += [rng.normal(0.0, 0.2, weights[-2].shape), rng.uniform(*bn_var, weights[-1].shape)]
+        elif isinstance(layer, L.Normalization):  # adapted: mean, positive variance, count
+            new = [rng.normal(0.0, 0.5, weights[0].shape), rng.uniform(0.5, 2.0, weights[1].shape)]
+            layer.set_weights([np.asarray(w, np.float32) for w in new] + [weights[2]])
+            layer.finalize_state()  # what adapt() and a file's load do: the call reads the new statistics
+            continue
+        elif isinstance(layer, L.LayerNormalization):
+            new = [rng.uniform(0.5, 1.5, w.shape) if i == 0 and layer.scale else rng.normal(0.0, 0.2, w.shape)
+                   for i, w in enumerate(weights)]
+        elif isinstance(layer, LayerScale):
+            new = [rng.uniform(0.1, 0.5, weights[0].shape)]
         else:
             new = []
             for w in weights:
@@ -138,9 +162,42 @@ SEQUENTIAL_CASES = {
     "flatten-nhwc": ((5, 7, 3), lambda: [L.Conv2D(4, 3, padding="same"), L.Flatten(), L.Dense(6)], (-1, 1)),
     "dropout": ((5, 6, 3), lambda: [L.Dropout(0.5), L.Conv2D(2, 1)], (-1, 1)),
     "softmax-on-channels": ((4, 5, 6), lambda: [L.Activation("softmax")], (-3, 3)),
+    "rescaling-number": ((5, 6, 3), lambda: [L.Rescaling(1.0 / 127.5, offset=-1.0)], (0, 255)),
+    "rescaling-list": ((5, 6, 3), lambda: [L.Rescaling([0.5, 2.0, 1.5], offset=[0.1, -0.2, 0.3])], (-1, 1)),
+    "rescaling-rank2": ((3,), lambda: [L.Rescaling([0.5, 2.0, 1.5], offset=0.25)], (-1, 1)),
+    "normalization-adapted": ((5, 6, 3), lambda: [L.Normalization(axis=-1)], (-2, 2)),
+    "normalization-adapted-axes": ((5, 6, 3), lambda: [L.Normalization(axis=(1, 3))], (-2, 2)),
+    "normalization-fixed": ((5, 6, 3), lambda: [L.Normalization(mean=[123.675, 116.28, 103.53],
+                                                                 variance=[3409.98, 3262.69, 3291.89])], (0, 255)),
+    "normalization-fixed-number": ((4,), lambda: [L.Normalization(axis=None, mean=2.0, variance=4.0)], (-3, 3)),
+    "reshape-2to4": ((12,), lambda: [L.Reshape((1, 1, 12)), L.Conv2D(4, 1)], (-1, 1)),
+    "reshape-4to2": ((2, 3, 4), lambda: [L.Conv2D(5, 1), L.Reshape((30,))], (-1, 1)),
+    "reshape-4to4": ((2, 3, 4), lambda: [L.Conv2D(4, 1), L.Reshape((3, 2, 4)), L.Conv2D(3, (2, 1))], (-1, 1)),
+    "reshape-minus-one": ((2, 3, 4), lambda: [L.Conv2D(4, 1), L.Reshape((-1, 2, 2)), L.Conv2D(3, 1)], (-1, 1)),
+    "reshape-4to3": ((2, 3, 4), lambda: [L.Reshape((6, 4)), L.Dense(3)], (-1, 1)),
+    "reshape-mobilenet-head": ((4, 5, 6), lambda: [L.GlobalAveragePooling2D(keepdims=True), L.Conv2D(7, 1),
+                                                   L.Reshape((7,))], (-1, 1)),
+    "layernorm-rank2": ((7,), lambda: [L.LayerNormalization()], (-2, 2)),
+    "layernorm-rank3": ((5, 6), lambda: [L.LayerNormalization(epsilon=1e-6)], (-2, 2)),
+    "layernorm-rank4": ((4, 5, 6), lambda: [L.LayerNormalization(epsilon=1e-6)], (-2, 2)),
+    "layernorm-rank4-axes": ((4, 5, 6), lambda: [L.LayerNormalization(axis=[1, 2, 3])], (-2, 2)),
+    "layernorm-rank4-hw": ((4, 5, 6), lambda: [L.LayerNormalization(axis=[1, 2])], (-2, 2)),
+    "layernorm-no-center": ((4, 5, 6), lambda: [L.LayerNormalization(center=False)], (-2, 2)),
+    "layernorm-no-scale": ((4, 5, 6), lambda: [L.LayerNormalization(scale=False)], (-2, 2)),
+    "layernorm-neither": ((7,), lambda: [L.LayerNormalization(center=False, scale=False, epsilon=0.1)], (-2, 2)),
+    "layer-scale": ((4, 5, 6), lambda: [LayerScale(1e-6, 6)], (-2, 2)),
+    "layer-scale-rank2": ((6,), lambda: [LayerScale(1e-6, 6)], (-2, 2)),
+    "cropping-int": ((7, 8, 3), lambda: [L.Cropping2D(2)], (-1, 1)),
+    "cropping-pair": ((7, 8, 3), lambda: [L.Cropping2D((1, 2))], (-1, 1)),
+    "cropping-nasnet": ((7, 8, 3), lambda: [L.ZeroPadding2D(((0, 1), (0, 1))), L.Cropping2D(((1, 0), (1, 0)))],
+                        (-1, 1)),
+    "cropping-asymmetric": ((9, 8, 3), lambda: [L.Cropping2D(((1, 3), (2, 0))), L.Conv2D(2, 3)], (-1, 1)),
+    "dropout-noise-shape": ((5, 6, 3), lambda: [L.Dropout(0.2, noise_shape=(None, 1, 1, 1)), L.Conv2D(2, 1)],
+                            (-1, 1)),
 }
 
-ACTIVATIONS = ("linear", "relu", "relu6", "sigmoid", "tanh", "softmax", "swish", "silu", "gelu")
+ACTIVATIONS = ("linear", "relu", "relu6", "sigmoid", "tanh", "softmax", "swish", "silu", "gelu",
+               "hard_sigmoid", "hard_silu", "hard_swish")
 
 
 @pytest.mark.parametrize("case", sorted(SEQUENTIAL_CASES))
@@ -176,12 +233,65 @@ def test_merge_layers_against_keras(merge):
     assert rel(port(model, x), model.predict(x, verbose=0)) <= REL
 
 
+def _op_node_model(case):
+    """A Functional model over the op nodes Keras records for Python
+    arithmetic on tensors: the number on the right or on the left."""
+    inp = L.Input((5, 6, 3))
+    y = L.Conv2D(4, 3, padding="same")(inp)
+    out = {
+        "add-right": lambda: y + 3.0,
+        "add-left": lambda: 3.0 + y,
+        "multiply-right": lambda: y * (1.0 / 6.0),
+        "multiply-left": lambda: 0.5 * y,
+        "subtract-left": lambda: 2.0 - y,
+        "subtract-right": lambda: y - 2,
+        "divide-left": lambda: 1.0 / (y * y + 1.0),
+        "divide-right": lambda: y / 4.0,
+        "hard-sigmoid-mobilenetv3": lambda: L.ReLU(6.0)(y + 3.0) * (1.0 / 6.0),
+        "tensor-tensor": lambda: y + L.Conv2D(4, 1)(inp) * y,
+    }[case]()
+    return randomize(keras.Model(inp, out))
+
+
+@pytest.mark.parametrize("case", ["add-right", "add-left", "multiply-right", "multiply-left", "subtract-left",
+                                  "subtract-right", "divide-left", "divide-right", "hard-sigmoid-mobilenetv3",
+                                  "tensor-tensor"])
+def test_op_nodes_against_keras(case):
+    model = _op_node_model(case)
+    assert any(l.get("module") == "keras.src.ops.numpy" for l in model.get_config()["layers"])
+    x = inputs((5, 6, 3), lo=-3, hi=3)
+    assert rel(port(model, x), model.predict(x, verbose=0)) <= REL
+
+
+@pytest.mark.parametrize("case", ["se-block", "multiply-three", "custom-scale", "custom-scale-relu"])
+def test_gated_merges_against_keras(case):
+    inp = L.Input((6, 7, 4))
+    x = L.Conv2D(8, 3, padding="same", activation="swish")(inp)
+    if case == "se-block":  # EfficientNet's squeeze and excitation
+        se = L.GlobalAveragePooling2D()(x)
+        se = L.Reshape((1, 1, 8))(se)
+        se = L.Conv2D(2, 1, activation="swish")(se)
+        se = L.Conv2D(8, 1, activation="sigmoid")(se)
+        out = L.Multiply()([x, se])
+    elif case == "multiply-three":
+        out = L.Multiply()([x, L.Conv2D(8, 1)(inp), L.Conv2D(8, 1)(inp)])
+    else:  # InceptionResNetV2's residual scaling
+        branch = L.Conv2D(8, 1)(x)
+        out = CustomScaleLayer(0.17)([x, branch])
+        if case == "custom-scale-relu":
+            out = L.Activation("relu")(out)
+    model = randomize(keras.Model(inp, out))
+    x = inputs((6, 7, 4), lo=-2, hi=2)
+    assert rel(port(model, x), model.predict(x, verbose=0)) <= REL
+
+
 def test_the_table_is_the_documented_one():
     assert set(LAYER_CLASSES) == {
         "InputLayer", "Conv2D", "DepthwiseConv2D", "SeparableConv2D", "BatchNormalization",
         "Activation", "ReLU", "ZeroPadding2D", "MaxPooling2D", "AveragePooling2D",
         "GlobalAveragePooling2D", "GlobalMaxPooling2D", "Add", "Concatenate", "Dense",
-        "Flatten", "Dropout",
+        "Flatten", "Dropout", "Rescaling", "Normalization", "Reshape", "Multiply",
+        "LayerNormalization", "LayerScale", "Cropping2D", "CustomScaleLayer",
     }
 
 
@@ -240,11 +350,33 @@ def test_weights_are_read_by_layer_path():
 
 
 @pytest.mark.parametrize("case", ["layer-class", "activation", "bf16-policy", "mixed-policy", "two-inputs",
-                                  "channels-first"])
+                                  "channels-first", "rms-scaling", "normalization-invert", "op-numpy-argument",
+                                  "op-class", "dropout-noise-shape", "app-class-of-another-module"])
 def test_refusals(case):
     if case == "layer-class":
-        model = keras.Sequential([L.Input((6, 4)), L.LayerNormalization()])
-        match = "'LayerNormalization'"
+        model = keras.Sequential([L.Input((6, 4)), L.LSTM(3)])
+        match = "'LSTM'"
+    elif case == "rms-scaling":
+        model = keras.Sequential([L.Input((6, 4)), L.LayerNormalization(rms_scaling=True)])
+        match = "rms_scaling=True"
+    elif case == "normalization-invert":
+        model = keras.Sequential([L.Input((6,)), L.Normalization(mean=1.0, variance=2.0, invert=True)])
+        match = "invert=True"
+    elif case in ("op-numpy-argument", "op-class"):
+        inp = L.Input((4, 4, 3))
+        y = L.Conv2D(3, 1)(inp)
+        out = y + np.ones(3, np.float32) if case == "op-numpy-argument" else keras.ops.maximum(y, 0.0)
+        model = keras.Model(inp, out)
+        match = "neither a tensor nor a number" if case == "op-numpy-argument" else "Keras op 'Maximum'"
+    elif case == "app-class-of-another-module":  # a user's own LayerScale is not ConvNeXt's
+        model = keras.Sequential([L.Input((4, 4, 3)), LayerScale(1e-6, 3)])
+        config = model.get_config()
+        config["layers"][-1]["module"] = "my_project.layers"
+        model = KerasModelSpec(config, collect_weights(model))
+        match = "'LayerScale' of 'my_project.layers'"
+    elif case == "dropout-noise-shape":
+        model = keras.Sequential([L.Input((4, 4, 3)), L.Dropout(0.5, noise_shape=(None, 1, 1, 3))])
+        match = r"noise_shape \[None, 1, 1, 3\]"
     elif case == "activation":
         model = keras.Sequential([L.Input((6,)), L.Dense(3, activation="elu")])
         match = "activation 'elu'"

@@ -174,7 +174,7 @@ def _keras_model(unsupported: bool = False):
     from test_torch_keras_graph import randomize
 
     L = keras.layers
-    middle = [L.LayerNormalization()] if unsupported else [L.BatchNormalization()]
+    middle = [L.UpSampling2D()] if unsupported else [L.BatchNormalization()]
     return randomize(keras.Sequential(
         [L.Input((8, 8, 3)), L.Conv2D(4, 3, padding="same", activation="relu"), *middle,
          L.GlobalAveragePooling2D(), L.Dense(6, activation="softmax")], name="udf_keras"), seed=9)
