@@ -676,7 +676,7 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     InceptionResNetV2) from the configs committed in
     ``tests/fixtures/keras_apps/`` (no keras on the card's machine), under
     ``_keras_app_weights`` (seeded, the BatchNorm statistics those of the
-    checked rows in a float64 pass on the host). (a) EfficientNetB0
+    checked rows in a float64 pass, stored beside the configs). (a) EfficientNetB0
     (Rescaling and an adapted Normalization in the model) through
     ``KerasImageFileTransformer(preprocessing="none")`` over phase 14's
     kind of files (JPEGs, PNGs at 224x224 and resized, a corrupt file, a
@@ -693,6 +693,38 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     the SE convs, BatchNorm gammas and moving statistics and the head
     changed, the Normalization's statistics not. Zero flash launches.
     About 60 s.
+31. Keras sequence models through the translator
+    (``graph/keras_graph.py``, ``graph/keras_seq.py``) from the configs
+    committed in ``tests/fixtures/keras_seq/`` under
+    ``_seeded_seq_weights``, each through ``KerasTransformer`` over a
+    column of token ids (the default float32 input, cast back to ids as
+    Keras casts it) in 4 partitions with a None cell, f32. (a) the keras-io
+    "Bidirectional LSTM on IMDB" model at its published widths
+    (``Embedding(20000, 128)``, two ``Bidirectional(LSTM(64))``,
+    ``Dense(1, "sigmoid")``, maxlen 200) as published, with
+    ``mask_zero=True``, and its GRU copy with the mask, over 1024 rows
+    padded at the front (lengths 20-200), batch 64: rows/s, dispatches,
+    every recurrent call of the pass on cuDNN's fused recurrence (the
+    stored rows, one with a 0 inside its tokens, run the step loop under
+    the mask), the masked LSTM's ms per batch by each route, and the
+    first LSTM's gates off saturation. (b) an encoder at bert-base's
+    published widths from core layers (``Embedding(30522, 768,
+    mask_zero=True)``, 12 blocks of ``MultiHeadAttention(12, 64,
+    dropout=0.1)``, Dropout, Add, ``LayerNormalization(1e-12)``,
+    ``Dense(3072, "gelu")``, ``Dense(768)``, Dropout, Add,
+    LayerNormalization; masked ``GlobalAveragePooling1D`` and
+    ``Dense(2)``; no position embeddings) over 256 rows of 512 ids padded
+    at the back, batch 32: rows/s, every MultiHeadAttention on the flash
+    route (the first with the key mask; Keras's attention takes the masks
+    off its inputs, so the later blocks run unmasked, as in Keras), 12
+    flash launches per dispatch (the wrapper's count and the registry's),
+    the kernel against its plain version on the q/k/v the model gives it
+    (atol 1e-4) and timed there beside the plain version,
+    ``F.scaled_dot_product_attention`` and the bound, and the first
+    layer's attention off uniform. For (a) and (b), the outputs of the
+    rows stored beside the configs (the IMDB logit; the encoder's sequence
+    at 8 steps, padded query steps among them, and its logits) against
+    Keras's stored outputs, relative 1e-4. About 30 s.
 
 The line before the last is the ``kernels`` JSON record (the f32 and the
 bf16 kernel at bert-base L=512, launches from each dtype's main-path run,
@@ -704,8 +736,8 @@ phase 22(a)'s loaded program (bf16) and 22(c)'s and 22(e)'s orbax models
 phase 26(a)'s and 26(e)'s (f32), ``launches_phase27``, phase 27(a)'s
 TextEmbedder (f32) and 27(c)'s Ulysses models over the flash kernel (f32
 and bf16), and ``launches_phase28``, phase 28(b)'s pipeline calls (f32 and
-bf16), and ``launches_phase30``, phase 30's Keras applications (0)); the
-last line is ``{"ok":
+bf16), and ``launches_phase30``, phase 30's Keras applications (0), and
+``launches_phase31``, phase 31(b)'s encoder (f32 and bf16, the latter 0)); the last line is ``{"ok":
 true, "device": {...}}``. Phase 17's first check names each leak record
 (model, bytes) from an events log (``SPARKDL_OBS_JSONL``) armed before
 phase 11, which does not roll over as the ledger's ring does.
@@ -748,6 +780,7 @@ from sparkdl_tpu_torch.estimators import keras_fit
 from sparkdl_tpu_torch.evaluation import MulticlassClassificationEvaluator
 from sparkdl_tpu_torch.graph.function import ModelFunction
 from sparkdl_tpu_torch.graph.ingest import ModelIngest, TFInputGraph
+from sparkdl_tpu_torch.graph import keras_seq
 from sparkdl_tpu_torch.graph.keras_file import read_keras_file, read_keras_weights
 from sparkdl_tpu_torch.graph.keras_graph import (
     KerasModelSpec,
@@ -769,6 +802,7 @@ from sparkdl_tpu_torch.models.registry import (
 )
 from sparkdl_tpu_torch.models.resnet import ResNet50
 from sparkdl_tpu_torch.ops.flash_attention import (
+    LAUNCH_COUNTERS,
     flash_attention,
     flash_attention_reference,
 )
@@ -972,10 +1006,10 @@ KERAS_APPS = {
     "NASNetMobile": (224, (-1.0, 1.0)),
     "InceptionResNetV2": (299, (-1.0, 1.0)),
 }
-KERAS_APPS_SEED = 0  # the weights of the stored Keras outputs: _keras_app_weights(name, config, 0)
+KERAS_APPS_SEED = 0  # the weights of the stored Keras outputs: _keras_app_weights(name, config)
+#: each family's BatchNorm statistics (make_keras_apps_fixtures.bn_stats), by "<name>/<layer path>/mean" and ".../var"
+KERAS_APPS_BN_STATS = os.path.join(KERAS_APPS_DIR, "bn_stats.npz")
 KERAS_APPS_BN_GAMMA = (0.5, 1.5)
-KERAS_APPS_MIN_VAR = 1e-2  # a calibrated variance's floor ...
-KERAS_APPS_MIN_SPREAD = 0.1  # ... and its standard deviation's, as a share of |mean|
 KERAS_APPS_INPUT_SEED = 0
 KERAS_APPS_ROWS = 4  # rows of stored Keras outputs per family
 KERAS_APPS_REL = 1e-4  # the card against the stored Keras outputs, relative: test_torch_keras_graph's APP_REL
@@ -990,6 +1024,40 @@ KERAS_HEAD = (64, 10)
 CAFFE_MEAN_BGR = np.array([103.939, 116.779, 123.68], np.float32)
 # the headers the C++ image bridge includes; where both exist, it must build
 BRIDGE_HEADERS = ("/usr/include/jpeglib.h", "/usr/include/png.h")
+
+# phase 31: Keras sequence models through the translator (graph/keras_seq.py),
+# from the configs committed in tests/fixtures/keras_seq/
+# (make_keras_seq_fixtures.py): the keras-io "Bidirectional LSTM on IMDB"
+# model as published, with mask_zero=True, its GRU copy, and an encoder at
+# bert-base's published widths built from core Keras layers
+KERAS_SEQ_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures", "keras_seq")
+SEQ_IMDB_MODELS = ("imdb_bilstm", "imdb_bilstm_masked", "imdb_bigru_masked")
+SEQ_BERT_MODEL = "bert_encoder"
+#: keras.io/examples/nlp/bidirectional_lstm_imdb: max_features, the
+#: Embedding's width, the LSTMs' units and maxlen
+SEQ_IMDB = {"vocab": 20000, "width": 128, "units": 64, "maxlen": 200}
+SEQ_IMDB_LENGTHS = (20, 200)  # pad_sequences' rows: padded at the front
+#: uncased_L-12_H-768_A-12's bert_config.json (Devlin et al. 2018); no
+#: position embeddings (core Keras has no such layer)
+SEQ_BERT = {"vocab": 30522, "hidden": 768, "heads": 12, "head_dim": 64, "intermediate": 3072, "blocks": 12,
+            "length": 512, "ln_eps": 1e-12, "dropout": 0.1}
+SEQ_BERT_LENGTHS = (64, 512)  # BERT's rows: padded at the back (one stored row at the front)
+SEQ_BERT_POSITIONS = (0, 1, 63, 64, 255, 256, 510, 511)  # the stored sequence outputs' steps
+KERAS_SEQ_SEED = 0  # the weights of the stored Keras outputs: _seeded_seq_weights(config, 0)
+KERAS_SEQ_INPUT_SEED = 0
+KERAS_SEQ_ROWS = 4  # rows of stored Keras outputs per model
+KERAS_SEQ_REL = 1e-4  # the card against the stored Keras outputs, relative: phase 30's limit
+SEQ_EMB_STD = 1.0  # the tables' entries: N(0, 1)
+SEQ_IMDB_ROWS, SEQ_IMDB_BATCH = 1024, 64  # 31(a): rows through KerasTransformer, its batch
+SEQ_BERT_ROWS, SEQ_BERT_BATCH = 256, 32  # 31(b)
+SEQ_PARTITIONS = 4
+#: the seeded weights keep the gates and the attention away from their
+#: saturated and uniform ends: the share of LSTM gate values in (0.01,
+#: 0.99) at least, of those in (0.45, 0.55) at most, and the attention's
+#: mean largest probability over valid keys between these multiples of
+#: uniform and below one
+SEQ_GATES_OPEN, SEQ_GATES_MID = 0.9, 0.5
+SEQ_ATTN_PEAK = (2.0, 0.95)
 
 # phase 21: TF model ingestion, ResNet50 as a frozen GraphDef
 TF_IMAGES = 1024
@@ -2808,46 +2876,18 @@ def _keras_app_inputs(name: str, n: int) -> np.ndarray:
     return rng.uniform(lo, hi, (n, side, side, 3)).astype(np.float32)
 
 
-def _keras_app_weights(name: str, config: dict, seed: int = KERAS_APPS_SEED) -> dict:
-    """Phase 30's weights of a family: :func:`_seeded_keras_weights` with
-    BatchNorm gamma in ``KERAS_APPS_BN_GAMMA``, then each BatchNorm's
-    moving mean and variance set to the statistics of its own input in a
-    float64 pass of the port on the CPU over the rows the check feeds the
-    family (:func:`_keras_app_inputs`; in layer order, each BatchNorm
-    after those before it), as float32; the standard deviation is floored
-    at ``KERAS_APPS_MIN_SPREAD`` of the mean's size and the variance at
-    ``KERAS_APPS_MIN_VAR``, so that a channel nearly constant over the
-    rows is not blown up into float32 cancellation. A machine's float64
-    sums round to the same float32 value but for a unit in the last place
-    now and then, far below any limit of the check. Random moving
-    statistics leave deep nets without shortcuts (EfficientNet,
-    MobileNetV3, NASNet) vanishing or exploding within a few blocks, where
-    every activation and gate sits in one regime (a sigmoid gate stuck at
-    0.5, or flipping between 0 and 1 on rounding) and a wrong layer would
-    pass unseen or a right one fail; statistics matched to the checked
-    rows keep each layer's output over them near gamma's scale."""
-    weights = _seeded_keras_weights(config, seed, bn_gamma=KERAS_APPS_BN_GAMMA)
-    module = KerasModule(config, KerasModelSpec(config, weights)).double().eval()
-
-    def calibrate(path):
-        def hook(mod, args):
-            t = args[0]
-            dims = [d for d in range(t.dim()) if d != 1]
-            mean = t.mean(dim=dims).numpy()
-            var = np.maximum(t.var(dim=dims, unbiased=False).numpy(),
-                             np.maximum(KERAS_APPS_MIN_VAR, (KERAS_APPS_MIN_SPREAD * mean) ** 2))
-            mean, var = mean.astype(np.float32), var.astype(np.float32)
-            mod.running_mean.copy_(torch.from_numpy(mean))
-            mod.running_var.copy_(torch.from_numpy(var))
-            weights[path][-2:] = [mean, var]
-        return hook
-
-    for path, _, layer, _ in walk_layers(config):
-        if layer["class_name"] == "BatchNormalization":
-            layer_module(module, path).register_forward_pre_hook(calibrate(path))
-    x = torch.from_numpy(_keras_app_inputs(name, KERAS_APPS_ROWS).astype(np.float64))
-    with torch.no_grad():
-        module(x.permute(0, 3, 1, 2))
+def _keras_app_weights(name: str, config: dict) -> dict:
+    """Phase 30's weights of a family: :func:`_seeded_keras_weights` from
+    ``KERAS_APPS_SEED`` with BatchNorm gamma in ``KERAS_APPS_BN_GAMMA``,
+    and each BatchNorm's moving mean and variance stored beside the configs
+    (``KERAS_APPS_BN_STATS``: a float64 pass of the port on the CPU over
+    the checked rows, by ``tests/fixtures/make_keras_apps_fixtures.py``;
+    a CPU test recomputes them)."""
+    weights = _seeded_keras_weights(config, KERAS_APPS_SEED, bn_gamma=KERAS_APPS_BN_GAMMA)
+    with np.load(KERAS_APPS_BN_STATS) as f:
+        for path, _, layer, _ in walk_layers(config):
+            if layer["class_name"] == "BatchNormalization":
+                weights[path][-2:] = [f[f"{name}/{path}/mean"], f[f"{name}/{path}/var"]]
     return weights
 
 
@@ -7254,8 +7294,8 @@ def phase_keras_apps(seed: int, device_name: str, tmp: str, device="cuda") -> in
         t0 = time.perf_counter()
         config = _keras_app_config(name)
         apps[name] = (config, _keras_app_weights(name, config))
-        print(f"keras apps: {name} config read and weights seeded (BatchNorm statistics from a float64 pass over "
-              f"{KERAS_APPS_ROWS} rows on the host) in {time.perf_counter() - t0:.2f} s")
+        print(f"keras apps: {name} config read and weights seeded (BatchNorm statistics stored beside the config) "
+              f"in {time.perf_counter() - t0:.2f} s")
     flash_attention.launches = 0
     # (a) EfficientNetB0 through KerasImageFileTransformer
     name = "EfficientNetB0"
@@ -7372,6 +7412,348 @@ def phase_keras_apps(seed: int, device_name: str, tmp: str, device="cuda") -> in
     return launches
 
 
+def _keras_seq_config(name: str) -> dict:
+    """A phase 31 model's committed config
+    (``tests/fixtures/keras_seq/<name>.json.gz``)."""
+    with gzip.open(os.path.join(KERAS_SEQ_DIR, f"{name}.json.gz"), "rt") as f:
+        return json.load(f)
+
+
+def _seeded_seq_weights(config: dict, seed: int = KERAS_SEQ_SEED) -> dict:
+    """Weights for every layer of a phase 31 config, drawn from ``seed``:
+    tables N(0, SEQ_EMB_STD); recurrent kernels N(0, 1/in) and N(0, 1/units)
+    with biases N(0, 0.1) (GRU's input and recurrent biases alike);
+    MultiHeadAttention's projections N(0, 1/fan-in) with biases N(0,
+    0.02); Dense Glorot-scaled; LayerNormalization gamma in
+    ``KERAS_LN_GAMMA``. Shapes from each layer's config and
+    ``build_config``; another weighted class raises PhaseError."""
+    rng = np.random.default_rng(seed)
+
+    def normal(shape, std):
+        return (rng.standard_normal(shape, dtype=np.float32) * np.float32(std)).astype(np.float32)
+
+    def recurrent(layer, cin):
+        cfg = layer["config"]
+        units, gates = int(cfg["units"]), {"SimpleRNN": 1, "LSTM": 4, "GRU": 3}[layer["class_name"]]
+        w = [normal((cin, gates * units), 1 / np.sqrt(cin)), normal((units, gates * units), 1 / np.sqrt(units))]
+        if cfg.get("use_bias", True):
+            two = layer["class_name"] == "GRU" and cfg.get("reset_after", True)
+            w.append(normal((2, gates * units) if two else (gates * units,), 0.1))
+        return w
+
+    out = {}
+    for path, _, layer, _ in walk_layers(config):
+        cfg, cls = layer["config"], layer["class_name"]
+        build = layer["build_config"]
+        in_shape = build["shapes_dict"]["query_shape"] if "shapes_dict" in build else build["input_shape"]
+        cin = None if in_shape[-1] is None else int(in_shape[-1])  # an Embedding's ids: no width
+        if cls == "Embedding":
+            w = [normal((int(cfg["input_dim"]), int(cfg["output_dim"])), SEQ_EMB_STD)]
+        elif cls in ("SimpleRNN", "LSTM", "GRU"):
+            w = recurrent(layer, cin)
+        elif cls == "Bidirectional":
+            w = recurrent(cfg["layer"], cin) + recurrent(cfg.get("backward_layer") or cfg["layer"], cin)
+        elif cls == "MultiHeadAttention":
+            heads, key_dim = int(cfg["num_heads"]), int(cfg["key_dim"])
+            value_dim = int(cfg.get("value_dim") or key_dim)
+            w = []
+            for dim in (key_dim, key_dim, value_dim):
+                w += [normal((cin, heads, dim), 1 / np.sqrt(cin)), normal((heads, dim), 0.02)]
+            w += [normal((heads, value_dim, cin), 1 / np.sqrt(heads * value_dim)), normal((cin,), 0.02)]
+        elif cls == "Dense":
+            units = int(cfg["units"])
+            w = [normal((cin, units), np.sqrt(2.0 / (cin + units))), normal((units,), 0.01)]
+        elif cls == "LayerNormalization":
+            w = [rng.uniform(*KERAS_LN_GAMMA, cin).astype(np.float32), normal((cin,), 0.05)]
+        else:
+            raise PhaseError(f"keras seq: no seeded weights for {cls}")
+        out[path] = w
+    return out
+
+
+def _keras_seq_heads(name: str, config: dict) -> dict:
+    """A copy of a phase 31 config whose outputs the check reads: the
+    IMDB models' logit (their sigmoid made linear: a sigmoid near 0.5 would
+    hide an error), the encoder's last LayerNormalization (the sequence,
+    padded query rows included) and its logits."""
+    config = json.loads(json.dumps(config))
+    out_name = config["output_layers"][0]
+    if name == SEQ_BERT_MODEL:
+        last_ln = [l["name"] for l in config["layers"] if l["class_name"] == "LayerNormalization"][-1]
+        config["output_layers"] = [[last_ln, 0, 0], [out_name, 0, 0]]
+        return config
+    for layer in config["layers"]:
+        if layer["name"] == out_name:
+            layer["config"]["activation"] = "linear"
+    return config
+
+
+def _keras_seq_rows(name: str, n: int, seed: int = KERAS_SEQ_INPUT_SEED, stored: bool = False) -> np.ndarray:
+    """``n`` rows of token ids for a phase 31 model, drawn from ``seed``:
+    the IMDB models' padded at the front to maxlen (``pad_sequences``),
+    lengths in ``SEQ_IMDB_LENGTHS``; the encoder's padded at the back to
+    512, lengths in ``SEQ_BERT_LENGTHS``. The stored rows (``stored``)
+    also hold, for the encoder, one row padded at the front, and for
+    every model one row with a 0 id inside its tokens (a mask with a hole,
+    which the recurrent layers run step by step)."""
+    bert = name == SEQ_BERT_MODEL
+    vocab, length = (SEQ_BERT["vocab"], SEQ_BERT["length"]) if bert else (SEQ_IMDB["vocab"], SEQ_IMDB["maxlen"])
+    lo, hi = SEQ_BERT_LENGTHS if bert else SEQ_IMDB_LENGTHS
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(lo, hi + 1, size=n)
+    rows = np.zeros((n, length), np.int32)
+    for i, k in enumerate(lengths):
+        ids = rng.integers(1, vocab, size=k)
+        front = bert and not (stored and i == 1)
+        rows[i, :k] = ids if front else 0
+        if not front:
+            rows[i, length - k:] = ids
+    if stored:
+        k = int(lengths[-1])
+        start = 0 if bert else length - k
+        rows[-1, start + k // 2] = 0
+    return rows
+
+
+def _keras_seq_check(name: str, config: dict, weights: dict, stored: dict, device) -> tuple:
+    """A model's checked outputs on ``device`` for its stored rows against
+    Keras's stored outputs: the relative errors (the IMDB logit; the
+    encoder's sequence at ``SEQ_BERT_POSITIONS``, padded query steps
+    included, and its logits), each checked against KERAS_SEQ_REL; and the
+    ModelFunction."""
+    x = _keras_seq_rows(name, KERAS_SEQ_ROWS, stored=True)
+    check(int(x.astype(np.int64).sum()) == int(stored[f"{name}/x_sum"]),
+          f"keras seq: {name}'s rows are not the draw its stored outputs were made from")
+    mf = ModelIngest.from_keras(KerasModelSpec(_keras_seq_heads(name, config), weights), device=device)
+    y = mf(torch.from_numpy(x).to(device))
+    if name == SEQ_BERT_MODEL:
+        seq, logits = (t.float().cpu().numpy() for t in y)
+        seq = seq[:, list(SEQ_BERT_POSITIONS)]
+        errs = (_relative_error(seq, stored[f"{name}/sequence"]), _relative_error(logits, stored[f"{name}/logits"]))
+    else:
+        errs = (_relative_error(y.float().cpu().numpy(), stored[f"{name}/logits"]),)
+    check(max(errs) <= KERAS_SEQ_REL, f"keras seq: {name} relative errors {errs} against Keras's stored outputs "
+          f"(limit {KERAS_SEQ_REL})")
+    return errs, mf
+
+
+def _seq_stage_pass(stage, rows: list, batch: int, sync, counts: list, captured: dict = None) -> tuple:
+    """A warm-up pass over one batch, then a timed pass over ``rows`` (and
+    a None cell) in SEQ_PARTITIONS partitions, with the metrics registry,
+    the flash wrapper's counts, each of ``counts`` (a module's
+    ``route_calls``) and ``captured`` (what a recorder keeps of the
+    pass) set to 0 or emptied just before it: (outputs, seconds,
+    dispatches)."""
+    stage.transform(DataFrame.fromColumns({"ids": rows[:batch]}, numPartitions=1)).collect()
+    sync()
+    df = DataFrame.fromColumns({"ids": rows + [None]}, numPartitions=SEQ_PARTITIONS)
+    metrics.reset()
+    flash_attention.launches = 0
+    flash_attention.launches_by_dtype = dict.fromkeys(flash_attention.launches_by_dtype, 0)
+    for c in counts:
+        c.update(dict.fromkeys(c, 0))
+    if captured is not None:
+        captured.clear()
+    t0 = time.perf_counter()
+    out = [r["p"] for r in stage.transform(df).collect()]
+    sync()
+    dt = time.perf_counter() - t0
+    check(len(out) == len(rows) + 1 and out[-1] is None, "keras seq: the None cell is not a null row")
+    return out[:-1], dt, _dispatches()
+
+
+def _lstm_gate_shares(module, config: dict, x: torch.Tensor) -> tuple:
+    """The forward LSTM of the first Bidirectional of an unmasked IMDB
+    model over ids ``x``: the shares of its input, forget and output gate
+    values in (0.01, 0.99) and in (0.45, 0.55), from its own output
+    sequence (each step's gates are a product of the step's input and the
+    previous step's output)."""
+    names = {l["class_name"]: l["name"] for l in reversed(config["layers"])}
+    emb = layer_module(module, names["Embedding"])
+    rnn = layer_module(module, names["Bidirectional"]).forward_layer
+    with torch.no_grad():
+        e = emb(x)
+        h = rnn(e)
+        h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+        i, f, _, o = (F.linear(e, rnn.weight_ih, rnn.bias_ih) + F.linear(h_prev, rnn.weight_hh)).chunk(4, dim=-1)
+        g = torch.sigmoid(torch.cat([i, f, o], dim=-1))
+    return float(((g > 0.01) & (g < 0.99)).float().mean()), float(((g > 0.45) & (g < 0.55)).float().mean())
+
+
+def phase_keras_seq(seed: int, device_name: str, device="cuda") -> int:
+    """Phase 31: Keras sequence models through the translator at their
+    published widths, from their committed configs, through
+    ``KerasTransformer`` over a column of token ids (``device="cpu"``: a
+    rehearsal, with the counts cut by the caller). Returns the flash
+    launches of 31(b)'s timed pass by dtype."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    card = f"{device_name} ({_smi()})" if on_card else device_name
+    t_phase = time.perf_counter()
+    with np.load(os.path.join(KERAS_SEQ_DIR, "outputs.npz")) as f:
+        stored = {k: f[k] for k in f.files}
+    # (a) the IMDB models
+    for name in SEQ_IMDB_MODELS:
+        t0 = time.perf_counter()
+        config = _keras_seq_config(name)
+        weights = _seeded_seq_weights(config)
+        spec = KerasModelSpec(config, weights)
+        shutdown_feeders()
+        stage = KerasTransformer(inputCol="ids", outputCol="p", model=spec, batchSize=SEQ_IMDB_BATCH, device=device)
+        sync()
+        translate_s = time.perf_counter() - t0
+        module = stage.getModelFunction().module
+        rnns = [m for m in module.modules() if type(m).__name__ == "_Recurrent"]
+        rows = list(_keras_seq_rows(name, SEQ_IMDB_ROWS, seed + 31))
+        out, dt, dispatches = _seq_stage_pass(stage, rows, SEQ_IMDB_BATCH, sync, [m.route_calls for m in rnns])
+        check(all(p is not None and p.shape == (1,) and 0.0 < float(p[0]) < 1.0 for p in out),
+              f"keras seq (31a) {name}: a row is not one probability")
+        routes = {r: sum(m.route_calls[r] for m in rnns) for r in ("fused", "steps")}
+        check(routes == {"fused": len(rnns) * dispatches, "steps": 0},
+              f"keras seq (31a) {name}: recurrent calls by route {routes} over {dispatches} dispatches")
+        errs, mf = _keras_seq_check(name, config, weights, stored, device)
+        stored_routes = {r: sum(m.route_calls[r] for m in mf.module.modules() if type(m).__name__ == "_Recurrent")
+                         for r in ("fused", "steps")}
+        # the stored rows hold one with a 0 inside its tokens: with the mask, the batch runs step by step
+        check(stored_routes == {"fused": 0, "steps": len(rnns)} if name.endswith("_masked")
+              else stored_routes == {"fused": len(rnns), "steps": 0},
+              f"keras seq (31a) {name}: the stored rows' recurrent calls by route {stored_routes}")
+        gates = ""
+        if name.endswith("_masked"):
+            # one batch of the pass's pre-padded rows by each route: as it is (fused), and with a 0 inside
+            # one row's tokens (the step loop); the other rows' logits must agree
+            x = torch.from_numpy(np.stack(rows[:SEQ_IMDB_BATCH])).to(device)
+            holed = x.clone()
+            holed[0, -2] = 0
+            checked = [m for m in mf.module.modules() if type(m).__name__ == "_Recurrent"]
+            with torch.no_grad():
+                by_route = []
+                for ids in (x, holed):
+                    for m in checked:
+                        m.route_calls.update(dict.fromkeys(m.route_calls, 0))
+                    by_route.append((mf.module(ids).float().cpu().numpy(),
+                                     {r: sum(m.route_calls[r] for m in checked) for r in ("fused", "steps")}))
+            (fused, fused_routes), (steps, steps_routes) = by_route
+            check(fused_routes == {"fused": len(rnns), "steps": 0} and steps_routes == {"fused": 0, "steps": len(rnns)},
+                  f"keras seq (31a) {name}: recurrent calls by route {fused_routes}, with a hole {steps_routes}")
+            route_err = _relative_error(fused[1:], steps[1:])
+            check(route_err <= KERAS_SEQ_REL, f"keras seq (31a) {name}: the fused route's logits {route_err:.3e} "
+                  f"from the step loop's on the same pre-padded rows (limit {KERAS_SEQ_REL})")
+            gates = (f"; a batch of {SEQ_IMDB_BATCH} pre-padded rows, the fused route against the step loop on "
+                     f"rows 1-{SEQ_IMDB_BATCH - 1}: {route_err:.3e} (limit {KERAS_SEQ_REL})")
+            if on_card and name == "imdb_bilstm_masked":
+                with torch.no_grad():
+                    fused_ms, steps_ms = time_ms(lambda: module(x), 10), time_ms(lambda: module(holed), 3)
+                gates += (f"; the batch by the fused route {fused_ms:.3f} ms, with a 0 inside one row's tokens "
+                          f"(the step loop) {steps_ms:.3f} ms")
+        if name == "imdb_bilstm":
+            x = torch.from_numpy(np.stack(rows[:SEQ_IMDB_BATCH])).to(device)
+            open_share, mid_share = _lstm_gate_shares(module, config, x)
+            check(open_share >= SEQ_GATES_OPEN and mid_share <= SEQ_GATES_MID,
+                  f"keras seq: the seeded LSTM gates saturate: {open_share:.3f} in (0.01, 0.99), {mid_share:.3f} "
+                  "in (0.45, 0.55)")
+            gates = (f"; first LSTM's i/f/o gates over a batch: {open_share:.3f} in (0.01, 0.99), "
+                     f"{mid_share:.3f} in (0.45, 0.55)")
+        print(f"keras seq (31a) {name} through KerasTransformer on {card}: translated and put on {device} in "
+              f"{translate_s:.2f} s; {len(rows)} rows of {SEQ_IMDB['maxlen']} ids (padded at the front, lengths "
+              f"{SEQ_IMDB_LENGTHS[0]}-{SEQ_IMDB_LENGTHS[1]}) and a None cell, {SEQ_PARTITIONS} partitions, batch "
+              f"{SEQ_IMDB_BATCH}, f32 warm: {dt:.3f} s = {len(rows) / dt:.1f} rows/s, {dispatches} dispatches; "
+              f"recurrent calls by route {routes} (the stored rows' {stored_routes}); against Keras's stored "
+              f"logits ({KERAS_SEQ_ROWS} rows, one with a 0 inside): {errs[0]:.3e} (limit {KERAS_SEQ_REL}){gates}")
+        del stage, module, mf, rnns
+    # (b) the encoder at bert-base's widths
+    t0 = time.perf_counter()
+    config = _keras_seq_config(SEQ_BERT_MODEL)
+    weights = _seeded_seq_weights(config)
+    seeded_s = time.perf_counter() - t0
+    shutdown_feeders()
+    t0 = time.perf_counter()
+    stage = KerasTransformer(inputCol="ids", outputCol="p", model=KerasModelSpec(config, weights),
+                             batchSize=SEQ_BERT_BATCH, device=device)
+    sync()
+    translate_s = time.perf_counter() - t0
+    routes = stage.getModelFunction().module.attention_routes()
+    check(routes == {"flash": SEQ_BERT["blocks"], "plain": 0}, f"keras seq (31b): attention routes {routes}")
+    rows = list(_keras_seq_rows(SEQ_BERT_MODEL, SEQ_BERT_ROWS, seed + 31))
+    counter = LAUNCH_COUNTERS[torch.float32]
+    # the flash op's inputs at this call site: the first and the last call of the timed pass, then of the
+    # stored rows' check (the recorder adds no launch: it hands each call on to the op)
+    captured = {}
+    real = keras_seq.flash_attention
+
+    def record(q, k, v, mask):
+        captured.setdefault("first", (q, k, v, mask))
+        captured["last"] = (q, k, v, mask)
+        captured["calls"] = captured.get("calls", 0) + 1
+        return real(q, k, v, mask)
+
+    keras_seq.flash_attention = record
+    try:
+        out, dt, dispatches = _seq_stage_pass(stage, rows, SEQ_BERT_BATCH, sync, [], captured)
+        launched, registry = dict(flash_attention.launches_by_dtype), int(metrics.counter(counter))
+        launches = flash_attention.launches
+        main_path = dict(captured)
+        captured.clear()
+        errs, mf = _keras_seq_check(SEQ_BERT_MODEL, config, weights, stored, device)
+    finally:
+        keras_seq.flash_attention = real
+    check(all(p is not None and p.shape == (2,) and bool(np.isfinite(p).all()) for p in out),
+          "keras seq (31b): a row is not two finite logits")
+    check(launched[torch.float32] == launches == SEQ_BERT["blocks"] * dispatches * on_card == registry
+          and launched[torch.bfloat16] == 0,
+          f"keras seq (31b): flash launches {launched} (all {launches}, registry {registry}) for {dispatches} "
+          "dispatches")
+    check(main_path.get("calls") == SEQ_BERT["blocks"] * dispatches and captured.get("calls") == SEQ_BERT["blocks"],
+          f"keras seq (31b): {main_path.get('calls')} flash calls in the timed pass, {captured.get('calls')} in the "
+          "checked run")
+    n_tokens = int(sum(int((r != 0).sum()) for r in rows))
+    del stage
+    q, k, v, mask = main_path["first"]
+    check(q.shape[0] == SEQ_BERT_BATCH, f"keras seq (31b): the timed pass's first flash call has {q.shape}")
+    kernel_errs = []
+    for cq, ck, cv, cmask in (main_path["first"], main_path["last"], captured["first"], captured["last"]):
+        kernel_errs.append(float((real(cq, ck, cv, cmask).float()
+                                  - flash_attention_reference(cq, ck, cv, cmask).float()).abs().max()))
+    check(max(kernel_errs) <= ATOL[torch.float32], f"keras seq (31b): kernel vs plain at the call site {kernel_errs}")
+    valid = mask[0] == 0
+    n_valid = int(valid.sum())
+    with torch.no_grad():
+        scores = torch.einsum("hqd,hkd->hqk", q[0][:, valid], k[0][:, valid]) / math.sqrt(q.shape[-1])
+        peak = float(torch.softmax(scores, dim=-1).amax(dim=-1).mean())
+    check(SEQ_ATTN_PEAK[0] / n_valid <= peak <= SEQ_ATTN_PEAK[1],
+          f"keras seq (31b): the first layer's mean largest attention probability {peak:.4f} over {n_valid} keys")
+    timing = ""
+    if on_card:
+        B, H, Lq, Dh = q.shape
+        ms = time_ms(lambda: real(q, k, v, mask), 20)
+        plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, mask), 5)
+        keep = (mask == 0)[:, None, None, :]
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep), 20)
+        bound_ms, bound_by = flash_attention_bound_ms(B, H, Lq, Dh, q.dtype, masked=True)
+        timing = (f"; at this call site (B={B} H={H} L={Lq} Dh={Dh} f32, the timed pass's first call): kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.scaled_dot_product_attention {library_ms:.4f} ms, "
+                  f"bound {bound_ms:.5f} ms ({bound_by})")
+    del main_path, captured, q, k, v, mask, mf
+    if on_card:
+        torch.cuda.empty_cache()
+    print(f"keras seq (31b) bert-base-width encoder ({SEQ_BERT['blocks']} blocks, {SEQ_BERT['hidden']} wide, "
+          f"{SEQ_BERT['heads']} heads of {SEQ_BERT['head_dim']}, no position embeddings) through KerasTransformer "
+          f"on {card}: weights seeded in {seeded_s:.2f} s, translated and put on {device} in {translate_s:.2f} s; "
+          f"attention routes {routes}; {len(rows)} rows of {SEQ_BERT['length']} ids ({n_tokens} real tokens) and "
+          f"a None cell, {SEQ_PARTITIONS} partitions, batch {SEQ_BERT_BATCH}, f32 warm: {dt:.3f} s = "
+          f"{len(rows) / dt:.1f} rows/s, {dispatches} dispatches, {launches} flash launches (registry {registry}); "
+          f"against Keras's stored outputs ({KERAS_SEQ_ROWS} rows): sequence at steps {SEQ_BERT_POSITIONS} "
+          f"{errs[0]:.3e}, logits {errs[1]:.3e} (limit {KERAS_SEQ_REL}); kernel vs plain at the call site (the "
+          f"timed pass's first and last call, B={SEQ_BERT_BATCH}, and the stored rows' first and last, "
+          f"B={KERAS_SEQ_ROWS}) {max(kernel_errs):.3e} (atol {ATOL[torch.float32]}); the timed pass's first call's "
+          "row 0: mean largest attention probability "
+          f"{peak:.4f} over {n_valid} valid keys{timing}")
+    print(f"phase 31: {time.perf_counter() - t_phase:.1f} s in all on {card}; flash launches f32 "
+          f"{launched[torch.float32]}, bf16 {launched[torch.bfloat16]}")
+    return launched
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7484,6 +7866,10 @@ def main(argv=None) -> int:
     done("phase 30")
     for dtype in records:
         records[dtype]["launches_phase30"] = phase30
+    phase31 = phase_keras_seq(args.seed, device_name)
+    done("phase 31")
+    for dtype, n in phase31.items():
+        records[dtype]["launches_phase31"] = n
     records[torch.bfloat16]["launches_phase20"] = 0
     for dtype, n in phase22.items():
         records[dtype]["launches_phase22"] = n
@@ -7504,6 +7890,8 @@ def main(argv=None) -> int:
           f"f32 {phase28[torch.float32]}, bf16 {phase28[torch.bfloat16]}")
     print(f"flash launches in phase 29 (the XlaCallModule ResNet50 and the loaded JAX program): {phase29}")
     print(f"flash launches in phase 30 (the Keras applications): {phase30}")
+    print(f"flash launches in phase 31(b) (the Keras encoder's MultiHeadAttention): f32 {phase31[torch.float32]}, "
+          f"bf16 {phase31[torch.bfloat16]}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[torch.float32], records[torch.bfloat16]]}))
     print(json.dumps({

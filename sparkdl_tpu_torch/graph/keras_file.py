@@ -45,6 +45,7 @@ from sparkdl_tpu_torch.graph.keras_graph import (
     ROADMAP_ITEM,
     KerasModelSpec,
     walk_layers,
+    weight_groups,
 )
 
 ARCHIVE_CONFIG = "config.json"
@@ -74,12 +75,21 @@ def _read_archive(path: str) -> KerasModelSpec:
         raw = z.read(ARCHIVE_WEIGHTS)
     weights: Dict[str, List[np.ndarray]] = {}
     with hdf5.File(raw) as f:
-        for layer_path, obj_path, _, _ in walk_layers(config):
-            group = f.get(f"{obj_path}/vars")
-            if group is None:
-                raise ValueError(f"{path}: no weights for layer {layer_path!r} at {obj_path!r}")
-            weights[layer_path] = [np.asarray(group[str(i)]) for i in range(len(group))]
+        for layer_path, obj_path, layer, _ in walk_layers(config):
+            weights[layer_path] = _archive_arrays(f, path, layer_path, obj_path, layer["class_name"])
     return KerasModelSpec(config, weights)
+
+
+def _archive_arrays(f, path: str, layer_path: str, obj_path: str, class_name: str) -> List[np.ndarray]:
+    """A layer's variables in a Keras 3 weights store, from each of its
+    groups (``keras_graph.weight_groups``) in turn."""
+    arrays = []
+    for sub in weight_groups(class_name):
+        group = f.get(f"{obj_path}/{sub}vars")
+        if group is None:
+            raise ValueError(f"{path}: no weights for layer {layer_path!r} at {obj_path}/{sub}vars")
+        arrays += [np.asarray(group[str(i)]) for i in range(len(group))]
+    return arrays
 
 
 def _var_trainable(layer: dict) -> List[bool]:
@@ -94,7 +104,13 @@ def _var_trainable(layer: dict) -> List[bool]:
         return [True]
     if layer["class_name"] == "Normalization":  # mean, variance, count
         return [False] * 3
-    kernels = 2 if layer["class_name"] == "SeparableConv2D" else 1
+    if layer["class_name"] == "Bidirectional":
+        return [t for key in ("layer", "backward_layer") for t in _var_trainable(cfg.get(key) or cfg["layer"])]
+    if layer["class_name"] == "MultiHeadAttention":
+        return [True] * (8 if cfg.get("use_bias", True) else 4)
+    if layer["class_name"] == "Embedding":
+        return [True]
+    kernels = {"SeparableConv2D": 2, "SimpleRNN": 2, "LSTM": 2, "GRU": 2}.get(layer["class_name"], 1)
     return [True] * (kernels + cfg.get("use_bias", True))
 
 
@@ -170,10 +186,5 @@ def read_keras_weights(path: str, layers: Sequence[Tuple[str, str]]) -> Dict[str
             return {name: _legacy_arrays(f[s]) for (_, name), s in zip(layers, stored)}
         config = {"input_layers": [], "layers": [
             {"class_name": cls, "config": {"name": name}} for cls, name in layers]}
-        weights = {}
-        for name, obj_path, _, _ in walk_layers(config):
-            group = f.get(f"{obj_path}/vars")
-            if group is None:
-                raise ValueError(f"{path}: no weights for layer {name!r} at {obj_path!r}")
-            weights[name] = [np.asarray(group[str(i)]) for i in range(len(group))]
-        return weights
+        return {name: _archive_arrays(f, path, name, obj_path, layer["class_name"])
+                for name, obj_path, layer, _ in walk_layers(config)}

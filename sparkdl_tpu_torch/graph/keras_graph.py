@@ -37,7 +37,11 @@ modules (ConvNeXt's ``LayerScale``, InceptionResNetV2's
 ``CustomScaleLayer``). A Functional model may also hold op nodes: a
 ``keras.src.ops.numpy`` ``Add``, ``Multiply``, ``Subtract``, ``Divide``
 or ``TrueDivide`` (``x + 3.0`` in a Keras model's code), whose arguments are tensors or
-Python numbers (``_OPS``). Another layer class or op, a dtype policy
+Python numbers (``_OPS``). The sequence layers (``SEQUENCE_CLASSES``:
+Embedding, Conv1D, the recurrent layers, MultiHeadAttention, ...) are
+built by ``graph/keras_seq.py``, whose docstring has the rules of the
+Keras masks the graph carries beside the values; a model whose ``Input``
+is of an integer dtype takes token ids. Another layer class or op, a dtype policy
 other than float32, a ``channels_first`` layer, a model with more than
 one input, ``Normalization(invert=True)`` or
 ``LayerNormalization(rms_scaling=True)`` raises NotImplementedError
@@ -104,7 +108,8 @@ def _pair(v) -> Tuple[int, int]:
 
 def _torch_dim(axis: int, rank: int) -> int:
     """A Keras (NHWC) axis of a rank-``rank`` tensor -> the dim of the
-    module's layout (rank 4 is NCHW; other ranks are as in Keras)."""
+    module's layout (rank 4 is NCHW; other ranks, a sequence's ``[B, T,
+    C]`` among them, are as in Keras)."""
     axis = axis % rank
     return (0, 2, 3, 1)[axis] if rank == 4 else axis
 
@@ -187,6 +192,8 @@ def _spatial_pads(x: torch.Tensor, padding: str, k, stride, dilation=(1, 1)):
 
 
 class _Identity(nn.Module):
+    mask_rule = "keep"
+
     def forward(self, x):
         return x
 
@@ -248,11 +255,14 @@ class _Conv(nn.Module):
 
 
 class _BatchNorm(nn.Module):
-    """BatchNormalization over the channel axis (NCHW dim 1, or the last
-    axis below rank 4). In ``train()`` mode, when ``trainable``, Keras's
+    """BatchNormalization over the channel axis (NCHW dim 1, the last axis
+    below rank 4: a sequence's ``[B, T, C]`` features). In ``train()`` mode, when ``trainable``, Keras's
     training arithmetic: the batch's mean and biased variance,
     ``x * inv + (beta - mean * inv)`` with ``inv = gamma / sqrt(var +
     eps)``, and the moving statistics moved by ``momentum``."""
+
+    mask_rule = "keep"
+    mask_arg = True  # Keras's call takes a mask (which inference leaves unread)
 
     def __init__(self, gamma, beta, mean, var, eps, axis, momentum: float = 0.99):
         super().__init__()
@@ -265,8 +275,14 @@ class _BatchNorm(nn.Module):
         self.trainable = True
 
     def forward(self, x):
+        if x.dim() == 3 and self.axis % 3 == 2:  # a sequence's features: [B, T, C] as [B, C, T]
+            return self._normalize(x.transpose(1, 2)).transpose(1, 2)
         if x.dim() > 1 and _torch_dim(self.axis, x.dim()) != 1:
             raise _unsupported(f"BatchNormalization over Keras axis {self.axis} of a rank-{x.dim()} tensor")
+        return self._normalize(x)
+
+    def _normalize(self, x):
+        """Over dim 1."""
         if not (self.training and self.trainable):
             return F.batch_norm(
                 x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps
@@ -295,6 +311,8 @@ class _BatchNorm(nn.Module):
 class _Dense(nn.Module):
     """Dense over the last Keras axis (channels of a rank-4 tensor)."""
 
+    mask_rule = "keep"
+
     def __init__(self, weight, bias, act):
         super().__init__()
         self.weight = _param(weight)
@@ -317,6 +335,8 @@ class _Dropout(nn.Module):
     otherwise, and at rate 0. ``noise_shape`` (Keras's, each entry None or
     1) draws one keep-draw per entry of that shape (EfficientNet's
     ``(None, 1, 1, 1)``: one per row) and broadcasts it."""
+
+    mask_rule = "keep"
 
     def __init__(self, rate: float, noise_shape: Optional[tuple] = None):
         super().__init__()
@@ -394,6 +414,8 @@ class _ZeroPad(nn.Module):
 
 
 class _Act(nn.Module):
+    mask_rule = "keep"
+
     def __init__(self, fn):
         super().__init__()
         self.fn = fn
@@ -405,6 +427,8 @@ class _Act(nn.Module):
 class _ReLU(nn.Module):
     """keras.activations.relu with ``negative_slope``, ``max_value`` and
     ``threshold``, in Keras's own order of operations."""
+
+    mask_rule = "keep"
 
     def __init__(self, negative_slope: float, max_value: Optional[float], threshold: float):
         super().__init__()
@@ -429,17 +453,42 @@ class _ReLU(nn.Module):
         return y
 
 
+def _or_masks(masks) -> Optional[torch.Tensor]:
+    """Keras's merge mask: the OR of the inputs' masks when each has one,
+    else none."""
+    if masks is None or any(m is None for m in masks):
+        return None
+    return functools.reduce(torch.logical_or, masks)
+
+
 class _Add(nn.Module):
-    def forward(self, xs):
+    mask_rule = "own"
+
+    def forward(self, xs, masks=None):
         return functools.reduce(torch.add, xs)
+
+    def output_mask(self, xs, masks):
+        return _or_masks(masks)
 
 
 class _Multiply(nn.Module):
     """Keras Multiply: the product of its inputs, broadcast (an SE gate
-    ``[B, C, 1, 1]`` times ``[B, C, H, W]``)."""
+    ``[B, C, 1, 1]`` times ``[B, C, H, W]``). Under masks, as Keras's
+    ``_merge_function``: a masked step of an input counts as 1, and when
+    every input has a mask the product is 0 where none keeps the step."""
 
-    def forward(self, xs):
-        return functools.reduce(torch.mul, xs)
+    mask_rule = "own"
+
+    def forward(self, xs, masks=None):
+        if masks is None or all(m is None for m in masks):
+            return functools.reduce(torch.mul, xs)
+        xs = [x if m is None else torch.where(m[..., None], x, torch.ones_like(x)) for x, m in zip(xs, masks)]
+        y = functools.reduce(torch.mul, xs)
+        keep = self.output_mask(xs, masks)
+        return y if keep is None else torch.where(keep[..., None], y, torch.zeros_like(y))
+
+    def output_mask(self, xs, masks):
+        return _or_masks(masks)
 
 
 class _OpNode(nn.Module):
@@ -457,6 +506,8 @@ class _OpNode(nn.Module):
 class _Rescale(nn.Module):
     """Rescaling: ``x * scale + offset``, each a number or a list over the
     last Keras axis (a buffer)."""
+
+    mask_rule = "keep"
 
     def __init__(self, scale, offset):
         super().__init__()
@@ -479,6 +530,8 @@ class _Normalize(nn.Module):
     training leaves alone. ``count``: an adapted layer's third weight, kept
     to write back."""
 
+    mask_rule = "keep"
+
     def __init__(self, mean, variance, axes, count: Optional[np.ndarray] = None):
         super().__init__()
         self.axes, self.count = tuple(axes), count
@@ -498,6 +551,8 @@ class _LayerNorm(nn.Module):
     """LayerNormalization over the Keras ``axes``, in Keras's arithmetic:
     the biased variance, ``x * inv + (beta - mean * inv)`` with ``inv =
     gamma / sqrt(var + eps)``."""
+
+    mask_rule = "keep"
 
     def __init__(self, gamma, beta, axes, eps: float):
         super().__init__()
@@ -572,12 +627,25 @@ class _Crop(nn.Module):
 
 
 class _Concat(nn.Module):
+    """Concatenate; its mask, as Keras's ``compute_mask``: each input's
+    mask (all True where it has none) broadcast over the input's last
+    axis, concatenated along the axis, then any over the last axis."""
+
+    mask_rule = "own"
+
     def __init__(self, axis: int):
         super().__init__()
         self.axis = axis
 
-    def forward(self, xs):
+    def forward(self, xs, masks=None):
         return torch.cat(list(xs), dim=_torch_dim(self.axis, xs[0].dim()))
+
+    def output_mask(self, xs, masks):
+        if masks is None or all(m is None for m in masks):
+            return None
+        full = [torch.ones_like(x, dtype=torch.bool) if m is None else m[..., None].expand(x.shape)
+                for x, m in zip(xs, masks)]
+        return torch.cat(full, dim=self.axis % xs[0].dim()).any(dim=-1)
 
 
 # -- weights ------------------------------------------------------------------
@@ -777,8 +845,14 @@ _BUILDERS: Dict[str, Callable[[dict, Any], nn.Module]] = {
     "CustomScaleLayer": lambda cfg, source: _CustomScale(float(cfg["scale"])),
 }
 
+#: the sequence layers, built by ``graph/keras_seq.py`` (which imports
+#: this module's helpers, so it is imported when a model needs it)
+SEQUENCE_CLASSES = ("AveragePooling1D", "Bidirectional", "Conv1D", "Embedding", "GRU", "GlobalAveragePooling1D",
+                    "GlobalMaxPooling1D", "LSTM", "Masking", "MaxPooling1D", "MultiHeadAttention", "SimpleRNN",
+                    "SpatialDropout1D")
+
 #: the Keras layer classes the translator builds (nested models aside)
-LAYER_CLASSES = tuple(sorted(_BUILDERS))
+LAYER_CLASSES = tuple(sorted(_BUILDERS) + sorted(SEQUENCE_CLASSES))
 
 #: classes that keras.applications defines in its own modules, by module:
 #: another module's class of the same name is not translated
@@ -820,13 +894,17 @@ def _build_layer(layer: dict, source, trainable: bool) -> nn.Module:
         if class_name not in _OPS:
             raise _unsupported(f"Keras op {class_name!r} (node {cfg.get('name')!r})")
         return _OpNode(_OPS[class_name])
-    if class_name not in _BUILDERS:
+    if class_name in SEQUENCE_CLASSES:
+        from sparkdl_tpu_torch.graph.keras_seq import SEQUENCE_MODULES as table
+    elif class_name in _BUILDERS:
+        table = _BUILDERS
+    else:
         raise _unsupported(f"Keras layer class {class_name!r} (layer {cfg.get('name')!r})")
     module_name = layer.get("module")
     if class_name in _APP_MODULES and module_name not in (None, _APP_MODULES[class_name]):
         raise _unsupported(f"Keras layer class {class_name!r} of {module_name!r} (layer {cfg.get('name')!r})")
     _check_policy(class_name, cfg)
-    module = _BUILDERS[class_name](cfg, source)
+    module = table[class_name](cfg, source)
     module.requires_grad_(on)
     if isinstance(module, _BatchNorm):
         module.trainable = on
@@ -860,6 +938,20 @@ def _op_args(args: list, name: str) -> list:
     return out
 
 
+def _is_tensor(v) -> bool:
+    return isinstance(v, dict) and v.get("class_name") == "__keras_tensor__"
+
+
+def _tensor_refs(obj) -> list:
+    """The refs of every Keras tensor in a node's arguments, at any
+    depth."""
+    if _is_tensor(obj):
+        return [_refs(obj)]
+    if isinstance(obj, (list, tuple)):
+        return [r for o in obj for r in _tensor_refs(o)]
+    return []
+
+
 def _io_refs(spec) -> list:
     """``input_layers``/``output_layers`` of a Functional config -> a list
     of refs (a single ``[name, node, index]`` is one ref)."""
@@ -891,8 +983,68 @@ def _resolve(arg, values: dict):
     return arg
 
 
+def _resolve_mask(arg, masks: dict):
+    """The masks of :func:`_resolve`'s values (None where a value has
+    none)."""
+    if isinstance(arg, tuple):
+        out = masks.get(arg[:2])
+        return out[arg[2]] if isinstance(out, (list, tuple)) else out
+    if isinstance(arg, list):
+        return [_resolve_mask(a, masks) for a in arg]
+    return None
+
+
+def _has_mask(mask) -> bool:
+    if isinstance(mask, (list, tuple)):
+        return any(_has_mask(m) for m in mask)
+    return mask is not None
+
+
 def _module_key(name: str) -> str:
     return name.replace(".", "_")
+
+
+#: call keywords a node may carry that the translation reads or may pass
+#: over: ``mask`` is what Keras recorded of the mask it carried (the
+#: translator carries the masks itself), ``training`` is False at inference
+_PASSED_KWARGS = ("mask", "training")
+
+
+def _layer_call(layer: dict, name: str, args: list, kwargs: dict):
+    """A layer node's argument (a ref, or a list of refs) and its call
+    options."""
+    if layer["class_name"] == "MultiHeadAttention":
+        return _attention_call(name, args, kwargs)
+    if len(args) != 1:
+        raise _unsupported(f"a call of {name!r} with {len(args)} positional arguments")
+    for k, v in kwargs.items():
+        if _is_tensor(v) and k not in _PASSED_KWARGS:
+            raise _unsupported(f"a tensor keyword argument of {name!r}")
+    return _refs(args[0]), {}
+
+
+def _attention_call(name: str, args: list, kwargs: dict):
+    """A MultiHeadAttention node: ``[query, value, key]`` refs (key None
+    when it is the value) and ``causal``/``self_attention`` options."""
+    kwargs = dict(kwargs)
+    names = ("query", "value", "key")
+    if len(args) > 3:
+        raise _unsupported(f"a call of {name!r} with {len(args)} positional arguments")
+    refs = dict(zip(names, args))
+    for k in names:
+        if k in kwargs:
+            refs[k] = kwargs.pop(k)
+    for k in ("attention_mask", "query_mask", "value_mask", "key_mask", "return_attention_scores"):
+        if kwargs.get(k) not in (None, False):
+            raise _unsupported(f"MultiHeadAttention {name!r} called with {k}")
+    kwargs.pop("training", None)
+    causal = bool(kwargs.pop("use_causal_mask", False))
+    if kwargs:
+        raise _unsupported(f"MultiHeadAttention {name!r} called with {sorted(kwargs)}")
+    query, value = _refs(refs["query"]), _refs(refs["value"])
+    key = None if refs.get("key") is None else _refs(refs["key"])
+    self_attention = query == value and key in (None, value)
+    return [query, value, key], {"causal": causal, "self_attention": self_attention}
 
 
 class KerasGraph(nn.Module):
@@ -905,7 +1057,17 @@ class KerasGraph(nn.Module):
     nested model, another such object). The forward runs a plan made at
     build time: each (layer, node) of the graph in an order where its
     inputs exist, and each intermediate value is dropped after its last
-    use."""
+    use.
+
+    Masks (``graph/keras_seq.py``'s docstring has the rules) ride beside
+    the values, by each module's ``mask_rule``; a graph where no layer
+    makes one runs as it would without them. A Functional config records
+    the masks Keras carried as op nodes (``NotEqual``, ``Any``,
+    ``LogicalOr``, ...) that feed the ``mask`` keywords of later calls; the
+    plan leaves out the op nodes that feed nothing else."""
+
+    mask_rule = "graph"
+    mask_arg = True
 
     def __init__(self, config: dict, source, trainable: bool = True):
         super().__init__()
@@ -928,7 +1090,7 @@ class KerasGraph(nn.Module):
             if layer["class_name"] == "InputLayer":
                 continue
             key = self._add(layer, source)
-            steps.append((key, (key, i), (*prev, 0)))
+            steps.append((key, (key, i), (*prev, 0), {}))
             prev = (key, i)
         self._inputs = [("__input__", 0)]
         self._outputs: Any = (*prev, 0)
@@ -939,28 +1101,53 @@ class KerasGraph(nn.Module):
         if len(inputs) != 1:
             raise _unsupported(f"a model with {len(inputs)} inputs ({config.get('name')!r})")
         self._inputs = [inputs[0][:2]]
-        pending = []
+        spec = config["output_layers"]
+        single = isinstance(spec, list) and bool(spec) and isinstance(spec[0], str)
+        self._outputs = tuple(spec) if single else _io_refs(spec)
+        nodes = []  # (layer, node key, argument, options)
         for layer in layers:
             name = layer.get("name") or layer["config"]["name"]
             if layer["class_name"] == "InputLayer":
                 continue
-            key = self._add(layer, source)
             for n, node in enumerate(layer.get("inbound_nodes") or []):
                 if not isinstance(node, dict):
                     raise _unsupported(f"a Keras 2 config (layer {name!r})")
                 args = node.get("args") or []
                 kwargs = node.get("kwargs") or {}
-                if _is_op_node(layer):
-                    if kwargs:
-                        raise _unsupported(f"keyword arguments {sorted(kwargs)} of op {name!r}")
-                    pending.append((key, (name, n), _op_args(args, name)))
-                    continue
-                if len(args) != 1:
-                    raise _unsupported(f"a call of {name!r} with {len(args)} positional arguments")
-                for v in kwargs.values():
-                    if isinstance(v, dict) and v.get("class_name") == "__keras_tensor__":
-                        raise _unsupported(f"a tensor keyword argument of {name!r}")
-                pending.append((key, (name, n), _refs(args[0])))
+                if _is_op_node(layer):  # its arguments are read if the plan keeps it
+                    nodes.append((layer, (name, n), _tensor_refs(args), {"args": args, "kwargs": kwargs}))
+                else:
+                    nodes.append((layer, (name, n), *_layer_call(layer, name, args, kwargs)))
+        # the op nodes the outputs and the layers read, through other op
+        # nodes: the others only computed Keras's mask keywords
+        ops = {key: arg for layer, key, arg, _ in nodes if _is_op_node(layer)}
+        wanted = _ref_keys(self._outputs) + [k for layer, _, arg, _ in nodes if not _is_op_node(layer)
+                                             for k in _ref_keys(arg)]
+        needed = set()
+        while wanted:
+            k = wanted.pop()
+            if k in ops and k not in needed:
+                needed.add(k)
+                wanted += _ref_keys(ops[k])
+        built = {}
+        for layer in layers:
+            name = layer.get("name") or layer["config"]["name"]
+            if layer["class_name"] != "InputLayer" and (
+                    not _is_op_node(layer) or any((name, n) in needed for n in range(len(layer["inbound_nodes"])))):
+                built[name] = self._add(layer, source)
+        pending = []
+        for layer, key, arg, opts in nodes:
+            if key[0] not in built or (_is_op_node(layer) and key not in needed):
+                continue
+            mod = built[key[0]]
+            if _is_op_node(layer):
+                if opts["kwargs"]:
+                    raise _unsupported(f"keyword arguments {sorted(opts['kwargs'])} of op {key[0]!r}")
+                arg, opts = _op_args(opts["args"], key[0]), {}
+            if layer["class_name"] == "MultiHeadAttention":
+                flash = opts.pop("self_attention") and not opts["causal"] and self.mods[mod].flash_ok
+                opts["route"] = "flash" if flash else "plain"
+            pending.append((mod, key, arg, opts))
         # order the nodes so that each runs after the nodes it reads
         steps, have = [], set(self._inputs)
         while pending:
@@ -971,30 +1158,75 @@ class KerasGraph(nn.Module):
                 steps.append(p)
                 have.add(p[1])
             pending = [p for p in pending if p[1] not in have]
-        spec = config["output_layers"]
-        single = isinstance(spec, list) and bool(spec) and isinstance(spec[0], str)
-        self._outputs = tuple(spec) if single else _io_refs(spec)
         self._finish(steps)
 
     def _finish(self, steps) -> None:
         """Record the plan, with the values each step may drop."""
         keep = set(_ref_keys(self._outputs))
         last = {}
-        for i, (_, _, arg) in enumerate(steps):
+        for i, (_, _, arg, _) in enumerate(steps):
             for k in _ref_keys(arg):
                 last[k] = i
         self._plan = [
-            (mod, out, arg, [k for k in set(_ref_keys(arg)) if last[k] == i and k not in keep])
-            for i, (mod, out, arg) in enumerate(steps)
+            (mod, out, arg, opts, [k for k in set(_ref_keys(arg)) if last[k] == i and k not in keep])
+            for i, (mod, out, arg, opts) in enumerate(steps)
         ]
 
-    def forward(self, x):
+    def attention_routes(self) -> Dict[str, int]:
+        """MultiHeadAttention call sites by route (``flash``, ``plain``),
+        nested models included."""
+        out = {"flash": 0, "plain": 0}
+        for mod, _, _, opts, _ in self._plan:
+            if "route" in opts:
+                out[opts["route"]] += 1
+            elif isinstance(self.mods[mod], KerasGraph):
+                for route, n in self.mods[mod].attention_routes().items():
+                    out[route] += n
+        return out
+
+    def run(self, x, mask=None):
+        """The outputs, and their masks (None where an output has none),
+        of input ``x`` with mask ``mask``. Two sets of masks ride beside
+        the values, as in Keras: the masks a Functional model recorded when
+        it was built (``flow``), which a layer with a ``mask`` argument
+        (``mask_arg``) is given, and the masks its tensors carry when it
+        runs (``live``), which the other layers read; they differ after a
+        MultiHeadAttention, which takes the masks off its inputs
+        (``clears_input_masks``) for the layers that run after it."""
         values = {self._inputs[0]: x}
-        for mod, out, arg, drop in self._plan:
-            values[out] = self.mods[mod](_resolve(arg, values))
+        live = {} if mask is None else {self._inputs[0]: mask}
+        flow = dict(live)
+        for key, out, arg, opts, drop in self._plan:
+            mod = self.mods[key]
+            inputs = _resolve(arg, values)
+            m_flow = _resolve_mask(arg, flow) if flow else None
+            m = m_flow if getattr(mod, "mask_arg", False) else _resolve_mask(arg, live) if live else None
+            rule = mod.mask_rule if hasattr(mod, "mask_rule") else None
+            if rule == "graph":
+                y, m_out = mod.run(inputs, m)
+                flow_out = m_out
+            elif rule == "own":
+                y = mod(inputs, m, **opts)
+                m_out = mod.output_mask(inputs, m)
+                flow_out = m_out if m is m_flow else mod.output_mask(inputs, m_flow)
+            else:
+                y = mod(inputs)
+                m_out, flow_out = (m, m_flow) if rule == "keep" else (None, None)
+            if getattr(mod, "clears_input_masks", False):
+                for k in _ref_keys(arg):
+                    live.pop(k, None)
+            values[out] = y
+            for masks, m_new in ((live, m_out), (flow, flow_out)):
+                if _has_mask(m_new):
+                    masks[out] = m_new
             for k in drop:
                 del values[k]
-        return _resolve(self._outputs, values)
+                live.pop(k, None)
+                flow.pop(k, None)
+        return _resolve(self._outputs, values), _resolve_mask(self._outputs, live)
+
+    def forward(self, x):
+        return self.run(x)[0]
 
 
 def _to_keras_layout(y):
@@ -1006,17 +1238,26 @@ def _to_keras_layout(y):
 class KerasModule(nn.Module):
     """A Keras model as a torch module: a rank-4 input NCHW, outputs in
     Keras's layout and structure (a tensor, or a list of them); the
-    forward runs under ``exact_float32``. ``config`` is kept for
+    forward runs under ``exact_float32``. A model whose ``Input`` is of an
+    integer dtype takes integer batches as they are and casts a float one
+    as Keras does (truncating). ``config`` is kept for
     :func:`spec_from_module`."""
 
     def __init__(self, config: dict, source):
         super().__init__()
         self.config = config
+        self.integer_input = config_input_dtype(config).startswith(("int", "uint"))
         self.graph = KerasGraph(config, source)
 
     def forward(self, x):
+        if self.integer_input and x.is_floating_point():
+            x = x.long()
         with exact_float32():
             return _to_keras_layout(self.graph(x))
+
+    def attention_routes(self) -> Dict[str, int]:
+        """The model's MultiHeadAttention call sites by route."""
+        return self.graph.attention_routes()
 
     def seed_dropout(self, seed: int) -> None:
         """Give every Dropout one ``torch.Generator`` on the module's
@@ -1093,7 +1334,22 @@ def _walk(config: dict, prefix: str, obj_prefix: str, trainable: bool):
 #: the classes that hold weights; a Normalization only when adapted (its
 #: mean and variance are weights, not config values)
 _WEIGHTED = ("Conv2D", "DepthwiseConv2D", "SeparableConv2D", "BatchNormalization", "Dense",
-             "LayerNormalization", "LayerScale", "Normalization")
+             "LayerNormalization", "LayerScale", "Normalization", "Embedding", "Conv1D", "SimpleRNN", "LSTM",
+             "GRU", "Bidirectional", "MultiHeadAttention")
+
+
+def weight_groups(class_name: str) -> Tuple[str, ...]:
+    """Where a ``.keras`` archive keeps a weighted layer's variables below
+    its object path, in ``get_weights()``'s order: a recurrent layer's
+    under its cell, a Bidirectional's under its two layers' cells, a
+    MultiHeadAttention's under its four EinsumDense sublayers."""
+    if class_name in ("SimpleRNN", "LSTM", "GRU"):
+        return ("cell/",)
+    if class_name == "Bidirectional":
+        return ("forward_layer/cell/", "backward_layer/cell/")
+    if class_name == "MultiHeadAttention":
+        return ("query_dense/", "key_dense/", "value_dense/", "output_dense/")
+    return ("",)
 
 
 def collect_weights(model) -> Dict[str, List[np.ndarray]]:
@@ -1120,6 +1376,20 @@ def config_input_shape(config: dict) -> Optional[tuple]:
         break
     shape = config.get("build_input_shape")
     return tuple(shape) if shape else None
+
+
+def config_input_dtype(config: dict) -> str:
+    """The dtype of the model's ``Input`` ("float32" where the config
+    names none)."""
+    for layer in config.get("layers") or []:
+        cfg = layer.get("config") or {}
+        if layer["class_name"] == "InputLayer":
+            dtype = cfg.get("dtype") or "float32"
+            return dtype if isinstance(dtype, str) else (dtype.get("config") or {}).get("name", "float32")
+        if layer["class_name"] in MODEL_CLASSES:
+            return config_input_dtype(cfg)
+        break
+    return "float32"
 
 
 class _LayerWeights:

@@ -7,22 +7,28 @@ InceptionResNetV2 are in ``test_torch_keras_apps_full_large.py``.
 - each committed config equals the installed keras's
   ``keras.applications.<name>(weights=None)`` at its default size, built
   right after ``keras.backend.clear_session()`` as the fixture was;
+- the BatchNorm statistics stored beside the configs
+  (``chip_smoke.KERAS_APPS_BN_STATS``) are those a float64 pass of the port
+  gives under the seeded weights (``make_keras_apps_fixtures.bn_stats``), to
+  a unit in float32's last place (``BN_STATS_REL``: another machine's
+  float64 sums may round the other way);
 - the port on the CPU at full width (224x224, 299x299 for
   InceptionResNetV2), under ``chip_smoke._keras_app_weights`` (the seeded
-  weights phase 30 builds on the card), against the Keras outputs stored
-  beside the configs: the pooled features and the logits of two of the
-  stored rows, relative 1e-4 (``APP_REL``).
+  weights and stored statistics phase 30 builds on the card), against the
+  Keras outputs stored beside the configs: the pooled features and the
+  logits of two of the stored rows, relative 1e-4 (``APP_REL``).
 """
 
 import json
 import os
+import sys
 
 import keras
 import numpy as np
 import pytest
 
 from sparkdl_tpu_torch.graph.ingest import ModelIngest
-from sparkdl_tpu_torch.graph.keras_graph import KerasModelSpec
+from sparkdl_tpu_torch.graph.keras_graph import KerasModelSpec, walk_layers
 from test_torch_keras_apps import chip_smoke, fast_init, one_torch_thread  # noqa: F401 (a fixture)
 from test_torch_keras_graph import APP_REL, rel, to_torch
 
@@ -30,6 +36,20 @@ pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FAMILIES = ("EfficientNetB0", "EfficientNetV2B0", "MobileNetV3Large")
 ROWS = 2  # of the stored rows
+BN_STATS_REL = 2.0 ** -23
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
+
+
+def fixture_maker():
+    """``tests/fixtures/make_keras_apps_fixtures.py``, for its float64
+    BatchNorm pass."""
+    chip_smoke()  # the repo root on the path, for the maker's own import
+    sys.path.insert(0, FIXTURES)
+    try:
+        import make_keras_apps_fixtures as make
+    finally:
+        sys.path.remove(FIXTURES)
+    return make
 
 
 def check_config(name):
@@ -39,6 +59,20 @@ def check_config(name):
     with fast_init():
         model = getattr(keras.applications, name)(weights=None, input_shape=(side, side, 3))
     assert json.loads(json.dumps(model.get_config())) == cs._keras_app_config(name)
+
+
+def check_bn_stats(name):
+    cs = chip_smoke()
+    config = cs._keras_app_config(name)
+    stats = fixture_maker().seeded_bn_stats(name, config)
+    weights = cs._keras_app_weights(name, config)
+    assert set(stats) == {p for p, _, layer, _ in walk_layers(config) if layer["class_name"] == "BatchNormalization"}
+    for path, (mean, var) in stats.items():
+        np.testing.assert_allclose(weights[path][-2], mean, rtol=BN_STATS_REL, atol=0)
+        np.testing.assert_allclose(weights[path][-1], var, rtol=BN_STATS_REL, atol=0)
+    with np.load(cs.KERAS_APPS_BN_STATS) as f:
+        assert {k for k in f.files if k.startswith(f"{name}/")} == {
+            f"{name}/{p}/{s}" for p in stats for s in ("mean", "var")}
 
 
 def check_full_width(name):
@@ -59,6 +93,11 @@ def check_full_width(name):
 @pytest.mark.parametrize("name", FAMILIES)
 def test_committed_config_is_this_keras(name):
     check_config(name)
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_stored_batchnorm_statistics_are_the_float64_pass(name):
+    check_bn_stats(name)
 
 
 @pytest.mark.parametrize("name", FAMILIES)

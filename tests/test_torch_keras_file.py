@@ -9,7 +9,7 @@ package's ``ModelIngest.from_keras_file``.
   BatchNormalization classes, and its layer names run against that order;
 - a legacy ``.h5`` file of a model that nests a frozen Functional model
   lists that model's trainable variables before the others;
-- the refusals: an unknown layer class and a bfloat16 policy
+- the refusals: an unknown layer class (a ConvLSTM1D) and a bfloat16 policy
   (NotImplementedError naming the ROADMAP item);
 - the port reads the files with its own HDF5 reader, so a missing h5py
   changes nothing.
@@ -129,8 +129,8 @@ def _save(model, tmp_path, ext):
 @pytest.mark.parametrize("case", ["layer-class", "bf16-policy"])
 def test_refusals(tmp_path, ext, case):
     if case == "layer-class":
-        model = keras.Sequential([L.Input((6, 4)), L.Conv1D(2, 3)])
-        match = "'Conv1D'"
+        model = keras.Sequential([L.Input((5, 6, 4)), L.ConvLSTM1D(2, 3)])
+        match = "'ConvLSTM1D'"
     else:
         model = keras.Sequential([L.Input((6,)), L.Dense(3, dtype="bfloat16")])
         match = "dtype policy 'bfloat16'"

@@ -21,7 +21,7 @@ the CPU (keras on its jax backend, as ``tests/conftest.py`` sets it).
   hard_silu, LayerNormalization on ranks 2-4, ConvNeXt's LayerScale,
   Cropping2D, InceptionResNetV2's CustomScaleLayer and Dropout with a
   ``noise_shape``: relative 1e-5;
-- the refusals: another layer class (an LSTM), a bfloat16 policy, two
+- the refusals: another layer class (a ConvLSTM1D), a bfloat16 policy, two
   inputs, ``channels_first``, ``rms_scaling``, ``Normalization(invert)``,
   an op node over a numpy array, an op outside the table, a noise shape
   with a channel entry and a LayerScale from another module than
@@ -292,6 +292,10 @@ def test_the_table_is_the_documented_one():
         "GlobalAveragePooling2D", "GlobalMaxPooling2D", "Add", "Concatenate", "Dense",
         "Flatten", "Dropout", "Rescaling", "Normalization", "Reshape", "Multiply",
         "LayerNormalization", "LayerScale", "Cropping2D", "CustomScaleLayer",
+        # the sequence layers (graph/keras_seq.py, test_torch_keras_seq*.py)
+        "Embedding", "Masking", "Conv1D", "MaxPooling1D", "AveragePooling1D", "GlobalAveragePooling1D",
+        "GlobalMaxPooling1D", "SpatialDropout1D", "SimpleRNN", "LSTM", "GRU", "Bidirectional",
+        "MultiHeadAttention",
     }
 
 
@@ -354,8 +358,8 @@ def test_weights_are_read_by_layer_path():
                                   "op-class", "dropout-noise-shape", "app-class-of-another-module"])
 def test_refusals(case):
     if case == "layer-class":
-        model = keras.Sequential([L.Input((6, 4)), L.LSTM(3)])
-        match = "'LSTM'"
+        model = keras.Sequential([L.Input((5, 6, 4)), L.ConvLSTM1D(2, 3)])
+        match = "'ConvLSTM1D'"
     elif case == "rms-scaling":
         model = keras.Sequential([L.Input((6, 4)), L.LayerNormalization(rms_scaling=True)])
         match = "rms_scaling=True"
